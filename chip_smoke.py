@@ -1,0 +1,568 @@
+#!/usr/bin/env python3
+"""Run the lambdapic_torch port on one CUDA card and check it.
+
+    python3 chip_smoke.py [--steps N] [--window W]
+
+Phases (any failure exits non-zero):
+
+1. build the CUDA kernels from lambdapic_torch/csrc (one nvcc per source,
+   in parallel) and print nvcc's register and spill lines;
+2. hold each kernel against its plain PyTorch version on the card: in
+   float64 at small sizes under the CPU tests' rules (slot for slot after
+   canonicalisation, with merges in one case), and in float32 at the
+   slice's shapes on aggregates (alive count, total weight, J);
+3. drive the slice, example/laser-target.py at full size without its
+   diagnostics (1024 x 1024 cells, three species at 10 particles per cell,
+   PML, GaussianLaser2D a0=10, float32), through Simulation.run with the
+   launch counters set to 0 just before; check finite fields, particle
+   number and weight conservation, and the launches per step
+   (B1 4, B2 3, B3 1); time a steady window;
+4. time each kernel with CUDA events at the slice's shapes, and its plain
+   version once.
+
+Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
+and as its last line ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 non-tensor FLOP/s
+HBM_BPS = 3.35e12
+F32_FLOPS = 67e12
+# B2's floating-point work per alive particle, counted from cellstep.cu:
+# two half pushes and the keys (about 12), six staggered gathers of 9-16
+# taps with their spline weights (about 700), Boris (about 60), 5 x 5
+# Esirkepov nodes with their shapes (about 600)
+FLOPS_PER_PARTICLE = 1400
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def cuda_time(fn, iters: int) -> float:
+    """Mean ms per call over ``iters`` calls, after one warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+# __global__ functions of each kernel, as they appear in profiler names
+KERNEL_FUNCS = {"B1": ("e_half", "b_half"),
+                "B2": ("pass_x", "pass_y", "deposit"),
+                "B3": ("fold<",)}
+
+
+def device_times(fn, iters: int):
+    """Device time per call of every CUDA kernel ``fn`` launches, by
+    name, from torch.profiler: {name: (ms per call, launches per call)}."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        out[e.key] = (us / 1e3 / iters, e.count / iters)
+    return out
+
+
+def kernel_ms(fn, iters: int, kernel: str):
+    """(device ms per call from the profiler, or None if it saw no
+    device time; wall ms per call from CUDA events, host included)."""
+    wall = cuda_time(fn, iters)
+    times = device_times(fn, iters)
+    dev = sum(ms for name, (ms, _) in times.items()
+              if any(f in name for f in KERNEL_FUNCS[kernel]))
+    for name, (ms, n) in sorted(times.items(), key=lambda kv: -kv[1][0]):
+        if any(f in name for f in KERNEL_FUNCS[kernel]):
+            log(f"[time {kernel}] {ms * 1e3:9.2f} us x{n:g}  {name[:90]}")
+    return (dev if dev > 0 else None), wall
+
+
+# ---------------------------------------------------------------------------
+# phase 1
+# ---------------------------------------------------------------------------
+
+def phase_build():
+    from lambdapic_torch.ops import kernel_lib
+    t0 = time.time()
+    paths = kernel_lib.build()
+    log(f"[build] {len(paths)} libraries in {time.time() - t0:.1f} s")
+    for name in paths:
+        for line in kernel_lib.build_log(name).splitlines():
+            if any(w in line for w in ("registers", "spill", "Compiling entry")):
+                log(f"[ptxas {name}] {line.strip()}")
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def _random_fields(grid, cpml, dtype, dev, seed):
+    import torch
+    from lambdapic_torch.core.state import FieldsState, zeros_fields
+    rng = np.random.default_rng(seed)
+    f = zeros_fields(grid, dtype, dev, cpml)
+    vals = {k: torch.as_tensor(rng.normal(size=grid.shape)
+                               * (1e-8 if k[0] == "b" else 1.0),
+                               dtype=dtype).to(dev)
+            for k in ("ex", "ey", "ez", "bx", "by", "bz", "jx", "jy", "jz",
+                      "rho")}
+    psi = {k: torch.as_tensor(rng.normal(size=tuple(v.shape)) * 1e-3,
+                              dtype=dtype).to(dev) for k, v in f.psi.items()}
+    return FieldsState(**vals, psi=psi)
+
+
+def _fields_err(a, b):
+    """Largest |a - b| over E, B and psi, and the same over max|b|."""
+    worst_abs, worst_rel = 0.0, 0.0
+    pairs = [(getattr(a, k), getattr(b, k)) for k in
+             ("ex", "ey", "ez", "bx", "by", "bz")]
+    pairs += [(a.psi[k], b.psi[k]) for k in b.psi]
+    for x, y in pairs:
+        err = float((x - y).abs().max())
+        worst_abs = max(worst_abs, err)
+        worst_rel = max(worst_rel, err / max(float(y.abs().max()), 1e-300))
+    return worst_abs, worst_rel
+
+
+def check_b1(grid, cpml, dtype, dev, tol, seed=0):
+    from lambdapic_torch.ops import maxwell
+    from lambdapic_torch.ops.fieldskernel import update_bfield_k, update_efield_k
+    f = _random_fields(grid, cpml, dtype, dev, seed)
+    dt = 0.95 / np.sqrt(grid.dx**-2 + grid.dy**-2) / 3e8
+    worst = (0.0, 0.0)
+    for k_fn, p_fn in ((update_efield_k, maxwell.update_efield),
+                       (update_bfield_k, maxwell.update_bfield)):
+        got = k_fn(f, grid, dt / 2, cpml)
+        ref = p_fn(f, grid, dt / 2, cpml)
+        err = _fields_err(got, ref)
+        if not err[1] <= tol:
+            fail(f"B1 {k_fn.__name__} differs from its plain version: "
+                 f"{err[1]:.3e} of the peak > {tol}")
+        worst = max(worst, err)
+    return worst
+
+
+def check_b2_f64(dev):
+    """Slot-for-slot float64 comparisons at small sizes; returns the
+    merge count of the case built to merge."""
+    import torch
+    from lambdapic_torch.ops.cellslab import (cell_step, cell_step_plain,
+                                              fold_reduce, fold_reduce_plain)
+    from lambdapic_torch.testing import compare_slots, random_cell_state, \
+        to_numpy, to_torch
+    q, m, dt, d = -1.602e-19, 9.109e-31, 1.1e-16, 5e-8
+    merges = 0
+    cases = [(4, 16, 16, (True, True), 0.4), (6, 24, 40, (False, False), 0.4),
+             (4, 20, 36, (True, False), 0.9), (20, 33, 18, (False, True), 0.5),
+             (8, 16, 16, (True, True), 0.85)]
+    for cap, nx, ny, per, frac in cases:
+        data, alive, eb = random_cell_state(cap, nx, ny, n_frac=frac,
+                                            seed=cap + nx)
+        td, ta = to_torch(data, alive, torch.float64, dev)
+        eb_t = torch.as_tensor(eb).to(dev)
+        kw = dict(q=q, m=m, dt=dt, dx=d, dy=d, g=3, periodic=per)
+        rin = torch.as_tensor(np.random.default_rng(1).normal(
+            size=(4, -(-nx // 16), -(-ny // 16), 20, 20))).to(dev)
+        ref = cell_step_plain(eb_t, td, ta, rims_in=rin, **kw)
+        got = cell_step(eb_t, td, ta, rims_in=rin, **kw)
+        torch.cuda.synchronize()
+        compare_slots(*to_numpy(ref[0], ref[1]), *to_numpy(got[0], got[1]),
+                      rtol=1e-11)
+        if int(got[2]) != int(ref[2]):
+            fail(f"B2 merge count {int(got[2])} != plain {int(ref[2])}")
+        merges = max(merges, int(ref[2]))
+        scale = float(ref[3].abs().max())
+        err = float((got[3] - ref[3]).abs().max())
+        if not err <= 1e-12 * scale:
+            fail(f"B2 panels differ: {err:.3e} > 1e-12 x {scale:.3e}")
+        jr = fold_reduce_plain(ref[3], nx, ny, per)
+        jk = fold_reduce(ref[3], nx, ny, per)
+        err = float((jk - jr).abs().max())
+        if not err <= 1e-12 * float(jr.abs().max()):
+            fail(f"B3 differs from its plain version: {err:.3e}")
+    if merges == 0:
+        fail("no B2 float64 case merged particles")
+    return merges
+
+
+def compare_b2_f32(eb_pad, p, sp, dt, grid, periodic):
+    """Kernel B2 against its plain version at the slice's shapes in
+    float32: alive masks and ids identical, merges equal, total weight to
+    1e-6, J panels to 1e-4 of their peak."""
+    import torch
+    from lambdapic_torch.ops.cellslab import cell_step, cell_step_plain
+    kw = dict(q=sp.q, m=sp.m, dt=dt, dx=grid.dx, dy=grid.dy, g=grid.n_guard,
+              periodic=periodic, with_rho=False)
+    ref = cell_step_plain(eb_pad, p.data, p.alive, **kw)
+    got = cell_step(eb_pad, p.data, p.alive, **kw)
+    torch.cuda.synchronize()
+    n_ref, n_got = int(ref[1].sum()), int(got[1].sum())
+    if n_ref != n_got or int(ref[2]) != int(got[2]):
+        fail(f"B2 float32: alive {n_got} vs {n_ref}, merges {int(got[2])} "
+             f"vs {int(ref[2])}")
+    w_ref = float(torch.where(ref[1], ref[0]["w"], 0).sum(dtype=torch.float64))
+    w_got = float(torch.where(got[1], got[0]["w"], 0).sum(dtype=torch.float64))
+    if not abs(w_got - w_ref) <= 1e-6 * abs(w_ref):
+        fail(f"B2 float32 total weight {w_got} vs {w_ref}")
+    scale = float(ref[3].abs().max())
+    err = float((got[3] - ref[3]).abs().max())
+    if not err <= 1e-4 * scale:
+        fail(f"B2 float32 panels differ: {err:.3e} > 1e-4 x {scale:.3e}")
+    # the kernel rounds as the plain version does (--fmad=false, same
+    # operation order), so cell assignment and merge pairing match: alive
+    # masks and the ids of alive slots are identical
+    same = torch.equal(got[1], ref[1]) and all(
+        torch.equal(got[0][k][got[1]], ref[0][k][ref[1]])
+        for k in ("id_lo", "id_hi"))
+    log(f"[B2 f32] alive {n_got} merges {int(got[2])} weight rel "
+        f"{abs(w_got - w_ref) / abs(w_ref):.2e} panels {err:.3e} of peak "
+        f"{scale:.3e}; slots identical: {same}")
+    if not same:
+        fail("B2 float32: alive masks or ids differ from the plain version")
+    return got, ref, err
+
+
+# ---------------------------------------------------------------------------
+# the slice
+# ---------------------------------------------------------------------------
+
+def make_slice(dev, seed=0, nx=1024):
+    """example/laser-target.py at full size (nx = ny = 1024), without its
+    diagnostics."""
+    from lambdapic_torch import (Electron, GaussianLaser2D, Proton,
+                                 Simulation, Species)
+    from lambdapic_torch.constants import c, e, epsilon_0, m_e, pi
+    um = 1e-6
+    l0 = 0.8 * um
+    omega0 = 2 * pi * c / l0
+    nc = epsilon_0 * m_e * omega0**2 / e**2
+    ny = nx
+    dx = dy = l0 / 50
+    Lx = nx * dx
+
+    def density(n0):
+        def _density(x, y):
+            ne = 0.0
+            if x > Lx / 2 and x < Lx / 2 + 1 * um:
+                ne = n0
+            return ne
+        return _density
+
+    laser = GaussianLaser2D(a0=10, w0=2e-6, l0=0.8e-6, ctau=5e-6,
+                            focus_position=Lx / 2, x0=10e-6, ellipticity=1)
+    sim = Simulation(tiling="cell", nx=nx, ny=ny, dx=dx, dy=dy,
+                     random_seed=seed, device=dev)
+    ele = Electron(density=density(10 * nc), ppc=10)
+    proton = Proton(density=density(10 * nc / 8 * 2), ppc=10)
+    carbon = Species(name="C", charge=6, mass=12 * 1800,
+                     density=density(10 * nc / 8), ppc=10)
+    sim.add_species([ele, carbon, proton])
+    return sim, laser
+
+
+def gather_nodes(alive, g):
+    """Nodes of the padded E/B stack that B2's staggered gather reads
+    from the cells holding a particle, summed over the six components:
+    taps -1..1 on an integer axis, -2..1 on a half-staggered one."""
+    import torch
+    occ = alive.any(0)
+    nx, ny = occ.shape
+    total = 0
+    # (half along x, half along y) of ex ey ez bx by bz
+    for hx, hy in ((True, False), (False, True), (False, False),
+                   (False, True), (True, False), (True, True)):
+        need = torch.zeros((nx + 2 * g, ny + 2 * g), dtype=torch.bool,
+                           device=occ.device)
+        for ox in range(-2 if hx else -1, 2):
+            for oy in range(-2 if hy else -1, 2):
+                need[g + ox:g + ox + nx, g + oy:g + oy + ny] |= occ
+        total += int(need.sum())
+    return total
+
+
+def totals(sim):
+    import torch
+    out = []
+    for p in sim.state.particles:
+        out.append((int(p.alive.sum()), int(p.overflow),
+                    float(torch.where(p.alive, p.data["w"], 0).sum(
+                        dtype=torch.float64))))
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--steps", type=int, default=2001,
+                    help="slice steps through Simulation.run (the example "
+                         "runs 2001)")
+    ap.add_argument("--window", type=int, default=200,
+                    help="final steps timed as the steady window")
+    ap.add_argument("--iters", type=int, default=50,
+                    help="launches per kernel timing")
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from lambdapic_torch.ops import cellslab, fieldskernel, maxwell
+    from lambdapic_torch.ops.cellslab import (cell_step, cell_step_plain,
+                                              fold_reduce, fold_reduce_plain,
+                                              panel_shape)
+    from lambdapic_torch.ops.cpml import CPMLParams, build_cpml
+    from lambdapic_torch.core.grid import Grid
+
+    dev = torch.device("cuda:0")
+    t_start = time.time()
+    log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    phase_build()
+
+    # -- phase 2a: float64, small -------------------------------------------
+    for bc in ("pml", "periodic"):
+        names = ("xmin", "xmax", "ymin", "ymax")
+        grid = Grid(dimension=2, nx=40, ny=36, dx=1e-6, dy=0.8e-6, npatch_x=1,
+                    npatch_y=1, n_guard=3, cpml_thickness=6,
+                    boundary_conditions=tuple((n, bc) for n in names))
+        dt = 0.95 / np.sqrt(grid.dx**-2 + grid.dy**-2) / 3e8
+        cpml = build_cpml(grid, dt, CPMLParams()) if bc == "pml" else None
+        err = check_b1(grid, cpml, torch.float64, dev, tol=1e-12)
+        log(f"[B1 f64 {bc}] max abs {err[0]:.3e}, {err[1]:.3e} of peak")
+    merges = check_b2_f64(dev)
+    log(f"[B2/B3 f64] slot-exact in 5 cases, merges in the merging case: "
+        f"{merges}")
+
+    # -- the slice state ------------------------------------------------------
+    t0 = time.time()
+    sim, laser = make_slice(dev)
+    sim.initialize()
+    log(f"[slice] initialised in {time.time() - t0:.1f} s: "
+        f"{sim.npart_alive} particles, slots "
+        f"{[p.cap for p in sim.state.particles]}, dt {sim.dt:.4e} s")
+    grid, cpml = sim.grid, sim.cpml
+    periodic = (grid.periodic("x"), grid.periodic("y"))
+
+    # -- phase 2b: float32 at the slice's shapes -------------------------------
+    errs = {}
+    err = check_b1(grid, cpml, torch.float32, dev, tol=1e-5, seed=1)
+    errs["B1"] = err[0]
+    log(f"[B1 f32 1024^2] max abs {err[0]:.3e}, {err[1]:.3e} of peak")
+    rng = np.random.default_rng(2)
+    g = grid.n_guard
+    # fields strong enough to move electrons across cells in one step
+    eb_pad = torch.as_tensor(rng.uniform(-5e13, 5e13, (6, grid.nx + 2 * g,
+                                                        grid.ny + 2 * g)),
+                             dtype=torch.float32).to(dev)
+    got, ref, errs["B2"] = compare_b2_f32(
+        eb_pad, sim.state.particles[0], sim._species_static[0], sim.dt, grid,
+        periodic)
+    jr = fold_reduce_plain(ref[3], grid.nx, grid.ny, periodic)
+    jk = fold_reduce(ref[3], grid.nx, grid.ny, periodic)
+    errs["B3"] = float((jk - jr).abs().max())
+    if not errs["B3"] <= 1e-5 * float(jr.abs().max()):
+        fail(f"B3 float32 differs: {errs['B3']:.3e}")
+    log(f"[B3 f32 1024^2] max abs {errs['B3']:.3e} of peak "
+        f"{float(jr.abs().max()):.3e}")
+    del got, ref, jr, jk
+
+    # -- phase 3: the main path ------------------------------------------------
+    # Until the laser front reaches the target (about step 1200) no
+    # particle can leave the box: particle number (alive + merged) and
+    # weight are checked there. The last --window steps are timed.
+    before = totals(sim)
+    for fn in (fieldskernel.update_half_k, cellslab.cell_step,
+               cellslab.fold_reduce):
+        fn.launches = 0
+    n_timed = min(args.window, args.steps)
+    n_a = min(args.steps - n_timed, 1000)
+    n_b = args.steps - n_timed - n_a
+    t0 = time.time()
+    sim.run(nsteps=n_a, callbacks=[laser])
+    torch.cuda.synchronize()
+    mid = totals(sim)
+    sim.run(nsteps=n_b, callbacks=[laser])
+    torch.cuda.synchronize()
+    t1 = time.time()
+    sim.run(nsteps=n_timed, callbacks=[laser])
+    torch.cuda.synchronize()
+    t2 = time.time()
+    launches = {"B1": fieldskernel.update_half_k.launches,
+                "B2": cellslab.cell_step.launches,
+                "B3": cellslab.fold_reduce.launches}
+    after = totals(sim)
+    steps = sim.itime
+    log(f"[slice] {steps} steps: first {n_a + n_b} in {t1 - t0:.2f} s, "
+        f"window {n_timed} in {t2 - t1:.3f} s; launches {launches}")
+    want = {"B1": 4 * steps, "B2": 3 * steps, "B3": steps}
+    if launches != want:
+        fail(f"launch counts {launches} != {want}")
+    for k in ("ex", "ey", "ez", "bx", "by", "bz", "jx", "jy", "jz"):
+        if not bool(torch.isfinite(getattr(sim.state.fields, k)).all()):
+            fail(f"field {k} is not finite")
+    for (n0, m0, w0), (n1, m1, w1), (n2, m2, w2), sp in zip(
+            before, mid, after, sim.species):
+        log(f"[slice] {sp.name}: alive {n0} -> {n1} (step {n_a}) -> {n2}, "
+            f"merges {m1 - m0} -> {m2 - m0}, weight {w0:.7e} -> {w1:.7e} "
+            f"-> {w2:.7e}")
+        if n1 + (m1 - m0) != n0:
+            fail(f"{sp.name}: particles not conserved to step {n_a} ({n0} "
+                 f"-> {n1} + {m1 - m0} merges)")
+        if not abs(w1 - w0) <= 1e-5 * w0:
+            fail(f"{sp.name}: weight not conserved to step {n_a} ({w0} -> "
+                 f"{w1})")
+        if n2 + (m2 - m0) > n0 or not w2 <= w0 * (1 + 1e-5):
+            fail(f"{sp.name}: particles or weight grew ({n0} -> {n2}, "
+                 f"{w0} -> {w2})")
+    ey_peak = float(sim.state.fields.ey.abs().max())
+    step_ms = (t2 - t1) * 1e3 / n_timed
+    npart = sum(n for n, _, _ in after)
+    log(f"[slice] step {step_ms:.3f} ms (host clock, synchronised), "
+        f"{npart / (step_ms * 1e-3):.4e} pushes/s, peak |ey| {ey_peak:.3e}")
+    prof_steps = 10
+    times = device_times(lambda: sim.run(nsteps=1, callbacks=[laser]),
+                         prof_steps)
+    busy = sum(ms for ms, _ in times.values())
+    log(f"[profile] device busy {busy:.3f} ms per step = "
+        f"{100 * busy / step_ms:.1f}% of the timed window's step; idle "
+        f"{100 * (1 - busy / step_ms):.1f}%")
+    for name, (ms, n) in sorted(times.items(), key=lambda kv: -kv[1][0])[:12]:
+        log(f"[profile] {ms * 1e3:9.2f} us/step x{n:g}  {name[:90]}")
+
+    # -- phase 4: kernel times at the slice's shapes ---------------------------
+    f = sim.state.fields
+    coeffs = sim._builder._coeffs
+    dt = sim.dt
+    e_k = lambda: fieldskernel.update_efield_k(f, grid, dt / 2, cpml,
+                                               coeffs["e"])
+    b_k = lambda: fieldskernel.update_bfield_k(f, grid, dt / 2, cpml,
+                                               coeffs["b"])
+    dev_e, wall_e = kernel_ms(e_k, args.iters, "B1")
+    dev_b, wall_b = kernel_ms(b_k, args.iters, "B1")
+    ms_b1 = (dev_e + dev_b) / 2 if dev_e and dev_b else (wall_e + wall_b) / 2
+    log(f"[time B1] device {ms_b1:.4f} ms per launch, wall "
+        f"{(wall_e + wall_b) / 2:.4f} ms per call")
+    plain_b1 = (cuda_time(lambda: maxwell.update_efield(f, grid, dt / 2, cpml), 1)
+                + cuda_time(lambda: maxwell.update_bfield(f, grid, dt / 2, cpml),
+                            1)) / 2
+    isz = f.ex.element_size()
+    cell = grid.nx * grid.ny * isz
+
+    def psi_bytes(prefix):
+        return sum(v.numel() * isz for k, v in f.psi.items()
+                   if k.startswith(prefix))
+    # E half: 9 fields read, 3 written, its four psi slabs read and
+    # written; B half: 6 read, 3 written, its own four; bound per launch
+    # is the mean of the two
+    bound_b1 = ((12 * cell + 2 * psi_bytes("psi_e"))
+                + (9 * cell + 2 * psi_bytes("psi_b"))) / 2 / HBM_BPS * 1e3
+
+    p = sim.state.particles[0]
+    sp = sim._species_static[0]
+    eb_pad = sim._builder.pad_eb(f)
+    kw = dict(q=sp.q, m=sp.m, dt=dt, dx=grid.dx, dy=grid.dy, g=g,
+              periodic=periodic, with_rho=sim._builder.with_rho)
+    dev_b2, wall_b2 = kernel_ms(
+        lambda: cell_step(eb_pad, p.data, p.alive, **kw), args.iters, "B2")
+    ms_b2 = dev_b2 or wall_b2
+    log(f"[time B2] device {ms_b2:.4f} ms per launch, wall {wall_b2:.4f} ms "
+        "per call")
+    plain_b2 = cuda_time(lambda: cell_step_plain(eb_pad, p.data, p.alive,
+                                                 **kw), 1)
+    ncomp = 4 if sim._builder.with_rho else 3
+    pshape = panel_shape(ncomp, grid.nx, grid.ny)
+    pan_b = int(np.prod(pshape)) * isz
+    out = cell_step(eb_pad, p.data, p.alive, **kw)
+    rims = out[3]
+    slots = p.alive.numel()
+    n_alive = int(p.alive.sum())
+    # B2's answer depends on the alive mask and on alive slots' payloads
+    # only (a dead slot is never a source and leaves zeroed), so it must
+    # read the mask (1 B a slot), x y z w ux uy uz inv_gamma and the two
+    # int32 ids of each alive slot, and the E/B nodes that the gather
+    # reaches from occupied cells; it writes every slot once (mask, eight
+    # reals, two ids) and the panels
+    slot_b = 1 + 8 * isz + 2 * 4
+    bytes_b2 = (slots + n_alive * (slot_b - 1) + slots * slot_b
+                + gather_nodes(out[1], g) * isz + pan_b)
+    ops_ms_b2 = n_alive * FLOPS_PER_PARTICLE / F32_FLOPS * 1e3
+    bound_b2 = max(bytes_b2 / HBM_BPS * 1e3, ops_ms_b2)
+    by_b2 = "bytes" if bound_b2 > ops_ms_b2 else "operations"
+    log(f"[bound B2] {n_alive} of {slots} slots alive: {bytes_b2} bytes, "
+        f"{bytes_b2 / HBM_BPS * 1e3:.4f} ms; operations {ops_ms_b2:.4f} ms")
+    del out
+    dev_b3, wall_b3 = kernel_ms(
+        lambda: fold_reduce(rims, grid.nx, grid.ny, periodic), args.iters, "B3")
+    ms_b3 = dev_b3 or wall_b3
+    log(f"[time B3] device {ms_b3:.4f} ms per launch, wall {wall_b3:.4f} ms "
+        "per call")
+    plain_b3 = cuda_time(lambda: fold_reduce_plain(rims, grid.nx, grid.ny,
+                                                   periodic), 1)
+    bound_b3 = (pan_b + ncomp * cell) / HBM_BPS * 1e3
+    per_step = {k: v // steps for k, v in launches.items()}
+    kernels = [
+        dict(name="B1 fields half-step", route="cuda",
+             source="lambdapic_torch/csrc/fields.cu",
+             replaces="lambdapic_tpu/ops/fieldspallas.py:152",
+             launches=launches["B1"], max_abs_err=errs["B1"], ms=ms_b1,
+             plain_ms=plain_b1, bound_ms=bound_b1, bound_by="bytes",
+             library_ms=None),
+        dict(name="B2 cell particle stage", route="cuda",
+             source="lambdapic_torch/csrc/cellstep.cu",
+             replaces="lambdapic_tpu/ops/cellslab.py:546",
+             launches=launches["B2"], max_abs_err=errs["B2"], ms=ms_b2,
+             plain_ms=plain_b2, bound_ms=bound_b2, bound_by=by_b2,
+             library_ms=None),
+        dict(name="B3 rim fold", route="cuda",
+             source="lambdapic_torch/csrc/fold.cu",
+             replaces="lambdapic_tpu/ops/cellslab.py:2098",
+             launches=launches["B3"], max_abs_err=errs["B3"], ms=ms_b3,
+             plain_ms=plain_b3, bound_ms=bound_b3, bound_by="bytes",
+             library_ms=None),
+    ]
+    log(f"[kernels] launches per step {per_step}; total {time.time() - t_start:.1f} s")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    print(json.dumps({"kernels": kernels}))
+    print(smi[0] if smi else "nvidia-smi: no output")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

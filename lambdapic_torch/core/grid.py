@@ -1,0 +1,83 @@
+"""Static grid geometry, 2D (counterpart of lambdapic_tpu/core/grid.py).
+
+The port runs on one device, so the mesh is always 1 x 1: ``nx_loc`` is
+``nx``. Coordinate conventions are the JAX package's: cell centres of
+the global grid sit at ``i*dx``, and particle positions are stored in
+units of the cell size, relative to the domain origin (cell centres at
+0..nx-1, domain [-0.5, nx-0.5)).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Tuple
+
+
+@dataclass(frozen=True)
+class Grid:
+    """Static geometry shared by all operators."""
+
+    dimension: int
+    nx: int
+    ny: int
+    dx: float
+    dy: float
+    npatch_x: int
+    npatch_y: int
+    n_guard: int
+    cpml_thickness: int
+    boundary_conditions: Tuple[Tuple[str, str], ...]  # (name, 'pml'|'periodic')
+
+    @property
+    def bc(self) -> Dict[str, str]:
+        return dict(self.boundary_conditions)
+
+    @property
+    def nx_loc(self) -> int:
+        return self.nx // self.npatch_x
+
+    @property
+    def ny_loc(self) -> int:
+        return self.ny // self.npatch_y
+
+    @property
+    def Lx(self) -> float:
+        return self.nx * self.dx
+
+    @property
+    def Ly(self) -> float:
+        return self.ny * self.dy
+
+    def periodic(self, axis: str) -> bool:
+        return self.bc.get(axis + "min", "pml") == "periodic"
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return (self.nx, self.ny)
+
+    @property
+    def mesh_shape(self) -> Tuple[int, ...]:
+        return (self.npatch_x, self.npatch_y)
+
+    def validate(self):
+        if self.dimension != 2:
+            raise NotImplementedError(
+                "3D is not ported yet (ROADMAP queue 1, item 5)")
+        if self.nx % self.npatch_x:
+            raise ValueError(
+                f"nx ({self.nx}) must be divisible by npatch_x ({self.npatch_x})")
+        if self.ny % self.npatch_y:
+            raise ValueError(
+                f"ny ({self.ny}) must be divisible by npatch_y ({self.npatch_y})")
+        for n_loc, name in ((self.nx_loc, "x"), (self.ny_loc, "y")):
+            if n_loc < self.n_guard:
+                raise ValueError(
+                    f"per-device n{name} ({n_loc}) must be >= n_guard "
+                    f"({self.n_guard})")
+        for (bname, kind) in self.boundary_conditions:
+            if kind not in ("pml", "periodic"):
+                raise ValueError(f"unsupported boundary {bname}={kind}")
+        for ax in "xy":
+            kinds = {self.bc.get(ax + "min"), self.bc.get(ax + "max")}
+            if "periodic" in kinds and len(kinds) > 1:
+                raise ValueError(
+                    f"{ax}: periodic boundary must be set on both sides")

@@ -1,0 +1,285 @@
+"""Cell-binned particle operations, 2D (counterpart of
+lambdapic_tpu/ops/cell2d.py).
+
+Layout: particles live in per-cell slots ``(cap_c, nx, ny)``; slot
+(s, ix, iy) holds a particle with floor(x + 0.5) == ix after re-binning.
+Particles are re-binned at the mid-step position, so the gather deltas
+lie in [-0.5, 0.5) and both Esirkepov segment ends lie on the 5-tap
+stencil {-2..2}.
+
+These functions compose into the plain PyTorch version of kernel B2
+(``ops/cellslab.py``): half push -> ``migrate_cells`` (x then y) ->
+``gather_cell_2d`` -> Boris -> half push -> ``deposit_cell_2d``. They are
+written op for op like the JAX functions, so the two packages round
+alike.
+"""
+from __future__ import annotations
+
+from functools import lru_cache
+from typing import Dict, Sequence, Tuple
+
+import torch
+
+from ..constants import c as c_light
+
+_GOFF = (-1, 0, 1)           # integer-staggered taps
+_HOFF = (-2, -1, 0, 1)       # half-staggered taps (<=3 nonzero)
+_DOFF = (-2, -1, 0, 1, 2)    # deposit taps
+
+# attributes rewritten before any post-migration read; not carried
+# through the re-binning (the Boris push recomputes inv_gamma)
+TRANSIENT = frozenset({"ex_part", "ey_part", "ez_part",
+                       "bx_part", "by_part", "bz_part", "chi",
+                       "inv_gamma"})
+MERGED = ("x", "y", "z", "ux", "uy", "uz", "inv_gamma")
+SANITIZED = ("x", "y", "z", "w", "ux", "uy", "uz")
+
+
+def _scalar(v: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(v, dtype=like.dtype, device=like.device)
+
+
+def _m2(d):
+    ad = torch.abs(d)
+    return torch.where(ad <= 0.5, 0.75 - d * d,
+                       torch.where(ad < 1.5, 0.5 * (1.5 - ad) ** 2,
+                                   torch.zeros_like(d)))
+
+
+def _deltas(x, y):
+    """Cell-local offsets: delta = x - ix with ix the cell's index."""
+    ix = torch.arange(x.shape[1], dtype=x.dtype, device=x.device)[None, :, None]
+    iy = torch.arange(x.shape[2], dtype=x.dtype, device=x.device)[None, None, :]
+    return x - ix, y - iy
+
+
+def gather_cell_2d(eb_pad: torch.Tensor, x, y, g: int):
+    """eb_pad (6, nx+2g, ny+2g); x, y (cap_c, nx, ny). Returns the six
+    gathered components, each (cap_c, nx, ny)."""
+    cap, nx, ny = x.shape
+    dx, dy = _deltas(x, y)
+    gx = {o: _m2(o - dx) for o in _GOFF}
+    hx = {o: _m2(o + 0.5 - dx) for o in _HOFF}
+    gy = {o: _m2(o - dy) for o in _GOFF}
+    hy = {o: _m2(o + 0.5 - dy) for o in _HOFF}
+    comps = ((0, hx, gy), (1, gx, hy), (2, gx, gy),
+             (3, gx, hy), (4, hx, gy), (5, hx, hy))
+    out = []
+    for c, wx, wy in comps:
+        acc = torch.zeros_like(x)
+        for ox, txo in wx.items():
+            for oy, tyo in wy.items():
+                f = eb_pad[c, g + ox:g + ox + nx, g + oy:g + oy + ny]
+                acc = acc + txo * tyo * f[None]
+        out.append(acc)
+    return tuple(out)
+
+
+def deposit_offsets(x, y, ux, uy, uz, inv_gamma, w, *, q: float, dx: float,
+                    dy: float, dt: float, with_rho: bool = True):
+    """Esirkepov deposit from the cell layout, per stencil offset: yields
+    ((ox, oy), contribution) with contribution (C, nx, ny) the slot-summed
+    (jx, jy, jz[, rho]) that cell (ix, iy) adds to node (ix+ox, iy+oy).
+    Requires home-cell binning; dead slots must carry w == 0."""
+    dxl, dyl = _deltas(x, y)
+    vx_c = ux * inv_gamma * _scalar(c_light * dt / dx, x)
+    vy_c = uy * inv_gamma * _scalar(c_light * dt / dy, x)
+    vz = uz * inv_gamma * _scalar(c_light, x)
+
+    s0x = {o: _m2(o - (dxl - 0.5 * vx_c)) for o in _DOFF}
+    s1x = {o: _m2(o - (dxl + 0.5 * vx_c)) for o in _DOFF}
+    s0y = {o: _m2(o - (dyl - 0.5 * vy_c)) for o in _DOFF}
+    s1y = {o: _m2(o - (dyl + 0.5 * vy_c)) for o in _DOFF}
+
+    cd = _scalar(q / (dx * dy), x) * w
+    fdx = _scalar(q / (dy * dt), x) * w
+    fdy = _scalar(q / (dx * dt), x) * w
+    cvz = cd * vz
+
+    fx_run = {}
+    acc = torch.zeros_like(x)
+    for o in _DOFF:
+        acc = acc + (s1x[o] - s0x[o])
+        fx_run[o] = -fdx * acc
+    gy_run = {}
+    acc = torch.zeros_like(x)
+    for o in _DOFF:
+        acc = acc + (s1y[o] - s0y[o])
+        gy_run[o] = -fdy * acc
+
+    for ox in _DOFF:
+        dsx = s1x[ox] - s0x[ox]
+        ax = s0x[ox] + 0.5 * dsx
+        for oy in _DOFF:
+            dsy = s1y[oy] - s0y[oy]
+            by = s0y[oy] + 0.5 * dsy
+            parts = [(fx_run[ox] * by).sum(0),
+                     (ax * gy_run[oy]).sum(0),
+                     (cvz * (ax * by + dsx * dsy / 12.0)).sum(0)]
+            if with_rho:
+                parts.append((cd * s1x[ox] * s1y[oy]).sum(0))
+            yield (ox, oy), torch.stack(parts)
+
+
+def deposit_cell_2d(x, y, ux, uy, uz, inv_gamma, w, *, q: float, dx: float,
+                    dy: float, dt: float, g: int) -> torch.Tensor:
+    """Padded (4, nx+2g, ny+2g) jx, jy, jz, rho: each offset's
+    slot-reduced contribution is slice-added into the padded grid."""
+    cap, nx, ny = x.shape
+    jpad = torch.zeros((4, nx + 2 * g, ny + 2 * g), dtype=x.dtype,
+                       device=x.device)
+    for (ox, oy), cell in deposit_offsets(x, y, ux, uy, uz, inv_gamma, w,
+                                          q=q, dx=dx, dy=dy, dt=dt):
+        jpad[:, g + ox:g + ox + nx, g + oy:g + oy + ny] += cell
+    return jpad
+
+
+# ----------------------------------------------------------------------
+# re-binning
+# ----------------------------------------------------------------------
+
+@lru_cache(maxsize=None)
+def batcher_network(cap: int) -> Tuple[Tuple[int, int], ...]:
+    """Batcher odd-even mergesort compare-exchange list for the next
+    power of two >= cap, skipping exchanges whose upper index >= cap
+    (virtual +inf entries) — the list of
+    lambdapic_tpu/ops/cellpallas.py::_batcher_network."""
+    n = 1
+    while n < cap:
+        n *= 2
+    ces = []
+    p = 1
+    while p < n:
+        k = p
+        while k >= 1:
+            for j in range(k % p, n - k, 2 * k):
+                for i in range(0, min(k, n - j - k)):
+                    if (i + j) // (2 * p) == (i + j + k) // (2 * p):
+                        a, b = i + j, i + j + k
+                        if b < cap:
+                            ces.append((a, b))
+            k //= 2
+        p *= 2
+    return tuple(ces)
+
+
+def batcher_sort(key: torch.Tensor, payloads: Sequence[torch.Tensor]):
+    """Sort (key, *payloads) along the slot axis with the Batcher
+    network, swapping on a strict ``ka > kb`` only. The exchange
+    decisions depend on the keys alone, so the network runs on (key,
+    slot index) and the payloads are permuted once at the end — bitwise
+    the same as carrying them through every exchange."""
+    cap = key.shape[0]
+    key = key.clone()
+    idx = torch.arange(cap, device=key.device).reshape(
+        (cap,) + (1,) * (key.ndim - 1)).expand(key.shape).clone()
+    for a, b in batcher_network(cap):
+        ka, kb = key[a].clone(), key[b].clone()
+        ia, ib = idx[a].clone(), idx[b].clone()
+        swap = ka > kb
+        key[a] = torch.where(swap, kb, ka)
+        key[b] = torch.where(swap, ka, kb)
+        idx[a] = torch.where(swap, ib, ia)
+        idx[b] = torch.where(swap, ia, ib)
+    return key, [torch.gather(p, 0, idx) for p in payloads]
+
+
+def _roll_in(a: torch.Tensor, dim: int, direction: int) -> torch.Tensor:
+    return torch.roll(a, direction, dims=dim)
+
+
+def migrate_cells(data: Dict[str, torch.Tensor], alive: torch.Tensor,
+                  plan, *, recompute_ig: bool = True):
+    """Re-bin particles to their home cells: the fast overwrite-merge
+    scheme of lambdapic_tpu/ops/cell2d.py::migrate_cells on one device,
+    sorted by the Batcher network. ``plan`` = ((nloc, periodic, coord),
+    ...) per cell axis. Per axis: one cap-wide sort by the 5-way key
+
+        0: donor(+1)  1: dead(even slot)  2: stay  3: dead(odd)  4: donor(-1)
+
+    (dead-slot parity from the slot index before the sort), then the
+    sorted arrays shift one cell each way and arrivals overwrite the
+    receiver's slot, lo arrivals first; two or three particles landing
+    on one slot merge into one (w summed, coordinates and momenta
+    weight-averaged) and count in ``n_lost``. Arrivals through a periodic
+    wrap shift their coordinate by -+nloc; at open edges they are
+    absorbed. Returns (data, alive, n_lost)."""
+    cap = alive.shape[0]
+    n_lost = torch.zeros((), dtype=torch.int64, device=alive.device)
+    transient = set(TRANSIENT) if recompute_ig else set(TRANSIENT) - {"inv_gamma"}
+    names = sorted(k for k in data if k not in transient)
+    ndim = len(plan)
+    parity = ((torch.arange(cap, device=alive.device) & 1) == 0).reshape(
+        (cap,) + (1,) * ndim)
+
+    for axis, (nloc, periodic, coord) in enumerate(plan):
+        pos = data[coord]
+        nt = pos.shape[1 + axis]
+        ishape = [1] * (1 + ndim)
+        ishape[1 + axis] = nt
+        idx = torch.arange(nt, dtype=pos.dtype, device=pos.device).reshape(ishape)
+        local = pos - idx
+        out_hi = alive & (local >= 0.5)
+        out_lo = alive & (local < -0.5)
+        cells = torch.arange(nt, device=pos.device).reshape(ishape)
+        from_wrap = cells == 0
+        to_wrap = cells == nt - 1
+
+        def send(payload, mask, direction):
+            moved = {k: _roll_in(v, 1 + axis, direction)
+                     for k, v in payload.items()}
+            valid = _roll_in(mask, 1 + axis, direction)
+            wrapped = from_wrap if direction > 0 else to_wrap
+            adj = _scalar(-nloc if direction > 0 else nloc, pos)
+            moved[coord] = torch.where(wrapped, moved[coord] + adj,
+                                       moved[coord])
+            if not periodic:
+                valid = valid & ~wrapped
+            return moved, valid
+
+        key = torch.where(out_hi, 0, torch.where(
+            out_lo, 4, torch.where(alive, 2, torch.where(parity, 1, 3))))
+        skey, spay = batcher_sort(key.to(torch.int32),
+                                  [data[k] for k in names])
+        sdata = dict(zip(names, spay))
+
+        in_lo, val_lo = send(sdata, skey == 0, +1)
+        in_hi, val_hi = send(sdata, skey == 4, -1)
+
+        stay = skey == 2
+        n_src = (val_lo.to(torch.int32) + val_hi.to(torch.int32)
+                 + stay.to(torch.int32))
+        multi = n_src >= 2
+        n_lost = n_lost + torch.clamp(n_src - 1, min=0).sum()
+        w_lo = torch.where(val_lo, in_lo["w"], 0.0)
+        w_hi = torch.where(val_hi, in_hi["w"], 0.0)
+        w_res = torch.where(stay, sdata["w"], 0.0)
+        wsum = w_lo + w_hi + w_res
+        floor = 1e-300 if wsum.dtype == torch.float64 else 1e-30
+        wsafe = torch.clamp(wsum, min=floor)
+        merged = {}
+        for k in names:
+            if k in MERGED:
+                merged[k] = (w_lo * in_lo[k] + w_hi * in_hi[k]
+                             + w_res * sdata[k]) / wsafe
+            elif k == "w":
+                merged[k] = wsum
+        new = {}
+        for k in names:
+            placed = torch.where(val_lo, in_lo[k],
+                                 torch.where(val_hi, in_hi[k], sdata[k]))
+            new[k] = torch.where(multi, merged[k], placed) if k in merged \
+                else placed
+        data = {**data, **new}
+        alive = val_lo | val_hi | stay
+
+    for k in SANITIZED:
+        if k in data:
+            data[k] = torch.where(alive, data[k], torch.zeros_like(data[k]))
+    if recompute_ig:
+        data["inv_gamma"] = 1.0 / torch.sqrt(
+            1.0 + data["ux"]**2 + data["uy"]**2 + data["uz"]**2)
+    elif "inv_gamma" in data:
+        data["inv_gamma"] = torch.where(alive, data["inv_gamma"],
+                                        torch.ones_like(data["inv_gamma"]))
+    return data, alive, n_lost

@@ -1,0 +1,227 @@
+"""The cell engine's particle stage and rim fold (counterpart of
+lambdapic_tpu/ops/cellslab.py: ``slab_species_step`` driving kernel B2,
+``fold_reduce_slab`` = kernel B3).
+
+Rim layout (the port's own): the deposit writes per-tile panels
+``(C, nbx, nby, T+4, T+4)``, C = 4 (jx, jy, jz, rho) or 3 without rho,
+T = ``TILE`` cells per side; panel (bi, bj) node (a, b) is the current at
+interior index (bi*T + a - 2, bj*T + b - 2). Species chain their panels:
+each species' stage starts from the previous species' panels
+(``rims_in``), and one fold adds the sum into the interior J.
+
+``cell_step`` and ``fold_reduce`` launch the CUDA kernels
+(``csrc/cellstep.cu``, ``csrc/fold.cu``) on CUDA tensors and run their
+plain versions (``cell_step_plain``, ``fold_reduce_plain``) on CPU
+tensors. Each kernel launch adds one to the wrapper's ``launches``.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..constants import c as c_light
+from ..parallel.halo import halo_reduce
+from . import kernel_lib
+from .cell2d import (batcher_network, deposit_offsets, gather_cell_2d,
+                     migrate_cells)
+from .pusher import boris_push, push_position_2d
+
+TILE = 16
+# payloads carried through the kernel, in its pointer order
+FLOAT_PAYLOADS = ("x", "y", "z", "w", "ux", "uy", "uz")
+ID_PAYLOADS = ("id_lo", "id_hi")
+MAX_CAP = 128
+
+
+def panel_shape(ncomp: int, nx: int, ny: int, tile: int = TILE):
+    return (ncomp, -(-nx // tile), -(-ny // tile), tile + 4, tile + 4)
+
+
+def deposit_panels(x, y, ux, uy, uz, inv_gamma, w, *, q: float, dx: float,
+                   dy: float, dt: float, with_rho: bool = True,
+                   rims_in: Optional[torch.Tensor] = None,
+                   tile: int = TILE) -> torch.Tensor:
+    """Esirkepov deposit of one species into tile panels, added to
+    ``rims_in`` when given."""
+    cap, nx, ny = x.shape
+    ncomp = 4 if with_rho else 3
+    shape = panel_shape(ncomp, nx, ny, tile)
+    nbx, nby = shape[1], shape[2]
+    panels = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    for (ox, oy), cell in deposit_offsets(x, y, ux, uy, uz, inv_gamma, w, q=q,
+                                          dx=dx, dy=dy, dt=dt,
+                                          with_rho=with_rho):
+        cell = F.pad(cell, (0, nby * tile - ny, 0, nbx * tile - nx))
+        cell = cell.reshape(ncomp, nbx, tile, nby, tile).permute(0, 1, 3, 2, 4)
+        panels[..., 2 + ox:2 + ox + tile, 2 + oy:2 + oy + tile] += cell
+    return panels if rims_in is None else rims_in + panels
+
+
+def fold_panels(panels: torch.Tensor, nx: int, ny: int) -> torch.Tensor:
+    """Overlap-add tile panels into the padded current (C, nx+4, ny+4),
+    guard width 2. Along each axis a panel's first T nodes tile the line
+    without overlap and its last 4 nodes land on the next tile's first 4."""
+    C, nbx, nby, p, _ = panels.shape
+    tile = p - 4
+    out = torch.zeros((C, nbx + 1, tile, nby + 1, tile), dtype=panels.dtype,
+                      device=panels.device)
+    tails = F.pad(panels, (0, tile - 4, 0, tile - 4))   # (C,nbx,nby,2T,2T)
+    for sx, (ax0, ax1) in enumerate(((0, tile), (tile, 2 * tile))):
+        for sy, (ay0, ay1) in enumerate(((0, tile), (tile, 2 * tile))):
+            part = tails[:, :, :, ax0:ax1, ay0:ay1].permute(0, 1, 3, 2, 4)
+            out[:, sx:sx + nbx, :, sy:sy + nby, :] += part
+    out = out.reshape(C, (nbx + 1) * tile, (nby + 1) * tile)
+    return out[:, :nx + 4, :ny + 4]
+
+
+def fold_reduce_plain(rims: torch.Tensor, nx: int, ny: int,
+                      periodic: Sequence[bool]) -> torch.Tensor:
+    """Plain version of kernel B3: the interior (C, nx, ny) current."""
+    return halo_reduce(fold_panels(rims, nx, ny), 2, (1, 2), periodic)
+
+
+def cell_step_plain(eb_pad, data: Dict[str, torch.Tensor], alive, *,
+                    q: float, m: float, dt: float, dx: float, dy: float,
+                    g: int, periodic: Tuple[bool, bool],
+                    rims_in: Optional[torch.Tensor] = None,
+                    with_rho: bool = True):
+    """Plain version of kernel B2: the JAX package's XLA cell path
+    (step.py's cell branch) with the Batcher-order migration.
+    ``data`` holds the stored (pre-push) state. Returns (data, alive,
+    n_lost, rims) with data fully pushed."""
+    cap, nx, ny = alive.shape
+    hx, hy = c_light * dt / dx / 2, c_light * dt / dy / 2
+    d = dict(data)
+    d["x"], d["y"] = push_position_2d(d["x"], d["y"], d["ux"], d["uy"],
+                                      d["inv_gamma"], hx, hy)
+    d, alive, n_lost = migrate_cells(
+        d, alive, ((nx, periodic[0], "x"), (ny, periodic[1], "y")),
+        recompute_ig=True)
+    eb = gather_cell_2d(eb_pad, d["x"], d["y"], g)
+    ux, uy, uz, ig = boris_push(d["ux"], d["uy"], d["uz"], *eb, q, m, dt)
+    x, y = push_position_2d(d["x"], d["y"], ux, uy, ig, hx, hy)
+    w = torch.where(alive, d["w"], 0.0)
+    rims = deposit_panels(x, y, ux, uy, uz, ig, w, q=q, dx=dx, dy=dy, dt=dt,
+                          with_rho=with_rho, rims_in=rims_in)
+    d.update(x=x, y=y, ux=ux, uy=uy, uz=uz, inv_gamma=ig)
+    return d, alive, n_lost, rims
+
+
+@functools.cache
+def _check_tile() -> None:
+    """The panel layout's tile is ``TILE`` here and a constant in
+    csrc/cellstep.cu, which sizes the panels the kernel writes; hold the
+    two equal once, when the library is first used."""
+    got = kernel_lib.library("cellstep").lp_cell_tile()
+    if got != TILE:
+        raise RuntimeError(f"csrc/cellstep.cu tiles panels by {got}, "
+                           f"cellslab.TILE is {TILE}")
+
+
+_CES: Dict[Tuple[int, torch.device], torch.Tensor] = {}
+
+
+def _ces_tensor(cap: int, device) -> torch.Tensor:
+    key = (cap, torch.device(device))
+    t = _CES.get(key)
+    if t is None:
+        pairs = batcher_network(cap) or ((0, 0),)
+        t = torch.tensor(pairs, dtype=torch.int32).reshape(-1).to(device)
+        _CES[key] = t
+    return t
+
+
+def cell_step(eb_pad, data: Dict[str, torch.Tensor], alive, *, q: float,
+              m: float, dt: float, dx: float, dy: float, g: int,
+              periodic: Tuple[bool, bool],
+              rims_in: Optional[torch.Tensor] = None, with_rho: bool = True):
+    """One species' particle stage through kernel B2 (see
+    ``cell_step_plain`` for the arguments and results)."""
+    if alive.device.type == "cpu":
+        return cell_step_plain(eb_pad, data, alive, q=q, m=m, dt=dt, dx=dx,
+                               dy=dy, g=g, periodic=periodic, rims_in=rims_in,
+                               with_rho=with_rho)
+    if alive.device.type != "cuda":
+        raise ValueError(f"cell_step: unsupported device {alive.device}")
+    dev = alive.device
+    dtype = data["x"].dtype
+    cap, nx, ny = alive.shape
+    if cap > MAX_CAP:
+        raise ValueError(f"cell_step: {cap} slots per cell exceed the "
+                         f"kernel's per-cell limit {MAX_CAP} (the slot index "
+                         "is packed into 8 bits of its sort key)")
+    _check_tile()
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"cell_step: dtype {dtype}")
+    shape = (cap, nx, ny)
+    kernel_lib.check(alive, "alive", shape, torch.bool, dev)
+    kernel_lib.check(eb_pad, "eb_pad", (6, nx + 2 * g, ny + 2 * g), dtype, dev)
+    for k in FLOAT_PAYLOADS + ("inv_gamma",):
+        kernel_lib.check(data[k], k, shape, dtype, dev)
+    for k in ID_PAYLOADS:
+        kernel_lib.check(data[k], k, shape, torch.int32, dev)
+    ncomp = 4 if with_rho else 3
+    pshape = panel_shape(ncomp, nx, ny)
+    if rims_in is not None:
+        kernel_lib.check(rims_in, "rims_in", pshape, dtype, dev)
+
+    def empty(dt_):
+        return torch.empty(shape, dtype=dt_, device=dev)
+
+    s_alive = empty(torch.bool)
+    s_f = [empty(dtype) for _ in FLOAT_PAYLOADS]
+    s_id = [empty(torch.int32) for _ in ID_PAYLOADS]
+    o_alive = empty(torch.bool)
+    o_f = [empty(dtype) for _ in FLOAT_PAYLOADS]
+    o_ig = empty(dtype)
+    o_id = [empty(torch.int32) for _ in ID_PAYLOADS]
+    rims = torch.empty(pshape, dtype=dtype, device=dev)
+    n_lost = torch.zeros((), dtype=torch.int64, device=dev)
+    ces = _ces_tensor(cap, dev)
+    ptrs = ([eb_pad, alive] + [data[k] for k in FLOAT_PAYLOADS]
+            + [data["inv_gamma"]] + [data[k] for k in ID_PAYLOADS]
+            + [s_alive] + s_f + s_id
+            + [o_alive] + o_f + [o_ig] + o_id
+            + [rims_in, rims, n_lost, ces])
+    cdx, cdy = c_light * dt / dx, c_light * dt / dy
+    kernel_lib.call(
+        "cellstep", "lp_cell_step", ptrs,
+        [cap, nx, ny, g, periodic[0], periodic[1], ncomp,
+         len(batcher_network(cap)), dtype == torch.float64],
+        [cdx / 2, cdy / 2, q * dt / (2 * m * c_light), q * dt / (2 * m),
+         cdx, cdy, c_light, q / (dx * dy), q / (dy * dt), q / (dx * dt)],
+        dev)
+    cell_step.launches += 1
+    out = dict(data)
+    out.update(zip(FLOAT_PAYLOADS, o_f))
+    out.update(zip(ID_PAYLOADS, o_id))
+    out["inv_gamma"] = o_ig
+    return out, o_alive, n_lost, rims
+
+
+cell_step.launches = 0
+
+
+def fold_reduce(rims: torch.Tensor, nx: int, ny: int,
+                periodic: Sequence[bool]) -> torch.Tensor:
+    """Species-summed panels -> interior (C, nx, ny) current, through
+    kernel B3."""
+    if rims.device.type == "cpu":
+        return fold_reduce_plain(rims, nx, ny, periodic)
+    if rims.device.type != "cuda":
+        raise ValueError(f"fold_reduce: unsupported device {rims.device}")
+    C = rims.shape[0]
+    kernel_lib.check(rims, "rims", panel_shape(C, nx, ny), rims.dtype,
+                     rims.device)
+    out = torch.empty((C, nx, ny), dtype=rims.dtype, device=rims.device)
+    kernel_lib.call("fold", "lp_fold", [rims, out],
+                    [C, nx, ny, TILE, periodic[0], periodic[1],
+                     rims.dtype == torch.float64], [], rims.device)
+    fold_reduce.launches += 1
+    return out
+
+
+fold_reduce.launches = 0

@@ -1,0 +1,158 @@
+"""Yee FDTD half-steps with CPML (counterpart of lambdapic_tpu/ops/maxwell.py,
+2D, slab-restricted psi storage).
+
+This is the plain PyTorch version of kernel B1 (``ops/fieldskernel.py``,
+``csrc/fields.cu``). Each call advances E or B by ``dt`` as passed in (the
+step passes dt/2 twice per step): curl differences, the kappa-scaled
+interior update, then the psi recursion and psi correction on the PML
+slab rows of each axis.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..constants import c as c_light, epsilon_0
+from ..core.grid import Grid
+from ..core.state import FieldsState
+from .cpml import CPMLCoeffs
+from .shifts import diff_hi, diff_lo
+
+# (psi key, curl source field, corrected target field, sign) per PML axis
+E_PAIRS = {
+    "x": (("psi_ey_x", "bz", "ey", -1), ("psi_ez_x", "by", "ez", +1)),
+    "y": (("psi_ex_y", "bz", "ex", +1), ("psi_ez_y", "bx", "ez", -1)),
+}
+B_PAIRS = {
+    "x": (("psi_by_x", "ez", "by", +1), ("psi_bz_x", "ey", "bz", -1)),
+    "y": (("psi_bx_y", "ez", "bx", -1), ("psi_bz_y", "ex", "bz", +1)),
+}
+
+
+def _bcast(arr_1d, axis: int, like: torch.Tensor) -> torch.Tensor:
+    shape = [1, 1]
+    shape[axis] = len(arr_1d)
+    return torch.as_tensor(arr_1d, dtype=like.dtype).to(like.device).reshape(shape)
+
+
+def _diff_region(f, axis: int, start: int, width: int, periodic: bool,
+                 hi: bool):
+    """Rows [start, start+width) of diff_lo(f) (hi=False) or diff_hi(f)
+    (hi=True) along ``axis``, from a (width+1)-row slice."""
+    n = f.shape[axis]
+    if hi:
+        if start + width < n:
+            sl = f.narrow(axis, start, width + 1)
+        else:
+            last = f.narrow(axis, 0, 1)
+            if not periodic:
+                last = torch.zeros_like(last)
+            sl = torch.cat([f.narrow(axis, start, n - start), last], dim=axis)
+    else:
+        if start > 0:
+            sl = f.narrow(axis, start - 1, width + 1)
+        else:
+            prev = f.narrow(axis, n - 1, 1)
+            if not periodic:
+                prev = torch.zeros_like(prev)
+            sl = torch.cat([prev, f.narrow(axis, 0, width)], dim=axis)
+    return sl.narrow(axis, 1, width) - sl.narrow(axis, 0, width)
+
+
+def _psi_axis_update(psi, fb, cpml: CPMLCoeffs, ax: str, axis: int,
+                     which: str, fac, periodic: bool, pairs):
+    """One axis's psi recursion and field correction on slab-restricted
+    psi arrays. Mutates ``psi`` and ``fb`` (name -> tensor) in place."""
+    prof = cpml.axis(ax)
+    ref = fb[pairs[0][1]]
+    if psi[pairs[0][0]].shape[axis] == ref.shape[axis] and \
+            cpml.psi_width(ax) != ref.shape[axis]:
+        raise ValueError("full-size psi arrays are not supported; the port "
+                         "stores psi on the PML slab rows only")
+    off = 0
+    new_parts = {key: [] for key, *_ in pairs}
+    for start, width in cpml.regions(ax):
+        b = _bcast(prof["b_" + which][start:start + width], axis, ref)
+        cc = _bcast(prof["c_" + which][start:start + width], axis, ref)
+        for key, src, tgt, sign in pairs:
+            p_old = psi[key].narrow(axis, off, width)
+            d = _diff_region(fb[src], axis, start, width, periodic,
+                             hi=(which == "b"))
+            p = b * p_old + cc * d
+            new_parts[key].append(p)
+            t = fb[tgt].clone()
+            t.narrow(axis, start, width).add_(sign * fac * p)
+            fb[tgt] = t
+        off += width
+    for key, parts in new_parts.items():
+        psi[key] = parts[0] if len(parts) == 1 else torch.cat(parts, dim=axis)
+
+
+def _kappa_factors(cpml: Optional[CPMLCoeffs], which: str, like):
+    """Per-axis 1/kappa broadcastables (1.0 where the axis has no PML)."""
+    out = []
+    for axis, ax in enumerate("xy"):
+        prof = cpml.axis(ax) if cpml is not None else None
+        if prof is None:
+            out.append(torch.tensor(1.0, dtype=like.dtype, device=like.device))
+        else:
+            out.append(_bcast(1.0 / prof["kappa_" + which], axis, like))
+    return out
+
+
+def update_efield(fields: FieldsState, grid: Grid, dt: float,
+                  cpml: Optional[CPMLCoeffs] = None) -> FieldsState:
+    """Advance E by dt, then the CPML psi_e recursion."""
+    per = [grid.periodic("x"), grid.periodic("y")]
+    ex, ey, ez = fields.ex, fields.ey, fields.ez
+    bx, by, bz = fields.bx, fields.by, fields.bz
+    bf = torch.tensor(dt * c_light**2, dtype=ex.dtype, device=ex.device)
+    jf = torch.tensor(dt / epsilon_0, dtype=ex.dtype, device=ex.device)
+    inv_kx, inv_ky = _kappa_factors(cpml, "e", ex)
+
+    dbz_y = diff_lo(bz, 1, per[1]) / grid.dy
+    dbz_x = diff_lo(bz, 0, per[0]) / grid.dx
+    dby_x = diff_lo(by, 0, per[0]) / grid.dx
+    dbx_y = diff_lo(bx, 1, per[1]) / grid.dy
+    ex = ex + bf * inv_ky * dbz_y - jf * fields.jx
+    ey = ey - bf * inv_kx * dbz_x - jf * fields.jy
+    ez = ez + bf * (inv_kx * dby_x - inv_ky * dbx_y) - jf * fields.jz
+
+    psi = dict(fields.psi)
+    if cpml is not None:
+        fb = {"ex": ex, "ey": ey, "ez": ez, "bx": bx, "by": by, "bz": bz}
+        for axis, ax in enumerate("xy"):
+            if cpml.axis(ax) is not None:
+                _psi_axis_update(psi, fb, cpml, ax, axis, "e", bf, per[axis],
+                                 E_PAIRS[ax])
+        ex, ey, ez = fb["ex"], fb["ey"], fb["ez"]
+    return fields.replace(ex=ex, ey=ey, ez=ez, psi=psi)
+
+
+def update_bfield(fields: FieldsState, grid: Grid, dt: float,
+                  cpml: Optional[CPMLCoeffs] = None) -> FieldsState:
+    """Advance B by dt, then the CPML psi_b recursion."""
+    per = [grid.periodic("x"), grid.periodic("y")]
+    ex, ey, ez = fields.ex, fields.ey, fields.ez
+    bx, by, bz = fields.bx, fields.by, fields.bz
+    dtc = torch.tensor(dt, dtype=bx.dtype, device=bx.device)
+    inv_kx, inv_ky = _kappa_factors(cpml, "b", bx)
+
+    dez_y = diff_hi(ez, 1, per[1]) / grid.dy
+    dez_x = diff_hi(ez, 0, per[0]) / grid.dx
+    dey_x = diff_hi(ey, 0, per[0]) / grid.dx
+    dex_y = diff_hi(ex, 1, per[1]) / grid.dy
+    bx = bx - dtc * inv_ky * dez_y
+    by = by + dtc * inv_kx * dez_x
+    bz = bz - (dtc * inv_kx * dey_x - dtc * inv_ky * dex_y)
+
+    psi = dict(fields.psi)
+    if cpml is not None:
+        fb = {"ex": ex, "ey": ey, "ez": ez, "bx": bx, "by": by, "bz": bz}
+        for axis, ax in enumerate("xy"):
+            if cpml.axis(ax) is not None:
+                _psi_axis_update(psi, fb, cpml, ax, axis, "b", dtc, per[axis],
+                                 B_PAIRS[ax])
+        bx, by, bz = fb["bx"], fb["by"], fb["bz"]
+    return fields.replace(bx=bx, by=by, bz=bz, psi=psi)

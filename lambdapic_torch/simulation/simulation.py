@@ -1,0 +1,454 @@
+"""The Simulation entry point, 2D cell engine on one device
+(counterpart of a subset of lambdapic_tpu/simulation/simulation.py).
+
+The public surface mirrors the JAX package: construct with grid,
+boundary and timing parameters, add Species, call ``run()`` with
+callbacks. The state lives on ``device`` (default "cuda"; pass
+device="cpu" to run the plain PyTorch versions of the kernels). Options
+the port does not have yet raise NotImplementedError naming the ROADMAP
+item that will bring them.
+"""
+from __future__ import annotations
+
+import logging
+import math
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..constants import c as c_light
+from ..core.grid import Grid
+from ..core.species import Species, _ALL_SPECIES
+from ..core.state import SimulationState, cell_particles, zeros_fields
+from ..ops.cell2d import deposit_cell_2d
+from ..ops.cellslab import MAX_CAP
+from ..ops.cpml import CPMLParams, build_cpml
+from ..parallel.halo import halo_reduce
+from .callbacks import INNER_STAGES, SimulationCallbacks
+from .initfill import bin_cells, count_macro_particles, fill_species, pick_capacity
+from .step import SpeciesStatic, StepBuilder
+
+logger = logging.getLogger("lambdapic_torch")
+
+
+def _todo(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to lambdapic_torch yet (ROADMAP queue 1, "
+        f"item {item})")
+
+
+def resolve_device(device) -> torch.device:
+    """The device a Simulation runs on: CUDA unless the caller asks for
+    the CPU. There is no silent CPU fallback."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "lambdapic_torch runs on a CUDA device and none is available; "
+            "pass device='cpu' to run the plain PyTorch versions")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def _validate_config(s: "Simulation") -> None:
+    """The JAX package's SimulationConfig checks, written out."""
+    def positive(name, strict=True, integer=False):
+        v = getattr(s, name)
+        if integer and (isinstance(v, bool) or not isinstance(v, int)):
+            raise ValueError(f"{name} must be an integer, got {v!r}")
+        if not isinstance(v, (int, float)) or (v <= 0 if strict else v < 0):
+            raise ValueError(f"{name} must be {'>' if strict else '>='} 0, "
+                             f"got {v!r}")
+
+    for name in ("nx", "ny", "n_guard", "cpml_thickness"):
+        positive(name, integer=True)
+    for name in ("dx", "dy"):
+        positive(name)
+    for name in ("npatch_x", "npatch_y"):
+        positive(name, strict=False, integer=True)
+    if s.nsteps is not None:
+        positive("nsteps", integer=True)
+    if s.sim_time is not None:
+        positive("sim_time")
+    if not 0 < s.dt_cfl <= 1:
+        raise ValueError(f"dt_cfl must be in (0, 1], got {s.dt_cfl!r}")
+    if s.precision not in ("single", "double"):
+        raise ValueError(f"precision must be 'single' or 'double', got "
+                         f"{s.precision!r}")
+    if not s.particle_capacity_factor > 1.0:
+        raise ValueError("particle_capacity_factor must be > 1")
+    if s.nsteps is not None and s.sim_time is not None:
+        raise ValueError(
+            "Cannot specify both nsteps and sim_time. Use only one.")
+
+
+@dataclass
+class Simulation:
+    """2D PIC simulation on one device, cell engine.
+
+    Parameters mirror lambdapic_tpu.Simulation. ``device``: "cuda"
+    (default) or "cpu". Only ``tiling="cell"`` is ported.
+    """
+
+    nx: int
+    ny: int
+    dx: float
+    dy: float
+    npatch_x: int = 0
+    npatch_y: int = 0
+    nsteps: Optional[int] = None
+    sim_time: Optional[float] = None
+    dt_cfl: float = 0.95
+    n_guard: int = 3
+    boundary_conditions: Optional[Dict[str, str]] = None
+    cpml_thickness: int = 6
+    log_file: Optional[str] = None
+    truncate_log: bool = True
+    random_seed: Optional[int] = None
+    precision: str = "single"
+    particle_capacity_factor: float = 2.0
+    tiling: Optional[object] = None
+    rebin_interval: int = 1
+    cell_migration: str = "fast"
+    deposit_rho: object = "auto"
+    step_chunk: object = "auto"
+    recap_interval: int = 10
+    device: Optional[object] = None
+
+    dimension = 2
+
+    def __post_init__(self):
+        if self.boundary_conditions is None:
+            self.boundary_conditions = {"xmin": "pml", "xmax": "pml",
+                                        "ymin": "pml", "ymax": "pml"}
+        _validate_config(self)
+        self.device = resolve_device(self.device)
+        if self.log_file is not None:
+            handler = logging.FileHandler(
+                self.log_file, mode="w" if self.truncate_log else "a")
+            logger.addHandler(handler)
+        # dt from CFL
+        inv2 = self.dx**-2 + self.dy**-2
+        self.dt = self.dt_cfl * inv2**-0.5 / c_light
+
+        self.species: List[Species] = []
+        self.itime = 0
+        self.time = 0.0
+        self.initialized = False
+        self.state: Optional[SimulationState] = None
+        if self.random_seed is not None:
+            self._seed_effective = int(self.random_seed)
+        else:
+            self._seed_effective = int(
+                np.random.SeedSequence().generate_state(1)[0])
+        self._overflow_seen: Dict[int, int] = {}
+        self._occ_seen: Dict[int, int] = {}
+        self._loss_reported: Dict[int, int] = {}
+        self._builder: Optional[StepBuilder] = None
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return torch.float64 if self.precision == "double" else torch.float32
+
+    @property
+    def Lx(self):
+        return self.nx * self.dx
+
+    @property
+    def Ly(self):
+        return self.ny * self.dy
+
+    def add_species(self, species: Sequence[Species]):
+        for s in species:
+            if not isinstance(s, Species):
+                raise TypeError(f"not a Species: {s!r}")
+            if s not in self.species:
+                s.ispec = len(self.species)
+                self.species.append(s)
+        return self
+
+    def _add_default_species_if_empty(self):
+        if self.species:
+            return
+        compatible = [s for s in _ALL_SPECIES if s.is_compatible(self.dimension)]
+        if compatible:
+            logger.info(f"Auto-adding {len(compatible)} species created in "
+                        f"script: {[s.name for s in compatible]}")
+            self.add_species(compatible)
+
+    def _check_supported(self):
+        if self.tiling != "cell":
+            raise _todo(f"tiling={self.tiling!r} (the scatter and tiled "
+                        "engines)", "12 and 13")
+        if self.cell_migration == "exact":
+            raise _todo("cell_migration='exact'", "10")
+        if self.cell_migration != "fast":
+            raise ValueError(f"cell_migration must be 'fast' or 'exact', got "
+                             f"{self.cell_migration!r}")
+        if self.rebin_interval != 1:
+            raise NotImplementedError(
+                "cell binning re-bins every step (rebin_interval=1)")
+        if self.step_chunk not in ("auto", 1):
+            raise _todo("multi-step chunking (step_chunk)", "16")
+        if self.npatch_x not in (0, 1) or self.npatch_y not in (0, 1):
+            raise _todo("device meshes (npatch_x/npatch_y > 1)", "15")
+        for sp in self.species:
+            if getattr(sp, "radiation", None) is not None or sp.has_qed:
+                raise _todo(f"QED radiation (species {sp.name})", "9")
+            if sp.has_spin:
+                raise _todo(f"spin (species {sp.name})", "9")
+            if sp.pusher != "boris":
+                raise _todo(f"pusher {sp.pusher!r} (species {sp.name})", "9")
+
+    def _make_grid(self) -> Grid:
+        g = Grid(dimension=2, nx=self.nx, ny=self.ny, dx=self.dx, dy=self.dy,
+                 npatch_x=1, npatch_y=1, n_guard=self.n_guard,
+                 cpml_thickness=self.cpml_thickness,
+                 boundary_conditions=tuple(
+                     sorted(self.boundary_conditions.items())))
+        g.validate()
+        if g.n_guard < 2:
+            raise ValueError("cell binning needs n_guard >= 2 (the "
+                             "post-rebin deposit stencil spans +-2)")
+        return g
+
+    def initialize(self):
+        """Build grid, fields and cell-binned particles."""
+        self._add_default_species_if_empty()
+        self._check_supported()
+        self.npatch_x = self.npatch_y = 1
+        self.grid = self._make_grid()
+        logger.info(f"Domain: {self.grid.shape} cells on {self.device}, "
+                    f"dt={self.dt:.3e}s")
+        any_pml = any(v == "pml" for v in self.grid.bc.values())
+        self.cpml = build_cpml(self.grid, self.dt,
+                               CPMLParams(thickness=self.cpml_thickness)) \
+            if any_pml else None
+        fields = zeros_fields(self.grid, self.dtype, self.device, self.cpml)
+        parts = []
+        self._species_static = []
+        for ispec, sp in enumerate(self.species):
+            counts = count_macro_particles(self.grid, sp)
+            cap = pick_capacity(counts, self.particle_capacity_factor)
+            if sp.capacity is not None:
+                cap = max(cap, int(np.ceil(sp.capacity / 128) * 128))
+            arrays, counts = fill_species(self.grid, sp, self._seed_effective,
+                                          ispec, cap)
+            cap_c = None
+            if sp.capacity is not None:
+                cap_c = max(4, int(np.ceil(
+                    sp.capacity / (self.nx * self.ny) / 2) * 2))
+            arrays, alive_np, cap_c = bin_cells(
+                arrays, counts, self.grid,
+                factor=self.particle_capacity_factor, cap_c=cap_c)
+            arrays = {k: v[0, 0] for k, v in arrays.items()}
+            parts.append(cell_particles(sp, arrays, alive_np[0, 0],
+                                        self.dtype, self.device))
+            self._species_static.append(SpeciesStatic(
+                name=sp.name, q=sp.q, m=sp.m, pusher=sp.pusher, cap=cap_c))
+            logger.info(f"Species {sp.name}: {int(counts.sum()):,} macro "
+                        f"particles, {cap_c} slots per cell")
+        self.state = SimulationState(fields=fields, particles=tuple(parts))
+        self._loss_reported.clear()
+        self._overflow_seen.clear()
+        self._occ_seen.clear()
+        self.initialized = True
+
+    def _build_stepper(self, lasers):
+        self._builder = StepBuilder(
+            self.grid, self.cpml, self.dt, self._species_static, lasers,
+            with_rho=self._with_rho, dtype=self.dtype, device=self.device)
+
+    def _scalars(self, lasers) -> dict:
+        return {f"laser{i}": laser.host_scalars(self)
+                for i, laser in enumerate(lasers)}
+
+    def _handle_nsteps(self, nsteps, sim_time):
+        if nsteps is not None and sim_time is not None:
+            raise ValueError("Cannot specify both nsteps and sim_time")
+        if nsteps is None and sim_time is None:
+            if self.nsteps is not None:
+                return self.nsteps
+            if self.sim_time is not None:
+                return int(self.sim_time / self.dt)
+            raise ValueError("Must provide either nsteps or sim_time")
+        if sim_time is not None:
+            return int(sim_time / self.dt)
+        return nsteps + self.itime
+
+    def _resolve_deposit_rho(self, callbacks) -> bool:
+        """"auto" keeps the every-step rho deposit unless every callback
+        is rho-free."""
+        v = self.deposit_rho
+        if v == "auto":
+            return not all(getattr(cb, "rho_free", False) for cb in callbacks)
+        return bool(v)
+
+    def run(self, nsteps: Optional[int] = None,
+            sim_time: Optional[float] = None,
+            callbacks: Optional[Sequence] = None, stop_callback=None):
+        """Main loop: one step at a time, host callbacks between the
+        step's segments."""
+        callbacks = list(callbacks or [])
+        if not self.initialized:
+            self.initialize()
+        lasers = [cb for cb in callbacks
+                  if getattr(cb, "is_device_callback", False)]
+        cbs = SimulationCallbacks(callbacks, self)
+        inner = sorted(s for s in INNER_STAGES if cbs.has(s))
+        if inner:
+            raise _todo(f"host callbacks at inner stages {inner} (the split "
+                        "particle path)", "10")
+        with_rho = self._resolve_deposit_rho(callbacks)
+        if self._builder is None or \
+                getattr(self, "_active_lasers", None) != lasers or \
+                getattr(self, "_with_rho", None) != with_rho:
+            self._active_lasers = lasers
+            self._with_rho = with_rho
+            self._build_stepper(lasers)
+        builder = self._builder
+        nsteps_total = self._handle_nsteps(nsteps, sim_time)
+
+        cbs.run("init")
+        while self.itime < nsteps_total:
+            self.istep = self.itime
+            cbs.run("start")
+            sc = self._scalars(lasers)
+            if not (cbs.due("maxwell_1") or cbs.due("current_deposition")
+                    or cbs.due("qed_create_particles")):
+                self.state = builder.full_step(self.state, sc)
+            else:
+                self.state = builder.seg_fields_1(self.state, sc)
+                cbs.run("maxwell_1")
+                self.state = builder.seg_particles(self.state, sc)
+                cbs.run("current_deposition")
+                cbs.run("qed_create_particles")
+                self.state = builder.seg_fields_2(self.state, sc)
+            cbs.run("maxwell_2")
+            cbs.run("end")
+            self.time += self.dt
+            self.itime += 1
+            if self.recap_interval and self.itime % self.recap_interval == 0:
+                self._maybe_recap()
+            if stop_callback is not None and stop_callback():
+                return "stop by callback"
+        self._sync()
+        self._check_overflow()
+        cbs.run("final")
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # -- cell-mode re-capacity ------------------------------------------
+    def _maybe_recap(self):
+        """Grow a species' per-cell capacity 1.5x under sustained merge
+        pressure (more than 0.5% of its population merged since the last
+        check); single hot cells reaching capacity are left to the
+        weight-conserving merges."""
+        grew = False
+        for ispec, p in enumerate(self.state.particles):
+            cap = self._species_static[ispec].cap
+            ov = int(p.overflow)
+            per_cell = p.alive.sum(dim=0, dtype=torch.int32)
+            occ, total = int(per_cell.max()), int(per_cell.sum())
+            influx = max(0, occ - self._occ_seen.get(ispec, 0))
+            self._occ_seen[ispec] = occ
+            new_ov = ov - self._overflow_seen.get(ispec, 0)
+            trigger = new_ov > 0.005 * max(total, 1)
+            if new_ov > 0:
+                self._overflow_seen[ispec] = ov
+                log = logger.warning if trigger else logger.debug
+                log(f"species {self.species[ispec].name}: {new_ov} particles "
+                    f"merged (occupancy {occ}/{cap}, alive {total})")
+            if trigger:
+                grew |= self._grow_capacity(
+                    ispec, max(int(math.ceil(cap * 1.5)),
+                               occ + 4 * max(influx, 1)))
+        if grew:
+            self._build_stepper(getattr(self, "_active_lasers", []))
+
+    def _grow_capacity(self, ispec: int, new_cap: int) -> bool:
+        """Pad the slot axis with dead slots (inv_gamma 1, everything else
+        0). Slot order within a cell carries no physics, so the state is
+        unchanged. The capacity stops at kernel B2's limit ``MAX_CAP``
+        (the slot index is packed into 8 bits of its sort key); beyond it
+        the weight-conserving merges absorb the pressure. Returns whether
+        the capacity grew."""
+        import dataclasses
+        p = self.state.particles[ispec]
+        old = p.cap
+        want = int(new_cap) + (int(new_cap) & 1)   # keep it even
+        new_cap = min(want, MAX_CAP)
+        if want > new_cap:
+            logger.warning(
+                f"species {self.species[ispec].name}: capacity {want} "
+                f"wanted, held at the per-cell limit {MAX_CAP}; merges "
+                "absorb the rest")
+        if new_cap <= old:
+            return False
+
+        def pad(t, fill):
+            extra = torch.full((new_cap - old,) + tuple(t.shape[1:]), fill,
+                               dtype=t.dtype, device=t.device)
+            return torch.cat([t, extra], dim=0)
+
+        data = {k: pad(v, 1 if k == "inv_gamma" else 0)
+                for k, v in p.data.items()}
+        parts = list(self.state.particles)
+        parts[ispec] = p.replace(data=data, alive=pad(p.alive, False))
+        self.state = self.state.replace(particles=tuple(parts))
+        self._species_static[ispec] = dataclasses.replace(
+            self._species_static[ispec], cap=new_cap)
+        logger.info(f"species {self.species[ispec].name}: capacity grown "
+                    f"{old} -> {new_cap}")
+        return True
+
+    def _check_overflow(self):
+        """Warn when a species' cumulative merge count has advanced."""
+        for ispec, p in enumerate(self.state.particles):
+            ov = int(p.overflow)
+            if ov > self._loss_reported.get(ispec, 0):
+                self._loss_reported[ispec] = ov
+                logger.warning(
+                    f"species {self.species[ispec].name}: {ov} particle "
+                    "merges so far (cumulative) from per-cell capacity "
+                    "pressure (charge/momentum conserved)")
+
+    # -- data access ----------------------------------------------------
+    def total_rho(self) -> torch.Tensor:
+        """Charge density of all charged species at the current
+        positions, through the plain deposit (used when the hot loop
+        runs without the rho deposit)."""
+        g = self.grid.n_guard
+        jtot = None
+        for sp, p in zip(self._species_static, self.state.particles):
+            if sp.q == 0.0:
+                continue
+            d = p.data
+            w = torch.where(p.alive, d["w"], 0.0)
+            j4 = deposit_cell_2d(d["x"], d["y"], d["ux"], d["uy"], d["uz"],
+                                 d["inv_gamma"], w, q=sp.q, dx=self.dx,
+                                 dy=self.dy, dt=self.dt, g=g)
+            jtot = j4 if jtot is None else jtot + j4
+        if jtot is None:
+            return torch.zeros(self.grid.shape, dtype=self.dtype,
+                               device=self.device)
+        periodic = (self.grid.periodic("x"), self.grid.periodic("y"))
+        return halo_reduce(jtot, g, (1, 2), periodic)[3]
+
+    def get_field(self, name: str) -> np.ndarray:
+        """Host copy of a field. When the hot loop runs without the rho
+        deposit, rho is recomputed from the current particles."""
+        if name == "rho" and not getattr(self, "_with_rho", True):
+            return self.total_rho().cpu().numpy()
+        return getattr(self.state.fields, name).cpu().numpy()
+
+    @property
+    def npart_alive(self) -> List[int]:
+        return [int(p.alive.sum()) for p in self.state.particles]
+
+
+Simulation2D = Simulation

@@ -1,0 +1,94 @@
+"""Seeded inputs and comparison rules shared by the tests and
+``chip_smoke.py``.
+
+Inputs are made with numpy from a seed, so the same arrays can be handed
+to the JAX package, to a plain version and to its kernel. Slot order
+within a cell carries no physics; comparisons first sort each cell's
+slots by (dead, id_lo).
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from .core.state import ID_KEYS, ids_to_numpy, ids_to_torch
+
+SLOT_FLOATS = ("x", "y", "z", "w", "ux", "uy", "uz", "inv_gamma")
+
+
+def random_cell_state(cap: int, nx: int, ny: int, *, g: int = 3,
+                      n_frac: float = 0.4, spread: float = 0.95,
+                      umax: float = 2.0, field: float = 5e11,
+                      seed: int = 0) -> Tuple[Dict[str, np.ndarray],
+                                              np.ndarray, np.ndarray]:
+    """A cell-binned species state (positions within +-spread/2 of their
+    cell centre, momenta up to +-umax: at c dt/dx ~ 0.66 particles cross
+    cells in every direction) and a random padded E/B stack. Returns
+    (data, alive, eb_pad) as numpy arrays, ids as uint32."""
+    rng = np.random.default_rng(seed)
+    shape = (cap, nx, ny)
+    alive = rng.uniform(0, 1, shape) < n_frac
+
+    def mk(lo, hi):
+        return rng.uniform(lo, hi, shape)
+
+    ix = np.arange(nx).reshape(1, nx, 1)
+    iy = np.arange(ny).reshape(1, 1, ny)
+    data = {"x": np.where(alive, mk(-spread / 2, spread / 2) + ix, 0.0),
+            "y": np.where(alive, mk(-spread / 2, spread / 2) + iy, 0.0),
+            "z": np.where(alive, mk(-1, 1), 0.0)}
+    u = [np.where(alive, mk(-umax, umax), 0.0) for _ in range(3)]
+    data.update(ux=u[0], uy=u[1], uz=u[2])
+    data["inv_gamma"] = 1 / np.sqrt(1 + u[0]**2 + u[1]**2 + u[2]**2)
+    data["w"] = np.where(alive, mk(0.5, 1.5), 0.0)
+    data["id_lo"] = rng.permutation(int(np.prod(shape))).reshape(shape
+                                                                 ).astype(np.uint32)
+    data["id_hi"] = np.zeros(shape, np.uint32)
+    eb_pad = rng.uniform(-field, field, (6, nx + 2 * g, ny + 2 * g))
+    return data, alive, eb_pad
+
+
+def to_torch(data: Dict[str, np.ndarray], alive: np.ndarray, dtype, device):
+    out = {k: (ids_to_torch(v, device) if k in ID_KEYS
+               else torch.as_tensor(v, dtype=dtype).to(device))
+           for k, v in data.items()}
+    return out, torch.as_tensor(alive).to(device)
+
+
+def to_numpy(data: Dict[str, torch.Tensor], alive: torch.Tensor):
+    out = {k: (ids_to_numpy(v) if k in ID_KEYS else v.detach().cpu().numpy())
+           for k, v in data.items()}
+    return out, alive.detach().cpu().numpy()
+
+
+def canon_slots(d: Dict[str, np.ndarray], alive: np.ndarray):
+    """Reorder each cell's slot column by (dead, id_lo)."""
+    alive = np.asarray(alive)
+    key = (~alive).astype(np.int64) * (1 << 40) \
+        + np.asarray(d["id_lo"]).astype(np.int64)
+    order = np.argsort(key, axis=0, kind="stable")
+    out = {k: np.take_along_axis(np.asarray(v), order, axis=0)
+           for k, v in d.items()}
+    return out, np.take_along_axis(alive, order, axis=0)
+
+
+def compare_slots(ref, ref_alive, got, got_alive, *, rtol: float,
+                  keys=SLOT_FLOATS, floor: float = 1e-14) -> None:
+    """Slot-for-slot comparison after canonicalisation: alive and ids
+    equal, the float attributes equal to ``rtol`` on alive slots. A value
+    that cancels to near zero (a momentum after two opposite kicks)
+    keeps the absolute rounding of its terms, so each attribute also
+    gets an absolute floor of ``floor`` times its peak."""
+    ref, ra = canon_slots(ref, ref_alive)
+    got, ga = canon_slots(got, got_alive)
+    np.testing.assert_array_equal(ga, ra)
+    for k in ID_KEYS:
+        np.testing.assert_array_equal(np.asarray(got[k])[ga],
+                                      np.asarray(ref[k])[ra], err_msg=k)
+    for k in keys:
+        r = np.asarray(ref[k])[ra]
+        peak = float(np.abs(r).max()) if r.size else 0.0
+        np.testing.assert_allclose(np.asarray(got[k])[ga], r, rtol=rtol,
+                                   atol=max(floor * peak, 1e-300), err_msg=k)

@@ -1,0 +1,159 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card. Marked ``gpu``: they skip without a CUDA device. On a machine with
+one (and without JAX, which tests/conftest.py imports) run
+
+    python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
+
+Tolerances (float64): B1 1e-12 of each array's peak; B2 slot for slot
+after canonicalisation (alive and ids equal, other attributes to rtol
+1e-11), merge counts equal, panels to 1e-12 of their peak; B3 1e-12 of
+the peak. The kernels are compiled without multiply-add contraction, so
+they round like the plain versions; only the current sums run in
+another order.
+"""
+import numpy as np
+import pytest
+import torch
+
+from lambdapic_torch.core.grid import Grid
+from lambdapic_torch.core.state import FieldsState
+from lambdapic_torch.ops import maxwell
+from lambdapic_torch.ops.cellslab import (cell_step, cell_step_plain,
+                                          fold_reduce, fold_reduce_plain,
+                                          panel_shape)
+from lambdapic_torch.ops.cpml import CPMLParams, build_cpml
+from lambdapic_torch.ops.fieldskernel import update_bfield_k, update_efield_k
+from lambdapic_torch.testing import compare_slots, random_cell_state, \
+    to_numpy, to_torch
+
+pytestmark = pytest.mark.gpu
+
+Q, M, DT, DX = -1.602e-19, 9.109e-31, 1.1e-16, 5e-8
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda:0")
+
+
+@pytest.mark.parametrize("bc", ["pml", "periodic"])
+def test_b1_matches_plain(cuda, bc):
+    names = ("xmin", "xmax", "ymin", "ymax")
+    grid = Grid(dimension=2, nx=40, ny=36, dx=1e-6, dy=0.8e-6, npatch_x=1,
+                npatch_y=1, n_guard=3, cpml_thickness=6,
+                boundary_conditions=tuple((n, bc) for n in names))
+    dt = 0.95 / np.sqrt(grid.dx**-2 + grid.dy**-2) / 3e8
+    cpml = build_cpml(grid, dt, CPMLParams()) if bc == "pml" else None
+    rng = np.random.default_rng(0)
+
+    def t(shape, scale=1.0):
+        return torch.as_tensor(rng.normal(size=shape) * scale).to(cuda)
+
+    f = FieldsState(**{k: t(grid.shape, 1e-8 if k[0] == "b" else 1.0)
+                       for k in ("ex", "ey", "ez", "bx", "by", "bz", "jx",
+                                 "jy", "jz", "rho")})
+    if cpml is not None:
+        for axis, ax in enumerate("xy"):
+            shape = list(grid.shape)
+            shape[axis] = cpml.psi_width(ax)
+            comps = ("ey", "ez", "by", "bz") if ax == "x" else \
+                ("ex", "ez", "bx", "bz")
+            for c in comps:
+                f.psi[f"psi_{c}_{ax}"] = t(shape, 1e-3)
+    for k_fn, p_fn in ((update_efield_k, maxwell.update_efield),
+                       (update_bfield_k, maxwell.update_bfield)):
+        got, ref = k_fn(f, grid, dt / 2, cpml), p_fn(f, grid, dt / 2, cpml)
+        for k in ("ex", "ey", "ez", "bx", "by", "bz"):
+            a, b = getattr(got, k), getattr(ref, k)
+            torch.testing.assert_close(a, b, rtol=0,
+                                       atol=1e-12 * float(b.abs().max()))
+        for k in ref.psi:
+            torch.testing.assert_close(got.psi[k], ref.psi[k], rtol=0,
+                                       atol=1e-12 * float(ref.psi[k].abs().max()))
+
+
+@pytest.mark.parametrize("cap,nx,ny,periodic,n_frac", [
+    (4, 16, 16, (True, True), 0.4),
+    (6, 24, 40, (False, False), 0.4),
+    (4, 20, 36, (True, False), 0.9),
+    (20, 33, 18, (False, True), 0.5),
+])
+def test_b2_b3_match_plain(cuda, cap, nx, ny, periodic, n_frac):
+    data, alive, eb = random_cell_state(cap, nx, ny, n_frac=n_frac,
+                                        seed=cap + nx)
+    td, ta = to_torch(data, alive, torch.float64, cuda)
+    eb = torch.as_tensor(eb).to(cuda)
+    rims_in = torch.as_tensor(np.random.default_rng(1).normal(
+        size=panel_shape(4, nx, ny))).to(cuda)
+    kw = dict(q=Q, m=M, dt=DT, dx=DX, dy=DX, g=3, periodic=periodic,
+              rims_in=rims_in)
+    ref = cell_step_plain(eb, td, ta, **kw)
+    before = cell_step.launches
+    got = cell_step(eb, td, ta, **kw)
+    torch.cuda.synchronize()
+    assert cell_step.launches == before + 1
+    compare_slots(*to_numpy(ref[0], ref[1]), *to_numpy(got[0], got[1]),
+                  rtol=1e-11)
+    assert int(got[2]) == int(ref[2])
+    if n_frac > 0.8:
+        assert int(ref[2]) > 0
+    torch.testing.assert_close(got[3], ref[3], rtol=0,
+                               atol=1e-12 * float(ref[3].abs().max()))
+    jr = fold_reduce_plain(ref[3], nx, ny, periodic)
+    jk = fold_reduce(ref[3], nx, ny, periodic)
+    torch.testing.assert_close(jk, jr, rtol=0,
+                               atol=1e-12 * float(jr.abs().max()))
+
+
+def test_wrappers_reject_bad_operands(cuda):
+    data, alive, eb = random_cell_state(4, 16, 16)
+    td, ta = to_torch(data, alive, torch.float64, cuda)
+    td["x"] = td["x"].float()
+    with pytest.raises(ValueError):
+        cell_step(torch.as_tensor(eb).to(cuda), td, ta, q=Q, m=M, dt=DT,
+                  dx=DX, dy=DX, g=3, periodic=(True, True))
+
+
+def test_simulation_on_card_matches_cpu(cuda):
+    """Ten float64 steps of a small laser-target through Simulation.run:
+    the kernel path on the card against the plain path on the CPU."""
+    import lambdapic_torch
+    from lambdapic_torch.core import species as t_species
+    from lambdapic_torch.core.state import state_to_numpy
+    um = 1e-6
+    l0 = 0.8 * um
+    nx, dx = 64, l0 / 16
+
+    def density(x, y):
+        return np.where((x > nx * dx / 2) & (x < nx * dx / 2 + 0.5 * um),
+                        5 * 1.742e27, 0.0)
+
+    def ux(x, y):
+        return 1.5 * np.sin(2 * np.pi * y / (nx * dx))
+
+    states = []
+    for dev in ("cpu", cuda):
+        t_species._ALL_SPECIES.clear()
+        sim = lambdapic_torch.Simulation(
+            nx=nx, ny=48, dx=dx, dy=dx, tiling="cell", random_seed=4,
+            precision="double", device=dev)
+        sim.add_species([
+            lambdapic_torch.Electron(density=density, ppc=4,
+                                     momentum=(ux, ux, None)),
+            lambdapic_torch.Proton(density=density, ppc=2)])
+        sim.run(10, callbacks=[lambdapic_torch.GaussianLaser2D(
+            a0=2, l0=l0, w0=0.6 * um, ctau=0.5 * um, x0=0.0)])
+        states.append(state_to_numpy(sim.state))
+    ref, got = states
+    for k in ("ex", "ey", "ez", "bx", "by", "bz", "jx", "jy", "jz"):
+        a, b = getattr(got.fields, k), getattr(ref.fields, k)
+        np.testing.assert_allclose(a, b, rtol=1e-9,
+                                   atol=1e-9 * np.abs(b).max(), err_msg=k)
+    for pr, pg in zip(ref.particles, got.particles):
+        assert int(pr.overflow.sum()) == int(pg.overflow.sum())
+        compare_slots({k: v[0, 0] for k, v in pr.data.items()},
+                      pr.alive[0, 0],
+                      {k: v[0, 0] for k, v in pg.data.items()},
+                      pg.alive[0, 0], rtol=1e-9)
