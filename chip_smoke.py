@@ -1,27 +1,34 @@
 #!/usr/bin/env python3
 """Run the lambdapic_torch port on one CUDA card and check it.
 
-    python3 chip_smoke.py [--steps N] [--window W]
+    python3 chip_smoke.py [--steps N] [--window W] [--steps3d N] [--window3d W]
 
 Phases (any failure exits non-zero):
 
 1. build the CUDA kernels from lambdapic_torch/csrc (one nvcc per source,
    in parallel) and print nvcc's register and spill lines;
-2. hold each kernel against its plain PyTorch version on the card: in
-   float64 at small sizes under the CPU tests' rules (slot for slot after
-   canonicalisation, with merges in one case), and in float32 at the
-   slice's shapes on aggregates (alive count, total weight, J);
-3. drive the slice, example/laser-target.py at full size without its
+2. hold each kernel, in its 2D and its 3D form, against its plain PyTorch
+   version on the card: in float64 at small sizes under the CPU tests'
+   rules (slot for slot after canonicalisation, with merges in one case),
+   and in float32 at each slice's shapes (alive masks and ids identical,
+   total weight, J panels);
+3. drive the 2D slice, example/laser-target.py at full size without its
    diagnostics (1024 x 1024 cells, three species at 10 particles per cell,
    PML, GaussianLaser2D a0=10, float32), through Simulation.run with the
    launch counters set to 0 just before; check finite fields, particle
    number and weight conservation, and the launches per step
    (B1 4, B2 3, B3 1); time a steady window;
-4. time each kernel with CUDA events at the slice's shapes, and its plain
-   version once.
+4. time each 2D kernel with CUDA events at the slice's shapes, and its
+   plain version once;
+5. the same for the 3D slice, example/laser-target-3d.py at full size
+   without its diagnostics (512 x 256 x 256 cells, electrons and protons
+   at 2 particles per cell, PML on six faces, GaussianLaser3D a0=10,
+   float32), through Simulation3D.run (launches per step B1 4, B2 2,
+   B3 1), and for the 3D kernels at its shapes.
 
-Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
-and as its last line ``{"ok": true, "device": {...}}``.
+Prints a ``{"kernels": [...]}`` line with the 2D and the 3D kernels, the
+card's name and power limit, and as its last line
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -41,6 +48,11 @@ F32_FLOPS = 67e12
 # taps with their spline weights (about 700), Boris (about 60), 5 x 5
 # Esirkepov nodes with their shapes (about 600)
 FLOPS_PER_PARTICLE = 1400
+# the same count from cellstep3d.cu: three half pushes twice and the keys
+# (about 30), 21 spline weights and six staggered gathers of 36-48 taps
+# (about 900), Boris (about 60), 30 Esirkepov shapes with their derived
+# taps and 125 nodes of four channels (about 2300)
+FLOPS_PER_PARTICLE_3D = 3300
 
 
 def log(msg: str) -> None:
@@ -66,47 +78,114 @@ def cuda_time(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
-# __global__ functions of each kernel, as they appear in profiler names
-KERNEL_FUNCS = {"B1": ("e_half", "b_half"),
-                "B2": ("pass_x", "pass_y", "deposit"),
-                "B3": ("fold<",)}
+# __global__ functions of each timed wrapper call, as they appear in
+# profiler names, with their launches per call (an E or a B half-step
+# launches one of B1's two)
+KERNEL_FUNCS = {"B1 E": {"e_half": 1}, "B1 B": {"b_half": 1},
+                "B2": {"pass_x": 1, "pass_y": 1, "deposit": 1},
+                "B3": {"fold<": 1},
+                "B1-3D E": {"e_half3": 1}, "B1-3D B": {"b_half3": 1},
+                "B2-3D": {"rebin": 3, "push<": 1, "deposit": 1},
+                "B3-3D": {"fold3": 1}}
 
 
-def device_times(fn, iters: int):
-    """Device time per call of every CUDA kernel ``fn`` launches, by
-    name, from torch.profiler: {name: (ms per call, launches per call)}."""
+# seconds of untimed calls that precede the timed ones inside the
+# profiler's window, attempt by attempt
+PROFILE_MARGINS = (0.0, 1.0, 4.0)
+# torch.cuda._sleep's kernel, as it appears in profiler names
+SPIN = "spin_kernel"
+
+
+def device_times(fn, iters: int, expected):
+    """Device time of every CUDA kernel that ``iters`` calls of ``fn``
+    launch, by name, from torch.profiler: ({name: (total ms, launches
+    recorded)}, complete). ``expected``: launches per call of ``fn`` of
+    the port's __global__ functions, by the fragment of their names.
+
+    The profiler (Kineto) drops a device record whose time stamp, once
+    converted to the host's clock, lies outside the capture window, and
+    counts it as "Out-of-range" in its log (KINETO_LOG_LEVEL=1). Where
+    the converted device clock runs behind the host's, that loses the
+    first stretch of a profile. So the timed calls follow a marker (a
+    short spin kernel) and only records that start after it are counted;
+    a profile that lacks the marker or an expected launch is taken again
+    with PROFILE_MARGINS seconds of untimed calls of ``fn`` ahead of the
+    marker, which are the ones lost, and the window closed as much later.
+    ``complete`` says whether the last profile recorded every launch."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    tries = len(PROFILE_MARGINS)
+    for attempt, margin in enumerate(PROFILE_MARGINS):
         torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        out[e.key] = (us / 1e3 / iters, e.count / iters)
-    return out
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            while time.time() - t0 < margin:
+                fn()
+                torch.cuda.synchronize()
+            torch.cuda._sleep(1000)
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(margin)
+        events = [e for e in prof.events()
+                  if getattr(e, "device_type", None) == DeviceType.CUDA]
+        marks = [e.time_range.start for e in events if SPIN in e.name]
+        out = {}
+        for e in events:
+            if marks and e.time_range.start > marks[-1]:
+                ms, n = out.get(e.name, (0.0, 0))
+                out[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+        seen = {f: sum(n for name, (_, n) in out.items() if f in name)
+                for f in expected}
+        want = {f: k * iters for f, k in expected.items()}
+        if seen == want:
+            return out, True
+        log(f"[profiler] attempt {attempt + 1} of {tries}: recorded {seen} "
+            f"of {want} launches")
+    return out, False
 
 
 def kernel_ms(fn, iters: int, kernel: str):
-    """(device ms per call from the profiler, or None if it saw no
-    device time; wall ms per call from CUDA events, host included)."""
+    """(device ms per call, summed over the kernel's __global__ functions
+    from a profile that recorded every launch, or None if no profile did;
+    wall ms per call from CUDA events, host included)."""
     wall = cuda_time(fn, iters)
-    times = device_times(fn, iters)
-    dev = sum(ms for name, (ms, _) in times.items()
-              if any(f in name for f in KERNEL_FUNCS[kernel]))
+    funcs = KERNEL_FUNCS[kernel]
+    times, complete = device_times(fn, iters, funcs)
+    if not complete:
+        log(f"[time {kernel}] no complete profile: the wall time stands in")
+        return None, wall
+    dev = 0.0
     for name, (ms, n) in sorted(times.items(), key=lambda kv: -kv[1][0]):
-        if any(f in name for f in KERNEL_FUNCS[kernel]):
-            log(f"[time {kernel}] {ms * 1e3:9.2f} us x{n:g}  {name[:90]}")
-    return (dev if dev > 0 else None), wall
+        if any(f in name for f in funcs):
+            dev += ms / iters
+            log(f"[time {kernel}] {ms / n * 1e3:10.2f} us a launch, {n} "
+                f"launches in {iters} calls  {name[:80]}")
+    return dev, wall
+
+
+def busy_per_step(fn, expected, steps: int, tag: str, step_ms: float):
+    """Device-busy ms per step: the summed device time of every kernel and
+    copy in a profile of ``steps`` calls of ``fn`` (one step each), over
+    ``steps``. ``expected``: launches per step of the port's __global__
+    functions. None, and so logged, if no profile recorded them all."""
+    times, complete = device_times(fn, steps, expected)
+    for name, (ms, n) in sorted(times.items(), key=lambda kv: -kv[1][0])[:14]:
+        if n:
+            log(f"[{tag}] {ms / n * 1e3:10.2f} us a launch, {n} recorded in "
+                f"{steps} steps  {name[:80]}")
+    if not complete:
+        log(f"[{tag}] device busy share: not measured (no profile recorded "
+            "every launch of the port's kernels)")
+        return None
+    busy = sum(ms for ms, _ in times.values()) / steps
+    log(f"[{tag}] device busy {busy:.3f} ms per step = "
+        f"{100 * busy / step_ms:.1f}% of the timed window's step; idle "
+        f"{100 * (1 - busy / step_ms):.1f}%")
+    return busy
 
 
 # ---------------------------------------------------------------------------
@@ -160,7 +239,7 @@ def check_b1(grid, cpml, dtype, dev, tol, seed=0):
     from lambdapic_torch.ops import maxwell
     from lambdapic_torch.ops.fieldskernel import update_bfield_k, update_efield_k
     f = _random_fields(grid, cpml, dtype, dev, seed)
-    dt = 0.95 / np.sqrt(grid.dx**-2 + grid.dy**-2) / 3e8
+    dt = 0.95 / np.sqrt(sum(d**-2 for d in grid.deltas)) / 3e8
     worst = (0.0, 0.0)
     for k_fn, p_fn in ((update_efield_k, maxwell.update_efield),
                        (update_bfield_k, maxwell.update_bfield)):
@@ -207,8 +286,8 @@ def check_b2_f64(dev):
         err = float((got[3] - ref[3]).abs().max())
         if not err <= 1e-12 * scale:
             fail(f"B2 panels differ: {err:.3e} > 1e-12 x {scale:.3e}")
-        jr = fold_reduce_plain(ref[3], nx, ny, per)
-        jk = fold_reduce(ref[3], nx, ny, per)
+        jr = fold_reduce_plain(ref[3], (nx, ny), per)
+        jk = fold_reduce(ref[3], (nx, ny), per)
         err = float((jk - jr).abs().max())
         if not err <= 1e-12 * float(jr.abs().max()):
             fail(f"B3 differs from its plain version: {err:.3e}")
@@ -220,14 +299,22 @@ def check_b2_f64(dev):
 def compare_b2_f32(eb_pad, p, sp, dt, grid, periodic):
     """Kernel B2 against its plain version at the slice's shapes in
     float32: alive masks and ids identical, merges equal, total weight to
-    1e-6, J panels to 1e-4 of their peak."""
+    1e-6, J panels to 1e-4 of their peak. The slice's particles start at
+    rest, and a particle at rest changes no cell (re-binning comes before
+    the momentum push), so one kernel step first gives them momenta; the
+    step that is compared then re-bins them across cells."""
     import torch
     from lambdapic_torch.ops.cellslab import cell_step, cell_step_plain
     kw = dict(q=sp.q, m=sp.m, dt=dt, dx=grid.dx, dy=grid.dy, g=grid.n_guard,
-              periodic=periodic, with_rho=False)
-    ref = cell_step_plain(eb_pad, p.data, p.alive, **kw)
-    got = cell_step(eb_pad, p.data, p.alive, **kw)
+              periodic=periodic, with_rho=False,
+              dz=grid.dz if grid.dimension == 3 else None)
+    data, alive = cell_step(eb_pad, p.data, p.alive, **kw)[:2]
+    ref = cell_step_plain(eb_pad, data, alive, **kw)
+    got = cell_step(eb_pad, data, alive, **kw)
     torch.cuda.synchronize()
+    moved = int((got[1] != alive).sum())
+    if moved == 0:
+        fail("B2 float32: the compared step re-binned no particle")
     n_ref, n_got = int(ref[1].sum()), int(got[1].sum())
     if n_ref != n_got or int(ref[2]) != int(got[2]):
         fail(f"B2 float32: alive {n_got} vs {n_ref}, merges {int(got[2])} "
@@ -246,7 +333,8 @@ def compare_b2_f32(eb_pad, p, sp, dt, grid, periodic):
     same = torch.equal(got[1], ref[1]) and all(
         torch.equal(got[0][k][got[1]], ref[0][k][ref[1]])
         for k in ("id_lo", "id_hi"))
-    log(f"[B2 f32] alive {n_got} merges {int(got[2])} weight rel "
+    log(f"[B2 f32 {grid.dimension}D] {moved} slots changed occupancy; "
+        f"alive {n_got} merges {int(got[2])} weight rel "
         f"{abs(w_got - w_ref) / abs(w_ref):.2e} panels {err:.3e} of peak "
         f"{scale:.3e}; slots identical: {same}")
     if not same:
@@ -312,6 +400,23 @@ def gather_nodes(alive, g):
     return total
 
 
+def edge_sitters(sim):
+    """Per species, the alive particles whose stored float32 position lies
+    on or beyond an open face's edge (pos >= n - 0.5 or < -0.5): a position
+    drawn within half a float32 step of the box's upper edge rounds onto
+    it, and the first re-binning hands such a particle to the open face."""
+    import torch
+    out = []
+    for p in sim.state.particles:
+        gone = torch.zeros_like(p.alive)
+        for ax, n, per in zip(sim.grid.axes, sim.grid.shape,
+                              sim.grid.periodic_axes):
+            if not per:
+                gone |= (p.data[ax] >= n - 0.5) | (p.data[ax] < -0.5)
+        out.append(int((gone & p.alive).sum()))
+    return out
+
+
 def totals(sim):
     import torch
     out = []
@@ -322,33 +427,16 @@ def totals(sim):
     return out
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--steps", type=int, default=2001,
-                    help="slice steps through Simulation.run (the example "
-                         "runs 2001)")
-    ap.add_argument("--window", type=int, default=200,
-                    help="final steps timed as the steady window")
-    ap.add_argument("--iters", type=int, default=50,
-                    help="launches per kernel timing")
-    args = ap.parse_args()
-
+def run_2d(args, dev):
+    """Phases 2-4 for the 2D kernels and the 2D slice; returns the 2D
+    kernels' entries of the ``kernels`` line."""
     import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
     from lambdapic_torch.ops import cellslab, fieldskernel, maxwell
     from lambdapic_torch.ops.cellslab import (cell_step, cell_step_plain,
                                               fold_reduce, fold_reduce_plain,
                                               panel_shape)
     from lambdapic_torch.ops.cpml import CPMLParams, build_cpml
     from lambdapic_torch.core.grid import Grid
-
-    dev = torch.device("cuda:0")
-    t_start = time.time()
-    log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
-    phase_build()
 
     # -- phase 2a: float64, small -------------------------------------------
     for bc in ("pml", "periodic"):
@@ -388,8 +476,8 @@ def main() -> int:
     got, ref, errs["B2"] = compare_b2_f32(
         eb_pad, sim.state.particles[0], sim._species_static[0], sim.dt, grid,
         periodic)
-    jr = fold_reduce_plain(ref[3], grid.nx, grid.ny, periodic)
-    jk = fold_reduce(ref[3], grid.nx, grid.ny, periodic)
+    jr = fold_reduce_plain(ref[3], grid.shape, periodic)
+    jk = fold_reduce(ref[3], grid.shape, periodic)
     errs["B3"] = float((jk - jr).abs().max())
     if not errs["B3"] <= 1e-5 * float(jr.abs().max()):
         fail(f"B3 float32 differs: {errs['B3']:.3e}")
@@ -450,15 +538,9 @@ def main() -> int:
     npart = sum(n for n, _, _ in after)
     log(f"[slice] step {step_ms:.3f} ms (host clock, synchronised), "
         f"{npart / (step_ms * 1e-3):.4e} pushes/s, peak |ey| {ey_peak:.3e}")
-    prof_steps = 10
-    times = device_times(lambda: sim.run(nsteps=1, callbacks=[laser]),
-                         prof_steps)
-    busy = sum(ms for ms, _ in times.values())
-    log(f"[profile] device busy {busy:.3f} ms per step = "
-        f"{100 * busy / step_ms:.1f}% of the timed window's step; idle "
-        f"{100 * (1 - busy / step_ms):.1f}%")
-    for name, (ms, n) in sorted(times.items(), key=lambda kv: -kv[1][0])[:12]:
-        log(f"[profile] {ms * 1e3:9.2f} us/step x{n:g}  {name[:90]}")
+    busy_per_step(lambda: sim.run(nsteps=1, callbacks=[laser]),
+                  {"e_half": 2, "b_half": 2, "pass_x": 3, "pass_y": 3,
+                   "deposit": 3, "fold<": 1}, 10, "profile", step_ms)
 
     # -- phase 4: kernel times at the slice's shapes ---------------------------
     f = sim.state.fields
@@ -468,8 +550,8 @@ def main() -> int:
                                                coeffs["e"])
     b_k = lambda: fieldskernel.update_bfield_k(f, grid, dt / 2, cpml,
                                                coeffs["b"])
-    dev_e, wall_e = kernel_ms(e_k, args.iters, "B1")
-    dev_b, wall_b = kernel_ms(b_k, args.iters, "B1")
+    dev_e, wall_e = kernel_ms(e_k, args.iters, "B1 E")
+    dev_b, wall_b = kernel_ms(b_k, args.iters, "B1 B")
     ms_b1 = (dev_e + dev_b) / 2 if dev_e and dev_b else (wall_e + wall_b) / 2
     log(f"[time B1] device {ms_b1:.4f} ms per launch, wall "
         f"{(wall_e + wall_b) / 2:.4f} ms per call")
@@ -523,11 +605,11 @@ def main() -> int:
         f"{bytes_b2 / HBM_BPS * 1e3:.4f} ms; operations {ops_ms_b2:.4f} ms")
     del out
     dev_b3, wall_b3 = kernel_ms(
-        lambda: fold_reduce(rims, grid.nx, grid.ny, periodic), args.iters, "B3")
+        lambda: fold_reduce(rims, grid.shape, periodic), args.iters, "B3")
     ms_b3 = dev_b3 or wall_b3
     log(f"[time B3] device {ms_b3:.4f} ms per launch, wall {wall_b3:.4f} ms "
         "per call")
-    plain_b3 = cuda_time(lambda: fold_reduce_plain(rims, grid.nx, grid.ny,
+    plain_b3 = cuda_time(lambda: fold_reduce_plain(rims, grid.shape,
                                                    periodic), 1)
     bound_b3 = (pan_b + ncomp * cell) / HBM_BPS * 1e3
     per_step = {k: v // steps for k, v in launches.items()}
@@ -551,7 +633,444 @@ def main() -> int:
              plain_ms=plain_b3, bound_ms=bound_b3, bound_by="bytes",
              library_ms=None),
     ]
-    log(f"[kernels] launches per step {per_step}; total {time.time() - t_start:.1f} s")
+    log(f"[kernels 2D] launches per step {per_step}")
+    return kernels
+
+
+# ---------------------------------------------------------------------------
+# 3D
+# ---------------------------------------------------------------------------
+
+# default 3D step count: the example's own
+STEPS_3D = 1001
+
+
+def check_b2_f64_3d(dev):
+    """Slot-for-slot float64 comparisons of the 3D kernels B2 and B3 at
+    small sizes (periodic, open, mixed faces, a case built to merge, a
+    grid that no tile divides); returns the merging case's merge count."""
+    import torch
+    from lambdapic_torch.ops.cellslab import (cell_step, cell_step_plain,
+                                              fold_reduce, fold_reduce_plain,
+                                              panel_shape)
+    from lambdapic_torch.testing import compare_slots, random_cell_state, \
+        to_numpy, to_torch
+    q, m, dt = -1.602e-19, 9.109e-31, 1.1e-16
+    dx, dy, dz = 5e-8, 6e-8, 5.5e-8
+    merges = 0
+    cases = [(4, 16, 8, 8, (True, True, True), 0.4),
+             (6, 12, 10, 20, (False, False, False), 0.4),
+             (4, 10, 18, 9, (True, False, True), 0.9),
+             (20, 9, 8, 11, (False, True, False), 0.5),
+             (8, 8, 16, 8, (True, True, True), 0.85)]
+    for cap, nx, ny, nz, per, frac in cases:
+        data, alive, eb = random_cell_state(cap, nx, ny, nz, n_frac=frac,
+                                            seed=cap + nx)
+        td, ta = to_torch(data, alive, torch.float64, dev)
+        eb_t = torch.as_tensor(eb).to(dev)
+        kw = dict(q=q, m=m, dt=dt, dx=dx, dy=dy, dz=dz, g=3, periodic=per)
+        rin = torch.as_tensor(np.random.default_rng(1).normal(
+            size=panel_shape(4, nx, ny, nz))).to(dev)
+        ref = cell_step_plain(eb_t, td, ta, rims_in=rin, **kw)
+        got = cell_step(eb_t, td, ta, rims_in=rin, **kw)
+        torch.cuda.synchronize()
+        compare_slots(*to_numpy(ref[0], ref[1]), *to_numpy(got[0], got[1]),
+                      rtol=1e-11)
+        if int(got[2]) != int(ref[2]):
+            fail(f"B2 3D merge count {int(got[2])} != plain {int(ref[2])}")
+        merges = max(merges, int(ref[2]))
+        scale = float(ref[3].abs().max())
+        err = float((got[3] - ref[3]).abs().max())
+        if not err <= 1e-12 * scale:
+            fail(f"B2 3D panels differ: {err:.3e} > 1e-12 x {scale:.3e}")
+        jr = fold_reduce_plain(ref[3], (nx, ny, nz), per)
+        jk = fold_reduce(ref[3], (nx, ny, nz), per)
+        err = float((jk - jr).abs().max())
+        if not err <= 1e-12 * float(jr.abs().max()):
+            fail(f"B3 3D differs from its plain version: {err:.3e}")
+    if merges == 0:
+        fail("no 3D B2 float64 case merged particles")
+    return merges
+
+
+def make_slice_3d(dev, seed=0):
+    """example/laser-target-3d.py at full size (512 x 256 x 256), without
+    its diagnostics. The density is the example's step profile written
+    with np.where, so the 33.5 M cells are evaluated in one numpy call
+    instead of one Python call each."""
+    from lambdapic_torch import Electron, GaussianLaser3D, Proton, Simulation3D
+    from lambdapic_torch.constants import c, e, epsilon_0, m_e, pi
+    um = 1e-6
+    l0 = 0.8 * um
+    omega0 = 2 * pi * c / l0
+    nc = epsilon_0 * m_e * omega0**2 / e**2
+    nx, ny, nz = 512, 256, 256
+    dx, dy, dz = l0 / 20, l0 / 10, l0 / 10
+    Lx = nx * dx
+
+    def density(n0):
+        def _density(x, y, z):
+            return np.where(x > 1 * um, n0, 0.0)
+        return _density
+
+    laser = GaussianLaser3D(a0=10, w0=2e-6, l0=0.8e-6, ctau=5e-6,
+                            focus_position=Lx / 2, x0=10e-6)
+    sim = Simulation3D(tiling="cell", nx=nx, ny=ny, nz=nz, dx=dx, dy=dy,
+                       dz=dz, random_seed=seed, device=dev)
+    ele = Electron(density=density(1 * nc), ppc=2)
+    proton = Proton(density=density(1 * nc), ppc=2)
+    sim.add_species([ele, proton])
+    return sim, laser
+
+
+def gather_nodes_3d(alive, g):
+    """Nodes of the padded 3D E/B stack that B2's staggered gather reads
+    from the cells holding a particle, summed over the six components."""
+    import torch
+    occ = alive.any(0)
+    nx, ny, nz = occ.shape
+    total = 0
+    # (half along x, y, z) of ex ey ez bx by bz
+    for hx, hy, hz in ((1, 0, 0), (0, 1, 0), (0, 0, 1),
+                       (0, 1, 1), (1, 0, 1), (1, 1, 0)):
+        need = torch.zeros((nx + 2 * g, ny + 2 * g, nz + 2 * g),
+                           dtype=torch.bool, device=occ.device)
+        for ox in range(-2 if hx else -1, 2):
+            for oy in range(-2 if hy else -1, 2):
+                for oz in range(-2 if hz else -1, 2):
+                    need[g + ox:g + ox + nx, g + oy:g + oy + ny,
+                         g + oz:g + oz + nz] |= occ
+        total += int(need.sum())
+    return total
+
+
+def sub_volume(p, grid, sub):
+    """The last ``sub`` x-planes of a species' slots as a state of their
+    own (x re-based), with the grid that goes with it."""
+    import dataclasses
+    from types import SimpleNamespace
+    from lambdapic_torch.ops.cellslab import FLOAT_PAYLOADS, ID_PAYLOADS
+    x0 = grid.nx - sub
+    data = {k: p.data[k][:, x0:].contiguous()
+            for k in FLOAT_PAYLOADS + ("inv_gamma",) + ID_PAYLOADS}
+    data["x"] = data["x"] - float(x0)
+    return (SimpleNamespace(data=data, alive=p.alive[:, x0:].contiguous()),
+            dataclasses.replace(grid, nx=sub))
+
+
+# The plain version of 3D kernel B2 holds temporaries many times the state
+# (125 deposit offsets, the gather's taps), so at the slice's 512 x 256 x
+# 256 cells it does not fit the card. It is held against the kernel on the
+# last COMPARE_PLANES_3D x-planes of the initial state (4 slots a cell) and
+# timed on the last PLAIN_PLANES_3D x-planes of the final state (8 slots a
+# cell, beside the slice's own 40 GiB). Both are fixed: running out of
+# memory fails the run.
+COMPARE_PLANES_3D = 256
+PLAIN_PLANES_3D = 128
+
+
+def compare_b2_f32_3d(sim, dev):
+    """Kernel B2 (3D) against its plain version in float32 on the last
+    COMPARE_PLANES_3D x-planes of the slice's electrons. Returns (kernel
+    panels, max panel error, the sub-grid)."""
+    import torch
+    g = sim.grid.n_guard
+    p, sgrid = sub_volume(sim.state.particles[0], sim.grid,
+                          COMPARE_PLANES_3D)
+    rng = np.random.default_rng(3)
+    # fields strong enough to move electrons across cells in one step
+    eb_pad = torch.as_tensor(
+        rng.uniform(-5e13, 5e13, (6,) + tuple(n + 2 * g for n in sgrid.shape)
+                    ).astype(np.float32)).to(dev)
+    got, ref, err = compare_b2_f32(eb_pad, p, sim._species_static[0], sim.dt,
+                                   sgrid, sgrid.periodic_axes)
+    log(f"[B2 f32 3D] compared on {sgrid.shape} cells, {p.alive.numel()} "
+        "slots")
+    return got[3], err, sgrid
+
+
+def run_3d(args, dev):
+    """Phase 5: the 3D kernels against their plain versions, the 3D slice
+    through Simulation3D.run, and the 3D kernels' times and bounds;
+    returns the 3D kernels' entries of the ``kernels`` line."""
+    import torch
+    from lambdapic_torch.ops import cellslab, fieldskernel, maxwell
+    from lambdapic_torch.ops.cellslab import (cell_step, cell_step_plain,
+                                              fold_reduce, fold_reduce_plain,
+                                              panel_shape)
+    from lambdapic_torch.ops.cpml import CPMLParams, build_cpml
+    from lambdapic_torch.core.grid import Grid
+
+    # -- float64, small -----------------------------------------------------
+    faces = ("xmin", "xmax", "ymin", "ymax", "zmin", "zmax")
+    for name, bc in (("pml", ("pml",) * 6), ("periodic", ("periodic",) * 6),
+                     ("mixed", ("pml", "pml", "periodic", "periodic", "pml",
+                                "pml"))):
+        grid = Grid(dimension=3, nx=20, ny=18, nz=22, dx=1e-6, dy=0.8e-6,
+                    dz=1.2e-6, npatch_x=1, npatch_y=1, npatch_z=1, n_guard=3,
+                    cpml_thickness=6,
+                    boundary_conditions=tuple(zip(faces, bc)))
+        dt = 0.95 / np.sqrt(sum(d**-2 for d in grid.deltas)) / 3e8
+        cpml = build_cpml(grid, dt, CPMLParams()) if name != "periodic" \
+            else None
+        err = check_b1(grid, cpml, torch.float64, dev, tol=1e-12)
+        log(f"[B1 3D f64 {name}] max abs {err[0]:.3e}, {err[1]:.3e} of peak")
+    merges = check_b2_f64_3d(dev)
+    log(f"[B2/B3 3D f64] slot-exact in 5 cases, merges in the merging case: "
+        f"{merges}")
+
+    # -- the slice state ------------------------------------------------------
+    t0 = time.time()
+    sim, laser = make_slice_3d(dev)
+    sim.initialize()
+    torch.cuda.synchronize()
+    log(f"[slice 3D] initialised in {time.time() - t0:.1f} s (host numpy "
+        f"fill and binning, then copied to the card): {sim.npart_alive} "
+        f"particles, slots {[p.cap for p in sim.state.particles]}, "
+        f"dt {sim.dt:.4e} s, device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    grid, cpml = sim.grid, sim.cpml
+    periodic = grid.periodic_axes
+    g = grid.n_guard
+    shape_s = "x".join(str(n) for n in grid.shape)
+
+    # -- float32 at the slice's shapes -----------------------------------------
+    errs = {}
+    err = check_b1(grid, cpml, torch.float32, dev, tol=1e-5, seed=1)
+    errs["B1"] = err[0]
+    log(f"[B1 3D f32 {shape_s}] max abs {err[0]:.3e}, {err[1]:.3e} of peak")
+    torch.cuda.empty_cache()
+    rims, errs["B2"], sgrid = compare_b2_f32_3d(sim, dev)
+    jr = fold_reduce_plain(rims, sgrid.shape, sgrid.periodic_axes)
+    jk = fold_reduce(rims, sgrid.shape, sgrid.periodic_axes)
+    errs["B3"] = float((jk - jr).abs().max())
+    if not errs["B3"] <= 1e-5 * float(jr.abs().max()):
+        fail(f"B3 3D float32 differs: {errs['B3']:.3e}")
+    log(f"[B3 3D f32 {'x'.join(str(n) for n in sgrid.shape)}] max abs "
+        f"{errs['B3']:.3e} of peak {float(jr.abs().max()):.3e}")
+    del rims, jr, jk
+    torch.cuda.empty_cache()
+
+    # -- the main path ---------------------------------------------------------
+    # The plasma fills the box from x = 1 um to its open faces and starts
+    # at rest. In the first steps nothing can reach a face (the laser
+    # enters 17 cells before the plasma edge, 25 cells from xmin): particle
+    # number (alive + merged) and weight are checked there. The last
+    # --window3d steps are timed.
+    before = totals(sim)
+    on_edge = edge_sitters(sim)
+    log(f"[slice 3D] particles stored on an open face's edge: {on_edge}")
+    for fn in (fieldskernel.update_half_k, cellslab.cell_step,
+               cellslab.fold_reduce):
+        fn.launches = 0
+    steps_all = args.steps3d
+    n_timed = min(args.window3d, steps_all)
+    n_a = min(steps_all - n_timed, 20)
+    n_b = steps_all - n_timed - n_a
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    sim.run(nsteps=n_a, callbacks=[laser])
+    torch.cuda.synchronize()
+    mid = totals(sim)
+    if n_b:
+        sim.run(nsteps=n_b, callbacks=[laser])
+    torch.cuda.synchronize()
+    t1 = time.time()
+    sim.run(nsteps=n_timed, callbacks=[laser])
+    torch.cuda.synchronize()
+    t2 = time.time()
+    launches = {"B1": fieldskernel.update_half_k.launches,
+                "B2": cellslab.cell_step.launches,
+                "B3": cellslab.fold_reduce.launches}
+    after = totals(sim)
+    steps = sim.itime
+    log(f"[slice 3D] {steps} steps of the example's 1001: first {n_a + n_b} "
+        f"in {t1 - t0:.2f} s, window {n_timed} in {t2 - t1:.3f} s; launches "
+        f"{launches}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    want = {"B1": 4 * steps, "B2": 2 * steps, "B3": steps}
+    if launches != want:
+        fail(f"3D launch counts {launches} != {want}")
+    for k in ("ex", "ey", "ez", "bx", "by", "bz", "jx", "jy", "jz"):
+        if not bool(torch.isfinite(getattr(sim.state.fields, k)).all()):
+            fail(f"3D field {k} is not finite")
+    for (n0, m0, w0), (n1, m1, w1), (n2, m2, w2), edge, sp in zip(
+            before, mid, after, on_edge, sim.species):
+        log(f"[slice 3D] {sp.name}: alive {n0} -> {n1} (step {n_a}) -> {n2}, "
+            f"merges {m1 - m0} -> {m2 - m0}, weight {w0:.7e} -> {w1:.7e} "
+            f"-> {w2:.7e}, slots per cell {sim.state.particles[sp.ispec].cap}")
+        if n1 + (m1 - m0) != n0 - edge:
+            fail(f"3D {sp.name}: particles not conserved to step {n_a} ({n0} "
+                 f"- {edge} on an edge -> {n1} + {m1 - m0} merges)")
+        if not abs(w1 - w0) <= 1e-5 * w0:
+            fail(f"3D {sp.name}: weight not conserved to step {n_a} ({w0} -> "
+                 f"{w1})")
+        if n2 + (m2 - m0) > n0 or not w2 <= w0 * (1 + 1e-5):
+            fail(f"3D {sp.name}: particles or weight grew ({n0} -> {n2}, "
+                 f"{w0} -> {w2})")
+    ey_peak = float(sim.state.fields.ey.abs().max())
+    jx_peak = float(sim.state.fields.jx.abs().max())
+    if not (ey_peak > 0 and jx_peak > 0):
+        fail(f"3D: the laser did not reach the plasma (peak |ey| {ey_peak}, "
+             f"peak |jx| {jx_peak})")
+    step_ms = (t2 - t1) * 1e3 / n_timed
+    npart = sum(n for n, _, _ in after)
+    log(f"[slice 3D] step {step_ms:.3f} ms (host clock, synchronised), "
+        f"{npart / (step_ms * 1e-3):.4e} pushes/s, peak |ey| {ey_peak:.3e}, "
+        f"peak |jx| {jx_peak:.3e}")
+    busy_per_step(lambda: sim.run(nsteps=1, callbacks=[laser]),
+                  {"e_half3": 2, "b_half3": 2, "rebin": 6, "push<": 2,
+                   "deposit": 2, "fold3": 1}, 3, "profile 3D", step_ms)
+
+    # -- kernel times at the slice's shapes -------------------------------------
+    f = sim.state.fields
+    coeffs = sim._builder._coeffs
+    dt = sim.dt
+    iters = args.iters3d
+    e_k = lambda: fieldskernel.update_efield_k(f, grid, dt / 2, cpml,
+                                               coeffs["e"])
+    b_k = lambda: fieldskernel.update_bfield_k(f, grid, dt / 2, cpml,
+                                               coeffs["b"])
+    dev_e, wall_e = kernel_ms(e_k, iters, "B1-3D E")
+    dev_b, wall_b = kernel_ms(b_k, iters, "B1-3D B")
+    ms_b1 = (dev_e + dev_b) / 2 if dev_e and dev_b else (wall_e + wall_b) / 2
+    log(f"[time B1 3D] device {ms_b1:.4f} ms per launch, wall "
+        f"{(wall_e + wall_b) / 2:.4f} ms per call")
+    plain_b1 = (cuda_time(lambda: maxwell.update_efield(f, grid, dt / 2, cpml), 1)
+                + cuda_time(lambda: maxwell.update_bfield(f, grid, dt / 2, cpml),
+                            1)) / 2
+    torch.cuda.empty_cache()
+    isz = f.ex.element_size()
+    cell = int(np.prod(grid.shape)) * isz
+
+    def psi_bytes(prefix):
+        return sum(v.numel() * isz for k, v in f.psi.items()
+                   if k.startswith(prefix))
+    # E half: 9 fields read, 3 written, its six psi slabs read and written;
+    # B half: 6 read, 3 written, its own six; the mean of the two
+    bound_b1 = ((12 * cell + 2 * psi_bytes("psi_e"))
+                + (9 * cell + 2 * psi_bytes("psi_b"))) / 2 / HBM_BPS * 1e3
+
+    p = sim.state.particles[0]
+    sp = sim._species_static[0]
+    eb_pad = sim._builder.pad_eb(f)
+    kw = dict(q=sp.q, m=sp.m, dt=dt, dx=grid.dx, dy=grid.dy, dz=grid.dz, g=g,
+              periodic=periodic, with_rho=sim._builder.with_rho)
+    dev_b2, wall_b2 = kernel_ms(
+        lambda: cell_step(eb_pad, p.data, p.alive, **kw), iters, "B2-3D")
+    ms_b2 = dev_b2 or wall_b2
+    log(f"[time B2 3D] device {ms_b2:.4f} ms per launch, wall {wall_b2:.4f} "
+        "ms per call")
+    ncomp = 4 if sim._builder.with_rho else 3
+    pan_b = int(np.prod(panel_shape(ncomp, *grid.shape))) * isz
+    out = cell_step(eb_pad, p.data, p.alive, **kw)
+    rims = out[3]
+    slots = p.alive.numel()
+    n_alive = int(p.alive.sum())
+    # counted as the 2D bound: the alive mask, the alive slots' payloads,
+    # the E/B nodes gathered from occupied cells; every slot and the panels
+    # written once
+    slot_b = 1 + 8 * isz + 2 * 4
+    bytes_b2 = (slots + n_alive * (slot_b - 1) + slots * slot_b
+                + gather_nodes_3d(out[1], g) * isz + pan_b)
+    ops_ms_b2 = n_alive * FLOPS_PER_PARTICLE_3D / F32_FLOPS * 1e3
+    bound_b2 = max(bytes_b2 / HBM_BPS * 1e3, ops_ms_b2)
+    by_b2 = "bytes" if bound_b2 > ops_ms_b2 else "operations"
+    log(f"[bound B2 3D] {n_alive} of {slots} slots alive: {bytes_b2} bytes, "
+        f"{bytes_b2 / HBM_BPS * 1e3:.4f} ms; operations {ops_ms_b2:.4f} ms")
+    del out
+    torch.cuda.empty_cache()
+    # the plain version is timed on the timed state's last PLAIN_PLANES_3D
+    # x-planes, and the kernel on the same planes beside it
+    psub, pgrid = sub_volume(p, grid, PLAIN_PLANES_3D)
+    eb_sub = eb_pad[:, grid.nx - pgrid.nx:].contiguous()
+    kw_sub = dict(kw, periodic=pgrid.periodic_axes)
+    plain_b2 = cuda_time(lambda: cell_step_plain(eb_sub, psub.data,
+                                                 psub.alive, **kw_sub), 1)
+    torch.cuda.empty_cache()
+    sub_b2 = cuda_time(lambda: cell_step(eb_sub, psub.data, psub.alive,
+                                         **kw_sub), iters)
+    plain_cells = list(pgrid.shape)
+    log(f"[time B2 3D] on {'x'.join(str(n) for n in plain_cells)} cells "
+        f"with {p.cap} slots each: plain version {plain_b2:.1f} ms, kernel "
+        f"{sub_b2:.3f} ms (wall, CUDA events)")
+    del psub, eb_sub
+    torch.cuda.empty_cache()
+    dev_b3, wall_b3 = kernel_ms(
+        lambda: fold_reduce(rims, grid.shape, periodic), iters, "B3-3D")
+    ms_b3 = dev_b3 or wall_b3
+    log(f"[time B3 3D] device {ms_b3:.4f} ms per launch, wall {wall_b3:.4f} "
+        "ms per call")
+    plain_b3 = cuda_time(lambda: fold_reduce_plain(rims, grid.shape,
+                                                   periodic), 1)
+    # B3's plain version does fit at the slice's full shape: hold the
+    # kernel against it there too, on the timed species' panels
+    jr = fold_reduce_plain(rims, grid.shape, periodic)
+    err_b3 = float((fold_reduce(rims, grid.shape, periodic) - jr).abs().max())
+    if not err_b3 <= 1e-5 * float(jr.abs().max()):
+        fail(f"B3 3D float32 differs at {shape_s}: {err_b3:.3e}")
+    log(f"[B3 3D f32 {shape_s}] max abs {err_b3:.3e} of peak "
+        f"{float(jr.abs().max()):.3e}")
+    errs["B3"] = max(errs["B3"], err_b3)
+    del jr
+    bound_b3 = (pan_b + ncomp * cell) / HBM_BPS * 1e3
+    per_step = {k: v // steps for k, v in launches.items()}
+    kernels = [
+        dict(name="B1 fields half-step, 3D", route="cuda",
+             source="lambdapic_torch/csrc/fields3d.cu",
+             replaces="lambdapic_tpu/ops/fieldspallas.py:207",
+             launches=launches["B1"], max_abs_err=errs["B1"], ms=ms_b1,
+             plain_ms=plain_b1, bound_ms=bound_b1, bound_by="bytes",
+             library_ms=None),
+        dict(name="B2 cell particle stage, 3D", route="cuda",
+             source="lambdapic_torch/csrc/cellstep3d.cu",
+             replaces="lambdapic_tpu/ops/cellslab.py:546",
+             launches=launches["B2"], max_abs_err=errs["B2"], ms=ms_b2,
+             plain_ms=plain_b2, plain_cells=plain_cells,
+             ms_at_plain_cells=sub_b2, bound_ms=bound_b2, bound_by=by_b2,
+             library_ms=None),
+        dict(name="B3 rim fold, 3D", route="cuda",
+             source="lambdapic_torch/csrc/fold3d.cu",
+             replaces="lambdapic_tpu/ops/cellslab.py:2098",
+             launches=launches["B3"], max_abs_err=errs["B3"], ms=ms_b3,
+             plain_ms=plain_b3, bound_ms=bound_b3, bound_by="bytes",
+             library_ms=None),
+    ]
+    log(f"[kernels 3D] launches per step {per_step}")
+    return kernels
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--steps", type=int, default=2001,
+                    help="2D slice steps through Simulation.run (the example "
+                         "runs 2001)")
+    ap.add_argument("--window", type=int, default=200,
+                    help="final 2D steps timed as the steady window")
+    ap.add_argument("--steps3d", type=int, default=STEPS_3D,
+                    help="3D slice steps through Simulation3D.run (the "
+                         "example runs 1001)")
+    ap.add_argument("--window3d", type=int, default=20,
+                    help="final 3D steps timed as the steady window")
+    ap.add_argument("--iters", type=int, default=50,
+                    help="launches per 2D kernel timing")
+    ap.add_argument("--iters3d", type=int, default=5,
+                    help="launches per 3D kernel timing")
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda:0")
+    t_start = time.time()
+    log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    phase_build()
+    kernels = run_2d(args, dev)
+    log(f"[time] 2D done at {time.time() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+    kernels += run_3d(args, dev)
+    log(f"[time] total {time.time() - t_start:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -1,7 +1,7 @@
-"""Static grid geometry, 2D (counterpart of lambdapic_tpu/core/grid.py).
+"""Static grid geometry, 2D and 3D (counterpart of lambdapic_tpu/core/grid.py).
 
-The port runs on one device, so the mesh is always 1 x 1: ``nx_loc`` is
-``nx``. Coordinate conventions are the JAX package's: cell centres of
+The port runs on one device, so the mesh is always 1 x 1 (x 1):
+``nx_loc`` is ``nx``. Coordinate conventions are the JAX package's: cell centres of
 the global grid sit at ``i*dx``, and particle positions are stored in
 units of the cell size, relative to the domain origin (cell centres at
 0..nx-1, domain [-0.5, nx-0.5)).
@@ -26,6 +26,9 @@ class Grid:
     n_guard: int
     cpml_thickness: int
     boundary_conditions: Tuple[Tuple[str, str], ...]  # (name, 'pml'|'periodic')
+    nz: int = 1
+    dz: float = 1.0
+    npatch_z: int = 1
 
     @property
     def bc(self) -> Dict[str, str]:
@@ -40,6 +43,10 @@ class Grid:
         return self.ny // self.npatch_y
 
     @property
+    def nz_loc(self) -> int:
+        return self.nz // self.npatch_z
+
+    @property
     def Lx(self) -> float:
         return self.nx * self.dx
 
@@ -47,28 +54,48 @@ class Grid:
     def Ly(self) -> float:
         return self.ny * self.dy
 
+    @property
+    def Lz(self) -> float:
+        return self.nz * self.dz
+
+    @property
+    def axes(self) -> str:
+        """The spatial axis names, "xy" or "xyz"."""
+        return "xyz"[: self.dimension]
+
     def periodic(self, axis: str) -> bool:
         return self.bc.get(axis + "min", "pml") == "periodic"
 
     @property
     def shape(self) -> Tuple[int, ...]:
-        return (self.nx, self.ny)
+        return (self.nx, self.ny, self.nz)[: self.dimension]
+
+    @property
+    def deltas(self) -> Tuple[float, ...]:
+        return (self.dx, self.dy, self.dz)[: self.dimension]
+
+    @property
+    def periodic_axes(self) -> Tuple[bool, ...]:
+        return tuple(self.periodic(ax) for ax in self.axes)
 
     @property
     def mesh_shape(self) -> Tuple[int, ...]:
-        return (self.npatch_x, self.npatch_y)
+        return (self.npatch_x, self.npatch_y, self.npatch_z)[: self.dimension]
 
     def validate(self):
-        if self.dimension != 2:
-            raise NotImplementedError(
-                "3D is not ported yet (ROADMAP queue 1, item 5)")
+        if self.dimension not in (2, 3):
+            raise ValueError(f"dimension must be 2 or 3, got {self.dimension}")
         if self.nx % self.npatch_x:
             raise ValueError(
                 f"nx ({self.nx}) must be divisible by npatch_x ({self.npatch_x})")
         if self.ny % self.npatch_y:
             raise ValueError(
                 f"ny ({self.ny}) must be divisible by npatch_y ({self.npatch_y})")
-        for n_loc, name in ((self.nx_loc, "x"), (self.ny_loc, "y")):
+        if self.dimension == 3 and self.nz % self.npatch_z:
+            raise ValueError(
+                f"nz ({self.nz}) must be divisible by npatch_z ({self.npatch_z})")
+        for n_loc, name in ((self.nx_loc, "x"), (self.ny_loc, "y"),
+                            (self.nz_loc, "z"))[: self.dimension]:
             if n_loc < self.n_guard:
                 raise ValueError(
                     f"per-device n{name} ({n_loc}) must be >= n_guard "
@@ -76,7 +103,7 @@ class Grid:
         for (bname, kind) in self.boundary_conditions:
             if kind not in ("pml", "periodic"):
                 raise ValueError(f"unsupported boundary {bname}={kind}")
-        for ax in "xy":
+        for ax in self.axes:
             kinds = {self.bc.get(ax + "min"), self.bc.get(ax + "max")}
             if "periodic" in kinds and len(kinds) > 1:
                 raise ValueError(

@@ -4,10 +4,10 @@ lambdapic_tpu/core/state.py).
 Layouts are the JAX package's, without its device-mesh axes (the port
 runs on one device):
 
-- fields are interior-only ``(nx, ny)`` tensors; CPML psi arrays are
-  slab-restricted along their PML axis (``ops/cpml.py::psi_regions``),
-  e.g. ``psi_ey_x`` is ``(w_x, ny)``;
-- cell-engine particles are per-cell slots ``(cap_c, nx, ny)``; ``alive``
+- fields are interior-only ``(nx, ny[, nz])`` tensors; CPML psi arrays
+  are slab-restricted along their PML axis (``ops/cpml.py::psi_regions``),
+  e.g. ``psi_ey_x`` is ``(w_x, ny[, nz])``;
+- cell-engine particles are per-cell slots ``(cap_c, nx, ny[, nz])``; ``alive``
   is bool; the 64-bit particle id is carried as two int32 tensors
   ``id_lo`` / ``id_hi`` holding the JAX package's uint32 bit patterns
   (torch's uint32 lacks gather and add on the CPU);
@@ -57,7 +57,7 @@ class FieldsState:
 @dataclass
 class ParticlesState:
     """Per-cell slot arrays of one species: ``data[attr]`` is
-    ``(cap_c, nx, ny)``."""
+    ``(cap_c, nx, ny[, nz])``."""
 
     data: Dict[str, torch.Tensor]
     alive: torch.Tensor
@@ -85,6 +85,7 @@ class SimulationState:
 PSI_COMPONENTS = {
     "x": ("ey", "ez", "by", "bz"),
     "y": ("ex", "ez", "bx", "bz"),
+    "z": ("ex", "ey", "bx", "by"),
 }
 
 
@@ -98,7 +99,7 @@ def zeros_fields(grid: Grid, dtype, device, cpml=None) -> FieldsState:
 
     psi = {}
     if cpml is not None:
-        for axis, ax in enumerate("xy"):
+        for axis, ax in enumerate(grid.axes):
             if cpml.axis(ax) is None:
                 continue
             pshape = list(shape)
@@ -122,7 +123,7 @@ def ids_to_numpy(t: torch.Tensor) -> np.ndarray:
 
 def cell_particles(species: Species, arrays: Dict[str, np.ndarray],
                    alive_np: np.ndarray, dtype, device) -> ParticlesState:
-    """ParticlesState from host cell-binned arrays ``(cap_c, nx, ny)``
+    """ParticlesState from host cell-binned arrays ``(cap_c, nx, ny[, nz])``
     (``simulation/initfill.py::bin_cells``): ids are the flat slot index,
     as the JAX package's ``Simulation._tiled_state`` numbers them."""
     shape = alive_np.shape

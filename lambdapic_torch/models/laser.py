@@ -1,9 +1,9 @@
-"""Laser injection through an absorbing source plane, 2D (counterpart of
-lambdapic_tpu/models/laser.py).
+"""Laser injection through an absorbing source plane, 2D and 3D
+(counterpart of lambdapic_tpu/models/laser.py).
 
 Lasers act at stage ``_laser`` (between the second B half-step and the
-final E half-step) and write bx/by/bz one column behind the source plane
-at x index ``cpml_thickness + 2`` with a radiating-boundary update.
+final E half-step) and write bx/by/bz one column (in 3D one y-z plane)
+behind the source plane at x index ``cpml_thickness + 2`` with a radiating-boundary update.
 Quantities that need float64 time precision (the carrier phase) are
 computed on the host each step as float32 scalars (``host_scalars``), as
 the JAX package passes them; transverse profiles are built once in
@@ -56,17 +56,23 @@ class Laser(DeviceCallback):
         raise NotImplementedError
 
     def _sources(self, grid: Grid, sc: dict, like: torch.Tensor):
-        """(ey_source, ez_source) on the boundary plane, each (ny,)."""
+        """(ey_source, ez_source) on the boundary plane, each (ny,) or
+        (ny, nz)."""
         raise NotImplementedError
 
     def _boundary_coords(self, grid: Grid):
-        """(y, z, r) on the injection plane, centred on y0."""
+        """(y, z, r) on the injection plane, centred on (y0, z0)."""
         y0 = self.y0 if self.y0 is not None else grid.Ly / 2
         ys = np.arange(grid.ny) * grid.dy - grid.dy / 2 - y0
-        return ys, 0.0, np.abs(ys)
+        if grid.dimension == 2:
+            return ys, 0.0, np.abs(ys)
+        z0 = self.z0 if self.z0 is not None else grid.Lz / 2
+        zs = np.arange(grid.nz) * grid.dz - grid.dz / 2 - z0
+        Y, Z = np.meshgrid(ys, zs, indexing="ij")
+        return Y, Z, np.sqrt(Y**2 + Z**2)
 
     def _transverse_mask(self, grid: Grid) -> np.ndarray:
-        """Exclude the y PML slabs."""
+        """Exclude the y (and z) PML slabs."""
         t = grid.cpml_thickness
         bc = grid.bc
         my = np.ones(grid.ny, dtype=bool)
@@ -74,7 +80,14 @@ class Laser(DeviceCallback):
             my[:t] = False
         if bc.get("ymax") == "pml":
             my[grid.ny - t:] = False
-        return my
+        if grid.dimension == 2:
+            return my
+        mz = np.ones(grid.nz, dtype=bool)
+        if bc.get("zmin") == "pml":
+            mz[:t] = False
+        if bc.get("zmax") == "pml":
+            mz[grid.nz - t:] = False
+        return my[:, None] & mz[None, :]
 
     def apply(self, f: FieldsState, grid: Grid, dt: float, sc: dict
               ) -> FieldsState:
@@ -89,15 +102,27 @@ class Laser(DeviceCallback):
         den = 1.0 / ((cdt_dx + 1.0) * c)
         per_y = grid.periodic("y")
 
-        bz_new = den * (
-            4.0 * ey_src
-            + 2.0 * (f.ey[0] + c * 0.5 * f.bz[0])
-            - 2.0 * f.ey[col]
-            + (dt / epsilon_0) * f.jy[col]
-            + (cdt_dx - 1.0) * c * f.bz[col]
-        )
         bx_col = f.bx[col]
         dbx_y = (bx_col - shift(bx_col, 0, -1, per_y)) / grid.dy
+        if grid.dimension == 2:
+            bz_new = den * (
+                4.0 * ey_src
+                + 2.0 * (f.ey[0] + c * 0.5 * f.bz[0])
+                - 2.0 * f.ey[col]
+                + (dt / epsilon_0) * f.jy[col]
+                + (cdt_dx - 1.0) * c * f.bz[col]
+            )
+        else:
+            dbx_z = (bx_col - shift(bx_col, 1, -1, grid.periodic("z"))
+                     ) / grid.dz
+            bz_new = den * (
+                4.0 * ey_src
+                + 2.0 * (f.ey[0] + c * 0.5 * f.bz[0])
+                - 2.0 * f.ey[col]
+                - (dt * c**2) * dbx_z
+                + (dt / epsilon_0) * f.jy[col]
+                + (cdt_dx - 1.0) * c * f.bz[col]
+            )
         by_new = den * (
             - 4.0 * ez_src
             - 2.0 * (f.ez[0] - c * 0.5 * f.by[0])
@@ -115,6 +140,41 @@ class Laser(DeviceCallback):
             arr[col - 1] = torch.where(sel, new, arr[col - 1])
             out[name] = arr
         return f.replace(**out)
+
+    def __add__(self, other):
+        """Compose two lasers of one side into one source."""
+        if not isinstance(other, Laser):
+            raise TypeError(f"Cannot add Laser with {type(other)}")
+        if self.side != other.side:
+            raise TypeError("Cannot add lasers from different sides")
+        return _CombinedLaser(self, other)
+
+
+class _CombinedLaser(Laser):
+    """Sum of two laser sources."""
+
+    def __init__(self, laser1: Laser, laser2: Laser):
+        super().__init__()
+        self.laser1 = laser1
+        self.laser2 = laser2
+        self.side = laser1.side
+        self.tstop = max(laser1.tstop, laser2.tstop)
+
+    def host_scalars(self, sim) -> dict:
+        s1 = self.laser1.host_scalars(sim)
+        s2 = self.laser2.host_scalars(sim)
+        on = np.float32(max(float(s1["on"]), float(s2["on"])))
+        if self.laser1.disabled and self.laser2.disabled:
+            self.disabled = True
+            on = np.float32(0.0)
+        return {"on": on, "s1": s1, "s2": s2}
+
+    def _sources(self, grid, sc, like):
+        ey1, ez1 = self.laser1._sources(grid, sc["s1"], like)
+        ey2, ez2 = self.laser2._sources(grid, sc["s2"], like)
+        on1 = _t(sc["s1"]["on"], like)
+        on2 = _t(sc["s2"]["on"], like)
+        return on1 * ey1 + on2 * ey2, on1 * ez1 + on2 * ez2
 
 
 def _ellipticity_split(ellipticity: float):
@@ -197,6 +257,10 @@ class SimpleLaser2D(SimpleLaser):
     ...
 
 
+class SimpleLaser3D(SimpleLaser):
+    ...
+
+
 class GaussianLaser(Laser):
     """Gaussian beam with waist evolution, Gouy phase, curvature and
     Laguerre-Gaussian modes."""
@@ -266,7 +330,7 @@ class GaussianLaser(Laser):
         x_rel = grid.cpml_thickness * grid.dx
         bw, bR, bpsi = self._gaussian_beam_params(x_rel)
         if self._is_lg:
-            phi = np.arctan2(0.0, y)
+            phi = np.arctan2(np.asarray(z) if grid.dimension == 3 else 0.0, y)
             rr = np.sqrt(2) * r / bw
             amp_lg = self.lg_norm * rr**abs(self.l) * self.laguerre(rr**2)
             phase_lg = self.l * phi
@@ -292,4 +356,8 @@ class GaussianLaser(Laser):
 
 
 class GaussianLaser2D(GaussianLaser):
+    ...
+
+
+class GaussianLaser3D(GaussianLaser):
     ...

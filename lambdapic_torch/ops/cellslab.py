@@ -5,14 +5,18 @@ lambdapic_tpu/ops/cellslab.py: ``slab_species_step`` driving kernel B2,
 Rim layout (the port's own): the deposit writes per-tile panels
 ``(C, nbx, nby, T+4, T+4)``, C = 4 (jx, jy, jz, rho) or 3 without rho,
 T = ``TILE`` cells per side; panel (bi, bj) node (a, b) is the current at
-interior index (bi*T + a - 2, bj*T + b - 2). Species chain their panels:
-each species' stage starts from the previous species' panels
-(``rims_in``), and one fold adds the sum into the interior J.
+interior index (bi*T + a - 2, bj*T + b - 2). In 3D the panels are
+``(C, nbx, nby, nbz, T+4, T+4, T+4)`` with T = ``TILE3``. Species chain
+their panels: each species' stage starts from the previous species'
+panels (``rims_in``), and one fold adds the sum into the interior J.
 
-``cell_step`` and ``fold_reduce`` launch the CUDA kernels
-(``csrc/cellstep.cu``, ``csrc/fold.cu``) on CUDA tensors and run their
-plain versions (``cell_step_plain``, ``fold_reduce_plain``) on CPU
-tensors. Each kernel launch adds one to the wrapper's ``launches``.
+``cell_step`` and ``fold_reduce`` take 2D slots ``(cap, nx, ny)`` or 3D
+slots ``(cap, nx, ny, nz)`` (then with ``dz`` and three ``periodic``
+flags). They launch the CUDA kernels (``csrc/cellstep.cu``,
+``csrc/fold.cu``; in 3D ``csrc/cellstep3d.cu``, ``csrc/fold3d.cu``) on
+CUDA tensors and run their plain versions (``cell_step_plain``,
+``fold_reduce_plain``) on CPU tensors. Each kernel launch adds one to
+the wrapper's ``launches``.
 """
 from __future__ import annotations
 
@@ -27,17 +31,25 @@ from ..parallel.halo import halo_reduce
 from . import kernel_lib
 from .cell2d import (batcher_network, deposit_offsets, gather_cell_2d,
                      migrate_cells)
-from .pusher import boris_push, push_position_2d
+from .cell3d import deposit_offsets_3d, gather_cell_3d, migrate_cell_3d
+from .pusher import boris_push, push_position_2d, push_position_3d
 
 TILE = 16
+TILE3 = 8           # 3D tile: a (C, 12, 12, 12) panel per 8 x 8 x 8 cells
 # payloads carried through the kernel, in its pointer order
 FLOAT_PAYLOADS = ("x", "y", "z", "w", "ux", "uy", "uz")
 ID_PAYLOADS = ("id_lo", "id_hi")
 MAX_CAP = 128
 
 
-def panel_shape(ncomp: int, nx: int, ny: int, tile: int = TILE):
-    return (ncomp, -(-nx // tile), -(-ny // tile), tile + 4, tile + 4)
+def panel_shape(ncomp: int, nx: int, ny: int, nz: Optional[int] = None,
+                tile: Optional[int] = None):
+    """Shape of the tile panels of an (nx, ny) or (nx, ny, nz) grid."""
+    n = (nx, ny) if nz is None else (nx, ny, nz)
+    if tile is None:
+        tile = TILE if nz is None else TILE3
+    return ((ncomp,) + tuple(-(-k // tile) for k in n)
+            + (tile + 4,) * len(n))
 
 
 def deposit_panels(x, y, ux, uy, uz, inv_gamma, w, *, q: float, dx: float,
@@ -48,7 +60,7 @@ def deposit_panels(x, y, ux, uy, uz, inv_gamma, w, *, q: float, dx: float,
     ``rims_in`` when given."""
     cap, nx, ny = x.shape
     ncomp = 4 if with_rho else 3
-    shape = panel_shape(ncomp, nx, ny, tile)
+    shape = panel_shape(ncomp, nx, ny, tile=tile)
     nbx, nby = shape[1], shape[2]
     panels = torch.zeros(shape, dtype=x.dtype, device=x.device)
     for (ox, oy), cell in deposit_offsets(x, y, ux, uy, uz, inv_gamma, w, q=q,
@@ -77,21 +89,100 @@ def fold_panels(panels: torch.Tensor, nx: int, ny: int) -> torch.Tensor:
     return out[:, :nx + 4, :ny + 4]
 
 
-def fold_reduce_plain(rims: torch.Tensor, nx: int, ny: int,
+def deposit_panels_3d(x, y, z, ux, uy, uz, inv_gamma, w, *, q: float,
+                      dx: float, dy: float, dz: float, dt: float,
+                      with_rho: bool = True,
+                      rims_in: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """3D Esirkepov deposit of one species into tile panels
+    (C, nbx, nby, nbz, T+4, T+4, T+4), added to ``rims_in`` when given."""
+    cap, nx, ny, nz = x.shape
+    ncomp = 4 if with_rho else 3
+    tile = TILE3
+    shape = panel_shape(ncomp, nx, ny, nz)
+    nbx, nby, nbz = shape[1:4]
+    panels = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    for (ox, oy, oz), cell in deposit_offsets_3d(
+            x, y, z, ux, uy, uz, inv_gamma, w, q=q, dx=dx, dy=dy, dz=dz,
+            dt=dt, with_rho=with_rho):
+        cell = F.pad(cell, (0, nbz * tile - nz, 0, nby * tile - ny,
+                            0, nbx * tile - nx))
+        cell = cell.reshape(ncomp, nbx, tile, nby, tile, nbz, tile
+                            ).permute(0, 1, 3, 5, 2, 4, 6)
+        panels[..., 2 + ox:2 + ox + tile, 2 + oy:2 + oy + tile,
+               2 + oz:2 + oz + tile] += cell
+    return panels if rims_in is None else rims_in + panels
+
+
+def _fold_axis(t: torch.Tensor, dim: int, n: int, tile: int) -> torch.Tensor:
+    """Overlap-add along one axis: ``t`` has that axis's block index at
+    ``dim`` and its panel node (T+4) at ``dim + 1``; they become one line
+    of n+4 nodes at ``dim``. A panel's first T nodes tile the line and its
+    last 4 land on the next tile's first 4."""
+    nb = t.shape[dim]
+    t = t.movedim((dim, dim + 1), (0, 1))
+    rest = tuple(t.shape[2:])
+    folded = torch.zeros((nb + 1, tile) + rest, dtype=t.dtype,
+                         device=t.device)
+    folded[:nb] += t[:, :tile]
+    folded[1:, :4] += t[:, tile:]
+    line = folded.reshape(((nb + 1) * tile,) + rest)[:n + 4]
+    return line.movedim(0, dim)
+
+
+def fold_panels_3d(panels: torch.Tensor, nx: int, ny: int, nz: int
+                   ) -> torch.Tensor:
+    """Overlap-add 3D tile panels into the padded current
+    (C, nx+4, ny+4, nz+4), guard width 2, one axis after another."""
+    tile = panels.shape[-1] - 4
+    t = panels.permute(0, 1, 4, 2, 5, 3, 6)    # (C, nbx, P, nby, P, nbz, P)
+    for dim, n in ((1, nx), (2, ny), (3, nz)):
+        t = _fold_axis(t, dim, n, tile)
+    return t
+
+
+def fold_reduce_plain(rims: torch.Tensor, shape: Sequence[int],
                       periodic: Sequence[bool]) -> torch.Tensor:
-    """Plain version of kernel B3: the interior (C, nx, ny) current."""
-    return halo_reduce(fold_panels(rims, nx, ny), 2, (1, 2), periodic)
+    """Plain version of kernel B3: the interior current (C,) + ``shape``
+    of a grid of ``shape`` cells, (nx, ny) or (nx, ny, nz)."""
+    if len(shape) == 2:
+        return halo_reduce(fold_panels(rims, *shape), 2, (1, 2), periodic)
+    return halo_reduce(fold_panels_3d(rims, *shape), 2, (1, 2, 3), periodic)
+
+
+def _cell_step_plain_3d(eb_pad, data, alive, *, q, m, dt, dx, dy, dz, g,
+                        periodic, rims_in, with_rho):
+    hx, hy, hz = (c_light * dt / d / 2 for d in (dx, dy, dz))
+    d = dict(data)
+    d["x"], d["y"], d["z"] = push_position_3d(
+        d["x"], d["y"], d["z"], d["ux"], d["uy"], d["uz"], d["inv_gamma"],
+        hx, hy, hz)
+    d, alive, n_lost = migrate_cell_3d(d, alive, periodic, recompute_ig=True)
+    eb = gather_cell_3d(eb_pad, d["x"], d["y"], d["z"], g)
+    ux, uy, uz, ig = boris_push(d["ux"], d["uy"], d["uz"], *eb, q, m, dt)
+    x, y, z = push_position_3d(d["x"], d["y"], d["z"], ux, uy, uz, ig,
+                               hx, hy, hz)
+    w = torch.where(alive, d["w"], 0.0)
+    rims = deposit_panels_3d(x, y, z, ux, uy, uz, ig, w, q=q, dx=dx, dy=dy,
+                             dz=dz, dt=dt, with_rho=with_rho, rims_in=rims_in)
+    d.update(x=x, y=y, z=z, ux=ux, uy=uy, uz=uz, inv_gamma=ig)
+    return d, alive, n_lost, rims
 
 
 def cell_step_plain(eb_pad, data: Dict[str, torch.Tensor], alive, *,
                     q: float, m: float, dt: float, dx: float, dy: float,
-                    g: int, periodic: Tuple[bool, bool],
+                    g: int, periodic: Sequence[bool],
                     rims_in: Optional[torch.Tensor] = None,
-                    with_rho: bool = True):
+                    with_rho: bool = True, dz: Optional[float] = None):
     """Plain version of kernel B2: the JAX package's XLA cell path
-    (step.py's cell branch) with the Batcher-order migration.
+    (step.py's cell branch) with the Batcher-order migration, 2D for
+    slots (cap, nx, ny) and 3D (with ``dz``) for (cap, nx, ny, nz).
     ``data`` holds the stored (pre-push) state. Returns (data, alive,
     n_lost, rims) with data fully pushed."""
+    if alive.ndim == 4:
+        return _cell_step_plain_3d(eb_pad, data, alive, q=q, m=m, dt=dt,
+                                   dx=dx, dy=dy, dz=dz, g=g,
+                                   periodic=periodic, rims_in=rims_in,
+                                   with_rho=with_rho)
     cap, nx, ny = alive.shape
     hx, hy = c_light * dt / dx / 2, c_light * dt / dy / 2
     d = dict(data)
@@ -111,14 +202,16 @@ def cell_step_plain(eb_pad, data: Dict[str, torch.Tensor], alive, *,
 
 
 @functools.cache
-def _check_tile() -> None:
-    """The panel layout's tile is ``TILE`` here and a constant in
-    csrc/cellstep.cu, which sizes the panels the kernel writes; hold the
-    two equal once, when the library is first used."""
-    got = kernel_lib.library("cellstep").lp_cell_tile()
-    if got != TILE:
-        raise RuntimeError(f"csrc/cellstep.cu tiles panels by {got}, "
-                           f"cellslab.TILE is {TILE}")
+def _check_tile(lib: str = "cellstep") -> None:
+    """The panel layout's tile is ``TILE`` (``TILE3`` in 3D) here and a
+    constant in csrc/cellstep.cu (csrc/cellstep3d.cu), which sizes the
+    panels the kernel writes; hold the two equal once, when the library
+    is first used."""
+    want = TILE if lib == "cellstep" else TILE3
+    got = kernel_lib.library(lib).lp_cell_tile()
+    if got != want:
+        raise RuntimeError(f"csrc/{kernel_lib.SOURCES[lib]} tiles panels by "
+                           f"{got}, ops/cellslab.py by {want}")
 
 
 _CES: Dict[Tuple[int, torch.device], torch.Tensor] = {}
@@ -134,28 +227,90 @@ def _ces_tensor(cap: int, device) -> torch.Tensor:
     return t
 
 
+def _cell_step_3d(eb_pad, data, alive, *, q, m, dt, dx, dy, dz, g, periodic,
+                  rims_in, with_rho):
+    """The 3D launch of kernel B2 (csrc/cellstep3d.cu): x pass into
+    buffer A, y pass into buffer B, z pass back into A, then gather +
+    Boris + half push in place on A and the deposit from A."""
+    dev = alive.device
+    dtype = data["x"].dtype
+    shape = tuple(alive.shape)
+    cap, nx, ny, nz = shape
+    _check_tile("cellstep3d")
+    kernel_lib.check(alive, "alive", shape, torch.bool, dev)
+    kernel_lib.check(eb_pad, "eb_pad", (6, nx + 2 * g, ny + 2 * g, nz + 2 * g),
+                     dtype, dev)
+    for k in FLOAT_PAYLOADS + ("inv_gamma",):
+        kernel_lib.check(data[k], k, shape, dtype, dev)
+    for k in ID_PAYLOADS:
+        kernel_lib.check(data[k], k, shape, torch.int32, dev)
+    ncomp = 4 if with_rho else 3
+    pshape = panel_shape(ncomp, nx, ny, nz)
+    if rims_in is not None:
+        kernel_lib.check(rims_in, "rims_in", pshape, dtype, dev)
+
+    def empty(dt_):
+        return torch.empty(shape, dtype=dt_, device=dev)
+
+    a_alive, b_alive = empty(torch.bool), empty(torch.bool)
+    a_f = [empty(dtype) for _ in FLOAT_PAYLOADS]
+    a_ig = empty(dtype)
+    a_id = [empty(torch.int32) for _ in ID_PAYLOADS]
+    b_f = [empty(dtype) for _ in FLOAT_PAYLOADS]
+    b_id = [empty(torch.int32) for _ in ID_PAYLOADS]
+    rims = torch.empty(pshape, dtype=dtype, device=dev)
+    n_lost = torch.zeros((), dtype=torch.int64, device=dev)
+    ptrs = ([eb_pad, alive] + [data[k] for k in FLOAT_PAYLOADS]
+            + [data["inv_gamma"]] + [data[k] for k in ID_PAYLOADS]
+            + [a_alive] + a_f + [a_ig] + a_id
+            + [b_alive] + b_f + b_id
+            + [rims_in, rims, n_lost, _ces_tensor(cap, dev)])
+    cdt = [c_light * dt / d for d in (dx, dy, dz)]
+    kernel_lib.call(
+        "cellstep3d", "lp_cell_step_3d", ptrs,
+        [cap, nx, ny, nz, g, periodic[0], periodic[1], periodic[2], ncomp,
+         len(batcher_network(cap)), dtype == torch.float64],
+        [cdt[0] / 2, cdt[1] / 2, cdt[2] / 2,
+         q * dt / (2 * m * c_light), q * dt / (2 * m), cdt[0], cdt[1], cdt[2],
+         q / (dx * dy * dz), q / (dy * dz * dt), q / (dx * dz * dt),
+         q / (dx * dy * dt)],
+        dev)
+    cell_step.launches += 1
+    out = dict(data)
+    out.update(zip(FLOAT_PAYLOADS, a_f))
+    out.update(zip(ID_PAYLOADS, a_id))
+    out["inv_gamma"] = a_ig
+    return out, a_alive, n_lost, rims
+
+
 def cell_step(eb_pad, data: Dict[str, torch.Tensor], alive, *, q: float,
               m: float, dt: float, dx: float, dy: float, g: int,
-              periodic: Tuple[bool, bool],
-              rims_in: Optional[torch.Tensor] = None, with_rho: bool = True):
+              periodic: Sequence[bool],
+              rims_in: Optional[torch.Tensor] = None, with_rho: bool = True,
+              dz: Optional[float] = None):
     """One species' particle stage through kernel B2 (see
     ``cell_step_plain`` for the arguments and results)."""
     if alive.device.type == "cpu":
         return cell_step_plain(eb_pad, data, alive, q=q, m=m, dt=dt, dx=dx,
                                dy=dy, g=g, periodic=periodic, rims_in=rims_in,
-                               with_rho=with_rho)
+                               with_rho=with_rho, dz=dz)
     if alive.device.type != "cuda":
         raise ValueError(f"cell_step: unsupported device {alive.device}")
     dev = alive.device
     dtype = data["x"].dtype
-    cap, nx, ny = alive.shape
+    cap = alive.shape[0]
     if cap > MAX_CAP:
         raise ValueError(f"cell_step: {cap} slots per cell exceed the "
                          f"kernel's per-cell limit {MAX_CAP} (the slot index "
                          "is packed into 8 bits of its sort key)")
-    _check_tile()
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"cell_step: dtype {dtype}")
+    if alive.ndim == 4:
+        return _cell_step_3d(eb_pad, data, alive, q=q, m=m, dt=dt, dx=dx,
+                             dy=dy, dz=dz, g=g, periodic=periodic,
+                             rims_in=rims_in, with_rho=with_rho)
+    cap, nx, ny = alive.shape
+    _check_tile()
     shape = (cap, nx, ny)
     kernel_lib.check(alive, "alive", shape, torch.bool, dev)
     kernel_lib.check(eb_pad, "eb_pad", (6, nx + 2 * g, ny + 2 * g), dtype, dev)
@@ -205,21 +360,29 @@ def cell_step(eb_pad, data: Dict[str, torch.Tensor], alive, *, q: float,
 cell_step.launches = 0
 
 
-def fold_reduce(rims: torch.Tensor, nx: int, ny: int,
+def fold_reduce(rims: torch.Tensor, shape: Sequence[int],
                 periodic: Sequence[bool]) -> torch.Tensor:
-    """Species-summed panels -> interior (C, nx, ny) current, through
-    kernel B3."""
+    """Species-summed panels -> interior current (C,) + ``shape`` of a
+    grid of ``shape`` cells, (nx, ny) or (nx, ny, nz), through kernel B3."""
     if rims.device.type == "cpu":
-        return fold_reduce_plain(rims, nx, ny, periodic)
+        return fold_reduce_plain(rims, shape, periodic)
     if rims.device.type != "cuda":
         raise ValueError(f"fold_reduce: unsupported device {rims.device}")
+    shape = tuple(shape)
+    if len(shape) not in (2, 3) or len(periodic) != len(shape):
+        raise ValueError(f"fold_reduce: shape {shape} and periodic "
+                         f"{tuple(periodic)} must both name 2 or 3 axes")
     C = rims.shape[0]
-    kernel_lib.check(rims, "rims", panel_shape(C, nx, ny), rims.dtype,
+    kernel_lib.check(rims, "rims", panel_shape(C, *shape), rims.dtype,
                      rims.device)
-    out = torch.empty((C, nx, ny), dtype=rims.dtype, device=rims.device)
-    kernel_lib.call("fold", "lp_fold", [rims, out],
-                    [C, nx, ny, TILE, periodic[0], periodic[1],
-                     rims.dtype == torch.float64], [], rims.device)
+    out = torch.empty((C,) + shape, dtype=rims.dtype, device=rims.device)
+    f64 = rims.dtype == torch.float64
+    if len(shape) == 3:
+        kernel_lib.call("fold3d", "lp_fold_3d", [rims, out],
+                        [C, *shape, TILE3, *periodic, f64], [], rims.device)
+    else:
+        kernel_lib.call("fold", "lp_fold", [rims, out],
+                        [C, *shape, TILE, *periodic, f64], [], rims.device)
     fold_reduce.launches += 1
     return out
 

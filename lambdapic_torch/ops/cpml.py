@@ -92,7 +92,7 @@ class CPMLCoeffs:
     """Host-precomputed float64 coefficient profiles, one entry per axis
     that has at least one PML face."""
 
-    # axis name 'x'|'y' -> dict with kappa_e, b_e, c_e, kappa_b, b_b, c_b
+    # axis name 'x'|'y'|'z' -> dict with kappa_e, b_e, c_e, kappa_b, b_b, c_b
     profiles: Dict[str, Dict[str, np.ndarray]]
 
     def axis(self, ax: str) -> Optional[Dict[str, np.ndarray]]:
@@ -111,7 +111,9 @@ def build_cpml(grid: Grid, dt: float, params: CPMLParams) -> CPMLCoeffs:
     bc = grid.bc
     profiles: Dict[str, Dict[str, np.ndarray]] = {}
     for name, n, n_loc, d in (("x", grid.nx, grid.nx_loc, grid.dx),
-                              ("y", grid.ny, grid.ny_loc, grid.dy)):
+                              ("y", grid.ny, grid.ny_loc, grid.dy),
+                              ("z", grid.nz, grid.nz_loc, grid.dz)
+                              )[: grid.dimension]:
         lo = bc.get(name + "min") == "pml"
         hi = bc.get(name + "max") == "pml"
         if not (lo or hi):

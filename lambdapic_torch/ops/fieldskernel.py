@@ -1,6 +1,7 @@
 """Kernel B1 wrapper: the fields half-step (counterpart of
 lambdapic_tpu/ops/fieldspallas.py, whose Pallas kernel ``_update_half``
-this replaces; CUDA source ``csrc/fields.cu``).
+this replaces; CUDA sources ``csrc/fields.cu`` for 2D grids and
+``csrc/fields3d.cu`` for 3D grids).
 
 ``update_efield_k`` / ``update_bfield_k`` take and return a FieldsState
 like ``ops/maxwell.py::update_efield`` / ``update_bfield``. On CUDA
@@ -26,8 +27,8 @@ from .maxwell import B_PAIRS, E_PAIRS, update_bfield, update_efield
 @dataclass
 class HalfCoeffs:
     """Device coefficient rows of one half-step kind ('e' or 'b'):
-    1/kappa per x row and y column, the psi recursion's b and c, and the
-    row maps (grid row -> psi row, or -1)."""
+    1/kappa per x row and y column (and z line in 3D), the psi
+    recursion's b and c, and the row maps (grid row -> psi row, or -1)."""
 
     ikx: torch.Tensor
     iky: torch.Tensor
@@ -39,12 +40,17 @@ class HalfCoeffs:
     ry: torch.Tensor
     wx: int
     wy: int
+    ikz: Optional[torch.Tensor] = None
+    bz: Optional[torch.Tensor] = None
+    cz: Optional[torch.Tensor] = None
+    rz: Optional[torch.Tensor] = None
+    wz: int = 0
 
 
 def half_coeffs(grid: Grid, cpml: Optional[CPMLCoeffs], which: str, dtype,
                 device) -> HalfCoeffs:
     rows = {}
-    for ax, n in (("x", grid.nx), ("y", grid.ny)):
+    for ax, n in zip(grid.axes, grid.shape):
         prof = cpml.axis(ax) if cpml is not None else None
         ik = np.ones(n)
         b = np.ones(n)
@@ -62,8 +68,11 @@ def half_coeffs(grid: Grid, cpml: Optional[CPMLCoeffs], which: str, dtype,
                     for v in (ik, b, cc)] + [
             torch.as_tensor(rmap).to(device), w]
     (ikx, bx, cx, rx, wx), (iky, by, cy, ry, wy) = rows["x"], rows["y"]
+    extra = {}
+    if grid.dimension == 3:
+        extra = dict(zip(("ikz", "bz", "cz", "rz", "wz"), rows["z"]))
     return HalfCoeffs(ikx=ikx, iky=iky, bx=bx, cx=cx, by=by, cy=cy,
-                      rx=rx, ry=ry, wx=wx, wy=wy)
+                      rx=rx, ry=ry, wx=wx, wy=wy, **extra)
 
 
 def update_half_k(fields: FieldsState, grid: Grid, dt: float,
@@ -80,7 +89,7 @@ def update_half_k(fields: FieldsState, grid: Grid, dt: float,
         raise ValueError(f"update_half_k: dtype {ex.dtype}")
     if coeffs is None:
         coeffs = half_coeffs(grid, cpml, which, ex.dtype, ex.device)
-    shape = (grid.nx, grid.ny)
+    shape = grid.shape
     names = ("ex", "ey", "ez", "bx", "by", "bz", "jx", "jy", "jz")
     ins = [getattr(fields, k) for k in names]
     for k, t in zip(names, ins):
@@ -88,8 +97,10 @@ def update_half_k(fields: FieldsState, grid: Grid, dt: float,
     pairs = E_PAIRS if which == "e" else B_PAIRS
     psi = dict(fields.psi)
     psi_ptrs = []
-    for ax, w, pshape in (("x", coeffs.wx, (coeffs.wx, grid.ny)),
-                          ("y", coeffs.wy, (grid.nx, coeffs.wy))):
+    widths = (coeffs.wx, coeffs.wy, coeffs.wz)
+    for axis, ax in enumerate(grid.axes):
+        w = widths[axis]
+        pshape = shape[:axis] + (w,) + shape[axis + 1:]
         keys = [p[0] for p in pairs[ax]]
         if w == 0:
             psi_ptrs += [None] * 4
@@ -103,6 +114,20 @@ def update_half_k(fields: FieldsState, grid: Grid, dt: float,
     outs = [torch.empty(shape, dtype=ex.dtype, device=ex.device)
             for _ in range(3)]
     fac = dt * c_light**2 if which == "e" else dt
+    tgt = ("ex", "ey", "ez") if which == "e" else ("bx", "by", "bz")
+    if grid.dimension == 3:
+        kernel_lib.call(
+            "fields3d", "lp_fields_half_3d",
+            ins + outs + psi_ptrs + [
+                coeffs.ikx, coeffs.iky, coeffs.ikz, coeffs.bx, coeffs.cx,
+                coeffs.by, coeffs.cy, coeffs.bz, coeffs.cz, coeffs.rx,
+                coeffs.ry, coeffs.rz],
+            [grid.nx, grid.ny, grid.nz, *grid.periodic_axes,
+             0 if which == "e" else 1, coeffs.wx, coeffs.wy, coeffs.wz,
+             ex.dtype == torch.float64],
+            [fac, dt / epsilon_0, grid.dx, grid.dy, grid.dz], ex.device)
+        update_half_k.launches += 1
+        return fields.replace(psi=psi, **dict(zip(tgt, outs)))
     kernel_lib.call(
         "fields", "lp_fields_half",
         ins + outs + psi_ptrs + [coeffs.ikx, coeffs.iky, coeffs.bx, coeffs.cx,
@@ -112,7 +137,6 @@ def update_half_k(fields: FieldsState, grid: Grid, dt: float,
          ex.dtype == torch.float64],
         [fac, dt / epsilon_0, grid.dx, grid.dy], ex.device)
     update_half_k.launches += 1
-    tgt = ("ex", "ey", "ez") if which == "e" else ("bx", "by", "bz")
     return fields.replace(psi=psi, **dict(zip(tgt, outs)))
 
 

@@ -26,7 +26,8 @@ BUILD = Path(__file__).resolve().parent.parent / "_build"
 
 # library name -> .cu source; every library also depends on common.cuh
 SOURCES = {"fields": "fields.cu", "cellstep": "cellstep.cu",
-           "fold": "fold.cu"}
+           "fold": "fold.cu", "fields3d": "fields3d.cu",
+           "cellstep3d": "cellstep3d.cu", "fold3d": "fold3d.cu"}
 # --fmad=false: no multiply-add contraction, so each kernel rounds as its
 # plain PyTorch version does, op for op
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,5 +1,5 @@
 """Yee FDTD half-steps with CPML (counterpart of lambdapic_tpu/ops/maxwell.py,
-2D, slab-restricted psi storage).
+2D and 3D, slab-restricted psi storage).
 
 This is the plain PyTorch version of kernel B1 (``ops/fieldskernel.py``,
 ``csrc/fields.cu``). Each call advances E or B by ``dt`` as passed in (the
@@ -23,15 +23,17 @@ from .shifts import diff_hi, diff_lo
 E_PAIRS = {
     "x": (("psi_ey_x", "bz", "ey", -1), ("psi_ez_x", "by", "ez", +1)),
     "y": (("psi_ex_y", "bz", "ex", +1), ("psi_ez_y", "bx", "ez", -1)),
+    "z": (("psi_ex_z", "by", "ex", -1), ("psi_ey_z", "bx", "ey", +1)),
 }
 B_PAIRS = {
     "x": (("psi_by_x", "ez", "by", +1), ("psi_bz_x", "ey", "bz", -1)),
     "y": (("psi_bx_y", "ez", "bx", -1), ("psi_bz_y", "ex", "bz", +1)),
+    "z": (("psi_bx_z", "ey", "bx", +1), ("psi_by_z", "ex", "by", -1)),
 }
 
 
 def _bcast(arr_1d, axis: int, like: torch.Tensor) -> torch.Tensor:
-    shape = [1, 1]
+    shape = [1] * like.ndim
     shape[axis] = len(arr_1d)
     return torch.as_tensor(arr_1d, dtype=like.dtype).to(like.device).reshape(shape)
 
@@ -92,7 +94,7 @@ def _psi_axis_update(psi, fb, cpml: CPMLCoeffs, ax: str, axis: int,
 def _kappa_factors(cpml: Optional[CPMLCoeffs], which: str, like):
     """Per-axis 1/kappa broadcastables (1.0 where the axis has no PML)."""
     out = []
-    for axis, ax in enumerate("xy"):
+    for axis, ax in enumerate("xyz"[: like.ndim]):
         prof = cpml.axis(ax) if cpml is not None else None
         if prof is None:
             out.append(torch.tensor(1.0, dtype=like.dtype, device=like.device))
@@ -104,25 +106,33 @@ def _kappa_factors(cpml: Optional[CPMLCoeffs], which: str, like):
 def update_efield(fields: FieldsState, grid: Grid, dt: float,
                   cpml: Optional[CPMLCoeffs] = None) -> FieldsState:
     """Advance E by dt, then the CPML psi_e recursion."""
-    per = [grid.periodic("x"), grid.periodic("y")]
+    per = grid.periodic_axes
     ex, ey, ez = fields.ex, fields.ey, fields.ez
     bx, by, bz = fields.bx, fields.by, fields.bz
     bf = torch.tensor(dt * c_light**2, dtype=ex.dtype, device=ex.device)
     jf = torch.tensor(dt / epsilon_0, dtype=ex.dtype, device=ex.device)
-    inv_kx, inv_ky = _kappa_factors(cpml, "e", ex)
+    inv_kx, inv_ky, *rest = _kappa_factors(cpml, "e", ex)
 
     dbz_y = diff_lo(bz, 1, per[1]) / grid.dy
     dbz_x = diff_lo(bz, 0, per[0]) / grid.dx
     dby_x = diff_lo(by, 0, per[0]) / grid.dx
     dbx_y = diff_lo(bx, 1, per[1]) / grid.dy
-    ex = ex + bf * inv_ky * dbz_y - jf * fields.jx
-    ey = ey - bf * inv_kx * dbz_x - jf * fields.jy
-    ez = ez + bf * (inv_kx * dby_x - inv_ky * dbx_y) - jf * fields.jz
+    if grid.dimension == 2:
+        ex = ex + bf * inv_ky * dbz_y - jf * fields.jx
+        ey = ey - bf * inv_kx * dbz_x - jf * fields.jy
+        ez = ez + bf * (inv_kx * dby_x - inv_ky * dbx_y) - jf * fields.jz
+    else:
+        inv_kz = rest[0]
+        dby_z = diff_lo(by, 2, per[2]) / grid.dz
+        dbx_z = diff_lo(bx, 2, per[2]) / grid.dz
+        ex = ex + bf * (inv_ky * dbz_y - inv_kz * dby_z) - jf * fields.jx
+        ey = ey + bf * (inv_kz * dbx_z - inv_kx * dbz_x) - jf * fields.jy
+        ez = ez + bf * (inv_kx * dby_x - inv_ky * dbx_y) - jf * fields.jz
 
     psi = dict(fields.psi)
     if cpml is not None:
         fb = {"ex": ex, "ey": ey, "ez": ez, "bx": bx, "by": by, "bz": bz}
-        for axis, ax in enumerate("xy"):
+        for axis, ax in enumerate(grid.axes):
             if cpml.axis(ax) is not None:
                 _psi_axis_update(psi, fb, cpml, ax, axis, "e", bf, per[axis],
                                  E_PAIRS[ax])
@@ -133,24 +143,32 @@ def update_efield(fields: FieldsState, grid: Grid, dt: float,
 def update_bfield(fields: FieldsState, grid: Grid, dt: float,
                   cpml: Optional[CPMLCoeffs] = None) -> FieldsState:
     """Advance B by dt, then the CPML psi_b recursion."""
-    per = [grid.periodic("x"), grid.periodic("y")]
+    per = grid.periodic_axes
     ex, ey, ez = fields.ex, fields.ey, fields.ez
     bx, by, bz = fields.bx, fields.by, fields.bz
     dtc = torch.tensor(dt, dtype=bx.dtype, device=bx.device)
-    inv_kx, inv_ky = _kappa_factors(cpml, "b", bx)
+    inv_kx, inv_ky, *rest = _kappa_factors(cpml, "b", bx)
 
     dez_y = diff_hi(ez, 1, per[1]) / grid.dy
     dez_x = diff_hi(ez, 0, per[0]) / grid.dx
     dey_x = diff_hi(ey, 0, per[0]) / grid.dx
     dex_y = diff_hi(ex, 1, per[1]) / grid.dy
-    bx = bx - dtc * inv_ky * dez_y
-    by = by + dtc * inv_kx * dez_x
-    bz = bz - (dtc * inv_kx * dey_x - dtc * inv_ky * dex_y)
+    if grid.dimension == 2:
+        bx = bx - dtc * inv_ky * dez_y
+        by = by + dtc * inv_kx * dez_x
+        bz = bz - (dtc * inv_kx * dey_x - dtc * inv_ky * dex_y)
+    else:
+        inv_kz = rest[0]
+        dey_z = diff_hi(ey, 2, per[2]) / grid.dz
+        dex_z = diff_hi(ex, 2, per[2]) / grid.dz
+        bx = bx - (dtc * inv_ky * dez_y - dtc * inv_kz * dey_z)
+        by = by - (dtc * inv_kz * dex_z - dtc * inv_kx * dez_x)
+        bz = bz - (dtc * inv_kx * dey_x - dtc * inv_ky * dex_y)
 
     psi = dict(fields.psi)
     if cpml is not None:
         fb = {"ex": ex, "ey": ey, "ez": ez, "bx": bx, "by": by, "bz": bz}
-        for axis, ax in enumerate("xy"):
+        for axis, ax in enumerate(grid.axes):
             if cpml.axis(ax) is not None:
                 _psi_axis_update(psi, fb, cpml, ax, axis, "b", dtc, per[axis],
                                  B_PAIRS[ax])

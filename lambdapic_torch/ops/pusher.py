@@ -50,3 +50,11 @@ def push_position_2d(x, y, ux, uy, inv_gamma, cdt_dx: float, cdt_dy: float):
     x = x + ux * inv_gamma * _scalar(cdt_dx, x)
     y = y + uy * inv_gamma * _scalar(cdt_dy, y)
     return x, y
+
+
+def push_position_3d(x, y, z, ux, uy, uz, inv_gamma, cdt_dx: float,
+                     cdt_dy: float, cdt_dz: float):
+    x = x + ux * inv_gamma * _scalar(cdt_dx, x)
+    y = y + uy * inv_gamma * _scalar(cdt_dy, y)
+    z = z + uz * inv_gamma * _scalar(cdt_dz, z)
+    return x, y, z

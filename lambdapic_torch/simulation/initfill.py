@@ -5,7 +5,7 @@ Density / ppc profiles are evaluated with numpy at the cell centres, ppc
 particles are placed uniformly inside each selected cell with weight
 w = density * dV / ppc, and the momentum profiles are evaluated at the
 particle positions. Randomness is ``default_rng([seed, ispec, device])``.
-Arrays keep the JAX package's leading device-mesh axes (1, 1 here) so
+Arrays keep the JAX package's leading device-mesh axes (all 1 here) so
 both packages produce identical arrays; the state constructor strips them.
 """
 from __future__ import annotations
@@ -21,7 +21,10 @@ from ..core.species import Species
 def _device_axes_si(grid: Grid, dev_idx: Tuple[int, ...]):
     xs = (dev_idx[0] * grid.nx_loc + np.arange(grid.nx_loc)) * grid.dx
     ys = (dev_idx[1] * grid.ny_loc + np.arange(grid.ny_loc)) * grid.dy
-    return xs, ys
+    if grid.dimension == 2:
+        return xs, ys
+    zs = (dev_idx[2] * grid.nz_loc + np.arange(grid.nz_loc)) * grid.dz
+    return xs, ys, zs
 
 
 def count_macro_particles(grid: Grid, sp: Species) -> np.ndarray:
@@ -57,8 +60,8 @@ def fill_species(grid: Grid, sp: Species, seed: int, ispec: int,
                else Species.vectorized_profile(prof, grid.dimension)
                for prof in (sp.momentum or (None, None, None))]
 
-    dV = grid.dx * grid.dy
-    ds = (grid.dx, grid.dy)
+    dV = grid.dx * grid.dy * (grid.dz if grid.dimension == 3 else 1.0)
+    ds = grid.deltas
 
     for flat_dev, dev_idx in enumerate(np.ndindex(mshape)):
         coords = np.meshgrid(*_device_axes_si(grid, dev_idx), indexing="ij")
@@ -80,7 +83,7 @@ def fill_species(grid: Grid, sp: Species, seed: int, ispec: int,
             ppc.reshape(-1)[cell_ids], 1)
         arrays["w"][dev_idx][:total] = w
         pos_si = []
-        for d, (cname, ci, dd) in enumerate(zip(("x", "y"), cell_multi, ds)):
+        for d, (cname, ci, dd) in enumerate(zip(grid.axes, cell_multi, ds)):
             u = rng.uniform(-0.5, 0.5, total)
             arrays[cname][dev_idx][:total] = ci + u
             pos_si.append((dev_idx[d] * n_per_cell.shape[d] + ci + u) * dd)
@@ -108,10 +111,10 @@ def bin_cells(arrays: Dict[str, np.ndarray], counts: np.ndarray,
               grid: Grid, factor: float = 2.0,
               cap_c: Optional[int] = None):
     """Re-bin flat per-device arrays (mesh_shape + (cap,)) into the
-    per-cell slot layout mesh_shape + (cap_c, nx, ny). ``cap_c`` is a
+    per-cell slot layout mesh_shape + (cap_c, nx, ny[, nz]). ``cap_c`` is a
     floor; the automatic value is even (the migration's dead-slot
     parity split alternates). Returns (arrays, alive, cap_c)."""
-    nloc = (grid.nx_loc, grid.ny_loc)
+    nloc = (grid.nx_loc, grid.ny_loc, grid.nz_loc)[: grid.dimension]
     ncells = int(np.prod(nloc))
     mshape = grid.mesh_shape
     occ_max = 0
@@ -119,8 +122,10 @@ def bin_cells(arrays: Dict[str, np.ndarray], counts: np.ndarray,
     for dev in np.ndindex(mshape):
         n = int(counts[dev])
         idx = [np.clip(np.floor(arrays[c][dev][:n] + 0.5).astype(np.int64),
-                       0, nl - 1) for c, nl in zip(("x", "y"), nloc)]
-        flat = idx[0] * nloc[1] + idx[1]
+                       0, nl - 1) for c, nl in zip(grid.axes, nloc)]
+        flat = idx[0]
+        for ax in range(1, len(nloc)):
+            flat = flat * nloc[ax] + idx[ax]
         order = np.argsort(flat, kind="stable")
         fs = flat[order]
         # slot index = position within the particle's cell run

@@ -1,4 +1,4 @@
-"""The Simulation entry point, 2D cell engine on one device
+"""The Simulation and Simulation3D entry points, cell engine on one device
 (counterpart of a subset of lambdapic_tpu/simulation/simulation.py).
 
 The public surface mirrors the JAX package: construct with grid,
@@ -23,6 +23,7 @@ from ..core.grid import Grid
 from ..core.species import Species, _ALL_SPECIES
 from ..core.state import SimulationState, cell_particles, zeros_fields
 from ..ops.cell2d import deposit_cell_2d
+from ..ops.cell3d import deposit_cell_3d
 from ..ops.cellslab import MAX_CAP
 from ..ops.cpml import CPMLParams, build_cpml
 from ..parallel.halo import halo_reduce
@@ -62,12 +63,24 @@ def _validate_config(s: "Simulation") -> None:
             raise ValueError(f"{name} must be {'>' if strict else '>='} 0, "
                              f"got {v!r}")
 
-    for name in ("nx", "ny", "n_guard", "cpml_thickness"):
+    three_d = s.dimension == 3
+    for name in ("nx", "ny", "n_guard", "cpml_thickness") + \
+            (("nz",) if three_d else ()):
         positive(name, integer=True)
-    for name in ("dx", "dy"):
+    for name in ("dx", "dy") + (("dz",) if three_d else ()):
         positive(name)
-    for name in ("npatch_x", "npatch_y"):
+    for name in ("npatch_x", "npatch_y") + (("npatch_z",) if three_d else ()):
         positive(name, strict=False, integer=True)
+    if s.migration_buffer is not None:
+        positive("migration_buffer", integer=True)
+    if not isinstance(s.enable_timer, bool):
+        raise ValueError(f"enable_timer must be a bool, got {s.enable_timer!r}")
+    if s.tiling_backend not in ("auto", "pallas", "xla"):
+        raise ValueError("tiling_backend must be 'auto', 'pallas' or 'xla', "
+                         f"got {s.tiling_backend!r}")
+    if not 0 < s.recap_threshold <= 1:
+        raise ValueError(f"recap_threshold must be in (0, 1], got "
+                         f"{s.recap_threshold!r}")
     if s.nsteps is not None:
         positive("nsteps", integer=True)
     if s.sim_time is not None:
@@ -90,6 +103,14 @@ class Simulation:
 
     Parameters mirror lambdapic_tpu.Simulation. ``device``: "cuda"
     (default) or "cpu". Only ``tiling="cell"`` is ported.
+
+    Arguments of the JAX Simulation that the cell engine never reads are
+    accepted and validated, so a user script ports unchanged:
+    ``migration_buffer`` (the scatter engine's buffer) and
+    ``recap_threshold`` (the scatter and tiled engines' occupancy trigger;
+    cell-mode re-capacity goes by merge pressure). ``tiling_backend`` must
+    stay "auto" (CUDA kernels on a card, their plain versions on the CPU),
+    and ``enable_timer=True`` waits for the timer utilities.
     """
 
     nx: int
@@ -106,15 +127,19 @@ class Simulation:
     cpml_thickness: int = 6
     log_file: Optional[str] = None
     truncate_log: bool = True
+    enable_timer: bool = False
     random_seed: Optional[int] = None
     precision: str = "single"
     particle_capacity_factor: float = 2.0
+    migration_buffer: Optional[int] = None
     tiling: Optional[object] = None
+    tiling_backend: str = "auto"
     rebin_interval: int = 1
     cell_migration: str = "fast"
     deposit_rho: object = "auto"
     step_chunk: object = "auto"
     recap_interval: int = 10
+    recap_threshold: float = 0.75
     device: Optional[object] = None
 
     dimension = 2
@@ -131,6 +156,8 @@ class Simulation:
             logger.addHandler(handler)
         # dt from CFL
         inv2 = self.dx**-2 + self.dy**-2
+        if self.dimension == 3:
+            inv2 += self.dz**-2
         self.dt = self.dt_cfl * inv2**-0.5 / c_light
 
         self.species: List[Species] = []
@@ -192,8 +219,15 @@ class Simulation:
                 "cell binning re-bins every step (rebin_interval=1)")
         if self.step_chunk not in ("auto", 1):
             raise _todo("multi-step chunking (step_chunk)", "16")
-        if self.npatch_x not in (0, 1) or self.npatch_y not in (0, 1):
-            raise _todo("device meshes (npatch_x/npatch_y > 1)", "15")
+        if self.tiling_backend != "auto":
+            raise _todo(f"tiling_backend={self.tiling_backend!r} (a forced "
+                        "backend; the port picks its CUDA kernels on a card "
+                        "and their plain versions on the CPU)", "13")
+        if self.enable_timer:
+            raise _todo("enable_timer (utils/timer.py)", "6")
+        if any(getattr(self, "npatch_" + ax, 0) not in (0, 1)
+               for ax in "xyz"[: self.dimension]):
+            raise _todo("device meshes (npatch_x/npatch_y/npatch_z > 1)", "15")
         for sp in self.species:
             if getattr(sp, "radiation", None) is not None or sp.has_qed:
                 raise _todo(f"QED radiation (species {sp.name})", "9")
@@ -203,11 +237,14 @@ class Simulation:
                 raise _todo(f"pusher {sp.pusher!r} (species {sp.name})", "9")
 
     def _make_grid(self) -> Grid:
-        g = Grid(dimension=2, nx=self.nx, ny=self.ny, dx=self.dx, dy=self.dy,
-                 npatch_x=1, npatch_y=1, n_guard=self.n_guard,
-                 cpml_thickness=self.cpml_thickness,
+        extra = {}
+        if self.dimension == 3:
+            extra = dict(nz=self.nz, dz=self.dz, npatch_z=1)
+        g = Grid(dimension=self.dimension, nx=self.nx, ny=self.ny,
+                 dx=self.dx, dy=self.dy, npatch_x=1, npatch_y=1,
+                 n_guard=self.n_guard, cpml_thickness=self.cpml_thickness,
                  boundary_conditions=tuple(
-                     sorted(self.boundary_conditions.items())))
+                     sorted(self.boundary_conditions.items())), **extra)
         g.validate()
         if g.n_guard < 2:
             raise ValueError("cell binning needs n_guard >= 2 (the "
@@ -219,6 +256,8 @@ class Simulation:
         self._add_default_species_if_empty()
         self._check_supported()
         self.npatch_x = self.npatch_y = 1
+        if self.dimension == 3:
+            self.npatch_z = 1
         self.grid = self._make_grid()
         logger.info(f"Domain: {self.grid.shape} cells on {self.device}, "
                     f"dt={self.dt:.3e}s")
@@ -239,12 +278,13 @@ class Simulation:
             cap_c = None
             if sp.capacity is not None:
                 cap_c = max(4, int(np.ceil(
-                    sp.capacity / (self.nx * self.ny) / 2) * 2))
+                    sp.capacity / int(np.prod(self.grid.shape)) / 2) * 2))
             arrays, alive_np, cap_c = bin_cells(
                 arrays, counts, self.grid,
                 factor=self.particle_capacity_factor, cap_c=cap_c)
-            arrays = {k: v[0, 0] for k, v in arrays.items()}
-            parts.append(cell_particles(sp, arrays, alive_np[0, 0],
+            dev0 = (0,) * self.dimension       # the one-device mesh
+            arrays = {k: v[dev0] for k, v in arrays.items()}
+            parts.append(cell_particles(sp, arrays, alive_np[dev0],
                                         self.dtype, self.device))
             self._species_static.append(SpeciesStatic(
                 name=sp.name, q=sp.q, m=sp.m, pusher=sp.pusher, cap=cap_c))
@@ -429,15 +469,21 @@ class Simulation:
                 continue
             d = p.data
             w = torch.where(p.alive, d["w"], 0.0)
-            j4 = deposit_cell_2d(d["x"], d["y"], d["ux"], d["uy"], d["uz"],
-                                 d["inv_gamma"], w, q=sp.q, dx=self.dx,
-                                 dy=self.dy, dt=self.dt, g=g)
+            if self.dimension == 2:
+                j4 = deposit_cell_2d(d["x"], d["y"], d["ux"], d["uy"],
+                                     d["uz"], d["inv_gamma"], w, q=sp.q,
+                                     dx=self.dx, dy=self.dy, dt=self.dt, g=g)
+            else:
+                j4 = deposit_cell_3d(d["x"], d["y"], d["z"], d["ux"],
+                                     d["uy"], d["uz"], d["inv_gamma"], w,
+                                     q=sp.q, dx=self.dx, dy=self.dy,
+                                     dz=self.dz, dt=self.dt, g=g)
             jtot = j4 if jtot is None else jtot + j4
         if jtot is None:
             return torch.zeros(self.grid.shape, dtype=self.dtype,
                                device=self.device)
-        periodic = (self.grid.periodic("x"), self.grid.periodic("y"))
-        return halo_reduce(jtot, g, (1, 2), periodic)[3]
+        return halo_reduce(jtot, g, tuple(range(1, self.dimension + 1)),
+                           self.grid.periodic_axes)[3]
 
     def get_field(self, name: str) -> np.ndarray:
         """Host copy of a field. When the hot loop runs without the rho
@@ -449,6 +495,35 @@ class Simulation:
     @property
     def npart_alive(self) -> List[int]:
         return [int(p.alive.sum()) for p in self.state.particles]
+
+
+@dataclass
+class Simulation3D(Simulation):
+    """3D PIC simulation on one device, cell engine (counterpart of
+    lambdapic_tpu.Simulation3D)."""
+
+    nz: int = 0
+    dz: float = 0.0
+    npatch_z: int = 0
+
+    dimension = 3
+
+    def __post_init__(self):
+        if self.nz <= 0 or self.dz <= 0:
+            raise ValueError("Simulation3D requires nz and dz")
+        if self.boundary_conditions is None:
+            self.boundary_conditions = {
+                "xmin": "pml", "xmax": "pml", "ymin": "pml", "ymax": "pml",
+                "zmin": "pml", "zmax": "pml"}
+        super().__post_init__()
+
+    @property
+    def Lz(self):
+        return self.nz * self.dz
+
+    @property
+    def nz_per_patch(self):
+        return self.grid.nz_loc
 
 
 Simulation2D = Simulation

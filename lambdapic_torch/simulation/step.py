@@ -3,13 +3,14 @@ cell path of lambdapic_tpu/simulation/step.py::StepBuilder).
 
     seg_fields_1   E += dt/2 ; B += dt/2                 kernel B1 x2
     seg_particles  pad E,B with guard cells; per species the whole
-                   particle stage (half push, re-binning along x then y,
+                   particle stage (half push, re-binning along x, y[, z],
                    gather, Boris, half push, deposit into tile panels,
                    chained across species)             kernel B2 per species
                    fold the summed panels into J        kernel B3
     seg_fields_2   B += dt/2 ; lasers ; E += dt/2        kernel B1 x2
 
-Host callbacks can run between the segments. The split particle path,
+The grid's dimension (2 or 3) selects the 2D or the 3D form of each
+kernel. Host callbacks can run between the segments. The split particle path,
 QED, collisions, the tiled and scatter engines and multi-step chunking
 are not ported yet (ROADMAP queue 1).
 """
@@ -52,7 +53,8 @@ class StepBuilder:
         # deposit rho in the hot loop; when False the deposit carries
         # jx, jy, jz only and Simulation.get_field("rho") recomputes rho
         self.with_rho = with_rho
-        self.periodic = (grid.periodic("x"), grid.periodic("y"))
+        self.periodic = grid.periodic_axes
+        self.spatial_axes = tuple(range(1, grid.dimension + 1))
         # B1's coefficient rows, built once per device and type
         self._coeffs = {}
         if torch.device(device).type == "cuda":
@@ -67,7 +69,8 @@ class StepBuilder:
     def pad_eb(self, f) -> torch.Tensor:
         """The six E/B components with n_guard guard cells per side."""
         eb = torch.stack([f.ex, f.ey, f.ez, f.bx, f.by, f.bz], dim=0)
-        return halo_pad(eb, self.grid.n_guard, (1, 2), self.periodic)
+        return halo_pad(eb, self.grid.n_guard, self.spatial_axes,
+                        self.periodic)
 
     def seg_fields_1(self, state: SimulationState, scalars: Dict
                      ) -> SimulationState:
@@ -82,16 +85,17 @@ class StepBuilder:
         eb_pad = self.pad_eb(f)
         rims = None
         parts = []
+        dz = grid.dz if grid.dimension == 3 else None
         for sp, p in zip(self.species, state.particles):
             data, alive, n_lost, rims = cell_step(
                 eb_pad, p.data, p.alive, q=sp.q, m=sp.m, dt=self.dt,
-                dx=grid.dx, dy=grid.dy, g=grid.n_guard,
+                dx=grid.dx, dy=grid.dy, dz=dz, g=grid.n_guard,
                 periodic=self.periodic, rims_in=rims,
                 with_rho=self.with_rho)
             parts.append(p.replace(data=data, alive=alive,
                                    overflow=p.overflow + n_lost))
         if rims is not None:
-            j = fold_reduce(rims, grid.nx, grid.ny, self.periodic)
+            j = fold_reduce(rims, grid.shape, self.periodic)
             rep = dict(jx=j[0], jy=j[1], jz=j[2])
             if j.shape[0] == 4:
                 rep["rho"] = j[3]

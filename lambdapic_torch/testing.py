@@ -8,7 +8,7 @@ slots by (dead, id_lo).
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -18,27 +18,34 @@ from .core.state import ID_KEYS, ids_to_numpy, ids_to_torch
 SLOT_FLOATS = ("x", "y", "z", "w", "ux", "uy", "uz", "inv_gamma")
 
 
-def random_cell_state(cap: int, nx: int, ny: int, *, g: int = 3,
-                      n_frac: float = 0.4, spread: float = 0.95,
-                      umax: float = 2.0, field: float = 5e11,
+def random_cell_state(cap: int, nx: int, ny: int, nz: Optional[int] = None,
+                      *, g: int = 3, n_frac: float = 0.4,
+                      spread: float = 0.95, umax: float = 2.0,
+                      field: float = 5e11,
                       seed: int = 0) -> Tuple[Dict[str, np.ndarray],
                                               np.ndarray, np.ndarray]:
-    """A cell-binned species state (positions within +-spread/2 of their
-    cell centre, momenta up to +-umax: at c dt/dx ~ 0.66 particles cross
-    cells in every direction) and a random padded E/B stack. Returns
+    """A cell-binned species state, 2D slots (cap, nx, ny) or with ``nz``
+    3D slots (cap, nx, ny, nz) (positions within +-spread/2 of their cell
+    centre, momenta up to +-umax: at c dt/dx ~ 0.66 particles cross cells
+    in every direction) and a random padded E/B stack. Returns
     (data, alive, eb_pad) as numpy arrays, ids as uint32."""
     rng = np.random.default_rng(seed)
-    shape = (cap, nx, ny)
+    n = (nx, ny) if nz is None else (nx, ny, nz)
+    shape = (cap,) + n
     alive = rng.uniform(0, 1, shape) < n_frac
 
     def mk(lo, hi):
         return rng.uniform(lo, hi, shape)
 
-    ix = np.arange(nx).reshape(1, nx, 1)
-    iy = np.arange(ny).reshape(1, 1, ny)
-    data = {"x": np.where(alive, mk(-spread / 2, spread / 2) + ix, 0.0),
-            "y": np.where(alive, mk(-spread / 2, spread / 2) + iy, 0.0),
-            "z": np.where(alive, mk(-1, 1), 0.0)}
+    def centred(axis):
+        ishape = [1] * len(shape)
+        ishape[1 + axis] = n[axis]
+        return mk(-spread / 2, spread / 2) + np.arange(n[axis]).reshape(ishape)
+
+    data = {"x": np.where(alive, centred(0), 0.0),
+            "y": np.where(alive, centred(1), 0.0),
+            "z": np.where(alive, mk(-1, 1) if nz is None else centred(2),
+                          0.0)}
     u = [np.where(alive, mk(-umax, umax), 0.0) for _ in range(3)]
     data.update(ux=u[0], uy=u[1], uz=u[2])
     data["inv_gamma"] = 1 / np.sqrt(1 + u[0]**2 + u[1]**2 + u[2]**2)
@@ -46,7 +53,7 @@ def random_cell_state(cap: int, nx: int, ny: int, *, g: int = 3,
     data["id_lo"] = rng.permutation(int(np.prod(shape))).reshape(shape
                                                                  ).astype(np.uint32)
     data["id_hi"] = np.zeros(shape, np.uint32)
-    eb_pad = rng.uniform(-field, field, (6, nx + 2 * g, ny + 2 * g))
+    eb_pad = rng.uniform(-field, field, (6,) + tuple(k + 2 * g for k in n))
     return data, alive, eb_pad
 
 

@@ -156,7 +156,7 @@ def test_cell_step_plain_matches_jax(cap, nx, ny, periodic, n_frac, merges):
     assert int(n_lost) == ref_lost
     if merges:
         assert ref_lost > 0
-    j = fold_reduce_plain(rims, nx, ny, periodic).numpy()
+    j = fold_reduce_plain(rims, (nx, ny), periodic).numpy()
     scale = np.abs(ref_j).max()
     np.testing.assert_allclose(j, ref_j, rtol=0, atol=1e-12 * scale)
     # the wrappers take the plain versions for CPU tensors
@@ -164,8 +164,8 @@ def test_cell_step_plain_matches_jax(cap, nx, ny, periodic, n_frac, merges):
         torch.as_tensor(eb_pad), td, ta, q=Q, m=M, dt=DT, dx=DX, dy=DX, g=G,
         periodic=periodic)
     assert torch.equal(rims2, rims) and torch.equal(a2, a) and int(n2) == int(n_lost)
-    assert torch.equal(fold_reduce(rims, nx, ny, periodic),
-                       fold_reduce_plain(rims, nx, ny, periodic))
+    assert torch.equal(fold_reduce(rims, (nx, ny), periodic),
+                       fold_reduce_plain(rims, (nx, ny), periodic))
 
 
 def test_species_chain_and_no_rho():
@@ -186,8 +186,8 @@ def test_species_chain_and_no_rho():
                                  with_rho=False, **kw)[3]
         assert no_rho.shape[0] == 3
         torch.testing.assert_close(no_rho, single[:3], rtol=0, atol=0)
-        outs.append(fold_reduce_plain(single, nx, ny, periodic))
-    total = fold_reduce_plain(rims, nx, ny, periodic)
+        outs.append(fold_reduce_plain(single, (nx, ny), periodic))
+    total = fold_reduce_plain(rims, (nx, ny), periodic)
     torch.testing.assert_close(total, outs[0] + outs[1], rtol=1e-12,
                                atol=1e-12 * float(total.abs().max()))
 
@@ -207,6 +207,6 @@ def test_fold_matches_halo_reduce_of_deposit():
                                         g=G)
         ref = halo_reduce(jpad, G, (1, 2), periodic)
         pan = deposit_panels(*args, w, q=Q, dx=DX, dy=DX, dt=DT)
-        got = fold_reduce_plain(pan, nx, ny, periodic)
+        got = fold_reduce_plain(pan, (nx, ny), periodic)
         torch.testing.assert_close(got, ref, rtol=0,
                                    atol=1e-12 * float(ref.abs().max()))

@@ -4,7 +4,8 @@ one (and without JAX, which tests/conftest.py imports) run
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
 
-Tolerances (float64): B1 1e-12 of each array's peak; B2 slot for slot
+Each kernel is held in its 2D and in its 3D form. Tolerances (float64):
+B1 1e-12 of each array's peak; B2 slot for slot
 after canonicalisation (alive and ids equal, other attributes to rtol
 1e-11), merge counts equal, panels to 1e-12 of their peak; B3 1e-12 of
 the peak. The kernels are compiled without multiply-add contraction, so
@@ -22,7 +23,8 @@ from lambdapic_torch.ops.cellslab import (cell_step, cell_step_plain,
                                           fold_reduce, fold_reduce_plain,
                                           panel_shape)
 from lambdapic_torch.ops.cpml import CPMLParams, build_cpml
-from lambdapic_torch.ops.fieldskernel import update_bfield_k, update_efield_k
+from lambdapic_torch.ops.fieldskernel import (update_bfield_k,
+                                              update_efield_k, update_half_k)
 from lambdapic_torch.testing import compare_slots, random_cell_state, \
     to_numpy, to_torch
 
@@ -101,8 +103,8 @@ def test_b2_b3_match_plain(cuda, cap, nx, ny, periodic, n_frac):
         assert int(ref[2]) > 0
     torch.testing.assert_close(got[3], ref[3], rtol=0,
                                atol=1e-12 * float(ref[3].abs().max()))
-    jr = fold_reduce_plain(ref[3], nx, ny, periodic)
-    jk = fold_reduce(ref[3], nx, ny, periodic)
+    jr = fold_reduce_plain(ref[3], (nx, ny), periodic)
+    jk = fold_reduce(ref[3], (nx, ny), periodic)
     torch.testing.assert_close(jk, jr, rtol=0,
                                atol=1e-12 * float(jr.abs().max()))
 
@@ -157,3 +159,132 @@ def test_simulation_on_card_matches_cpu(cuda):
                       pr.alive[0, 0],
                       {k: v[0, 0] for k, v in pg.data.items()},
                       pg.alive[0, 0], rtol=1e-9)
+
+
+# -- the 3D forms ------------------------------------------------------------
+
+BC3 = {
+    "pml": ("pml",) * 6,
+    "periodic": ("periodic",) * 6,
+    "mixed": ("pml", "pml", "periodic", "periodic", "pml", "pml"),
+}
+
+
+@pytest.mark.parametrize("bc", sorted(BC3))
+def test_b1_3d_matches_plain(cuda, bc):
+    from lambdapic_torch.core.state import PSI_COMPONENTS
+    names = ("xmin", "xmax", "ymin", "ymax", "zmin", "zmax")
+    grid = Grid(dimension=3, nx=20, ny=18, nz=22, dx=1e-6, dy=0.8e-6,
+                dz=1.2e-6, npatch_x=1, npatch_y=1, npatch_z=1, n_guard=3,
+                cpml_thickness=6,
+                boundary_conditions=tuple(zip(names, BC3[bc])))
+    dt = 0.95 / np.sqrt(grid.dx**-2 + grid.dy**-2 + grid.dz**-2) / 3e8
+    cpml = build_cpml(grid, dt, CPMLParams()) if bc != "periodic" else None
+    rng = np.random.default_rng(0)
+
+    def t(shape, scale=1.0):
+        return torch.as_tensor(rng.normal(size=shape) * scale).to(cuda)
+
+    f = FieldsState(**{k: t(grid.shape, 1e-8 if k[0] == "b" else 1.0)
+                       for k in ("ex", "ey", "ez", "bx", "by", "bz", "jx",
+                                 "jy", "jz", "rho")})
+    if cpml is not None:
+        for axis, ax in enumerate("xyz"):
+            if cpml.axis(ax) is None:
+                continue
+            shape = list(grid.shape)
+            shape[axis] = cpml.psi_width(ax)
+            for c in PSI_COMPONENTS[ax]:
+                f.psi[f"psi_{c}_{ax}"] = t(shape, 1e-3)
+    for k_fn, p_fn in ((update_efield_k, maxwell.update_efield),
+                       (update_bfield_k, maxwell.update_bfield)):
+        before = update_half_k.launches
+        got, ref = k_fn(f, grid, dt / 2, cpml), p_fn(f, grid, dt / 2, cpml)
+        assert update_half_k.launches == before + 1
+        for k in ("ex", "ey", "ez", "bx", "by", "bz"):
+            a, b = getattr(got, k), getattr(ref, k)
+            torch.testing.assert_close(a, b, rtol=0,
+                                       atol=1e-12 * float(b.abs().max()))
+        assert set(got.psi) == set(ref.psi)
+        for k in ref.psi:
+            torch.testing.assert_close(got.psi[k], ref.psi[k], rtol=0,
+                                       atol=1e-12 * float(ref.psi[k].abs().max()))
+
+
+@pytest.mark.parametrize("cap,nx,ny,nz,periodic,n_frac", [
+    (4, 8, 8, 8, (True, True, True), 0.4),
+    (6, 12, 10, 20, (False, False, False), 0.4),
+    (4, 10, 18, 9, (True, False, True), 0.9),
+    (20, 9, 8, 11, (False, True, False), 0.5),
+])
+def test_b2_b3_3d_match_plain(cuda, cap, nx, ny, nz, periodic, n_frac):
+    data, alive, eb = random_cell_state(cap, nx, ny, nz, n_frac=n_frac,
+                                        seed=cap + nx)
+    td, ta = to_torch(data, alive, torch.float64, cuda)
+    eb = torch.as_tensor(eb).to(cuda)
+    rims_in = torch.as_tensor(np.random.default_rng(1).normal(
+        size=panel_shape(4, nx, ny, nz))).to(cuda)
+    kw = dict(q=Q, m=M, dt=DT, dx=DX, dy=DX, dz=DX, g=3, periodic=periodic,
+              rims_in=rims_in)
+    ref = cell_step_plain(eb, td, ta, **kw)
+    before = cell_step.launches
+    got = cell_step(eb, td, ta, **kw)
+    torch.cuda.synchronize()
+    assert cell_step.launches == before + 1
+    compare_slots(*to_numpy(ref[0], ref[1]), *to_numpy(got[0], got[1]),
+                  rtol=1e-11)
+    assert int(got[2]) == int(ref[2])
+    if n_frac > 0.8:
+        assert int(ref[2]) > 0
+    torch.testing.assert_close(got[3], ref[3], rtol=0,
+                               atol=1e-12 * float(ref[3].abs().max()))
+    jr = fold_reduce_plain(ref[3], (nx, ny, nz), periodic)
+    before = fold_reduce.launches
+    jk = fold_reduce(ref[3], (nx, ny, nz), periodic)
+    assert fold_reduce.launches == before + 1
+    torch.testing.assert_close(jk, jr, rtol=0,
+                               atol=1e-12 * float(jr.abs().max()))
+
+
+def test_simulation3d_on_card_matches_cpu(cuda):
+    """Six float64 steps of a small 3D laser-target through
+    Simulation3D.run: the kernel path on the card against the plain path
+    on the CPU."""
+    import lambdapic_torch
+    from lambdapic_torch.core import species as t_species
+    from lambdapic_torch.core.state import state_to_numpy
+    um = 1e-6
+    l0 = 0.8 * um
+    nx, dx = 32, l0 / 10
+
+    def density(x, y, z):
+        return np.where(x > 1.2 * um, 2 * 1.742e27, 0.0)
+
+    def uy(x, y, z):
+        return 1.5 * np.sin(2 * np.pi * z / (16 * 2 * dx))
+
+    states = []
+    for dev in ("cpu", cuda):
+        t_species._ALL_SPECIES.clear()
+        sim = lambdapic_torch.Simulation3D(
+            nx=nx, ny=16, nz=16, dx=dx, dy=2 * dx, dz=2 * dx, tiling="cell",
+            random_seed=4, precision="double", device=dev,
+            particle_capacity_factor=4.0)
+        sim.add_species([
+            lambdapic_torch.Electron(density=density, ppc=2,
+                                     momentum=(uy, uy, uy)),
+            lambdapic_torch.Proton(density=density, ppc=2)])
+        sim.run(6, callbacks=[lambdapic_torch.GaussianLaser3D(
+            a0=2, l0=l0, w0=0.6 * um, ctau=0.5 * um, x0=0.0)])
+        states.append(state_to_numpy(sim.state, dimension=3))
+    ref, got = states
+    for k in ("ex", "ey", "ez", "bx", "by", "bz", "jx", "jy", "jz"):
+        a, b = getattr(got.fields, k), getattr(ref.fields, k)
+        np.testing.assert_allclose(a, b, rtol=1e-9,
+                                   atol=1e-9 * np.abs(b).max(), err_msg=k)
+    for pr, pg in zip(ref.particles, got.particles):
+        assert int(pr.overflow.sum()) == int(pg.overflow.sum())
+        compare_slots({k: v[0, 0, 0] for k, v in pr.data.items()},
+                      pr.alive[0, 0, 0],
+                      {k: v[0, 0, 0] for k, v in pg.data.items()},
+                      pg.alive[0, 0, 0], rtol=1e-9)
