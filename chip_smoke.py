@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Run the lambdapic_torch port on one CUDA card and check it.
 
-    python3 chip_smoke.py [--steps N] [--window W] [--steps3d N] [--window3d W]
+    python3 chip_smoke.py [--steps N] [--window W] [--steps-qed N]
+                          [--window-qed W] [--steps3d N] [--window3d W]
 
 Phases (any failure exits non-zero):
 
@@ -20,14 +21,24 @@ Phases (any failure exits non-zero):
    (B1 4, B2 3, B3 1); time a steady window;
 4. time each 2D kernel with CUDA events at the slice's shapes, and its
    plain version once;
-5. the same for the 3D slice, example/laser-target-3d.py at full size
-   without its diagnostics (512 x 256 x 256 cells, electrons and protons
-   at 2 particles per cell, PML on six faces, GaussianLaser3D a0=10,
-   float32), through Simulation3D.run (launches per step B1 4, B2 2,
-   B3 1), and for the 3D kernels at its shapes.
+5. QED: B2's want_chi and photon modes against their plain versions
+   (float64 slot for slot at small sizes, with merges and with QED
+   payloads; float32 at the slice's shapes), the in-step draws on the card
+   against the CPU (bitwise), and the QED slice, example/photons.py at full
+   size without its diagnostics (512 x 512 cells, radiating electrons and
+   protons at 10 particles per cell, a photon species, PML, SimpleLaser2D
+   a0=300, float32, the example's 100 fs) through Simulation.run
+   (launches per step B1 4, B2 3 = want_chi + default + photon, B3 1); a
+   creation phase on its own conserves momentum; times of both modes,
+   of the plain-torch QED work, and the host synchronisations it adds;
+6. the same as 2-4 for the 3D slice, example/laser-target-3d.py at full
+   size without its diagnostics (512 x 256 x 256 cells, electrons and
+   protons at 2 particles per cell, PML on six faces, GaussianLaser3D
+   a0=10, float32), through Simulation3D.run (launches per step B1 4,
+   B2 2, B3 1), and for the 3D kernels at its shapes.
 
-Prints a ``{"kernels": [...]}`` line with the 2D and the 3D kernels, the
-card's name and power limit, and as its last line
+Prints a ``{"kernels": [...]}`` line with the 2D, the QED and the 3D
+kernels, the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -37,6 +48,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -53,6 +65,11 @@ FLOPS_PER_PARTICLE = 1400
 # (about 900), Boris (about 60), 30 Esirkepov shapes with their derived
 # taps and 125 nodes of four channels (about 2300)
 FLOPS_PER_PARTICLE_3D = 3300
+# B2's QED modes, counted from cellstep.cu the same way: want_chi adds
+# ig0 and chi to the default mode's work (about 40); the photon mode does
+# two half pushes, the keys and 1/|u| (about 20) and nothing else
+FLOPS_CHI = 40
+FLOPS_PHOTON = 20
 
 
 def log(msg: str) -> None:
@@ -83,6 +100,7 @@ def cuda_time(fn, iters: int) -> float:
 # launches one of B1's two)
 KERNEL_FUNCS = {"B1 E": {"e_half": 1}, "B1 B": {"b_half": 1},
                 "B2": {"pass_x": 1, "pass_y": 1, "deposit": 1},
+                "B2 photon": {"pass_x": 1, "pass_y": 1},
                 "B3": {"fold<": 1},
                 "B1-3D E": {"e_half3": 1}, "B1-3D B": {"b_half3": 1},
                 "B2-3D": {"rebin": 3, "push<": 1, "deposit": 1},
@@ -141,7 +159,7 @@ def device_times(fn, iters: int, expected):
         seen = {f: sum(n for name, (_, n) in out.items() if f in name)
                 for f in expected}
         want = {f: k * iters for f, k in expected.items()}
-        if seen == want:
+        if seen == want and out:
             return out, True
         log(f"[profiler] attempt {attempt + 1} of {tries}: recorded {seen} "
             f"of {want} launches")
@@ -417,6 +435,16 @@ def edge_sitters(sim):
     return out
 
 
+def reset_launches():
+    """Set every kernel wrapper's launch count to 0."""
+    from lambdapic_torch.ops import cellslab, fieldskernel
+    for fn in (fieldskernel.update_half_k, cellslab.cell_step,
+               cellslab.fold_reduce):
+        fn.launches = 0
+    for mode in cellslab.cell_step.launches_by_mode:
+        cellslab.cell_step.launches_by_mode[mode] = 0
+
+
 def totals(sim):
     import torch
     out = []
@@ -490,9 +518,7 @@ def run_2d(args, dev):
     # particle can leave the box: particle number (alive + merged) and
     # weight are checked there. The last --window steps are timed.
     before = totals(sim)
-    for fn in (fieldskernel.update_half_k, cellslab.cell_step,
-               cellslab.fold_reduce):
-        fn.launches = 0
+    reset_launches()
     n_timed = min(args.window, args.steps)
     n_a = min(args.steps - n_timed, 1000)
     n_b = args.steps - n_timed - n_a
@@ -634,6 +660,541 @@ def run_2d(args, dev):
              library_ms=None),
     ]
     log(f"[kernels 2D] launches per step {per_step}")
+    return kernels
+
+
+# ---------------------------------------------------------------------------
+# QED: example/photons.py
+# ---------------------------------------------------------------------------
+
+# the example's simulated time
+QED_SIM_TIME = 100e-15
+# steps per chunk of the checked start of the QED slice, and the least
+# distance (cells) from an open face that a moving particle may have for
+# the chunk to count as loss-free: c dt per step is 0.67 cells per axis
+CHUNK_QED = 4
+MARGIN_QED = 3.0
+QED_CASES = [(4, 16, 16, (True, True), 0.4), (6, 24, 40, (False, False), 0.5),
+             (8, 16, 16, (False, True), 0.85), (20, 33, 18, (True, False), 0.5)]
+
+
+def check_b2_qed_f64(dev):
+    """B2's want_chi and photon modes against their plain versions, float64
+    slot for slot (compare_slots' rule, chi and ig0 included) at small
+    sizes: periodic, open and mixed faces, a case built to merge, QED
+    payloads that differ per slot. Returns the merges of each mode."""
+    import torch
+    from lambdapic_torch.ops.cellslab import (cell_step, cell_step_plain,
+                                              panel_shape)
+    from lambdapic_torch.testing import (QED_PAYLOADS, SLOT_FLOATS,
+                                         add_qed_payloads, compare_slots,
+                                         photon_cell_state, random_cell_state,
+                                         to_numpy, to_torch)
+    q, m, dt, d = -1.602e-19, 9.109e-31, 1.1e-16, 5e-8
+    merges = {"want_chi": 0, "photon": 0}
+    for cap, nx, ny, per, frac in QED_CASES:
+        data, alive, eb = random_cell_state(cap, nx, ny, n_frac=frac,
+                                            seed=cap + nx, umax=50.0,
+                                            field=5e13)
+        td, ta = to_torch(add_qed_payloads(data, seed=cap), alive,
+                          torch.float64, dev)
+        eb_t = torch.as_tensor(eb).to(dev)
+        rin = torch.as_tensor(np.random.default_rng(1).normal(
+            size=panel_shape(4, nx, ny))).to(dev)
+        kw = dict(q=q, m=m, dt=dt, dx=d, dy=d, g=3, periodic=per,
+                  rims_in=rin, want_chi=True)
+        ref = cell_step_plain(eb_t, td, ta, **kw)
+        got = cell_step(eb_t, td, ta, **kw)
+        torch.cuda.synchronize()
+        for out in (ref, got):
+            out[0]["chi"], out[0]["ig0"] = out[4]
+        compare_slots(*to_numpy(ref[0], ref[1]), *to_numpy(got[0], got[1]),
+                      rtol=1e-11,
+                      keys=SLOT_FLOATS + QED_PAYLOADS + ("chi", "ig0"))
+        if int(got[2]) != int(ref[2]):
+            fail(f"B2 want_chi merges {int(got[2])} != plain {int(ref[2])}")
+        err = float((got[3] - ref[3]).abs().max())
+        if not err <= 1e-12 * float(ref[3].abs().max()):
+            fail(f"B2 want_chi panels differ: {err:.3e}")
+        merges["want_chi"] = max(merges["want_chi"], int(ref[2]))
+
+        pdata, palive = photon_cell_state(cap, nx, ny, n_frac=frac,
+                                          seed=cap + ny)
+        td, ta = to_torch(pdata, palive, torch.float64, dev)
+        kw = dict(q=0.0, m=0.0, dt=dt, dx=d, dy=d, g=3, periodic=per,
+                  photon=True)
+        ref = cell_step_plain(None, td, ta, **kw)
+        got = cell_step(None, td, ta, **kw)
+        torch.cuda.synchronize()
+        if got[3] is not None:
+            fail("B2 photon returned panels")
+        compare_slots(*to_numpy(ref[0], ref[1]), *to_numpy(got[0], got[1]),
+                      rtol=1e-11)
+        if int(got[2]) != int(ref[2]):
+            fail(f"B2 photon merges {int(got[2])} != plain {int(ref[2])}")
+        merges["photon"] = max(merges["photon"], int(ref[2]))
+    if min(merges.values()) == 0:
+        fail(f"a B2 QED float64 mode merged no particle: {merges}")
+    return merges
+
+
+def make_slice_qed(dev, seed=0):
+    """example/photons.py at full size (512 x 512 cells, 100 fs), without
+    its diagnostics and its log file; its npho callback kept. Returns
+    (sim, laser, npho callback, photon species)."""
+    from lambdapic_torch import (Electron, Photon, Proton, SimpleLaser2D,
+                                 Simulation, callback)
+    from lambdapic_torch.constants import c, e, epsilon_0, m_e, pi
+    um = 1e-6
+    l0 = 0.8 * um
+    omega0 = 2 * pi * c / l0
+    nc = epsilon_0 * m_e * omega0**2 / e**2
+    nx = ny = 512
+    dx = dy = l0 / 20
+
+    def density(n0):
+        def _density(x, y):
+            ne = 0.0
+            if x > 2 * um:
+                ne = n0
+            return ne
+        return _density
+
+    laser = SimpleLaser2D(a0=300, w0=2e-6, l0=0.8e-6, ctau=5e-6)
+    sim = Simulation(tiling="cell", nx=nx, ny=ny, dx=dx, dy=dy,
+                     sim_time=QED_SIM_TIME, random_seed=seed, device=dev)
+    ele = Electron(density=density(5 * nc), ppc=10, radiation="photons")
+    pho = Photon(capacity=1 << 20)
+    ele.set_photon(pho)
+    proton = Proton(density=density(5 * nc), ppc=10)
+    sim.add_species([ele, proton, pho])
+
+    @callback(interval=10e-15)
+    def npho(sim):
+        log(f"[slice QED] step {sim.itime}: nphoton = "
+            f"{sim.npart_alive[pho.ispec]}")
+    return sim, laser, npho, pho
+
+
+def face_margin(sim, moving=1e-3):
+    """Least distance, in cells, from an open face of any alive particle
+    that moves (|u| > ``moving``), over all species."""
+    import torch
+    best = float("inf")
+    for p in sim.state.particles:
+        u2 = sum(p.data[k].double()**2 for k in ("ux", "uy", "uz"))
+        m = p.alive & (u2 > moving**2)
+        for ax, n, per in zip(sim.grid.axes, sim.grid.shape,
+                              sim.grid.periodic_axes):
+            if per or not bool(m.any()):
+                continue
+            pos = p.data[ax][m].double()
+            best = min(best, float(torch.minimum(pos + 0.5,
+                                                 (n - 0.5) - pos).min()))
+    return best
+
+
+def momentum(p):
+    """Sum of w u over a species' alive slots, float64, per component."""
+    import torch
+    w = torch.where(p.alive, p.data["w"], 0).to(torch.float64)
+    return np.array([float((w * p.data[k].to(torch.float64)).sum())
+                     for k in ("ux", "uy", "uz")])
+
+
+def qed_events(sim, proc):
+    """The radiating species after one want_chi launch and its event
+    update on the current state (the first half of a QED step's work),
+    and that launch's chi. The simulation's state is not changed."""
+    from lambdapic_torch.models.qed import species_key
+    from lambdapic_torch.ops.cellslab import cell_step
+    grid, st = sim.grid, sim._species_static[proc.ispec]
+    e = sim.state.particles[proc.ispec]
+    out = cell_step(sim._builder.pad_eb(sim.state.fields), e.data, e.alive,
+                    q=st.q, m=st.m, dt=sim.dt, dx=grid.dx, dy=grid.dy,
+                    g=grid.n_guard, periodic=grid.periodic_axes,
+                    with_rho=sim._builder.with_rho, want_chi=True)
+    key = species_key(sim._base_key, sim.itime, proc.ispec)
+    data, alive = proc.update_events_from_chi(out[0], out[1], key, sim.dt,
+                                              *out[4])
+    return e.replace(data=data, alive=alive), out
+
+
+def check_creation(sim, proc):
+    """One creation phase on its own, on the current state after a
+    want_chi launch and the event update: electrons lose exactly what the
+    newborn photons carry (sum of w delta u over the events), the photons
+    gain it, less what newborns without a free slot would have carried,
+    so sum w u over electrons + photons holds to float32 rounding; the
+    newborns carry their parents' weight. Returns (events, dropped,
+    relative change of the total)."""
+    import torch
+    parts = list(sim.state.particles)
+    e, _ = qed_events(sim, proc)
+    parts[proc.ispec] = e
+    ph = parts[proc.photon_ispec]
+    ev = e.alive & (e.data["event"] > 0)
+    n_ev = int(ev.sum())
+    if n_ev == 0:
+        fail("QED creation check: no event at this step")
+    w = torch.where(ev, e.data["w"], 0).to(torch.float64)
+    carried = np.array([float((w * e.data["delta"].to(torch.float64)
+                               * e.data[k].to(torch.float64)).sum())
+                        for k in ("ux", "uy", "uz")])
+    scale = float((w * torch.sqrt(sum(e.data[k].to(torch.float64)**2
+                                      for k in ("ux", "uy", "uz")))).sum())
+    newborn_max = float((w * e.data["delta"].to(torch.float64)
+                         * torch.sqrt(sum(e.data[k].to(torch.float64)**2
+                                          for k in ("ux", "uy", "uz")))
+                         ).max())
+    e0, p0 = momentum(e), momentum(ph)
+    out = sim._builder.qed_creation(proc, parts)
+    e1, p1 = momentum(out[proc.ispec]), momentum(out[proc.photon_ispec])
+    nph = out[proc.photon_ispec]
+    dropped = int(nph.overflow) - int(ph.overflow)
+    new = nph.alive & ~ph.alive
+    tol = 1e-6 * scale
+    if not np.abs((e0 - e1) - carried).max() <= tol:
+        fail(f"QED creation: electrons lost {e0 - e1}, events carried "
+             f"{carried}")
+    slack = tol + dropped * newborn_max
+    if not np.abs((p1 - p0) - carried).max() <= slack:
+        fail(f"QED creation: photons gained {p1 - p0}, events carried "
+             f"{carried}, {dropped} newborns dropped")
+    if int(new.sum()) != n_ev - dropped:
+        fail(f"QED creation: {int(new.sum())} newborn slots for {n_ev} "
+             f"events and {dropped} dropped")
+    w_new = float(torch.where(new, nph.data["w"], 0).sum(dtype=torch.float64))
+    w_ev = float(w.sum())
+    if dropped == 0 and not abs(w_new - w_ev) <= 1e-6 * w_ev:
+        fail(f"QED creation: newborn weight {w_new} != parents' {w_ev}")
+    change = float(np.abs((e1 + p1) - (e0 + p0)).max()) / scale
+    log(f"[QED creation] step {sim.itime}: {n_ev} events, {dropped} "
+        f"newborns dropped, newborn weight {w_new:.7e} (parents "
+        f"{w_ev:.7e}); sum w u over electrons + photons changed by "
+        f"{change:.3e} of the events' sum w |u|")
+    return n_ev, dropped, change
+
+
+def compare_b2_qed_f32(sim, proc):
+    """The want_chi kernel (electrons) and the photon kernel (photons)
+    against their plain versions in float32 on the slice's final state,
+    with its fields: alive masks and the ids of alive slots identical,
+    merges equal. Returns (largest chi difference, its peak, largest
+    photon position difference)."""
+    import torch
+    from lambdapic_torch.ops.cellslab import cell_step, cell_step_plain
+    grid = sim.grid
+    eb_pad = sim._builder.pad_eb(sim.state.fields)
+    errs = {}
+    for ispec, mode in ((proc.ispec, "want_chi"), (proc.photon_ispec,
+                                                   "photon")):
+        p, st = sim.state.particles[ispec], sim._species_static[ispec]
+        kw = dict(q=st.q, m=st.m, dt=sim.dt, dx=grid.dx, dy=grid.dy,
+                  g=grid.n_guard, periodic=grid.periodic_axes,
+                  with_rho=False, **{mode: True})
+        ebp = None if mode == "photon" else eb_pad
+        ref = cell_step_plain(ebp, p.data, p.alive, **kw)
+        got = cell_step(ebp, p.data, p.alive, **kw)
+        torch.cuda.synchronize()
+        moved = int((got[1] != p.alive).sum())
+        same = torch.equal(got[1], ref[1]) and all(
+            torch.equal(got[0][k][got[1]], ref[0][k][ref[1]])
+            for k in ("id_lo", "id_hi"))
+        if mode == "want_chi":
+            a = got[1]
+            err = float((got[4][0][a] - ref[4][0][a]).abs().max())
+            peak = float(ref[4][0][a].abs().max())
+            errs[mode] = err
+            extra = f"chi max abs diff {err:.3e} of peak {peak:.3e}"
+        else:
+            a = got[1]
+            err = max(float((got[0][k][a] - ref[0][k][a]).abs().max())
+                      for k in ("x", "y"))
+            errs[mode] = err
+            extra = f"positions max abs diff {err:.3e} cells"
+        log(f"[B2 {mode} f32 512^2] {int(p.alive.sum())} alive in "
+            f"{p.alive.numel()} slots, {moved} slots changed occupancy, "
+            f"merges {int(got[2])} (plain {int(ref[2])}); {extra}; alive "
+            f"masks and ids identical: {same}")
+        if moved == 0:
+            fail(f"B2 {mode} float32: the compared step re-binned nothing")
+        if not same or int(got[2]) != int(ref[2]):
+            fail(f"B2 {mode} float32: alive masks, ids or merges differ "
+                 "from the plain version")
+    return errs
+
+
+def check_draws(sim, proc, dev):
+    """One step's three uniform draws of the radiating species at its
+    (cap, nx, ny), on the card and on the CPU: bitwise equal."""
+    import torch
+    from lambdapic_torch import random as jr
+    from lambdapic_torch.models.qed import species_key
+    shape = tuple(sim.state.particles[proc.ispec].alive.shape)
+    keys = jr.split(jr.fold_in(species_key(sim._base_key, sim.itime,
+                                           proc.ispec), 101), 3)
+    for i, k in enumerate(keys):
+        card = jr.uniform(k, shape, sim.dtype, device=dev)
+        host = jr.uniform(k, shape, sim.dtype, device="cpu")
+        if not torch.equal(card.cpu(), host):
+            n = int((card.cpu() != host).sum())
+            fail(f"draw {i} at {shape}: {n} values differ card vs CPU")
+    log(f"[draws] three uniform draws of step {sim.itime} at {shape}, "
+        f"{sim.dtype}: card and CPU bitwise equal")
+
+
+def count_syncs(fn):
+    """Host synchronisations that one call of ``fn`` makes, as CUDA's
+    sync debug mode reports them (a read of a device value, or a copy
+    from pageable host memory, which waits for the stream): for each, the
+    innermost line of the port's code that led to it."""
+    import traceback
+    import torch
+    found = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack()
+                if "lambdapic_torch" in f.filename]
+        where = ours[-1] if ours else None
+        found.append(f"{where.filename.split('/')[-1]}:{where.lineno}"
+                     if where else f"{filename.split('/')[-1]}:{lineno}")
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return found
+
+
+def run_qed(args, dev):
+    """Phase 5: B2's QED modes against their plain versions, the draws,
+    the QED slice through Simulation.run with its checks, and the QED
+    modes' and the plain-torch QED work's times; returns the QED kernels'
+    entries of the ``kernels`` line."""
+    import torch
+    from lambdapic_torch.models.qed import species_key
+    from lambdapic_torch.ops import cellslab, fieldskernel
+    from lambdapic_torch.ops.cellslab import (cell_step, cell_step_plain,
+                                              panel_shape)
+
+    merges = check_b2_qed_f64(dev)
+    log(f"[B2 QED f64] want_chi and photon slot-exact in {len(QED_CASES)} "
+        f"cases each (chi, ig0, tau, delta, event included); merges in the "
+        f"merging case {merges}")
+
+    # -- the slice state ------------------------------------------------------
+    t0 = time.time()
+    sim, laser, npho, pho = make_slice_qed(dev)
+    sim.initialize()
+    torch.cuda.synchronize()
+    proc = sim._qed_processes[0]
+    steps_all = args.steps_qed or int(QED_SIM_TIME / sim.dt)
+    log(f"[slice QED] initialised in {time.time() - t0:.1f} s: "
+        f"{sim.npart_alive} particles, slots "
+        f"{[p.cap for p in sim.state.particles]}, dt {sim.dt:.4e} s, "
+        f"{int(QED_SIM_TIME / sim.dt)} steps in the example's "
+        f"{QED_SIM_TIME:.0e} s")
+    log("[slice QED] cut from example/photons.py: ExtractSpeciesDensity and "
+        "PlotFields (diagnostics, ROADMAP queue 1 item 6) and its log file "
+        "photons.log; kept: the grid, species, laser, sim_time and the npho "
+        "callback; random_seed fixed at 0")
+    check_draws(sim, proc, dev)
+
+    # -- the main path ---------------------------------------------------------
+    # Particle number is checked while nothing can have reached a face: the
+    # first steps run in chunks of CHUNK_QED, and after each chunk the
+    # least distance of a moving particle (any photon, a massive particle
+    # with |u| > 1e-3) from an open face is taken; a particle moves less
+    # than 0.68 cells a step, so while that distance stays above
+    # MARGIN_QED no particle has left. At the last such chunk (at most step
+    # 200): electrons and protons alive + merged = the start (less the
+    # particles stored on an open face's edge), their weight unchanged;
+    # photons alive + merged + dropped newborns = photons born. The last
+    # --window-qed steps are timed.
+    ie, ip = proc.ispec, proc.photon_ispec
+    before = totals(sim)
+    on_edge = edge_sitters(sim)
+    born0 = int(sim.state.particles[ip].next_id)
+    log(f"[slice QED] particles stored on an open face's edge: {on_edge}")
+    reset_launches()
+    n_timed = min(args.window_qed, steps_all)
+    n_a = min(steps_all - n_timed, 200)
+    n_b = steps_all - n_timed - n_a
+    t0 = time.time()
+    check, margin = None, float("inf")
+    while sim.itime < n_a:
+        sim.run(nsteps=min(CHUNK_QED, n_a - sim.itime),
+                callbacks=[laser, npho])
+        if margin >= MARGIN_QED:
+            margin = face_margin(sim)
+            if margin >= MARGIN_QED:
+                check = (sim.itime, totals(sim),
+                         int(sim.state.particles[ip].next_id) - born0)
+    torch.cuda.synchronize()
+    if n_b:
+        sim.run(nsteps=n_b, callbacks=[laser, npho])
+    torch.cuda.synchronize()
+    t1 = time.time()
+    sim.run(nsteps=n_timed, callbacks=[laser, npho])
+    torch.cuda.synchronize()
+    t2 = time.time()
+    launches = {"B1": fieldskernel.update_half_k.launches,
+                "B2": cellslab.cell_step.launches,
+                "B3": cellslab.fold_reduce.launches}
+    by_mode = dict(cellslab.cell_step.launches_by_mode)
+    after = totals(sim)
+    steps = sim.itime
+    born = int(sim.state.particles[ip].next_id) - born0
+    log(f"[slice QED] {steps} steps: first {n_a + n_b} in {t1 - t0:.2f} s, "
+        f"window {n_timed} in {t2 - t1:.3f} s; launches {launches}, B2 by "
+        f"mode {by_mode}; photons born {born}")
+    want = {"B1": 4 * steps, "B2": 3 * steps, "B3": steps}
+    want_mode = {"default": steps, "want_chi": steps, "photon": steps}
+    if launches != want or by_mode != want_mode:
+        fail(f"QED launch counts {launches} {by_mode} != {want} {want_mode}")
+    for k in ("ex", "ey", "ez", "bx", "by", "bz", "jx", "jy", "jz"):
+        if not bool(torch.isfinite(getattr(sim.state.fields, k)).all()):
+            fail(f"QED field {k} is not finite")
+    if born == 0:
+        fail("no photon emitted")
+    if check is None or check[2] == 0:
+        fail(f"no step with photons born before a moving particle came "
+             f"within {MARGIN_QED} cells of an open face ({check})")
+    n_chk, mid, born_mid = check
+    log(f"[slice QED] particle number checked at step {n_chk}, the last "
+        f"chunk end with every moving particle {MARGIN_QED}+ cells from the "
+        f"open faces; {born_mid} photons born by then")
+    for (n0, m0, w0), (n1, m1, w1), (n2, m2, w2), edge, sp in zip(
+            before, mid, after, on_edge, sim.species):
+        log(f"[slice QED] {sp.name}: alive {n0} -> {n1} (step {n_chk}) -> "
+            f"{n2}, merged or dropped {m1 - m0} -> {m2 - m0}, weight "
+            f"{w0:.7e} -> {w1:.7e} -> {w2:.7e}, slots per cell "
+            f"{sim.state.particles[sp.ispec].cap}")
+        if sp.ispec == ip:
+            # every newborn is alive, merged into another or dropped
+            if n1 + (m1 - m0) != born_mid + n0:
+                fail(f"photons: {n1} alive + {m1 - m0} merged or dropped != "
+                     f"{born_mid} born by step {n_chk}")
+            continue
+        if n1 + (m1 - m0) != n0 - edge:
+            fail(f"QED {sp.name}: particles not conserved to step {n_chk} "
+                 f"({n0} - {edge} on an edge -> {n1} + {m1 - m0} merges)")
+        if not abs(w1 - w0) <= 1e-5 * w0:
+            fail(f"QED {sp.name}: weight not conserved to step {n_chk} ({w0} "
+                 f"-> {w1})")
+    php = sim.state.particles[ip]
+    u = torch.sqrt(sum(php.data[k].double()**2 for k in ("ux", "uy", "uz")))
+    a = php.alive
+    ig_err = float((php.data["inv_gamma"].double()[a] * u[a] - 1).abs().max())
+    log(f"[slice QED] photons: inv_gamma * |u| - 1 at most {ig_err:.2e}")
+    if not ig_err <= 1e-6:
+        fail(f"photon inv_gamma differs from 1/|u| by {ig_err:.2e}")
+    step_ms = (t2 - t1) * 1e3 / n_timed
+    npart = sum(n for n, _, _ in after)
+    ey_peak = float(sim.state.fields.ey.abs().max())
+    log(f"[slice QED] step {step_ms:.3f} ms (host clock, synchronised), "
+        f"{npart / (step_ms * 1e-3):.4e} pushes/s ({npart} alive particles "
+        f"of three species), peak |ey| {ey_peak:.3e}")
+    busy_per_step(lambda: sim.run(nsteps=1, callbacks=[laser]),
+                  {"e_half": 2, "b_half": 2, "pass_x": 3, "pass_y": 3,
+                   "deposit": 2, "fold<": 1}, 5, "profile QED", step_ms)
+
+    # -- checks beside the main path, on its final state ------------------------
+    n_ev, dropped, change = check_creation(sim, proc)
+    errs = compare_b2_qed_f32(sim, proc)
+    torch.cuda.empty_cache()
+
+    # -- the plain-torch QED work: device time and host synchronisations --------
+    _, outs = qed_events(sim, proc)
+    e = sim.state.particles[ie]
+    key = species_key(sim._base_key, sim.itime, ie)
+
+    def qed_work():
+        data, alive = proc.update_events_from_chi(outs[0], outs[1], key,
+                                                  sim.dt, *outs[4])
+        parts = list(sim.state.particles)
+        parts[ie] = e.replace(data=data, alive=alive)
+        return sim._builder.qed_creation(proc, parts)
+    wall_qed = cuda_time(qed_work, 5)
+    # the profile must hold the marker and the timed calls' kernels
+    times, _ = device_times(qed_work, 5, {})
+    dev_qed = (sum(ms for ms, _ in times.values()) / 5) if times else None
+    n_launch = sum(n for _, n in times.values()) / 5
+    for name, (ms, n) in sorted(times.items(), key=lambda kv: -kv[1][0])[:8]:
+        log(f"[QED plain] {ms / 5:8.3f} ms a step in {n // 5} launches  "
+            f"{name[:70]}")
+    syncs = count_syncs(qed_work)
+    syncs_step = count_syncs(
+        lambda: sim._builder.full_step(sim.state, sim._scalars([laser])))
+    dev_s = "not measured" if dev_qed is None else f"{dev_qed:.3f} ms"
+    log(f"[QED plain] device {dev_s} per step in {n_launch:.0f} kernel "
+        f"launches, wall {wall_qed:.3f} ms (CUDA events; draws, rate, "
+        f"sampler, insertion, recoil); host synchronisations: {len(syncs)} "
+        f"in the QED work {syncs}, {len(syncs_step)} in a whole step "
+        f"(StepBuilder.full_step) {syncs_step}")
+    del outs
+    torch.cuda.empty_cache()
+
+    # -- B2's QED modes timed at the slice's shapes ------------------------------
+    grid = sim.grid
+    f = sim.state.fields
+    isz = f.ex.element_size()
+    g = grid.n_guard
+    eb_pad = sim._builder.pad_eb(f)
+    kernels = []
+    for ispec, mode in ((ie, "want_chi"), (ip, "photon")):
+        p, st = sim.state.particles[ispec], sim._species_static[ispec]
+        kw = dict(q=st.q, m=st.m, dt=sim.dt, dx=grid.dx, dy=grid.dy, g=g,
+                  periodic=grid.periodic_axes, with_rho=sim._builder.with_rho,
+                  **{mode: True})
+        ebp = None if mode == "photon" else eb_pad
+        funcs = "B2" if mode == "want_chi" else "B2 photon"
+        dev_ms, wall = kernel_ms(lambda: cell_step(ebp, p.data, p.alive, **kw),
+                                 args.iters, funcs)
+        ms = dev_ms or wall
+        plain = cuda_time(lambda: cell_step_plain(ebp, p.data, p.alive, **kw),
+                          1)
+        out = cell_step(ebp, p.data, p.alive, **kw)
+        slots, n_alive = p.alive.numel(), int(p.alive.sum())
+        nx_ = len(cellslab.extra_payloads(p.data))
+        # read: the mask, the alive slots' payloads (x y z w ux uy uz
+        # inv_gamma, the extra QED payloads, two int32 ids); written:
+        # every slot once (mask, the same reals, ids); want_chi also reads
+        # the E/B nodes gathered from occupied cells and writes chi, ig0
+        # and the panels
+        slot_b = 1 + (8 + nx_) * isz + 2 * 4
+        nbytes = slots + n_alive * (slot_b - 1) + slots * slot_b
+        if mode == "want_chi":
+            ncomp = 4 if sim._builder.with_rho else 3
+            nbytes += (gather_nodes(out[1], g) * isz + 2 * slots * isz
+                       + int(np.prod(panel_shape(ncomp, *grid.shape))) * isz)
+            flops = FLOPS_PER_PARTICLE + FLOPS_CHI
+        else:
+            flops = FLOPS_PHOTON
+        ops_ms = n_alive * flops / F32_FLOPS * 1e3
+        bound = max(nbytes / HBM_BPS * 1e3, ops_ms)
+        by = "bytes" if bound > ops_ms else "operations"
+        log(f"[time B2 {mode}] device {ms:.4f} ms per launch, wall {wall:.4f} "
+            f"ms; plain {plain:.3f} ms; bound {bound:.4f} ms ({by}: "
+            f"{n_alive} of {slots} slots alive, {nbytes} bytes, operations "
+            f"{ops_ms:.4f} ms); {ms / bound:.1f}x the bound")
+        del out
+        kernels.append(dict(
+            name=f"B2 {mode} 2D", route="cuda",
+            source="lambdapic_torch/csrc/cellstep.cu",
+            replaces="lambdapic_tpu/ops/cellslab.py:546",
+            launches=by_mode[mode], max_abs_err=errs[mode], ms=ms,
+            plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=None))
+    log(f"[kernels QED] launches per step B1 {launches['B1'] // steps}, B2 "
+        f"{launches['B2'] // steps} ({ {k: v // steps for k, v in by_mode.items()} }), "
+        f"B3 {launches['B3'] // steps}; creation check: {n_ev} events, "
+        f"{dropped} dropped, total change {change:.2e}")
     return kernels
 
 
@@ -860,9 +1421,7 @@ def run_3d(args, dev):
     before = totals(sim)
     on_edge = edge_sitters(sim)
     log(f"[slice 3D] particles stored on an open face's edge: {on_edge}")
-    for fn in (fieldskernel.update_half_k, cellslab.cell_step,
-               cellslab.fold_reduce):
-        fn.launches = 0
+    reset_launches()
     steps_all = args.steps3d
     n_timed = min(args.window3d, steps_all)
     n_a = min(steps_all - n_timed, 20)
@@ -1046,6 +1605,11 @@ def main() -> int:
                          "runs 2001)")
     ap.add_argument("--window", type=int, default=200,
                     help="final 2D steps timed as the steady window")
+    ap.add_argument("--steps-qed", type=int, default=None,
+                    help="QED slice steps through Simulation.run (default: "
+                         "the example's 100 fs)")
+    ap.add_argument("--window-qed", type=int, default=100,
+                    help="final QED steps timed as the steady window")
     ap.add_argument("--steps3d", type=int, default=STEPS_3D,
                     help="3D slice steps through Simulation3D.run (the "
                          "example runs 1001)")
@@ -1068,6 +1632,9 @@ def main() -> int:
     phase_build()
     kernels = run_2d(args, dev)
     log(f"[time] 2D done at {time.time() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+    kernels += run_qed(args, dev)
+    log(f"[time] QED done at {time.time() - t_start:.1f} s")
     torch.cuda.empty_cache()
     kernels += run_3d(args, dev)
     log(f"[time] total {time.time() - t_start:.1f} s")

@@ -7,7 +7,7 @@ particle stage and the current fold (``csrc/``). Entry points run on
 versions run instead.
 """
 from .constants import c, e, epsilon_0, m_e, m_p, mu_0, pi  # noqa: F401
-from .core.species import Electron, Proton, Species  # noqa: F401
+from .core.species import Electron, Photon, Proton, Species  # noqa: F401
 from .models.laser import (GaussianLaser, GaussianLaser2D,  # noqa: F401
                            GaussianLaser3D, SimpleLaser, SimpleLaser2D,
                            SimpleLaser3D)

@@ -26,6 +26,9 @@ BASE_ATTRS = (
     "x", "y", "z", "w", "ux", "uy", "uz", "inv_gamma",
     "ex_part", "ey_part", "ez_part", "bx_part", "by_part", "bz_part",
 )
+# QED attributes of a species with a QED process; 'event' is a float (0/1)
+# so that it moves with the particle through the re-binning
+QED_ATTRS = ("chi", "tau", "delta", "event")
 
 
 def _validate(sp: "Species") -> None:
@@ -143,8 +146,10 @@ class Species:
         self._ispec = value
 
     def attrs(self) -> tuple[str, ...]:
-        """Per-particle float attributes carried by this species."""
-        return BASE_ATTRS + tuple(self._aux_attrs)
+        """Per-particle float attributes carried by this species (with
+        ``QED_ATTRS`` when it has a QED process)."""
+        out = BASE_ATTRS + tuple(self._aux_attrs)
+        return out + QED_ATTRS if self.has_qed else out
 
     @property
     def has_qed(self) -> bool:
@@ -157,8 +162,9 @@ class Species:
 
 @dataclass(kw_only=True)
 class Electron(Species):
-    """Electron. ``radiation`` is accepted for API compatibility; the
-    port has no QED yet (ROADMAP queue 1, item 9)."""
+    """Electron. ``radiation="photons"`` with ``set_photon`` makes it emit
+    photons (nonlinear Compton, models/qed.py); ``radiation="ll"`` is
+    accepted and ignored with a warning, as in the JAX package."""
 
     name: str = field(default="electron")
     radiation: Optional[str] = field(default=None)
@@ -171,6 +177,18 @@ class Electron(Species):
                 f"radiation must be None, 'll' or 'photons', got "
                 f"{self.radiation!r}")
         super().__post_init__()
+        self.photon: Optional[Species] = None
+
+    def set_photon(self, photon: "Species"):
+        if self.radiation != "photons":
+            raise ValueError("radiation must be 'photons'")
+        if not isinstance(photon, Species):
+            raise TypeError(f"not a Species: {photon!r}")
+        self.photon = photon
+
+    @property
+    def has_qed(self) -> bool:
+        return self.photon is not None
 
 
 @dataclass(kw_only=True)
@@ -178,3 +196,31 @@ class Proton(Species):
     name: str = field(default="proton")
     charge: int = field(default=1, init=False)
     mass: float = field(default=m_p / m_e, init=False)
+
+
+@dataclass(kw_only=True)
+class Photon(Species):
+    """Photon species for QED: q = m = 0, pushed along its momentum."""
+
+    name: str = field(default="photon")
+    charge: int = field(default=0, init=False)
+    mass: float = field(default=0.0, init=False)
+    pusher: str = field(default="photon", init=False)
+
+    def __post_init__(self):
+        super().__post_init__()
+        self.electron: Optional[Species] = None
+        self.positron: Optional[Species] = None
+
+    def set_bw_pair(self, *, electron: Species, positron: Species):
+        """Breit-Wheeler pair production into ``electron`` / ``positron``
+        (the Simulation refuses it until it is ported)."""
+        for sp in (electron, positron):
+            if not isinstance(sp, Species):
+                raise TypeError(f"not a Species: {sp!r}")
+        self.electron = electron
+        self.positron = positron
+
+    @property
+    def has_qed(self) -> bool:
+        return self.electron is not None

@@ -1,5 +1,5 @@
-// Kernel B2: the 2D cell-engine particle stage of one species, default
-// mode.
+// Kernel B2: the 2D cell-engine particle stage of one species, in its
+// default, want_chi and photon modes.
 //
 // Replaces the TPU megakernel lambdapic_tpu/ops/cellslab.py::
 // unified_cell_step (kernel body :663, pallas_call :1830, driven by
@@ -35,6 +35,23 @@
 //            panel (rims_in) and is written to rims_out; kernel B3
 //            (fold.cu) overlap-adds the panels into the interior J.
 //
+// Modes (the int I_MODE):
+//  default   as above.
+//  want_chi  pass_y also writes, between the gather and Boris, the
+//            post-migration pre-push ig0 = 1/sqrt(1 + u^2) and the quantum
+//            parameter chi (models/qed.py::calculate_chi of the gathered
+//            E, B, the momenta and ig0) of every slot; the caller masks
+//            chi with alive. Replaces unified_cell_step's want_chi branch
+//            (cellslab.py:1094-1109).
+//  photon    field free (q = m = 0): pass_y's tail is inv_gamma = 1/|u|
+//            (1 where u = 0) and the second half push; no gather, no
+//            Boris, no deposit launch, no panels. Replaces the photon
+//            branch (cellslab.py:966-986).
+// Extra payloads: up to NXF float arrays (a QED species' tau, delta,
+// event) ride through both passes. On a collision they take the placed
+// slot's value (lo arrival, else hi arrival, else the resident); only
+// w, x, y, z, ux, uy, uz are merged. Dead slots keep them as placed.
+//
 // Compiled with --fmad=false: positions, keys and merges round exactly as
 // the plain version's separate tensor operations do, so cell assignment
 // and merge pairing match it slot for slot.
@@ -61,9 +78,14 @@ enum Ptr {
   P_S_IDHI,
   P_O_ALIVE, P_O_X, P_O_Y, P_O_Z, P_O_W, P_O_UX, P_O_UY, P_O_UZ, P_O_IG,
   P_O_IDLO, P_O_IDHI,
-  P_RIMS_IN, P_RIMS_OUT, P_NMERGED, P_CES, P_COUNT
+  P_RIMS_IN, P_RIMS_OUT, P_NMERGED, P_CES,
+  P_CHI, P_IG0,                     // want_chi outputs
+  P_XF_IN, P_XF_S = P_XF_IN + 3, P_XF_O = P_XF_S + 3,  // extra payloads
+  P_COUNT = P_XF_O + 3
 };
-enum Int { I_CAP, I_NX, I_NY, I_G, I_PERX, I_PERY, I_NCOMP, I_NCES, I_DOUBLE };
+enum Int { I_CAP, I_NX, I_NY, I_G, I_PERX, I_PERY, I_NCOMP, I_NCES, I_DOUBLE,
+           I_MODE, I_NXF };
+enum Mode { M_DEFAULT = 0, M_WANT_CHI = 1, M_PHOTON = 2 };
 // reals are computed on the host exactly as the plain version computes
 // its scalar factors (in double), then rounded to the kernel's type
 enum Real {
@@ -71,7 +93,8 @@ enum Real {
   R_EF, R_BF,       // q dt / (2 m c), q dt / (2 m): Boris
   R_CDX, R_CDY,     // c dt / dx, c dt / dy
   R_C,              // c
-  R_KCD, R_KFX, R_KFY  // q / (dx dy), q / (dy dt), q / (dx dt)
+  R_KCD, R_KFX, R_KFY, // q / (dx dy), q / (dy dt), q / (dx dt)
+  R_CHI             // e hbar / (m_e^2 c^3)
 };
 
 // deposit tile (cells per side); ops/cellslab.py's TILE, held equal to
@@ -79,6 +102,7 @@ enum Real {
 constexpr int TILE = 16;
 constexpr int PAN = TILE + 4;      // panel side: tile + 2-node rims
 constexpr int NF = 7;              // float payloads: x y z w ux uy uz
+constexpr int NXF = 3;             // most extra float payloads
 enum F { FX, FY, FZ, FW, FUX, FUY, FUZ };
 
 template <typename T>
@@ -86,6 +110,7 @@ struct SlotsIn {
   const unsigned char* alive;
   const T* f[NF];
   const int* id[2];
+  const T* xf[NXF];
 };
 
 template <typename T>
@@ -93,6 +118,7 @@ struct SlotsOut {
   unsigned char* alive;
   T* f[NF];
   int* id[2];
+  T* xf[NXF];
 };
 
 template <typename T>
@@ -108,9 +134,11 @@ struct Args {
   T* rims_out;
   unsigned long long* n_merged;
   const int* ces;
-  int cap, nx, ny, g, perx, pery, ncomp, nces;
+  T* chi_out;           // want_chi
+  T* ig0_out;
+  int cap, nx, ny, g, perx, pery, ncomp, nces, mode, nxf;
   long long ncell;
-  T hx, hy, ef, bf, cdx, cdy, c, kcd, kfx, kfy;   // see enum Real
+  T hx, hy, ef, bf, cdx, cdy, c, kcd, kfx, kfy, chi;   // see enum Real
 };
 
 // The merge's weight floor: 1e-30 in float32, 1e-300 in float64.
@@ -123,6 +151,7 @@ template <typename T>
 struct Slot {
   T f[NF];
   int id[2];
+  T xf[NXF];
 };
 
 // Sort packed (key << 8 | slot) entries with the compare-exchange list.
@@ -164,6 +193,9 @@ __device__ void load_x(const Args<T>& a, long long idx, Slot<T>& v) {
   v.f[FUZ] = a.in.f[FUZ][idx];
   v.id[0] = a.in.id[0][idx];
   v.id[1] = a.in.id[1][idx];
+#pragma unroll
+  for (int k = 0; k < NXF; ++k)
+    if (k < a.nxf) v.xf[k] = a.in.xf[k][idx];
 }
 
 template <typename T>
@@ -172,6 +204,9 @@ __device__ void load_y(const Args<T>& a, long long idx, Slot<T>& v) {
   for (int k = 0; k < NF; ++k) v.f[k] = a.sin.f[k][idx];
   v.id[0] = a.sin.id[0][idx];
   v.id[1] = a.sin.id[1][idx];
+#pragma unroll
+  for (int k = 0; k < NXF; ++k)
+    if (k < a.nxf) v.xf[k] = a.sin.xf[k][idx];
 }
 
 // Placement and merge of one receiver slot (ops/cell2d.py::migrate_cells):
@@ -207,12 +242,15 @@ __device__ void place(bool vlo, bool vhi, bool stay, const Slot<T>& lo,
 
 template <typename T>
 __device__ void store(const SlotsOut<T>& o, long long idx, const Slot<T>& v,
-                      bool alive) {
+                      bool alive, int nxf) {
   o.alive[idx] = alive ? 1 : 0;
 #pragma unroll
   for (int k = 0; k < NF; ++k) o.f[k][idx] = v.f[k];
   o.id[0][idx] = v.id[0];
   o.id[1][idx] = v.id[1];
+#pragma unroll
+  for (int k = 0; k < NXF; ++k)
+    if (k < nxf) o.xf[k][idx] = v.xf[k];
 }
 
 __device__ void add_merges(unsigned long long* counter, int merges) {
@@ -272,7 +310,8 @@ __global__ void __launch_bounds__(128) pass_x(Args<T> a) {
         if (ix == a.nx - 1) hi.f[FX] = hi.f[FX] + T(a.nx);
       }
       place(vlo, vhi, stay, lo, hi, own, out, merges);
-      store(a.s, (long long)p * a.ncell + cell, out, vlo || vhi || stay);
+      store(a.s, (long long)p * a.ncell + cell, out, vlo || vhi || stay,
+            a.nxf);
     }
   }
   add_merges(a.n_merged, merges);
@@ -346,6 +385,18 @@ __global__ void __launch_bounds__(128) pass_y(Args<T> a) {
 #pragma unroll
         for (int t = 0; t < NF; ++t) v.f[t] = T(0);
       }
+      long long o = (long long)p * a.ncell + cell;
+      if (a.mode == M_PHOTON) {
+        // field-free photon tail (ops/pusher.py::photon_push)
+        T u2 = (v.f[FUX] * v.f[FUX] + v.f[FUY] * v.f[FUY]) + v.f[FUZ] * v.f[FUZ];
+        const T tiny = T(1e-30);
+        T ig = u2 > T(0) ? T(1) / sqrt(u2 > tiny ? u2 : tiny) : T(1);
+        v.f[FX] = pushed(v.f[FX], v.f[FUX], ig, a.hx);
+        v.f[FY] = pushed(v.f[FY], v.f[FUY], ig, a.hy);
+        store(a.out, o, v, al, a.nxf);
+        a.ig_out[o] = ig;
+        continue;
+      }
       // gather at the mid-step position (cell-local deltas)
       T dxl = v.f[FX] - T(ix), dyl = v.f[FY] - T(iy);
       T e_x = gather_comp(a.eb + 0 * plane, nyp, px, py, true, false, dxl, dyl);
@@ -354,6 +405,20 @@ __global__ void __launch_bounds__(128) pass_y(Args<T> a) {
       T b_x = gather_comp(a.eb + 3 * plane, nyp, px, py, false, true, dxl, dyl);
       T b_y = gather_comp(a.eb + 4 * plane, nyp, px, py, true, false, dxl, dyl);
       T b_z = gather_comp(a.eb + 5 * plane, nyp, px, py, true, true, dxl, dyl);
+      if (a.mode == M_WANT_CHI) {
+        // models/qed.py::calculate_chi at the pre-push momenta, with the
+        // pre-push inv_gamma of the re-binning (ops/cell2d.py)
+        const T ux0 = v.f[FUX], uy0 = v.f[FUY], uz0 = v.f[FUZ];
+        T ig0 = T(1) / sqrt(((T(1) + ux0 * ux0) + uy0 * uy0) + uz0 * uz0);
+        T gam = T(1) / ig0;
+        T t1 = gam * e_x + (uy0 * b_z - uz0 * b_y) * a.c;
+        T t2 = gam * e_y + (uz0 * b_x - ux0 * b_z) * a.c;
+        T t3 = gam * e_z + (ux0 * b_y - uy0 * b_x) * a.c;
+        T t4 = (ux0 * e_x + uy0 * e_y) + uz0 * e_z;
+        T val = ((t1 * t1 + t2 * t2) + t3 * t3) - t4 * t4;
+        a.chi_out[o] = a.chi * sqrt(val > T(0) ? val : T(0));
+        a.ig0_out[o] = ig0;
+      }
       // Boris (ops/pusher.py::boris_push)
       const T ef = a.ef, bfac = a.bf;
       T um_x = v.f[FUX] + ef * e_x;
@@ -377,8 +442,7 @@ __global__ void __launch_bounds__(128) pass_y(Args<T> a) {
       v.f[FUZ] = uz;
       v.f[FX] = pushed(v.f[FX], ux, ig, a.hx);
       v.f[FY] = pushed(v.f[FY], uy, ig, a.hy);
-      long long o = (long long)p * a.ncell + cell;
-      store(a.out, o, v, al);
+      store(a.out, o, v, al, a.nxf);
       a.ig_out[o] = ig;
     }
   }
@@ -470,19 +534,23 @@ __global__ void __launch_bounds__(TILE * TILE) deposit(Args<T> a) {
 }
 
 template <typename T>
-void unpack_in(SlotsIn<T>& s, void** p, int alive, int first, int id0) {
+void unpack_in(SlotsIn<T>& s, void** p, int alive, int first, int id0,
+               int xf0) {
   s.alive = (const unsigned char*)p[alive];
   for (int k = 0; k < NF; ++k) s.f[k] = (const T*)p[first + k];
   s.id[0] = (const int*)p[id0];
   s.id[1] = (const int*)p[id0 + 1];
+  for (int k = 0; k < NXF; ++k) s.xf[k] = (const T*)p[xf0 + k];
 }
 
 template <typename T>
-void unpack_out(SlotsOut<T>& s, void** p, int alive, int first, int id0) {
+void unpack_out(SlotsOut<T>& s, void** p, int alive, int first, int id0,
+                int xf0) {
   s.alive = (unsigned char*)p[alive];
   for (int k = 0; k < NF; ++k) s.f[k] = (T*)p[first + k];
   s.id[0] = (int*)p[id0];
   s.id[1] = (int*)p[id0 + 1];
+  for (int k = 0; k < NXF; ++k) s.xf[k] = (T*)p[xf0 + k];
 }
 
 template <typename T, int MAXC>
@@ -500,11 +568,13 @@ template <typename T>
 int launch(void** p, const long long* n, const double* r, cudaStream_t st) {
   Args<T> a;
   a.eb = (const T*)p[P_EB];
-  unpack_in(a.in, p, P_ALIVE, P_X, P_IDLO);
+  unpack_in(a.in, p, P_ALIVE, P_X, P_IDLO, P_XF_IN);
   a.ig = (const T*)p[P_IG];
-  unpack_out(a.s, p, P_S_ALIVE, P_S_X, P_S_IDLO);
-  unpack_in(a.sin, p, P_S_ALIVE, P_S_X, P_S_IDLO);
-  unpack_out(a.out, p, P_O_ALIVE, P_O_X, P_O_IDLO);
+  unpack_out(a.s, p, P_S_ALIVE, P_S_X, P_S_IDLO, P_XF_S);
+  unpack_in(a.sin, p, P_S_ALIVE, P_S_X, P_S_IDLO, P_XF_S);
+  unpack_out(a.out, p, P_O_ALIVE, P_O_X, P_O_IDLO, P_XF_O);
+  a.chi_out = (T*)p[P_CHI];
+  a.ig0_out = (T*)p[P_IG0];
   a.ig_out = (T*)p[P_O_IG];
   a.rims_in = (const T*)p[P_RIMS_IN];
   a.rims_out = (T*)p[P_RIMS_OUT];
@@ -513,10 +583,13 @@ int launch(void** p, const long long* n, const double* r, cudaStream_t st) {
   a.cap = (int)n[I_CAP]; a.nx = (int)n[I_NX]; a.ny = (int)n[I_NY];
   a.g = (int)n[I_G]; a.perx = (int)n[I_PERX]; a.pery = (int)n[I_PERY];
   a.ncomp = (int)n[I_NCOMP]; a.nces = (int)n[I_NCES];
+  a.mode = (int)n[I_MODE]; a.nxf = (int)n[I_NXF];
+  if (a.nxf < 0 || a.nxf > NXF) return (int)cudaErrorInvalidValue;
   a.ncell = (long long)a.nx * a.ny;
   a.hx = (T)r[R_HX]; a.hy = (T)r[R_HY]; a.ef = (T)r[R_EF]; a.bf = (T)r[R_BF];
   a.cdx = (T)r[R_CDX]; a.cdy = (T)r[R_CDY]; a.c = (T)r[R_C];
   a.kcd = (T)r[R_KCD]; a.kfx = (T)r[R_KFX]; a.kfy = (T)r[R_KFY];
+  a.chi = (T)r[R_CHI];
   int err;
   if (a.cap <= 8) err = launch_passes<T, 8>(a, st);
   else if (a.cap <= 16) err = launch_passes<T, 16>(a, st);
@@ -524,7 +597,7 @@ int launch(void** p, const long long* n, const double* r, cudaStream_t st) {
   else if (a.cap <= 64) err = launch_passes<T, 64>(a, st);
   else if (a.cap <= 128) err = launch_passes<T, 128>(a, st);
   else return (int)cudaErrorInvalidValue;
-  if (err) return err;
+  if (err || a.mode == M_PHOTON) return err;
   dim3 block(TILE, TILE);
   dim3 grid(ceil_div(a.ny, TILE), ceil_div(a.nx, TILE));
   size_t smem = sizeof(T) * a.ncomp * PAN * PAN;

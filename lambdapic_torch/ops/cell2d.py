@@ -283,3 +283,71 @@ def migrate_cells(data: Dict[str, torch.Tensor], alive: torch.Tensor,
         data["inv_gamma"] = torch.where(alive, data["inv_gamma"],
                                         torch.ones_like(data["inv_gamma"]))
     return data, alive, n_lost
+
+
+# ----------------------------------------------------------------------
+# in-step creation
+# ----------------------------------------------------------------------
+
+def _u32_to_i32(v: torch.Tensor) -> torch.Tensor:
+    """uint32 values held in int64 -> the int32 tensor of the same bits."""
+    v = v & 0xFFFFFFFF
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+
+def insert_cells(data: Dict[str, torch.Tensor], alive: torch.Tensor,
+                 next_id: torch.Tensor, new_vals: Dict[str, torch.Tensor],
+                 valid: torch.Tensor):
+    """Cell-aligned in-step creation (QED photon birth), the default
+    ``select`` scheme of lambdapic_tpu/ops/cell2d.py::insert_cells, for 2D
+    and 3D slots. A newborn sits at its parent's slot in the parent
+    species' layout and shares its parent's position, so its home cell is
+    the parent's: the newborn of intra-cell rank r (among ``valid`` parent
+    slots, in slot order) fills the child's dead slot of dead-rank r.
+    Newborns beyond the cell's free slots are dropped and counted.
+
+    data/alive: child species, (cap_c, *cells). new_vals/valid:
+    (cap_src, *cells) newborn values at parent slots. Ids are sequential
+    from ``next_id`` in (cell, slot) order, uint32 arithmetic carried in
+    the int32 id tensors; id_hi is 0 (the one device). Keys of ``data`` absent
+    from ``new_vals`` start at 0 (inv_gamma at 1). Returns (data, alive,
+    next_id, n_lost)."""
+    vi = valid.to(torch.int64)
+    intra = torch.cumsum(vi, dim=0) - vi               # exclusive, per cell
+    counts = vi.sum(0)                                 # (*cells,)
+    flat = counts.reshape(-1)
+    base = (torch.cumsum(flat, 0) - flat).reshape(counts.shape)
+    rank = base[None] + intra
+    ids = _u32_to_i32(next_id + rank)
+
+    di = (~alive).to(torch.int64)
+    dead_rank = torch.cumsum(di, dim=0) - di           # exclusive
+    fill = (~alive) & (dead_rank < counts[None])
+    # source slot of each filled child slot: the valid parent slot whose
+    # intra-cell rank equals the child slot's dead rank (row cap_s of the
+    # table collects the invalid slots and is never read for a fill)
+    cap_s = valid.shape[0]
+    slot = torch.arange(cap_s, device=valid.device).reshape(
+        (cap_s,) + (1,) * (valid.ndim - 1)).expand(valid.shape)
+    table = torch.full((cap_s + 1,) + tuple(valid.shape[1:]), cap_s,
+                       dtype=torch.int64, device=valid.device)
+    table.scatter_(0, torch.where(valid, intra, cap_s), slot.clone())
+    src = table.gather(0, torch.clamp(dead_rank, max=cap_s))
+    src = torch.clamp(src, max=cap_s - 1)
+
+    def newborn_value(k, arr):
+        if k == "id_lo":
+            return ids
+        if k in new_vals:
+            return torch.where(valid, new_vals[k].to(arr.dtype), 0)
+        if k == "inv_gamma":
+            return torch.ones(valid.shape, dtype=arr.dtype, device=arr.device)
+        return torch.zeros(valid.shape, dtype=arr.dtype, device=arr.device)
+
+    out = {}
+    for k in sorted(data):
+        arr = data[k]
+        nv = newborn_value(k, arr)
+        out[k] = torch.where(fill, nv.gather(0, src), arr)
+    n_lost = torch.clamp(counts - di.sum(0), min=0).sum()
+    return out, alive | fill, (next_id + counts.sum()) & 0xFFFFFFFF, n_lost

@@ -16,7 +16,15 @@ flags). They launch the CUDA kernels (``csrc/cellstep.cu``,
 ``csrc/fold.cu``; in 3D ``csrc/cellstep3d.cu``, ``csrc/fold3d.cu``) on
 CUDA tensors and run their plain versions (``cell_step_plain``,
 ``fold_reduce_plain``) on CPU tensors. Each kernel launch adds one to
-the wrapper's ``launches``.
+the wrapper's ``launches``; ``cell_step.launches_by_mode`` counts B2's
+launches per mode ("default", "want_chi", "photon").
+
+B2's modes (2D only so far): ``want_chi`` also returns chi and the
+pre-push inv_gamma for QED; ``photon`` is the field-free stage of a
+photon species (no gather, no Boris, no deposit; returns no panels).
+A species' payloads beyond the fixed set (a QED species' tau, delta,
+event: every key but ``FLOAT_PAYLOADS``, ``ID_PAYLOADS`` and
+``cell2d.TRANSIENT``) ride through the re-binning with it.
 """
 from __future__ import annotations
 
@@ -27,12 +35,14 @@ import torch
 import torch.nn.functional as F
 
 from ..constants import c as c_light
+from ..models.qed import CHI_FACTOR, calculate_chi
 from ..parallel.halo import halo_reduce
 from . import kernel_lib
-from .cell2d import (batcher_network, deposit_offsets, gather_cell_2d,
-                     migrate_cells)
+from .cell2d import (TRANSIENT, batcher_network, deposit_offsets,
+                     gather_cell_2d, migrate_cells)
 from .cell3d import deposit_offsets_3d, gather_cell_3d, migrate_cell_3d
-from .pusher import boris_push, push_position_2d, push_position_3d
+from .pusher import boris_push, photon_push, push_position_2d, \
+    push_position_3d
 
 TILE = 16
 TILE3 = 8           # 3D tile: a (C, 12, 12, 12) panel per 8 x 8 x 8 cells
@@ -40,6 +50,20 @@ TILE3 = 8           # 3D tile: a (C, 12, 12, 12) panel per 8 x 8 x 8 cells
 FLOAT_PAYLOADS = ("x", "y", "z", "w", "ux", "uy", "uz")
 ID_PAYLOADS = ("id_lo", "id_hi")
 MAX_CAP = 128
+MAX_EXTRA = 3      # csrc/cellstep.cu's NXF
+MODES = ("default", "want_chi", "photon")
+
+
+def extra_payloads(data: Dict[str, torch.Tensor]) -> Tuple[str, ...]:
+    """The species' carried payloads beyond the fixed set, sorted."""
+    fixed = set(FLOAT_PAYLOADS) | set(ID_PAYLOADS) | TRANSIENT
+    return tuple(sorted(k for k in data if k not in fixed))
+
+
+def _mode(want_chi: bool, photon: bool) -> str:
+    if want_chi and photon:
+        raise ValueError("cell_step: want_chi and photon exclude each other")
+    return "want_chi" if want_chi else ("photon" if photon else "default")
 
 
 def panel_shape(ncomp: int, nx: int, ny: int, nz: Optional[int] = None,
@@ -172,13 +196,22 @@ def cell_step_plain(eb_pad, data: Dict[str, torch.Tensor], alive, *,
                     q: float, m: float, dt: float, dx: float, dy: float,
                     g: int, periodic: Sequence[bool],
                     rims_in: Optional[torch.Tensor] = None,
-                    with_rho: bool = True, dz: Optional[float] = None):
+                    with_rho: bool = True, dz: Optional[float] = None,
+                    want_chi: bool = False, photon: bool = False):
     """Plain version of kernel B2: the JAX package's XLA cell path
     (step.py's cell branch) with the Batcher-order migration, 2D for
     slots (cap, nx, ny) and 3D (with ``dz``) for (cap, nx, ny, nz).
     ``data`` holds the stored (pre-push) state. Returns (data, alive,
-    n_lost, rims) with data fully pushed."""
+    n_lost, rims) with data fully pushed; with ``want_chi`` also
+    (chi, ig0), the quantum parameter and inv_gamma at the pre-push
+    momenta; with ``photon`` rims is None (the stage reads no field and
+    deposits nothing)."""
+    mode = _mode(want_chi, photon)
     if alive.ndim == 4:
+        if mode != "default":
+            raise NotImplementedError(
+                f"cell_step: the {mode} mode in 3D is not ported yet "
+                "(ROADMAP queue 1, item 9)")
         return _cell_step_plain_3d(eb_pad, data, alive, q=q, m=m, dt=dt,
                                    dx=dx, dy=dy, dz=dz, g=g,
                                    periodic=periodic, rims_in=rims_in,
@@ -190,14 +223,25 @@ def cell_step_plain(eb_pad, data: Dict[str, torch.Tensor], alive, *,
                                       d["inv_gamma"], hx, hy)
     d, alive, n_lost = migrate_cells(
         d, alive, ((nx, periodic[0], "x"), (ny, periodic[1], "y")),
-        recompute_ig=True)
+        recompute_ig=not photon)
+    if photon:
+        ig = photon_push(d["ux"], d["uy"], d["uz"])
+        d["x"], d["y"] = push_position_2d(d["x"], d["y"], d["ux"], d["uy"],
+                                          ig, hx, hy)
+        d["inv_gamma"] = ig
+        return d, alive, n_lost, None
     eb = gather_cell_2d(eb_pad, d["x"], d["y"], g)
+    if want_chi:
+        ig0 = d["inv_gamma"]
+        chi = calculate_chi(*eb, d["ux"], d["uy"], d["uz"], ig0)
     ux, uy, uz, ig = boris_push(d["ux"], d["uy"], d["uz"], *eb, q, m, dt)
     x, y = push_position_2d(d["x"], d["y"], ux, uy, ig, hx, hy)
     w = torch.where(alive, d["w"], 0.0)
     rims = deposit_panels(x, y, ux, uy, uz, ig, w, q=q, dx=dx, dy=dy, dt=dt,
                           with_rho=with_rho, rims_in=rims_in)
     d.update(x=x, y=y, ux=ux, uy=uy, uz=uz, inv_gamma=ig)
+    if want_chi:
+        return d, alive, n_lost, rims, (chi, ig0)
     return d, alive, n_lost, rims
 
 
@@ -276,6 +320,7 @@ def _cell_step_3d(eb_pad, data, alive, *, q, m, dt, dx, dy, dz, g, periodic,
          q / (dx * dy * dt)],
         dev)
     cell_step.launches += 1
+    cell_step.launches_by_mode["default"] += 1
     out = dict(data)
     out.update(zip(FLOAT_PAYLOADS, a_f))
     out.update(zip(ID_PAYLOADS, a_id))
@@ -287,15 +332,20 @@ def cell_step(eb_pad, data: Dict[str, torch.Tensor], alive, *, q: float,
               m: float, dt: float, dx: float, dy: float, g: int,
               periodic: Sequence[bool],
               rims_in: Optional[torch.Tensor] = None, with_rho: bool = True,
-              dz: Optional[float] = None):
+              dz: Optional[float] = None, want_chi: bool = False,
+              photon: bool = False):
     """One species' particle stage through kernel B2 (see
-    ``cell_step_plain`` for the arguments and results)."""
+    ``cell_step_plain`` for the arguments and results). In ``photon``
+    mode ``eb_pad`` and ``rims_in`` are not read (either may be None) and
+    no deposit runs."""
     if alive.device.type == "cpu":
         return cell_step_plain(eb_pad, data, alive, q=q, m=m, dt=dt, dx=dx,
                                dy=dy, g=g, periodic=periodic, rims_in=rims_in,
-                               with_rho=with_rho, dz=dz)
+                               with_rho=with_rho, dz=dz, want_chi=want_chi,
+                               photon=photon)
     if alive.device.type != "cuda":
         raise ValueError(f"cell_step: unsupported device {alive.device}")
+    mode = _mode(want_chi, photon)
     dev = alive.device
     dtype = data["x"].dtype
     cap = alive.shape[0]
@@ -306,58 +356,88 @@ def cell_step(eb_pad, data: Dict[str, torch.Tensor], alive, *, q: float,
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"cell_step: dtype {dtype}")
     if alive.ndim == 4:
+        if mode != "default":
+            raise NotImplementedError(
+                f"cell_step: the {mode} mode in 3D is not ported yet "
+                "(ROADMAP queue 1, item 9)")
         return _cell_step_3d(eb_pad, data, alive, q=q, m=m, dt=dt, dx=dx,
                              dy=dy, dz=dz, g=g, periodic=periodic,
                              rims_in=rims_in, with_rho=with_rho)
     cap, nx, ny = alive.shape
     _check_tile()
     shape = (cap, nx, ny)
+    extra = extra_payloads(data)
+    if len(extra) > MAX_EXTRA:
+        raise ValueError(f"cell_step: {len(extra)} extra payloads {extra}; "
+                         f"the kernel carries at most {MAX_EXTRA}")
     kernel_lib.check(alive, "alive", shape, torch.bool, dev)
-    kernel_lib.check(eb_pad, "eb_pad", (6, nx + 2 * g, ny + 2 * g), dtype, dev)
-    for k in FLOAT_PAYLOADS + ("inv_gamma",):
+    if not photon:
+        kernel_lib.check(eb_pad, "eb_pad", (6, nx + 2 * g, ny + 2 * g),
+                         dtype, dev)
+    for k in FLOAT_PAYLOADS + ("inv_gamma",) + extra:
         kernel_lib.check(data[k], k, shape, dtype, dev)
     for k in ID_PAYLOADS:
         kernel_lib.check(data[k], k, shape, torch.int32, dev)
     ncomp = 4 if with_rho else 3
     pshape = panel_shape(ncomp, nx, ny)
-    if rims_in is not None:
+    if rims_in is not None and not photon:
         kernel_lib.check(rims_in, "rims_in", pshape, dtype, dev)
 
     def empty(dt_):
         return torch.empty(shape, dtype=dt_, device=dev)
 
-    s_alive = empty(torch.bool)
-    s_f = [empty(dtype) for _ in FLOAT_PAYLOADS]
+    def slots(n):
+        return [empty(dtype) for _ in range(n)]
+
+    s_alive, o_alive = empty(torch.bool), empty(torch.bool)
+    s_f, o_f = slots(len(FLOAT_PAYLOADS)), slots(len(FLOAT_PAYLOADS))
+    s_x, o_x = slots(len(extra)), slots(len(extra))
     s_id = [empty(torch.int32) for _ in ID_PAYLOADS]
-    o_alive = empty(torch.bool)
-    o_f = [empty(dtype) for _ in FLOAT_PAYLOADS]
-    o_ig = empty(dtype)
     o_id = [empty(torch.int32) for _ in ID_PAYLOADS]
-    rims = torch.empty(pshape, dtype=dtype, device=dev)
+    o_ig = empty(dtype)
+    rims = None if photon else torch.empty(pshape, dtype=dtype, device=dev)
+    chi, ig0 = (empty(dtype), empty(dtype)) if want_chi else (None, None)
     n_lost = torch.zeros((), dtype=torch.int64, device=dev)
     ces = _ces_tensor(cap, dev)
-    ptrs = ([eb_pad, alive] + [data[k] for k in FLOAT_PAYLOADS]
+
+    def pad3(ts):
+        ts = list(ts)
+        return ts + [None] * (MAX_EXTRA - len(ts))
+    ptrs = ([None if photon else eb_pad, alive]
+            + [data[k] for k in FLOAT_PAYLOADS]
             + [data["inv_gamma"]] + [data[k] for k in ID_PAYLOADS]
             + [s_alive] + s_f + s_id
             + [o_alive] + o_f + [o_ig] + o_id
-            + [rims_in, rims, n_lost, ces])
+            + [None if photon else rims_in, rims, n_lost, ces, chi, ig0]
+            + pad3(data[k] for k in extra) + pad3(s_x) + pad3(o_x))
     cdx, cdy = c_light * dt / dx, c_light * dt / dy
+    if photon:
+        # q = m = 0: no Boris factors (q / m is undefined) and no deposit
+        force = [0.0] * 8
+    else:
+        force = [q * dt / (2 * m * c_light), q * dt / (2 * m), cdx, cdy,
+                 c_light, q / (dx * dy), q / (dy * dt), q / (dx * dt)]
     kernel_lib.call(
         "cellstep", "lp_cell_step", ptrs,
         [cap, nx, ny, g, periodic[0], periodic[1], ncomp,
-         len(batcher_network(cap)), dtype == torch.float64],
-        [cdx / 2, cdy / 2, q * dt / (2 * m * c_light), q * dt / (2 * m),
-         cdx, cdy, c_light, q / (dx * dy), q / (dy * dt), q / (dx * dt)],
+         len(batcher_network(cap)), dtype == torch.float64,
+         MODES.index(mode), len(extra)],
+        [cdx / 2, cdy / 2] + force + [CHI_FACTOR],
         dev)
     cell_step.launches += 1
+    cell_step.launches_by_mode[mode] += 1
     out = dict(data)
     out.update(zip(FLOAT_PAYLOADS, o_f))
     out.update(zip(ID_PAYLOADS, o_id))
+    out.update(zip(extra, o_x))
     out["inv_gamma"] = o_ig
+    if want_chi:
+        return out, o_alive, n_lost, rims, (chi, ig0)
     return out, o_alive, n_lost, rims
 
 
 cell_step.launches = 0
+cell_step.launches_by_mode = dict.fromkeys(MODES, 0)
 
 
 def fold_reduce(rims: torch.Tensor, shape: Sequence[int],

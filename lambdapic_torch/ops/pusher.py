@@ -45,6 +45,14 @@ def boris_push(ux, uy, uz, ex_p, ey_p, ez_p, bx_p, by_p, bz_p,
     return ux_new, uy_new, uz_new, inv_gamma_new
 
 
+def photon_push(ux, uy, uz) -> torch.Tensor:
+    """A photon's momentum push: inv_gamma = 1/|u| only, 1 where u = 0
+    (dead slots)."""
+    u2 = ux**2 + uy**2 + uz**2
+    return torch.where(u2 > 0, 1.0 / torch.sqrt(torch.clamp(u2, min=1e-30)),
+                       torch.ones_like(u2))
+
+
 def push_position_2d(x, y, ux, uy, inv_gamma, cdt_dx: float, cdt_dy: float):
     """x += u inv_gamma c dt, in cell units (cdt_dx = c*dt/dx)."""
     x = x + ux * inv_gamma * _scalar(cdt_dx, x)

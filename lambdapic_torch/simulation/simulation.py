@@ -18,17 +18,20 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import random as jr
 from ..constants import c as c_light
 from ..core.grid import Grid
-from ..core.species import Species, _ALL_SPECIES
-from ..core.state import SimulationState, cell_particles, zeros_fields
+from ..core.species import Electron, Photon, Species, _ALL_SPECIES
+from ..core.state import (ID_KEYS, SimulationState, cell_particles,
+                          ids_to_numpy, zeros_fields)
 from ..ops.cell2d import deposit_cell_2d
 from ..ops.cell3d import deposit_cell_3d
 from ..ops.cellslab import MAX_CAP
 from ..ops.cpml import CPMLParams, build_cpml
 from ..parallel.halo import halo_reduce
 from .callbacks import INNER_STAGES, SimulationCallbacks
-from .initfill import bin_cells, count_macro_particles, fill_species, pick_capacity
+from .initfill import (bin_cells, count_macro_particles, fill_species,
+                       pick_capacity)
 from .step import SpeciesStatic, StepBuilder
 
 logger = logging.getLogger("lambdapic_torch")
@@ -170,6 +173,9 @@ class Simulation:
         else:
             self._seed_effective = int(
                 np.random.SeedSequence().generate_state(1)[0])
+        # the base key of the in-step draws (QED), kept on the CPU
+        self._base_key = jr.PRNGKey(self._seed_effective)
+        self._qed_processes: list = []
         self._overflow_seen: Dict[int, int] = {}
         self._occ_seen: Dict[int, int] = {}
         self._loss_reported: Dict[int, int] = {}
@@ -229,11 +235,15 @@ class Simulation:
                for ax in "xyz"[: self.dimension]):
             raise _todo("device meshes (npatch_x/npatch_y/npatch_z > 1)", "15")
         for sp in self.species:
-            if getattr(sp, "radiation", None) is not None or sp.has_qed:
-                raise _todo(f"QED radiation (species {sp.name})", "9")
+            if isinstance(sp, Photon) and sp.has_qed:
+                raise _todo(f"Breit-Wheeler pair production (photon species "
+                            f"{sp.name})", "9")
+            if self.dimension == 3 and (sp.has_qed or sp.pusher == "photon"):
+                raise _todo(f"QED in 3D (species {sp.name}; kernel B2's 3D "
+                            "want_chi and photon modes)", "9")
             if sp.has_spin:
                 raise _todo(f"spin (species {sp.name})", "9")
-            if sp.pusher != "boris":
+            if sp.pusher not in ("boris", "photon"):
                 raise _todo(f"pusher {sp.pusher!r} (species {sp.name})", "9")
 
     def _make_grid(self) -> Grid:
@@ -294,16 +304,52 @@ class Simulation:
         self._loss_reported.clear()
         self._overflow_seen.clear()
         self._occ_seen.clear()
+        self._init_qed()
+        self._sync_qed_child_caps()
         self.initialized = True
+
+    def _init_qed(self):
+        """The QED processes of the species' wiring: a radiating electron
+        with a photon species emits into it (nonlinear Compton)."""
+        from ..models.qed import NonlinearComptonLCFA
+        self._qed_processes = []
+        for sp in self.species:
+            if isinstance(sp, Electron):
+                if sp.radiation == "photons" and sp.photon is not None:
+                    if sp.photon not in self.species:
+                        raise ValueError(
+                            f"species {sp.name} emits into {sp.photon.name}, "
+                            "which was not added to the Simulation")
+                    self._qed_processes.append(NonlinearComptonLCFA(
+                        sp.ispec, sp.photon.ispec, self.dtype))
+                elif sp.radiation == "ll":
+                    logger.warning(
+                        "continuous (LL) radiation is a stub (as in the "
+                        "reference, radiation.py:240-276); ignored")
+        if self._qed_processes:
+            logger.info(f"QED processes: {len(self._qed_processes)}")
+
+    def _sync_qed_child_caps(self):
+        """Floor each QED child species' capacity (the photons of a
+        radiating electron) at its parent's: newborns arrive in bursts that
+        scale with the parent population, before any re-capacity can see
+        them."""
+        for proc in self._qed_processes:
+            pcap = self._species_static[proc.ispec].cap
+            if self._species_static[proc.photon_ispec].cap < pcap:
+                self._grow_capacity(proc.photon_ispec, pcap)
 
     def _build_stepper(self, lasers):
         self._builder = StepBuilder(
             self.grid, self.cpml, self.dt, self._species_static, lasers,
-            with_rho=self._with_rho, dtype=self.dtype, device=self.device)
+            with_rho=self._with_rho, dtype=self.dtype, device=self.device,
+            qed_processes=self._qed_processes, base_key=self._base_key)
 
     def _scalars(self, lasers) -> dict:
-        return {f"laser{i}": laser.host_scalars(self)
-                for i, laser in enumerate(lasers)}
+        sc = {f"laser{i}": laser.host_scalars(self)
+              for i, laser in enumerate(lasers)}
+        sc["itime"] = self.itime
+        return sc
 
     def _handle_nsteps(self, nsteps, sim_time):
         if nsteps is not None and sim_time is not None:
@@ -491,6 +537,81 @@ class Simulation:
         if name == "rho" and not getattr(self, "_with_rho", True):
             return self.total_rho().cpu().numpy()
         return getattr(self.state.fields, name).cpu().numpy()
+
+    def set_field(self, name: str, value) -> None:
+        """Replace one field with ``value`` (the grid's shape), cast to
+        the run's type on its device."""
+        f = self.state.fields
+        old = getattr(f, name)
+        t = torch.as_tensor(np.asarray(value), dtype=self.dtype).to(
+            self.device)
+        if tuple(t.shape) != tuple(old.shape):
+            raise ValueError(f"set_field {name}: shape {tuple(t.shape)}, "
+                             f"expected {tuple(old.shape)}")
+        self.state = self.state.replace(fields=f.replace(**{name: t}))
+
+    def get_particles(self, ispec: int) -> Dict[str, np.ndarray]:
+        """Host copies of one species' alive particles, flattened:
+        positions in SI metres (wrapped into the box along periodic axes,
+        as stored positions may trail the mid-step re-binning by up to half
+        a cell), ids as uint32. The gathered-field slots (``*_part``) are
+        not exposed: the cell engine never fills them."""
+        p = self.state.particles[ispec]
+        alive = p.alive.reshape(-1).cpu().numpy()
+        out = {}
+        for k, v in p.data.items():
+            if k.endswith("_part"):
+                continue
+            a = ids_to_numpy(v) if k in ID_KEYS else v.cpu().numpy()
+            a = a.reshape(-1)
+            if k in self.grid.axes:
+                ax = self.grid.axes.index(k)
+                d = self.grid.deltas[ax]
+                a = a * d
+                if self.grid.periodic(k):
+                    L = self.grid.shape[ax] * d
+                    a = (a + 0.5 * d) % L - 0.5 * d
+            out[k] = a[alive]
+        return out
+
+    def set_particles_global(self, ispec: int,
+                             coords_si: Dict[str, np.ndarray],
+                             attrs: Dict[str, np.ndarray]) -> None:
+        """Replace one species' population by the particles given (SI
+        positions in ``coords_si``, other arrays in ``attrs``), binned
+        into cells; ids restart at the flat slot index. Capacity floors:
+        the species' present capacity and 8; QED children follow their
+        parent's."""
+        import dataclasses
+        if not self.initialized:
+            raise RuntimeError("set_particles_global needs an initialised "
+                               "Simulation (call initialize() first)")
+        sp = self.species[ispec]
+        st = self._species_static[ispec]
+        # flat arrays of the one device (mesh_shape + (n,)), positions in
+        # cell units, as bin_cells takes them
+        lead = self.grid.mesh_shape
+        n = len(np.asarray(coords_si[self.grid.axes[0]]))
+        arrays = {a: np.zeros(lead + (n,)) for a in sp.attrs()}
+        arrays["inv_gamma"][...] = 1.0
+        for k, v in attrs.items():
+            if k in arrays:
+                arrays[k][...] = np.asarray(v)
+        for ax, d in zip(self.grid.axes, self.grid.deltas):
+            arrays[ax][...] = np.asarray(coords_si[ax]) / d
+        arrays, alive_np, cap_c = bin_cells(
+            arrays, np.full(lead, n), self.grid,
+            factor=self.particle_capacity_factor, cap_c=max(st.cap, 8))
+        if cap_c != st.cap:
+            self._species_static[ispec] = dataclasses.replace(st, cap=cap_c)
+        dev0 = (0,) * self.dimension
+        arrays = {k: v[dev0] for k, v in arrays.items()}
+        parts = list(self.state.particles)
+        parts[ispec] = cell_particles(sp, arrays, alive_np[dev0], self.dtype,
+                                      self.device)
+        self.state = self.state.replace(particles=tuple(parts))
+        self._sync_qed_child_caps()
+        self._builder = None
 
     @property
     def npart_alive(self) -> List[int]:

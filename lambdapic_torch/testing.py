@@ -16,6 +16,7 @@ import torch
 from .core.state import ID_KEYS, ids_to_numpy, ids_to_torch
 
 SLOT_FLOATS = ("x", "y", "z", "w", "ux", "uy", "uz", "inv_gamma")
+QED_PAYLOADS = ("tau", "delta", "event")
 
 
 def random_cell_state(cap: int, nx: int, ny: int, nz: Optional[int] = None,
@@ -55,6 +56,32 @@ def random_cell_state(cap: int, nx: int, ny: int, nz: Optional[int] = None,
     data["id_hi"] = np.zeros(shape, np.uint32)
     eb_pad = rng.uniform(-field, field, (6,) + tuple(k + 2 * g for k in n))
     return data, alive, eb_pad
+
+
+def add_qed_payloads(data: Dict[str, np.ndarray], seed: int = 0
+                     ) -> Dict[str, np.ndarray]:
+    """A radiating species' QED attributes on a cell state, different in
+    every slot (tau, delta, event; chi zero), so that a re-binning that
+    mixed them up would show."""
+    rng = np.random.default_rng(seed)
+    shape = np.shape(data["x"])
+    data = dict(data)
+    data["tau"] = rng.uniform(0.1, 2.0, shape)
+    data["delta"] = rng.uniform(0.0, 1.0, shape)
+    data["event"] = (rng.uniform(0, 1, shape) < 0.3).astype(np.float64)
+    data["chi"] = np.zeros(shape)
+    return data
+
+
+def photon_cell_state(cap: int, nx: int, ny: int, *, n_frac: float = 0.4,
+                      seed: int = 0):
+    """A cell state of a photon species: inv_gamma = 1/|u| (1 where
+    u = 0). Returns (data, alive) as numpy arrays."""
+    data, alive, _ = random_cell_state(cap, nx, ny, n_frac=n_frac, seed=seed)
+    u2 = data["ux"]**2 + data["uy"]**2 + data["uz"]**2
+    data["inv_gamma"] = np.where(u2 > 0, 1 / np.sqrt(np.maximum(u2, 1e-30)),
+                                 1.0)
+    return data, alive
 
 
 def to_torch(data: Dict[str, np.ndarray], alive: np.ndarray, dtype, device):

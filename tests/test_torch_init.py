@@ -158,17 +158,26 @@ def _imports(path: Path):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
             yield node.module
+        elif isinstance(node, ast.Call) and node.args and \
+                isinstance(node.args[0], ast.Constant) and \
+                getattr(node.func, "id", getattr(node.func, "attr", "")) in (
+                    "__import__", "import_module"):
+            yield str(node.args[0].value)
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "lambdapic_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py"]
+    assert {"random.py", "qed.py", "qed_tables.py"} <= {f.name for f in files}
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "flax", "lambdapic_tpu"), (f, mod)
     code = ("import sys, lambdapic_torch, lambdapic_torch.testing\n"
             "import lambdapic_torch.simulation.simulation\n"
+            "import lambdapic_torch.models.qed, lambdapic_torch.random\n"
+            "lambdapic_torch.models.qed._make_tables('photon', "
+            "lambdapic_torch.random.torch.float32)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'lambdapic_tpu')]\n"
             "assert not bad, bad\n")
@@ -208,3 +217,36 @@ def test_config_validation_and_unported_options():
         t_species.Species(name="x", charge=1.5, mass=1.0)
     with pytest.raises(ValueError):
         t_species.Electron(pusher="leapfrog")
+
+
+@pytest.mark.parametrize("case", ["pairs", "spin", "tbmt", "qed3d"])
+def test_unported_qed_options_name_their_roadmap_item(case):
+    """QED photon emission and the photon pusher are accepted; pair
+    production, spin, the "boris+tbmt" pusher and QED in 3D raise, naming
+    ROADMAP item 9."""
+    from lambdapic_torch import Electron, Photon, Simulation, Simulation3D
+    kw = dict(nx=16, ny=16, dx=1e-7, dy=1e-7, tiling="cell", device="cpu")
+    t_species._ALL_SPECIES.clear()
+    ele = Electron(radiation="photons", density=lambda x, y: 1e26 + 0 * x,
+                   ppc=1)
+    pho = Photon(capacity=256)
+    ele.set_photon(pho)
+    ok = Simulation(**kw).add_species([ele, pho])
+    ok.initialize()
+    assert len(ok._qed_processes) == 1
+    assert ok._species_static[1].cap == ok._species_static[0].cap
+    if case == "pairs":
+        pos = Electron(name="positron")
+        pho.set_bw_pair(electron=ele, positron=pos)
+        sim = Simulation(**kw).add_species([ele, pho, pos])
+    elif case == "spin":
+        sim = Simulation(**kw).add_species([Electron(polarization=(0, 0, 1))])
+    elif case == "tbmt":
+        sim = Simulation(**kw).add_species([Electron(pusher="boris+tbmt")])
+    else:
+        sim = Simulation3D(nz=8, dz=1e-7, **kw).add_species([
+            Electron(radiation="photons"), Photon()])
+        sim.species[0].set_photon(sim.species[1])
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
+        sim.initialize()
+    t_species._ALL_SPECIES.clear()

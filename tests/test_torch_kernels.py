@@ -25,7 +25,8 @@ from lambdapic_torch.ops.cellslab import (cell_step, cell_step_plain,
 from lambdapic_torch.ops.cpml import CPMLParams, build_cpml
 from lambdapic_torch.ops.fieldskernel import (update_bfield_k,
                                               update_efield_k, update_half_k)
-from lambdapic_torch.testing import compare_slots, random_cell_state, \
+from lambdapic_torch.testing import QED_PAYLOADS, SLOT_FLOATS, \
+    add_qed_payloads, compare_slots, photon_cell_state, random_cell_state, \
     to_numpy, to_torch
 
 pytestmark = pytest.mark.gpu
@@ -118,6 +119,61 @@ def test_wrappers_reject_bad_operands(cuda):
                   dx=DX, dy=DX, g=3, periodic=(True, True))
 
 
+QED_CASES = [
+    (4, 16, 16, (True, True), 0.4),
+    (6, 24, 40, (False, False), 0.5),
+    (8, 16, 16, (False, True), 0.85),      # merges
+    (20, 33, 18, (True, False), 0.5),
+]
+
+
+@pytest.mark.parametrize("cap,nx,ny,periodic,n_frac", QED_CASES)
+def test_b2_want_chi_matches_plain(cuda, cap, nx, ny, periodic, n_frac):
+    """want_chi: slots, the QED payloads, chi and ig0 slot for slot."""
+    data, alive, eb = random_cell_state(cap, nx, ny, n_frac=n_frac,
+                                        seed=cap + nx, umax=50.0, field=5e13)
+    data = add_qed_payloads(data, seed=cap)
+    td, ta = to_torch(data, alive, torch.float64, cuda)
+    eb = torch.as_tensor(eb).to(cuda)
+    rims_in = torch.as_tensor(np.random.default_rng(1).normal(
+        size=panel_shape(4, nx, ny))).to(cuda)
+    kw = dict(q=Q, m=M, dt=DT, dx=DX, dy=DX, g=3, periodic=periodic,
+              rims_in=rims_in, want_chi=True)
+    ref = cell_step_plain(eb, td, ta, **kw)
+    before = cell_step.launches_by_mode["want_chi"]
+    got = cell_step(eb, td, ta, **kw)
+    torch.cuda.synchronize()
+    assert cell_step.launches_by_mode["want_chi"] == before + 1
+    for out in (ref, got):
+        out[0]["chi"], out[0]["ig0"] = out[4]
+    compare_slots(*to_numpy(ref[0], ref[1]), *to_numpy(got[0], got[1]),
+                  rtol=1e-11, keys=SLOT_FLOATS + QED_PAYLOADS + ("chi", "ig0"))
+    assert int(got[2]) == int(ref[2])
+    if n_frac > 0.8:
+        assert int(ref[2]) > 0
+    torch.testing.assert_close(got[3], ref[3], rtol=0,
+                               atol=1e-12 * float(ref[3].abs().max()))
+
+
+@pytest.mark.parametrize("cap,nx,ny,periodic,n_frac", QED_CASES)
+def test_b2_photon_matches_plain(cuda, cap, nx, ny, periodic, n_frac):
+    data, alive = photon_cell_state(cap, nx, ny, n_frac=n_frac, seed=cap + ny)
+    td, ta = to_torch(data, alive, torch.float64, cuda)
+    kw = dict(q=0.0, m=0.0, dt=DT, dx=DX, dy=DX, g=3, periodic=periodic,
+              photon=True)
+    ref = cell_step_plain(None, td, ta, **kw)
+    before = cell_step.launches_by_mode["photon"]
+    got = cell_step(None, td, ta, **kw)
+    torch.cuda.synchronize()
+    assert cell_step.launches_by_mode["photon"] == before + 1
+    assert got[3] is None
+    compare_slots(*to_numpy(ref[0], ref[1]), *to_numpy(got[0], got[1]),
+                  rtol=1e-11)
+    assert int(got[2]) == int(ref[2])
+    if n_frac > 0.8:
+        assert int(ref[2]) > 0
+
+
 def test_simulation_on_card_matches_cpu(cuda):
     """Ten float64 steps of a small laser-target through Simulation.run:
     the kernel path on the card against the plain path on the CPU."""
@@ -159,6 +215,53 @@ def test_simulation_on_card_matches_cpu(cuda):
                       pr.alive[0, 0],
                       {k: v[0, 0] for k, v in pg.data.items()},
                       pg.alive[0, 0], rtol=1e-9)
+
+
+def test_qed_simulation_on_card_matches_cpu(cuda):
+    """Six float64 steps of radiating electrons in a strong uniform Bz
+    (chi ~ 1) through Simulation.run: the card (B2 want_chi and photon
+    kernels, the draws on the card) against the CPU (plain versions,
+    draws on the CPU). The draws are bitwise equal, so the same photons
+    are born in the same slots."""
+    import lambdapic_torch
+    from lambdapic_torch.constants import c, e, hbar, m_e
+    from lambdapic_torch.core import species as t_species
+    from lambdapic_torch.core.state import state_to_numpy
+    bc = {k: "periodic" for k in ("xmin", "xmax", "ymin", "ymax")}
+    n, gamma = 300, 2000.0
+    ux = np.sqrt(gamma**2 - 1)
+    rng = np.random.default_rng(0)
+    coords = {"x": rng.uniform(0.5e-6, 2.5e-6, n),
+              "y": rng.uniform(0.5e-6, 2.5e-6, n)}
+    attrs = {"w": np.ones(n), "ux": np.full(n, ux), "uy": np.zeros(n),
+             "uz": rng.normal(0, 50, n), "inv_gamma": np.full(n, 1 / gamma)}
+    bz = 1.0 / (e * hbar / (m_e**2 * c**3) * c * ux)
+    states = []
+    for dev in ("cpu", cuda):
+        t_species._ALL_SPECIES.clear()
+        pho = lambdapic_torch.Photon(capacity=4096)
+        ele = lambdapic_torch.Electron(radiation="photons")
+        ele.set_photon(pho)
+        sim = lambdapic_torch.Simulation(
+            nx=32, ny=32, dx=1e-7, dy=1e-7, boundary_conditions=bc,
+            tiling="cell", random_seed=3, precision="double", device=dev)
+        sim.add_species([ele, pho])
+        sim.initialize()
+        sim.set_particles_global(0, coords, attrs)
+        sim.set_field("bz", np.full((32, 32), bz))
+        sim.run(6)
+        states.append(state_to_numpy(sim.state))
+    ref, got = states
+    assert int(ref.particles[1].alive.sum()) > 0
+    for pr, pg in zip(ref.particles, got.particles):
+        assert int(pr.alive.sum()) == int(pg.alive.sum())
+        assert int(pr.overflow.sum()) == int(pg.overflow.sum())
+        assert int(pr.next_id.sum()) == int(pg.next_id.sum())
+        keys = SLOT_FLOATS + tuple(k for k in QED_PAYLOADS if k in pr.data)
+        compare_slots({k: v[0, 0] for k, v in pr.data.items()},
+                      pr.alive[0, 0],
+                      {k: v[0, 0] for k, v in pg.data.items()},
+                      pg.alive[0, 0], rtol=1e-9, keys=keys)
 
 
 # -- the 3D forms ------------------------------------------------------------
