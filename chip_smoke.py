@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py [--steps N] [--window W] [--steps-qed N]
                           [--window-qed W] [--steps3d N] [--window3d W]
+                          [--steps-exact N] [--window-exact W]
+                          [--steps-exact-qed N] [--steps-split N]
+                          [--steps-split-sort N]
 
 Phases (any failure exits non-zero):
 
@@ -35,10 +38,21 @@ Phases (any failure exits non-zero):
    size without its diagnostics (512 x 256 x 256 cells, electrons and
    protons at 2 particles per cell, PML on six faces, GaussianLaser3D
    a0=10, float32), through Simulation3D.run (launches per step B1 4,
-   B2 2, B3 1), and for the 3D kernels at its shapes.
+   B2 2, B3 1), and for the 3D kernels at its shapes;
+7. the per-stage engine (2D): after phase 4 the 2D slice goes on through
+   split steps (a host callback at _push_momentum due every step:
+   launches per step B1 4, B6 6, B5 3; one split step held against one
+   fused step from a cloned state; --steps-split-sort more steps with
+   LAMBDAPIC_MIG_FUSED=0: B7 6); then B4-B7 against their plain versions
+   (float64 at small sizes, float32 at the 2D slice's shapes), the 2D
+   slice with cell_migration="exact" (B1 4, B4 3, B5 3; every alive id
+   kept to step 1000 but those counted merged or dropped) and the QED
+   slice with cell_migration="exact" (B1 4, B4 2 = default + want_eb,
+   B5 2; photons emitted), each timed and profiled, and B4-B7 timed at
+   the exact slice's final state.
 
-Prints a ``{"kernels": [...]}`` line with the 2D, the QED and the 3D
-kernels, the card's name and power limit, and as its last line
+Prints a ``{"kernels": [...]}`` line with the 2D, the per-stage, the QED
+and the 3D kernels, the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -364,9 +378,9 @@ def compare_b2_f32(eb_pad, p, sp, dt, grid, periodic):
 # the slice
 # ---------------------------------------------------------------------------
 
-def make_slice(dev, seed=0, nx=1024):
+def make_slice(dev, seed=0, nx=1024, cell_migration="fast"):
     """example/laser-target.py at full size (nx = ny = 1024), without its
-    diagnostics."""
+    diagnostics; ``cell_migration="exact"`` for the per-stage engine."""
     from lambdapic_torch import (Electron, GaussianLaser2D, Proton,
                                  Simulation, Species)
     from lambdapic_torch.constants import c, e, epsilon_0, m_e, pi
@@ -389,7 +403,8 @@ def make_slice(dev, seed=0, nx=1024):
     laser = GaussianLaser2D(a0=10, w0=2e-6, l0=0.8e-6, ctau=5e-6,
                             focus_position=Lx / 2, x0=10e-6, ellipticity=1)
     sim = Simulation(tiling="cell", nx=nx, ny=ny, dx=dx, dy=dy,
-                     random_seed=seed, device=dev)
+                     random_seed=seed, device=dev,
+                     cell_migration=cell_migration)
     ele = Electron(density=density(10 * nc), ppc=10)
     proton = Proton(density=density(10 * nc / 8 * 2), ppc=10)
     carbon = Species(name="C", charge=6, mass=12 * 1800,
@@ -437,12 +452,43 @@ def edge_sitters(sim):
 
 def reset_launches():
     """Set every kernel wrapper's launch count to 0."""
-    from lambdapic_torch.ops import cellslab, fieldskernel
+    from lambdapic_torch.ops import cellpallas, cellslab, fieldskernel
     for fn in (fieldskernel.update_half_k, cellslab.cell_step,
-               cellslab.fold_reduce):
+               cellslab.fold_reduce, cellpallas.fused_push_cell_2d,
+               cellpallas.deposit_cell_2d_k, cellpallas.migrate_axis,
+               cellpallas.sort_cells):
         fn.launches = 0
-    for mode in cellslab.cell_step.launches_by_mode:
-        cellslab.cell_step.launches_by_mode[mode] = 0
+    for counts in (cellslab.cell_step.launches_by_mode,
+                   cellpallas.fused_push_cell_2d.launches_by_mode):
+        for mode in counts:
+            counts[mode] = 0
+
+
+def all_launches():
+    """Every kernel wrapper's launch count, by kernel (B4 want_eb: the
+    launches of B4 in that mode, also counted in B4)."""
+    from lambdapic_torch.ops import cellpallas as cp, cellslab, fieldskernel
+    return {"B1": fieldskernel.update_half_k.launches,
+            "B2": cellslab.cell_step.launches,
+            "B3": cellslab.fold_reduce.launches,
+            "B4": cp.fused_push_cell_2d.launches,
+            "B4 want_eb": cp.fused_push_cell_2d.launches_by_mode["want_eb"],
+            "B5": cp.deposit_cell_2d_k.launches,
+            "B6": cp.migrate_axis.launches, "B7": cp.sort_cells.launches}
+
+
+def check_launches(tag, steps, per_step):
+    """Fail unless each kernel launched ``per_step`` times a step (0 for
+    kernels not named) over ``steps`` steps; add the per-stage kernels'
+    launches to STAGE_LAUNCHES. Returns the counts."""
+    got = all_launches()
+    want = {k: per_step.get(k, 0) * steps for k in got}
+    log(f"[{tag}] launches in {steps} steps: {got}")
+    if got != want:
+        fail(f"{tag}: launch counts {got} != {want}")
+    for k in STAGE_LAUNCHES:
+        STAGE_LAUNCHES[k] += got[k]
+    return got
 
 
 def totals(sim):
@@ -660,6 +706,8 @@ def run_2d(args, dev):
              library_ms=None),
     ]
     log(f"[kernels 2D] launches per step {per_step}")
+    del rims, eb_pad
+    run_split(args, sim, laser)
     return kernels
 
 
@@ -738,7 +786,7 @@ def check_b2_qed_f64(dev):
     return merges
 
 
-def make_slice_qed(dev, seed=0):
+def make_slice_qed(dev, seed=0, cell_migration="fast"):
     """example/photons.py at full size (512 x 512 cells, 100 fs), without
     its diagnostics and its log file; its npho callback kept. Returns
     (sim, laser, npho callback, photon species)."""
@@ -762,7 +810,8 @@ def make_slice_qed(dev, seed=0):
 
     laser = SimpleLaser2D(a0=300, w0=2e-6, l0=0.8e-6, ctau=5e-6)
     sim = Simulation(tiling="cell", nx=nx, ny=ny, dx=dx, dy=dy,
-                     sim_time=QED_SIM_TIME, random_seed=seed, device=dev)
+                     sim_time=QED_SIM_TIME, random_seed=seed, device=dev,
+                     cell_migration=cell_migration)
     ele = Electron(density=density(5 * nc), ppc=10, radiation="photons")
     pho = Photon(capacity=1 << 20)
     ele.set_photon(pho)
@@ -1199,6 +1248,592 @@ def run_qed(args, dev):
 
 
 # ---------------------------------------------------------------------------
+# the per-stage engine: kernels B4-B7, exact migration, the split step
+# ---------------------------------------------------------------------------
+
+# B4's and B5's floating-point work per alive particle, counted from
+# csrc/push2d.cu and csrc/deposit2d.cu as for B2: B4 six staggered gathers
+# of 9-16 taps with their spline weights (about 700), Boris (about 60) and
+# the half push (about 6); B5 the 5 x 5 Esirkepov nodes of four channels
+# with their shapes (about 600). B6 and B7 move data; a merge is a handful
+# of operations a merged slot.
+FLOPS_B4 = 770
+FLOPS_B5 = 600
+# launches of the per-stage kernels on the per-stage paths (exact, exact
+# QED, split, split with LAMBDAPIC_MIG_FUSED=0), summed for the kernels line
+STAGE_LAUNCHES = {"B4": 0, "B4 want_eb": 0, "B5": 0, "B6": 0, "B7": 0}
+# per-stage kernels' float32 errors and times, filled by the phases
+STAGE = {}
+KERNEL_FUNCS.update({"B4": {"push<": 1}, "B5": {"deposit<": 1, "fold_pad": 1},
+                     "B6": {"migrate_axis": 2}, "B7": {"sort_cells": 1}})
+# the cases of tests/test_torch_kernels.py
+STAGE_CASES = [(13, 18, 10, (True, True), 0.5), (16, 15, 12, (False, True), 0.9),
+               (20, 12, 16, (True, False), 1.0), (4, 33, 18, (False, False), 0.9)]
+
+
+def _close(a, b, rtol, floor):
+    """max |a - b| and whether |a - b| <= rtol |b| + floor * peak(b)."""
+    import torch
+    if a.numel() == 0:
+        return 0.0, True
+    d = (a.double() - b.double()).abs()
+    peak = float(b.double().abs().max())
+    ok = bool((d <= rtol * b.double().abs() + floor * peak).all())
+    return float(d.max()), ok
+
+
+def check_stage_f64(dev):
+    """B4 (both modes, with and without the first half push) to rtol 1e-11,
+    B5 to 1e-12 of the peak, B6 (periodic and open faces, merges, caps 4,
+    13, 16, 20, a photon species' carried inv_gamma) and B7 (caps 13, 16,
+    20, float, int32 and bool payloads) array for array equal, all against
+    their plain versions in float64 at small sizes. Returns (B4 bitwise
+    equal?, the largest B6 merge count)."""
+    import torch
+    from lambdapic_torch.ops import cellpallas as cp
+    from lambdapic_torch.ops.cell2d import (batcher_sort, deposit_cell_2d,
+                                            migrate_cells)
+    from lambdapic_torch.testing import (add_qed_payloads, crowded_cell_state,
+                                         random_cell_state, to_torch)
+    q, m, dt, d = -1.602e-19, 9.109e-31, 1.1e-16, 5e-8
+    data, alive, eb = random_cell_state(5, 33, 18, seed=7, field=5e13)
+    td, _ = to_torch(data, alive, torch.float64, dev)
+    eb = torch.as_tensor(eb).to(dev)
+    args = [td[k] for k in ("x", "y", "ux", "uy", "uz")]
+    bitwise = True
+    for want_eb in (False, True):
+        for do_pos1 in (False, True):
+            kw = dict(q=q, m=m, dt=dt, dx=d, dy=0.9 * d, g=3,
+                      want_eb=want_eb, do_pos1=do_pos1)
+            ref = cp.fused_push_cell_2d_plain(eb, *args, **kw)
+            got = cp.fused_push_cell_2d(eb, *args, **kw)
+            for a, b in zip(got, ref):
+                err, ok = _close(a, b, 1e-11, 1e-14)
+                if not ok:
+                    fail(f"B4 f64 (want_eb {want_eb}, do_pos1 {do_pos1}) "
+                         f"differs from its plain version by {err:.3e}")
+                bitwise &= torch.equal(a, b)
+    for cap, nx, ny, g in ((6, 24, 40, 3), (20, 33, 18, 2)):
+        data, alive, _ = random_cell_state(cap, nx, ny, seed=cap, spread=0.99)
+        td, ta = to_torch(data, alive, torch.float64, dev)
+        w = torch.where(ta, td["w"], 0.0)
+        a7 = [td[k] for k in ("x", "y", "ux", "uy", "uz", "inv_gamma")] + [w]
+        kw = dict(q=q, dx=d, dy=1.1 * d, dt=dt, g=g)
+        ref = deposit_cell_2d(*a7, **kw)
+        got = cp.deposit_cell_2d_k(*a7, **kw)
+        err = float((got - ref).abs().max())
+        if not err <= 1e-12 * float(ref.abs().max()):
+            fail(f"B5 f64 differs from its plain version by {err:.3e}")
+    merges = 0
+    for cap, nx, ny, per, frac in STAGE_CASES:
+        for photon in (False, True):
+            data, alive, _ = crowded_cell_state(cap, nx, ny, n_frac=frac,
+                                                seed=cap + nx)
+            data = add_qed_payloads(data, seed=cap)
+            if photon:
+                u2 = data["ux"]**2 + data["uy"]**2 + data["uz"]**2
+                data["inv_gamma"] = np.where(
+                    u2 > 0, 1 / np.sqrt(np.maximum(u2, 1e-30)), 1.0)
+            td, ta = to_torch(data, alive, torch.float64, dev)
+            plan = ((nx, per[0], "x"), (ny, per[1], "y"))
+            ref = migrate_cells(td, ta, plan, recompute_ig=not photon)
+            got = cp.migrate_cells_fused(td, ta, plan, recompute_ig=not photon)
+            same = torch.equal(got[1], ref[1]) and sorted(got[0]) == \
+                sorted(ref[0]) and all(torch.equal(got[0][k], ref[0][k])
+                                       for k in ref[0])
+            if not same or int(got[2]) != int(ref[2]):
+                fail(f"B6 f64 (cap {cap}, periodic {per}, photon {photon}) "
+                     "differs from its plain version")
+            merges = max(merges, int(ref[2]))
+    if merges == 0:
+        fail("no B6 float64 case merged particles")
+    for cap in (13, 16, 20):
+        rng = np.random.default_rng(cap)
+        shape = (cap, 17, 9)
+        key = torch.as_tensor(rng.integers(-3, 6, shape).astype(np.int32)
+                              ).to(dev)
+        pays = [torch.as_tensor(rng.normal(size=shape)).to(dev),
+                torch.as_tensor(rng.integers(-2**31, 2**31, shape).astype(
+                    np.int32)).to(dev),
+                torch.as_tensor(rng.uniform(size=shape) < 0.5).to(dev)]
+        rk, rp = batcher_sort(key, pays)
+        gk, gp = cp.sort_cells(key, pays)
+        if not (torch.equal(gk, rk) and all(torch.equal(a, b)
+                                            for a, b in zip(gp, rp))):
+            fail(f"B7 (cap {cap}) differs from its plain version")
+    return bitwise, merges
+
+
+def five_way_key(pos, alive, axis):
+    """The re-binning's 5-way key of ops/cell2d.py::migrate_cells along
+    ``axis`` (the sort key B7 takes on the split path)."""
+    import torch
+    cap, nt = alive.shape[0], alive.shape[1 + axis]
+    ishape = [1, 1, 1]
+    ishape[1 + axis] = nt
+    local = pos - torch.arange(nt, dtype=pos.dtype,
+                               device=pos.device).reshape(ishape)
+    parity = ((torch.arange(cap, device=alive.device) & 1) == 0
+              ).reshape(cap, 1, 1)
+    key = torch.where(alive & (local >= 0.5), 0, torch.where(
+        alive & (local < -0.5), 4, torch.where(
+            alive, 2, torch.where(parity, 1, 3))))
+    return key.to(torch.int32)
+
+
+def stage_inputs(sim):
+    """The per-stage kernels' inputs from species 0 (the electrons) of a
+    2D slice: the stored state with its first half push applied (B6's and
+    B7's input), and that state re-binned by the plain version (B4's and
+    B5's input). Returns (pushed data, alive, re-binned data, alive)."""
+    from lambdapic_torch.constants import c
+    from lambdapic_torch.ops.cell2d import migrate_cells
+    from lambdapic_torch.ops.pusher import push_position_2d
+    grid = sim.grid
+    p = sim.state.particles[0]
+    d = dict(p.data)
+    d["x"], d["y"] = push_position_2d(d["x"], d["y"], d["ux"], d["uy"],
+                                      d["inv_gamma"], c * sim.dt / grid.dx / 2,
+                                      c * sim.dt / grid.dy / 2)
+    plan = tuple(zip(grid.shape, grid.periodic_axes, ("x", "y")))
+    rd, ra, _ = migrate_cells(d, p.alive, plan)
+    return d, p.alive, rd, ra
+
+
+def check_stage_f32(sim):
+    """B4-B7 against their plain versions at the 2D slice's shapes
+    (1024^2, 20 slots a cell, float32), on its electrons given momenta by
+    one B2 step in strong random fields (as compare_b2_f32): B6 and B7
+    equal array for array (alive masks, ids and payloads), B4 (both modes)
+    to rtol 1e-5 with a floor of 1e-6 of each output's peak, B5 to 1e-5
+    of the current's peak. Returns the largest absolute errors."""
+    import torch
+    from lambdapic_torch.ops import cellpallas as cp
+    from lambdapic_torch.ops.cell2d import batcher_sort, deposit_cell_2d, \
+        migrate_cells
+    from lambdapic_torch.ops.cellslab import cell_step
+    grid = sim.grid
+    g = grid.n_guard
+    per = grid.periodic_axes
+    sp = sim._species_static[0]
+    rng = np.random.default_rng(2)
+    eb_pad = torch.as_tensor(rng.uniform(-5e13, 5e13, (6, grid.nx + 2 * g,
+                                                        grid.ny + 2 * g)),
+                             dtype=torch.float32).to(sim.device)
+    p0 = sim.state.particles[0]
+    data, alive = cell_step(eb_pad, p0.data, p0.alive, q=sp.q, m=sp.m,
+                            dt=sim.dt, dx=grid.dx, dy=grid.dy, g=g,
+                            periodic=per, with_rho=False)[:2]
+    saved = sim.state
+    sim.state = saved.replace(particles=(p0.replace(data=data, alive=alive),)
+                              + saved.particles[1:])
+    d, a, _, _ = stage_inputs(sim)
+    sim.state = saved
+    plan = tuple(zip(grid.shape, per, ("x", "y")))
+    ref = migrate_cells(d, a, plan)
+    got = cp.migrate_cells_fused(d, a, plan)
+    torch.cuda.synchronize()
+    moved = int((got[1] != a).sum())
+    same = torch.equal(got[1], ref[1]) and all(
+        torch.equal(got[0][k], ref[0][k]) for k in ref[0])
+    log(f"[B6 f32 1024^2] {moved} slots changed occupancy, merges "
+        f"{int(got[2])} (plain {int(ref[2])}); every array equal: {same}")
+    if moved == 0 or not same or int(got[2]) != int(ref[2]):
+        fail("B6 float32 differs from its plain version (or moved nothing)")
+    from lambdapic_torch.ops.cell2d import TRANSIENT
+    names = sorted(k for k in d if k not in TRANSIENT)
+    key = five_way_key(d["x"], a, 0)
+    rk, rp = batcher_sort(key, [d[k] for k in names])
+    gk, gp = cp.sort_cells(key, [d[k] for k in names])
+    if not (torch.equal(gk, rk) and all(torch.equal(x, y)
+                                        for x, y in zip(gp, rp))):
+        fail("B7 float32 differs from its plain version")
+    log(f"[B7 f32 1024^2] {len(names)} payloads sorted by the x key: equal")
+    del gp, rp, got
+    rd, ra = ref[0], ref[1]
+    errs = {"B6": 0.0, "B7": 0.0}
+    args = [rd[k] for k in ("x", "y", "ux", "uy", "uz")]
+    for want_eb in (False, True):
+        kw = dict(q=sp.q, m=sp.m, dt=sim.dt, dx=grid.dx, dy=grid.dy, g=g,
+                  want_eb=want_eb, do_pos1=False)
+        r4 = cp.fused_push_cell_2d_plain(eb_pad, *args, **kw)
+        g4 = cp.fused_push_cell_2d(eb_pad, *args, **kw)
+        err = 0.0
+        for x, y in zip(g4, r4):
+            e, ok = _close(x, y, 1e-5, 1e-6)
+            if not ok:
+                fail(f"B4 float32 (want_eb {want_eb}) differs: {e:.3e}")
+            err = max(err, e)
+        tag = "B4 want_eb" if want_eb else "B4"
+        errs[tag] = err
+        log(f"[{tag} f32 1024^2] max abs {err:.3e}; bitwise equal: "
+            f"{all(torch.equal(x, y) for x, y in zip(g4, r4))}")
+    w = torch.where(ra, rd["w"], 0.0)
+    a7 = list(r4[:6]) + [w]
+    kw = dict(q=sp.q, dx=grid.dx, dy=grid.dy, dt=sim.dt, g=g)
+    r5 = deposit_cell_2d(*a7, **kw)
+    g5 = cp.deposit_cell_2d_k(*a7, **kw)
+    errs["B5"] = float((g5 - r5).abs().max())
+    scale = float(r5.abs().max())
+    log(f"[B5 f32 1024^2] max abs {errs['B5']:.3e} of peak {scale:.3e}")
+    if not errs["B5"] <= 1e-5 * scale:
+        fail(f"B5 float32 differs: {errs['B5']:.3e} > 1e-5 x {scale:.3e}")
+    return errs
+
+
+def ids_of(p):
+    """Sorted id_lo of a species' alive slots (int64, on the card)."""
+    import torch
+    return torch.sort(p.data["id_lo"][p.alive].to(torch.int64)).values
+
+
+def check_ids_kept(tag, ids0, ov0, sim):
+    """Every alive id of the start is alive now, less one id a merge or
+    drop (the overflow count's advance); no id appears from nowhere."""
+    import torch
+    for i, p in enumerate(sim.state.particles):
+        ids1 = ids_of(p)
+        lost = int(p.overflow) - ov0[i]
+        ok = len(ids1) + lost == len(ids0[i]) and bool(
+            torch.isin(ids1, ids0[i]).all())
+        if lost == 0:
+            ok = ok and torch.equal(ids1, ids0[i])
+        log(f"[{tag}] {sim.species[i].name}: {len(ids0[i])} ids -> "
+            f"{len(ids1)} alive + {lost} merged or dropped; kept: {ok}")
+        if not ok:
+            fail(f"{tag}: {sim.species[i].name} lost or gained ids")
+
+
+def stage_bounds(d, a, rd, ra, g):
+    """Byte and operation bounds (ms) of B4 (both modes), B5, B6 (per axis
+    launch) and B7 on the timed inputs: each input read once, each output
+    written once; a dead slot's payloads are read where the answer
+    depends on them (B6 and B7 carry them), the E/B nodes the gather
+    reaches from occupied cells."""
+    isz = d["x"].element_size()
+    slots = a.numel()
+    n_alive = int(ra.sum())
+    nodes = gather_nodes(ra, g) * isz
+    nxp = (ra.shape[1] + 2 * g) * (ra.shape[2] + 2 * g)
+    out = {}
+    for tag, n_out in (("B4", 6), ("B4 want_eb", 12)):
+        nbytes = 5 * slots * isz + nodes + n_out * slots * isz
+        out[tag] = (nbytes, n_alive * FLOPS_B4)
+    # B5 reads w of every slot, the other six reals of the alive ones
+    out["B5"] = (slots * isz + 6 * n_alive * isz + 4 * nxp * isz,
+                 n_alive * FLOPS_B5)
+    from lambdapic_torch.ops.cell2d import TRANSIENT
+    pay = sum(v.element_size() for k, v in d.items() if k not in TRANSIENT)
+    out["B6"] = (2 * slots * (1 + pay), 0)
+    pay7 = sum(v.element_size() for k, v in d.items()
+               if k not in TRANSIENT) + 4
+    out["B7"] = (2 * slots * pay7, 0)
+    res = {}
+    for k, (nbytes, flops) in out.items():
+        b_ms, o_ms = nbytes / HBM_BPS * 1e3, flops / F32_FLOPS * 1e3
+        res[k] = (max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations",
+                  nbytes)
+    return res
+
+
+def time_stage_kernels(sim, iters):
+    """Device ms per launch of B4 (both modes), B5, B6 (per axis) and B7,
+    their plain versions' ms (one call, CUDA events) and their bounds, on
+    the electrons of the slice's present state; stored in STAGE."""
+    from lambdapic_torch.ops import cellpallas as cp
+    from lambdapic_torch.ops.cell2d import batcher_sort, deposit_cell_2d, \
+        migrate_cells
+    grid = sim.grid
+    g = grid.n_guard
+    sp = sim._species_static[0]
+    d, a, rd, ra = stage_inputs(sim)
+    eb_pad = sim._builder.pad_eb(sim.state.fields)
+    plan = tuple(zip(grid.shape, grid.periodic_axes, ("x", "y")))
+    args = [rd[k] for k in ("x", "y", "ux", "uy", "uz")]
+    import torch
+    w = torch.where(ra, rd["w"], 0.0)
+    a7 = [rd[k] for k in ("x", "y", "ux", "uy", "uz", "inv_gamma")] + [w]
+    k5 = dict(q=sp.q, dx=grid.dx, dy=grid.dy, dt=sim.dt, g=g)
+    from lambdapic_torch.ops.cell2d import TRANSIENT
+    names = sorted(k for k in d if k not in TRANSIENT)
+    key = five_way_key(d["x"], a, 0)
+    pays = [d[k] for k in names]
+    calls = {}
+    for tag, want_eb in (("B4", False), ("B4 want_eb", True)):
+        kw = dict(q=sp.q, m=sp.m, dt=sim.dt, dx=grid.dx, dy=grid.dy, g=g,
+                  want_eb=want_eb, do_pos1=False)
+        calls[tag] = ("B4", lambda kw=kw: cp.fused_push_cell_2d(
+            eb_pad, *args, **kw), lambda kw=kw: cp.fused_push_cell_2d_plain(
+            eb_pad, *args, **kw), 1)
+    calls["B5"] = ("B5", lambda: cp.deposit_cell_2d_k(*a7, **k5),
+                   lambda: deposit_cell_2d(*a7, **k5), 1)
+    calls["B6"] = ("B6", lambda: cp.migrate_cells_fused(d, a, plan),
+                   lambda: migrate_cells(d, a, plan), 2)
+    calls["B7"] = ("B7", lambda: cp.sort_cells(key, pays),
+                   lambda: batcher_sort(key, pays), 1)
+    bounds = stage_bounds(d, a, rd, ra, g)
+    for tag, (funcs, fn, plain_fn, per_call) in calls.items():
+        dev_ms, wall = kernel_ms(fn, iters, funcs)
+        ms = (dev_ms or wall) / per_call
+        plain = cuda_time(plain_fn, 1) / per_call
+        bound, by, nbytes = bounds[tag]
+        STAGE.setdefault("time", {})[tag] = dict(ms=ms, plain_ms=plain,
+                                                 bound_ms=bound, bound_by=by)
+        log(f"[time {tag}] device {ms:.4f} ms per launch (wall "
+            f"{wall / per_call:.4f}); plain {plain:.3f} ms; bound "
+            f"{bound:.5f} ms ({by}, {nbytes} bytes; {int(ra.sum())} of "
+            f"{ra.numel()} slots alive); {ms / bound:.1f}x the bound")
+
+
+def stage_rows():
+    """The kernels line's rows of B4-B7."""
+    src = {"B4": ("B4 gather+Boris+push 2D", "push2d.cu", "cellpallas.py:308"),
+           "B4 want_eb": ("B4 want_eb 2D", "push2d.cu", "cellpallas.py:308"),
+           "B5": ("B5 deposit 2D", "deposit2d.cu", "cellpallas.py:420"),
+           "B6": ("B6 re-binning axis 2D", "migrate2d.cu",
+                  "cellpallas.py:860"),
+           "B7": ("B7 slot sort", "sortcells.cu", "cellpallas.py:769")}
+    rows = []
+    for tag, (name, cu, rep) in src.items():
+        t = STAGE["time"][tag]
+        launches = STAGE_LAUNCHES[tag]
+        if tag == "B4":
+            launches -= STAGE_LAUNCHES["B4 want_eb"]
+        rows.append(dict(
+            name=name, route="cuda", source=f"lambdapic_torch/csrc/{cu}",
+            replaces=f"lambdapic_tpu/ops/{rep}", launches=launches,
+            max_abs_err=STAGE["err"][tag], ms=t["ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None))
+    return rows
+
+
+def run_exact(args, dev):
+    """[kernels per-stage] and [slice exact]: B4-B7 against their plain
+    versions (float64 small, float32 at the 2D slice's shapes), then the
+    2D slice with cell_migration="exact" through Simulation.run."""
+    import torch
+    t0 = time.time()
+    bitwise, merges = check_stage_f64(dev)
+    log(f"[kernels per-stage] f64: B4 (4 modes) within rtol 1e-11, bitwise "
+        f"equal: {bitwise}; B5 within 1e-12 of the peak; B6 ({len(STAGE_CASES)}"
+        f" cases x 2, merges up to {merges}) and B7 (caps 13, 16, 20) equal "
+        f"array for array; {time.time() - t0:.1f} s")
+    t0 = time.time()
+    sim, laser = make_slice(dev, cell_migration="exact")
+    sim.initialize()
+    log(f"[slice exact] initialised in {time.time() - t0:.1f} s: "
+        f"{sim.npart_alive} particles, slots "
+        f"{[p.cap for p in sim.state.particles]}")
+    STAGE["err"] = check_stage_f32(sim)
+    torch.cuda.empty_cache()
+
+    # -- the main path: exact re-binning + B4 + B5 per species ---------------
+    steps = args.steps_exact
+    n_timed = min(args.window_exact, steps)
+    n_a = min(steps - n_timed, 1000)
+    n_b = steps - n_timed - n_a
+    ids0 = [ids_of(p) for p in sim.state.particles]
+    ov0 = [int(p.overflow) for p in sim.state.particles]
+    reset_launches()
+    t0 = time.time()
+    # one exact step, then the rest of the quiet stretch before the laser
+    # front reaches the target: nothing leaves the box, every id is kept
+    # but for the merges and drops counted in the overflow
+    sim.run(nsteps=1, callbacks=[laser])
+    check_ids_kept("slice exact step 1", ids0, ov0, sim)
+    sim.run(nsteps=n_a - 1, callbacks=[laser])
+    check_ids_kept(f"slice exact step {n_a}", ids0, ov0, sim)
+    sim.run(nsteps=n_b, callbacks=[laser])
+    torch.cuda.synchronize()
+    t1 = time.time()
+    sim.run(nsteps=n_timed, callbacks=[laser])
+    torch.cuda.synchronize()
+    t2 = time.time()
+    check_launches("slice exact", sim.itime, {"B1": 4, "B4": 3, "B5": 3})
+    for k in ("ex", "ey", "ez", "bx", "by", "bz", "jx", "jy", "jz", "rho"):
+        if not bool(torch.isfinite(getattr(sim.state.fields, k)).all()):
+            fail(f"exact: field {k} is not finite")
+    after = totals(sim)
+    step_ms = (t2 - t1) * 1e3 / n_timed
+    npart = sum(n for n, _, _ in after)
+    log(f"[slice exact] {sim.itime} steps: first {n_a + n_b} in "
+        f"{t1 - t0:.2f} s, window {n_timed} in {t2 - t1:.3f} s; step "
+        f"{step_ms:.3f} ms (host clock, synchronised), "
+        f"{npart / (step_ms * 1e-3):.4e} pushes/s; alive, overflow, weight "
+        f"{after}; peak |ey| {float(sim.state.fields.ey.abs().max()):.3e}; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    busy_per_step(lambda: sim.run(nsteps=1, callbacks=[laser]),
+                  {"e_half": 2, "b_half": 2, "push<": 3, "deposit<": 3,
+                   "fold_pad": 3}, 5, "profile exact", step_ms)
+    time_stage_kernels(sim, args.iters)
+    del sim
+    torch.cuda.empty_cache()
+
+
+def run_exact_qed(args, dev):
+    """[slice exact QED]: example/photons.py's configuration with
+    cell_migration="exact" through Simulation.run (B4 want_eb for the
+    radiating electrons, B4 default for the protons, B5 for both; photons
+    re-bin exactly in plain torch and deposit nothing)."""
+    import torch
+    t0 = time.time()
+    sim, laser, npho, pho = make_slice_qed(dev, cell_migration="exact")
+    sim.initialize()
+    log(f"[slice exact QED] initialised in {time.time() - t0:.1f} s: "
+        f"{sim.npart_alive} particles, slots "
+        f"{[p.cap for p in sim.state.particles]}")
+    steps = args.steps_exact_qed
+    n_timed = min(50, steps)
+    reset_launches()
+    t0 = time.time()
+    sim.run(nsteps=steps - n_timed, callbacks=[laser, npho])
+    torch.cuda.synchronize()
+    t1 = time.time()
+    sim.run(nsteps=n_timed, callbacks=[laser, npho])
+    torch.cuda.synchronize()
+    t2 = time.time()
+    check_launches("slice exact QED", sim.itime,
+                   {"B1": 4, "B4": 2, "B4 want_eb": 1, "B5": 2})
+    for k in ("ex", "ey", "ez", "bx", "by", "bz", "jx", "jy", "jz"):
+        if not bool(torch.isfinite(getattr(sim.state.fields, k)).all()):
+            fail(f"exact QED: field {k} is not finite")
+    born = int(sim.state.particles[pho.ispec].next_id)
+    after = totals(sim)
+    step_ms = (t2 - t1) * 1e3 / n_timed
+    npart = sum(n for n, _, _ in after)
+    log(f"[slice exact QED] {sim.itime} steps in {t2 - t0:.2f} s; photons "
+        f"born {born}, alive {sim.npart_alive[pho.ispec]}; window step "
+        f"{step_ms:.3f} ms (host clock), {npart / (step_ms * 1e-3):.4e} "
+        f"pushes/s; alive, overflow, weight {after}; slots "
+        f"{[p.cap for p in sim.state.particles]}")
+    if born == 0:
+        fail("exact QED: no photon emitted")
+    busy_per_step(lambda: sim.run(nsteps=1, callbacks=[laser]),
+                  {"e_half": 2, "b_half": 2, "push<": 2, "deposit<": 2,
+                   "fold_pad": 2}, 3, "profile exact QED", step_ms)
+    del sim
+    torch.cuda.empty_cache()
+
+
+def clone_state(st):
+    fl = st.fields
+    names = ("ex", "ey", "ez", "bx", "by", "bz", "jx", "jy", "jz", "rho")
+    fields = fl.replace(psi={k: v.clone() for k, v in fl.psi.items()},
+                        **{k: getattr(fl, k).clone() for k in names})
+    parts = tuple(p.replace(data={k: v.clone() for k, v in p.data.items()},
+                            alive=p.alive.clone(), next_id=p.next_id.clone(),
+                            overflow=p.overflow.clone())
+                  for p in st.particles)
+    return st.replace(fields=fields, particles=parts)
+
+
+def run_split(args, sim, laser):
+    """[slice split]: the 2D slice's Simulation continued with a host
+    callback at _push_momentum due every step (the split particle path:
+    B6 per axis and species, the plain gather and Boris, B5), first one
+    split step against one fused (B2) step from a cloned state, then
+    --steps-split steps through Simulation.run, then --steps-split-sort
+    steps with LAMBDAPIC_MIG_FUSED=0 (B7 instead of B6)."""
+    import os
+    import torch
+    from lambdapic_torch import callback
+    hook = callback(stage="_push_momentum")(lambda s: None)
+
+    # -- one split step against one fused step from the same state ----------
+    recap, sim.recap_interval = sim.recap_interval, 0
+    saved, itime, t_sim = clone_state(sim.state), sim.itime, sim.time
+    sim.run(nsteps=1, callbacks=[laser, hook])
+    split = sim.state
+    sim.state, sim.itime, sim.time = saved, itime, t_sim
+    sim.run(nsteps=1, callbacks=[laser])
+    fused = sim.state
+    sim.recap_interval = recap
+    torch.cuda.synchronize()
+    worst = 0.0
+    for i, (ps, pf) in enumerate(zip(split.particles, fused.particles)):
+        if not (torch.equal(ps.alive, pf.alive) and all(
+                torch.equal(ps.data[k][ps.alive], pf.data[k][pf.alive])
+                for k in ("id_lo", "id_hi"))):
+            fail(f"split vs fused: species {i} alive masks or ids differ")
+        if int(ps.overflow) != int(pf.overflow):
+            fail(f"split vs fused: species {i} merge counts differ")
+        for k in ("x", "y", "z", "w", "ux", "uy", "uz", "inv_gamma"):
+            e, ok = _close(ps.data[k][ps.alive], pf.data[k][pf.alive], 1e-5,
+                           1e-6)
+            worst = max(worst, e)
+            if not ok:
+                fail(f"split vs fused: species {i} {k} differs by {e:.3e}")
+    jerr = 0.0
+    for k in ("jx", "jy", "jz"):
+        a, b = getattr(split.fields, k), getattr(fused.fields, k)
+        e = float((a - b).abs().max())
+        peak = max(float(b.abs().max()), 1e-300)
+        jerr = max(jerr, e / peak)
+        if not e <= 1e-5 * peak:
+            fail(f"split vs fused: {k} differs by {e:.3e}")
+    log(f"[slice split] one split step vs one fused (B2) step from step "
+        f"{itime}: alive masks, ids and merges equal; particle values within "
+        f"rtol 1e-5 (largest difference {worst:.3e}); J within "
+        f"{jerr:.2e} of its peak")
+    del split, saved
+
+    # -- the split path through Simulation.run --------------------------------
+    n = args.steps_split
+    reset_launches()
+    t0 = time.time()
+    sim.run(nsteps=n, callbacks=[laser, hook])
+    torch.cuda.synchronize()
+    t1 = time.time()
+    check_launches("slice split", n, {"B1": 4, "B5": 3, "B6": 6})
+    step_ms = (t1 - t0) * 1e3 / n
+    npart = sum(sim.npart_alive)
+    log(f"[slice split] {n} split steps from step {sim.itime - n}: "
+        f"{step_ms:.3f} ms a step (host clock, synchronised), "
+        f"{npart / (step_ms * 1e-3):.4e} pushes/s")
+    busy_per_step(lambda: sim.run(nsteps=1, callbacks=[laser, hook]),
+                  {"e_half": 2, "b_half": 2, "migrate_axis": 6,
+                   "deposit<": 3, "fold_pad": 3}, 5, "profile split", step_ms)
+    # wall time of each sub-segment, with the card synchronised at every
+    # boundary (device work included; the host's share is the step's idle
+    # share above)
+    marks = []
+    stages = ("maxwell_1", "_push_position_1", "_interpolator", "_qed",
+              "_push_momentum", "_push_position_2", "current_deposition",
+              "end")
+
+    def mark(s):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+    probes = [callback(stage=st)(mark) for st in ("start",) + stages]
+    reps = 5
+    sim.run(nsteps=reps, callbacks=[laser, hook] + probes)
+    per = np.diff(np.array(marks).reshape(reps, -1), axis=1).mean(0) * 1e3
+    names = ("fields 1", "p1", "interp", "qed", "mom", "p2", "deposit",
+             "fields 2")
+    log("[slice split] sub-segment wall ms (card synchronised at each "
+        "boundary, mean of 5 steps): " + ", ".join(
+            f"{nm} {v:.3f}" for nm, v in zip(names, per)))
+
+    # -- the re-binning through B7 ---------------------------------------------
+    n = args.steps_split_sort
+    os.environ["LAMBDAPIC_MIG_FUSED"] = "0"
+    try:
+        reset_launches()
+        t0 = time.time()
+        sim.run(nsteps=n, callbacks=[laser, hook])
+        torch.cuda.synchronize()
+        t1 = time.time()
+    finally:
+        del os.environ["LAMBDAPIC_MIG_FUSED"]
+    check_launches("slice split B7", n, {"B1": 4, "B5": 3, "B7": 6})
+    log(f"[slice split B7] {n} split steps with LAMBDAPIC_MIG_FUSED=0: "
+        f"{(t1 - t0) * 1e3 / n:.3f} ms a step (host clock, synchronised)")
+    for k in ("ex", "ey", "ez", "bx", "by", "bz", "jx", "jy", "jz"):
+        if not bool(torch.isfinite(getattr(sim.state.fields, k)).all()):
+            fail(f"split: field {k} is not finite")
+
+
+# ---------------------------------------------------------------------------
 # 3D
 # ---------------------------------------------------------------------------
 
@@ -1615,6 +2250,18 @@ def main() -> int:
                          "example runs 1001)")
     ap.add_argument("--window3d", type=int, default=20,
                     help="final 3D steps timed as the steady window")
+    ap.add_argument("--steps-exact", type=int, default=2001,
+                    help="steps of the 2D slice with cell_migration='exact' "
+                         "(the example runs 2001)")
+    ap.add_argument("--window-exact", type=int, default=100,
+                    help="final exact steps timed as the steady window")
+    ap.add_argument("--steps-exact-qed", type=int, default=300,
+                    help="steps of the QED slice with cell_migration='exact'")
+    ap.add_argument("--steps-split", type=int, default=100,
+                    help="split steps (a host callback at _push_momentum) "
+                         "continuing the 2D slice")
+    ap.add_argument("--steps-split-sort", type=int, default=10,
+                    help="split steps with LAMBDAPIC_MIG_FUSED=0 (kernel B7)")
     ap.add_argument("--iters", type=int, default=50,
                     help="launches per 2D kernel timing")
     ap.add_argument("--iters3d", type=int, default=5,
@@ -1631,7 +2278,13 @@ def main() -> int:
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     phase_build()
     kernels = run_2d(args, dev)
-    log(f"[time] 2D done at {time.time() - t_start:.1f} s")
+    log(f"[time] 2D and split done at {time.time() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+    run_exact(args, dev)
+    log(f"[time] exact done at {time.time() - t_start:.1f} s")
+    run_exact_qed(args, dev)
+    log(f"[time] exact QED done at {time.time() - t_start:.1f} s")
+    kernels += stage_rows()
     torch.cuda.empty_cache()
     kernels += run_qed(args, dev)
     log(f"[time] QED done at {time.time() - t_start:.1f} s")

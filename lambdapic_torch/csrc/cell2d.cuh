@@ -1,0 +1,242 @@
+// Device routines shared by the 2D cell-engine kernels: B2's passes and
+// deposit (cellstep.cu) and the per-stage kernels B4 (push2d.cu), B5
+// (deposit2d.cu), B6 (migrate2d.cu) and B7 (sortcells.cu). One copy each,
+// so the fused and the per-stage engines round alike.
+//
+// Layout: every per-slot array is (cap, nx, ny), cell (ix, iy) at
+// ix*ny + iy, slot stride nx*ny. All of it is written as the plain PyTorch
+// versions evaluate it and compiled with --fmad=false.
+#pragma once
+
+#include "common.cuh"
+
+namespace lp2d {
+
+// deposit tile (cells per side); ops/cellslab.py's TILE, held equal to
+// this through lp_cell_tile() when B2's library is first used
+constexpr int TILE = 16;
+constexpr int PAN = TILE + 4;      // panel side: tile + 2-node rims
+
+// The merge's weight floor: 1e-30 in float32, 1e-300 in float64.
+template <typename T> struct WFloor;
+template <> struct WFloor<float> { static __device__ float v() { return 1e-30f; } };
+template <> struct WFloor<double> { static __device__ double v() { return 1e-300; } };
+
+// Sort packed (key << 8 | slot) entries with the compare-exchange list of
+// cellpallas.py::_batcher_network, swapping on a strict ka > kb.
+__device__ __forceinline__ void net_sort(int* k, const int* __restrict__ ces,
+                                         int nces) {
+  for (int e = 0; e < nces; ++e) {
+    int a = __ldg(ces + 2 * e), b = __ldg(ces + 2 * e + 1);
+    int ka = k[a], kb = k[b];
+    if ((ka >> 8) > (kb >> 8)) {
+      k[a] = kb;
+      k[b] = ka;
+    }
+  }
+}
+
+// The re-binning's 5-way key: donor(+1) 0, dead even slot 1, stay 2, dead
+// odd slot 3, donor(-1) 4; dead parity from the slot index before the sort.
+__device__ __forceinline__ int five_way(bool alive, bool out_hi, bool out_lo,
+                                        int s) {
+  if (out_hi) return 0;
+  if (out_lo) return 4;
+  if (alive) return 2;
+  return (s & 1) == 0 ? 1 : 3;
+}
+
+// Add each thread's merge count to one counter, a warp at a time.
+__device__ __forceinline__ void add_merges(unsigned long long* counter,
+                                           int merges) {
+  unsigned mask = __activemask();
+  int total = merges;
+  for (int off = 16; off > 0; off >>= 1)
+    total += __shfl_down_sync(mask, total, off);
+  int lane = threadIdx.x & 31;
+  int leader = __ffs(mask) - 1;
+  // after the reduction the lowest active lane of a full warp holds the
+  // sum; for a partial warp fall back to one atomic per thread
+  if (mask == 0xffffffffu) {
+    if (lane == leader && total) atomicAdd(counter, (unsigned long long)total);
+  } else if (merges) {
+    atomicAdd(counter, (unsigned long long)merges);
+  }
+}
+
+// x += u * inv_gamma * h (ops/pusher.py::push_position_2d)
+template <typename T>
+__device__ __forceinline__ T pushed(T pos, T u, T ig, T h) {
+  return pos + (u * ig) * h;
+}
+
+// Staggered quadratic gather of one component (ops/cell2d.py::
+// gather_cell_2d): x taps {-1,0,1} (integer) or {-2..1} (half), same in y.
+template <typename T>
+__device__ __forceinline__ T gather_comp(const T* __restrict__ f, int nyp,
+                                         int px, int py, bool half_x,
+                                         bool half_y, T dx, T dy) {
+  T acc = T(0);
+  int ox0 = half_x ? -2 : -1, ox1 = 1;
+  int oy0 = half_y ? -2 : -1, oy1 = 1;
+  for (int ox = ox0; ox <= ox1; ++ox) {
+    T tx = half_x ? m2(T(ox + 0.5) - dx) : m2(T(ox) - dx);
+    for (int oy = oy0; oy <= oy1; ++oy) {
+      T ty = half_y ? m2(T(oy + 0.5) - dy) : m2(T(oy) - dy);
+      acc = acc + (tx * ty) * f[(long long)(px + ox) * nyp + (py + oy)];
+    }
+  }
+  return acc;
+}
+
+// The six components of E, B at cell-local deltas (dx, dy) of cell
+// (ix, iy), from the padded stack eb (6, nx+2g, ny+2g).
+template <typename T>
+__device__ __forceinline__ void gather_eb(const T* __restrict__ eb, int nx,
+                                          int ny, int g, int ix, int iy, T dx,
+                                          T dy, T* out) {
+  const int nxp = nx + 2 * g, nyp = ny + 2 * g;
+  const long long plane = (long long)nxp * nyp;
+  const int px = ix + g, py = iy + g;
+  out[0] = gather_comp(eb + 0 * plane, nyp, px, py, true, false, dx, dy);
+  out[1] = gather_comp(eb + 1 * plane, nyp, px, py, false, true, dx, dy);
+  out[2] = gather_comp(eb + 2 * plane, nyp, px, py, false, false, dx, dy);
+  out[3] = gather_comp(eb + 3 * plane, nyp, px, py, false, true, dx, dy);
+  out[4] = gather_comp(eb + 4 * plane, nyp, px, py, true, false, dx, dy);
+  out[5] = gather_comp(eb + 5 * plane, nyp, px, py, true, true, dx, dy);
+}
+
+// Boris (ops/pusher.py::boris_push): updates (ux, uy, uz) in place from
+// the gathered fields e = (ex ey ez bx by bz) and returns the new
+// inv_gamma. ef = q dt / (2 m c), bf = q dt / (2 m). torch evaluates
+// 2.0 / t as reciprocal(t) * 2, hence tfac's form.
+template <typename T>
+__device__ __forceinline__ T boris(T& ux_, T& uy_, T& uz_, const T* e, T ef,
+                                   T bfac) {
+  T um_x = ux_ + ef * e[0];
+  T um_y = uy_ + ef * e[1];
+  T um_z = uz_ + ef * e[2];
+  T igm = T(1) / sqrt(((T(1) + um_x * um_x) + um_y * um_y) + um_z * um_z);
+  T tx = (bfac * e[3]) * igm;
+  T ty = (bfac * e[4]) * igm;
+  T tz = (bfac * e[5]) * igm;
+  T up_x = (um_x + um_y * tz) - um_z * ty;
+  T up_y = (um_y + um_z * tx) - um_x * tz;
+  T up_z = (um_z + um_x * ty) - um_y * tx;
+  T tfac = T(2) * (T(1) / (((T(1) + tx * tx) + ty * ty) + tz * tz));
+  T sx = tfac * tx, sy = tfac * ty, sz = tfac * tz;
+  T ux = ((um_x + up_y * sz) - up_z * sy) + ef * e[0];
+  T uy = ((um_y + up_z * sx) - up_x * sz) + ef * e[1];
+  T uz = ((um_z + up_x * sy) - up_y * sx) + ef * e[2];
+  ux_ = ux;
+  uy_ = uy;
+  uz_ = uz;
+  return T(1) / sqrt(((T(1) + ux * ux) + uy * uy) + uz * uz);
+}
+
+template <typename T>
+__device__ __forceinline__ void shapes(T d, T v, T* s0, T* s1) {
+  T d0 = d - T(0.5) * v, d1 = d + T(0.5) * v;
+#pragma unroll
+  for (int o = 0; o < 5; ++o) {
+    s0[o] = m2(T(o - 2) - d0);
+    s1[o] = m2(T(o - 2) - d1);
+  }
+}
+
+// Inputs of the tile deposit: the pushed slots of one species.
+template <typename T>
+struct DepositIn {
+  const unsigned char* alive;   // null: every slot with w != 0 deposits
+  const T *x, *y, *ux, *uy, *uz, *ig, *w;
+  const T* rims_in;             // null: panels start at 0
+  T* rims_out;                  // (C, nbx, nby, PAN, PAN)
+  int nx, ny, cap, ncomp;
+  long long ncell;
+  T cdx, cdy, c, kcd, kfx, kfy; // c dt/dx, c dt/dy, c, q/(dx dy),
+                                // q/(dy dt), q/(dx dt)
+};
+
+// One block per TILE x TILE cell tile (blockDim (TILE, TILE), grid
+// (nby, nbx), ncomp * PAN * PAN reals of shared memory): the 5-tap
+// Esirkepov J (and rho) of every depositing slot into a shared
+// (C, PAN, PAN) tile panel. The 25 stencil offsets go one after another
+// with a barrier between, and within one offset every thread writes a
+// different panel node, so the sum needs no atomics and repeats bit for
+// bit. Panel (bi, bj) node (a, b) is the current at interior index
+// (bi*TILE + a - 2, bj*TILE + b - 2).
+template <typename T>
+__device__ __forceinline__ void deposit_tile(const DepositIn<T>& a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* pan = reinterpret_cast<T*>(smem_raw);       // (ncomp, PAN, PAN)
+  const int lx = threadIdx.y, ly = threadIdx.x;
+  const int bi = blockIdx.y, bj = blockIdx.x;
+  const int nbx = gridDim.y, nby = gridDim.x;
+  const int ix = bi * TILE + lx, iy = bj * TILE + ly;
+  const bool valid = ix < a.nx && iy < a.ny;
+  const int C = a.ncomp;
+  const int tid = threadIdx.y * TILE + threadIdx.x;
+  const long long pstride = (long long)PAN * PAN;
+  for (int e = tid; e < C * PAN * PAN; e += TILE * TILE) {
+    int c = e / (PAN * PAN), r = e % (PAN * PAN);
+    long long gidx = (((long long)c * nbx + bi) * nby + bj) * pstride + r;
+    pan[e] = a.rims_in ? a.rims_in[gidx] : T(0);
+  }
+  const long long cell = (long long)ix * a.ny + iy;
+  const T cdx = a.cdx, cdy = a.cdy, kcd = a.kcd, kfx = a.kfx, kfy = a.kfy;
+#pragma unroll
+  for (int oxi = 0; oxi < 5; ++oxi) {
+    T acc[5][4];
+#pragma unroll
+    for (int oy = 0; oy < 5; ++oy)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[oy][c] = T(0);
+    if (valid) {
+      for (int s = 0; s < a.cap; ++s) {
+        long long idx = (long long)s * a.ncell + cell;
+        if (a.alive ? !a.alive[idx] : a.w[idx] == T(0)) continue;
+        T x = a.x[idx], y = a.y[idx];
+        T ig = a.ig[idx], w = a.w[idx];
+        T vx_c = (a.ux[idx] * ig) * cdx;
+        T vy_c = (a.uy[idx] * ig) * cdy;
+        T vz = (a.uz[idx] * ig) * a.c;
+        T s0x[5], s1x[5], s0y[5], s1y[5];
+        shapes(x - T(ix), vx_c, s0x, s1x);
+        shapes(y - T(iy), vy_c, s0y, s1y);
+        T cd = kcd * w, fdx = kfx * w, fdy = kfy * w;
+        T cvz = cd * vz;
+        T run = T(0);
+        for (int o = 0; o <= oxi; ++o) run = run + (s1x[o] - s0x[o]);
+        T fx = (-fdx) * run;
+        T dsx = s1x[oxi] - s0x[oxi];
+        T ax = s0x[oxi] + T(0.5) * dsx;
+        T runy = T(0);
+#pragma unroll
+        for (int oy = 0; oy < 5; ++oy) {
+          T dsy = s1y[oy] - s0y[oy];
+          runy = runy + dsy;
+          T gy = (-fdy) * runy;
+          T by = s0y[oy] + T(0.5) * dsy;
+          acc[oy][0] += fx * by;
+          acc[oy][1] += ax * gy;
+          acc[oy][2] += cvz * (ax * by + (dsx * dsy) / T(12));
+          acc[oy][3] += (cd * s1x[oxi]) * s1y[oy];
+        }
+      }
+    }
+#pragma unroll
+    for (int oy = 0; oy < 5; ++oy) {
+      __syncthreads();
+      if (valid)
+        for (int c = 0; c < C; ++c)
+          pan[c * pstride + (lx + oxi) * PAN + (ly + oy)] += acc[oy][c];
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < C * PAN * PAN; e += TILE * TILE) {
+    int c = e / (PAN * PAN), r = e % (PAN * PAN);
+    a.rims_out[(((long long)c * nbx + bi) * nby + bj) * pstride + r] = pan[e];
+  }
+}
+
+}  // namespace lp2d

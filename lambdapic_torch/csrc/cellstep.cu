@@ -52,6 +52,9 @@
 // slot's value (lo arrival, else hi arrival, else the resident); only
 // w, x, y, z, ux, uy, uz are merged. Dead slots keep them as placed.
 //
+// The sort, key, merge count, gather, Boris and deposit routines live in
+// cell2d.cuh, shared with the per-stage kernels B4-B7.
+//
 // Compiled with --fmad=false: positions, keys and merges round exactly as
 // the plain version's separate tensor operations do, so cell assignment
 // and merge pairing match it slot for slot.
@@ -67,9 +70,11 @@
 // and the scratch round trip between the passes and the deposit's re-read
 // of the final slots come on top. Skipping empty cells and fusing the
 // passes is later work.
-#include "common.cuh"
+#include "cell2d.cuh"
 
 namespace {
+
+using namespace lp2d;
 
 enum Ptr {
   P_EB,
@@ -97,10 +102,6 @@ enum Real {
   R_CHI             // e hbar / (m_e^2 c^3)
 };
 
-// deposit tile (cells per side); ops/cellslab.py's TILE, held equal to
-// this through lp_cell_tile() when the library is first used
-constexpr int TILE = 16;
-constexpr int PAN = TILE + 4;      // panel side: tile + 2-node rims
 constexpr int NF = 7;              // float payloads: x y z w ux uy uz
 constexpr int NXF = 3;             // most extra float payloads
 enum F { FX, FY, FZ, FW, FUX, FUY, FUZ };
@@ -141,11 +142,6 @@ struct Args {
   T hx, hy, ef, bf, cdx, cdy, c, kcd, kfx, kfy, chi;   // see enum Real
 };
 
-// The merge's weight floor: 1e-30 in float32, 1e-300 in float64.
-template <typename T> struct WFloor;
-template <> struct WFloor<float> { static __device__ float v() { return 1e-30f; } };
-template <> struct WFloor<double> { static __device__ double v() { return 1e-300; } };
-
 // One slot's carried values.
 template <typename T>
 struct Slot {
@@ -153,33 +149,6 @@ struct Slot {
   int id[2];
   T xf[NXF];
 };
-
-// Sort packed (key << 8 | slot) entries with the compare-exchange list.
-__device__ __forceinline__ void net_sort(int* k, const int* __restrict__ ces,
-                                         int nces) {
-  for (int e = 0; e < nces; ++e) {
-    int a = __ldg(ces + 2 * e), b = __ldg(ces + 2 * e + 1);
-    int ka = k[a], kb = k[b];
-    if ((ka >> 8) > (kb >> 8)) {
-      k[a] = kb;
-      k[b] = ka;
-    }
-  }
-}
-
-__device__ __forceinline__ int five_way(bool alive, bool out_hi, bool out_lo,
-                                        int s) {
-  if (out_hi) return 0;
-  if (out_lo) return 4;
-  if (alive) return 2;
-  return (s & 1) == 0 ? 1 : 3;
-}
-
-// x pass: the stored slots after the first half push
-template <typename T>
-__device__ __forceinline__ T pushed(T pos, T u, T ig, T h) {
-  return pos + (u * ig) * h;
-}
 
 template <typename T>
 __device__ void load_x(const Args<T>& a, long long idx, Slot<T>& v) {
@@ -253,22 +222,6 @@ __device__ void store(const SlotsOut<T>& o, long long idx, const Slot<T>& v,
     if (k < nxf) o.xf[k][idx] = v.xf[k];
 }
 
-__device__ void add_merges(unsigned long long* counter, int merges) {
-  unsigned mask = __activemask();
-  int total = merges;
-  for (int off = 16; off > 0; off >>= 1)
-    total += __shfl_down_sync(mask, total, off);
-  int lane = threadIdx.x & 31;
-  int leader = __ffs(mask) - 1;
-  // after the reduction the lowest active lane of a full warp holds the
-  // sum; for a partial warp fall back to one atomic per thread
-  if (mask == 0xffffffffu) {
-    if (lane == leader && total) atomicAdd(counter, (unsigned long long)total);
-  } else if (merges) {
-    atomicAdd(counter, (unsigned long long)merges);
-  }
-}
-
 template <typename T, int MAXC>
 __global__ void __launch_bounds__(128) pass_x(Args<T> a) {
   long long cell = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -317,25 +270,6 @@ __global__ void __launch_bounds__(128) pass_x(Args<T> a) {
   add_merges(a.n_merged, merges);
 }
 
-// Staggered quadratic gather of one component (ops/cell2d.py::
-// gather_cell_2d): x taps {-1,0,1} (integer) or {-2..1} (half), same in y.
-template <typename T>
-__device__ __forceinline__ T gather_comp(const T* __restrict__ f, int nyp,
-                                         int px, int py, bool half_x,
-                                         bool half_y, T dx, T dy) {
-  T acc = T(0);
-  int ox0 = half_x ? -2 : -1, ox1 = 1;
-  int oy0 = half_y ? -2 : -1, oy1 = 1;
-  for (int ox = ox0; ox <= ox1; ++ox) {
-    T tx = half_x ? m2(T(ox + 0.5) - dx) : m2(T(ox) - dx);
-    for (int oy = oy0; oy <= oy1; ++oy) {
-      T ty = half_y ? m2(T(oy + 0.5) - dy) : m2(T(oy) - dy);
-      acc = acc + (tx * ty) * f[(long long)(px + ox) * nyp + (py + oy)];
-    }
-  }
-  return acc;
-}
-
 template <typename T, int MAXC>
 __global__ void __launch_bounds__(128) pass_y(Args<T> a) {
   long long cell = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -360,9 +294,6 @@ __global__ void __launch_bounds__(128) pass_y(Args<T> a) {
     }
     bool lo_ok = a.pery || iy != 0;
     bool hi_ok = a.pery || iy != a.ny - 1;
-    const int nxp = a.nx + 2 * a.g, nyp = a.ny + 2 * a.g;
-    const long long plane = (long long)nxp * nyp;
-    const int px = ix + a.g, py = iy + a.g;
     for (int p = 0; p < a.cap; ++p) {
       bool vlo = lo_ok && (k[0][p] >> 8) == 0;
       bool vhi = hi_ok && (k[2][p] >> 8) == 4;
@@ -398,50 +329,26 @@ __global__ void __launch_bounds__(128) pass_y(Args<T> a) {
         continue;
       }
       // gather at the mid-step position (cell-local deltas)
-      T dxl = v.f[FX] - T(ix), dyl = v.f[FY] - T(iy);
-      T e_x = gather_comp(a.eb + 0 * plane, nyp, px, py, true, false, dxl, dyl);
-      T e_y = gather_comp(a.eb + 1 * plane, nyp, px, py, false, true, dxl, dyl);
-      T e_z = gather_comp(a.eb + 2 * plane, nyp, px, py, false, false, dxl, dyl);
-      T b_x = gather_comp(a.eb + 3 * plane, nyp, px, py, false, true, dxl, dyl);
-      T b_y = gather_comp(a.eb + 4 * plane, nyp, px, py, true, false, dxl, dyl);
-      T b_z = gather_comp(a.eb + 5 * plane, nyp, px, py, true, true, dxl, dyl);
+      T e[6];
+      gather_eb(a.eb, a.nx, a.ny, a.g, ix, iy, v.f[FX] - T(ix),
+                v.f[FY] - T(iy), e);
       if (a.mode == M_WANT_CHI) {
         // models/qed.py::calculate_chi at the pre-push momenta, with the
         // pre-push inv_gamma of the re-binning (ops/cell2d.py)
         const T ux0 = v.f[FUX], uy0 = v.f[FUY], uz0 = v.f[FUZ];
         T ig0 = T(1) / sqrt(((T(1) + ux0 * ux0) + uy0 * uy0) + uz0 * uz0);
         T gam = T(1) / ig0;
-        T t1 = gam * e_x + (uy0 * b_z - uz0 * b_y) * a.c;
-        T t2 = gam * e_y + (uz0 * b_x - ux0 * b_z) * a.c;
-        T t3 = gam * e_z + (ux0 * b_y - uy0 * b_x) * a.c;
-        T t4 = (ux0 * e_x + uy0 * e_y) + uz0 * e_z;
+        T t1 = gam * e[0] + (uy0 * e[5] - uz0 * e[4]) * a.c;
+        T t2 = gam * e[1] + (uz0 * e[3] - ux0 * e[5]) * a.c;
+        T t3 = gam * e[2] + (ux0 * e[4] - uy0 * e[3]) * a.c;
+        T t4 = (ux0 * e[0] + uy0 * e[1]) + uz0 * e[2];
         T val = ((t1 * t1 + t2 * t2) + t3 * t3) - t4 * t4;
         a.chi_out[o] = a.chi * sqrt(val > T(0) ? val : T(0));
         a.ig0_out[o] = ig0;
       }
-      // Boris (ops/pusher.py::boris_push)
-      const T ef = a.ef, bfac = a.bf;
-      T um_x = v.f[FUX] + ef * e_x;
-      T um_y = v.f[FUY] + ef * e_y;
-      T um_z = v.f[FUZ] + ef * e_z;
-      T igm = T(1) / sqrt(((T(1) + um_x * um_x) + um_y * um_y) + um_z * um_z);
-      T tx = (bfac * b_x) * igm;
-      T ty = (bfac * b_y) * igm;
-      T tz = (bfac * b_z) * igm;
-      T up_x = (um_x + um_y * tz) - um_z * ty;
-      T up_y = (um_y + um_z * tx) - um_x * tz;
-      T up_z = (um_z + um_x * ty) - um_y * tx;
-      T tfac = T(2) * (T(1) / (((T(1) + tx * tx) + ty * ty) + tz * tz));
-      T sx = tfac * tx, sy = tfac * ty, sz = tfac * tz;
-      T ux = ((um_x + up_y * sz) - up_z * sy) + ef * e_x;
-      T uy = ((um_y + up_z * sx) - up_x * sz) + ef * e_y;
-      T uz = ((um_z + up_x * sy) - up_y * sx) + ef * e_z;
-      T ig = T(1) / sqrt(((T(1) + ux * ux) + uy * uy) + uz * uz);
-      v.f[FUX] = ux;
-      v.f[FUY] = uy;
-      v.f[FUZ] = uz;
-      v.f[FX] = pushed(v.f[FX], ux, ig, a.hx);
-      v.f[FY] = pushed(v.f[FY], uy, ig, a.hy);
+      T ig = boris(v.f[FUX], v.f[FUY], v.f[FUZ], e, a.ef, a.bf);
+      v.f[FX] = pushed(v.f[FX], v.f[FUX], ig, a.hx);
+      v.f[FY] = pushed(v.f[FY], v.f[FUY], ig, a.hy);
       store(a.out, o, v, al, a.nxf);
       a.ig_out[o] = ig;
     }
@@ -450,87 +357,18 @@ __global__ void __launch_bounds__(128) pass_y(Args<T> a) {
 }
 
 template <typename T>
-__device__ __forceinline__ void shapes(T d, T v, T* s0, T* s1) {
-  T d0 = d - T(0.5) * v, d1 = d + T(0.5) * v;
-#pragma unroll
-  for (int o = 0; o < 5; ++o) {
-    s0[o] = m2(T(o - 2) - d0);
-    s1[o] = m2(T(o - 2) - d1);
-  }
-}
-
-template <typename T>
 __global__ void __launch_bounds__(TILE * TILE) deposit(Args<T> a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* pan = reinterpret_cast<T*>(smem_raw);       // (ncomp, PAN, PAN)
-  const int lx = threadIdx.y, ly = threadIdx.x;
-  const int bi = blockIdx.y, bj = blockIdx.x;
-  const int nbx = gridDim.y, nby = gridDim.x;
-  const int ix = bi * TILE + lx, iy = bj * TILE + ly;
-  const bool valid = ix < a.nx && iy < a.ny;
-  const int C = a.ncomp;
-  const int tid = threadIdx.y * TILE + threadIdx.x;
-  const long long pstride = (long long)PAN * PAN;
-  for (int e = tid; e < C * PAN * PAN; e += TILE * TILE) {
-    int c = e / (PAN * PAN), r = e % (PAN * PAN);
-    long long gidx = (((long long)c * nbx + bi) * nby + bj) * pstride + r;
-    pan[e] = a.rims_in ? a.rims_in[gidx] : T(0);
-  }
-  const long long cell = (long long)ix * a.ny + iy;
-  const T cdx = a.cdx, cdy = a.cdy, kcd = a.kcd, kfx = a.kfx, kfy = a.kfy;
-#pragma unroll
-  for (int oxi = 0; oxi < 5; ++oxi) {
-    T acc[5][4];
-#pragma unroll
-    for (int oy = 0; oy < 5; ++oy)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[oy][c] = T(0);
-    if (valid) {
-      for (int s = 0; s < a.cap; ++s) {
-        long long idx = (long long)s * a.ncell + cell;
-        if (!a.out.alive[idx]) continue;
-        T x = a.out.f[FX][idx], y = a.out.f[FY][idx];
-        T ig = a.ig_out[idx], w = a.out.f[FW][idx];
-        T vx_c = (a.out.f[FUX][idx] * ig) * cdx;
-        T vy_c = (a.out.f[FUY][idx] * ig) * cdy;
-        T vz = (a.out.f[FUZ][idx] * ig) * a.c;
-        T s0x[5], s1x[5], s0y[5], s1y[5];
-        shapes(x - T(ix), vx_c, s0x, s1x);
-        shapes(y - T(iy), vy_c, s0y, s1y);
-        T cd = kcd * w, fdx = kfx * w, fdy = kfy * w;
-        T cvz = cd * vz;
-        T run = T(0);
-        for (int o = 0; o <= oxi; ++o) run = run + (s1x[o] - s0x[o]);
-        T fx = (-fdx) * run;
-        T dsx = s1x[oxi] - s0x[oxi];
-        T ax = s0x[oxi] + T(0.5) * dsx;
-        T runy = T(0);
-#pragma unroll
-        for (int oy = 0; oy < 5; ++oy) {
-          T dsy = s1y[oy] - s0y[oy];
-          runy = runy + dsy;
-          T gy = (-fdy) * runy;
-          T by = s0y[oy] + T(0.5) * dsy;
-          acc[oy][0] += fx * by;
-          acc[oy][1] += ax * gy;
-          acc[oy][2] += cvz * (ax * by + (dsx * dsy) / T(12));
-          acc[oy][3] += (cd * s1x[oxi]) * s1y[oy];
-        }
-      }
-    }
-#pragma unroll
-    for (int oy = 0; oy < 5; ++oy) {
-      __syncthreads();
-      if (valid)
-        for (int c = 0; c < C; ++c)
-          pan[c * pstride + (lx + oxi) * PAN + (ly + oy)] += acc[oy][c];
-    }
-  }
-  __syncthreads();
-  for (int e = tid; e < C * PAN * PAN; e += TILE * TILE) {
-    int c = e / (PAN * PAN), r = e % (PAN * PAN);
-    a.rims_out[(((long long)c * nbx + bi) * nby + bj) * pstride + r] = pan[e];
-  }
+  DepositIn<T> d;
+  d.alive = a.out.alive;
+  d.x = a.out.f[FX]; d.y = a.out.f[FY];
+  d.ux = a.out.f[FUX]; d.uy = a.out.f[FUY]; d.uz = a.out.f[FUZ];
+  d.ig = a.ig_out; d.w = a.out.f[FW];
+  d.rims_in = a.rims_in; d.rims_out = a.rims_out;
+  d.nx = a.nx; d.ny = a.ny; d.cap = a.cap; d.ncomp = a.ncomp;
+  d.ncell = a.ncell;
+  d.cdx = a.cdx; d.cdy = a.cdy; d.c = a.c;
+  d.kcd = a.kcd; d.kfx = a.kfx; d.kfy = a.kfy;
+  deposit_tile(d);
 }
 
 template <typename T>
@@ -615,4 +453,4 @@ LP_EXPORT int lp_cell_step(void** ptrs, const long long* ints,
   return launch<float>(ptrs, ints, reals, st);
 }
 
-LP_EXPORT int lp_cell_tile() { return TILE; }
+LP_EXPORT int lp_cell_tile() { return lp2d::TILE; }

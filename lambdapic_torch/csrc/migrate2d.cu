@@ -1,0 +1,229 @@
+// Kernel B6: one axis of the 2D cell re-binning (the fast overwrite-merge
+// scheme) in one pass: per-cell Batcher sort by the 5-way key, the +-1
+// neighbour exchange, placement by overwrite with weighted merges, and the
+// merge count.
+//
+// Replaces the TPU kernel lambdapic_tpu/ops/cellpallas.py::
+// migrate_axis_fused (:860, kernel :956, pallas_call :1090), driven per
+// axis by migrate_cells_fused (:1143). Plain PyTorch version: lambdapic_
+// torch/ops/cell2d.py::migrate_cells (fast scheme, Batcher order), which
+// lambdapic_torch/ops/cellpallas.py::migrate_cells_fused_plain calls.
+//
+// One thread per cell, as kernel B2's pass_x: it builds the 5-way keys
+// (donor+1 0 / dead-even 1 / stay 2 / dead-odd 3 / donor-1 4, dead parity
+// from the slot index before the sort) of its own column and of its two
+// neighbours along the axis, sorts each through the compare-exchange list
+// of cellpallas.py::_batcher_network (strict ka > kb), and places slot p
+// from the lo neighbour's sorted slot p if that is a donor(+1), else from
+// the hi neighbour's if that is a donor(-1), else its own; two or three
+// sources merge (w summed; the payloads of the merge set weight-averaged;
+// the others take the placed value). Arrivals through a periodic wrap
+// shift their coordinate by -+n; at an open face the neighbour outside
+// sends nothing (the TPU kernel's key 9).
+//
+// Payloads are run-time lists: up to MAXF float payloads of the kernel's
+// type and MAXI int32 payloads. The caller ping-pongs two sets of buffers
+// between the axes. On the last axis (I_FINAL) the kernel also does the
+// tail of migrate_cells_fused (cellpallas.py:1235-1245): dead slots'
+// payloads of the sanitize set become 0, and inv_gamma is recomputed as
+// 1/sqrt(1 + u^2) into its own output (I_RECOMPUTE_IG) or, carried as a
+// payload (a photon species), set to 1 in dead slots (I_IG_ONE).
+//
+// Compiled with --fmad=false and written as the plain version evaluates
+// it, so keys, placements and merges match it bit for bit.
+//
+// Bound on an H100 (3.35 TB/s): bytes: the mask and every payload read
+// and written once.
+#include "cell2d.cuh"
+
+namespace {
+
+using namespace lp2d;
+
+constexpr int MAXF = 16;
+constexpr int MAXI = 4;
+
+enum Ptr { P_ALIVE, P_ALIVE_OUT, P_NMERGED, P_CES, P_IG_OUT,
+           P_FIN, P_FOUT = P_FIN + MAXF, P_IIN = P_FOUT + MAXF,
+           P_IOUT = P_IIN + MAXI, P_COUNT = P_IOUT + MAXI };
+enum Int { I_CAP, I_NX, I_NY, I_AXIS, I_PERIODIC, I_NF, I_NI, I_COORD, I_W,
+           I_MERGE_MASK, I_FINAL, I_SANITIZE_MASK, I_UX, I_UY, I_UZ,
+           I_RECOMPUTE_IG, I_IG_ONE, I_NCES, I_DOUBLE };
+
+template <typename T>
+struct Args {
+  const unsigned char* alive;
+  unsigned char* alive_out;
+  unsigned long long* n_merged;
+  const int* ces;
+  T* ig_out;
+  const T* fin[MAXF];
+  T* fout[MAXF];
+  const int* iin[MAXI];
+  int* iout[MAXI];
+  int cap, nx, ny, axis, periodic, nf, ni, coord, w, merge_mask, final_,
+      sanitize_mask, iux, iuy, iuz, recompute_ig, ig_one, nces;
+  long long ncell;
+};
+
+template <typename T, int MAXC>
+__global__ void __launch_bounds__(128) migrate_axis(Args<T> a) {
+  long long cell = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  bool active = cell < a.ncell;
+  int merges = 0;
+  if (active) {
+    const int ix = (int)(cell / a.ny), iy = (int)(cell % a.ny);
+    const int i = a.axis == 0 ? ix : iy;
+    const int n = a.axis == 0 ? a.nx : a.ny;
+    const long long st = a.axis == 0 ? a.ny : 1;
+    // the lo neighbour, the cell itself, the hi neighbour (wrapped)
+    const long long cols[3] = {i > 0 ? cell - st : cell + (n - 1) * st, cell,
+                               i < n - 1 ? cell + st : cell - (n - 1) * st};
+    const int ipos[3] = {i > 0 ? i - 1 : n - 1, i, i < n - 1 ? i + 1 : 0};
+    const T* pos = a.fin[a.coord];
+    int k[3][MAXC];
+    for (int c3 = 0; c3 < 3; ++c3) {
+      const T ci = T(ipos[c3]);
+      for (int s = 0; s < a.cap; ++s) {
+        long long idx = cols[c3] + s * a.ncell;
+        bool al = a.alive[idx] != 0;
+        T local = pos[idx] - ci;
+        bool hi = al && local >= T(0.5);
+        bool lo = al && local < T(-0.5);
+        k[c3][s] = (five_way(al, hi, lo, s) << 8) | s;
+      }
+      net_sort(k[c3], a.ces, a.nces);
+    }
+    const bool lo_ok = a.periodic || i != 0;
+    const bool hi_ok = a.periodic || i != n - 1;
+    // coordinate shift of arrivals through the wrap
+    const T adj_lo = i == 0 ? T(-n) : T(0);
+    const T adj_hi = i == n - 1 ? T(n) : T(0);
+    const bool wrap_lo = i == 0, wrap_hi = i == n - 1;
+    const T floor_ = WFloor<T>::v();
+    for (int p = 0; p < a.cap; ++p) {
+      const bool vlo = lo_ok && (k[0][p] >> 8) == 0;
+      const bool vhi = hi_ok && (k[2][p] >> 8) == 4;
+      const bool stay = (k[1][p] >> 8) == 2;
+      const long long s_lo = (long long)(k[0][p] & 255) * a.ncell + cols[0];
+      const long long s_own = (long long)(k[1][p] & 255) * a.ncell + cell;
+      const long long s_hi = (long long)(k[2][p] & 255) * a.ncell + cols[2];
+      const long long o = (long long)p * a.ncell + cell;
+      const int n_src = (int)vlo + (int)vhi + (int)stay;
+      merges += n_src > 1 ? n_src - 1 : 0;
+      const bool multi = n_src >= 2;
+      const bool al = vlo || vhi || stay;
+      const bool dead_final = a.final_ && !al;
+      T w_lo = T(0), w_hi = T(0), w_res = T(0), wsum = T(0), wsafe = T(0);
+      if (multi) {
+        const T* w = a.fin[a.w];
+        w_lo = vlo ? w[s_lo] : T(0);
+        w_hi = vhi ? w[s_hi] : T(0);
+        w_res = stay ? w[s_own] : T(0);
+        wsum = (w_lo + w_hi) + w_res;
+        wsafe = wsum > floor_ ? wsum : floor_;
+      }
+      T u[3] = {T(0), T(0), T(0)};
+      for (int f = 0; f < a.nf; ++f) {
+        const T* src = a.fin[f];
+        const bool is_coord = f == a.coord;
+        T v;
+        if (multi && ((a.merge_mask >> f) & 1)) {
+          if (f == a.w) {
+            v = wsum;
+          } else {
+            T vl = src[s_lo], vh = src[s_hi], vo = src[s_own];
+            if (is_coord && wrap_lo) vl = vl + adj_lo;
+            if (is_coord && wrap_hi) vh = vh + adj_hi;
+            v = ((w_lo * vl + w_hi * vh) + w_res * vo) / wsafe;
+          }
+        } else if (vlo) {
+          v = src[s_lo];
+          if (is_coord && wrap_lo) v = v + adj_lo;
+        } else if (vhi) {
+          v = src[s_hi];
+          if (is_coord && wrap_hi) v = v + adj_hi;
+        } else {
+          v = src[s_own];
+        }
+        if (dead_final) {
+          if ((a.sanitize_mask >> f) & 1) v = T(0);
+          if (f == a.ig_one) v = T(1);
+        }
+        if (f == a.iux) u[0] = v;
+        if (f == a.iuy) u[1] = v;
+        if (f == a.iuz) u[2] = v;
+        a.fout[f][o] = v;
+      }
+      for (int t = 0; t < a.ni; ++t) {
+        const int* src = a.iin[t];
+        a.iout[t][o] = vlo ? src[s_lo] : (vhi ? src[s_hi] : src[s_own]);
+      }
+      a.alive_out[o] = al ? 1 : 0;
+      if (a.final_ && a.recompute_ig)
+        a.ig_out[o] = T(1) / sqrt(((T(1) + u[0] * u[0]) + u[1] * u[1]) +
+                                  u[2] * u[2]);
+    }
+  }
+  add_merges(a.n_merged, merges);
+}
+
+template <typename T>
+int launch(void** p, const long long* n, cudaStream_t st) {
+  Args<T> a;
+  a.alive = (const unsigned char*)p[P_ALIVE];
+  a.alive_out = (unsigned char*)p[P_ALIVE_OUT];
+  a.n_merged = (unsigned long long*)p[P_NMERGED];
+  a.ces = (const int*)p[P_CES];
+  a.ig_out = (T*)p[P_IG_OUT];
+  for (int f = 0; f < MAXF; ++f) {
+    a.fin[f] = (const T*)p[P_FIN + f];
+    a.fout[f] = (T*)p[P_FOUT + f];
+  }
+  for (int t = 0; t < MAXI; ++t) {
+    a.iin[t] = (const int*)p[P_IIN + t];
+    a.iout[t] = (int*)p[P_IOUT + t];
+  }
+  a.cap = (int)n[I_CAP]; a.nx = (int)n[I_NX]; a.ny = (int)n[I_NY];
+  a.axis = (int)n[I_AXIS]; a.periodic = (int)n[I_PERIODIC];
+  a.nf = (int)n[I_NF]; a.ni = (int)n[I_NI]; a.coord = (int)n[I_COORD];
+  a.w = (int)n[I_W]; a.merge_mask = (int)n[I_MERGE_MASK];
+  a.final_ = (int)n[I_FINAL]; a.sanitize_mask = (int)n[I_SANITIZE_MASK];
+  a.iux = (int)n[I_UX]; a.iuy = (int)n[I_UY]; a.iuz = (int)n[I_UZ];
+  a.recompute_ig = (int)n[I_RECOMPUTE_IG]; a.ig_one = (int)n[I_IG_ONE];
+  a.nces = (int)n[I_NCES];
+  a.ncell = (long long)a.nx * a.ny;
+  if (a.nf < 1 || a.nf > MAXF || a.ni < 0 || a.ni > MAXI ||
+      a.coord < 0 || a.coord >= a.nf || a.w < 0 || a.w >= a.nf ||
+      (a.axis != 0 && a.axis != 1) ||
+      (a.final_ && a.recompute_ig &&
+       (a.iux < 0 || a.iuy < 0 || a.iuz < 0 || !a.ig_out)))
+    return (int)cudaErrorInvalidValue;
+  if (a.ncell == 0 || a.cap == 0) return 0;
+  int threads = 128;
+  int blocks = ceil_div(a.ncell, threads);
+  if (a.cap <= 8) migrate_axis<T, 8><<<blocks, threads, 0, st>>>(a);
+  else if (a.cap <= 16) migrate_axis<T, 16><<<blocks, threads, 0, st>>>(a);
+  else if (a.cap <= 32) migrate_axis<T, 32><<<blocks, threads, 0, st>>>(a);
+  else if (a.cap <= 64) migrate_axis<T, 64><<<blocks, threads, 0, st>>>(a);
+  else if (a.cap <= 128) migrate_axis<T, 128><<<blocks, threads, 0, st>>>(a);
+  else return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// ptrs: enum Ptr; ints: enum Int; reals unused.
+LP_EXPORT int lp_migrate_axis_2d(void** ptrs, const long long* ints,
+                                 const double* reals, void* stream) {
+  (void)reals;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (ints[I_DOUBLE]) return launch<double>(ptrs, ints, st);
+  return launch<float>(ptrs, ints, st);
+}
+
+// MAXF (which = 0) or MAXI (which = 1), held equal to the wrapper's
+// limits when the library is first used
+LP_EXPORT int lp_migrate_max_payloads(int which) {
+  return which == 0 ? MAXF : MAXI;
+}

@@ -1,0 +1,121 @@
+// Kernel B7: sort (key, payloads) along the slot axis, separately for
+// every cell, through the Batcher compare-exchange list.
+//
+// Replaces the TPU kernel lambdapic_tpu/ops/cellpallas.py::
+// sort_cells_pallas (:769, kernel :802, pallas_call :824), the sort of the
+// re-binning's migrate_cells when the fused migration is off. Plain
+// PyTorch version: lambdapic_torch/ops/cell2d.py::batcher_sort.
+//
+// Arrays are (cap, ncell): slot s of cell c at s*ncell + c, any number of
+// cell dims flattened. One thread per cell loads its cap keys, runs the
+// list of cellpallas.py::_batcher_network (swap on a strict ka > kb) on
+// (key, slot) pairs, then writes the sorted keys and moves every payload
+// by the permutation. The exchange decisions depend on the keys alone, so
+// this is bitwise the same as carrying the payloads through every
+// exchange. Payloads are moved as bytes: their count and element sizes
+// (1, 2, 4 or 8 bytes: bool, float32, int32, float64, ...) are run-time
+// arguments.
+//
+// Bound on an H100 (3.35 TB/s): bytes: the key and every payload read and
+// written once.
+#include "common.cuh"
+
+namespace {
+
+constexpr int MAXP = 24;
+
+enum Ptr { P_KEY, P_KEY_OUT, P_CES, P_IN, P_OUT = P_IN + MAXP,
+           P_COUNT = P_OUT + MAXP };
+enum Int { I_CAP, I_NCELL, I_NP, I_NCES, I_ESIZE };   // I_ESIZE + MAXP
+
+struct Args {
+  const int* key;
+  int* key_out;
+  const int* ces;
+  const void* in[MAXP];
+  void* out[MAXP];
+  int esize[MAXP];
+  int cap, np, nces;
+  long long ncell;
+};
+
+template <typename E>
+__device__ __forceinline__ void permute(const void* in, void* out,
+                                        const unsigned char* idx, int cap,
+                                        long long ncell, long long cell) {
+  const E* src = (const E*)in;
+  E* dst = (E*)out;
+  for (int s = 0; s < cap; ++s)
+    dst[(long long)s * ncell + cell] = src[(long long)idx[s] * ncell + cell];
+}
+
+template <int MAXC>
+__global__ void __launch_bounds__(128) sort_cells(Args a) {
+  long long cell = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (cell >= a.ncell) return;
+  int k[MAXC];
+  unsigned char idx[MAXC];
+  for (int s = 0; s < a.cap; ++s) {
+    k[s] = a.key[(long long)s * a.ncell + cell];
+    idx[s] = (unsigned char)s;
+  }
+  for (int e = 0; e < a.nces; ++e) {
+    int i = __ldg(a.ces + 2 * e), j = __ldg(a.ces + 2 * e + 1);
+    int ki = k[i], kj = k[j];
+    if (ki > kj) {
+      k[i] = kj;
+      k[j] = ki;
+      unsigned char t = idx[i];
+      idx[i] = idx[j];
+      idx[j] = t;
+    }
+  }
+  for (int s = 0; s < a.cap; ++s) a.key_out[(long long)s * a.ncell + cell] = k[s];
+  for (int q = 0; q < a.np; ++q) {
+    switch (a.esize[q]) {
+      case 1: permute<unsigned char>(a.in[q], a.out[q], idx, a.cap, a.ncell, cell); break;
+      case 2: permute<unsigned short>(a.in[q], a.out[q], idx, a.cap, a.ncell, cell); break;
+      case 4: permute<unsigned int>(a.in[q], a.out[q], idx, a.cap, a.ncell, cell); break;
+      default: permute<unsigned long long>(a.in[q], a.out[q], idx, a.cap, a.ncell, cell); break;
+    }
+  }
+}
+
+}  // namespace
+
+// ptrs: enum Ptr; ints: enum Int followed by MAXP element sizes; reals
+// unused.
+LP_EXPORT int lp_sort_cells(void** p, const long long* n, const double* r,
+                            void* stream) {
+  (void)r;
+  cudaStream_t st = (cudaStream_t)stream;
+  Args a;
+  a.key = (const int*)p[P_KEY];
+  a.key_out = (int*)p[P_KEY_OUT];
+  a.ces = (const int*)p[P_CES];
+  a.cap = (int)n[I_CAP];
+  a.ncell = n[I_NCELL];
+  a.np = (int)n[I_NP];
+  a.nces = (int)n[I_NCES];
+  if (a.np < 0 || a.np > MAXP) return (int)cudaErrorInvalidValue;
+  for (int q = 0; q < MAXP; ++q) {
+    a.in[q] = p[P_IN + q];
+    a.out[q] = p[P_OUT + q];
+    a.esize[q] = (int)n[I_ESIZE + q];
+    if (q < a.np && a.esize[q] != 1 && a.esize[q] != 2 && a.esize[q] != 4 &&
+        a.esize[q] != 8)
+      return (int)cudaErrorInvalidValue;
+  }
+  if (a.ncell == 0 || a.cap == 0) return 0;
+  int threads = 128;
+  int blocks = ceil_div(a.ncell, threads);
+  if (a.cap <= 8) sort_cells<8><<<blocks, threads, 0, st>>>(a);
+  else if (a.cap <= 16) sort_cells<16><<<blocks, threads, 0, st>>>(a);
+  else if (a.cap <= 32) sort_cells<32><<<blocks, threads, 0, st>>>(a);
+  else if (a.cap <= 64) sort_cells<64><<<blocks, threads, 0, st>>>(a);
+  else if (a.cap <= 128) sort_cells<128><<<blocks, threads, 0, st>>>(a);
+  else return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+LP_EXPORT int lp_sort_max_payloads() { return MAXP; }

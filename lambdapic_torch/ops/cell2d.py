@@ -188,12 +188,81 @@ def _roll_in(a: torch.Tensor, dim: int, direction: int) -> torch.Tensor:
     return torch.roll(a, direction, dims=dim)
 
 
+def _weight_floor(w: torch.Tensor) -> float:
+    return 1e-300 if w.dtype == torch.float64 else 1e-30
+
+
+def _stable_sort3(keys: torch.Tensor):
+    """Stable sort of keys in {0, 1, 2} along axis 0: (sorted keys, the
+    source row of each sorted row), the permutation of
+    ``torch.sort(keys, dim=0, stable=True)``. A key's rows keep their
+    order, so each row's place is the count of smaller keys plus its rank
+    among equal keys: three prefix sums and a scatter instead of a
+    sort."""
+    ones = [(keys == k).to(torch.int32) for k in range(3)]
+    ranks = [torch.cumsum(o, dim=0) for o in ones]
+    n0, n1 = ranks[0][-1:], ranks[1][-1:]
+    dest = torch.where(ones[0] > 0, ranks[0] - 1, torch.where(
+        ones[1] > 0, n0 + ranks[1] - 1, n0 + n1 + ranks[2] - 1)).long()
+    del ones, ranks
+    rows = torch.arange(keys.shape[0], device=keys.device).reshape(
+        (-1,) + (1,) * (keys.ndim - 1)).expand(keys.shape)
+    order = torch.empty_like(dest).scatter_(0, dest, rows)
+    return keys.gather(0, order), order
+
+
+def _exact_axis(data, alive, names, out_lo, out_hi, send):
+    """One axis of the exact scheme (lambdapic_tpu/ops/cell2d.py:
+    231-279). ``send(payload, mask, direction)`` rolls a dict of payloads
+    one cell along the axis. Returns (data, alive, n_lost)."""
+    cap = alive.shape[0]
+    send_up = {k: torch.where(out_hi, data[k], 0) for k in names}
+    send_dn = {k: torch.where(out_lo, data[k], 0) for k in names}
+    in_lo, val_lo = send(send_up, out_hi, +1)
+    in_hi, val_hi = send(send_dn, out_lo, -1)
+    del send_up, send_dn
+    alive = alive & ~(out_lo | out_hi)
+    two = torch.full_like(alive, 2, dtype=torch.int32)
+    keys = torch.cat([torch.where(alive, 0, two), torch.where(val_lo, 1, two),
+                      torch.where(val_hi, 1, two)], dim=0)
+    skeys, order = _stable_sort3(keys)
+    del keys
+    order = order[:2 * cap]
+    kept, ofl = {}, {}
+    for k in names:
+        rows = torch.cat([data[k], in_lo[k], in_hi[k]], dim=0).gather(0, order)
+        kept[k] = rows[:cap]
+        # reversed alignment: overflow row cap + j -> kept row cap - 1 - j
+        ofl[k] = rows[cap:].flip(0)
+        del rows
+    del in_lo, in_hi, order
+    valid_m = (skeys[cap:2 * cap] < 2).flip(0)
+    n_lost = valid_m.sum() + (skeys[2 * cap:] < 2).sum()
+    kept_alive = skeys[:cap] < 2
+    if "w" in names:
+        w_of = torch.where(valid_m, ofl["w"], 0.0)
+        wsum = kept["w"] + w_of
+        wsafe = torch.clamp(wsum, min=_weight_floor(wsum))
+        for k in names:
+            if k in MERGED:
+                kept[k] = torch.where(
+                    valid_m, (kept["w"] * kept[k] + w_of * ofl[k]) / wsafe,
+                    kept[k])
+        kept["w"] = wsum
+    return {**data, **kept}, kept_alive, n_lost
+
+
 def migrate_cells(data: Dict[str, torch.Tensor], alive: torch.Tensor,
-                  plan, *, recompute_ig: bool = True):
-    """Re-bin particles to their home cells: the fast overwrite-merge
-    scheme of lambdapic_tpu/ops/cell2d.py::migrate_cells on one device,
-    sorted by the Batcher network. ``plan`` = ((nloc, periodic, coord),
-    ...) per cell axis. Per axis: one cap-wide sort by the 5-way key
+                  plan, *, recompute_ig: bool = True, exact: bool = False,
+                  sort_fn=None):
+    """Re-bin particles to their home cells: lambdapic_tpu/ops/cell2d.py::
+    migrate_cells on one device. ``plan`` = ((nloc, periodic, coord),
+    ...) per cell axis.
+
+    The fast overwrite-merge scheme (default) sorts with ``sort_fn``
+    (``batcher_sort`` when None; kernel B7, ``ops/cellpallas.py::
+    sort_cells``, on the per-stage path). Per axis: one cap-wide sort by
+    the 5-way key
 
         0: donor(+1)  1: dead(even slot)  2: stay  3: dead(odd)  4: donor(-1)
 
@@ -203,7 +272,18 @@ def migrate_cells(data: Dict[str, torch.Tensor], alive: torch.Tensor,
     on one slot merge into one (w summed, coordinates and momenta
     weight-averaged) and count in ``n_lost``. Arrivals through a periodic
     wrap shift their coordinate by -+nloc; at open edges they are
-    absorbed. Returns (data, alive, n_lost)."""
+    absorbed.
+
+    ``exact=True`` is the lossless scheme (``cell_migration="exact"``):
+    per axis, donors leave their cell as dedicated buffers and each cell
+    sorts [residents; lo arrivals; hi arrivals] (3 cap rows, keys 0
+    resident, 1 arrival, 2 empty) with a stable sort, as lax.sort sorts.
+    Nothing is lost while a cell's total stays <= cap; an alive row
+    cap + j beyond that merges into kept row cap - 1 - j (weights summed,
+    coordinates and momenta weight-averaged) and rows >= 2 cap are
+    dropped; both count in ``n_lost``.
+
+    Returns (data, alive, n_lost)."""
     cap = alive.shape[0]
     n_lost = torch.zeros((), dtype=torch.int64, device=alive.device)
     transient = set(TRANSIENT) if recompute_ig else set(TRANSIENT) - {"inv_gamma"}
@@ -237,10 +317,16 @@ def migrate_cells(data: Dict[str, torch.Tensor], alive: torch.Tensor,
                 valid = valid & ~wrapped
             return moved, valid
 
+        if exact:
+            data, alive, lost = _exact_axis(data, alive, names, out_lo,
+                                            out_hi, send)
+            n_lost = n_lost + lost
+            continue
+
         key = torch.where(out_hi, 0, torch.where(
             out_lo, 4, torch.where(alive, 2, torch.where(parity, 1, 3))))
-        skey, spay = batcher_sort(key.to(torch.int32),
-                                  [data[k] for k in names])
+        skey, spay = (sort_fn or batcher_sort)(key.to(torch.int32),
+                                               [data[k] for k in names])
         sdata = dict(zip(names, spay))
 
         in_lo, val_lo = send(sdata, skey == 0, +1)
@@ -255,8 +341,7 @@ def migrate_cells(data: Dict[str, torch.Tensor], alive: torch.Tensor,
         w_hi = torch.where(val_hi, in_hi["w"], 0.0)
         w_res = torch.where(stay, sdata["w"], 0.0)
         wsum = w_lo + w_hi + w_res
-        floor = 1e-300 if wsum.dtype == torch.float64 else 1e-30
-        wsafe = torch.clamp(wsum, min=floor)
+        wsafe = torch.clamp(wsum, min=_weight_floor(wsum))
         merged = {}
         for k in names:
             if k in MERGED:

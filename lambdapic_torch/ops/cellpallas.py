@@ -1,0 +1,331 @@
+"""The per-stage cell engine's kernels, 2D (counterpart of
+lambdapic_tpu/ops/cellpallas.py):
+
+    B4  fused_push_cell_2d   gather + Boris + half push   csrc/push2d.cu
+    B5  deposit_cell_2d_k    Esirkepov J, rho -> padded   csrc/deposit2d.cu
+    B6  migrate_axis         one re-binning axis          csrc/migrate2d.cu
+        (driven by migrate_cells_fused, one launch per axis)
+    B7  sort_cells           Batcher sort along slots     csrc/sortcells.cu
+
+Each entry point launches its CUDA kernel on CUDA tensors and runs its
+plain PyTorch version on CPU tensors; there is no fallback from a kernel
+to its plain version on the card. Each kernel launch adds one to the
+wrapper's ``launches`` (B4 also counts per mode in ``launches_by_mode``,
+"default" and "want_eb"). A wrapper checks device, type, shape and
+contiguity of its operands and raises on what its kernel does not take.
+
+Plain versions: B4 ``fused_push_cell_2d_plain`` (``gather_cell_2d`` +
+``boris_push`` + ``push_position_2d``), B5 ``cell2d.deposit_cell_2d``,
+B6 ``cell2d.migrate_cells`` (fast scheme, Batcher order), B7
+``cell2d.batcher_sort``. The 3D forms of B4-B7 are ROADMAP item 17.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Dict, Sequence
+
+import torch
+
+from ..constants import c as c_light
+from . import kernel_lib
+from .cell2d import (MERGED, SANITIZED, TRANSIENT, batcher_network,
+                     batcher_sort, deposit_cell_2d, gather_cell_2d,
+                     migrate_cells)
+from .cellslab import MAX_CAP, TILE, _ces_tensor, panel_shape
+from .pusher import boris_push, push_position_2d
+
+# csrc/migrate2d.cu's MAXF / MAXI and csrc/sortcells.cu's MAXP, held equal
+# to them when each library is first used
+MIGRATE_MAX_FLOAT = 16
+MIGRATE_MAX_INT = 4
+SORT_MAX_PAYLOADS = 24
+PUSH_MODES = ("default", "want_eb")
+
+
+def _on_card(t: torch.Tensor, what: str) -> bool:
+    """False for a CPU tensor (run the plain version), True for a CUDA
+    tensor; raise for any other device."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {t.device}")
+    return True
+
+
+def _check_float(dtype, what: str) -> None:
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"{what}: dtype {dtype}")
+
+
+def _check_cap(cap: int, what: str) -> None:
+    if not 0 < cap <= MAX_CAP:
+        raise ValueError(f"{what}: {cap} slots per cell; the kernel takes "
+                         f"1 to {MAX_CAP} (the slot index is packed into 8 "
+                         "bits)")
+
+
+@functools.cache
+def _check_limits(lib: str) -> None:
+    """The kernels' compile-time limits, held equal to this module's once,
+    when a library is first used."""
+    so = kernel_lib.library(lib)
+    if lib == "deposit2d":
+        got, want = (so.lp_deposit_tile(),), (TILE,)
+    elif lib == "migrate2d":
+        got = (so.lp_migrate_max_payloads(0), so.lp_migrate_max_payloads(1))
+        want = (MIGRATE_MAX_FLOAT, MIGRATE_MAX_INT)
+    else:
+        got, want = (so.lp_sort_max_payloads(),), (SORT_MAX_PAYLOADS,)
+    if got != want:
+        raise RuntimeError(f"csrc/{kernel_lib.SOURCES[lib]} has limits {got}, "
+                           f"ops/cellpallas.py {want}")
+
+
+# ----------------------------------------------------------------------
+# B4: gather + Boris + half push
+# ----------------------------------------------------------------------
+
+def fused_push_cell_2d_plain(eb_pad, x, y, ux, uy, uz, *, q: float,
+                             m: float, dt: float, dx: float, dy: float,
+                             g: int, want_eb: bool = False,
+                             do_pos1: bool = True):
+    """Plain version of kernel B4 (see ``fused_push_cell_2d``)."""
+    hx, hy = c_light * dt / dx / 2, c_light * dt / dy / 2
+    if do_pos1:
+        ig = 1.0 / torch.sqrt(1.0 + ux**2 + uy**2 + uz**2)
+        x, y = push_position_2d(x, y, ux, uy, ig, hx, hy)
+    eb = gather_cell_2d(eb_pad, x, y, g)
+    ux, uy, uz, ig = boris_push(ux, uy, uz, *eb, q, m, dt)
+    x, y = push_position_2d(x, y, ux, uy, ig, hx, hy)
+    out = (x, y, ux, uy, uz, ig)
+    return out + tuple(eb) if want_eb else out
+
+
+def fused_push_cell_2d(eb_pad, x, y, ux, uy, uz, *, q: float, m: float,
+                       dt: float, dx: float, dy: float, g: int,
+                       want_eb: bool = False, do_pos1: bool = True):
+    """Kernel B4. eb_pad (6, nx+2g, ny+2g); slots (cap, nx, ny), freshly
+    re-binned. With ``do_pos1`` the positions first get a half push at
+    inv_gamma = 1/sqrt(1 + u^2); without it they are already at the
+    mid-step point (the per-stage step's case). Returns (x, y, ux, uy, uz,
+    inv_gamma) after the gather, Boris and the second half push, and with
+    ``want_eb`` also the six gathered components (ex, ey, ez, bx, by, bz)."""
+    if not _on_card(x, "fused_push_cell_2d"):
+        return fused_push_cell_2d_plain(eb_pad, x, y, ux, uy, uz, q=q, m=m,
+                                        dt=dt, dx=dx, dy=dy, g=g,
+                                        want_eb=want_eb, do_pos1=do_pos1)
+    dev, dtype = x.device, x.dtype
+    _check_float(dtype, "fused_push_cell_2d")
+    if x.ndim != 3:
+        raise NotImplementedError("fused_push_cell_2d: 2D slots only (the 3D "
+                                  "form is ROADMAP queue 1, item 17)")
+    shape = tuple(x.shape)
+    cap, nx, ny = shape
+    kernel_lib.check(eb_pad, "eb_pad", (6, nx + 2 * g, ny + 2 * g), dtype, dev)
+    for name, t in (("x", x), ("y", y), ("ux", ux), ("uy", uy), ("uz", uz)):
+        kernel_lib.check(t, name, shape, dtype, dev)
+    outs = [torch.empty(shape, dtype=dtype, device=dev)
+            for _ in range(12 if want_eb else 6)]
+    ebs = outs[6:] if want_eb else [None] * 6
+    cdx, cdy = c_light * dt / dx, c_light * dt / dy
+    kernel_lib.call(
+        "push2d", "lp_push_2d", [eb_pad, x, y, ux, uy, uz] + outs[:6] + ebs,
+        [cap, nx, ny, g, want_eb, do_pos1, dtype == torch.float64],
+        [cdx / 2, cdy / 2, q * dt / (2 * m * c_light), q * dt / (2 * m)], dev)
+    fused_push_cell_2d.launches += 1
+    fused_push_cell_2d.launches_by_mode[PUSH_MODES[int(want_eb)]] += 1
+    return tuple(outs)
+
+
+fused_push_cell_2d.launches = 0
+fused_push_cell_2d.launches_by_mode = dict.fromkeys(PUSH_MODES, 0)
+
+
+# ----------------------------------------------------------------------
+# B5: deposit into the padded current
+# ----------------------------------------------------------------------
+
+def deposit_cell_2d_k(x, y, ux, uy, uz, inv_gamma, w, *, q: float,
+                      dx: float, dy: float, dt: float, g: int
+                      ) -> torch.Tensor:
+    """Kernel B5, the contract of ``cell2d.deposit_cell_2d`` (home-cell
+    binned slots, dead slots with w == 0): the padded (4, nx+2g, ny+2g)
+    jx, jy, jz, rho of one species."""
+    if not _on_card(x, "deposit_cell_2d_k"):
+        return deposit_cell_2d(x, y, ux, uy, uz, inv_gamma, w, q=q, dx=dx,
+                               dy=dy, dt=dt, g=g)
+    dev, dtype = x.device, x.dtype
+    _check_float(dtype, "deposit_cell_2d_k")
+    if x.ndim != 3:
+        raise NotImplementedError("deposit_cell_2d_k: 2D slots only (the 3D "
+                                  "form is ROADMAP queue 1, item 17)")
+    if g < 2:
+        raise ValueError("deposit_cell_2d_k: the 5-tap stencil needs g >= 2")
+    _check_limits("deposit2d")
+    shape = tuple(x.shape)
+    cap, nx, ny = shape
+    for name, t in (("x", x), ("y", y), ("ux", ux), ("uy", uy), ("uz", uz),
+                    ("inv_gamma", inv_gamma), ("w", w)):
+        kernel_lib.check(t, name, shape, dtype, dev)
+    panels = torch.empty(panel_shape(4, nx, ny), dtype=dtype, device=dev)
+    jpad = torch.empty((4, nx + 2 * g, ny + 2 * g), dtype=dtype, device=dev)
+    kernel_lib.call(
+        "deposit2d", "lp_deposit_2d",
+        [x, y, ux, uy, uz, inv_gamma, w, panels, jpad],
+        [cap, nx, ny, g, dtype == torch.float64],
+        [c_light * dt / dx, c_light * dt / dy, c_light, q / (dx * dy),
+         q / (dy * dt), q / (dx * dt)], dev)
+    deposit_cell_2d_k.launches += 1
+    return jpad
+
+
+deposit_cell_2d_k.launches = 0
+
+
+# ----------------------------------------------------------------------
+# B7: Batcher sort along the slot axis
+# ----------------------------------------------------------------------
+
+def sort_cells(key: torch.Tensor, payloads: Sequence[torch.Tensor]):
+    """Kernel B7: sort (key, *payloads) along axis 0 (the slots),
+    independently for every cell, with the Batcher compare-exchange list
+    (strict ka > kb). key: (cap, *cells) int32; payloads: arrays of the
+    key's shape, any type of 1, 2, 4 or 8 bytes. Returns (sorted key,
+    [sorted payloads]), as ``cell2d.batcher_sort``."""
+    if not _on_card(key, "sort_cells"):
+        return batcher_sort(key, payloads)
+    dev = key.device
+    shape = tuple(key.shape)
+    cap = shape[0]
+    _check_cap(cap, "sort_cells")
+    _check_limits("sortcells")
+    if len(payloads) > SORT_MAX_PAYLOADS:
+        raise ValueError(f"sort_cells: {len(payloads)} payloads; the kernel "
+                         f"moves at most {SORT_MAX_PAYLOADS}")
+    kernel_lib.check(key, "key", shape, torch.int32, dev)
+    sizes = []
+    for i, p in enumerate(payloads):
+        kernel_lib.check(p, f"payload {i}", shape, p.dtype, dev)
+        if p.element_size() not in (1, 2, 4, 8):
+            raise ValueError(f"sort_cells: payload {i} has {p.element_size()}"
+                             "-byte elements")
+        sizes.append(p.element_size())
+    key_out = torch.empty_like(key)
+    outs = [torch.empty_like(p) for p in payloads]
+    pad = [None] * (SORT_MAX_PAYLOADS - len(payloads))
+    ncell = key[0].numel()
+    kernel_lib.call(
+        "sortcells", "lp_sort_cells",
+        [key, key_out, _ces_tensor(cap, dev)] + list(payloads) + pad
+        + outs + pad,
+        [cap, ncell, len(payloads), len(batcher_network(cap))] + sizes
+        + [0] * len(pad), [], dev)
+    sort_cells.launches += 1
+    return key_out, outs
+
+
+sort_cells.launches = 0
+
+
+# ----------------------------------------------------------------------
+# B6: one re-binning axis, and the loop over the axes
+# ----------------------------------------------------------------------
+
+def migrate_axis(alive: torch.Tensor, floats: Dict[str, torch.Tensor],
+                 ints: Dict[str, torch.Tensor], *, axis: int, periodic: bool,
+                 coord: str, final: bool, recompute_ig: bool):
+    """Kernel B6: one axis of the fast re-binning of 2D slots. ``floats``
+    (the species' float type) and ``ints`` (int32) are the carried
+    payloads by name, ``coord`` the axis's coordinate among them. On the
+    ``final`` axis dead slots' x, y, z, w, ux, uy, uz become 0 and
+    inv_gamma is recomputed from u (``recompute_ig``) or, carried, set to
+    1 in dead slots. Returns (alive, floats, ints, inv_gamma or None,
+    n_merged)."""
+    dev = alive.device
+    shape = tuple(alive.shape)
+    cap, nx, ny = shape
+    fnames, inames = list(floats), list(ints)
+    dtype = floats[coord].dtype
+    kernel_lib.check(alive, "alive", shape, torch.bool, dev)
+    for k in fnames:
+        kernel_lib.check(floats[k], k, shape, dtype, dev)
+    for k in inames:
+        kernel_lib.check(ints[k], k, shape, torch.int32, dev)
+
+    def index(k):
+        return fnames.index(k) if k in fnames else -1
+
+    def mask(names):
+        return sum(1 << i for i, k in enumerate(fnames) if k in names)
+
+    new_alive = torch.empty_like(alive)
+    fout = [torch.empty_like(floats[k]) for k in fnames]
+    iout = [torch.empty_like(ints[k]) for k in inames]
+    ig = torch.empty(shape, dtype=dtype, device=dev) \
+        if final and recompute_ig else None
+    n_merged = torch.zeros((), dtype=torch.int64, device=dev)
+    fpad = [None] * (MIGRATE_MAX_FLOAT - len(fnames))
+    ipad = [None] * (MIGRATE_MAX_INT - len(inames))
+    kernel_lib.call(
+        "migrate2d", "lp_migrate_axis_2d",
+        [alive, new_alive, n_merged, _ces_tensor(cap, dev), ig]
+        + [floats[k] for k in fnames] + fpad + fout + fpad
+        + [ints[k] for k in inames] + ipad + iout + ipad,
+        [cap, nx, ny, axis, periodic, len(fnames), len(inames), index(coord),
+         index("w"), mask(MERGED + ("w",)), final, mask(SANITIZED),
+         index("ux"), index("uy"), index("uz"), recompute_ig,
+         -1 if recompute_ig else index("inv_gamma"),
+         len(batcher_network(cap)), dtype == torch.float64], [], dev)
+    migrate_axis.launches += 1
+    return (new_alive, dict(zip(fnames, fout)), dict(zip(inames, iout)), ig,
+            n_merged)
+
+
+migrate_axis.launches = 0
+
+
+def migrate_cells_fused(data: Dict[str, torch.Tensor], alive: torch.Tensor,
+                        plan, *, recompute_ig: bool = True):
+    """The fast re-binning of ``cell2d.migrate_cells`` (same arguments and
+    results, Batcher order) through kernel B6, one launch per axis. It
+    carries every payload but the transient ones (``cell2d.TRANSIENT``;
+    inv_gamma too unless ``recompute_ig``), a QED species' tau, delta and
+    event included."""
+    if not _on_card(alive, "migrate_cells_fused"):
+        return migrate_cells(data, alive, plan, recompute_ig=recompute_ig)
+    if alive.ndim != 3 or len(plan) != 2:
+        raise NotImplementedError("migrate_cells_fused: 2D slots only (the "
+                                  "3D form is ROADMAP queue 1, item 17)")
+    _check_cap(alive.shape[0], "migrate_cells_fused")
+    _check_limits("migrate2d")
+    transient = set(TRANSIENT) if recompute_ig \
+        else set(TRANSIENT) - {"inv_gamma"}
+    names = sorted(k for k in data if k not in transient)
+    dtype = data[plan[0][2]].dtype
+    _check_float(dtype, "migrate_cells_fused")
+    floats = {k: data[k] for k in names if data[k].dtype == dtype}
+    ints = {k: data[k] for k in names if data[k].dtype == torch.int32}
+    other = set(names) - set(floats) - set(ints)
+    if other:
+        raise ValueError(f"migrate_cells_fused: payloads {sorted(other)} are "
+                         f"neither {dtype} nor int32")
+    if "w" not in floats or len(floats) > MIGRATE_MAX_FLOAT \
+            or len(ints) > MIGRATE_MAX_INT:
+        raise ValueError(f"migrate_cells_fused: payloads {names}: the kernel "
+                         f"takes w and at most {MIGRATE_MAX_FLOAT} float and "
+                         f"{MIGRATE_MAX_INT} int32 payloads")
+    n_lost = torch.zeros((), dtype=torch.int64, device=alive.device)
+    ig = None
+    for axis, (nloc, periodic, coord) in enumerate(plan):
+        if nloc != alive.shape[1 + axis]:
+            raise ValueError(f"migrate_cells_fused: plan axis {axis} has "
+                             f"{nloc} cells, the slots {alive.shape[1 + axis]}")
+        alive, floats, ints, ig, n_m = migrate_axis(
+            alive, floats, ints, axis=axis, periodic=bool(periodic),
+            coord=coord, final=axis == len(plan) - 1,
+            recompute_ig=recompute_ig)
+        n_lost = n_lost + n_m
+    out = {**data, **floats, **ints}
+    if recompute_ig:
+        out["inv_gamma"] = ig
+    return out, alive, n_lost

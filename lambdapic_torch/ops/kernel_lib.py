@@ -24,10 +24,13 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent / "_build"
 
-# library name -> .cu source; every library also depends on common.cuh
+# library name -> .cu source; every library also depends on the headers
+# (csrc/*.cuh)
 SOURCES = {"fields": "fields.cu", "cellstep": "cellstep.cu",
            "fold": "fold.cu", "fields3d": "fields3d.cu",
-           "cellstep3d": "cellstep3d.cu", "fold3d": "fold3d.cu"}
+           "cellstep3d": "cellstep3d.cu", "fold3d": "fold3d.cu",
+           "push2d": "push2d.cu", "deposit2d": "deposit2d.cu",
+           "migrate2d": "migrate2d.cu", "sortcells": "sortcells.cu"}
 # --fmad=false: no multiply-add contraction, so each kernel rounds as its
 # plain PyTorch version does, op for op
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -49,7 +52,7 @@ def nvcc_path() -> str:
 
 def _target(name: str) -> Path:
     h = hashlib.sha256()
-    for f in (CSRC / SOURCES[name], CSRC / "common.cuh"):
+    for f in (CSRC / SOURCES[name], *sorted(CSRC.glob("*.cuh"))):
         h.update(f.read_bytes())
     h.update(" ".join(FLAGS).encode())
     return BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"

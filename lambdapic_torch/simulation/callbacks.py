@@ -33,10 +33,19 @@ STAGES: List[str] = [
 ]
 DEFAULT_STAGE = "end"
 
-# stages inside the fused particle stage; host callbacks there need the
-# split particle path (not ported yet)
-INNER_STAGES = {"_push_position_1", "_interpolator", "_qed",
-                "_push_momentum", "_push_position_2"}
+# stages at which host callbacks run without splitting the particle
+# stage (the segment boundaries of the step)
+HOST_STAGES = {"init", "start", "maxwell_1", "current_deposition",
+               "qed_create_particles", "maxwell_2", "end", "final"}
+# inner stages (inside the particle stage); a host callback due at one of
+# them makes the step take the split particle path, one sub-segment per
+# stage: (sub-segment, callback stage) in execution order. The final
+# "deposit" sub-segment has no inner stage of its own (current_deposition
+# is a boundary stage run right after it).
+INNER_SUBSTAGES = (("p1", "_push_position_1"), ("interp", "_interpolator"),
+                   ("qed", "_qed"), ("mom", "_push_momentum"),
+                   ("p2", "_push_position_2"), ("deposit", None))
+INNER_STAGES = {st for _, st in INNER_SUBSTAGES if st is not None}
 
 Interval = Union[int, float, TCallable, None]
 

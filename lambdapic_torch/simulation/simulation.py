@@ -29,7 +29,7 @@ from ..ops.cell3d import deposit_cell_3d
 from ..ops.cellslab import MAX_CAP
 from ..ops.cpml import CPMLParams, build_cpml
 from ..parallel.halo import halo_reduce
-from .callbacks import INNER_STAGES, SimulationCallbacks
+from .callbacks import INNER_STAGES, INNER_SUBSTAGES, SimulationCallbacks
 from .initfill import (bin_cells, count_macro_particles, fill_species,
                        pick_capacity)
 from .step import SpeciesStatic, StepBuilder
@@ -215,9 +215,10 @@ class Simulation:
         if self.tiling != "cell":
             raise _todo(f"tiling={self.tiling!r} (the scatter and tiled "
                         "engines)", "12 and 13")
-        if self.cell_migration == "exact":
-            raise _todo("cell_migration='exact'", "10")
-        if self.cell_migration != "fast":
+        if self.cell_migration == "exact" and self.dimension == 3:
+            raise _todo("cell_migration='exact' in 3D (the 3D per-stage "
+                        "cell engine, kernels B4-B7 in 3D)", "17")
+        if self.cell_migration not in ("fast", "exact"):
             raise ValueError(f"cell_migration must be 'fast' or 'exact', got "
                              f"{self.cell_migration!r}")
         if self.rebin_interval != 1:
@@ -340,10 +341,13 @@ class Simulation:
                 self._grow_capacity(proc.photon_ispec, pcap)
 
     def _build_stepper(self, lasers):
+        fresh = self._builder.transients_valid if self._builder else {}
         self._builder = StepBuilder(
             self.grid, self.cpml, self.dt, self._species_static, lasers,
             with_rho=self._with_rho, dtype=self.dtype, device=self.device,
-            qed_processes=self._qed_processes, base_key=self._base_key)
+            qed_processes=self._qed_processes, base_key=self._base_key,
+            cell_migration=self.cell_migration)
+        self._builder.transients_valid.update(fresh)
 
     def _scalars(self, lasers) -> dict:
         sc = {f"laser{i}": laser.host_scalars(self)
@@ -376,7 +380,10 @@ class Simulation:
             sim_time: Optional[float] = None,
             callbacks: Optional[Sequence] = None, stop_callback=None):
         """Main loop: one step at a time, host callbacks between the
-        step's segments."""
+        step's segments. On a step where a callback at an inner stage is
+        due, the particle stage splits into its sub-segments
+        (``callbacks.INNER_SUBSTAGES``) with the callbacks of each stage
+        run right after it; other steps keep the fused path."""
         callbacks = list(callbacks or [])
         if not self.initialized:
             self.initialize()
@@ -384,9 +391,9 @@ class Simulation:
                   if getattr(cb, "is_device_callback", False)]
         cbs = SimulationCallbacks(callbacks, self)
         inner = sorted(s for s in INNER_STAGES if cbs.has(s))
-        if inner:
-            raise _todo(f"host callbacks at inner stages {inner} (the split "
-                        "particle path)", "10")
+        if inner and self.dimension == 3:
+            raise _todo(f"host callbacks at inner stages {inner} in 3D (the "
+                        "3D split particle path, kernels B4-B7 in 3D)", "17")
         with_rho = self._resolve_deposit_rho(callbacks)
         if self._builder is None or \
                 getattr(self, "_active_lasers", None) != lasers or \
@@ -402,13 +409,24 @@ class Simulation:
             self.istep = self.itime
             cbs.run("start")
             sc = self._scalars(lasers)
-            if not (cbs.due("maxwell_1") or cbs.due("current_deposition")
+            split = any(cbs.due(st) for _, st in INNER_SUBSTAGES if st)
+            if not (split or cbs.due("maxwell_1")
+                    or cbs.due("current_deposition")
                     or cbs.due("qed_create_particles")):
                 self.state = builder.full_step(self.state, sc)
             else:
                 self.state = builder.seg_fields_1(self.state, sc)
                 cbs.run("maxwell_1")
-                self.state = builder.seg_particles(self.state, sc)
+                if split:
+                    # one sub-segment per stage; its callbacks may read and
+                    # replace self.state before the next
+                    for sub, stage in INNER_SUBSTAGES:
+                        self.state = builder.seg_particles_sub(
+                            self.state, sc, frozenset((sub,)))
+                        if stage is not None:
+                            cbs.run(stage)
+                else:
+                    self.state = builder.seg_particles(self.state, sc)
                 cbs.run("current_deposition")
                 cbs.run("qed_create_particles")
                 self.state = builder.seg_fields_2(self.state, sc)
@@ -555,12 +573,15 @@ class Simulation:
         positions in SI metres (wrapped into the box along periodic axes,
         as stored positions may trail the mid-step re-binning by up to half
         a cell), ids as uint32. The gathered-field slots (``*_part``) are
-        not exposed: the cell engine never fills them."""
+        exposed only where the last step filled them: after a split step,
+        and for a radiating species of the per-stage engine."""
         p = self.state.particles[ispec]
         alive = p.alive.reshape(-1).cpu().numpy()
+        fresh = self._builder is not None and \
+            self._builder.transients_valid.get(ispec, False)
         out = {}
         for k, v in p.data.items():
-            if k.endswith("_part"):
+            if k.endswith("_part") and not fresh:
                 continue
             a = ids_to_numpy(v) if k in ID_KEYS else v.cpu().numpy()
             a = a.reshape(-1)

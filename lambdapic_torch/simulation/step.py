@@ -1,5 +1,5 @@
-"""One step of the cell engine on one device (counterpart of the fused
-cell path of lambdapic_tpu/simulation/step.py::StepBuilder).
+"""One step of the cell engine on one device (counterpart of the cell
+path of lambdapic_tpu/simulation/step.py::StepBuilder).
 
     seg_fields_1   E += dt/2 ; B += dt/2                 kernel B1 x2
     seg_particles  pad E,B with guard cells; per species the whole
@@ -14,27 +14,56 @@ cell path of lambdapic_tpu/simulation/step.py::StepBuilder).
                    fold the summed panels into J        kernel B3
     seg_fields_2   B += dt/2 ; lasers ; E += dt/2        kernel B1 x2
 
+The per-stage engine (2D) takes a species off B2 where the JAX package
+does so for a reason that is not tiling:
+
+- ``cell_migration="exact"`` (every step): half push, the exact
+  re-binning (``cell2d.migrate_cells(exact=True)``, plain torch as it is
+  XLA in JAX), then gather + Boris + half push (kernel B4; with the six
+  gathered fields for a radiating species, whose QED events follow) and
+  the deposit into the padded current (kernel B5). A photon species
+  takes the half push, the exact re-binning, 1/|u| and the half push.
+  The species' padded currents are summed and folded by ``halo_reduce``.
+- the split step (a host callback at an inner stage is due):
+  ``seg_particles_sub`` runs one sub-stage over all species at a time
+  (``callbacks.INNER_SUBSTAGES``): p1 half push + re-binning (kernel B6
+  per axis, or with LAMBDAPIC_MIG_FUSED=0 the fast ``migrate_cells``
+  sorting through kernel B7), interp (gather into ``*_part``), qed, mom
+  (Boris or 1/|u|), p2 half push, deposit (kernel B5, QED creation, J).
+  The sub-stages talk through the particle arrays.
+
 The grid's dimension (2 or 3) selects the 2D or the 3D form of each
-kernel (QED in 2D only so far). Host callbacks can run between the
-segments. The split particle path, Breit-Wheeler pairs, collisions, the
-tiled and scatter engines and multi-step chunking are not ported yet
-(ROADMAP queue 1).
+kernel (QED and the per-stage engine in 2D only so far). Host callbacks
+can run between the segments. Breit-Wheeler pairs, collisions, the tiled
+and scatter engines and multi-step chunking are not ported yet (ROADMAP
+queue 1).
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence
+from typing import Dict, FrozenSet, Optional, Sequence
 
 import torch
 
+from ..constants import c as c_light
 from ..core.grid import Grid
-from ..core.state import SimulationState
+from ..core.state import ParticlesState, SimulationState
 from ..models.qed import species_key
-from ..ops.cell2d import insert_cells
+from ..ops.cell2d import gather_cell_2d, insert_cells, migrate_cells
+from ..ops.cellpallas import (deposit_cell_2d_k, fused_push_cell_2d,
+                              migrate_cells_fused, sort_cells)
 from ..ops.cellslab import cell_step, fold_reduce
 from ..ops.cpml import CPMLCoeffs
 from ..ops.fieldskernel import half_coeffs, update_bfield_k, update_efield_k
-from ..parallel.halo import halo_pad
+from ..ops.pusher import boris_push, photon_push, push_position_2d
+from ..parallel.halo import halo_pad, halo_reduce
+from .callbacks import INNER_SUBSTAGES
+
+# the sub-stages of the per-stage engine, in order
+ALL_SUBSTAGES: FrozenSet[str] = frozenset(s for s, _ in INNER_SUBSTAGES)
+# the gathered-field slots the per-stage engine writes
+EB_PART = ("ex_part", "ey_part", "ez_part", "bx_part", "by_part", "bz_part")
 
 
 @dataclass(frozen=True)
@@ -54,7 +83,8 @@ class StepBuilder:
                  with_rho: bool = True, dtype=torch.float32,
                  device: torch.device = torch.device("cpu"),
                  qed_processes: Sequence = (),
-                 base_key: Optional[torch.Tensor] = None):
+                 base_key: Optional[torch.Tensor] = None,
+                 cell_migration: str = "fast"):
         self.grid = grid
         self.cpml = cpml
         self.dt = dt
@@ -69,6 +99,11 @@ class StepBuilder:
         self.base_key = base_key
         if self.qed_processes and base_key is None:
             raise ValueError("QED processes need the run's base key")
+        # "exact": every species takes the per-stage engine every step
+        self.cell_migration = cell_migration
+        # per species: whether its *_part slots hold the fields gathered in
+        # the last step (Simulation.get_particles exposes them only then)
+        self.transients_valid: Dict[int, bool] = {}
         self.periodic = grid.periodic_axes
         self.spatial_axes = tuple(range(1, grid.dimension + 1))
         # B1's coefficient rows, built once per device and type
@@ -94,15 +129,30 @@ class StepBuilder:
         f = self._half(f, "b")
         return state.replace(fields=f)
 
+    def _species_key(self, scalars: Dict, ispec: int) -> torch.Tensor:
+        return species_key(self.base_key, scalars["itime"], ispec)
+
+    def _procs(self, ispec: int):
+        return [pr for pr in self.qed_processes if pr.ispec == ispec]
+
     def seg_particles(self, state: SimulationState, scalars: Dict
                       ) -> SimulationState:
         grid = self.grid
         f = state.fields
         eb_pad = self.pad_eb(f)
-        rims = None
+        rims = jpad = None
         parts = []
         dz = grid.dz if grid.dimension == 3 else None
         for ispec, (sp, p) in enumerate(zip(self.species, state.particles)):
+            procs = self._procs(ispec)
+            if self.cell_migration == "exact":
+                p, jp = self.species_stages(ispec, p, eb_pad, scalars,
+                                            ALL_SUBSTAGES)
+                parts.append(p)
+                jpad = _add(jpad, jp)
+                self.transients_valid[ispec] = bool(procs)
+                continue
+            self.transients_valid[ispec] = False
             kw = dict(dt=self.dt, dx=grid.dx, dy=grid.dy, dz=dz,
                       g=grid.n_guard, periodic=self.periodic)
             if sp.pusher == "photon":
@@ -111,14 +161,13 @@ class StepBuilder:
                 parts.append(p.replace(data=data, alive=alive,
                                        overflow=p.overflow + n_lost))
                 continue
-            procs = [pr for pr in self.qed_processes if pr.ispec == ispec]
             outs = cell_step(eb_pad, p.data, p.alive, q=sp.q, m=sp.m,
                              rims_in=rims, with_rho=self.with_rho,
                              want_chi=bool(procs), **kw)
             data, alive, n_lost, rims = outs[:4]
             if procs:
                 chi, ig0 = outs[4]
-                key = species_key(self.base_key, scalars["itime"], ispec)
+                key = self._species_key(scalars, ispec)
                 for proc in procs:
                     data, alive = proc.update_events_from_chi(
                         data, alive, key, self.dt, chi, ig0)
@@ -128,13 +177,137 @@ class StepBuilder:
         # the pre-recoil momenta, and newborns are first pushed next step
         for proc in self.qed_processes:
             parts = self.qed_creation(proc, parts)
+        j = None
         if rims is not None:
             j = fold_reduce(rims, grid.shape, self.periodic)
-            rep = dict(jx=j[0], jy=j[1], jz=j[2])
-            if j.shape[0] == 4:
-                rep["rho"] = j[3]
-            f = f.replace(**rep)
+        if self.cell_migration == "exact":
+            j2 = self.reduce_j(jpad, f.ex)
+            j = j2 if j is None else j + j2[:j.shape[0]]
+        if j is not None:
+            f = f.replace(**_current(j))
         return state.replace(fields=f, particles=tuple(parts))
+
+    def reduce_j(self, jpad: Optional[torch.Tensor], like: torch.Tensor
+                 ) -> torch.Tensor:
+        """The interior (4, nx, ny) current of the species-summed padded
+        currents of the per-stage engine (zeros, of ``like``'s type and
+        device, when no species deposited: the JAX package sums zero
+        currents of neutral species there)."""
+        g = self.grid.n_guard
+        if jpad is None:
+            jpad = torch.zeros((4,) + tuple(n + 2 * g for n in self.grid.shape),
+                               dtype=like.dtype, device=like.device)
+        # halo_reduce leaves a view when a face is open; kernel B1 takes
+        # contiguous fields
+        return halo_reduce(jpad, g, self.spatial_axes,
+                           self.periodic).contiguous()
+
+    def seg_particles_sub(self, state: SimulationState, scalars: Dict,
+                          stages: FrozenSet[str]) -> SimulationState:
+        """One sub-segment of the split particle path (a host callback at
+        an inner stage is due; lambdapic_tpu/simulation/step.py::
+        seg_particles_sub): the sub-stages ``stages`` of the per-stage
+        engine over every species. The deposit sub-stage also runs the
+        QED creation and sets J and rho."""
+        f = state.fields
+        eb_pad = self.pad_eb(f) if "interp" in stages else None
+        jpad = None
+        parts = []
+        for ispec, p in enumerate(state.particles):
+            p, jp = self.species_stages(ispec, p, eb_pad, scalars, stages)
+            parts.append(p)
+            jpad = _add(jpad, jp)
+            self.transients_valid[ispec] = True
+        if "deposit" in stages:
+            for proc in self.qed_processes:
+                parts = self.qed_creation(proc, parts)
+            f = f.replace(**_current(self.reduce_j(jpad, f.ex)))
+        return state.replace(fields=f, particles=tuple(parts))
+
+    def species_stages(self, ispec: int, p: ParticlesState,
+                       eb_pad: Optional[torch.Tensor], scalars: Dict,
+                       stages: FrozenSet[str]):
+        """The per-stage engine for one 2D species (the non-slab cell
+        branch of lambdapic_tpu/simulation/step.py::make_species_block),
+        restricted to the sub-stages ``stages``. Returns (particles, the
+        padded (4, nx+2g, ny+2g) current or None)."""
+        grid = self.grid
+        if grid.dimension != 2:
+            raise NotImplementedError(
+                "the per-stage cell engine in 3D (kernels B4-B7 in 3D) is "
+                "not ported to lambdapic_torch yet (ROADMAP queue 1, item 17)")
+        sp = self.species[ispec]
+        dt, g = self.dt, grid.n_guard
+        hx, hy = c_light * dt / grid.dx / 2, c_light * dt / grid.dy / 2
+        photon = sp.pusher == "photon"
+        procs = self._procs(ispec)
+        split = stages != ALL_SUBSTAGES
+        data, alive = dict(p.data), p.alive
+        lost = 0
+        if "p1" in stages:
+            data["x"], data["y"] = push_position_2d(
+                data["x"], data["y"], data["ux"], data["uy"],
+                data["inv_gamma"], hx, hy)
+            plan = tuple((n, per, ax) for n, per, ax in
+                         zip(grid.shape, self.periodic, ("x", "y")))
+            if self.cell_migration == "exact":
+                data, alive, lost = migrate_cells(
+                    data, alive, plan, recompute_ig=not photon, exact=True)
+            elif os.environ.get("LAMBDAPIC_MIG_FUSED", "1") != "0":
+                data, alive, lost = migrate_cells_fused(
+                    data, alive, plan, recompute_ig=not photon)
+            else:
+                data, alive, lost = migrate_cells(
+                    data, alive, plan, recompute_ig=not photon,
+                    sort_fn=sort_cells)
+        key = self._species_key(scalars, ispec) if procs else None
+        x, y = data["x"], data["y"]
+        if not split and not photon:
+            # gather + Boris + half push in kernel B4; a radiating species
+            # also gets the gathered fields for its QED events, which read
+            # the pre-push momenta still in ``data``
+            outs = fused_push_cell_2d(
+                eb_pad, x, y, data["ux"], data["uy"], data["uz"], q=sp.q,
+                m=sp.m, dt=dt, dx=grid.dx, dy=grid.dy, g=g,
+                want_eb=bool(procs), do_pos1=False)
+            x, y, ux, uy, uz, ig = outs[:6]
+            if procs:
+                data.update(zip(EB_PART, outs[6:]))
+                for proc in procs:
+                    data, alive = proc.update_chi_and_events(data, alive,
+                                                             key, dt)
+        else:
+            eb = None
+            if "interp" in stages:
+                # a photon's gathered fields are read only by callbacks
+                # of the split step
+                if split or not photon:
+                    eb = gather_cell_2d(eb_pad, x, y, g)
+                    data.update(zip(EB_PART, eb))
+            if "qed" in stages:
+                for proc in procs:
+                    data, alive = proc.update_chi_and_events(data, alive,
+                                                             key, dt)
+            ux, uy, uz = data["ux"], data["uy"], data["uz"]
+            ig = data["inv_gamma"]
+            if "mom" in stages:
+                if photon:
+                    ig = photon_push(ux, uy, uz)
+                else:
+                    if eb is None:
+                        eb = tuple(data[k] for k in EB_PART)
+                    ux, uy, uz, ig = boris_push(ux, uy, uz, *eb, sp.q, sp.m,
+                                                dt)
+            if "p2" in stages:
+                x, y = push_position_2d(x, y, ux, uy, ig, hx, hy)
+        data.update(x=x, y=y, ux=ux, uy=uy, uz=uz, inv_gamma=ig)
+        jpad = None
+        if sp.q != 0.0 and "deposit" in stages:
+            w = torch.where(alive, data["w"], 0.0)
+            jpad = deposit_cell_2d_k(x, y, ux, uy, uz, ig, w, q=sp.q,
+                                     dx=grid.dx, dy=grid.dy, dt=dt, g=g)
+        return p.replace(data=data, alive=alive,
+                         overflow=p.overflow + lost), jpad
 
     def qed_creation(self, proc, parts):
         """Photon birth of one Compton process: each event of the parent
@@ -167,3 +340,16 @@ class StepBuilder:
         state = self.seg_fields_1(state, scalars)
         state = self.seg_particles(state, scalars)
         return self.seg_fields_2(state, scalars)
+
+
+def _add(total: Optional[torch.Tensor], t: Optional[torch.Tensor]):
+    if t is None:
+        return total
+    return t if total is None else total + t
+
+
+def _current(j: torch.Tensor) -> Dict[str, torch.Tensor]:
+    rep = dict(jx=j[0], jy=j[1], jz=j[2])
+    if j.shape[0] == 4:
+        rep["rho"] = j[3]
+    return rep

@@ -126,3 +126,61 @@ def compare_slots(ref, ref_alive, got, got_alive, *, rtol: float,
         peak = float(np.abs(r).max()) if r.size else 0.0
         np.testing.assert_allclose(np.asarray(got[k])[ga], r, rtol=rtol,
                                    atol=max(floor * peak, 1e-300), err_msg=k)
+
+
+def crowded_cell_state(cap: int, nx: int, ny: int, *, seed: int = 0,
+                       n_frac: float = 1.0):
+    """A 2D cell state whose re-binning along x overfills cells: in
+    columns ix = 3k + 1 the particles sit below -0.5 of their cell (they
+    move to 3k), in columns 3k + 2 at or above +0.5 (they move to 3k + 3),
+    and in columns 3k they stay, so a column 3k can receive 3 cap
+    particles. Along y about a fifth of the particles cross a cell face.
+    Returns (data, alive, eb_pad) as ``random_cell_state``."""
+    data, alive, eb_pad = random_cell_state(cap, nx, ny, n_frac=n_frac,
+                                            seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    shape = alive.shape
+    ix = np.broadcast_to(np.arange(nx).reshape(1, nx, 1), shape)
+    iy = np.broadcast_to(np.arange(ny).reshape(1, 1, ny), shape)
+    off = np.select([ix % 3 == 1, ix % 3 == 2],
+                    [rng.uniform(-0.95, -0.55, shape),
+                     rng.uniform(0.5, 0.9, shape)],
+                    rng.uniform(-0.45, 0.45, shape))
+    yoff = np.where(rng.uniform(0, 1, shape) < 0.2,
+                    rng.choice([-0.7, 0.6], shape),
+                    rng.uniform(-0.45, 0.45, shape))
+    data = dict(data)
+    data["x"] = np.where(alive, ix + off, 0.0)
+    data["y"] = np.where(alive, iy + yoff, 0.0)
+    return data, alive, eb_pad
+
+
+def tiny_laser_target(pkg, *, nx: int = 48, ny: int = 32, **sim_kw):
+    """A tiny 2D laser-target of package ``pkg`` (lambdapic_tpu or
+    lambdapic_torch, passed in): electrons (a y-dependent momentum so that
+    particles cross cells) and protons in a 0.4 um foil at x = Lx/2, PML
+    on all faces, a GaussianLaser2D of a0 = 2, float64, seed 1. Returns
+    (sim, laser); ``sim_kw`` go to the Simulation."""
+    um = 1e-6
+    l0 = 0.8 * um
+    dx = l0 / 16
+    Lx, Ly = nx * dx, ny * dx
+    nc = 1.742e27
+
+    def density(x, y):
+        return np.where((x > Lx / 2) & (x < Lx / 2 + 0.4 * um), 5 * nc, 0.0)
+
+    def ux(x, y):
+        return 1.5 * np.sin(2 * np.pi * y / Ly)
+
+    def uz(x, y):
+        return 0.3 * np.cos(2 * np.pi * y / Ly)
+
+    species = [pkg.Electron(density=density, ppc=4, momentum=(ux, None, uz)),
+               pkg.Proton(density=density, ppc=2)]
+    laser = pkg.GaussianLaser2D(a0=2, l0=l0, w0=0.6 * um, ctau=0.5 * um,
+                                x0=0.0, focus_position=Lx / 4)
+    sim = pkg.Simulation(nx=nx, ny=ny, dx=dx, dy=dx, tiling="cell",
+                         random_seed=1, precision="double", **sim_kw)
+    sim.add_species(species)
+    return sim, laser

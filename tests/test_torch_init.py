@@ -168,7 +168,8 @@ def _imports(path: Path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "lambdapic_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py"]
-    assert {"random.py", "qed.py", "qed_tables.py"} <= {f.name for f in files}
+    assert {"random.py", "qed.py", "qed_tables.py", "cellpallas.py"} <= \
+        {f.name for f in files}
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
@@ -176,6 +177,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     code = ("import sys, lambdapic_torch, lambdapic_torch.testing\n"
             "import lambdapic_torch.simulation.simulation\n"
             "import lambdapic_torch.models.qed, lambdapic_torch.random\n"
+            "import lambdapic_torch.ops.cellpallas\n"
+            "import lambdapic_torch.simulation.step\n"
             "lambdapic_torch.models.qed._make_tables('photon', "
             "lambdapic_torch.random.torch.float32)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "

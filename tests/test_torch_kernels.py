@@ -11,6 +11,13 @@ after canonicalisation (alive and ids equal, other attributes to rtol
 the peak. The kernels are compiled without multiply-add contraction, so
 they round like the plain versions; only the current sums run in
 another order.
+
+The per-stage kernels (2D): B4 (default and want_eb modes) to rtol 1e-11
+of each output (the plain version's operations, in its order); B5 to
+1e-12 of the current's peak (the sums run in another order); B6 and B7
+move data and merge in the plain version's order, so every output array
+is equal to the plain version's, dead slots included. In float32: B4
+rtol 1e-5, B5 1e-5 of the peak, B6 and B7 equal.
 """
 import numpy as np
 import pytest
@@ -391,3 +398,184 @@ def test_simulation3d_on_card_matches_cpu(cuda):
                       pr.alive[0, 0, 0],
                       {k: v[0, 0, 0] for k, v in pg.data.items()},
                       pg.alive[0, 0, 0], rtol=1e-9)
+
+
+# ---------------------------------------------------------------------------
+# the per-stage kernels B4-B7
+# ---------------------------------------------------------------------------
+
+STAGE_CASES = [
+    # (cap, nx, ny, periodic, n_frac)
+    (13, 18, 10, (True, True), 0.5),
+    (16, 15, 12, (False, True), 0.9),
+    (20, 12, 16, (True, False), 1.0),
+    (4, 33, 18, (False, False), 0.9),
+]
+
+
+@pytest.mark.parametrize("want_eb", [False, True])
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-11),
+                                        (torch.float32, 1e-5)])
+def test_b4_matches_plain(cuda, want_eb, dtype, rtol):
+    from lambdapic_torch.ops import cellpallas as cp
+    data, alive, eb = random_cell_state(5, 33, 18, seed=7, field=5e13)
+    td, _ = to_torch(data, alive, dtype, cuda)
+    args = [td[k] for k in ("x", "y", "ux", "uy", "uz")]
+    eb = torch.as_tensor(eb, dtype=dtype).to(cuda)
+    for do_pos1 in (False, True):
+        kw = dict(q=Q, m=M, dt=DT, dx=DX, dy=0.9 * DX, g=3, want_eb=want_eb,
+                  do_pos1=do_pos1)
+        ref = cp.fused_push_cell_2d_plain(eb, *args, **kw)
+        before = dict(cp.fused_push_cell_2d.launches_by_mode)
+        got = cp.fused_push_cell_2d(eb, *args, **kw)
+        torch.cuda.synchronize()
+        mode = "want_eb" if want_eb else "default"
+        assert cp.fused_push_cell_2d.launches_by_mode[mode] == before[mode] + 1
+        assert len(got) == len(ref) == (12 if want_eb else 6)
+        for a, b in zip(got, ref):
+            torch.testing.assert_close(a, b, rtol=rtol,
+                                       atol=1e-14 * float(b.abs().max()))
+        # dead slots (x = y = u = 0) away from the low faces gather no
+        # field and leave inv_gamma 1 (within 2 cells of them, x = y = 0 is
+        # within the stencil and they gather, as in the plain version)
+        dead = ~torch.as_tensor(alive).to(cuda)
+        dead[:, :3] = False
+        dead[:, :, :3] = False
+        assert bool((got[5][dead] == 1).all())
+        assert bool(torch.isfinite(got[5]).all())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_b5_matches_plain(cuda, dtype, tol):
+    from lambdapic_torch.ops import cellpallas as cp
+    from lambdapic_torch.ops.cell2d import deposit_cell_2d
+    for cap, nx, ny, g in ((6, 24, 40, 3), (20, 33, 18, 2), (4, 16, 16, 4)):
+        data, alive, _ = random_cell_state(cap, nx, ny, seed=cap, spread=0.99)
+        td, ta = to_torch(data, alive, dtype, cuda)
+        w = torch.where(ta, td["w"], 0.0)
+        args = [td[k] for k in ("x", "y", "ux", "uy", "uz", "inv_gamma")]
+        kw = dict(q=Q, dx=DX, dy=1.1 * DX, dt=DT, g=g)
+        ref = deposit_cell_2d(*args, w, **kw)
+        before = cp.deposit_cell_2d_k.launches
+        got = cp.deposit_cell_2d_k(*args, w, **kw)
+        torch.cuda.synchronize()
+        assert cp.deposit_cell_2d_k.launches == before + 1
+        torch.testing.assert_close(got, ref, rtol=0,
+                                   atol=tol * float(ref.abs().max()))
+
+
+def _stage_state(cap, nx, ny, n_frac, dtype, device, photon=False):
+    from lambdapic_torch.testing import add_qed_payloads, crowded_cell_state
+    data, alive, _ = crowded_cell_state(cap, nx, ny, n_frac=n_frac,
+                                        seed=cap + nx)
+    data = add_qed_payloads(data, seed=cap)
+    if photon:
+        u2 = data["ux"]**2 + data["uy"]**2 + data["uz"]**2
+        data["inv_gamma"] = np.where(u2 > 0, 1 / np.sqrt(np.maximum(
+            u2, 1e-30)), 1.0)
+    return to_torch(data, alive, dtype, device)
+
+
+def _assert_equal(got, ref):
+    assert sorted(got) == sorted(ref)
+    for k in ref:
+        assert torch.equal(got[k], ref[k]), k
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("cap,nx,ny,periodic,n_frac", STAGE_CASES)
+def test_b6_matches_plain(cuda, dtype, cap, nx, ny, periodic, n_frac):
+    from lambdapic_torch.ops import cellpallas as cp
+    from lambdapic_torch.ops.cell2d import migrate_cells
+    plan = ((nx, periodic[0], "x"), (ny, periodic[1], "y"))
+    for photon in (False, True):
+        td, ta = _stage_state(cap, nx, ny, n_frac, dtype, cuda, photon)
+        ref = migrate_cells(td, ta, plan, recompute_ig=not photon)
+        before = cp.migrate_axis.launches
+        got = cp.migrate_cells_fused(td, ta, plan, recompute_ig=not photon)
+        torch.cuda.synchronize()
+        assert cp.migrate_axis.launches == before + 2
+        assert torch.equal(got[1], ref[1])
+        _assert_equal(got[0], ref[0])
+        assert int(got[2]) == int(ref[2])
+        if n_frac > 0.8:
+            assert int(ref[2]) > 0
+
+
+@pytest.mark.parametrize("cap", [13, 16, 20])
+def test_b7_matches_plain(cuda, cap):
+    from lambdapic_torch.ops import cellpallas as cp
+    from lambdapic_torch.ops.cell2d import batcher_sort
+    rng = np.random.default_rng(cap)
+    shape = (cap, 17, 9)
+    key = torch.as_tensor(rng.integers(-3, 6, shape).astype(np.int32)).to(cuda)
+    pays = [torch.as_tensor(rng.normal(size=shape)).to(cuda),
+            torch.as_tensor(rng.normal(size=shape), dtype=torch.float32
+                            ).to(cuda),
+            torch.as_tensor(rng.integers(-2**31, 2**31, shape).astype(
+                np.int32)).to(cuda),
+            torch.as_tensor(rng.uniform(size=shape) < 0.5).to(cuda)]
+    rk, rp = batcher_sort(key, pays)
+    before = cp.sort_cells.launches
+    gk, gp = cp.sort_cells(key, pays)
+    torch.cuda.synchronize()
+    assert cp.sort_cells.launches == before + 1
+    assert torch.equal(gk, rk)
+    for a, b in zip(gp, rp):
+        assert torch.equal(a, b)
+
+
+def test_per_stage_wrappers_reject_bad_operands(cuda):
+    from lambdapic_torch.ops import cellpallas as cp
+    data, alive, eb = random_cell_state(4, 16, 16)
+    td, ta = to_torch(data, alive, torch.float64, cuda)
+    eb = torch.as_tensor(eb).to(cuda)
+    with pytest.raises(ValueError):
+        cp.fused_push_cell_2d(eb, td["x"].float(), td["y"], td["ux"],
+                              td["uy"], td["uz"], q=Q, m=M, dt=DT, dx=DX,
+                              dy=DX, g=3)
+    with pytest.raises(ValueError):
+        cp.sort_cells(torch.zeros((4, 16, 16), dtype=torch.int64,
+                                  device=cuda), [])
+    with pytest.raises(ValueError):
+        cp.deposit_cell_2d_k(*[td[k].transpose(1, 2) for k in ("x", "y", "ux", "uy",
+                                                   "uz", "inv_gamma", "w")],
+                             q=Q, dx=DX, dy=DX, dt=DT, g=3)
+
+
+def test_per_stage_simulation_on_card_matches_cpu(cuda):
+    """Six float64 steps of the tiny laser-target through Simulation.run
+    with cell_migration="exact", and four split steps (an _interpolator
+    callback), each through the kernels on the card against the plain
+    path on the CPU."""
+    import lambdapic_torch
+    from lambdapic_torch.core import species as t_species
+    from lambdapic_torch.core.state import state_to_numpy
+    from lambdapic_torch.ops import cellpallas as cp
+    from lambdapic_torch.testing import tiny_laser_target
+    probe = lambdapic_torch.callback(stage="_interpolator")(lambda s: None)
+    for kw, cbs in ((dict(cell_migration="exact"), []), ({}, [probe])):
+        states = []
+        for dev in ("cpu", cuda):
+            t_species._ALL_SPECIES.clear()
+            sim, laser = tiny_laser_target(lambdapic_torch, device=dev, **kw)
+            before = (cp.fused_push_cell_2d.launches,
+                      cp.migrate_axis.launches)
+            sim.run(6, callbacks=[laser, *cbs])
+            states.append(state_to_numpy(sim.state))
+        if cbs:
+            assert cp.migrate_axis.launches == before[1] + 6 * 2 * 2
+        else:
+            assert cp.fused_push_cell_2d.launches == before[0] + 6 * 2
+        ref, got = states
+        for k in ("ex", "ey", "ez", "bx", "by", "bz", "jx", "jy", "jz"):
+            a, b = getattr(got.fields, k), getattr(ref.fields, k)
+            np.testing.assert_allclose(a, b, rtol=1e-9,
+                                       atol=1e-9 * np.abs(b).max(), err_msg=k)
+        for pr, pg in zip(ref.particles, got.particles):
+            assert int(pr.overflow.sum()) == int(pg.overflow.sum())
+            compare_slots({k: v[0, 0] for k, v in pr.data.items()},
+                          pr.alive[0, 0],
+                          {k: v[0, 0] for k, v in pg.data.items()},
+                          pg.alive[0, 0], rtol=1e-9)
