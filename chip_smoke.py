@@ -5,7 +5,10 @@
                           [--window-qed W] [--steps3d N] [--window3d W]
                           [--steps-exact N] [--window-exact W]
                           [--steps-exact-qed N] [--steps-split N]
-                          [--steps-split-sort N]
+                          [--steps-split-sort N] [--steps-split3d N]
+                          [--steps-split-sort3d N] [--steps-exact3d N]
+                          [--window-exact3d W]
+    python3 chip_smoke.py --exact2d-digest N
 
 Phases (any failure exits non-zero):
 
@@ -46,18 +49,33 @@ Phases (any failure exits non-zero):
    LAMBDAPIC_MIG_FUSED=0: B7 6); then B4-B7 against their plain versions
    (float64 at small sizes, float32 at the 2D slice's shapes), the 2D
    slice with cell_migration="exact" (B1 4, B4 3, B5 3; every alive id
-   kept to step 1000 but those counted merged or dropped) and the QED
+   kept to step 401 but those counted merged or dropped) and the QED
    slice with cell_migration="exact" (B1 4, B4 2 = default + want_eb,
    B5 2; photons emitted), each timed and profiled, and B4-B7 timed at
-   the exact slice's final state.
+   the exact slice's final state;
+8. the per-stage engine in 3D: after phase 6 the 3D slice goes on through
+   split steps (a host callback at _push_momentum due every step:
+   launches per step B1 4, B6 6, B5 2; one split particle stage held
+   against one fused one on its last 128 x-planes; --steps-split-sort3d
+   more steps with LAMBDAPIC_MIG_FUSED=0: B7 6); then B4-B7 on 3D slots
+   against their plain versions (float64 at small sizes, float32 at the
+   3D slice's shapes), the 3D slice with cell_migration="exact" from its
+   fill (B1 4, B4 2, B5 2; every alive id kept but those counted merged
+   or dropped and those stored on an open face's edge), timed and
+   profiled, and B4-B7 in 3D timed at its final state.
 
-Prints a ``{"kernels": [...]}`` line with the 2D, the per-stage, the QED
-and the 3D kernels, the card's name and power limit, and as its last line
-``{"ok": true, "device": {...}}``.
+Prints a ``{"kernels": [...]}`` line with the 2D, the per-stage, the QED,
+the 3D and the 3D per-stage kernels, the card's name and power limit, and
+as its last line ``{"ok": true, "device": {...}}``.
+
+``--exact2d-digest N`` runs only the 2D slice with cell_migration="exact"
+for N steps and prints its peak device memory and a digest of its final
+state (to hold two versions of the exact re-binning to the same output).
 """
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import subprocess
 import sys
@@ -456,10 +474,12 @@ def reset_launches():
     for fn in (fieldskernel.update_half_k, cellslab.cell_step,
                cellslab.fold_reduce, cellpallas.fused_push_cell_2d,
                cellpallas.deposit_cell_2d_k, cellpallas.migrate_axis,
-               cellpallas.sort_cells):
+               cellpallas.sort_cells, cellpallas.fused_push_cell_3d,
+               cellpallas.deposit_cell_3d_k):
         fn.launches = 0
     for counts in (cellslab.cell_step.launches_by_mode,
-                   cellpallas.fused_push_cell_2d.launches_by_mode):
+                   cellpallas.fused_push_cell_2d.launches_by_mode,
+                   cellpallas.fused_push_cell_3d.launches_by_mode):
         for mode in counts:
             counts[mode] = 0
 
@@ -474,20 +494,24 @@ def all_launches():
             "B4": cp.fused_push_cell_2d.launches,
             "B4 want_eb": cp.fused_push_cell_2d.launches_by_mode["want_eb"],
             "B5": cp.deposit_cell_2d_k.launches,
-            "B6": cp.migrate_axis.launches, "B7": cp.sort_cells.launches}
+            "B6": cp.migrate_axis.launches, "B7": cp.sort_cells.launches,
+            "B4 3D": cp.fused_push_cell_3d.launches,
+            "B5 3D": cp.deposit_cell_3d_k.launches}
 
 
-def check_launches(tag, steps, per_step):
+def check_launches(tag, steps, per_step, into=None):
     """Fail unless each kernel launched ``per_step`` times a step (0 for
     kernels not named) over ``steps`` steps; add the per-stage kernels'
-    launches to STAGE_LAUNCHES. Returns the counts."""
+    launches to ``into`` (STAGE_LAUNCHES, the 2D rows, by default).
+    Returns the counts."""
     got = all_launches()
     want = {k: per_step.get(k, 0) * steps for k in got}
     log(f"[{tag}] launches in {steps} steps: {got}")
     if got != want:
         fail(f"{tag}: launch counts {got} != {want}")
-    for k in STAGE_LAUNCHES:
-        STAGE_LAUNCHES[k] += got[k]
+    into = STAGE_LAUNCHES if into is None else into
+    for k in into:
+        into[k] += got[k]
     return got
 
 
@@ -1282,6 +1306,61 @@ def _close(a, b, rtol, floor):
     return float(d.max()), ok
 
 
+def check_b6_f64(dev, cap, cells, per, frac):
+    """B6 (migrate_cells_fused) against its plain version in float64 on a
+    crowded 2D or 3D state with QED payloads, for a species that recomputes
+    inv_gamma and for a photon species that carries it: every array equal.
+    Returns the larger merge count."""
+    import torch
+    from lambdapic_torch.ops import cellpallas as cp
+    from lambdapic_torch.ops.cell2d import migrate_cells
+    from lambdapic_torch.testing import (add_qed_payloads, crowded_cell_state,
+                                         to_torch)
+    merges = 0
+    for photon in (False, True):
+        data, alive, _ = crowded_cell_state(cap, *cells, n_frac=frac,
+                                            seed=cap + cells[0])
+        data = add_qed_payloads(data, seed=cap)
+        if photon:
+            u2 = data["ux"]**2 + data["uy"]**2 + data["uz"]**2
+            data["inv_gamma"] = np.where(
+                u2 > 0, 1 / np.sqrt(np.maximum(u2, 1e-30)), 1.0)
+        td, ta = to_torch(data, alive, torch.float64, dev)
+        plan = tuple(zip(cells, per, "xyz"))
+        ref = migrate_cells(td, ta, plan, recompute_ig=not photon)
+        got = cp.migrate_cells_fused(td, ta, plan, recompute_ig=not photon)
+        same = torch.equal(got[1], ref[1]) and sorted(got[0]) == \
+            sorted(ref[0]) and all(torch.equal(got[0][k], ref[0][k])
+                                   for k in ref[0])
+        if not same or int(got[2]) != int(ref[2]):
+            fail(f"B6 f64 ({len(cells)}D, cap {cap}, periodic {per}, photon "
+                 f"{photon}) differs from its plain version")
+        merges = max(merges, int(ref[2]))
+    return merges
+
+
+def check_b7(dev, cap, shape):
+    """B7 against its plain version on slots of ``shape`` (any rank):
+    random int32 keys, float64, float32, int32 and bool payloads, every
+    array equal."""
+    import torch
+    from lambdapic_torch.ops import cellpallas as cp
+    from lambdapic_torch.ops.cell2d import batcher_sort
+    rng = np.random.default_rng(cap)
+    key = torch.as_tensor(rng.integers(-3, 6, shape).astype(np.int32)).to(dev)
+    pays = [torch.as_tensor(rng.normal(size=shape)).to(dev),
+            torch.as_tensor(rng.normal(size=shape), dtype=torch.float32
+                            ).to(dev),
+            torch.as_tensor(rng.integers(-2**31, 2**31, shape).astype(
+                np.int32)).to(dev),
+            torch.as_tensor(rng.uniform(size=shape) < 0.5).to(dev)]
+    rk, rp = batcher_sort(key, pays)
+    gk, gp = cp.sort_cells(key, pays)
+    if not (torch.equal(gk, rk) and all(torch.equal(a, b)
+                                        for a, b in zip(gp, rp))):
+        fail(f"B7 on slots {shape} differs from its plain version")
+
+
 def check_stage_f64(dev):
     """B4 (both modes, with and without the first half push) to rtol 1e-11,
     B5 to 1e-12 of the peak, B6 (periodic and open faces, merges, caps 4,
@@ -1291,10 +1370,8 @@ def check_stage_f64(dev):
     equal?, the largest B6 merge count)."""
     import torch
     from lambdapic_torch.ops import cellpallas as cp
-    from lambdapic_torch.ops.cell2d import (batcher_sort, deposit_cell_2d,
-                                            migrate_cells)
-    from lambdapic_torch.testing import (add_qed_payloads, crowded_cell_state,
-                                         random_cell_state, to_torch)
+    from lambdapic_torch.ops.cell2d import deposit_cell_2d
+    from lambdapic_torch.testing import random_cell_state, to_torch
     q, m, dt, d = -1.602e-19, 9.109e-31, 1.1e-16, 5e-8
     data, alive, eb = random_cell_state(5, 33, 18, seed=7, field=5e13)
     td, _ = to_torch(data, alive, torch.float64, dev)
@@ -1324,57 +1401,27 @@ def check_stage_f64(dev):
         err = float((got - ref).abs().max())
         if not err <= 1e-12 * float(ref.abs().max()):
             fail(f"B5 f64 differs from its plain version by {err:.3e}")
-    merges = 0
-    for cap, nx, ny, per, frac in STAGE_CASES:
-        for photon in (False, True):
-            data, alive, _ = crowded_cell_state(cap, nx, ny, n_frac=frac,
-                                                seed=cap + nx)
-            data = add_qed_payloads(data, seed=cap)
-            if photon:
-                u2 = data["ux"]**2 + data["uy"]**2 + data["uz"]**2
-                data["inv_gamma"] = np.where(
-                    u2 > 0, 1 / np.sqrt(np.maximum(u2, 1e-30)), 1.0)
-            td, ta = to_torch(data, alive, torch.float64, dev)
-            plan = ((nx, per[0], "x"), (ny, per[1], "y"))
-            ref = migrate_cells(td, ta, plan, recompute_ig=not photon)
-            got = cp.migrate_cells_fused(td, ta, plan, recompute_ig=not photon)
-            same = torch.equal(got[1], ref[1]) and sorted(got[0]) == \
-                sorted(ref[0]) and all(torch.equal(got[0][k], ref[0][k])
-                                       for k in ref[0])
-            if not same or int(got[2]) != int(ref[2]):
-                fail(f"B6 f64 (cap {cap}, periodic {per}, photon {photon}) "
-                     "differs from its plain version")
-            merges = max(merges, int(ref[2]))
+    merges = max(check_b6_f64(dev, cap, (nx, ny), per, frac)
+                 for cap, nx, ny, per, frac in STAGE_CASES)
     if merges == 0:
         fail("no B6 float64 case merged particles")
     for cap in (13, 16, 20):
-        rng = np.random.default_rng(cap)
-        shape = (cap, 17, 9)
-        key = torch.as_tensor(rng.integers(-3, 6, shape).astype(np.int32)
-                              ).to(dev)
-        pays = [torch.as_tensor(rng.normal(size=shape)).to(dev),
-                torch.as_tensor(rng.integers(-2**31, 2**31, shape).astype(
-                    np.int32)).to(dev),
-                torch.as_tensor(rng.uniform(size=shape) < 0.5).to(dev)]
-        rk, rp = batcher_sort(key, pays)
-        gk, gp = cp.sort_cells(key, pays)
-        if not (torch.equal(gk, rk) and all(torch.equal(a, b)
-                                            for a, b in zip(gp, rp))):
-            fail(f"B7 (cap {cap}) differs from its plain version")
+        check_b7(dev, cap, (cap, 17, 9))
     return bitwise, merges
 
 
 def five_way_key(pos, alive, axis):
     """The re-binning's 5-way key of ops/cell2d.py::migrate_cells along
-    ``axis`` (the sort key B7 takes on the split path)."""
+    ``axis`` of 2D or 3D slots (the sort key B7 takes on the split
+    path)."""
     import torch
     cap, nt = alive.shape[0], alive.shape[1 + axis]
-    ishape = [1, 1, 1]
+    ishape = [1] * alive.ndim
     ishape[1 + axis] = nt
     local = pos - torch.arange(nt, dtype=pos.dtype,
                                device=pos.device).reshape(ishape)
     parity = ((torch.arange(cap, device=alive.device) & 1) == 0
-              ).reshape(cap, 1, 1)
+              ).reshape([cap] + [1] * (alive.ndim - 1))
     key = torch.where(alive & (local >= 0.5), 0, torch.where(
         alive & (local < -0.5), 4, torch.where(
             alive, 2, torch.where(parity, 1, 3))))
@@ -1487,52 +1534,61 @@ def ids_of(p):
     return torch.sort(p.data["id_lo"][p.alive].to(torch.int64)).values
 
 
-def check_ids_kept(tag, ids0, ov0, sim):
+def check_ids_kept(tag, ids0, ov0, sim, gone=None):
     """Every alive id of the start is alive now, less one id a merge or
-    drop (the overflow count's advance); no id appears from nowhere."""
+    drop (the overflow count's advance) and the ``gone`` (per species,
+    default none) that left through an open face; no id appears from
+    nowhere."""
     import torch
     for i, p in enumerate(sim.state.particles):
         ids1 = ids_of(p)
         lost = int(p.overflow) - ov0[i]
-        ok = len(ids1) + lost == len(ids0[i]) and bool(
+        left = gone[i] if gone else 0
+        ok = len(ids1) + lost + left == len(ids0[i]) and bool(
             torch.isin(ids1, ids0[i]).all())
-        if lost == 0:
+        if lost == 0 and left == 0:
             ok = ok and torch.equal(ids1, ids0[i])
         log(f"[{tag}] {sim.species[i].name}: {len(ids0[i])} ids -> "
-            f"{len(ids1)} alive + {lost} merged or dropped; kept: {ok}")
+            f"{len(ids1)} alive + {lost} merged or dropped + {left} out "
+            f"through a face; kept: {ok}")
         if not ok:
             fail(f"{tag}: {sim.species[i].name} lost or gained ids")
 
 
 def stage_bounds(d, a, rd, ra, g):
     """Byte and operation bounds (ms) of B4 (both modes), B5, B6 (per axis
-    launch) and B7 on the timed inputs: each input read once, each output
-    written once; a dead slot's payloads are read where the answer
-    depends on them (B6 and B7 carry them), the E/B nodes the gather
-    reaches from occupied cells."""
+    launch) and B7 on the timed inputs of 2D or 3D slots: each input read
+    once, each output written once; a dead slot's payloads are read where
+    the answer depends on them (B6 and B7 carry them), the E/B nodes the
+    gather reaches from occupied cells. Returns {kernel: (bound ms,
+    "bytes" or "operations", bytes, flops)}."""
+    from lambdapic_torch.ops.cell2d import TRANSIENT
+    nd = ra.ndim - 1
     isz = d["x"].element_size()
     slots = a.numel()
     n_alive = int(ra.sum())
-    nodes = gather_nodes(ra, g) * isz
-    nxp = (ra.shape[1] + 2 * g) * (ra.shape[2] + 2 * g)
+    nodes = (gather_nodes if nd == 2 else gather_nodes_3d)(ra, g) * isz
+    nxp = int(np.prod([n + 2 * g for n in ra.shape[1:]]))
+    flops4, flops5 = (FLOPS_B4, FLOPS_B5) if nd == 2 else \
+        (FLOPS_B4_3D, FLOPS_B5_3D)
     out = {}
-    for tag, n_out in (("B4", 6), ("B4 want_eb", 12)):
-        nbytes = 5 * slots * isz + nodes + n_out * slots * isz
-        out[tag] = (nbytes, n_alive * FLOPS_B4)
-    # B5 reads w of every slot, the other six reals of the alive ones
-    out["B5"] = (slots * isz + 6 * n_alive * isz + 4 * nxp * isz,
-                 n_alive * FLOPS_B5)
-    from lambdapic_torch.ops.cell2d import TRANSIENT
+    # B4 reads the positions and momenta, writes them and inv_gamma (and
+    # the six fields with want_eb)
+    for tag, n_out in (("B4", nd + 4), ("B4 want_eb", nd + 10)):
+        nbytes = (nd + 3) * slots * isz + nodes + n_out * slots * isz
+        out[tag] = (nbytes, n_alive * flops4)
+    # B5 reads w of every slot, the positions, momenta and inv_gamma of the
+    # alive ones
+    out["B5"] = (slots * isz + (nd + 4) * n_alive * isz + 4 * nxp * isz,
+                 n_alive * flops5)
     pay = sum(v.element_size() for k, v in d.items() if k not in TRANSIENT)
     out["B6"] = (2 * slots * (1 + pay), 0)
-    pay7 = sum(v.element_size() for k, v in d.items()
-               if k not in TRANSIENT) + 4
-    out["B7"] = (2 * slots * pay7, 0)
+    out["B7"] = (2 * slots * (pay + 4), 0)
     res = {}
     for k, (nbytes, flops) in out.items():
         b_ms, o_ms = nbytes / HBM_BPS * 1e3, flops / F32_FLOPS * 1e3
         res[k] = (max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations",
-                  nbytes)
+                  nbytes, flops)
     return res
 
 
@@ -1576,7 +1632,7 @@ def time_stage_kernels(sim, iters):
         dev_ms, wall = kernel_ms(fn, iters, funcs)
         ms = (dev_ms or wall) / per_call
         plain = cuda_time(plain_fn, 1) / per_call
-        bound, by, nbytes = bounds[tag]
+        bound, by, nbytes, _ = bounds[tag]
         STAGE.setdefault("time", {})[tag] = dict(ms=ms, plain_ms=plain,
                                                  bound_ms=bound, bound_by=by)
         log(f"[time {tag}] device {ms:.4f} ms per launch (wall "
@@ -1590,7 +1646,7 @@ def stage_rows():
     src = {"B4": ("B4 gather+Boris+push 2D", "push2d.cu", "cellpallas.py:308"),
            "B4 want_eb": ("B4 want_eb 2D", "push2d.cu", "cellpallas.py:308"),
            "B5": ("B5 deposit 2D", "deposit2d.cu", "cellpallas.py:420"),
-           "B6": ("B6 re-binning axis 2D", "migrate2d.cu",
+           "B6": ("B6 re-binning axis 2D", "migrate.cu",
                   "cellpallas.py:860"),
            "B7": ("B7 slot sort", "sortcells.cu", "cellpallas.py:769")}
     rows = []
@@ -1626,6 +1682,7 @@ def run_exact(args, dev):
         f"{[p.cap for p in sim.state.particles]}")
     STAGE["err"] = check_stage_f32(sim)
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
 
     # -- the main path: exact re-binning + B4 + B5 per species ---------------
     steps = args.steps_exact
@@ -1668,6 +1725,39 @@ def run_exact(args, dev):
     time_stage_kernels(sim, args.iters)
     del sim
     torch.cuda.empty_cache()
+
+
+def exact2d_digest(steps, dev):
+    """The 2D slice with cell_migration="exact" for ``steps`` steps from
+    its fill, alone: the peak device memory of those steps and a SHA-256
+    digest of the final state (every field and particle array, bytes as
+    stored), which holds two versions of the exact re-binning to the same
+    output when each runs this on one card."""
+    import hashlib
+    import torch
+    sim, laser = make_slice(dev, cell_migration="exact")
+    sim.initialize()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.time()
+    sim.run(nsteps=steps, callbacks=[laser])
+    torch.cuda.synchronize()
+    t1 = time.time()
+    h = hashlib.sha256()
+    f = sim.state.fields
+    for k in ("ex", "ey", "ez", "bx", "by", "bz", "jx", "jy", "jz", "rho"):
+        h.update(getattr(f, k).cpu().numpy().tobytes())
+    for p in sim.state.particles:
+        for k in sorted(p.data):
+            h.update(p.data[k].cpu().numpy().tobytes())
+        h.update(p.alive.cpu().numpy().tobytes())
+        h.update(p.overflow.cpu().numpy().tobytes())
+    log(f"[exact2d digest] {steps} steps in {t1 - t0:.2f} s; state "
+        f"{base / 2**30:.3f} GiB, peak {torch.cuda.max_memory_allocated() / 2**30:.3f}"
+        f" GiB; overflow {[int(p.overflow) for p in sim.state.particles]}; "
+        f"sha256 {h.hexdigest()}")
 
 
 def run_exact_qed(args, dev):
@@ -1715,16 +1805,97 @@ def run_exact_qed(args, dev):
     torch.cuda.empty_cache()
 
 
-def clone_state(st):
+def clone_state(st, device=None):
+    """A copy of a SimulationState, on ``device`` (the state's own when
+    None)."""
+    def cp(t):
+        return t.clone() if device is None else t.to(device, copy=True)
     fl = st.fields
     names = ("ex", "ey", "ez", "bx", "by", "bz", "jx", "jy", "jz", "rho")
-    fields = fl.replace(psi={k: v.clone() for k, v in fl.psi.items()},
-                        **{k: getattr(fl, k).clone() for k in names})
-    parts = tuple(p.replace(data={k: v.clone() for k, v in p.data.items()},
-                            alive=p.alive.clone(), next_id=p.next_id.clone(),
-                            overflow=p.overflow.clone())
+    fields = fl.replace(psi={k: cp(v) for k, v in fl.psi.items()},
+                        **{k: cp(getattr(fl, k)) for k in names})
+    parts = tuple(p.replace(data={k: cp(v) for k, v in p.data.items()},
+                            alive=cp(p.alive), next_id=cp(p.next_id),
+                            overflow=cp(p.overflow))
                   for p in st.particles)
     return st.replace(fields=fields, particles=parts)
+
+
+def check_split_fused(tag, split, fused, currents):
+    """Hold the state after a split particle stage against the state after
+    a fused one: alive masks, ids and merge counts equal, the particles'
+    values within rtol 1e-5 (a floor of 1e-6 of the peak), the
+    ``currents`` within 1e-5 of their peak. Returns (the largest value
+    difference, the largest current difference over its peak)."""
+    import torch
+    worst = 0.0
+    for i, (ps, pf) in enumerate(zip(split.particles, fused.particles)):
+        if not (torch.equal(ps.alive, pf.alive) and all(
+                torch.equal(ps.data[k][ps.alive], pf.data[k][pf.alive])
+                for k in ("id_lo", "id_hi"))):
+            fail(f"{tag}: species {i} alive masks or ids differ")
+        if int(ps.overflow) != int(pf.overflow):
+            fail(f"{tag}: species {i} merge counts differ")
+        for k in ("x", "y", "z", "w", "ux", "uy", "uz", "inv_gamma"):
+            e, ok = _close(ps.data[k][ps.alive], pf.data[k][pf.alive], 1e-5,
+                           1e-6)
+            worst = max(worst, e)
+            if not ok:
+                fail(f"{tag}: species {i} {k} differs by {e:.3e}")
+    jerr = 0.0
+    for k in currents:
+        a, b = getattr(split.fields, k), getattr(fused.fields, k)
+        e = float((a - b).abs().max())
+        peak = max(float(b.abs().max()), 1e-300)
+        jerr = max(jerr, e / peak)
+        if not e <= 1e-5 * peak:
+            fail(f"{tag}: {k} differs by {e:.3e}")
+    return worst, jerr
+
+
+def sub_segment_ms(sim, callbacks, reps, tag):
+    """Wall ms of each sub-segment of a split step, with the card
+    synchronised at every boundary (device work included; the host's
+    share is the step's idle share), the mean of ``reps`` steps run
+    through Simulation.run with ``callbacks``."""
+    import torch
+    from lambdapic_torch import callback
+    marks = []
+    stages = ("maxwell_1", "_push_position_1", "_interpolator", "_qed",
+              "_push_momentum", "_push_position_2", "current_deposition",
+              "end")
+
+    def mark(s):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+    probes = [callback(stage=st)(mark) for st in ("start",) + stages]
+    sim.run(nsteps=reps, callbacks=list(callbacks) + probes)
+    per = np.diff(np.array(marks).reshape(reps, -1), axis=1).mean(0) * 1e3
+    names = ("fields 1", "p1", "interp", "qed", "mom", "p2", "deposit",
+             "fields 2")
+    log(f"[{tag}] sub-segment wall ms (card synchronised at each boundary, "
+        f"mean of {reps} steps): " + ", ".join(
+            f"{nm} {v:.3f}" for nm, v in zip(names, per)))
+
+
+def split_steps_sorted(sim, callbacks, n, tag, per_step, into=None):
+    """``n`` split steps through Simulation.run with LAMBDAPIC_MIG_FUSED=0
+    (the fast re-binning sorting through B7 instead of B6), their
+    launches checked against ``per_step`` (see check_launches)."""
+    import os
+    import torch
+    os.environ["LAMBDAPIC_MIG_FUSED"] = "0"
+    try:
+        reset_launches()
+        t0 = time.time()
+        sim.run(nsteps=n, callbacks=callbacks)
+        torch.cuda.synchronize()
+        t1 = time.time()
+    finally:
+        del os.environ["LAMBDAPIC_MIG_FUSED"]
+    check_launches(tag, n, per_step, into=into)
+    log(f"[{tag}] {n} split steps with LAMBDAPIC_MIG_FUSED=0: "
+        f"{(t1 - t0) * 1e3 / n:.3f} ms a step (host clock, synchronised)")
 
 
 def run_split(args, sim, laser):
@@ -1734,7 +1905,6 @@ def run_split(args, sim, laser):
     split step against one fused (B2) step from a cloned state, then
     --steps-split steps through Simulation.run, then --steps-split-sort
     steps with LAMBDAPIC_MIG_FUSED=0 (B7 instead of B6)."""
-    import os
     import torch
     from lambdapic_torch import callback
     hook = callback(stage="_push_momentum")(lambda s: None)
@@ -1749,28 +1919,8 @@ def run_split(args, sim, laser):
     fused = sim.state
     sim.recap_interval = recap
     torch.cuda.synchronize()
-    worst = 0.0
-    for i, (ps, pf) in enumerate(zip(split.particles, fused.particles)):
-        if not (torch.equal(ps.alive, pf.alive) and all(
-                torch.equal(ps.data[k][ps.alive], pf.data[k][pf.alive])
-                for k in ("id_lo", "id_hi"))):
-            fail(f"split vs fused: species {i} alive masks or ids differ")
-        if int(ps.overflow) != int(pf.overflow):
-            fail(f"split vs fused: species {i} merge counts differ")
-        for k in ("x", "y", "z", "w", "ux", "uy", "uz", "inv_gamma"):
-            e, ok = _close(ps.data[k][ps.alive], pf.data[k][pf.alive], 1e-5,
-                           1e-6)
-            worst = max(worst, e)
-            if not ok:
-                fail(f"split vs fused: species {i} {k} differs by {e:.3e}")
-    jerr = 0.0
-    for k in ("jx", "jy", "jz"):
-        a, b = getattr(split.fields, k), getattr(fused.fields, k)
-        e = float((a - b).abs().max())
-        peak = max(float(b.abs().max()), 1e-300)
-        jerr = max(jerr, e / peak)
-        if not e <= 1e-5 * peak:
-            fail(f"split vs fused: {k} differs by {e:.3e}")
+    worst, jerr = check_split_fused("split vs fused", split, fused,
+                                    ("jx", "jy", "jz"))
     log(f"[slice split] one split step vs one fused (B2) step from step "
         f"{itime}: alive masks, ids and merges equal; particle values within "
         f"rtol 1e-5 (largest difference {worst:.3e}); J within "
@@ -1793,41 +1943,11 @@ def run_split(args, sim, laser):
     busy_per_step(lambda: sim.run(nsteps=1, callbacks=[laser, hook]),
                   {"e_half": 2, "b_half": 2, "migrate_axis": 6,
                    "deposit<": 3, "fold_pad": 3}, 5, "profile split", step_ms)
-    # wall time of each sub-segment, with the card synchronised at every
-    # boundary (device work included; the host's share is the step's idle
-    # share above)
-    marks = []
-    stages = ("maxwell_1", "_push_position_1", "_interpolator", "_qed",
-              "_push_momentum", "_push_position_2", "current_deposition",
-              "end")
-
-    def mark(s):
-        torch.cuda.synchronize()
-        marks.append(time.perf_counter())
-    probes = [callback(stage=st)(mark) for st in ("start",) + stages]
-    reps = 5
-    sim.run(nsteps=reps, callbacks=[laser, hook] + probes)
-    per = np.diff(np.array(marks).reshape(reps, -1), axis=1).mean(0) * 1e3
-    names = ("fields 1", "p1", "interp", "qed", "mom", "p2", "deposit",
-             "fields 2")
-    log("[slice split] sub-segment wall ms (card synchronised at each "
-        "boundary, mean of 5 steps): " + ", ".join(
-            f"{nm} {v:.3f}" for nm, v in zip(names, per)))
+    sub_segment_ms(sim, [laser, hook], 5, "slice split")
 
     # -- the re-binning through B7 ---------------------------------------------
-    n = args.steps_split_sort
-    os.environ["LAMBDAPIC_MIG_FUSED"] = "0"
-    try:
-        reset_launches()
-        t0 = time.time()
-        sim.run(nsteps=n, callbacks=[laser, hook])
-        torch.cuda.synchronize()
-        t1 = time.time()
-    finally:
-        del os.environ["LAMBDAPIC_MIG_FUSED"]
-    check_launches("slice split B7", n, {"B1": 4, "B5": 3, "B7": 6})
-    log(f"[slice split B7] {n} split steps with LAMBDAPIC_MIG_FUSED=0: "
-        f"{(t1 - t0) * 1e3 / n:.3f} ms a step (host clock, synchronised)")
+    split_steps_sorted(sim, [laser, hook], args.steps_split_sort,
+                       "slice split B7", {"B1": 4, "B5": 3, "B7": 6})
     for k in ("ex", "ey", "ez", "bx", "by", "bz", "jx", "jy", "jz"):
         if not bool(torch.isfinite(getattr(sim.state.fields, k)).all()):
             fail(f"split: field {k} is not finite")
@@ -1988,7 +2108,8 @@ def compare_b2_f32_3d(sim, dev):
 def run_3d(args, dev):
     """Phase 5: the 3D kernels against their plain versions, the 3D slice
     through Simulation3D.run, and the 3D kernels' times and bounds;
-    returns the 3D kernels' entries of the ``kernels`` line."""
+    returns the 3D kernels' entries of the ``kernels`` line, the slice's
+    Simulation3D and laser, and a host copy of its fill."""
     import torch
     from lambdapic_torch.ops import cellslab, fieldskernel, maxwell
     from lambdapic_torch.ops.cellslab import (cell_step, cell_step_plain,
@@ -2046,6 +2167,13 @@ def run_3d(args, dev):
         f"{errs['B3']:.3e} of peak {float(jr.abs().max()):.3e}")
     del rims, jr, jk
     torch.cuda.empty_cache()
+    # the fill, kept on the host for the exact 3D slice (run_exact_3d),
+    # with the laser as it starts (a laser switches itself off for good
+    # once its time is up)
+    t0 = time.time()
+    fill = dict(state=clone_state(sim.state, "cpu"),
+                static=list(sim._species_static), laser=copy.deepcopy(laser))
+    log(f"[slice 3D] fill copied to the host in {time.time() - t0:.1f} s")
 
     # -- the main path ---------------------------------------------------------
     # The plasma fills the box from x = 1 um to its open faces and starts
@@ -2231,7 +2359,443 @@ def run_3d(args, dev):
              library_ms=None),
     ]
     log(f"[kernels 3D] launches per step {per_step}")
-    return kernels
+    return kernels, sim, laser, fill
+
+# ---------------------------------------------------------------------------
+# the per-stage engine in 3D: kernels B4-B7 on 3D slots, the 3D slice with
+# exact migration and the 3D slice's split step
+# ---------------------------------------------------------------------------
+
+# B4's and B5's floating-point work per alive particle in 3D, counted from
+# csrc/push3d.cu and csrc/cell3d.cuh as for B2 in 3D: B4 21 spline weights
+# and six staggered gathers of 36-48 taps (about 900), Boris (about 60) and
+# the half push (about 9); B5 30 Esirkepov shapes with their derived taps
+# and 125 nodes of four channels (about 2300)
+FLOPS_B4_3D = 970
+FLOPS_B5_3D = 2300
+# launches of the per-stage kernels on the 3D per-stage paths (exact 3D,
+# split 3D, split 3D with LAMBDAPIC_MIG_FUSED=0), summed for the kernels
+# line; their float32 errors and times, filled by the phases
+STAGE3_LAUNCHES = {"B4 3D": 0, "B5 3D": 0, "B6": 0, "B7": 0}
+STAGE3 = {}
+KERNEL_FUNCS.update({"B4 3D": {"push3d": 1},
+                     "B5 3D": {"deposit3d": 1, "fold_pad3": 1},
+                     "B6 3D": {"migrate_axis": 3}})
+# the float64 cases of tests/test_torch_kernels3d.py
+STAGE3_CASES = [(4, 12, 7, 9, (True, True, True), 0.9),
+                (13, 9, 6, 5, (False, True, False), 0.5),
+                (16, 9, 5, 6, (True, False, True), 0.9),
+                (20, 6, 5, 7, (False, False, False), 1.0)]
+# B5's plain version holds some 90 arrays of the slots' size (the taps of
+# the 125 offsets), so at the 3D slice's size it is held against the
+# kernel, and timed, on the last STAGE3_PLANES x-planes; the split step is
+# held against the fused step on as many planes (a clone of the state at 8
+# slots a cell does not fit beside it)
+STAGE3_PLANES = 128
+
+
+def check_stage3_f64(dev):
+    """B4 in 3D (both modes, with and without the first half push)
+    bitwise, B5 in 3D within 1e-12 of the peak, B6 on 3D slots (caps 4,
+    13, 16, 20, periodic and open faces, merges, a photon species' carried
+    inv_gamma) and B7 on 3D slots (caps 4-20; float, int32 and bool
+    payloads) array for array, all against their plain versions in
+    float64 at small sizes. Returns the largest B6 merge count."""
+    import torch
+    from lambdapic_torch.ops import cellpallas as cp
+    from lambdapic_torch.ops.cell3d import deposit_cell_3d
+    from lambdapic_torch.testing import random_cell_state, to_torch
+    q, m, dt = -1.602e-19, 9.109e-31, 1.1e-16
+    dx, dy, dz = 5e-8, 6e-8, 5.5e-8
+    data, alive, eb = random_cell_state(5, 13, 10, 9, seed=7, field=5e13)
+    td, _ = to_torch(data, alive, torch.float64, dev)
+    eb = torch.as_tensor(eb).to(dev)
+    args = [td[k] for k in ("x", "y", "z", "ux", "uy", "uz")]
+    for want_eb in (False, True):
+        for do_pos1 in (False, True):
+            kw = dict(q=q, m=m, dt=dt, dx=dx, dy=dy, dz=dz, g=3,
+                      want_eb=want_eb, do_pos1=do_pos1)
+            ref = cp.fused_push_cell_3d_plain(eb, *args, **kw)
+            got = cp.fused_push_cell_3d(eb, *args, **kw)
+            if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+                fail(f"B4 3D f64 (want_eb {want_eb}, do_pos1 {do_pos1}) "
+                     "differs from its plain version")
+    for cap, nx, ny, nz, g in ((4, 16, 8, 8, 3), (6, 10, 18, 9, 2),
+                               (20, 9, 8, 11, 4)):
+        data, alive, _ = random_cell_state(cap, nx, ny, nz, seed=cap,
+                                           spread=0.99)
+        td, ta = to_torch(data, alive, torch.float64, dev)
+        w = torch.where(ta, td["w"], 0.0)
+        a8 = [td[k] for k in ("x", "y", "z", "ux", "uy", "uz",
+                              "inv_gamma")] + [w]
+        kw = dict(q=q, dx=dx, dy=dy, dz=dz, dt=dt, g=g)
+        ref = deposit_cell_3d(*a8, **kw)
+        got = cp.deposit_cell_3d_k(*a8, **kw)
+        err = float((got - ref).abs().max())
+        if not err <= 1e-12 * float(ref.abs().max()):
+            fail(f"B5 3D f64 differs from its plain version by {err:.3e}")
+    merges = max(check_b6_f64(dev, cap, (nx, ny, nz), per, frac)
+                 for cap, nx, ny, nz, per, frac in STAGE3_CASES)
+    if merges == 0:
+        fail("no B6 3D float64 case merged particles")
+    for cap in (4, 7, 13, 16, 20):
+        check_b7(dev, cap, (cap, 9, 7, 5))
+    return merges
+
+
+def stage3_inputs(sim, p):
+    """The per-stage kernels' inputs from one species ``p`` of a 3D
+    slice: its slots with the first half push applied (B6's and B7's
+    input), and those re-binned by the plain version (B4's and B5's
+    input). Returns (pushed data, alive, re-binned data, alive)."""
+    from lambdapic_torch.constants import c
+    from lambdapic_torch.ops.cell2d import migrate_cells
+    from lambdapic_torch.ops.pusher import push_position_3d
+    grid = sim.grid
+    d = dict(p.data)
+    h = [c * sim.dt / dd / 2 for dd in grid.deltas]
+    d["x"], d["y"], d["z"] = push_position_3d(
+        d["x"], d["y"], d["z"], d["ux"], d["uy"], d["uz"], d["inv_gamma"],
+        *h)
+    plan = tuple(zip(grid.shape, grid.periodic_axes, "xyz"))
+    rd, ra, _ = migrate_cells(d, p.alive, plan)
+    return d, p.alive, rd, ra
+
+
+def last_planes(ts, x0, xs=()):
+    """The x-planes from x0 on of the slot arrays ``ts`` (contiguous),
+    positions in ``xs`` (indices into ``ts``) re-based to the cut."""
+    out = [t[:, x0:].contiguous() for t in ts]
+    for i in xs:
+        out[i] = out[i] - float(x0)
+    return out
+
+
+def check_stage3_f32(sim):
+    """B4-B7 against their plain versions at the 3D slice's shapes
+    (512 x 256 x 256, float32), on its electrons given momenta by one B2
+    step in strong random fields: B6 (a step that re-bins) and B7 equal
+    array for array (alive masks, ids and payloads), B4 bitwise, B5 on
+    the last STAGE3_PLANES x-planes to 1e-5 of the current's peak.
+    Returns the largest absolute errors."""
+    import torch
+    from lambdapic_torch.ops import cellpallas as cp
+    from lambdapic_torch.ops.cell2d import TRANSIENT, batcher_sort, \
+        migrate_cells
+    from lambdapic_torch.ops.cell3d import deposit_cell_3d
+    from lambdapic_torch.ops.cellslab import cell_step
+    grid = sim.grid
+    g = grid.n_guard
+    per = grid.periodic_axes
+    sp = sim._species_static[0]
+    dev = sim.device
+    gen = torch.Generator(device=dev).manual_seed(2)
+    eb_pad = (torch.rand((6,) + tuple(n + 2 * g for n in grid.shape),
+                         generator=gen, device=dev) - 0.5) * 1e14
+    p0 = sim.state.particles[0]
+    data, alive = cell_step(eb_pad, p0.data, p0.alive, q=sp.q, m=sp.m,
+                            dt=sim.dt, dx=grid.dx, dy=grid.dy, dz=grid.dz,
+                            g=g, periodic=per, with_rho=False)[:2]
+    d, a, _, _ = stage3_inputs(sim, p0.replace(data=data, alive=alive))
+    del data, alive
+    plan = tuple(zip(grid.shape, per, "xyz"))
+    ref = migrate_cells(d, a, plan)
+    got = cp.migrate_cells_fused(d, a, plan)
+    torch.cuda.synchronize()
+    moved = int((got[1] != a).sum())
+    same = torch.equal(got[1], ref[1]) and all(
+        torch.equal(got[0][k], ref[0][k]) for k in ref[0])
+    log(f"[B6 f32 3D] {moved} slots changed occupancy, merges "
+        f"{int(got[2])} (plain {int(ref[2])}); every array equal: {same}")
+    if moved == 0 or not same or int(got[2]) != int(ref[2]):
+        fail("B6 3D float32 differs from its plain version (or moved "
+             "nothing)")
+    del got
+    names = sorted(k for k in d if k not in TRANSIENT)
+    key = five_way_key(d["x"], a, 0)
+    rk, rp = batcher_sort(key, [d[k] for k in names])
+    gk, gp = cp.sort_cells(key, [d[k] for k in names])
+    if not (torch.equal(gk, rk) and all(torch.equal(x, y)
+                                        for x, y in zip(gp, rp))):
+        fail("B7 float32 on 3D slots differs from its plain version")
+    log(f"[B7 f32 3D] {len(names)} payloads sorted by the x key: equal")
+    del gp, rp, gk, rk, key, d
+    rd, ra = ref[0], ref[1]
+    args = [rd[k] for k in ("x", "y", "z", "ux", "uy", "uz")]
+    kw = dict(q=sp.q, m=sp.m, dt=sim.dt, dx=grid.dx, dy=grid.dy, dz=grid.dz,
+              g=g, want_eb=False, do_pos1=False)
+    r4 = cp.fused_push_cell_3d_plain(eb_pad, *args, **kw)
+    g4 = cp.fused_push_cell_3d(eb_pad, *args, **kw)
+    err4 = max(float((x - y).abs().max()) for x, y in zip(g4, r4))
+    bitwise = all(torch.equal(x, y) for x, y in zip(g4, r4))
+    log(f"[B4 3D f32] max abs {err4:.3e}; bitwise equal: {bitwise}")
+    if not bitwise:
+        fail("B4 3D float32 differs from its plain version")
+    del g4, args
+    x0 = grid.nx - STAGE3_PLANES
+    w = torch.where(ra, rd["w"], 0.0)
+    a8 = last_planes(list(r4) + [w], x0, xs=(0,))
+    del r4, w, ref, rd
+    kw = dict(q=sp.q, dx=grid.dx, dy=grid.dy, dz=grid.dz, dt=sim.dt, g=g)
+    r5 = deposit_cell_3d(*a8, **kw)
+    g5 = cp.deposit_cell_3d_k(*a8, **kw)
+    err5 = float((g5 - r5).abs().max())
+    scale = float(r5.abs().max())
+    log(f"[B5 3D f32 last {STAGE3_PLANES} x-planes] max abs {err5:.3e} of "
+        f"peak {scale:.3e}")
+    if not (scale > 0 and err5 <= 1e-5 * scale):
+        fail(f"B5 3D float32 differs: {err5:.3e} > 1e-5 x {scale:.3e}")
+    return {"B4 3D": err4, "B5 3D": err5, "B6": 0.0, "B7": 0.0}
+
+
+def time_stage3_kernels(sim, iters):
+    """Device ms per launch of B4 in 3D, B5 in 3D, B6 (per axis) and B7
+    on the electrons of the 3D slice's present state, their plain
+    versions' ms (one call, CUDA events; B5's on the last STAGE3_PLANES
+    x-planes, beside the kernel's time there) and their bounds; stored in
+    STAGE3."""
+    import torch
+    from lambdapic_torch.ops import cellpallas as cp
+    from lambdapic_torch.ops.cell2d import TRANSIENT, batcher_sort, \
+        migrate_cells
+    from lambdapic_torch.ops.cell3d import deposit_cell_3d
+    grid = sim.grid
+    g = grid.n_guard
+    sp = sim._species_static[0]
+    d, a, rd, ra = stage3_inputs(sim, sim.state.particles[0])
+    eb_pad = sim._builder.pad_eb(sim.state.fields)
+    plan = tuple(zip(grid.shape, grid.periodic_axes, "xyz"))
+    args = [rd[k] for k in ("x", "y", "z", "ux", "uy", "uz")]
+    w = torch.where(ra, rd["w"], 0.0)
+    a8 = [rd[k] for k in ("x", "y", "z", "ux", "uy", "uz", "inv_gamma")] \
+        + [w]
+    k5 = dict(q=sp.q, dx=grid.dx, dy=grid.dy, dz=grid.dz, dt=sim.dt, g=g)
+    names = sorted(k for k in d if k not in TRANSIENT)
+    key = five_way_key(d["x"], a, 0)
+    pays = [d[k] for k in names]
+    k4 = dict(q=sp.q, m=sp.m, dt=sim.dt, dx=grid.dx, dy=grid.dy, dz=grid.dz,
+              g=g, want_eb=False, do_pos1=False)
+    calls = {
+        "B4 3D": ("B4 3D", lambda: cp.fused_push_cell_3d(eb_pad, *args, **k4),
+                  lambda: cp.fused_push_cell_3d_plain(eb_pad, *args, **k4),
+                  1),
+        "B5 3D": ("B5 3D", lambda: cp.deposit_cell_3d_k(*a8, **k5), None, 1),
+        "B6": ("B6 3D", lambda: cp.migrate_cells_fused(d, a, plan),
+               lambda: migrate_cells(d, a, plan), 3),
+        "B7": ("B7", lambda: cp.sort_cells(key, pays),
+               lambda: batcher_sort(key, pays), 1)}
+    bounds = stage_bounds(d, a, rd, ra, g)
+    n_alive = int(ra.sum())
+    for tag, (funcs, fn, plain_fn, per_call) in calls.items():
+        dev_ms, wall = kernel_ms(fn, iters, funcs)
+        ms = (dev_ms or wall) / per_call
+        extra = {}
+        if plain_fn is None:
+            # B5: plain and kernel on the last STAGE3_PLANES x-planes
+            sub = last_planes(a8, grid.nx - STAGE3_PLANES, xs=(0,))
+            torch.cuda.empty_cache()
+            plain = cuda_time(lambda: deposit_cell_3d(*sub, **k5), 1)
+            sub_ms = cuda_time(lambda: cp.deposit_cell_3d_k(*sub, **k5),
+                               iters)
+            extra = dict(plain_cells=[STAGE3_PLANES] + list(grid.shape[1:]),
+                         ms_at_plain_cells=sub_ms)
+            del sub
+        else:
+            plain = cuda_time(plain_fn, 1) / per_call
+        torch.cuda.empty_cache()
+        bound, by, nbytes, flops = bounds[tag.replace(" 3D", "")]
+        STAGE3.setdefault("time", {})[tag] = dict(
+            ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, **extra)
+        log(f"[time {tag}] device {ms:.4f} ms per launch (wall "
+            f"{wall / per_call:.4f}); plain {plain:.3f} ms{' on ' + str(extra['plain_cells']) + ' cells (kernel there %.4f ms)' % extra['ms_at_plain_cells'] if extra else ''}; "
+            f"bound {bound:.5f} ms ({by}: {nbytes} bytes, {flops} flops; "
+            f"{n_alive} of {ra.numel()} slots alive, {ra.shape[0]} a cell); "
+            f"{ms / bound:.1f}x the bound")
+
+
+def stage3_rows():
+    """The kernels line's rows of B4-B7 in 3D."""
+    src = {"B4 3D": ("B4 gather+Boris+push 3D", "push3d.cu",
+                     "cellpallas.py:523"),
+           "B5 3D": ("B5 deposit 3D", "deposit3d.cu", "cellpallas.py:635"),
+           "B6": ("B6 re-binning axis 3D", "migrate.cu", "cellpallas.py:860"),
+           "B7": ("B7 slot sort 3D", "sortcells.cu", "cellpallas.py:769")}
+    rows = []
+    for tag, (name, cu, rep) in src.items():
+        t = dict(STAGE3["time"][tag])
+        rows.append(dict(
+            name=name, route="cuda", source=f"lambdapic_torch/csrc/{cu}",
+            replaces=f"lambdapic_tpu/ops/{rep}",
+            launches=STAGE3_LAUNCHES[tag], max_abs_err=STAGE3["err"][tag],
+            library_ms=None, **t))
+    return rows
+
+
+def compare_split_fused_3d(sim):
+    """One split particle stage (the sub-stages one by one: B6, the plain
+    gather and Boris, B5) against one fused one (B2, B3) of the 3D slice's
+    present state, cut to its last STAGE3_PLANES x-planes (the fields
+    too; the cut's faces are open, as the slice's), through a StepBuilder
+    of the cut grid: alive masks, ids and merge counts equal, values
+    within rtol 1e-5, J within 1e-5 of its peak."""
+    import dataclasses
+    import torch
+    from lambdapic_torch.core.state import SimulationState
+    from lambdapic_torch.simulation.callbacks import INNER_SUBSTAGES
+    from lambdapic_torch.simulation.step import StepBuilder
+    grid = sim.grid
+    x0 = grid.nx - STAGE3_PLANES
+    sgrid = dataclasses.replace(grid, nx=STAGE3_PLANES)
+    f = sim.state.fields
+    names = ("ex", "ey", "ez", "bx", "by", "bz", "jx", "jy", "jz", "rho")
+    fields = f.replace(psi={}, **{k: getattr(f, k)[x0:].contiguous()
+                                  for k in names})
+    parts = []
+    for p in sim.state.particles:
+        keys = sorted(p.data)
+        cut = last_planes([p.data[k] for k in keys], x0,
+                          xs=(keys.index("x"),))
+        parts.append(p.replace(data=dict(zip(keys, cut)),
+                               alive=p.alive[:, x0:].contiguous()))
+    state = SimulationState(fields=fields, particles=tuple(parts))
+    b = StepBuilder(sgrid, None, sim.dt, sim._species_static,
+                    with_rho=True, dtype=sim.dtype, device=sim.device)
+    sc = {"itime": sim.itime}
+    fused = b.seg_particles(state, sc)
+    split = state
+    for sub, _ in INNER_SUBSTAGES:
+        split = b.seg_particles_sub(split, sc, frozenset((sub,)))
+    torch.cuda.synchronize()
+    moved = sum(int((ps.alive != p.alive).sum())
+                for p, ps in zip(state.particles, split.particles))
+    worst, jerr = check_split_fused("split vs fused 3D", split, fused,
+                                    ("jx", "jy", "jz", "rho"))
+    log(f"[slice split 3D] one split particle stage vs one fused (B2, B3) "
+        f"from step {sim.itime} on the last {STAGE3_PLANES} x-planes "
+        f"({'x'.join(str(n) for n in sgrid.shape)} cells, slots "
+        f"{[p.cap for p in state.particles]}): {moved} slots changed "
+        f"occupancy; alive masks, ids and merges equal; values within rtol "
+        f"1e-5 (largest difference {worst:.3e}); J and rho within "
+        f"{jerr:.2e} of their peak")
+
+
+def run_split_3d(args, sim, laser):
+    """[slice split 3D]: the 3D slice's Simulation3D continued with a host
+    callback at _push_momentum due every step (the split particle path:
+    B6 per axis and species, the plain gather and Boris, B5 in 3D): one
+    split particle stage against one fused one on a cut volume, then
+    --steps-split3d steps through Simulation3D.run, then
+    --steps-split-sort3d steps with LAMBDAPIC_MIG_FUSED=0 (B7 instead of
+    B6)."""
+    import torch
+    from lambdapic_torch import callback
+    hook = callback(stage="_push_momentum")(lambda s: None)
+    compare_split_fused_3d(sim)
+    torch.cuda.empty_cache()
+
+    # -- the split path through Simulation3D.run -------------------------------
+    n = args.steps_split3d
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.time()
+    sim.run(nsteps=n, callbacks=[laser, hook])
+    torch.cuda.synchronize()
+    t1 = time.time()
+    check_launches("slice split 3D", n, {"B1": 4, "B5 3D": 2, "B6": 6},
+                   into=STAGE3_LAUNCHES)
+    step_ms = (t1 - t0) * 1e3 / n
+    npart = sum(sim.npart_alive)
+    log(f"[slice split 3D] {n} split steps from step {sim.itime - n}: "
+        f"{step_ms:.3f} ms a step (host clock, synchronised), "
+        f"{npart / (step_ms * 1e-3):.4e} pushes/s; slots "
+        f"{[p.cap for p in sim.state.particles]}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    busy_per_step(lambda: sim.run(nsteps=1, callbacks=[laser, hook]),
+                  {"e_half3": 2, "b_half3": 2, "migrate_axis": 6,
+                   "deposit3d": 2, "fold_pad3": 2}, 2, "profile split 3D",
+                  step_ms)
+    sub_segment_ms(sim, [laser, hook], 2, "slice split 3D")
+
+    # -- the re-binning through B7 ---------------------------------------------
+    split_steps_sorted(sim, [laser, hook], args.steps_split_sort3d,
+                       "slice split 3D B7", {"B1": 4, "B5 3D": 2, "B7": 6},
+                       into=STAGE3_LAUNCHES)
+    for k in ("ex", "ey", "ez", "bx", "by", "bz", "jx", "jy", "jz"):
+        if not bool(torch.isfinite(getattr(sim.state.fields, k)).all()):
+            fail(f"split 3D: field {k} is not finite")
+
+
+def run_exact_3d(args, dev, sim, fill):
+    """[kernels per-stage 3D] and [slice exact 3D]: B4-B7 on 3D slots
+    against their plain versions (float64 small, float32 at the 3D
+    slice's shapes), then the 3D slice with cell_migration="exact"
+    through Simulation3D.run from its fill (``fill``: the host copy of the
+    state Simulation3D.initialize() made, the species' slots and the
+    laser as it started, kept from the fast 3D slice so as not to fill
+    the box twice), and B4-B7 timed at its final state."""
+    import torch
+    laser = fill["laser"]
+    t0 = time.time()
+    merges = check_stage3_f64(dev)
+    log(f"[kernels per-stage 3D] f64: B4 (4 modes) bitwise equal; B5 within "
+        f"1e-12 of the peak; B6 ({len(STAGE3_CASES)} cases x 2, merges up to "
+        f"{merges}) and B7 (caps 4-20) equal array for array; "
+        f"{time.time() - t0:.1f} s")
+    sim.state = clone_state(fill["state"], dev)
+    sim._species_static = list(fill["static"])
+    sim.itime, sim.time = 0, 0.0
+    sim.cell_migration = "exact"
+    sim._builder = None
+    for seen in (sim._overflow_seen, sim._occ_seen, sim._loss_reported):
+        seen.clear()
+    torch.cuda.synchronize()
+    log(f"[slice exact 3D] state of the fill restored: {sim.npart_alive} "
+        f"particles, slots {[p.cap for p in sim.state.particles]}")
+    STAGE3["err"] = check_stage3_f32(sim)
+    torch.cuda.empty_cache()
+
+    # -- the main path: exact re-binning + B4 + B5 per species ---------------
+    torch.cuda.reset_peak_memory_stats()
+    steps = args.steps_exact3d
+    n_timed = min(args.window_exact3d, steps)
+    gone = edge_sitters(sim)
+    ids0 = [ids_of(p) for p in sim.state.particles]
+    ov0 = [int(p.overflow) for p in sim.state.particles]
+    reset_launches()
+    t0 = time.time()
+    sim.run(nsteps=steps - n_timed, callbacks=[laser])
+    torch.cuda.synchronize()
+    t1 = time.time()
+    sim.run(nsteps=n_timed, callbacks=[laser])
+    torch.cuda.synchronize()
+    t2 = time.time()
+    check_launches("slice exact 3D", sim.itime,
+                   {"B1": 4, "B4 3D": 2, "B5 3D": 2}, into=STAGE3_LAUNCHES)
+    # the fill sits at rest and the laser does not reach it in these steps:
+    # only the particles stored on an open face's edge leave
+    check_ids_kept("slice exact 3D", ids0, ov0, sim, gone)
+    for k in ("ex", "ey", "ez", "bx", "by", "bz", "jx", "jy", "jz", "rho"):
+        if not bool(torch.isfinite(getattr(sim.state.fields, k)).all()):
+            fail(f"exact 3D: field {k} is not finite")
+    ey_peak = float(sim.state.fields.ey.abs().max())
+    if not ey_peak > 0:
+        fail("exact 3D: the laser injected no field")
+    after = totals(sim)
+    step_ms = (t2 - t1) * 1e3 / n_timed
+    npart = sum(n for n, _, _ in after)
+    log(f"[slice exact 3D] {sim.itime} steps: first {steps - n_timed} in "
+        f"{t1 - t0:.2f} s, window {n_timed} in {t2 - t1:.3f} s; step "
+        f"{step_ms:.3f} ms (host clock, synchronised), "
+        f"{npart / (step_ms * 1e-3):.4e} pushes/s; n_lost (merged or "
+        f"dropped) {[int(p.overflow) - o for p, o in zip(sim.state.particles, ov0)]}; "
+        f"alive, overflow, weight {after}; slots "
+        f"{[p.cap for p in sim.state.particles]}; peak |ey| {ey_peak:.3e}; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    busy_per_step(lambda: sim.run(nsteps=1, callbacks=[laser]),
+                  {"e_half3": 2, "b_half3": 2, "push3d": 2, "deposit3d": 2,
+                   "fold_pad3": 2}, 3, "profile exact 3D", step_ms)
+    time_stage3_kernels(sim, args.iters3d)
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2250,9 +2814,10 @@ def main() -> int:
                          "example runs 1001)")
     ap.add_argument("--window3d", type=int, default=20,
                     help="final 3D steps timed as the steady window")
-    ap.add_argument("--steps-exact", type=int, default=2001,
+    ap.add_argument("--steps-exact", type=int, default=501,
                     help="steps of the 2D slice with cell_migration='exact' "
-                         "(the example runs 2001)")
+                         "(the example runs 2001; cut to keep the script's "
+                         "time with the 3D per-stage phases)")
     ap.add_argument("--window-exact", type=int, default=100,
                     help="final exact steps timed as the steady window")
     ap.add_argument("--steps-exact-qed", type=int, default=300,
@@ -2262,6 +2827,19 @@ def main() -> int:
                          "continuing the 2D slice")
     ap.add_argument("--steps-split-sort", type=int, default=10,
                     help="split steps with LAMBDAPIC_MIG_FUSED=0 (kernel B7)")
+    ap.add_argument("--steps-split3d", type=int, default=10,
+                    help="split steps (a host callback at _push_momentum) "
+                         "continuing the 3D slice")
+    ap.add_argument("--steps-split-sort3d", type=int, default=3,
+                    help="3D split steps with LAMBDAPIC_MIG_FUSED=0 (B7)")
+    ap.add_argument("--steps-exact3d", type=int, default=40,
+                    help="steps of the 3D slice with cell_migration='exact'")
+    ap.add_argument("--window-exact3d", type=int, default=20,
+                    help="final exact 3D steps timed as the steady window")
+    ap.add_argument("--exact2d-digest", type=int, default=0, metavar="N",
+                    help="run only the 2D slice with cell_migration='exact' "
+                         "for N steps and print its peak device memory and "
+                         "a digest of its final state, then stop")
     ap.add_argument("--iters", type=int, default=50,
                     help="launches per 2D kernel timing")
     ap.add_argument("--iters3d", type=int, default=5,
@@ -2273,6 +2851,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda:0")
+    if args.exact2d_digest:
+        exact2d_digest(args.exact2d_digest, dev)
+        return 0
     t_start = time.time()
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
@@ -2289,7 +2870,15 @@ def main() -> int:
     kernels += run_qed(args, dev)
     log(f"[time] QED done at {time.time() - t_start:.1f} s")
     torch.cuda.empty_cache()
-    kernels += run_3d(args, dev)
+    k3, sim3, laser3, fill = run_3d(args, dev)
+    kernels += k3
+    log(f"[time] 3D done at {time.time() - t_start:.1f} s")
+    run_split_3d(args, sim3, laser3)
+    log(f"[time] split 3D done at {time.time() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+    run_exact_3d(args, dev, sim3, fill)
+    del sim3, fill
+    kernels += stage3_rows()
     log(f"[time] total {time.time() - t_start:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

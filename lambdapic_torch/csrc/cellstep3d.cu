@@ -43,6 +43,10 @@
 //            (rims_in) and is written to rims_out; kernel B3 (fold3d.cu)
 //            overlap-adds the panels into the interior J.
 //
+// The gather, Boris, half push, key, sort, merge count and tile deposit
+// are the shared device code of cell3d.cuh and cell2d.cuh, which kernels
+// B4 and B5 in 3D (push3d.cu, deposit3d.cu) run too.
+//
 // Compiled with --fmad=false: positions, keys and merges round exactly as
 // the plain version's separate tensor operations do, so cell assignment
 // and merge pairing match it slot for slot.
@@ -54,9 +58,16 @@
 // moves several times that: three passes each read every slot of three
 // columns and write every slot, the push reads and writes them again, and
 // the deposit reads the alive ones once more.
-#include "common.cuh"
+#include "cell3d.cuh"
 
 namespace {
+
+using lp2d::add_merges;
+using lp2d::five_way;
+using lp2d::net_sort;
+using lp2d::pushed;
+using lp2d::WFloor;
+using lp3d::TILE;
 
 enum Ptr {
   P_EB,
@@ -81,11 +92,6 @@ enum Real {
   R_KFX, R_KFY, R_KFZ   // q / (dy dz dt), q / (dx dz dt), q / (dx dy dt)
 };
 
-// deposit tile (cells per side); ops/cellslab.py's TILE3, held equal to
-// this through lp_cell_tile() when the library is first used
-constexpr int TILE = 8;
-constexpr int PAN = TILE + 4;          // panel side: tile + 2-node rims
-constexpr int PAN3 = PAN * PAN * PAN;
 constexpr int NF = 7;                  // float payloads: x y z w ux uy uz
 enum F { FX, FY, FZ, FW, FUX, FUY, FUZ };
 
@@ -117,43 +123,12 @@ struct Args {
   T h[3], ef, bf, cd[3], kcd, kf[3];   // see enum Real
 };
 
-// The merge's weight floor: 1e-30 in float32, 1e-300 in float64.
-template <typename T> struct WFloor;
-template <> struct WFloor<float> { static __device__ float v() { return 1e-30f; } };
-template <> struct WFloor<double> { static __device__ double v() { return 1e-300; } };
-
 // One slot's carried values.
 template <typename T>
 struct Slot {
   T f[NF];
   int id[2];
 };
-
-// Sort packed (key << 8 | slot) entries with the compare-exchange list.
-__device__ __forceinline__ void net_sort(int* k, const int* __restrict__ ces,
-                                         int nces) {
-  for (int e = 0; e < nces; ++e) {
-    int a = __ldg(ces + 2 * e), b = __ldg(ces + 2 * e + 1);
-    int ka = k[a], kb = k[b];
-    if ((ka >> 8) > (kb >> 8)) {
-      k[a] = kb;
-      k[b] = ka;
-    }
-  }
-}
-
-__device__ __forceinline__ int five_way(bool alive, bool out_hi, bool out_lo,
-                                        int s) {
-  if (out_hi) return 0;
-  if (out_lo) return 4;
-  if (alive) return 2;
-  return (s & 1) == 0 ? 1 : 3;
-}
-
-template <typename T>
-__device__ __forceinline__ T pushed(T pos, T u, T ig, T h) {
-  return pos + (u * ig) * h;
-}
 
 // A source slot; the x pass reads the stored slots and applies the first
 // half push along all three axes.
@@ -221,21 +196,6 @@ __device__ void store(const SlotsOut<T>& o, long long idx, const Slot<T>& v,
   o.id[1][idx] = v.id[1];
 }
 
-__device__ void add_merges(unsigned long long* counter, int merges) {
-  unsigned mask = __activemask();
-  int total = merges;
-  for (int off = 16; off > 0; off >>= 1)
-    total += __shfl_down_sync(mask, total, off);
-  int lane = threadIdx.x & 31;
-  // after the reduction lane 0 of a full warp holds the sum; a partial
-  // warp adds one atomic per thread instead
-  if (mask == 0xffffffffu) {
-    if (lane == 0 && total) atomicAdd(counter, (unsigned long long)total);
-  } else if (merges) {
-    atomicAdd(counter, (unsigned long long)merges);
-  }
-}
-
 // One re-binning pass along ``axis`` (0 x, 1 y, 2 z) from src to dst.
 template <typename T, int MAXC>
 __global__ void __launch_bounds__(128) rebin(Args<T> a, SlotsIn<T> src,
@@ -300,34 +260,9 @@ __global__ void __launch_bounds__(128) rebin(Args<T> a, SlotsIn<T> src,
   add_merges(a.n_merged, merges);
 }
 
-// Staggered quadratic gather of one component (ops/cell3d.py::
-// gather_cell_3d): taps {-1,0,1} on an integer axis, {-2..1} on a
-// half-staggered one; the (y, z) pair product is hoisted out of the x loop.
-template <typename T, bool HX, bool HY, bool HZ>
-__device__ __forceinline__ T gather_comp(const T* __restrict__ f,
-                                         long long nyp, long long nzp, int px,
-                                         int py, int pz,
-                                         const T (&gw)[3][3],
-                                         const T (&hw)[3][4]) {
-  T acc = T(0);
-#pragma unroll
-  for (int oy = HY ? -2 : -1; oy <= 1; ++oy) {
-    T ty = HY ? hw[1][oy + 2] : gw[1][oy + 1];
-#pragma unroll
-    for (int oz = HZ ? -2 : -1; oz <= 1; ++oz) {
-      T tz = HZ ? hw[2][oz + 2] : gw[2][oz + 1];
-      T tyz = ty * tz;
-#pragma unroll
-      for (int ox = HX ? -2 : -1; ox <= 1; ++ox) {
-        T tx = HX ? hw[0][ox + 2] : gw[0][ox + 1];
-        acc = acc + (tx * tyz) * f[((px + ox) * nyp + (py + oy)) * nzp + (pz + oz)];
-      }
-    }
-  }
-  return acc;
-}
-
-// Gather + Boris + second half push of every alive slot, in place.
+// Gather + Boris + second half push of every alive slot, in place (the
+// gather and Boris are cell3d.cuh's and cell2d.cuh's, as kernel B4 runs
+// them).
 template <typename T>
 __global__ void __launch_bounds__(256) push(Args<T> a, SlotsOut<T> s) {
   long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -343,41 +278,10 @@ __global__ void __launch_bounds__(256) push(Args<T> a, SlotsOut<T> s) {
   int iy = rem / a.nz, iz = rem - iy * a.nz;
   T x = s.f[FX][idx], y = s.f[FY][idx], z = s.f[FZ][idx];
   const T d[3] = {x - T(ix), y - T(iy), z - T(iz)};
-  T gw[3][3], hw[3][4];
-#pragma unroll
-  for (int ax = 0; ax < 3; ++ax) {
-#pragma unroll
-    for (int o = -1; o <= 1; ++o) gw[ax][o + 1] = m2(T(o) - d[ax]);
-#pragma unroll
-    for (int o = -2; o <= 1; ++o) hw[ax][o + 2] = m2(T(o + 0.5) - d[ax]);
-  }
-  const long long nyp = a.ny + 2 * a.g, nzp = a.nz + 2 * a.g;
-  const long long vol = (long long)(a.nx + 2 * a.g) * nyp * nzp;
-  const int px = ix + a.g, py = iy + a.g, pz = iz + a.g;
-  T e_x = gather_comp<T, true, false, false>(a.eb + 0 * vol, nyp, nzp, px, py, pz, gw, hw);
-  T e_y = gather_comp<T, false, true, false>(a.eb + 1 * vol, nyp, nzp, px, py, pz, gw, hw);
-  T e_z = gather_comp<T, false, false, true>(a.eb + 2 * vol, nyp, nzp, px, py, pz, gw, hw);
-  T b_x = gather_comp<T, false, true, true>(a.eb + 3 * vol, nyp, nzp, px, py, pz, gw, hw);
-  T b_y = gather_comp<T, true, false, true>(a.eb + 4 * vol, nyp, nzp, px, py, pz, gw, hw);
-  T b_z = gather_comp<T, true, true, false>(a.eb + 5 * vol, nyp, nzp, px, py, pz, gw, hw);
-  // Boris (ops/pusher.py::boris_push)
-  const T ef = a.ef, bfac = a.bf;
-  T um_x = s.f[FUX][idx] + ef * e_x;
-  T um_y = s.f[FUY][idx] + ef * e_y;
-  T um_z = s.f[FUZ][idx] + ef * e_z;
-  T igm = T(1) / sqrt(((T(1) + um_x * um_x) + um_y * um_y) + um_z * um_z);
-  T tx = (bfac * b_x) * igm;
-  T ty = (bfac * b_y) * igm;
-  T tz = (bfac * b_z) * igm;
-  T up_x = (um_x + um_y * tz) - um_z * ty;
-  T up_y = (um_y + um_z * tx) - um_x * tz;
-  T up_z = (um_z + um_x * ty) - um_y * tx;
-  T tfac = T(2) * (T(1) / (((T(1) + tx * tx) + ty * ty) + tz * tz));
-  T sx = tfac * tx, sy = tfac * ty, sz = tfac * tz;
-  T ux = ((um_x + up_y * sz) - up_z * sy) + ef * e_x;
-  T uy = ((um_y + up_z * sx) - up_x * sz) + ef * e_y;
-  T uz = ((um_z + up_x * sy) - up_y * sx) + ef * e_z;
-  T ig = T(1) / sqrt(((T(1) + ux * ux) + uy * uy) + uz * uz);
+  T e[6];
+  lp3d::gather_eb(a.eb, a.nx, a.ny, a.nz, a.g, ix, iy, iz, d, e);
+  T ux = s.f[FUX][idx], uy = s.f[FUY][idx], uz = s.f[FUZ][idx];
+  T ig = lp2d::boris(ux, uy, uz, e, a.ef, a.bf);
   s.f[FUX][idx] = ux;
   s.f[FUY][idx] = uy;
   s.f[FUZ][idx] = uz;
@@ -387,111 +291,12 @@ __global__ void __launch_bounds__(256) push(Args<T> a, SlotsOut<T> s) {
   a.ig_out[idx] = ig;
 }
 
-// One axis's Esirkepov taps of one particle (ops/cell3d.py::
-// deposit_offsets_3d, axis_taps): the old and new shapes over the offsets
-// -2..2, their difference, a = S0 + DS/2, c = S0/2 + DS/3 and the running
-// sum of DS.
-template <typename T>
-struct Taps {
-  T s0[5], s1[5], ds[5], a[5], c[5], run[5];
-};
-
-template <typename T>
-__device__ __forceinline__ void axis_taps(T d, T v, Taps<T>& t) {
-  T d0 = d - T(0.5) * v, d1 = d + T(0.5) * v;
-  const T third = T(1) / T(3);
-  T acc = T(0);
-#pragma unroll
-  for (int o = 0; o < 5; ++o) {
-    t.s0[o] = m2(T(o - 2) - d0);
-    t.s1[o] = m2(T(o - 2) - d1);
-    t.ds[o] = t.s1[o] - t.s0[o];
-    t.a[o] = t.s0[o] + T(0.5) * t.ds[o];
-    t.c[o] = T(0.5) * t.s0[o] + t.ds[o] * third;
-    acc = acc + t.ds[o];
-    t.run[o] = acc;
-  }
-}
-
+// The deposit from the pushed buffer A: cell3d.cuh's tile deposit of the
+// alive slots, chained through rims_in.
 template <typename T>
 __global__ void __launch_bounds__(TILE * TILE * TILE)
-    deposit(Args<T> a, SlotsIn<T> s) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* pan = reinterpret_cast<T*>(smem_raw);       // (ncomp, PAN, PAN, PAN)
-  const int lz = threadIdx.x, ly = threadIdx.y, lx = threadIdx.z;
-  const int tid = (lx * TILE + ly) * TILE + lz;
-  const int C = a.ncomp;
-  const long long nblocks = (long long)gridDim.x * gridDim.y * gridDim.z;
-  const long long block =
-      ((long long)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-  for (int e = tid; e < C * PAN3; e += TILE * TILE * TILE) {
-    int c = e / PAN3, r = e - c * PAN3;
-    pan[e] = a.rims_in ? a.rims_in[((long long)c * nblocks + block) * PAN3 + r]
-                       : T(0);
-  }
-  const int ix = blockIdx.z * TILE + lx, iy = blockIdx.y * TILE + ly,
-            iz = blockIdx.x * TILE + lz;
-  const bool valid = ix < a.nx && iy < a.ny && iz < a.nz;
-  const long long cell = ((long long)ix * a.ny + iy) * a.nz + iz;
-  const int node0 = (lx * PAN + ly) * PAN + lz;
-  int sl = 0;
-  while (true) {
-    // this thread's next alive particle; the block goes on while any
-    // thread has one
-    bool have = false;
-    if (valid) {
-      while (sl < a.cap) {
-        if (s.alive[(long long)sl * a.ncell + cell]) {
-          have = true;
-          break;
-        }
-        ++sl;
-      }
-    }
-    if (!__syncthreads_or(have)) break;
-    Taps<T> tx, ty, tz;
-    T cd = T(0), nfx = T(0), nfy = T(0), nfz = T(0);
-    if (have) {
-      long long idx = (long long)sl * a.ncell + cell;
-      T ig = a.ig_out[idx], w = s.f[FW][idx];
-      axis_taps(s.f[FX][idx] - T(ix), (s.f[FUX][idx] * ig) * a.cd[0], tx);
-      axis_taps(s.f[FY][idx] - T(iy), (s.f[FUY][idx] * ig) * a.cd[1], ty);
-      axis_taps(s.f[FZ][idx] - T(iz), (s.f[FUZ][idx] * ig) * a.cd[2], tz);
-      cd = a.kcd * w;
-      nfx = -(a.kf[0] * w);
-      nfy = -(a.kf[1] * w);
-      nfz = -(a.kf[2] * w);
-    }
-#pragma unroll
-    for (int oy = 0; oy < 5; ++oy) {
-#pragma unroll
-      for (int oz = 0; oz < 5; ++oz) {
-        T px = T(0), pr = T(0);
-        if (have) {
-          px = nfx * (ty.a[oy] * tz.s0[oz] + ty.c[oy] * tz.ds[oz]);
-          pr = cd * (ty.s1[oy] * tz.s1[oz]);
-        }
-#pragma unroll
-        for (int ox = 0; ox < 5; ++ox) {
-          if (have) {
-            T py = nfy * (tx.a[ox] * tz.s0[oz] + tx.c[ox] * tz.ds[oz]);
-            T pz = nfz * (tx.a[ox] * ty.s0[oy] + tx.c[ox] * ty.ds[oy]);
-            T* node = pan + node0 + (ox * PAN + oy) * PAN + oz;
-            node[0] += tx.run[ox] * px;
-            node[PAN3] += ty.run[oy] * py;
-            node[2 * PAN3] += tz.run[oz] * pz;
-            if (C == 4) node[3 * PAN3] += tx.s1[ox] * pr;
-          }
-          __syncthreads();
-        }
-      }
-    }
-    ++sl;
-  }
-  for (int e = tid; e < C * PAN3; e += TILE * TILE * TILE) {
-    int c = e / PAN3, r = e - c * PAN3;
-    a.rims_out[((long long)c * nblocks + block) * PAN3 + r] = pan[e];
-  }
+    deposit(lp3d::DepositIn<T> d) {
+  lp3d::deposit_tile(d);
 }
 
 template <typename T>
@@ -571,16 +376,24 @@ int launch(void** p, const long long* n, const double* r, cudaStream_t st) {
       a, b.a_out);
   err = (int)cudaGetLastError();
   if (err) return err;
+  lp3d::DepositIn<T> d;
+  d.alive = b.a_in.alive;
+  d.x = b.a_in.f[FX]; d.y = b.a_in.f[FY]; d.z = b.a_in.f[FZ];
+  d.ux = b.a_in.f[FUX]; d.uy = b.a_in.f[FUY]; d.uz = b.a_in.f[FUZ];
+  d.ig = a.ig_out; d.w = b.a_in.f[FW];
+  d.rims_in = a.rims_in; d.rims_out = a.rims_out;
+  d.cap = a.cap; d.nx = a.nx; d.ny = a.ny; d.nz = a.nz; d.ncomp = a.ncomp;
+  d.ncell = a.ncell;
+  for (int k = 0; k < 3; ++k) { d.cd[k] = a.cd[k]; d.kf[k] = a.kf[k]; }
+  d.kcd = a.kcd;
   dim3 block(TILE, TILE, TILE);
   dim3 grid(ceil_div(a.nz, TILE), ceil_div(a.ny, TILE), ceil_div(a.nx, TILE));
-  size_t smem = sizeof(T) * a.ncomp * PAN3;
-  // a float64 panel with rho is 55 KB, above the 48 KB a kernel gets
-  // without asking
+  size_t smem = lp3d::deposit_smem<T>(a.ncomp);
   err = (int)cudaFuncSetAttribute(deposit<T>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)smem);
   if (err) return err;
-  deposit<T><<<grid, block, smem, st>>>(a, b.a_in);
+  deposit<T><<<grid, block, smem, st>>>(d);
   return (int)cudaGetLastError();
 }
 

@@ -1,13 +1,19 @@
-// Kernel B6: one axis of the 2D cell re-binning (the fast overwrite-merge
-// scheme) in one pass: per-cell Batcher sort by the 5-way key, the +-1
-// neighbour exchange, placement by overwrite with weighted merges, and the
-// merge count.
+// Kernel B6: one axis of the cell re-binning (the fast overwrite-merge
+// scheme) of 2D or 3D slots in one pass: per-cell Batcher sort by the
+// 5-way key, the +-1 neighbour exchange, placement by overwrite with
+// weighted merges, and the merge count.
 //
 // Replaces the TPU kernel lambdapic_tpu/ops/cellpallas.py::
 // migrate_axis_fused (:860, kernel :956, pallas_call :1090), driven per
 // axis by migrate_cells_fused (:1143). Plain PyTorch version: lambdapic_
 // torch/ops/cell2d.py::migrate_cells (fast scheme, Batcher order), which
 // lambdapic_torch/ops/cellpallas.py::migrate_cells_fused_plain calls.
+//
+// Rank-generic: the slots are (cap, ncell) with the cells flattened in C
+// order, and the caller names the axis by its length n and its stride
+// (the cells between neighbours along it: ny*nz, nz, 1 in 3D; ny, 1 in
+// 2D), so one source serves both ranks and B6 in 3D is this kernel with a
+// third axis. Cell c's index along the axis is (c / stride) % n.
 //
 // One thread per cell, as kernel B2's pass_x: it builds the 5-way keys
 // (donor+1 0 / dead-even 1 / stay 2 / dead-odd 3 / donor-1 4, dead parity
@@ -33,7 +39,10 @@
 // it, so keys, placements and merges match it bit for bit.
 //
 // Bound on an H100 (3.35 TB/s): bytes: the mask and every payload read
-// and written once.
+// and written once. Each thread keeps 3 x cap packed keys in local memory
+// (96 B at 8 slots a cell, 1,536 B at 128) and reads its neighbours'
+// masks and positions again; along x in 3D the neighbours are ny*nz cells
+// apart, so a warp's loads stay coalesced along z.
 #include "cell2d.cuh"
 
 namespace {
@@ -46,7 +55,7 @@ constexpr int MAXI = 4;
 enum Ptr { P_ALIVE, P_ALIVE_OUT, P_NMERGED, P_CES, P_IG_OUT,
            P_FIN, P_FOUT = P_FIN + MAXF, P_IIN = P_FOUT + MAXF,
            P_IOUT = P_IIN + MAXI, P_COUNT = P_IOUT + MAXI };
-enum Int { I_CAP, I_NX, I_NY, I_AXIS, I_PERIODIC, I_NF, I_NI, I_COORD, I_W,
+enum Int { I_CAP, I_NCELL, I_N, I_STRIDE, I_PERIODIC, I_NF, I_NI, I_COORD, I_W,
            I_MERGE_MASK, I_FINAL, I_SANITIZE_MASK, I_UX, I_UY, I_UZ,
            I_RECOMPUTE_IG, I_IG_ONE, I_NCES, I_DOUBLE };
 
@@ -61,9 +70,9 @@ struct Args {
   T* fout[MAXF];
   const int* iin[MAXI];
   int* iout[MAXI];
-  int cap, nx, ny, axis, periodic, nf, ni, coord, w, merge_mask, final_,
+  int cap, n, periodic, nf, ni, coord, w, merge_mask, final_,
       sanitize_mask, iux, iuy, iuz, recompute_ig, ig_one, nces;
-  long long ncell;
+  long long ncell, stride;
 };
 
 template <typename T, int MAXC>
@@ -72,10 +81,9 @@ __global__ void __launch_bounds__(128) migrate_axis(Args<T> a) {
   bool active = cell < a.ncell;
   int merges = 0;
   if (active) {
-    const int ix = (int)(cell / a.ny), iy = (int)(cell % a.ny);
-    const int i = a.axis == 0 ? ix : iy;
-    const int n = a.axis == 0 ? a.nx : a.ny;
-    const long long st = a.axis == 0 ? a.ny : 1;
+    const int n = a.n;
+    const long long st = a.stride;
+    const int i = (int)((cell / st) % n);
     // the lo neighbour, the cell itself, the hi neighbour (wrapped)
     const long long cols[3] = {i > 0 ? cell - st : cell + (n - 1) * st, cell,
                                i < n - 1 ? cell + st : cell - (n - 1) * st};
@@ -184,18 +192,17 @@ int launch(void** p, const long long* n, cudaStream_t st) {
     a.iin[t] = (const int*)p[P_IIN + t];
     a.iout[t] = (int*)p[P_IOUT + t];
   }
-  a.cap = (int)n[I_CAP]; a.nx = (int)n[I_NX]; a.ny = (int)n[I_NY];
-  a.axis = (int)n[I_AXIS]; a.periodic = (int)n[I_PERIODIC];
+  a.cap = (int)n[I_CAP]; a.ncell = n[I_NCELL]; a.n = (int)n[I_N];
+  a.stride = n[I_STRIDE]; a.periodic = (int)n[I_PERIODIC];
   a.nf = (int)n[I_NF]; a.ni = (int)n[I_NI]; a.coord = (int)n[I_COORD];
   a.w = (int)n[I_W]; a.merge_mask = (int)n[I_MERGE_MASK];
   a.final_ = (int)n[I_FINAL]; a.sanitize_mask = (int)n[I_SANITIZE_MASK];
   a.iux = (int)n[I_UX]; a.iuy = (int)n[I_UY]; a.iuz = (int)n[I_UZ];
   a.recompute_ig = (int)n[I_RECOMPUTE_IG]; a.ig_one = (int)n[I_IG_ONE];
   a.nces = (int)n[I_NCES];
-  a.ncell = (long long)a.nx * a.ny;
   if (a.nf < 1 || a.nf > MAXF || a.ni < 0 || a.ni > MAXI ||
       a.coord < 0 || a.coord >= a.nf || a.w < 0 || a.w >= a.nf ||
-      (a.axis != 0 && a.axis != 1) ||
+      a.n < 1 || a.stride < 1 || a.ncell % ((long long)a.n * a.stride) ||
       (a.final_ && a.recompute_ig &&
        (a.iux < 0 || a.iuy < 0 || a.iuz < 0 || !a.ig_out)))
     return (int)cudaErrorInvalidValue;
@@ -214,8 +221,8 @@ int launch(void** p, const long long* n, cudaStream_t st) {
 }  // namespace
 
 // ptrs: enum Ptr; ints: enum Int; reals unused.
-LP_EXPORT int lp_migrate_axis_2d(void** ptrs, const long long* ints,
-                                 const double* reals, void* stream) {
+LP_EXPORT int lp_migrate_axis(void** ptrs, const long long* ints,
+                              const double* reals, void* stream) {
   (void)reals;
   cudaStream_t st = (cudaStream_t)stream;
   if (ints[I_DOUBLE]) return launch<double>(ptrs, ints, st);

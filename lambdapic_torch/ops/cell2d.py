@@ -192,62 +192,83 @@ def _weight_floor(w: torch.Tensor) -> float:
     return 1e-300 if w.dtype == torch.float64 else 1e-30
 
 
-def _stable_sort3(keys: torch.Tensor):
-    """Stable sort of keys in {0, 1, 2} along axis 0: (sorted keys, the
-    source row of each sorted row), the permutation of
-    ``torch.sort(keys, dim=0, stable=True)``. A key's rows keep their
-    order, so each row's place is the count of smaller keys plus its rank
-    among equal keys: three prefix sums and a scatter instead of a
-    sort."""
-    ones = [(keys == k).to(torch.int32) for k in range(3)]
-    ranks = [torch.cumsum(o, dim=0) for o in ones]
-    n0, n1 = ranks[0][-1:], ranks[1][-1:]
-    dest = torch.where(ones[0] > 0, ranks[0] - 1, torch.where(
-        ones[1] > 0, n0 + ranks[1] - 1, n0 + n1 + ranks[2] - 1)).long()
-    del ones, ranks
-    rows = torch.arange(keys.shape[0], device=keys.device).reshape(
-        (-1,) + (1,) * (keys.ndim - 1)).expand(keys.shape)
-    order = torch.empty_like(dest).scatter_(0, dest, rows)
-    return keys.gather(0, order), order
+def _exact_dest(alive, val_lo, val_hi):
+    """The rows of the exact scheme's stable sort (lambdapic_tpu/ops/
+    cell2d.py:231-279), without the sort. Each cell sorts [residents;
+    lo arrivals; hi arrivals] (3 cap rows) by the keys 0 alive resident,
+    1 valid arrival, 2 empty, keeping each key's rows in order. A row's
+    place is the count of rows of smaller keys plus its rank among its
+    own key's rows, so the permutation follows from three prefix sums:
+    the alive residents come first, then the valid lo and hi arrivals,
+    then the empty residents, lo and hi rows.
 
-
-def _exact_axis(data, alive, names, out_lo, out_hi, send):
-    """One axis of the exact scheme (lambdapic_tpu/ops/cell2d.py:
-    231-279). ``send(payload, mask, direction)`` rolls a dict of payloads
-    one cell along the axis. Returns (data, alive, n_lost)."""
+    Returns (dests, total): each block's (cap, *cells) destination row,
+    clamped to 2 cap (rows past 2 cap are never read), and the cells'
+    count of keys below 2."""
     cap = alive.shape[0]
-    send_up = {k: torch.where(out_hi, data[k], 0) for k in names}
-    send_dn = {k: torch.where(out_lo, data[k], 0) for k in names}
-    in_lo, val_lo = send(send_up, out_hi, +1)
-    in_hi, val_hi = send(send_dn, out_lo, -1)
-    del send_up, send_dn
+    rows = torch.arange(cap, device=alive.device).reshape(
+        (cap,) + (1,) * (alive.ndim - 1))
+    counts = [b.sum(0, dtype=torch.int64) for b in (alive, val_lo, val_hi)]
+    total = counts[0] + counts[1] + counts[2]
+    valid_base = (0, counts[0], counts[0] + counts[1])
+    empty_base = (total, total + cap - counts[0],
+                  total + 2 * cap - counts[0] - counts[1])
+    dests = []
+    for b, vb, eb in zip((alive, val_lo, val_hi), valid_base, empty_base):
+        rank = torch.cumsum(b, dim=0)
+        dest = torch.where(b, vb + rank - 1, eb + rows - rank)
+        dests.append(torch.clamp(dest, max=2 * cap))
+    return dests, total
+
+
+def _exact_axis(data, alive, names, out_lo, out_hi, move, valid_in):
+    """One axis of the exact scheme (lambdapic_tpu/ops/cell2d.py:
+    231-279), one payload at a time: ``move(t, name, direction)`` rolls
+    payload ``name`` one cell along the axis, ``valid_in(mask,
+    direction)`` says where an arrival is valid. Only the destinations and the merge mask
+    live for the whole axis, so the temporaries are a few payloads' size,
+    not several times the state. Returns (data, alive, n_lost)."""
+    cap = alive.shape[0]
+    val_lo = valid_in(out_hi, +1)
+    val_hi = valid_in(out_lo, -1)
     alive = alive & ~(out_lo | out_hi)
-    two = torch.full_like(alive, 2, dtype=torch.int32)
-    keys = torch.cat([torch.where(alive, 0, two), torch.where(val_lo, 1, two),
-                      torch.where(val_hi, 1, two)], dim=0)
-    skeys, order = _stable_sort3(keys)
-    del keys
-    order = order[:2 * cap]
-    kept, ofl = {}, {}
-    for k in names:
-        rows = torch.cat([data[k], in_lo[k], in_hi[k]], dim=0).gather(0, order)
-        kept[k] = rows[:cap]
-        # reversed alignment: overflow row cap + j -> kept row cap - 1 - j
-        ofl[k] = rows[cap:].flip(0)
-        del rows
-    del in_lo, in_hi, order
-    valid_m = (skeys[cap:2 * cap] < 2).flip(0)
-    n_lost = valid_m.sum() + (skeys[2 * cap:] < 2).sum()
-    kept_alive = skeys[:cap] < 2
+    dests, total = _exact_dest(alive, val_lo, val_hi)
+    del val_lo, val_hi
+    rows = torch.arange(cap, device=alive.device).reshape(
+        (cap,) + (1,) * (alive.ndim - 1))
+    kept_alive = rows < total
+    # reversed alignment: overflow row cap + j -> kept row cap - 1 - j
+    valid_m = (2 * cap - 1 - rows) < total
+    n_lost = torch.clamp(total - cap, min=0).sum()
+
+    def sorted_rows(k):
+        """Rows 0 .. 2 cap - 1 of the sorted [residents; lo; hi] of
+        payload k: (kept rows, overflow rows in reversed alignment)."""
+        out = torch.empty((2 * cap + 1,) + tuple(alive.shape[1:]),
+                          dtype=data[k].dtype, device=data[k].device)
+        out.scatter_(0, dests[0], data[k])
+        out.scatter_(0, dests[1], move(torch.where(out_hi, data[k], 0), k,
+                                       +1))
+        out.scatter_(0, dests[2], move(torch.where(out_lo, data[k], 0), k,
+                                       -1))
+        return out[:cap], out[cap:2 * cap].flip(0)
+
+    kept = {}
     if "w" in names:
-        w_of = torch.where(valid_m, ofl["w"], 0.0)
-        wsum = kept["w"] + w_of
+        kept_w, ofl_w = sorted_rows("w")
+        w_of = torch.where(valid_m, ofl_w, 0.0)
+        del ofl_w
+        wsum = kept_w + w_of
         wsafe = torch.clamp(wsum, min=_weight_floor(wsum))
-        for k in names:
-            if k in MERGED:
-                kept[k] = torch.where(
-                    valid_m, (kept["w"] * kept[k] + w_of * ofl[k]) / wsafe,
-                    kept[k])
+    for k in names:
+        if k == "w":
+            continue
+        kept[k], ofl = sorted_rows(k)
+        if "w" in names and k in MERGED:
+            kept[k] = torch.where(
+                valid_m, (kept_w * kept[k] + w_of * ofl) / wsafe, kept[k])
+        del ofl
+    if "w" in names:
         kept["w"] = wsum
     return {**data, **kept}, kept_alive, n_lost
 
@@ -276,8 +297,9 @@ def migrate_cells(data: Dict[str, torch.Tensor], alive: torch.Tensor,
 
     ``exact=True`` is the lossless scheme (``cell_migration="exact"``):
     per axis, donors leave their cell as dedicated buffers and each cell
-    sorts [residents; lo arrivals; hi arrivals] (3 cap rows, keys 0
-    resident, 1 arrival, 2 empty) with a stable sort, as lax.sort sorts.
+    orders [residents; lo arrivals; hi arrivals] (3 cap rows, keys 0
+    resident, 1 arrival, 2 empty) as lax.sort's stable sort does (the
+    permutation from prefix sums, ``_exact_dest``), a payload at a time.
     Nothing is lost while a cell's total stays <= cap; an alive row
     cap + j beyond that merges into kept row cap - 1 - j (weights summed,
     coordinates and momenta weight-averaged) and rows >= 2 cap are
@@ -305,21 +327,28 @@ def migrate_cells(data: Dict[str, torch.Tensor], alive: torch.Tensor,
         from_wrap = cells == 0
         to_wrap = cells == nt - 1
 
-        def send(payload, mask, direction):
-            moved = {k: _roll_in(v, 1 + axis, direction)
-                     for k, v in payload.items()}
-            valid = _roll_in(mask, 1 + axis, direction)
+        def move(t, k, direction):
+            """Payload ``k`` rolled one cell along the axis; an arrival
+            through the wrap shifts its coordinate by -+nloc."""
+            moved = _roll_in(t, 1 + axis, direction)
+            if k != coord:
+                return moved
             wrapped = from_wrap if direction > 0 else to_wrap
             adj = _scalar(-nloc if direction > 0 else nloc, pos)
-            moved[coord] = torch.where(wrapped, moved[coord] + adj,
-                                       moved[coord])
+            return torch.where(wrapped, moved + adj, moved)
+
+        def valid_in(mask, direction):
+            """Where an arrival from ``mask``'s slots is valid: the open
+            faces absorb what crosses them."""
+            valid = _roll_in(mask, 1 + axis, direction)
             if not periodic:
+                wrapped = from_wrap if direction > 0 else to_wrap
                 valid = valid & ~wrapped
-            return moved, valid
+            return valid
 
         if exact:
             data, alive, lost = _exact_axis(data, alive, names, out_lo,
-                                            out_hi, send)
+                                            out_hi, move, valid_in)
             n_lost = n_lost + lost
             continue
 
@@ -328,33 +357,36 @@ def migrate_cells(data: Dict[str, torch.Tensor], alive: torch.Tensor,
         skey, spay = (sort_fn or batcher_sort)(key.to(torch.int32),
                                                [data[k] for k in names])
         sdata = dict(zip(names, spay))
-
-        in_lo, val_lo = send(sdata, skey == 0, +1)
-        in_hi, val_hi = send(sdata, skey == 4, -1)
-
+        del spay
+        val_lo = valid_in(skey == 0, +1)
+        val_hi = valid_in(skey == 4, -1)
         stay = skey == 2
+        del skey
+
         n_src = (val_lo.to(torch.int32) + val_hi.to(torch.int32)
                  + stay.to(torch.int32))
         multi = n_src >= 2
         n_lost = n_lost + torch.clamp(n_src - 1, min=0).sum()
-        w_lo = torch.where(val_lo, in_lo["w"], 0.0)
-        w_hi = torch.where(val_hi, in_hi["w"], 0.0)
+        del n_src
+        w_lo = torch.where(val_lo, move(sdata["w"], "w", +1), 0.0)
+        w_hi = torch.where(val_hi, move(sdata["w"], "w", -1), 0.0)
         w_res = torch.where(stay, sdata["w"], 0.0)
         wsum = w_lo + w_hi + w_res
         wsafe = torch.clamp(wsum, min=_weight_floor(wsum))
-        merged = {}
-        for k in names:
-            if k in MERGED:
-                merged[k] = (w_lo * in_lo[k] + w_hi * in_hi[k]
-                             + w_res * sdata[k]) / wsafe
-            elif k == "w":
-                merged[k] = wsum
+        # a payload at a time: one payload's arrivals are live at once
         new = {}
         for k in names:
-            placed = torch.where(val_lo, in_lo[k],
-                                 torch.where(val_hi, in_hi[k], sdata[k]))
-            new[k] = torch.where(multi, merged[k], placed) if k in merged \
-                else placed
+            own = sdata.pop(k)
+            in_lo, in_hi = move(own, k, +1), move(own, k, -1)
+            placed = torch.where(val_lo, in_lo,
+                                 torch.where(val_hi, in_hi, own))
+            if k in MERGED:
+                merged = (w_lo * in_lo + w_hi * in_hi + w_res * own) / wsafe
+                placed = torch.where(multi, merged, placed)
+            elif k == "w":
+                placed = torch.where(multi, wsum, placed)
+            new[k] = placed
+            del own, in_lo, in_hi
         data = {**data, **new}
         alive = val_lo | val_hi | stay
 

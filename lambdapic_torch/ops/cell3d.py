@@ -32,14 +32,31 @@ def _deltas(x, y, z):
     return x - ix, y - iy, z - iz
 
 
+# slots times cells that gather_cell_3d takes in one pass: its taps hold 21
+# arrays of that size, so at the 3D slice's 33.5 M cells it goes a slot at
+# a time
+GATHER_CHUNK = 1 << 25
+
+
 def gather_cell_3d(eb_pad: torch.Tensor, x, y, z, g: int):
     """eb_pad (6, nx+2g, ny+2g, nz+2g); x, y, z (cap_c, nx, ny, nz).
     Returns the six gathered components. Yee staggering:
 
         ex: (hx,gy,gz)  ey: (gx,hy,gz)  ez: (gx,gy,hz)
         bx: (gx,hy,hz)  by: (hx,gy,hz)  bz: (hx,hy,gz)
-    """
+
+    Slots go GATHER_CHUNK // cells at a time (each slot's value is the
+    same whatever the chunk)."""
     cap, nx, ny, nz = x.shape
+    step = max(1, GATHER_CHUNK // max(1, nx * ny * nz))
+    if step < cap:
+        out = [torch.empty_like(x) for _ in range(6)]
+        for s in range(0, cap, step):
+            part = gather_cell_3d(eb_pad, x[s:s + step], y[s:s + step],
+                                  z[s:s + step], g)
+            for o, t in zip(out, part):
+                o[s:s + step] = t
+        return tuple(out)
     dx, dy, dz = _deltas(x, y, z)
     gx = {o: _m2(o - dx) for o in _GOFF}
     hx = {o: _m2(o + 0.5 - dx) for o in _HOFF}
@@ -138,13 +155,17 @@ def deposit_cell_3d(x, y, z, ux, uy, uz, inv_gamma, w, *, q: float,
 
 
 def migrate_cell_3d(data: Dict[str, torch.Tensor], alive: torch.Tensor,
-                    periodic: Sequence[bool], *, recompute_ig: bool = True
+                    periodic: Sequence[bool], *, recompute_ig: bool = True,
+                    exact: bool = False, sort_fn=None
                     ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor,
                                torch.Tensor]:
-    """3D overwrite-merge re-binning along x, then y, then z (see
-    ``cell2d.migrate_cells``)."""
+    """3D re-binning along x, then y, then z (see
+    ``cell2d.migrate_cells``): the fast overwrite-merge scheme sorting
+    with ``sort_fn`` (the Batcher list when None), or with ``exact`` the
+    lossless scheme."""
     cap, nx, ny, nz = alive.shape
     return migrate_cells(
         data, alive,
         ((nx, periodic[0], "x"), (ny, periodic[1], "y"),
-         (nz, periodic[2], "z")), recompute_ig=recompute_ig)
+         (nz, periodic[2], "z")), recompute_ig=recompute_ig, exact=exact,
+        sort_fn=sort_fn)

@@ -1,11 +1,15 @@
-"""The per-stage cell engine's kernels, 2D (counterpart of
+"""The per-stage cell engine's kernels, 2D and 3D (counterpart of
 lambdapic_tpu/ops/cellpallas.py):
 
     B4  fused_push_cell_2d   gather + Boris + half push   csrc/push2d.cu
+        fused_push_cell_3d                                csrc/push3d.cu
     B5  deposit_cell_2d_k    Esirkepov J, rho -> padded   csrc/deposit2d.cu
-    B6  migrate_axis         one re-binning axis          csrc/migrate2d.cu
-        (driven by migrate_cells_fused, one launch per axis)
+        deposit_cell_3d_k                                 csrc/deposit3d.cu
+    B6  migrate_axis         one re-binning axis, 2D or   csrc/migrate.cu
+                             3D slots (driven by migrate_cells_fused, one
+                             launch per axis)
     B7  sort_cells           Batcher sort along slots     csrc/sortcells.cu
+                             of any rank
 
 Each entry point launches its CUDA kernel on CUDA tensors and runs its
 plain PyTorch version on CPU tensors; there is no fallback from a kernel
@@ -15,9 +19,11 @@ wrapper's ``launches`` (B4 also counts per mode in ``launches_by_mode``,
 contiguity of its operands and raises on what its kernel does not take.
 
 Plain versions: B4 ``fused_push_cell_2d_plain`` (``gather_cell_2d`` +
-``boris_push`` + ``push_position_2d``), B5 ``cell2d.deposit_cell_2d``,
-B6 ``cell2d.migrate_cells`` (fast scheme, Batcher order), B7
-``cell2d.batcher_sort``. The 3D forms of B4-B7 are ROADMAP item 17.
+``boris_push`` + ``push_position_2d``) and ``fused_push_cell_3d_plain``
+(the same with ``gather_cell_3d`` and ``push_position_3d``), B5
+``cell2d.deposit_cell_2d`` and ``cell3d.deposit_cell_3d``, B6
+``cell2d.migrate_cells`` (fast scheme, Batcher order, two or three
+axes), B7 ``cell2d.batcher_sort``.
 """
 from __future__ import annotations
 
@@ -31,10 +37,11 @@ from . import kernel_lib
 from .cell2d import (MERGED, SANITIZED, TRANSIENT, batcher_network,
                      batcher_sort, deposit_cell_2d, gather_cell_2d,
                      migrate_cells)
-from .cellslab import MAX_CAP, TILE, _ces_tensor, panel_shape
-from .pusher import boris_push, push_position_2d
+from .cell3d import deposit_cell_3d, gather_cell_3d
+from .cellslab import MAX_CAP, TILE, TILE3, _ces_tensor, panel_shape
+from .pusher import boris_push, push_position_2d, push_position_3d
 
-# csrc/migrate2d.cu's MAXF / MAXI and csrc/sortcells.cu's MAXP, held equal
+# csrc/migrate.cu's MAXF / MAXI and csrc/sortcells.cu's MAXP, held equal
 # to them when each library is first used
 MIGRATE_MAX_FLOAT = 16
 MIGRATE_MAX_INT = 4
@@ -69,9 +76,10 @@ def _check_limits(lib: str) -> None:
     """The kernels' compile-time limits, held equal to this module's once,
     when a library is first used."""
     so = kernel_lib.library(lib)
-    if lib == "deposit2d":
-        got, want = (so.lp_deposit_tile(),), (TILE,)
-    elif lib == "migrate2d":
+    if lib in ("deposit2d", "deposit3d"):
+        got = (so.lp_deposit_tile(),)
+        want = (TILE if lib == "deposit2d" else TILE3,)
+    elif lib == "migrate":
         got = (so.lp_migrate_max_payloads(0), so.lp_migrate_max_payloads(1))
         want = (MIGRATE_MAX_FLOAT, MIGRATE_MAX_INT)
     else:
@@ -117,8 +125,8 @@ def fused_push_cell_2d(eb_pad, x, y, ux, uy, uz, *, q: float, m: float,
     dev, dtype = x.device, x.dtype
     _check_float(dtype, "fused_push_cell_2d")
     if x.ndim != 3:
-        raise NotImplementedError("fused_push_cell_2d: 2D slots only (the 3D "
-                                  "form is ROADMAP queue 1, item 17)")
+        raise ValueError("fused_push_cell_2d: 2D slots (cap, nx, ny); 3D "
+                         "slots go to fused_push_cell_3d")
     shape = tuple(x.shape)
     cap, nx, ny = shape
     kernel_lib.check(eb_pad, "eb_pad", (6, nx + 2 * g, ny + 2 * g), dtype, dev)
@@ -141,6 +149,63 @@ fused_push_cell_2d.launches = 0
 fused_push_cell_2d.launches_by_mode = dict.fromkeys(PUSH_MODES, 0)
 
 
+def fused_push_cell_3d_plain(eb_pad, x, y, z, ux, uy, uz, *, q: float,
+                             m: float, dt: float, dx: float, dy: float,
+                             dz: float, g: int, want_eb: bool = False,
+                             do_pos1: bool = True):
+    """Plain version of kernel B4 in 3D (see ``fused_push_cell_3d``)."""
+    h = [c_light * dt / d / 2 for d in (dx, dy, dz)]
+    if do_pos1:
+        ig = 1.0 / torch.sqrt(1.0 + ux**2 + uy**2 + uz**2)
+        x, y, z = push_position_3d(x, y, z, ux, uy, uz, ig, *h)
+    eb = gather_cell_3d(eb_pad, x, y, z, g)
+    ux, uy, uz, ig = boris_push(ux, uy, uz, *eb, q, m, dt)
+    x, y, z = push_position_3d(x, y, z, ux, uy, uz, ig, *h)
+    out = (x, y, z, ux, uy, uz, ig)
+    return out + tuple(eb) if want_eb else out
+
+
+def fused_push_cell_3d(eb_pad, x, y, z, ux, uy, uz, *, q: float, m: float,
+                       dt: float, dx: float, dy: float, dz: float, g: int,
+                       want_eb: bool = False, do_pos1: bool = True):
+    """Kernel B4 in 3D. eb_pad (6, nx+2g, ny+2g, nz+2g); slots (cap, nx,
+    ny, nz), freshly re-binned; ``do_pos1`` as in ``fused_push_cell_2d``.
+    Returns (x, y, z, ux, uy, uz, inv_gamma) after the gather, Boris and
+    the second half push, and with ``want_eb`` also the six gathered
+    components (ex, ey, ez, bx, by, bz)."""
+    if not _on_card(x, "fused_push_cell_3d"):
+        return fused_push_cell_3d_plain(eb_pad, x, y, z, ux, uy, uz, q=q,
+                                        m=m, dt=dt, dx=dx, dy=dy, dz=dz,
+                                        g=g, want_eb=want_eb,
+                                        do_pos1=do_pos1)
+    dev, dtype = x.device, x.dtype
+    _check_float(dtype, "fused_push_cell_3d")
+    if x.ndim != 4:
+        raise ValueError("fused_push_cell_3d: 3D slots (cap, nx, ny, nz)")
+    shape = tuple(x.shape)
+    cap, nx, ny, nz = shape
+    kernel_lib.check(eb_pad, "eb_pad", (6, nx + 2 * g, ny + 2 * g,
+                                        nz + 2 * g), dtype, dev)
+    for name, t in (("x", x), ("y", y), ("z", z), ("ux", ux), ("uy", uy),
+                    ("uz", uz)):
+        kernel_lib.check(t, name, shape, dtype, dev)
+    outs = [torch.empty(shape, dtype=dtype, device=dev)
+            for _ in range(13 if want_eb else 7)]
+    ebs = outs[7:] if want_eb else [None] * 6
+    h = [c_light * dt / d / 2 for d in (dx, dy, dz)]
+    kernel_lib.call(
+        "push3d", "lp_push_3d", [eb_pad, x, y, z, ux, uy, uz] + outs[:7] + ebs,
+        [cap, nx, ny, nz, g, want_eb, do_pos1, dtype == torch.float64],
+        h + [q * dt / (2 * m * c_light), q * dt / (2 * m)], dev)
+    fused_push_cell_3d.launches += 1
+    fused_push_cell_3d.launches_by_mode[PUSH_MODES[int(want_eb)]] += 1
+    return tuple(outs)
+
+
+fused_push_cell_3d.launches = 0
+fused_push_cell_3d.launches_by_mode = dict.fromkeys(PUSH_MODES, 0)
+
+
 # ----------------------------------------------------------------------
 # B5: deposit into the padded current
 # ----------------------------------------------------------------------
@@ -157,8 +222,8 @@ def deposit_cell_2d_k(x, y, ux, uy, uz, inv_gamma, w, *, q: float,
     dev, dtype = x.device, x.dtype
     _check_float(dtype, "deposit_cell_2d_k")
     if x.ndim != 3:
-        raise NotImplementedError("deposit_cell_2d_k: 2D slots only (the 3D "
-                                  "form is ROADMAP queue 1, item 17)")
+        raise ValueError("deposit_cell_2d_k: 2D slots (cap, nx, ny); 3D "
+                         "slots go to deposit_cell_3d_k")
     if g < 2:
         raise ValueError("deposit_cell_2d_k: the 5-tap stencil needs g >= 2")
     _check_limits("deposit2d")
@@ -180,6 +245,44 @@ def deposit_cell_2d_k(x, y, ux, uy, uz, inv_gamma, w, *, q: float,
 
 
 deposit_cell_2d_k.launches = 0
+
+
+def deposit_cell_3d_k(x, y, z, ux, uy, uz, inv_gamma, w, *, q: float,
+                      dx: float, dy: float, dz: float, dt: float, g: int
+                      ) -> torch.Tensor:
+    """Kernel B5 in 3D, the contract of ``cell3d.deposit_cell_3d``
+    (home-cell binned slots, dead slots with w == 0): the padded
+    (4, nx+2g, ny+2g, nz+2g) jx, jy, jz, rho of one species."""
+    if not _on_card(x, "deposit_cell_3d_k"):
+        return deposit_cell_3d(x, y, z, ux, uy, uz, inv_gamma, w, q=q,
+                               dx=dx, dy=dy, dz=dz, dt=dt, g=g)
+    dev, dtype = x.device, x.dtype
+    _check_float(dtype, "deposit_cell_3d_k")
+    if x.ndim != 4:
+        raise ValueError("deposit_cell_3d_k: 3D slots (cap, nx, ny, nz)")
+    if g < 2:
+        raise ValueError("deposit_cell_3d_k: the 5-tap stencil needs g >= 2")
+    _check_limits("deposit3d")
+    shape = tuple(x.shape)
+    cap, nx, ny, nz = shape
+    for name, t in (("x", x), ("y", y), ("z", z), ("ux", ux), ("uy", uy),
+                    ("uz", uz), ("inv_gamma", inv_gamma), ("w", w)):
+        kernel_lib.check(t, name, shape, dtype, dev)
+    panels = torch.empty(panel_shape(4, nx, ny, nz), dtype=dtype, device=dev)
+    jpad = torch.empty((4, nx + 2 * g, ny + 2 * g, nz + 2 * g), dtype=dtype,
+                       device=dev)
+    kernel_lib.call(
+        "deposit3d", "lp_deposit_3d",
+        [x, y, z, ux, uy, uz, inv_gamma, w, panels, jpad],
+        [cap, nx, ny, nz, g, dtype == torch.float64],
+        [c_light * dt / dx, c_light * dt / dy, c_light * dt / dz,
+         q / (dx * dy * dz), q / (dy * dz * dt), q / (dx * dz * dt),
+         q / (dx * dy * dt)], dev)
+    deposit_cell_3d_k.launches += 1
+    return jpad
+
+
+deposit_cell_3d_k.launches = 0
 
 
 # ----------------------------------------------------------------------
@@ -234,16 +337,16 @@ sort_cells.launches = 0
 def migrate_axis(alive: torch.Tensor, floats: Dict[str, torch.Tensor],
                  ints: Dict[str, torch.Tensor], *, axis: int, periodic: bool,
                  coord: str, final: bool, recompute_ig: bool):
-    """Kernel B6: one axis of the fast re-binning of 2D slots. ``floats``
-    (the species' float type) and ``ints`` (int32) are the carried
-    payloads by name, ``coord`` the axis's coordinate among them. On the
-    ``final`` axis dead slots' x, y, z, w, ux, uy, uz become 0 and
+    """Kernel B6: one axis of the fast re-binning of 2D or 3D slots.
+    ``floats`` (the species' float type) and ``ints`` (int32) are the
+    carried payloads by name, ``coord`` the axis's coordinate among them.
+    On the ``final`` axis dead slots' x, y, z, w, ux, uy, uz become 0 and
     inv_gamma is recomputed from u (``recompute_ig``) or, carried, set to
     1 in dead slots. Returns (alive, floats, ints, inv_gamma or None,
     n_merged)."""
     dev = alive.device
     shape = tuple(alive.shape)
-    cap, nx, ny = shape
+    cap, cells = shape[0], shape[1:]
     fnames, inames = list(floats), list(ints)
     dtype = floats[coord].dtype
     kernel_lib.check(alive, "alive", shape, torch.bool, dev)
@@ -266,15 +369,19 @@ def migrate_axis(alive: torch.Tensor, floats: Dict[str, torch.Tensor],
     n_merged = torch.zeros((), dtype=torch.int64, device=dev)
     fpad = [None] * (MIGRATE_MAX_FLOAT - len(fnames))
     ipad = [None] * (MIGRATE_MAX_INT - len(inames))
+    # the cells between neighbours along the axis (C order)
+    stride = 1
+    for n in cells[axis + 1:]:
+        stride *= n
     kernel_lib.call(
-        "migrate2d", "lp_migrate_axis_2d",
+        "migrate", "lp_migrate_axis",
         [alive, new_alive, n_merged, _ces_tensor(cap, dev), ig]
         + [floats[k] for k in fnames] + fpad + fout + fpad
         + [ints[k] for k in inames] + ipad + iout + ipad,
-        [cap, nx, ny, axis, periodic, len(fnames), len(inames), index(coord),
-         index("w"), mask(MERGED + ("w",)), final, mask(SANITIZED),
-         index("ux"), index("uy"), index("uz"), recompute_ig,
-         -1 if recompute_ig else index("inv_gamma"),
+        [cap, alive[0].numel(), cells[axis], stride, periodic, len(fnames),
+         len(inames), index(coord), index("w"), mask(MERGED + ("w",)), final,
+         mask(SANITIZED), index("ux"), index("uy"), index("uz"),
+         recompute_ig, -1 if recompute_ig else index("inv_gamma"),
          len(batcher_network(cap)), dtype == torch.float64], [], dev)
     migrate_axis.launches += 1
     return (new_alive, dict(zip(fnames, fout)), dict(zip(inames, iout)), ig,
@@ -287,17 +394,18 @@ migrate_axis.launches = 0
 def migrate_cells_fused(data: Dict[str, torch.Tensor], alive: torch.Tensor,
                         plan, *, recompute_ig: bool = True):
     """The fast re-binning of ``cell2d.migrate_cells`` (same arguments and
-    results, Batcher order) through kernel B6, one launch per axis. It
-    carries every payload but the transient ones (``cell2d.TRANSIENT``;
-    inv_gamma too unless ``recompute_ig``), a QED species' tau, delta and
-    event included."""
+    results, Batcher order) of 2D or 3D slots through kernel B6, one
+    launch per axis. It carries every payload but the transient ones
+    (``cell2d.TRANSIENT``; inv_gamma too unless ``recompute_ig``), a QED
+    species' tau, delta and event included."""
     if not _on_card(alive, "migrate_cells_fused"):
         return migrate_cells(data, alive, plan, recompute_ig=recompute_ig)
-    if alive.ndim != 3 or len(plan) != 2:
-        raise NotImplementedError("migrate_cells_fused: 2D slots only (the "
-                                  "3D form is ROADMAP queue 1, item 17)")
+    if alive.ndim != 1 + len(plan) or len(plan) not in (2, 3):
+        raise ValueError(f"migrate_cells_fused: slots of shape "
+                         f"{tuple(alive.shape)} and a plan of {len(plan)} "
+                         "axes: 2D or 3D slots, one plan entry per axis")
     _check_cap(alive.shape[0], "migrate_cells_fused")
-    _check_limits("migrate2d")
+    _check_limits("migrate")
     transient = set(TRANSIENT) if recompute_ig \
         else set(TRANSIENT) - {"inv_gamma"}
     names = sorted(k for k in data if k not in transient)

@@ -30,7 +30,8 @@ SOURCES = {"fields": "fields.cu", "cellstep": "cellstep.cu",
            "fold": "fold.cu", "fields3d": "fields3d.cu",
            "cellstep3d": "cellstep3d.cu", "fold3d": "fold3d.cu",
            "push2d": "push2d.cu", "deposit2d": "deposit2d.cu",
-           "migrate2d": "migrate2d.cu", "sortcells": "sortcells.cu"}
+           "migrate": "migrate.cu", "sortcells": "sortcells.cu",
+           "push3d": "push3d.cu", "deposit3d": "deposit3d.cu"}
 # --fmad=false: no multiply-add contraction, so each kernel rounds as its
 # plain PyTorch version does, op for op
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

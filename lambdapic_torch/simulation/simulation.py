@@ -29,7 +29,7 @@ from ..ops.cell3d import deposit_cell_3d
 from ..ops.cellslab import MAX_CAP
 from ..ops.cpml import CPMLParams, build_cpml
 from ..parallel.halo import halo_reduce
-from .callbacks import INNER_STAGES, INNER_SUBSTAGES, SimulationCallbacks
+from .callbacks import INNER_SUBSTAGES, SimulationCallbacks
 from .initfill import (bin_cells, count_macro_particles, fill_species,
                        pick_capacity)
 from .step import SpeciesStatic, StepBuilder
@@ -215,9 +215,6 @@ class Simulation:
         if self.tiling != "cell":
             raise _todo(f"tiling={self.tiling!r} (the scatter and tiled "
                         "engines)", "12 and 13")
-        if self.cell_migration == "exact" and self.dimension == 3:
-            raise _todo("cell_migration='exact' in 3D (the 3D per-stage "
-                        "cell engine, kernels B4-B7 in 3D)", "17")
         if self.cell_migration not in ("fast", "exact"):
             raise ValueError(f"cell_migration must be 'fast' or 'exact', got "
                              f"{self.cell_migration!r}")
@@ -390,10 +387,6 @@ class Simulation:
         lasers = [cb for cb in callbacks
                   if getattr(cb, "is_device_callback", False)]
         cbs = SimulationCallbacks(callbacks, self)
-        inner = sorted(s for s in INNER_STAGES if cbs.has(s))
-        if inner and self.dimension == 3:
-            raise _todo(f"host callbacks at inner stages {inner} in 3D (the "
-                        "3D split particle path, kernels B4-B7 in 3D)", "17")
         with_rho = self._resolve_deposit_rho(callbacks)
         if self._builder is None or \
                 getattr(self, "_active_lasers", None) != lasers or \

@@ -14,8 +14,8 @@ path of lambdapic_tpu/simulation/step.py::StepBuilder).
                    fold the summed panels into J        kernel B3
     seg_fields_2   B += dt/2 ; lasers ; E += dt/2        kernel B1 x2
 
-The per-stage engine (2D) takes a species off B2 where the JAX package
-does so for a reason that is not tiling:
+The per-stage engine (2D and 3D) takes a species off B2 where the JAX
+package does so for a reason that is not tiling:
 
 - ``cell_migration="exact"`` (every step): half push, the exact
   re-binning (``cell2d.migrate_cells(exact=True)``, plain torch as it is
@@ -33,10 +33,9 @@ does so for a reason that is not tiling:
   The sub-stages talk through the particle arrays.
 
 The grid's dimension (2 or 3) selects the 2D or the 3D form of each
-kernel (QED and the per-stage engine in 2D only so far). Host callbacks
-can run between the segments. Breit-Wheeler pairs, collisions, the tiled
-and scatter engines and multi-step chunking are not ported yet (ROADMAP
-queue 1).
+kernel (QED in 2D only so far). Host callbacks can run between the
+segments. Breit-Wheeler pairs, collisions, the tiled and scatter engines
+and multi-step chunking are not ported yet (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -51,12 +50,15 @@ from ..core.grid import Grid
 from ..core.state import ParticlesState, SimulationState
 from ..models.qed import species_key
 from ..ops.cell2d import gather_cell_2d, insert_cells, migrate_cells
-from ..ops.cellpallas import (deposit_cell_2d_k, fused_push_cell_2d,
+from ..ops.cell3d import gather_cell_3d
+from ..ops.cellpallas import (deposit_cell_2d_k, deposit_cell_3d_k,
+                              fused_push_cell_2d, fused_push_cell_3d,
                               migrate_cells_fused, sort_cells)
 from ..ops.cellslab import cell_step, fold_reduce
 from ..ops.cpml import CPMLCoeffs
 from ..ops.fieldskernel import half_coeffs, update_bfield_k, update_efield_k
-from ..ops.pusher import boris_push, photon_push, push_position_2d
+from ..ops.pusher import (boris_push, photon_push, push_position_2d,
+                          push_position_3d)
 from ..parallel.halo import halo_pad, halo_reduce
 from .callbacks import INNER_SUBSTAGES
 
@@ -227,29 +229,30 @@ class StepBuilder:
     def species_stages(self, ispec: int, p: ParticlesState,
                        eb_pad: Optional[torch.Tensor], scalars: Dict,
                        stages: FrozenSet[str]):
-        """The per-stage engine for one 2D species (the non-slab cell
-        branch of lambdapic_tpu/simulation/step.py::make_species_block),
-        restricted to the sub-stages ``stages``. Returns (particles, the
-        padded (4, nx+2g, ny+2g) current or None)."""
+        """The per-stage engine for one 2D or 3D species (the non-slab
+        cell branch of lambdapic_tpu/simulation/step.py::
+        make_species_block), restricted to the sub-stages ``stages``.
+        Returns (particles, the padded (4, nx+2g, ny+2g[, nz+2g]) current
+        or None)."""
         grid = self.grid
-        if grid.dimension != 2:
-            raise NotImplementedError(
-                "the per-stage cell engine in 3D (kernels B4-B7 in 3D) is "
-                "not ported to lambdapic_torch yet (ROADMAP queue 1, item 17)")
+        nd = grid.dimension
+        three_d = nd == 3
+        axes = grid.axes
+        moms = ("ux", "uy", "uz")[:nd]
         sp = self.species[ispec]
         dt, g = self.dt, grid.n_guard
-        hx, hy = c_light * dt / grid.dx / 2, c_light * dt / grid.dy / 2
+        h = [c_light * dt / d / 2 for d in grid.deltas]
+        push_pos = push_position_3d if three_d else push_position_2d
         photon = sp.pusher == "photon"
         procs = self._procs(ispec)
         split = stages != ALL_SUBSTAGES
         data, alive = dict(p.data), p.alive
         lost = 0
         if "p1" in stages:
-            data["x"], data["y"] = push_position_2d(
-                data["x"], data["y"], data["ux"], data["uy"],
-                data["inv_gamma"], hx, hy)
-            plan = tuple((n, per, ax) for n, per, ax in
-                         zip(grid.shape, self.periodic, ("x", "y")))
+            pos = push_pos(*(data[a] for a in axes),
+                           *(data[k] for k in moms), data["inv_gamma"], *h)
+            data.update(zip(axes, pos))
+            plan = tuple(zip(grid.shape, self.periodic, axes))
             if self.cell_migration == "exact":
                 data, alive, lost = migrate_cells(
                     data, alive, plan, recompute_ig=not photon, exact=True)
@@ -261,18 +264,23 @@ class StepBuilder:
                     data, alive, plan, recompute_ig=not photon,
                     sort_fn=sort_cells)
         key = self._species_key(scalars, ispec) if procs else None
-        x, y = data["x"], data["y"]
+        pos = tuple(data[a] for a in axes)
         if not split and not photon:
             # gather + Boris + half push in kernel B4; a radiating species
             # also gets the gathered fields for its QED events, which read
             # the pre-push momenta still in ``data``
-            outs = fused_push_cell_2d(
-                eb_pad, x, y, data["ux"], data["uy"], data["uz"], q=sp.q,
-                m=sp.m, dt=dt, dx=grid.dx, dy=grid.dy, g=g,
-                want_eb=bool(procs), do_pos1=False)
-            x, y, ux, uy, uz, ig = outs[:6]
+            kw = dict(q=sp.q, m=sp.m, dt=dt, dx=grid.dx, dy=grid.dy, g=g,
+                      want_eb=bool(procs), do_pos1=False)
+            if three_d:
+                outs = fused_push_cell_3d(eb_pad, *pos, data["ux"],
+                                          data["uy"], data["uz"],
+                                          dz=grid.dz, **kw)
+            else:
+                outs = fused_push_cell_2d(eb_pad, *pos, data["ux"],
+                                          data["uy"], data["uz"], **kw)
+            pos, (ux, uy, uz), ig = outs[:nd], outs[nd:nd + 3], outs[nd + 3]
             if procs:
-                data.update(zip(EB_PART, outs[6:]))
+                data.update(zip(EB_PART, outs[nd + 4:]))
                 for proc in procs:
                     data, alive = proc.update_chi_and_events(data, alive,
                                                              key, dt)
@@ -282,7 +290,8 @@ class StepBuilder:
                 # a photon's gathered fields are read only by callbacks
                 # of the split step
                 if split or not photon:
-                    eb = gather_cell_2d(eb_pad, x, y, g)
+                    gather = gather_cell_3d if three_d else gather_cell_2d
+                    eb = gather(eb_pad, *pos, g)
                     data.update(zip(EB_PART, eb))
             if "qed" in stages:
                 for proc in procs:
@@ -299,13 +308,18 @@ class StepBuilder:
                     ux, uy, uz, ig = boris_push(ux, uy, uz, *eb, sp.q, sp.m,
                                                 dt)
             if "p2" in stages:
-                x, y = push_position_2d(x, y, ux, uy, ig, hx, hy)
-        data.update(x=x, y=y, ux=ux, uy=uy, uz=uz, inv_gamma=ig)
+                pos = push_pos(*pos, *(ux, uy, uz)[:nd], ig, *h)
+        data.update(zip(axes, pos))
+        data.update(ux=ux, uy=uy, uz=uz, inv_gamma=ig)
         jpad = None
         if sp.q != 0.0 and "deposit" in stages:
             w = torch.where(alive, data["w"], 0.0)
-            jpad = deposit_cell_2d_k(x, y, ux, uy, uz, ig, w, q=sp.q,
-                                     dx=grid.dx, dy=grid.dy, dt=dt, g=g)
+            kw = dict(q=sp.q, dx=grid.dx, dy=grid.dy, dt=dt, g=g)
+            if three_d:
+                jpad = deposit_cell_3d_k(*pos, ux, uy, uz, ig, w, dz=grid.dz,
+                                         **kw)
+            else:
+                jpad = deposit_cell_2d_k(*pos, ux, uy, uz, ig, w, **kw)
         return p.replace(data=data, alive=alive,
                          overflow=p.overflow + lost), jpad
 

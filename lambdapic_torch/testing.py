@@ -8,6 +8,7 @@ slots by (dead, id_lo).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -17,6 +18,21 @@ from .core.state import ID_KEYS, ids_to_numpy, ids_to_torch
 
 SLOT_FLOATS = ("x", "y", "z", "w", "ux", "uy", "uz", "inv_gamma")
 QED_PAYLOADS = ("tau", "delta", "event")
+
+
+@contextlib.contextmanager
+def torch_threads(n: int):
+    """Run the body with ``n`` threads in PyTorch's CPU pool, restoring
+    the count after. A small 3D step is thousands of operations on arrays
+    just above PyTorch's parallel grain; when several test processes each
+    run a full pool on the same cores, every one of them waits on the
+    others' threads and the step slows a hundredfold."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
 
 
 def random_cell_state(cap: int, nx: int, ny: int, nz: Optional[int] = None,
@@ -128,30 +144,38 @@ def compare_slots(ref, ref_alive, got, got_alive, *, rtol: float,
                                    atol=max(floor * peak, 1e-300), err_msg=k)
 
 
-def crowded_cell_state(cap: int, nx: int, ny: int, *, seed: int = 0,
-                       n_frac: float = 1.0):
-    """A 2D cell state whose re-binning along x overfills cells: in
-    columns ix = 3k + 1 the particles sit below -0.5 of their cell (they
-    move to 3k), in columns 3k + 2 at or above +0.5 (they move to 3k + 3),
-    and in columns 3k they stay, so a column 3k can receive 3 cap
-    particles. Along y about a fifth of the particles cross a cell face.
-    Returns (data, alive, eb_pad) as ``random_cell_state``."""
-    data, alive, eb_pad = random_cell_state(cap, nx, ny, n_frac=n_frac,
+def crowded_cell_state(cap: int, nx: int, ny: int, nz: Optional[int] = None,
+                       *, seed: int = 0, n_frac: float = 1.0):
+    """A 2D (or with ``nz`` 3D) cell state whose re-binning along x
+    overfills cells: in columns ix = 3k + 1 the particles sit below -0.5
+    of their cell (they move to 3k), in columns 3k + 2 at or above +0.5
+    (they move to 3k + 3), and in columns 3k they stay, so a column 3k can
+    receive 3 cap particles. Along y (and z) about a fifth of the
+    particles cross a cell face. Returns (data, alive, eb_pad) as
+    ``random_cell_state``."""
+    data, alive, eb_pad = random_cell_state(cap, nx, ny, nz, n_frac=n_frac,
                                             seed=seed)
     rng = np.random.default_rng(seed + 1)
     shape = alive.shape
-    ix = np.broadcast_to(np.arange(nx).reshape(1, nx, 1), shape)
-    iy = np.broadcast_to(np.arange(ny).reshape(1, 1, ny), shape)
+
+    def index(axis):
+        ishape = [1] * len(shape)
+        ishape[1 + axis] = shape[1 + axis]
+        return np.broadcast_to(np.arange(shape[1 + axis]).reshape(ishape),
+                               shape)
+
+    ix = index(0)
     off = np.select([ix % 3 == 1, ix % 3 == 2],
                     [rng.uniform(-0.95, -0.55, shape),
                      rng.uniform(0.5, 0.9, shape)],
                     rng.uniform(-0.45, 0.45, shape))
-    yoff = np.where(rng.uniform(0, 1, shape) < 0.2,
-                    rng.choice([-0.7, 0.6], shape),
-                    rng.uniform(-0.45, 0.45, shape))
     data = dict(data)
     data["x"] = np.where(alive, ix + off, 0.0)
-    data["y"] = np.where(alive, iy + yoff, 0.0)
+    for axis in range(1, len(shape) - 1):
+        yoff = np.where(rng.uniform(0, 1, shape) < 0.2,
+                        rng.choice([-0.7, 0.6], shape),
+                        rng.uniform(-0.45, 0.45, shape))
+        data["yz"[axis - 1]] = np.where(alive, index(axis) + yoff, 0.0)
     return data, alive, eb_pad
 
 

@@ -20,8 +20,8 @@ protons, PML, GaussianLaser2D).
 - a ``_push_momentum`` callback that zeroes uz takes effect;
 - get_particles exposes ``ex_part`` after a split step, not after a fused
   one;
-- Simulation3D refuses exact migration and inner-stage callbacks, naming
-  ROADMAP item 17.
+- Simulation3D takes exact migration and inner-stage callbacks and
+  refuses QED in 3D, naming ROADMAP item 9.
 """
 import numpy as np
 import pytest
@@ -169,6 +169,9 @@ def test_get_particles_exposes_fields_after_split_only():
 
 
 def test_3d_refuses_exact_and_inner_callbacks():
+    """Since the 3D per-stage engine was ported, Simulation3D takes
+    cell_migration="exact" and inner-stage callbacks (both run a step);
+    what it still refuses is QED in 3D, naming ROADMAP item 9."""
     import lambdapic_torch as lt
     kw = dict(nx=16, ny=8, nz=8, dx=1e-7, dy=1e-7, dz=1e-7, tiling="cell",
               device="cpu")
@@ -178,11 +181,17 @@ def test_3d_refuses_exact_and_inner_callbacks():
 
     sim = lt.Simulation3D(cell_migration="exact", **kw)
     sim.add_species([lt.Electron(density=profile, ppc=1)])
-    with pytest.raises(NotImplementedError, match="item 17"):
-        sim.initialize()
+    sim.run(1)
+    assert sim.itime == 1 and sim.npart_alive[0] > 0
     t_species._ALL_SPECIES.clear()
+    seen = []
     sim = lt.Simulation3D(**kw)
     sim.add_species([lt.Electron(density=profile, ppc=1)])
-    probe = lt.callback(stage="_qed")(lambda s: None)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        sim.run(1, callbacks=[probe])
+    probe = lt.callback(stage="_qed")(lambda s: seen.append(s.itime))
+    sim.run(1, callbacks=[probe])
+    assert seen == [0]
+    t_species._ALL_SPECIES.clear()
+    sim = lt.Simulation3D(cell_migration="exact", **kw)
+    sim.add_species([lt.Photon(capacity=1024)])
+    with pytest.raises(NotImplementedError, match="item 9"):
+        sim.initialize()
