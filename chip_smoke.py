@@ -7,7 +7,9 @@
                           [--steps-exact-qed N] [--steps-split N]
                           [--steps-split-sort N] [--steps-split3d N]
                           [--steps-split-sort3d N] [--steps-exact3d N]
-                          [--window-exact3d W]
+                          [--window-exact3d W] [--steps-qed3d N]
+                          [--window-qed3d W] [--steps-split-qed3d N]
+                          [--steps-exact-qed3d N]
     python3 chip_smoke.py --exact2d-digest N
 
 Phases (any failure exits non-zero):
@@ -49,7 +51,7 @@ Phases (any failure exits non-zero):
    LAMBDAPIC_MIG_FUSED=0: B7 6); then B4-B7 against their plain versions
    (float64 at small sizes, float32 at the 2D slice's shapes), the 2D
    slice with cell_migration="exact" (B1 4, B4 3, B5 3; every alive id
-   kept to step 401 but those counted merged or dropped) and the QED
+   kept to step 101 but those counted merged or dropped) and the QED
    slice with cell_migration="exact" (B1 4, B4 2 = default + want_eb,
    B5 2; photons emitted), each timed and profiled, and B4-B7 timed at
    the exact slice's final state;
@@ -62,11 +64,29 @@ Phases (any failure exits non-zero):
    3D slice's shapes), the 3D slice with cell_migration="exact" from its
    fill (B1 4, B4 2, B5 2; every alive id kept but those counted merged
    or dropped and those stored on an open face's edge), timed and
-   profiled, and B4-B7 in 3D timed at its final state.
+   profiled, and B4-B7 in 3D timed at its final state;
+9. per-cell capacities above 128: B2 (2D and 3D, default and want_chi),
+   B6 (2D and 3D slots) and B7 at 130 and 256 slots a cell, and one case
+   with more cells than the sort scratch has rows, against their plain
+   versions in float64;
+10. QED in 3D: B2 3D's want_chi and photon modes against their plain
+   versions (float64 slot for slot at small sizes, float32 at the slice's
+   shapes), the draws on the card against the CPU, and this script's 3D
+   QED configuration (example/photons.py in 3D at
+   example/laser-target-3d.py's resolution, 256 x 128 x 128 cells; no
+   script in example/ is 3D QED) through Simulation3D.run to its end
+   (launches per step B1 4, B2 3 = want_chi + default + photon, B3 1; the
+   gates of the 2D QED slice, the accounting species by species), then
+   split steps (a _push_momentum callback: B1 4, B6 9, B5 2 a step; one
+   split step held against one fused step from a cloned state) and its
+   cell_migration="exact" twin from its own fill (B1 4, B4 2 = default +
+   want_eb, B5 2) to 50 steps past its first photon.
 
-Prints a ``{"kernels": [...]}`` line with the 2D, the per-stage, the QED,
-the 3D and the 3D per-stage kernels, the card's name and power limit, and
-as its last line ``{"ok": true, "device": {...}}``.
+Prints the bounds of the tiled 2D engine's kernels B8 and B9 (not
+ported) counted from their shapes, a ``{"kernels": [...]}`` line with the
+2D, the per-stage, the QED, the 3D, the 3D QED and the 3D per-stage
+kernels, the card's name and power limit, and as its last line
+``{"ok": true, "device": {...}}``.
 
 ``--exact2d-digest N`` runs only the 2D slice with cell_migration="exact"
 for N steps and prints its peak device memory and a digest of its final
@@ -346,17 +366,18 @@ def check_b2_f64(dev):
     return merges
 
 
-def compare_b2_f32(eb_pad, p, sp, dt, grid, periodic):
-    """Kernel B2 against its plain version at the slice's shapes in
-    float32: alive masks and ids identical, merges equal, total weight to
-    1e-6, J panels to 1e-4 of their peak. The slice's particles start at
-    rest, and a particle at rest changes no cell (re-binning comes before
-    the momentum push), so one kernel step first gives them momenta; the
-    step that is compared then re-bins them across cells."""
+def compare_b2_f32(eb_pad, p, sp, dt, grid, periodic, want_chi=False):
+    """Kernel B2 (in its ``want_chi`` mode: and chi) against its plain
+    version at the slice's shapes in float32: alive masks and ids
+    identical, merges equal, total weight to 1e-6, J panels (and chi) to
+    1e-4 of their peak. The slice's particles start at rest, and a
+    particle at rest changes no cell (re-binning comes before the
+    momentum push), so one kernel step first gives them momenta; the step
+    that is compared then re-bins them across cells."""
     import torch
     from lambdapic_torch.ops.cellslab import cell_step, cell_step_plain
     kw = dict(q=sp.q, m=sp.m, dt=dt, dx=grid.dx, dy=grid.dy, g=grid.n_guard,
-              periodic=periodic, with_rho=False,
+              periodic=periodic, with_rho=False, want_chi=want_chi,
               dz=grid.dz if grid.dimension == 3 else None)
     data, alive = cell_step(eb_pad, p.data, p.alive, **kw)[:2]
     ref = cell_step_plain(eb_pad, data, alive, **kw)
@@ -383,10 +404,19 @@ def compare_b2_f32(eb_pad, p, sp, dt, grid, periodic):
     same = torch.equal(got[1], ref[1]) and all(
         torch.equal(got[0][k][got[1]], ref[0][k][ref[1]])
         for k in ("id_lo", "id_hi"))
-    log(f"[B2 f32 {grid.dimension}D] {moved} slots changed occupancy; "
-        f"alive {n_got} merges {int(got[2])} weight rel "
-        f"{abs(w_got - w_ref) / abs(w_ref):.2e} panels {err:.3e} of peak "
-        f"{scale:.3e}; slots identical: {same}")
+    chi = ""
+    if want_chi:
+        a = got[1]
+        chi_err = float((got[4][0][a] - ref[4][0][a]).abs().max())
+        chi_peak = float(ref[4][0][a].abs().max())
+        chi = f" chi {chi_err:.3e} of peak {chi_peak:.3e};"
+        if not chi_err <= 1e-4 * chi_peak:
+            fail(f"B2 want_chi float32: chi differs by {chi_err:.3e}")
+    log(f"[B2{' want_chi' if want_chi else ''} f32 {grid.dimension}D] "
+        f"{moved} slots changed occupancy; alive {n_got} merges "
+        f"{int(got[2])} weight rel {abs(w_got - w_ref) / abs(w_ref):.2e} "
+        f"panels {err:.3e} of peak {scale:.3e};{chi} slots identical: "
+        f"{same}")
     if not same:
         fail("B2 float32: alive masks or ids differ from the plain version")
     return got, ref, err
@@ -496,19 +526,29 @@ def all_launches():
             "B5": cp.deposit_cell_2d_k.launches,
             "B6": cp.migrate_axis.launches, "B7": cp.sort_cells.launches,
             "B4 3D": cp.fused_push_cell_3d.launches,
+            "B4 3D want_eb":
+                cp.fused_push_cell_3d.launches_by_mode["want_eb"],
             "B5 3D": cp.deposit_cell_3d_k.launches}
 
 
-def check_launches(tag, steps, per_step, into=None):
+def check_launches(tag, steps, per_step, into=None, by_mode=None):
     """Fail unless each kernel launched ``per_step`` times a step (0 for
-    kernels not named) over ``steps`` steps; add the per-stage kernels'
-    launches to ``into`` (STAGE_LAUNCHES, the 2D rows, by default).
-    Returns the counts."""
+    kernels not named) over ``steps`` steps, and (``by_mode``) B2 in each
+    of its modes as many times a step as given; add the per-stage
+    kernels' launches to ``into`` (STAGE_LAUNCHES, the 2D rows, by
+    default). Returns the counts."""
+    from lambdapic_torch.ops import cellslab
     got = all_launches()
     want = {k: per_step.get(k, 0) * steps for k in got}
     log(f"[{tag}] launches in {steps} steps: {got}")
     if got != want:
         fail(f"{tag}: launch counts {got} != {want}")
+    if by_mode is not None:
+        modes = dict(cellslab.cell_step.launches_by_mode)
+        want = {k: by_mode.get(k, 0) * steps for k in modes}
+        log(f"[{tag}] B2 launches by mode: {modes}")
+        if modes != want:
+            fail(f"{tag}: B2 launches by mode {modes} != {want}")
     into = STAGE_LAUNCHES if into is None else into
     for k in into:
         into[k] += got[k]
@@ -523,6 +563,27 @@ def totals(sim):
                     float(torch.where(p.alive, p.data["w"], 0).sum(
                         dtype=torch.float64))))
     return out
+
+
+def check_finite(sim, tag, rho=False):
+    """Fail unless E, B and J (and ``rho``) are finite everywhere."""
+    import torch
+    for k in ("ex", "ey", "ez", "bx", "by", "bz", "jx", "jy", "jz") \
+            + (("rho",) if rho else ()):
+        if not bool(torch.isfinite(getattr(sim.state.fields, k)).all()):
+            fail(f"{tag}: field {k} is not finite")
+
+
+def check_photon_ig(sim, ip, tag):
+    """Fail unless the photons' inv_gamma is 1/|u| (float32 rounding)."""
+    import torch
+    php = sim.state.particles[ip]
+    u = torch.sqrt(sum(php.data[k].double()**2 for k in ("ux", "uy", "uz")))
+    a = php.alive
+    ig_err = float((php.data["inv_gamma"].double()[a] * u[a] - 1).abs().max())
+    log(f"[{tag}] photons: inv_gamma * |u| - 1 at most {ig_err:.2e}")
+    if not ig_err <= 1e-6:
+        fail(f"{tag}: photon inv_gamma differs from 1/|u| by {ig_err:.2e}")
 
 
 def run_2d(args, dev):
@@ -612,9 +673,7 @@ def run_2d(args, dev):
     want = {"B1": 4 * steps, "B2": 3 * steps, "B3": steps}
     if launches != want:
         fail(f"launch counts {launches} != {want}")
-    for k in ("ex", "ey", "ez", "bx", "by", "bz", "jx", "jy", "jz"):
-        if not bool(torch.isfinite(getattr(sim.state.fields, k)).all()):
-            fail(f"field {k} is not finite")
+    check_finite(sim, "2D")
     for (n0, m0, w0), (n1, m1, w1), (n2, m2, w2), sp in zip(
             before, mid, after, sim.species):
         log(f"[slice] {sp.name}: alive {n0} -> {n1} (step {n_a}) -> {n2}, "
@@ -750,11 +809,14 @@ QED_CASES = [(4, 16, 16, (True, True), 0.4), (6, 24, 40, (False, False), 0.5),
              (8, 16, 16, (False, True), 0.85), (20, 33, 18, (True, False), 0.5)]
 
 
-def check_b2_qed_f64(dev):
+def check_b2_qed_f64(dev, cases):
     """B2's want_chi and photon modes against their plain versions, float64
-    slot for slot (compare_slots' rule, chi and ig0 included) at small
-    sizes: periodic, open and mixed faces, a case built to merge, QED
-    payloads that differ per slot. Returns the merges of each mode."""
+    slot for slot (compare_slots' rule at rtol 1e-11, chi and ig0
+    included; the QED payloads exactly) at small sizes, 2D or 3D by the
+    cases (cap, *cells, periodic, n_frac): periodic, open and mixed faces,
+    a case built to merge, QED payloads that differ per slot (photons
+    carry them too). Returns (the merges of each mode, whether every
+    array on alive slots was bitwise equal)."""
     import torch
     from lambdapic_torch.ops.cellslab import (cell_step, cell_step_plain,
                                               panel_shape)
@@ -762,52 +824,59 @@ def check_b2_qed_f64(dev):
                                          add_qed_payloads, compare_slots,
                                          photon_cell_state, random_cell_state,
                                          to_numpy, to_torch)
-    q, m, dt, d = -1.602e-19, 9.109e-31, 1.1e-16, 5e-8
+    q, m, dt = -1.602e-19, 9.109e-31, 1.1e-16
     merges = {"want_chi": 0, "photon": 0}
-    for cap, nx, ny, per, frac in QED_CASES:
-        data, alive, eb = random_cell_state(cap, nx, ny, n_frac=frac,
-                                            seed=cap + nx, umax=50.0,
+    bitwise = True
+
+    def check(tag, ref, got, keys):
+        nonlocal bitwise
+        rn, gn = to_numpy(ref[0], ref[1]), to_numpy(got[0], got[1])
+        compare_slots(*rn, *gn, rtol=1e-11, keys=keys)
+        compare_slots(*rn, *gn, rtol=0, keys=QED_PAYLOADS)
+        a = got[1]
+        bitwise &= torch.equal(got[1], ref[1]) and all(
+            torch.equal(got[0][k][a], ref[0][k][a]) for k in ref[0])
+        if int(got[2]) != int(ref[2]):
+            fail(f"B2 {tag} merges {int(got[2])} != plain {int(ref[2])}")
+        merges[tag] = max(merges[tag], int(ref[2]))
+
+    for cap, *cells, per, frac in cases:
+        d = dict(dx=5e-8, dy=5e-8) if len(cells) == 2 else \
+            dict(dx=5e-8, dy=6e-8, dz=5.5e-8)
+        data, alive, eb = random_cell_state(cap, *cells, n_frac=frac,
+                                            seed=cap + cells[0], umax=50.0,
                                             field=5e13)
         td, ta = to_torch(add_qed_payloads(data, seed=cap), alive,
                           torch.float64, dev)
         eb_t = torch.as_tensor(eb).to(dev)
         rin = torch.as_tensor(np.random.default_rng(1).normal(
-            size=panel_shape(4, nx, ny))).to(dev)
-        kw = dict(q=q, m=m, dt=dt, dx=d, dy=d, g=3, periodic=per,
-                  rims_in=rin, want_chi=True)
+            size=panel_shape(4, *cells))).to(dev)
+        kw = dict(q=q, m=m, dt=dt, g=3, periodic=per, rims_in=rin,
+                  want_chi=True, **d)
         ref = cell_step_plain(eb_t, td, ta, **kw)
         got = cell_step(eb_t, td, ta, **kw)
         torch.cuda.synchronize()
         for out in (ref, got):
             out[0]["chi"], out[0]["ig0"] = out[4]
-        compare_slots(*to_numpy(ref[0], ref[1]), *to_numpy(got[0], got[1]),
-                      rtol=1e-11,
-                      keys=SLOT_FLOATS + QED_PAYLOADS + ("chi", "ig0"))
-        if int(got[2]) != int(ref[2]):
-            fail(f"B2 want_chi merges {int(got[2])} != plain {int(ref[2])}")
+        check("want_chi", ref, got, SLOT_FLOATS + ("chi", "ig0"))
         err = float((got[3] - ref[3]).abs().max())
         if not err <= 1e-12 * float(ref[3].abs().max()):
             fail(f"B2 want_chi panels differ: {err:.3e}")
-        merges["want_chi"] = max(merges["want_chi"], int(ref[2]))
 
-        pdata, palive = photon_cell_state(cap, nx, ny, n_frac=frac,
-                                          seed=cap + ny)
-        td, ta = to_torch(pdata, palive, torch.float64, dev)
-        kw = dict(q=0.0, m=0.0, dt=dt, dx=d, dy=d, g=3, periodic=per,
-                  photon=True)
+        pdata, palive = photon_cell_state(cap, *cells, n_frac=frac,
+                                          seed=cap + cells[1])
+        td, ta = to_torch(add_qed_payloads(pdata, seed=cap), palive,
+                          torch.float64, dev)
+        kw = dict(q=0.0, m=0.0, dt=dt, g=3, periodic=per, photon=True, **d)
         ref = cell_step_plain(None, td, ta, **kw)
         got = cell_step(None, td, ta, **kw)
         torch.cuda.synchronize()
         if got[3] is not None:
             fail("B2 photon returned panels")
-        compare_slots(*to_numpy(ref[0], ref[1]), *to_numpy(got[0], got[1]),
-                      rtol=1e-11)
-        if int(got[2]) != int(ref[2]):
-            fail(f"B2 photon merges {int(got[2])} != plain {int(ref[2])}")
-        merges["photon"] = max(merges["photon"], int(ref[2]))
+        check("photon", ref, got, SLOT_FLOATS)
     if min(merges.values()) == 0:
         fail(f"a B2 QED float64 mode merged no particle: {merges}")
-    return merges
+    return merges, bitwise
 
 
 def make_slice_qed(dev, seed=0, cell_migration="fast"):
@@ -849,12 +918,14 @@ def make_slice_qed(dev, seed=0, cell_migration="fast"):
     return sim, laser, npho, pho
 
 
-def face_margin(sim, moving=1e-3):
+def face_margin(sim, moving=1e-3, species=None):
     """Least distance, in cells, from an open face of any alive particle
-    that moves (|u| > ``moving``), over all species."""
+    that moves (|u| > ``moving``), over all species (or the species of
+    index ``species``)."""
     import torch
     best = float("inf")
-    for p in sim.state.particles:
+    parts = sim.state.particles
+    for p in parts if species is None else (parts[species],):
         u2 = sum(p.data[k].double()**2 for k in ("ux", "uy", "uz"))
         m = p.alive & (u2 > moving**2)
         for ax, n, per in zip(sim.grid.axes, sim.grid.shape,
@@ -885,6 +956,7 @@ def qed_events(sim, proc):
     e = sim.state.particles[proc.ispec]
     out = cell_step(sim._builder.pad_eb(sim.state.fields), e.data, e.alive,
                     q=st.q, m=st.m, dt=sim.dt, dx=grid.dx, dy=grid.dy,
+                    dz=grid.dz if grid.dimension == 3 else None,
                     g=grid.n_guard, periodic=grid.periodic_axes,
                     with_rho=sim._builder.with_rho, want_chi=True)
     key = species_key(sim._base_key, sim.itime, proc.ispec)
@@ -949,24 +1021,47 @@ def check_creation(sim, proc):
     return n_ev, dropped, change
 
 
-def compare_b2_qed_f32(sim, proc):
+def x_planes(p, x0, n):
+    """A species' slots on the x-planes x0 .. x0+n-1 (every payload, x
+    re-based) as a state of their own."""
+    from types import SimpleNamespace
+    data = {k: v[:, x0:x0 + n].contiguous() for k, v in p.data.items()}
+    data["x"] = data["x"] - float(x0)
+    return SimpleNamespace(data=data, alive=p.alive[:, x0:x0 + n].contiguous())
+
+
+def compare_b2_qed_f32(sim, proc, planes=None):
     """The want_chi kernel (electrons) and the photon kernel (photons)
-    against their plain versions in float32 on the slice's final state,
-    with its fields: alive masks and the ids of alive slots identical,
-    merges equal. Returns (largest chi difference, its peak, largest
-    photon position difference)."""
+    against their plain versions in float32 on a 2D or 3D QED slice's
+    final state, with its fields: alive masks and the ids of alive slots
+    identical, merges equal. With ``planes`` = (x0, n) want_chi is held
+    on the x-planes x0 .. x0+n-1 only, their faces open (in 3D its plain
+    version's gather and 125-offset deposit temporaries at the whole end
+    state do not fit the card beside it); the photon mode, which gathers
+    and deposits nothing, always on the whole state. Returns {mode: the
+    largest chi difference (want_chi), the largest photon position
+    difference (photon)}."""
+    import dataclasses
     import torch
     from lambdapic_torch.ops.cellslab import cell_step, cell_step_plain
-    grid = sim.grid
-    eb_pad = sim._builder.pad_eb(sim.state.fields)
     errs = {}
     for ispec, mode in ((proc.ispec, "want_chi"), (proc.photon_ispec,
                                                    "photon")):
+        grid = sim.grid
+        eb_pad = sim._builder.pad_eb(sim.state.fields)
         p, st = sim.state.particles[ispec], sim._species_static[ispec]
+        if planes is not None and mode == "want_chi":
+            x0, n = planes
+            grid = dataclasses.replace(grid, nx=n)
+            eb_pad = eb_pad[:, x0:x0 + n + 2 * grid.n_guard].contiguous()
+            p = x_planes(p, *planes)
+        shape_s = "x".join(str(n) for n in grid.shape)
         kw = dict(q=st.q, m=st.m, dt=sim.dt, dx=grid.dx, dy=grid.dy,
+                  dz=grid.dz if grid.dimension == 3 else None,
                   g=grid.n_guard, periodic=grid.periodic_axes,
                   with_rho=False, **{mode: True})
         ebp = None if mode == "photon" else eb_pad
+        del eb_pad
         ref = cell_step_plain(ebp, p.data, p.alive, **kw)
         got = cell_step(ebp, p.data, p.alive, **kw)
         torch.cuda.synchronize()
@@ -983,10 +1078,10 @@ def compare_b2_qed_f32(sim, proc):
         else:
             a = got[1]
             err = max(float((got[0][k][a] - ref[0][k][a]).abs().max())
-                      for k in ("x", "y"))
+                      for k in grid.axes)
             errs[mode] = err
             extra = f"positions max abs diff {err:.3e} cells"
-        log(f"[B2 {mode} f32 512^2] {int(p.alive.sum())} alive in "
+        log(f"[B2 {mode} f32 {shape_s}] {int(p.alive.sum())} alive in "
             f"{p.alive.numel()} slots, {moved} slots changed occupancy, "
             f"merges {int(got[2])} (plain {int(ref[2])}); {extra}; alive "
             f"masks and ids identical: {same}")
@@ -995,6 +1090,8 @@ def compare_b2_qed_f32(sim, proc):
         if not same or int(got[2]) != int(ref[2]):
             fail(f"B2 {mode} float32: alive masks, ids or merges differ "
                  "from the plain version")
+        del ref, got, ebp, p
+        torch.cuda.empty_cache()
     return errs
 
 
@@ -1053,13 +1150,11 @@ def run_qed(args, dev):
     import torch
     from lambdapic_torch.models.qed import species_key
     from lambdapic_torch.ops import cellslab, fieldskernel
-    from lambdapic_torch.ops.cellslab import (cell_step, cell_step_plain,
-                                              panel_shape)
 
-    merges = check_b2_qed_f64(dev)
+    merges, bitwise = check_b2_qed_f64(dev, QED_CASES)
     log(f"[B2 QED f64] want_chi and photon slot-exact in {len(QED_CASES)} "
         f"cases each (chi, ig0, tau, delta, event included); merges in the "
-        f"merging case {merges}")
+        f"merging case {merges}; every array bitwise equal: {bitwise}")
 
     # -- the slice state ------------------------------------------------------
     t0 = time.time()
@@ -1131,9 +1226,7 @@ def run_qed(args, dev):
     want_mode = {"default": steps, "want_chi": steps, "photon": steps}
     if launches != want or by_mode != want_mode:
         fail(f"QED launch counts {launches} {by_mode} != {want} {want_mode}")
-    for k in ("ex", "ey", "ez", "bx", "by", "bz", "jx", "jy", "jz"):
-        if not bool(torch.isfinite(getattr(sim.state.fields, k)).all()):
-            fail(f"QED field {k} is not finite")
+    check_finite(sim, "QED")
     if born == 0:
         fail("no photon emitted")
     if check is None or check[2] == 0:
@@ -1161,13 +1254,7 @@ def run_qed(args, dev):
         if not abs(w1 - w0) <= 1e-5 * w0:
             fail(f"QED {sp.name}: weight not conserved to step {n_chk} ({w0} "
                  f"-> {w1})")
-    php = sim.state.particles[ip]
-    u = torch.sqrt(sum(php.data[k].double()**2 for k in ("ux", "uy", "uz")))
-    a = php.alive
-    ig_err = float((php.data["inv_gamma"].double()[a] * u[a] - 1).abs().max())
-    log(f"[slice QED] photons: inv_gamma * |u| - 1 at most {ig_err:.2e}")
-    if not ig_err <= 1e-6:
-        fail(f"photon inv_gamma differs from 1/|u| by {ig_err:.2e}")
+    check_photon_ig(sim, ip, "slice QED")
     step_ms = (t2 - t1) * 1e3 / n_timed
     npart = sum(n for n, _, _ in after)
     ey_peak = float(sim.state.fields.ey.abs().max())
@@ -1215,55 +1302,7 @@ def run_qed(args, dev):
     torch.cuda.empty_cache()
 
     # -- B2's QED modes timed at the slice's shapes ------------------------------
-    grid = sim.grid
-    f = sim.state.fields
-    isz = f.ex.element_size()
-    g = grid.n_guard
-    eb_pad = sim._builder.pad_eb(f)
-    kernels = []
-    for ispec, mode in ((ie, "want_chi"), (ip, "photon")):
-        p, st = sim.state.particles[ispec], sim._species_static[ispec]
-        kw = dict(q=st.q, m=st.m, dt=sim.dt, dx=grid.dx, dy=grid.dy, g=g,
-                  periodic=grid.periodic_axes, with_rho=sim._builder.with_rho,
-                  **{mode: True})
-        ebp = None if mode == "photon" else eb_pad
-        funcs = "B2" if mode == "want_chi" else "B2 photon"
-        dev_ms, wall = kernel_ms(lambda: cell_step(ebp, p.data, p.alive, **kw),
-                                 args.iters, funcs)
-        ms = dev_ms or wall
-        plain = cuda_time(lambda: cell_step_plain(ebp, p.data, p.alive, **kw),
-                          1)
-        out = cell_step(ebp, p.data, p.alive, **kw)
-        slots, n_alive = p.alive.numel(), int(p.alive.sum())
-        nx_ = len(cellslab.extra_payloads(p.data))
-        # read: the mask, the alive slots' payloads (x y z w ux uy uz
-        # inv_gamma, the extra QED payloads, two int32 ids); written:
-        # every slot once (mask, the same reals, ids); want_chi also reads
-        # the E/B nodes gathered from occupied cells and writes chi, ig0
-        # and the panels
-        slot_b = 1 + (8 + nx_) * isz + 2 * 4
-        nbytes = slots + n_alive * (slot_b - 1) + slots * slot_b
-        if mode == "want_chi":
-            ncomp = 4 if sim._builder.with_rho else 3
-            nbytes += (gather_nodes(out[1], g) * isz + 2 * slots * isz
-                       + int(np.prod(panel_shape(ncomp, *grid.shape))) * isz)
-            flops = FLOPS_PER_PARTICLE + FLOPS_CHI
-        else:
-            flops = FLOPS_PHOTON
-        ops_ms = n_alive * flops / F32_FLOPS * 1e3
-        bound = max(nbytes / HBM_BPS * 1e3, ops_ms)
-        by = "bytes" if bound > ops_ms else "operations"
-        log(f"[time B2 {mode}] device {ms:.4f} ms per launch, wall {wall:.4f} "
-            f"ms; plain {plain:.3f} ms; bound {bound:.4f} ms ({by}: "
-            f"{n_alive} of {slots} slots alive, {nbytes} bytes, operations "
-            f"{ops_ms:.4f} ms); {ms / bound:.1f}x the bound")
-        del out
-        kernels.append(dict(
-            name=f"B2 {mode} 2D", route="cuda",
-            source="lambdapic_torch/csrc/cellstep.cu",
-            replaces="lambdapic_tpu/ops/cellslab.py:546",
-            launches=by_mode[mode], max_abs_err=errs[mode], ms=ms,
-            plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=None))
+    kernels = time_b2_qed_modes(sim, proc, args.iters, by_mode, errs)
     log(f"[kernels QED] launches per step B1 {launches['B1'] // steps}, B2 "
         f"{launches['B2'] // steps} ({ {k: v // steps for k, v in by_mode.items()} }), "
         f"B3 {launches['B3'] // steps}; creation check: {n_ev} events, "
@@ -1707,9 +1746,7 @@ def run_exact(args, dev):
     torch.cuda.synchronize()
     t2 = time.time()
     check_launches("slice exact", sim.itime, {"B1": 4, "B4": 3, "B5": 3})
-    for k in ("ex", "ey", "ez", "bx", "by", "bz", "jx", "jy", "jz", "rho"):
-        if not bool(torch.isfinite(getattr(sim.state.fields, k)).all()):
-            fail(f"exact: field {k} is not finite")
+    check_finite(sim, "exact", rho=True)
     after = totals(sim)
     step_ms = (t2 - t1) * 1e3 / n_timed
     npart = sum(n for n, _, _ in after)
@@ -1784,9 +1821,7 @@ def run_exact_qed(args, dev):
     t2 = time.time()
     check_launches("slice exact QED", sim.itime,
                    {"B1": 4, "B4": 2, "B4 want_eb": 1, "B5": 2})
-    for k in ("ex", "ey", "ez", "bx", "by", "bz", "jx", "jy", "jz"):
-        if not bool(torch.isfinite(getattr(sim.state.fields, k)).all()):
-            fail(f"exact QED: field {k} is not finite")
+    check_finite(sim, "exact QED")
     born = int(sim.state.particles[pho.ispec].next_id)
     after = totals(sim)
     step_ms = (t2 - t1) * 1e3 / n_timed
@@ -1898,6 +1933,31 @@ def split_steps_sorted(sim, callbacks, n, tag, per_step, into=None):
         f"{(t1 - t0) * 1e3 / n:.3f} ms a step (host clock, synchronised)")
 
 
+def split_vs_fused_step(sim, laser, hook, tag):
+    """One split step (``hook``, a callback at an inner stage, due) against
+    one fused (B2) step of ``sim`` from a cloned state, through
+    Simulation.run, re-capacity held off; the simulation goes on from
+    the fused step. See check_split_fused."""
+    import torch
+    recap, sim.recap_interval = sim.recap_interval, 0
+    saved, itime, t_sim = clone_state(sim.state), sim.itime, sim.time
+    sim.run(nsteps=1, callbacks=[laser, hook])
+    split = sim.state
+    sim.state, sim.itime, sim.time = saved, itime, t_sim
+    sim.run(nsteps=1, callbacks=[laser])
+    fused = sim.state
+    sim.recap_interval = recap
+    torch.cuda.synchronize()
+    worst, jerr = check_split_fused(f"{tag}: split vs fused", split, fused,
+                                    ("jx", "jy", "jz"))
+    log(f"[{tag}] one split step vs one fused (B2) step from step {itime}: "
+        f"alive masks, ids and merges equal; particle values within rtol "
+        f"1e-5 (largest difference {worst:.3e}); J within {jerr:.2e} of its "
+        f"peak")
+    del split, saved
+    torch.cuda.empty_cache()
+
+
 def run_split(args, sim, laser):
     """[slice split]: the 2D slice's Simulation continued with a host
     callback at _push_momentum due every step (the split particle path:
@@ -1910,22 +1970,7 @@ def run_split(args, sim, laser):
     hook = callback(stage="_push_momentum")(lambda s: None)
 
     # -- one split step against one fused step from the same state ----------
-    recap, sim.recap_interval = sim.recap_interval, 0
-    saved, itime, t_sim = clone_state(sim.state), sim.itime, sim.time
-    sim.run(nsteps=1, callbacks=[laser, hook])
-    split = sim.state
-    sim.state, sim.itime, sim.time = saved, itime, t_sim
-    sim.run(nsteps=1, callbacks=[laser])
-    fused = sim.state
-    sim.recap_interval = recap
-    torch.cuda.synchronize()
-    worst, jerr = check_split_fused("split vs fused", split, fused,
-                                    ("jx", "jy", "jz"))
-    log(f"[slice split] one split step vs one fused (B2) step from step "
-        f"{itime}: alive masks, ids and merges equal; particle values within "
-        f"rtol 1e-5 (largest difference {worst:.3e}); J within "
-        f"{jerr:.2e} of its peak")
-    del split, saved
+    split_vs_fused_step(sim, laser, hook, "slice split")
 
     # -- the split path through Simulation.run --------------------------------
     n = args.steps_split
@@ -1948,9 +1993,7 @@ def run_split(args, sim, laser):
     # -- the re-binning through B7 ---------------------------------------------
     split_steps_sorted(sim, [laser, hook], args.steps_split_sort,
                        "slice split B7", {"B1": 4, "B5": 3, "B7": 6})
-    for k in ("ex", "ey", "ez", "bx", "by", "bz", "jx", "jy", "jz"):
-        if not bool(torch.isfinite(getattr(sim.state.fields, k)).all()):
-            fail(f"split: field {k} is not finite")
+    check_finite(sim, "split")
 
 
 # ---------------------------------------------------------------------------
@@ -2213,9 +2256,7 @@ def run_3d(args, dev):
     want = {"B1": 4 * steps, "B2": 2 * steps, "B3": steps}
     if launches != want:
         fail(f"3D launch counts {launches} != {want}")
-    for k in ("ex", "ey", "ez", "bx", "by", "bz", "jx", "jy", "jz"):
-        if not bool(torch.isfinite(getattr(sim.state.fields, k)).all()):
-            fail(f"3D field {k} is not finite")
+    check_finite(sim, "3D")
     for (n0, m0, w0), (n1, m1, w1), (n2, m2, w2), edge, sp in zip(
             before, mid, after, on_edge, sim.species):
         log(f"[slice 3D] {sp.name}: alive {n0} -> {n1} (step {n_a}) -> {n2}, "
@@ -2376,7 +2417,8 @@ FLOPS_B5_3D = 2300
 # launches of the per-stage kernels on the 3D per-stage paths (exact 3D,
 # split 3D, split 3D with LAMBDAPIC_MIG_FUSED=0), summed for the kernels
 # line; their float32 errors and times, filled by the phases
-STAGE3_LAUNCHES = {"B4 3D": 0, "B5 3D": 0, "B6": 0, "B7": 0}
+STAGE3_LAUNCHES = {"B4 3D": 0, "B4 3D want_eb": 0, "B5 3D": 0, "B6": 0,
+                   "B7": 0}
 STAGE3 = {}
 KERNEL_FUNCS.update({"B4 3D": {"push3d": 1},
                      "B5 3D": {"deposit3d": 1, "fold_pad3": 1},
@@ -2522,16 +2564,22 @@ def check_stage3_f32(sim):
     del gp, rp, gk, rk, key, d
     rd, ra = ref[0], ref[1]
     args = [rd[k] for k in ("x", "y", "z", "ux", "uy", "uz")]
-    kw = dict(q=sp.q, m=sp.m, dt=sim.dt, dx=grid.dx, dy=grid.dy, dz=grid.dz,
-              g=g, want_eb=False, do_pos1=False)
-    r4 = cp.fused_push_cell_3d_plain(eb_pad, *args, **kw)
-    g4 = cp.fused_push_cell_3d(eb_pad, *args, **kw)
-    err4 = max(float((x - y).abs().max()) for x, y in zip(g4, r4))
-    bitwise = all(torch.equal(x, y) for x, y in zip(g4, r4))
-    log(f"[B4 3D f32] max abs {err4:.3e}; bitwise equal: {bitwise}")
-    if not bitwise:
-        fail("B4 3D float32 differs from its plain version")
-    del g4, args
+    err4 = {}
+    for want_eb in (True, False):
+        kw = dict(q=sp.q, m=sp.m, dt=sim.dt, dx=grid.dx, dy=grid.dy,
+                  dz=grid.dz, g=g, want_eb=want_eb, do_pos1=False)
+        r4 = cp.fused_push_cell_3d_plain(eb_pad, *args, **kw)
+        g4 = cp.fused_push_cell_3d(eb_pad, *args, **kw)
+        tag = "B4 3D want_eb" if want_eb else "B4 3D"
+        err4[tag] = max(float((x - y).abs().max()) for x, y in zip(g4, r4))
+        bitwise = all(torch.equal(x, y) for x, y in zip(g4, r4))
+        log(f"[{tag} f32] max abs {err4[tag]:.3e}; bitwise equal: {bitwise}")
+        if not bitwise:
+            fail(f"{tag} float32 differs from its plain version")
+        del g4
+        if want_eb:
+            del r4
+    del args
     x0 = grid.nx - STAGE3_PLANES
     w = torch.where(ra, rd["w"], 0.0)
     a8 = last_planes(list(r4) + [w], x0, xs=(0,))
@@ -2545,12 +2593,12 @@ def check_stage3_f32(sim):
         f"peak {scale:.3e}")
     if not (scale > 0 and err5 <= 1e-5 * scale):
         fail(f"B5 3D float32 differs: {err5:.3e} > 1e-5 x {scale:.3e}")
-    return {"B4 3D": err4, "B5 3D": err5, "B6": 0.0, "B7": 0.0}
+    return {**err4, "B5 3D": err5, "B6": 0.0, "B7": 0.0}
 
 
 def time_stage3_kernels(sim, iters):
-    """Device ms per launch of B4 in 3D, B5 in 3D, B6 (per axis) and B7
-    on the electrons of the 3D slice's present state, their plain
+    """Device ms per launch of B4 in 3D (both modes), B5 in 3D, B6 (per
+    axis) and B7 on the electrons of the 3D slice's present state, their plain
     versions' ms (one call, CUDA events; B5's on the last STAGE3_PLANES
     x-planes, beside the kernel's time there) and their bounds; stored in
     STAGE3."""
@@ -2575,10 +2623,14 @@ def time_stage3_kernels(sim, iters):
     pays = [d[k] for k in names]
     k4 = dict(q=sp.q, m=sp.m, dt=sim.dt, dx=grid.dx, dy=grid.dy, dz=grid.dz,
               g=g, want_eb=False, do_pos1=False)
+    k4e = dict(k4, want_eb=True)
     calls = {
         "B4 3D": ("B4 3D", lambda: cp.fused_push_cell_3d(eb_pad, *args, **k4),
                   lambda: cp.fused_push_cell_3d_plain(eb_pad, *args, **k4),
                   1),
+        "B4 3D want_eb": (
+            "B4 3D", lambda: cp.fused_push_cell_3d(eb_pad, *args, **k4e),
+            lambda: cp.fused_push_cell_3d_plain(eb_pad, *args, **k4e), 1),
         "B5 3D": ("B5 3D", lambda: cp.deposit_cell_3d_k(*a8, **k5), None, 1),
         "B6": ("B6 3D", lambda: cp.migrate_cells_fused(d, a, plan),
                lambda: migrate_cells(d, a, plan), 3),
@@ -2617,17 +2669,21 @@ def stage3_rows():
     """The kernels line's rows of B4-B7 in 3D."""
     src = {"B4 3D": ("B4 gather+Boris+push 3D", "push3d.cu",
                      "cellpallas.py:523"),
+           "B4 3D want_eb": ("B4 want_eb 3D", "push3d.cu",
+                             "cellpallas.py:523"),
            "B5 3D": ("B5 deposit 3D", "deposit3d.cu", "cellpallas.py:635"),
            "B6": ("B6 re-binning axis 3D", "migrate.cu", "cellpallas.py:860"),
            "B7": ("B7 slot sort 3D", "sortcells.cu", "cellpallas.py:769")}
     rows = []
     for tag, (name, cu, rep) in src.items():
         t = dict(STAGE3["time"][tag])
+        launches = STAGE3_LAUNCHES[tag]
+        if tag == "B4 3D":
+            launches -= STAGE3_LAUNCHES["B4 3D want_eb"]
         rows.append(dict(
             name=name, route="cuda", source=f"lambdapic_torch/csrc/{cu}",
-            replaces=f"lambdapic_tpu/ops/{rep}",
-            launches=STAGE3_LAUNCHES[tag], max_abs_err=STAGE3["err"][tag],
-            library_ms=None, **t))
+            replaces=f"lambdapic_tpu/ops/{rep}", launches=launches,
+            max_abs_err=STAGE3["err"][tag], library_ms=None, **t))
     return rows
 
 
@@ -2720,9 +2776,7 @@ def run_split_3d(args, sim, laser):
     split_steps_sorted(sim, [laser, hook], args.steps_split_sort3d,
                        "slice split 3D B7", {"B1": 4, "B5 3D": 2, "B7": 6},
                        into=STAGE3_LAUNCHES)
-    for k in ("ex", "ey", "ez", "bx", "by", "bz", "jx", "jy", "jz"):
-        if not bool(torch.isfinite(getattr(sim.state.fields, k)).all()):
-            fail(f"split 3D: field {k} is not finite")
+    check_finite(sim, "split 3D")
 
 
 def run_exact_3d(args, dev, sim, fill):
@@ -2774,9 +2828,7 @@ def run_exact_3d(args, dev, sim, fill):
     # the fill sits at rest and the laser does not reach it in these steps:
     # only the particles stored on an open face's edge leave
     check_ids_kept("slice exact 3D", ids0, ov0, sim, gone)
-    for k in ("ex", "ey", "ez", "bx", "by", "bz", "jx", "jy", "jz", "rho"):
-        if not bool(torch.isfinite(getattr(sim.state.fields, k)).all()):
-            fail(f"exact 3D: field {k} is not finite")
+    check_finite(sim, "exact 3D", rho=True)
     ey_peak = float(sim.state.fields.ey.abs().max())
     if not ey_peak > 0:
         fail("exact 3D: the laser injected no field")
@@ -2797,6 +2849,670 @@ def run_exact_3d(args, dev, sim, fill):
     time_stage3_kernels(sim, args.iters3d)
 
 
+# ---------------------------------------------------------------------------
+# per-cell capacities above 128: the sorting kernels' scratch variant
+# ---------------------------------------------------------------------------
+
+BIGCAP_CAPS = (130, 256)
+# 2D and 3D cells of the case with more cells than the scratch has rows
+# (33,792 on 132 SMs)
+BIGCAP_CELLS = ((200, 180), (36, 32, 32))
+
+
+def check_b2_bigcap(dev, cap, cells, per, frac, modes):
+    """Kernel B2 (2D or 3D by ``cells``) against its plain version in
+    float64 at ``cap`` slots a cell, with QED payloads, in each of
+    ``modes`` ("default", "want_chi"), array for array in place: alive
+    masks equal, on alive slots ids equal and every other payload (chi
+    and ig0 too) to rtol 1e-11 with a floor of 1e-14 of its peak, merges
+    equal and not 0, panels to 1e-12 of their peak. Returns the merge
+    count."""
+    import torch
+    from lambdapic_torch.ops.cellslab import cell_step, cell_step_plain
+    from lambdapic_torch.testing import (add_qed_payloads, random_cell_state,
+                                         to_torch)
+    data, alive, eb = random_cell_state(cap, *cells, n_frac=frac,
+                                        seed=cap + cells[0], umax=50.0,
+                                        field=5e13)
+    if int(alive.sum(0).max()) <= 128:
+        fail(f"bigcap B2 case {cap} {cells}: no cell holds more than 128")
+    td, ta = to_torch(add_qed_payloads(data, seed=cap), alive, torch.float64,
+                      dev)
+    eb = torch.as_tensor(eb).to(dev)
+    d3 = dict(dz=5.5e-8) if len(cells) == 3 else {}
+    merges = 0
+    for mode in modes:
+        kw = dict(q=-1.602e-19, m=9.109e-31, dt=1.1e-16, dx=5e-8, dy=6e-8,
+                  g=3, periodic=per, want_chi=mode == "want_chi", **d3)
+        ref = cell_step_plain(eb, td, ta, **kw)
+        got = cell_step(eb, td, ta, **kw)
+        torch.cuda.synchronize()
+        if mode == "want_chi":
+            for out in (ref, got):
+                out[0]["chi"], out[0]["ig0"] = out[4]
+        a = ref[1]
+        if not torch.equal(got[1], a) or sorted(got[0]) != sorted(ref[0]):
+            fail(f"bigcap B2 {mode} {cells} cap {cap}: alive masks differ")
+        for k, v in ref[0].items():
+            if v.dtype == torch.int32:
+                ok = torch.equal(got[0][k][a], v[a])
+            else:
+                ok = _close(got[0][k][a], v[a], 1e-11, 1e-14)[1]
+            if not ok:
+                fail(f"bigcap B2 {mode} {cells} cap {cap}: {k} differs")
+        if int(got[2]) != int(ref[2]) or int(ref[2]) == 0:
+            fail(f"bigcap B2 {mode} {cells} cap {cap}: merges "
+                 f"{int(got[2])} vs plain {int(ref[2])}")
+        err = float((got[3] - ref[3]).abs().max())
+        if not err <= 1e-12 * float(ref[3].abs().max()):
+            fail(f"bigcap B2 {mode} {cells} cap {cap}: panels differ {err:.3e}")
+        merges = int(ref[2])
+    return merges
+
+
+def run_bigcap(dev):
+    """[kernels bigcap]: every sorting kernel above 128 slots a cell, in
+    float64 against its plain version: B2 2D (default and want_chi), B2
+    3D (default and want_chi), B6 on 2D and 3D slots (a crowded state
+    with QED payloads, also as a photon species) and B7 on 2D and 3D
+    slots, at caps 130 and 256; then one case of each with more cells
+    than the scratch has rows, so that the grid-stride loop over the cells
+    takes several turns."""
+    from lambdapic_torch.ops.cellslab import key_scratch
+    t0 = time.time()
+    for cap in BIGCAP_CAPS:
+        frac = 1.0 if cap < 200 else 0.9
+        m2 = check_b2_bigcap(dev, cap, (12, 10), (True, False), frac,
+                             ("default", "want_chi"))
+        m3 = check_b2_bigcap(dev, cap, (5, 4, 6), (False, True, False), frac,
+                             ("default", "want_chi"))
+        m6 = max(check_b6_f64(dev, cap, (9, 7), (False, True), frac),
+                 check_b6_f64(dev, cap, (4, 5, 3), (True, False, True), frac))
+        check_b7(dev, cap, (cap, 17, 9))
+        check_b7(dev, cap, (cap, 5, 4, 3))
+        log(f"[kernels bigcap] cap {cap}: B2 2D and 3D (default, want_chi) "
+            f"slot for slot, merges {m2} and {m3}; B6 2D and 3D (merges up to "
+            f"{m6}) and B7 2D and 3D array for array")
+    cap = BIGCAP_CAPS[0]
+    big2, big3 = BIGCAP_CELLS
+    rows = key_scratch(cap, int(np.prod(big2)), dev, "sortcells")[1]
+    if rows >= int(np.prod(big2)) or rows >= int(np.prod(big3)):
+        fail(f"bigcap: the scratch has {rows} rows, not fewer than the cells")
+    m2 = check_b2_bigcap(dev, cap, big2, (True, False), 1.0, ("default",))
+    m3 = check_b2_bigcap(dev, cap, big3, (False, True, True), 1.0,
+                         ("default",))
+    m6 = check_b6_f64(dev, cap, big2, (False, True), 1.0)
+    check_b7(dev, cap, (cap,) + big2)
+    log(f"[kernels bigcap] cap {cap} on {big2} and {big3} cells, more than "
+        f"the scratch's {rows} rows: B2 2D and 3D slot for slot (merges {m2}, "
+        f"{m3}), B6 2D (merges {m6}) and B7 array for array; "
+        f"{time.time() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# QED in 3D: the 3D QED configuration of this script
+# ---------------------------------------------------------------------------
+
+# cells of the 3D QED configuration: example/laser-target-3d.py's
+# resolution (dx = l0/20, dy = dz = l0/10) in a 10.24 um cube
+QED3_SHAPE = (256, 128, 128)
+# x-planes on which B2 3D's QED modes are held against (and timed beside)
+# their plain versions at the slice's end state
+QED3_PLANES = 128
+KERNEL_FUNCS.update({"B2-3D photon": {"rebin": 3, "push<": 1}})
+# the photon mode of cellstep3d.cu: two half pushes along three axes and
+# the keys (about 18) and 1/|u| (about 7)
+FLOPS_PHOTON_3D = 25
+# the float64 cases of tests/test_torch_kernels3d.py's QED tests
+QED3_CASES = [(8, 8, 8, 8, (True, True, True), 0.4),
+              (12, 9, 6, 10, (False, False, False), 0.5),
+              (8, 8, 8, 8, (True, False, True), 0.9),
+              (20, 6, 5, 7, (False, True, False), 0.5)]
+
+
+def compare_b2_want_chi_f32_3d(sim, proc):
+    """compare_b2_f32 in B2 3D's want_chi mode at the 3D QED slice's
+    shapes, on its radiating electrons, in strong random fields (|E| up
+    to 5e13 V/m, |B| up to 5e13 V/m / c, so chi stays finite in float32).
+    Returns the largest chi difference on alive slots."""
+    import torch
+    from lambdapic_torch.constants import c
+    grid = sim.grid
+    g = grid.n_guard
+    gen = torch.Generator(device=sim.device).manual_seed(4)
+    eb_pad = (torch.rand((6,) + tuple(n + 2 * g for n in grid.shape),
+                         generator=gen, device=sim.device) - 0.5) * 1e14
+    eb_pad[3:] /= c
+    got, ref, _ = compare_b2_f32(eb_pad, sim.state.particles[proc.ispec],
+                                 sim._species_static[proc.ispec], sim.dt,
+                                 grid, grid.periodic_axes, want_chi=True)
+    a = got[1]
+    return float((got[4][0][a] - ref[4][0][a]).abs().max())
+
+
+def make_slice_qed_3d(dev, seed=0, cell_migration="fast"):
+    """The 3D QED configuration of this script. No script in example/ is
+    3D QED: this is example/photons.py carried into 3D at
+    example/laser-target-3d.py's resolution, 256 x 128 x 128 cells (dx =
+    l0/20, dy = dz = l0/10, l0 = 0.8 um: a 10.24 um cube), photons.py's
+    SimpleLaser (a0 = 300, w0 = 2 um, ctau = 5 um) as SimpleLaser3D,
+    radiating electrons and protons at 5 nc for x > 2 um with 2 particles
+    per cell each, a photon species of capacity 2^20, PML on all faces,
+    float32, photons.py's 100 fs, its npho callback kept. Returns (sim,
+    laser, npho callback, photon species)."""
+    import torch
+    from lambdapic_torch import (Electron, Photon, Proton, SimpleLaser3D,
+                                 Simulation3D, callback)
+    from lambdapic_torch.constants import c, e, epsilon_0, m_e, pi
+    um = 1e-6
+    l0 = 0.8 * um
+    omega0 = 2 * pi * c / l0
+    nc = epsilon_0 * m_e * omega0**2 / e**2
+    nx, ny, nz = QED3_SHAPE
+
+    def density(n0):
+        def _density(x, y, z):
+            return np.where(x > 2 * um, n0, 0.0)
+        return _density
+
+    laser = SimpleLaser3D(a0=300, w0=2e-6, l0=0.8e-6, ctau=5e-6)
+    sim = Simulation3D(tiling="cell", nx=nx, ny=ny, nz=nz, dx=l0 / 20,
+                       dy=l0 / 10, dz=l0 / 10, sim_time=QED_SIM_TIME,
+                       random_seed=seed, device=dev,
+                       cell_migration=cell_migration)
+    ele = Electron(density=density(5 * nc), ppc=2, radiation="photons")
+    pho = Photon(capacity=1 << 20)
+    ele.set_photon(pho)
+    proton = Proton(density=density(5 * nc), ppc=2)
+    sim.add_species([ele, proton, pho])
+
+    @callback(interval=10e-15)
+    def npho(sim):
+        log(f"[slice QED 3D] step {sim.itime}: nphoton = "
+            f"{sim.npart_alive[pho.ispec]}, slots "
+            f"{[p.cap for p in sim.state.particles]}, device memory "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    return sim, laser, npho, pho
+
+
+def photon_planes(sim, proc, n):
+    """(x0, n): the n x-planes of the 3D QED slice that hold the most
+    alive photons."""
+    import torch
+    per = sim.state.particles[proc.photon_ispec].alive.sum(
+        dim=(0, 2, 3)).to(torch.int64)
+    win = torch.cumsum(per, 0)
+    win = torch.cat([win[n - 1:n], win[n:] - win[:-n]])
+    return int(torch.argmax(win)), n
+
+
+def time_b2_qed_modes(sim, proc, iters, launches, errs, planes=None):
+    """Device ms per launch of B2's want_chi (electrons) and photon
+    (photons) modes at a 2D or 3D QED slice's present state, their plain
+    versions' ms (one call, CUDA events; with ``planes`` = (x0, n)
+    want_chi's on those x-planes only, where the kernel is timed too: in
+    3D its plain version's temporaries at the whole state do not fit
+    beside it) and
+    their bounds; the kernels line's rows (launches from ``launches``,
+    the float32 errors from ``errs``, both by mode)."""
+    import dataclasses
+    import torch
+    from lambdapic_torch.ops import cellslab
+    from lambdapic_torch.ops.cellslab import (cell_step, cell_step_plain,
+                                              panel_shape)
+    grid = sim.grid
+    nd = grid.dimension
+    g = grid.n_guard
+    isz = sim.state.fields.ex.element_size()
+    eb_pad = sim._builder.pad_eb(sim.state.fields)
+    rows = []
+    for ispec, mode in ((proc.ispec, "want_chi"), (proc.photon_ispec,
+                                                   "photon")):
+        p, st = sim.state.particles[ispec], sim._species_static[ispec]
+        kw = dict(q=st.q, m=st.m, dt=sim.dt, dx=grid.dx, dy=grid.dy,
+                  dz=grid.dz if nd == 3 else None, g=g,
+                  periodic=grid.periodic_axes, with_rho=sim._builder.with_rho,
+                  **{mode: True})
+        ebp = None if mode == "photon" else eb_pad
+        funcs = ("B2" if nd == 2 else "B2-3D") + \
+            (" photon" if mode == "photon" else "")
+        dev_ms, wall = kernel_ms(lambda: cell_step(ebp, p.data, p.alive,
+                                                   **kw), iters, funcs)
+        ms = dev_ms or wall
+        if mode == "want_chi":
+            # the default mode on the same slots, for the ratio of the two
+            kwd = dict(kw, want_chi=False)
+            dev_d, wall_d = kernel_ms(lambda: cell_step(ebp, p.data, p.alive,
+                                                        **kwd), iters, funcs)
+            log(f"[time B2 {nd}D] the default mode on the same slots: "
+                f"{dev_d or wall_d:.4f} ms per launch; want_chi takes "
+                f"{ms / (dev_d or wall_d):.3f}x its time")
+        at = {}
+        if planes is None or mode == "photon":
+            plain = cuda_time(lambda: cell_step_plain(ebp, p.data, p.alive,
+                                                      **kw), 1)
+        else:
+            x0, n = planes
+            ps = x_planes(p, x0, n)
+            kws = dict(kw, periodic=dataclasses.replace(
+                grid, nx=n).periodic_axes)
+            ebs = None if ebp is None else \
+                ebp[:, x0:x0 + n + 2 * g].contiguous()
+            torch.cuda.empty_cache()
+            plain = cuda_time(lambda: cell_step_plain(ebs, ps.data, ps.alive,
+                                                      **kws), 1)
+            torch.cuda.empty_cache()
+            at = dict(plain_cells=[n] + list(grid.shape[1:]),
+                      ms_at_plain_cells=cuda_time(lambda: cell_step(
+                          ebs, ps.data, ps.alive, **kws), iters))
+            del ps, ebs
+        out = cell_step(ebp, p.data, p.alive, **kw)
+        slots, n_alive = p.alive.numel(), int(p.alive.sum())
+        nx_ = len(cellslab.extra_payloads(p.data))
+        # read: the mask, the alive slots' payloads (x y z w ux uy uz
+        # inv_gamma, the extra QED payloads, two int32 ids); written:
+        # every slot once (mask, the same reals, ids); want_chi also reads
+        # the E/B nodes gathered from occupied cells and writes chi, ig0
+        # and the panels
+        slot_b = 1 + (8 + nx_) * isz + 2 * 4
+        nbytes = slots + n_alive * (slot_b - 1) + slots * slot_b
+        if mode == "want_chi":
+            ncomp = 4 if sim._builder.with_rho else 3
+            nodes = (gather_nodes if nd == 2 else gather_nodes_3d)(out[1], g)
+            nbytes += (nodes * isz + 2 * slots * isz
+                       + int(np.prod(panel_shape(ncomp, *grid.shape))) * isz)
+            flops = (FLOPS_PER_PARTICLE if nd == 2
+                     else FLOPS_PER_PARTICLE_3D) + FLOPS_CHI
+        else:
+            flops = FLOPS_PHOTON if nd == 2 else FLOPS_PHOTON_3D
+        del out
+        ops_ms = n_alive * flops / F32_FLOPS * 1e3
+        bound = max(nbytes / HBM_BPS * 1e3, ops_ms)
+        by = "bytes" if bound > ops_ms else "operations"
+        where = "" if not at else (
+            f" on {'x'.join(str(k) for k in at['plain_cells'])} cells "
+            f"(x-planes from {planes[0]}; the kernel there "
+            f"{at['ms_at_plain_cells']:.3f} ms)")
+        log(f"[time B2 {mode} {nd}D] device {ms:.4f} ms per launch, wall "
+            f"{wall:.4f} ms; plain {plain:.3f} ms{where}; bound {bound:.4f} "
+            f"ms ({by}: {n_alive} of {slots} slots alive, {p.cap} a cell, "
+            f"{nbytes} bytes, operations {ops_ms:.4f} ms); "
+            f"{ms / bound:.1f}x the bound")
+        rows.append(dict(
+            name=f"B2 {mode} {nd}D", route="cuda",
+            source="lambdapic_torch/csrc/"
+                   + ("cellstep.cu" if nd == 2 else "cellstep3d.cu"),
+            replaces="lambdapic_tpu/ops/cellslab.py:546",
+            launches=launches[mode], max_abs_err=errs[mode], ms=ms,
+            plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=None,
+            **at))
+    return rows
+
+
+def time_delta_sampler(e, proc):
+    """[QED sampler 3D]: the photon energy sampler on the radiating
+    species' events of a step (``e`` after qed_events), with uniform
+    draws of its own: the port's (the event slots packed into one row)
+    against the JAX package's packing, each cell's events in the cell's
+    first K = max(2, cap // 4) rows (written out here; where a cell
+    holds more than K events the JAX package evaluates every slot
+    instead, which does not fit the card at 3D size). Both agree to 1e-5
+    of a value where no cell holds more than K; device ms of each (CUDA
+    events)."""
+    import torch
+    from lambdapic_torch.models.qed import _sample_delta, \
+        _sample_delta_sparse
+    tb = proc.tables
+    chi = e.data["chi"]
+    event = e.alive & (e.data["event"] > 0)
+    gen = torch.Generator(device=chi.device).manual_seed(5)
+    r01 = torch.rand(chi.shape, generator=gen, device=chi.device,
+                     dtype=chi.dtype)
+    cap = chi.shape[0]
+    K = min(cap, max(2, cap // 4))
+
+    def k_rows():
+        ev = event.to(torch.int64)
+        rank = torch.cumsum(ev, dim=0) - ev
+        row = torch.where(event, rank, K)
+        top = (K + 1,) + tuple(chi.shape[1:])
+        chi_k = torch.zeros(top, dtype=chi.dtype, device=chi.device
+                            ).scatter_(0, row, chi)[:K]
+        r_k = torch.zeros(top, dtype=r01.dtype, device=r01.device
+                          ).scatter_(0, row, r01)[:K]
+        d_k = _sample_delta(chi_k, r_k, tb)
+        return torch.where(event, d_k.gather(0, torch.clamp(rank, max=K - 1)),
+                           0.0)
+    most = int(event.sum(0).max())
+    got = _sample_delta_sparse(chi, r01, event, tb)
+    ref = k_rows()
+    # the Chebyshev sum is a matrix product, whose rounding may follow
+    # the number of columns: equal to 1e-5 (float32) of each value
+    diff = float(((got - ref).abs() / ref.abs().clamp(min=1e-30))
+                 [event].max()) if int(event.sum()) else 0.0
+    if most <= K and not diff <= 1e-5:
+        fail(f"QED sampler: the packed row and the K-row packing differ by "
+             f"{diff:.3e} of a value")
+    del got, ref
+    one_row = cuda_time(lambda: _sample_delta_sparse(chi, r01, event, tb), 3)
+    rows_k = cuda_time(k_rows, 3)
+    log(f"[QED sampler 3D] {int(event.sum())} events in {event.numel()} "
+        f"slots ({cap} a cell), at most {most} in a cell, K = {K}: the event "
+        f"slots packed into one row {one_row:.3f} ms, K rows a cell "
+        f"{rows_k:.3f} ms (CUDA events, 3 calls); largest difference "
+        f"{diff:.3e} of a value"
+        + ("" if most <= K else " (a cell holds more than K: the JAX "
+           "package would evaluate every slot)"))
+
+
+def run_qed_3d(args, dev):
+    """[kernels QED 3D] and [slice QED 3D]: B2 3D's want_chi and photon
+    modes against their plain versions, the draws, and the 3D QED
+    configuration through Simulation3D.run to its end with its checks,
+    the QED work's time and the modes' times; returns (the kernels line's
+    rows, the Simulation3D and its laser)."""
+    import torch
+    from lambdapic_torch.models.qed import species_key
+    t0 = time.time()
+    merges, bitwise = check_b2_qed_f64(dev, QED3_CASES)
+    log(f"[kernels QED 3D] f64: want_chi and photon slot for slot in "
+        f"{len(QED3_CASES)} cases each (chi, ig0, tau, delta, event "
+        f"included), merges in the merging case {merges}; every array "
+        f"bitwise equal: {bitwise}; {time.time() - t0:.1f} s")
+
+    # -- the slice state ------------------------------------------------------
+    t0 = time.time()
+    sim, laser, npho, pho = make_slice_qed_3d(dev)
+    sim.initialize()
+    torch.cuda.synchronize()
+    proc = sim._qed_processes[0]
+    steps_all = args.steps_qed3d or int(QED_SIM_TIME / sim.dt)
+    log(f"[slice QED 3D] initialised in {time.time() - t0:.1f} s: "
+        f"{sim.npart_alive} particles, slots "
+        f"{[p.cap for p in sim.state.particles]}, dt {sim.dt:.4e} s, "
+        f"{int(QED_SIM_TIME / sim.dt)} steps in example/photons.py's "
+        f"{QED_SIM_TIME:.0e} s, device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    log("[slice QED 3D] this script's 3D QED configuration (no script in "
+        "example/ is 3D QED): example/photons.py in 3D at "
+        "example/laser-target-3d.py's resolution, 256 x 128 x 128 cells, "
+        "ppc 2; cut: the diagnostics; random_seed fixed at 0")
+    check_draws(sim, proc, dev)
+    errs = {"want_chi": compare_b2_want_chi_f32_3d(sim, proc)}
+    torch.cuda.empty_cache()
+
+    # -- the main path ---------------------------------------------------------
+    # As the 2D QED slice, but species by species: the laser's wings reach
+    # the plasma at the y and z faces of this box when its centre reaches
+    # it, so the electrons and protons are checked at the last 4-step chunk
+    # end (at most step 200) with every one of their moving particles more
+    # cells from an open face than a particle can cross in a chunk (4 c dt
+    # along the finest axis, plus a cell), and the photons at the last such
+    # chunk end for the photons, born at the laser's axis. The last
+    # --window-qed3d steps are timed.
+    from lambdapic_torch.constants import c
+    ie, ip = proc.ispec, proc.photon_ispec
+    margin_cells = CHUNK_QED * max(c * sim.dt / d for d in sim.grid.deltas) \
+        + 1.0
+    nspec = len(sim.species)
+    before = totals(sim)
+    on_edge = edge_sitters(sim)
+    born0 = int(sim.state.particles[ip].next_id)
+    log(f"[slice QED 3D] particles stored on an open face's edge: {on_edge}")
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    n_timed = min(args.window_qed3d, steps_all)
+    n_a = min(steps_all - n_timed, 200)
+    n_b = steps_all - n_timed - n_a
+    t0 = time.time()
+    checks, clear = [None] * nspec, [True] * nspec
+    while sim.itime < n_a:
+        sim.run(nsteps=min(CHUNK_QED, n_a - sim.itime),
+                callbacks=[laser, npho])
+        for i in range(nspec):
+            if clear[i]:
+                clear[i] = face_margin(sim, species=i) >= margin_cells
+                if clear[i]:
+                    checks[i] = (sim.itime, totals(sim)[i],
+                                 int(sim.state.particles[ip].next_id) - born0)
+    torch.cuda.synchronize()
+    if n_b:
+        sim.run(nsteps=n_b, callbacks=[laser, npho])
+    torch.cuda.synchronize()
+    t1 = time.time()
+    sim.run(nsteps=n_timed, callbacks=[laser, npho])
+    torch.cuda.synchronize()
+    t2 = time.time()
+    steps = sim.itime
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    from lambdapic_torch.ops import cellslab
+    by_mode = dict(cellslab.cell_step.launches_by_mode)
+    check_launches("slice QED 3D", steps, {"B1": 4, "B2": 3, "B3": 1},
+                   by_mode={"default": 1, "want_chi": 1, "photon": 1})
+    after = totals(sim)
+    born = int(sim.state.particles[ip].next_id) - born0
+    log(f"[slice QED 3D] {steps} steps: first {n_a + n_b} in {t1 - t0:.2f} s, "
+        f"window {n_timed} in {t2 - t1:.3f} s; photons born {born}, alive "
+        f"{sim.npart_alive[ip]}; slots reached "
+        f"{[p.cap for p in sim.state.particles]}; peak device memory "
+        f"{peak:.2f} GiB")
+    check_finite(sim, "QED 3D")
+    if born == 0:
+        fail("QED 3D: no photon emitted")
+    if None in checks or checks[ip][2] == 0:
+        fail(f"QED 3D: a species had no chunk end with its moving particles "
+             f"{margin_cells:.2f}+ cells from the open faces, or the photons "
+             f"none with photons born ({checks})")
+    for (n0, m0, w0), (n_chk, (n1, m1, w1), born_mid), (n2, m2, w2), edge, \
+            sp in zip(before, checks, after, on_edge, sim.species):
+        log(f"[slice QED 3D] {sp.name}: alive {n0} -> {n1} (step {n_chk}, "
+            f"the last chunk end with its moving particles "
+            f"{margin_cells:.2f}+ cells from the open faces; {born_mid} "
+            f"photons born by then) -> {n2}, merged or dropped {m1 - m0} -> "
+            f"{m2 - m0}, weight {w0:.7e} -> {w1:.7e} -> {w2:.7e}, slots per "
+            f"cell {sim.state.particles[sp.ispec].cap}")
+        if sp.ispec == ip:
+            if n1 + (m1 - m0) != born_mid + n0:
+                fail(f"QED 3D photons: {n1} alive + {m1 - m0} merged or "
+                     f"dropped != {born_mid} born by step {n_chk}")
+            continue
+        if n1 + (m1 - m0) != n0 - edge:
+            fail(f"QED 3D {sp.name}: particles not conserved to step {n_chk} "
+                 f"({n0} - {edge} on an edge -> {n1} + {m1 - m0} merges)")
+        if not abs(w1 - w0) <= 1e-5 * w0:
+            fail(f"QED 3D {sp.name}: weight not conserved to step {n_chk} "
+                 f"({w0} -> {w1})")
+    check_photon_ig(sim, ip, "slice QED 3D")
+    step_ms = (t2 - t1) * 1e3 / n_timed
+    npart = sum(n for n, _, _ in after)
+    log(f"[slice QED 3D] step {step_ms:.3f} ms (host clock, synchronised), "
+        f"{npart / (step_ms * 1e-3):.4e} pushes/s ({npart} alive particles "
+        f"of three species), peak |ey| "
+        f"{float(sim.state.fields.ey.abs().max()):.3e}")
+    busy_per_step(lambda: sim.run(nsteps=1, callbacks=[laser]),
+                  {"e_half3": 2, "b_half3": 2, "rebin": 9, "push<": 3,
+                   "deposit": 2, "fold3": 1}, 5, "profile QED 3D", step_ms)
+
+    # -- checks beside the main path, on its final state ------------------------
+    n_ev, dropped, change = check_creation(sim, proc)
+    # B2's plain version in 3D holds temporaries many times the slots (the
+    # 125 deposit offsets): at the end state's slots want_chi is held and
+    # timed on the QED3_PLANES x-planes with the most photons, the photon
+    # mode (no gather, no deposit) on the whole state
+    planes = photon_planes(sim, proc, QED3_PLANES)
+    torch.cuda.empty_cache()
+    errs.update(compare_b2_qed_f32(sim, proc, planes))
+    torch.cuda.empty_cache()
+
+    # -- the plain-torch QED work: device time ----------------------------------
+    e_ev, outs = qed_events(sim, proc)
+    time_delta_sampler(e_ev, proc)
+    del e_ev
+    e = sim.state.particles[ie]
+    key = species_key(sim._base_key, sim.itime, ie)
+
+    def qed_work():
+        data, alive = proc.update_events_from_chi(outs[0], outs[1], key,
+                                                  sim.dt, *outs[4])
+        parts = list(sim.state.particles)
+        parts[ie] = e.replace(data=data, alive=alive)
+        return sim._builder.qed_creation(proc, parts)
+    wall_qed = cuda_time(qed_work, 3)
+    times, _ = device_times(qed_work, 3, {})
+    dev_qed = (sum(ms for ms, _ in times.values()) / 3) if times else None
+    dev_s = "not measured" if dev_qed is None else f"{dev_qed:.3f} ms"
+    log(f"[QED plain 3D] device {dev_s} per step, wall {wall_qed:.3f} ms "
+        f"(CUDA events; draws, rate, sampler, insertion, recoil); "
+        f"{(dev_qed or wall_qed) / step_ms * 100:.1f}% of the step")
+    del outs
+    torch.cuda.empty_cache()
+
+    rows = time_b2_qed_modes(sim, proc, args.iters3d, by_mode, errs, planes)
+    log(f"[kernels QED 3D] launches per step B1 4, B2 3 (want_chi, default, "
+        f"photon), B3 1; creation check: {n_ev} events, {dropped} dropped, "
+        f"total change {change:.2e}")
+    return rows, sim, laser
+
+
+def run_split_qed_3d(args, sim, laser):
+    """[slice split QED 3D]: the 3D QED slice continued with a host
+    callback at _push_momentum due every step (B6 per axis and species,
+    the plain gather, QED events and Boris, B5 in 3D, the creation): one
+    split step against one fused step from a cloned state, then
+    --steps-split-qed3d steps through Simulation3D.run."""
+    import torch
+    from lambdapic_torch import callback
+    hook = callback(stage="_push_momentum")(lambda s: None)
+    split_vs_fused_step(sim, laser, hook, "slice split QED 3D")
+    n = args.steps_split_qed3d
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.time()
+    sim.run(nsteps=n, callbacks=[laser, hook])
+    torch.cuda.synchronize()
+    t1 = time.time()
+    check_launches("slice split QED 3D", n, {"B1": 4, "B5 3D": 2, "B6": 9},
+                   into=STAGE3_LAUNCHES)
+    check_finite(sim, "split QED 3D")
+    check_photon_ig(sim, sim._qed_processes[0].photon_ispec,
+                    "slice split QED 3D")
+    step_ms = (t1 - t0) * 1e3 / n
+    npart = sum(sim.npart_alive)
+    log(f"[slice split QED 3D] {n} split steps from step {sim.itime - n}: "
+        f"{step_ms:.3f} ms a step (host clock, synchronised), "
+        f"{npart / (step_ms * 1e-3):.4e} pushes/s; slots "
+        f"{[p.cap for p in sim.state.particles]}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def run_exact_qed_3d(args, dev):
+    """[slice exact QED 3D]: the 3D QED configuration with
+    cell_migration="exact" from its own fill through Simulation3D.run
+    until the first photon is born and --steps-exact-qed3d steps more (B4
+    3D want_eb for the radiating electrons, B4 3D default for the
+    protons, B5 3D for both; photons re-bin exactly and deposit
+    nothing)."""
+    import torch
+    t0 = time.time()
+    sim, laser, npho, pho = make_slice_qed_3d(dev, cell_migration="exact")
+    sim.initialize()
+    torch.cuda.synchronize()
+    log(f"[slice exact QED 3D] initialised in {time.time() - t0:.1f} s: "
+        f"{sim.npart_alive} particles, slots "
+        f"{[p.cap for p in sim.state.particles]}")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.time()
+    first = None
+    while first is None and sim.itime < 400:
+        sim.run(nsteps=10, callbacks=[laser, npho])
+        if int(sim.state.particles[pho.ispec].next_id) > 0:
+            first = sim.itime
+    if first is None:
+        fail("exact QED 3D: no photon born in 400 steps")
+    n_timed = min(20, args.steps_exact_qed3d)
+    sim.run(nsteps=args.steps_exact_qed3d - n_timed, callbacks=[laser, npho])
+    torch.cuda.synchronize()
+    t1 = time.time()
+    sim.run(nsteps=n_timed, callbacks=[laser, npho])
+    torch.cuda.synchronize()
+    t2 = time.time()
+    check_launches("slice exact QED 3D", sim.itime,
+                   {"B1": 4, "B4 3D": 2, "B4 3D want_eb": 1, "B5 3D": 2},
+                   into=STAGE3_LAUNCHES)
+    check_finite(sim, "exact QED 3D")
+    check_photon_ig(sim, pho.ispec, "slice exact QED 3D")
+    born = int(sim.state.particles[pho.ispec].next_id)
+    after = totals(sim)
+    step_ms = (t2 - t1) * 1e3 / n_timed
+    npart = sum(n for n, _, _ in after)
+    log(f"[slice exact QED 3D] {sim.itime} steps in {t2 - t0:.2f} s, the "
+        f"first photon by step {first}; photons born {born}, alive "
+        f"{sim.npart_alive[pho.ispec]}; window step {step_ms:.3f} ms (host "
+        f"clock, synchronised), {npart / (step_ms * 1e-3):.4e} pushes/s; "
+        f"alive, overflow, weight {after}; slots "
+        f"{[p.cap for p in sim.state.particles]}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    busy_per_step(lambda: sim.run(nsteps=1, callbacks=[laser]),
+                  {"e_half3": 2, "b_half3": 2, "push3d": 2, "deposit3d": 2,
+                   "fold_pad3": 2}, 3, "profile exact QED 3D", step_ms)
+    del sim
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# the tiled 2D engine's kernels B8, B9 (not ported yet): bounds from shapes
+# ---------------------------------------------------------------------------
+
+# bench.py's laser-target with --tiling TX,TY (bench.py:184-190, 208-220):
+# 768^2 cells, dx = dy = l0/16, electrons and protons at ppc 10 for
+# x > Lx/3, capacity factor 1.6, rebin 4 (so n_guard = tile halo 5); TX,TY
+# is the user's choice, taken as 32,32 here
+TILED = dict(nx=768, ny=768, tile=32, ppc=10, nspecies=2, factor=1.6,
+             halo=5)
+# floating-point work a particle: B8 the six staggered gathers with their
+# spline weights (as B2 2D's, about 700), B9 the 5 x 5 Esirkepov nodes of
+# four channels with their shapes (as B5 2D's, about 600)
+FLOPS_B8, FLOPS_B9 = 700, 600
+
+
+def tiled_bounds():
+    """Bounds (ms) of lambdapic_tpu/ops/tiled2d_pallas.py's two kernels at
+    bench.py's --tiling laser-target form (TILED), counted from the
+    shapes the Pallas calls take, float32: B8 gather_tiled_pallas reads
+    the (6, ntx, wx, nty, wy) field windows and x, y of every tile slot
+    (ntx, nty, cap_t) and writes six slot arrays; B9
+    deposit_tiled_pallas reads x, y, ux, uy, uz, inv_gamma and w of every
+    slot and writes the (4, ntx, wx, nty, wy) current windows. Each is
+    launched once a species a step. The operation bound counts the
+    particles the fill places. Returns {kernel: (bound ms, "bytes" or
+    "operations", launches a step)}."""
+    t = TILED
+    ntx, nty = t["nx"] // t["tile"], t["ny"] // t["tile"]
+    w = t["tile"] + 2 * t["halo"]
+    filled = t["nx"] - -(-t["nx"] // 3)          # cells with x > Lx/3
+    alive = filled * t["ny"] * t["ppc"]
+    cap_t = max(128, int(np.ceil(t["tile"]**2 * t["ppc"] * t["factor"]
+                                 / 128) * 128))
+    slots = ntx * nty * cap_t
+    win = ntx * nty * w * w
+    out = {}
+    for k, nbytes, flops in (("B8", (6 * win + 2 * slots + 6 * slots) * 4,
+                              alive * FLOPS_B8),
+                             ("B9", (7 * slots + 4 * win) * 4,
+                              alive * FLOPS_B9)):
+        b_ms, o_ms = nbytes / HBM_BPS * 1e3, flops / F32_FLOPS * 1e3
+        out[k] = (max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations",
+                  t["nspecies"])
+        log(f"[bound {k}] bench.py --tiling {t['tile']},{t['tile']} "
+            f"laser-target ({t['nx']}^2, {ntx} x {nty} tiles of {cap_t} "
+            f"slots, windows {w} x {w}, {alive} particles a species): "
+            f"{nbytes} bytes = {b_ms:.4f} ms, {flops:.3e} flops = "
+            f"{o_ms:.4f} ms; bound {max(b_ms, o_ms):.4f} ms; "
+            f"{t['nspecies']} launches a step")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=2001,
@@ -2814,28 +3530,39 @@ def main() -> int:
                          "example runs 1001)")
     ap.add_argument("--window3d", type=int, default=20,
                     help="final 3D steps timed as the steady window")
-    ap.add_argument("--steps-exact", type=int, default=501,
+    ap.add_argument("--steps-exact", type=int, default=201,
                     help="steps of the 2D slice with cell_migration='exact' "
                          "(the example runs 2001; cut to keep the script's "
-                         "time with the 3D per-stage phases)")
+                         "time with the 3D per-stage and 3D QED phases)")
     ap.add_argument("--window-exact", type=int, default=100,
                     help="final exact steps timed as the steady window")
-    ap.add_argument("--steps-exact-qed", type=int, default=300,
+    ap.add_argument("--steps-exact-qed", type=int, default=200,
                     help="steps of the QED slice with cell_migration='exact'")
-    ap.add_argument("--steps-split", type=int, default=100,
+    ap.add_argument("--steps-split", type=int, default=50,
                     help="split steps (a host callback at _push_momentum) "
                          "continuing the 2D slice")
     ap.add_argument("--steps-split-sort", type=int, default=10,
                     help="split steps with LAMBDAPIC_MIG_FUSED=0 (kernel B7)")
-    ap.add_argument("--steps-split3d", type=int, default=10,
+    ap.add_argument("--steps-split3d", type=int, default=5,
                     help="split steps (a host callback at _push_momentum) "
                          "continuing the 3D slice")
-    ap.add_argument("--steps-split-sort3d", type=int, default=3,
+    ap.add_argument("--steps-split-sort3d", type=int, default=2,
                     help="3D split steps with LAMBDAPIC_MIG_FUSED=0 (B7)")
-    ap.add_argument("--steps-exact3d", type=int, default=40,
+    ap.add_argument("--steps-exact3d", type=int, default=30,
                     help="steps of the 3D slice with cell_migration='exact'")
     ap.add_argument("--window-exact3d", type=int, default=20,
                     help="final exact 3D steps timed as the steady window")
+    ap.add_argument("--steps-qed3d", type=int, default=None,
+                    help="3D QED slice steps through Simulation3D.run "
+                         "(default: example/photons.py's 100 fs)")
+    ap.add_argument("--window-qed3d", type=int, default=100,
+                    help="final 3D QED steps timed as the steady window")
+    ap.add_argument("--steps-split-qed3d", type=int, default=10,
+                    help="split steps (a host callback at _push_momentum) "
+                         "continuing the 3D QED slice")
+    ap.add_argument("--steps-exact-qed3d", type=int, default=50,
+                    help="steps of the 3D QED slice with "
+                         "cell_migration='exact' after its first photon")
     ap.add_argument("--exact2d-digest", type=int, default=0, metavar="N",
                     help="run only the 2D slice with cell_migration='exact' "
                          "for N steps and print its peak device memory and "
@@ -2858,26 +3585,39 @@ def main() -> int:
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     phase_build()
-    kernels = run_2d(args, dev)
-    log(f"[time] 2D and split done at {time.time() - t_start:.1f} s")
-    torch.cuda.empty_cache()
+    tiled_bounds()
+    kernels = []
+
+    def done(what):
+        torch.cuda.empty_cache()
+        log(f"[time] {what} done at {time.time() - t_start:.1f} s")
+    kernels += run_2d(args, dev)
+    done("2D and split")
     run_exact(args, dev)
-    log(f"[time] exact done at {time.time() - t_start:.1f} s")
+    done("exact")
     run_exact_qed(args, dev)
-    log(f"[time] exact QED done at {time.time() - t_start:.1f} s")
+    done("exact QED")
     kernels += stage_rows()
-    torch.cuda.empty_cache()
     kernels += run_qed(args, dev)
-    log(f"[time] QED done at {time.time() - t_start:.1f} s")
-    torch.cuda.empty_cache()
+    done("QED")
     k3, sim3, laser3, fill = run_3d(args, dev)
     kernels += k3
-    log(f"[time] 3D done at {time.time() - t_start:.1f} s")
+    done("3D")
     run_split_3d(args, sim3, laser3)
-    log(f"[time] split 3D done at {time.time() - t_start:.1f} s")
-    torch.cuda.empty_cache()
+    done("split 3D")
     run_exact_3d(args, dev, sim3, fill)
     del sim3, fill
+    done("exact 3D")
+    run_bigcap(dev)
+    done("bigcap")
+    k3, simq, laserq = run_qed_3d(args, dev)
+    kernels += k3
+    done("QED 3D")
+    run_split_qed_3d(args, simq, laserq)
+    del simq
+    done("split QED 3D")
+    run_exact_qed_3d(args, dev)
+    done("exact QED 3D")
     kernels += stage3_rows()
     log(f"[time] total {time.time() - t_start:.1f} s")
     smi = subprocess.run(

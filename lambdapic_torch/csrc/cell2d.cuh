@@ -1,7 +1,8 @@
 // Device routines shared by the 2D cell-engine kernels: B2's passes and
 // deposit (cellstep.cu) and the per-stage kernels B4 (push2d.cu), B5
-// (deposit2d.cu), B6 (migrate2d.cu) and B7 (sortcells.cu). One copy each,
-// so the fused and the per-stage engines round alike.
+// (deposit2d.cu), B6 (migrate.cu) and B7 (sortcells.cu), and the 3D
+// kernels through cell3d.cuh. One copy each, so the fused and the
+// per-stage engines round alike.
 //
 // Layout: every per-slot array is (cap, nx, ny), cell (ix, iy) at
 // ix*ny + iy, slot stride nx*ny. All of it is written as the plain PyTorch
@@ -22,22 +23,80 @@ template <typename T> struct WFloor;
 template <> struct WFloor<float> { static __device__ float v() { return 1e-30f; } };
 template <> struct WFloor<double> { static __device__ double v() { return 1e-300; } };
 
-// Sort packed (key << 8 | slot) entries with the compare-exchange list of
+// A sort entry packs a key of a few bits above a 16-bit slot index: any
+// per-cell capacity up to 65536 slots.
+constexpr int KEY_SHIFT = 16;
+__device__ __forceinline__ int pack_key(int key, int slot) {
+  return (key << KEY_SHIFT) | slot;
+}
+__device__ __forceinline__ int key_of(int k) { return k >> KEY_SHIFT; }
+__device__ __forceinline__ int slot_of(int k) { return k & 0xffff; }
+
+// Per-cell capacities up to MAXC_LOCAL sort their entries in a
+// thread-local array sized by a template argument (8, 16, 32, 64 or 128).
+// Above it a kernel runs one thread per resident slot of a grid-stride
+// loop over cells and keeps each thread's entries in a row of a global
+// scratch (KEY_ROWS x cap int32 a thread), sized by the resident threads,
+// not by the cells.
+constexpr int MAXC_LOCAL = 128;
+constexpr int KEY_ROWS = 3;
+constexpr int MAX_SLOTS = 1 << 16;    // the 16-bit slot index
+
+// MAXC_LOCAL (which = 0), KEY_ROWS (1) or MAX_SLOTS (2): each sorting
+// library exports this as lp_key_limits, which ops/cellslab.py holds
+// equal to its own copies (they size the scratch) at first use
+inline int key_limit(int which) {
+  return which == 0 ? MAXC_LOCAL : which == 1 ? KEY_ROWS : MAX_SLOTS;
+}
+
+// Run body(cell, k, ks) for the cells of a launch of one thread a cell
+// (MAXC > 0: k is a thread-local array of KEY_ROWS rows of ks = MAXC
+// entries) or of a grid-stride launch over the cells (MAXC == 0: k is the
+// thread's row of ``scratch``, KEY_ROWS rows of ks = cap entries).
+template <int MAXC, typename Body>
+__device__ __forceinline__ void for_cells(long long ncell, int* scratch,
+                                          int cap, Body body) {
+  long long cell = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if constexpr (MAXC > 0) {
+    if (cell < ncell) {
+      int k[KEY_ROWS * MAXC];
+      body(cell, k, MAXC);
+    }
+  } else {
+    int* k = scratch + cell * KEY_ROWS * cap;
+    for (; cell < ncell; cell += (long long)gridDim.x * blockDim.x)
+      body(cell, k, cap);
+  }
+}
+
+// Blocks of ``threads`` for a launch over ncell cells: one thread a cell up
+// to MAXC_LOCAL slots a cell, else as many as the scratch has rows
+// (key_threads, a multiple of threads); 0 if that scratch is missing.
+inline int cell_blocks(long long ncell, int cap, long long key_threads,
+                       int threads) {
+  long long b = (ncell + threads - 1) / threads;
+  if (cap <= MAXC_LOCAL) return (int)b;
+  long long rows = key_threads / threads;
+  return (int)(b < rows ? b : rows);
+}
+
+// Sort packed (key, slot) entries with the compare-exchange list of
 // cellpallas.py::_batcher_network, swapping on a strict ka > kb.
 __device__ __forceinline__ void net_sort(int* k, const int* __restrict__ ces,
                                          int nces) {
   for (int e = 0; e < nces; ++e) {
     int a = __ldg(ces + 2 * e), b = __ldg(ces + 2 * e + 1);
     int ka = k[a], kb = k[b];
-    if ((ka >> 8) > (kb >> 8)) {
+    if (key_of(ka) > key_of(kb)) {
       k[a] = kb;
       k[b] = ka;
     }
   }
 }
 
-// The re-binning's 5-way key: donor(+1) 0, dead even slot 1, stay 2, dead
-// odd slot 3, donor(-1) 4; dead parity from the slot index before the sort.
+// The re-binning's 5-way key (3 bits): donor(+1) 0, dead even slot 1, stay
+// 2, dead odd slot 3, donor(-1) 4; dead parity from the slot index before
+// the sort.
 __device__ __forceinline__ int five_way(bool alive, bool out_hi, bool out_lo,
                                         int s) {
   if (out_hi) return 0;
@@ -132,6 +191,32 @@ __device__ __forceinline__ T boris(T& ux_, T& uy_, T& uz_, const T* e, T ef,
   uy_ = uy;
   uz_ = uz;
   return T(1) / sqrt(((T(1) + ux * ux) + uy * uy) + uz * uz);
+}
+
+// B2's want_chi mode: the pre-push ig0 = 1/sqrt(1 + u^2) of momenta u and
+// the quantum parameter of models/qed.py::calculate_chi at u, ig0 and the
+// gathered fields e; c the speed of light, chi_factor e hbar / (m_e^2 c^3).
+template <typename T>
+__device__ __forceinline__ void quantum_chi(const T* e, T ux0, T uy0, T uz0,
+                                            T c, T chi_factor, T& chi,
+                                            T& ig0) {
+  const T ig = T(1) / sqrt(((T(1) + ux0 * ux0) + uy0 * uy0) + uz0 * uz0);
+  T gam = T(1) / ig;
+  T t1 = gam * e[0] + (uy0 * e[5] - uz0 * e[4]) * c;
+  T t2 = gam * e[1] + (uz0 * e[3] - ux0 * e[5]) * c;
+  T t3 = gam * e[2] + (ux0 * e[4] - uy0 * e[3]) * c;
+  T t4 = (ux0 * e[0] + uy0 * e[1]) + uz0 * e[2];
+  T val = ((t1 * t1 + t2 * t2) + t3 * t3) - t4 * t4;
+  chi = chi_factor * sqrt(val > T(0) ? val : T(0));
+  ig0 = ig;
+}
+
+// A photon's inv_gamma (ops/pusher.py::photon_push): 1/|u|, 1 where u = 0.
+template <typename T>
+__device__ __forceinline__ T photon_ig(T ux, T uy, T uz) {
+  T u2 = (ux * ux + uy * uy) + uz * uz;
+  const T tiny = T(1e-30);
+  return u2 > T(0) ? T(1) / sqrt(u2 > tiny ? u2 : tiny) : T(1);
 }
 
 template <typename T>

@@ -52,8 +52,14 @@
 // slot's value (lo arrival, else hi arrival, else the resident); only
 // w, x, y, z, ux, uy, uz are merged. Dead slots keep them as placed.
 //
-// The sort, key, merge count, gather, Boris and deposit routines live in
-// cell2d.cuh, shared with the per-stage kernels B4-B7.
+// Capacity: up to MAXC_LOCAL (128) slots a cell each pass thread sorts its
+// three columns' (key, slot) entries in a local array; above it the
+// passes run a grid-stride loop over the cells with the entries in a
+// global scratch row per thread (cell2d.cuh's for_cells).
+//
+// The sort, key, merge count, gather, Boris, chi and deposit routines live
+// in cell2d.cuh, shared with the 3D kernel and the per-stage kernels
+// B4-B7.
 //
 // Compiled with --fmad=false: positions, keys and merges round exactly as
 // the plain version's separate tensor operations do, so cell assignment
@@ -86,10 +92,11 @@ enum Ptr {
   P_RIMS_IN, P_RIMS_OUT, P_NMERGED, P_CES,
   P_CHI, P_IG0,                     // want_chi outputs
   P_XF_IN, P_XF_S = P_XF_IN + 3, P_XF_O = P_XF_S + 3,  // extra payloads
-  P_COUNT = P_XF_O + 3
+  P_KEYS = P_XF_O + 3,              // sort scratch above MAXC_LOCAL slots
+  P_COUNT
 };
 enum Int { I_CAP, I_NX, I_NY, I_G, I_PERX, I_PERY, I_NCOMP, I_NCES, I_DOUBLE,
-           I_MODE, I_NXF };
+           I_MODE, I_NXF, I_KEY_THREADS };
 enum Mode { M_DEFAULT = 0, M_WANT_CHI = 1, M_PHOTON = 2 };
 // reals are computed on the host exactly as the plain version computes
 // its scalar factors (in double), then rounded to the kernel's type
@@ -137,6 +144,8 @@ struct Args {
   const int* ces;
   T* chi_out;           // want_chi
   T* ig0_out;
+  int* keys;            // KEY_ROWS x cap int32 per thread (cap > MAXC_LOCAL)
+  long long key_threads;
   int cap, nx, ny, g, perx, pery, ncomp, nces, mode, nxf;
   long long ncell;
   T hx, hy, ef, bf, cdx, cdy, c, kcd, kfx, kfy, chi;   // see enum Real
@@ -222,137 +231,138 @@ __device__ void store(const SlotsOut<T>& o, long long idx, const Slot<T>& v,
     if (k < nxf) o.xf[k][idx] = v.xf[k];
 }
 
-template <typename T, int MAXC>
-__global__ void __launch_bounds__(128) pass_x(Args<T> a) {
-  long long cell = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  bool active = cell < a.ncell;
-  int merges = 0;
-  if (active) {
-    int ix = (int)(cell / a.ny), iy = (int)(cell % a.ny);
-    int cols[3] = {ix > 0 ? ix - 1 : a.nx - 1, ix, ix < a.nx - 1 ? ix + 1 : 0};
-    int k[3][MAXC];
-    for (int c3 = 0; c3 < 3; ++c3) {
-      long long base = (long long)cols[c3] * a.ny + iy;
-      T xi = T(cols[c3]);
-      for (int s = 0; s < a.cap; ++s) {
-        long long idx = base + s * a.ncell;
-        bool al = a.in.alive[idx] != 0;
-        T local = pushed(a.in.f[FX][idx], a.in.f[FUX][idx], a.ig[idx], a.hx) - xi;
-        bool hi = al && local >= T(0.5);
-        bool lo = al && local < T(-0.5);
-        k[c3][s] = (five_way(al, hi, lo, s) << 8) | s;
-      }
-      net_sort(k[c3], a.ces, a.nces);
+// The x pass of one cell; k: KEY_ROWS rows of ks sort entries.
+template <typename T>
+__device__ __forceinline__ void pass_x_cell(const Args<T>& a, long long cell,
+                                            int* k, int ks, int& merges) {
+  int ix = (int)(cell / a.ny), iy = (int)(cell % a.ny);
+  int cols[3] = {ix > 0 ? ix - 1 : a.nx - 1, ix, ix < a.nx - 1 ? ix + 1 : 0};
+  for (int c3 = 0; c3 < 3; ++c3) {
+    long long base = (long long)cols[c3] * a.ny + iy;
+    T xi = T(cols[c3]);
+    for (int s = 0; s < a.cap; ++s) {
+      long long idx = base + s * a.ncell;
+      bool al = a.in.alive[idx] != 0;
+      T local = pushed(a.in.f[FX][idx], a.in.f[FUX][idx], a.ig[idx], a.hx) - xi;
+      bool hi = al && local >= T(0.5);
+      bool lo = al && local < T(-0.5);
+      k[c3 * ks + s] = pack_key(five_way(al, hi, lo, s), s);
     }
-    bool lo_ok = a.perx || ix != 0;
-    bool hi_ok = a.perx || ix != a.nx - 1;
-    for (int p = 0; p < a.cap; ++p) {
-      bool vlo = lo_ok && (k[0][p] >> 8) == 0;
-      bool vhi = hi_ok && (k[2][p] >> 8) == 4;
-      bool stay = (k[1][p] >> 8) == 2;
-      Slot<T> own, lo, hi, out;
-      load_x(a, (long long)(k[1][p] & 255) * a.ncell + cell, own);
-      if (vlo) {
-        load_x(a, (long long)(k[0][p] & 255) * a.ncell +
-                      (long long)cols[0] * a.ny + iy, lo);
-        if (ix == 0) lo.f[FX] = lo.f[FX] + T(-a.nx);
-      }
-      if (vhi) {
-        load_x(a, (long long)(k[2][p] & 255) * a.ncell +
-                      (long long)cols[2] * a.ny + iy, hi);
-        if (ix == a.nx - 1) hi.f[FX] = hi.f[FX] + T(a.nx);
-      }
-      place(vlo, vhi, stay, lo, hi, own, out, merges);
-      store(a.s, (long long)p * a.ncell + cell, out, vlo || vhi || stay,
-            a.nxf);
-    }
+    net_sort(k + c3 * ks, a.ces, a.nces);
   }
-  add_merges(a.n_merged, merges);
+  bool lo_ok = a.perx || ix != 0;
+  bool hi_ok = a.perx || ix != a.nx - 1;
+  for (int p = 0; p < a.cap; ++p) {
+    const int klo = k[p], kown = k[ks + p], khi = k[2 * ks + p];
+    bool vlo = lo_ok && key_of(klo) == 0;
+    bool vhi = hi_ok && key_of(khi) == 4;
+    bool stay = key_of(kown) == 2;
+    Slot<T> own, lo, hi, out;
+    load_x(a, (long long)slot_of(kown) * a.ncell + cell, own);
+    if (vlo) {
+      load_x(a, (long long)slot_of(klo) * a.ncell +
+                    (long long)cols[0] * a.ny + iy, lo);
+      if (ix == 0) lo.f[FX] = lo.f[FX] + T(-a.nx);
+    }
+    if (vhi) {
+      load_x(a, (long long)slot_of(khi) * a.ncell +
+                    (long long)cols[2] * a.ny + iy, hi);
+      if (ix == a.nx - 1) hi.f[FX] = hi.f[FX] + T(a.nx);
+    }
+    place(vlo, vhi, stay, lo, hi, own, out, merges);
+    store(a.s, (long long)p * a.ncell + cell, out, vlo || vhi || stay,
+          a.nxf);
+  }
 }
 
 template <typename T, int MAXC>
-__global__ void __launch_bounds__(128) pass_y(Args<T> a) {
-  long long cell = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  bool active = cell < a.ncell;
+__global__ void __launch_bounds__(128) pass_x(Args<T> a) {
   int merges = 0;
-  if (active) {
-    int ix = (int)(cell / a.ny), iy = (int)(cell % a.ny);
-    int rows[3] = {iy > 0 ? iy - 1 : a.ny - 1, iy, iy < a.ny - 1 ? iy + 1 : 0};
-    int k[3][MAXC];
-    for (int c3 = 0; c3 < 3; ++c3) {
-      long long base = (long long)ix * a.ny + rows[c3];
-      T yi = T(rows[c3]);
-      for (int s = 0; s < a.cap; ++s) {
-        long long idx = base + s * a.ncell;
-        bool al = a.sin.alive[idx] != 0;
-        T local = a.sin.f[FY][idx] - yi;
-        bool hi = al && local >= T(0.5);
-        bool lo = al && local < T(-0.5);
-        k[c3][s] = (five_way(al, hi, lo, s) << 8) | s;
-      }
-      net_sort(k[c3], a.ces, a.nces);
+  for_cells<MAXC>(a.ncell, a.keys, a.cap, [&](long long cell, int* k, int ks) {
+    pass_x_cell(a, cell, k, ks, merges);
+  });
+  add_merges(a.n_merged, merges);
+}
+
+// The y pass of one cell and the push of its slots; k: KEY_ROWS rows of
+// ks sort entries.
+template <typename T>
+__device__ __forceinline__ void pass_y_cell(const Args<T>& a, long long cell,
+                                            int* k, int ks, int& merges) {
+  int ix = (int)(cell / a.ny), iy = (int)(cell % a.ny);
+  int rows[3] = {iy > 0 ? iy - 1 : a.ny - 1, iy, iy < a.ny - 1 ? iy + 1 : 0};
+  for (int c3 = 0; c3 < 3; ++c3) {
+    long long base = (long long)ix * a.ny + rows[c3];
+    T yi = T(rows[c3]);
+    for (int s = 0; s < a.cap; ++s) {
+      long long idx = base + s * a.ncell;
+      bool al = a.sin.alive[idx] != 0;
+      T local = a.sin.f[FY][idx] - yi;
+      bool hi = al && local >= T(0.5);
+      bool lo = al && local < T(-0.5);
+      k[c3 * ks + s] = pack_key(five_way(al, hi, lo, s), s);
     }
-    bool lo_ok = a.pery || iy != 0;
-    bool hi_ok = a.pery || iy != a.ny - 1;
-    for (int p = 0; p < a.cap; ++p) {
-      bool vlo = lo_ok && (k[0][p] >> 8) == 0;
-      bool vhi = hi_ok && (k[2][p] >> 8) == 4;
-      bool stay = (k[1][p] >> 8) == 2;
-      Slot<T> own, lo, hi, v;
-      load_y(a, (long long)(k[1][p] & 255) * a.ncell + cell, own);
-      if (vlo) {
-        load_y(a, (long long)(k[0][p] & 255) * a.ncell +
-                      (long long)ix * a.ny + rows[0], lo);
-        if (iy == 0) lo.f[FY] = lo.f[FY] + T(-a.ny);
-      }
-      if (vhi) {
-        load_y(a, (long long)(k[2][p] & 255) * a.ncell +
-                      (long long)ix * a.ny + rows[2], hi);
-        if (iy == a.ny - 1) hi.f[FY] = hi.f[FY] + T(a.ny);
-      }
-      place(vlo, vhi, stay, lo, hi, own, v, merges);
-      bool al = vlo || vhi || stay;
-      if (!al) {
+    net_sort(k + c3 * ks, a.ces, a.nces);
+  }
+  bool lo_ok = a.pery || iy != 0;
+  bool hi_ok = a.pery || iy != a.ny - 1;
+  for (int p = 0; p < a.cap; ++p) {
+    const int klo = k[p], kown = k[ks + p], khi = k[2 * ks + p];
+    bool vlo = lo_ok && key_of(klo) == 0;
+    bool vhi = hi_ok && key_of(khi) == 4;
+    bool stay = key_of(kown) == 2;
+    Slot<T> own, lo, hi, v;
+    load_y(a, (long long)slot_of(kown) * a.ncell + cell, own);
+    if (vlo) {
+      load_y(a, (long long)slot_of(klo) * a.ncell +
+                    (long long)ix * a.ny + rows[0], lo);
+      if (iy == 0) lo.f[FY] = lo.f[FY] + T(-a.ny);
+    }
+    if (vhi) {
+      load_y(a, (long long)slot_of(khi) * a.ncell +
+                    (long long)ix * a.ny + rows[2], hi);
+      if (iy == a.ny - 1) hi.f[FY] = hi.f[FY] + T(a.ny);
+    }
+    place(vlo, vhi, stay, lo, hi, own, v, merges);
+    bool al = vlo || vhi || stay;
+    if (!al) {
 #pragma unroll
-        for (int t = 0; t < NF; ++t) v.f[t] = T(0);
-      }
-      long long o = (long long)p * a.ncell + cell;
-      if (a.mode == M_PHOTON) {
-        // field-free photon tail (ops/pusher.py::photon_push)
-        T u2 = (v.f[FUX] * v.f[FUX] + v.f[FUY] * v.f[FUY]) + v.f[FUZ] * v.f[FUZ];
-        const T tiny = T(1e-30);
-        T ig = u2 > T(0) ? T(1) / sqrt(u2 > tiny ? u2 : tiny) : T(1);
-        v.f[FX] = pushed(v.f[FX], v.f[FUX], ig, a.hx);
-        v.f[FY] = pushed(v.f[FY], v.f[FUY], ig, a.hy);
-        store(a.out, o, v, al, a.nxf);
-        a.ig_out[o] = ig;
-        continue;
-      }
-      // gather at the mid-step position (cell-local deltas)
-      T e[6];
-      gather_eb(a.eb, a.nx, a.ny, a.g, ix, iy, v.f[FX] - T(ix),
-                v.f[FY] - T(iy), e);
-      if (a.mode == M_WANT_CHI) {
-        // models/qed.py::calculate_chi at the pre-push momenta, with the
-        // pre-push inv_gamma of the re-binning (ops/cell2d.py)
-        const T ux0 = v.f[FUX], uy0 = v.f[FUY], uz0 = v.f[FUZ];
-        T ig0 = T(1) / sqrt(((T(1) + ux0 * ux0) + uy0 * uy0) + uz0 * uz0);
-        T gam = T(1) / ig0;
-        T t1 = gam * e[0] + (uy0 * e[5] - uz0 * e[4]) * a.c;
-        T t2 = gam * e[1] + (uz0 * e[3] - ux0 * e[5]) * a.c;
-        T t3 = gam * e[2] + (ux0 * e[4] - uy0 * e[3]) * a.c;
-        T t4 = (ux0 * e[0] + uy0 * e[1]) + uz0 * e[2];
-        T val = ((t1 * t1 + t2 * t2) + t3 * t3) - t4 * t4;
-        a.chi_out[o] = a.chi * sqrt(val > T(0) ? val : T(0));
-        a.ig0_out[o] = ig0;
-      }
-      T ig = boris(v.f[FUX], v.f[FUY], v.f[FUZ], e, a.ef, a.bf);
+      for (int t = 0; t < NF; ++t) v.f[t] = T(0);
+    }
+    long long o = (long long)p * a.ncell + cell;
+    if (a.mode == M_PHOTON) {
+      // field-free photon tail (ops/pusher.py::photon_push)
+      T ig = photon_ig(v.f[FUX], v.f[FUY], v.f[FUZ]);
       v.f[FX] = pushed(v.f[FX], v.f[FUX], ig, a.hx);
       v.f[FY] = pushed(v.f[FY], v.f[FUY], ig, a.hy);
       store(a.out, o, v, al, a.nxf);
       a.ig_out[o] = ig;
+      continue;
     }
+    // gather at the mid-step position (cell-local deltas)
+    T e[6];
+    gather_eb(a.eb, a.nx, a.ny, a.g, ix, iy, v.f[FX] - T(ix),
+              v.f[FY] - T(iy), e);
+    if (a.mode == M_WANT_CHI) {
+      // models/qed.py::calculate_chi at the pre-push momenta, with the
+      // pre-push inv_gamma of the re-binning (ops/cell2d.py)
+      quantum_chi(e, v.f[FUX], v.f[FUY], v.f[FUZ], a.c, a.chi, a.chi_out[o],
+                  a.ig0_out[o]);
+    }
+    T ig = boris(v.f[FUX], v.f[FUY], v.f[FUZ], e, a.ef, a.bf);
+    v.f[FX] = pushed(v.f[FX], v.f[FUX], ig, a.hx);
+    v.f[FY] = pushed(v.f[FY], v.f[FUY], ig, a.hy);
+    store(a.out, o, v, al, a.nxf);
+    a.ig_out[o] = ig;
   }
+}
+
+template <typename T, int MAXC>
+__global__ void __launch_bounds__(128) pass_y(Args<T> a) {
+  int merges = 0;
+  for_cells<MAXC>(a.ncell, a.keys, a.cap, [&](long long cell, int* k, int ks) {
+    pass_y_cell(a, cell, k, ks, merges);
+  });
   add_merges(a.n_merged, merges);
 }
 
@@ -394,7 +404,8 @@ void unpack_out(SlotsOut<T>& s, void** p, int alive, int first, int id0,
 template <typename T, int MAXC>
 int launch_passes(const Args<T>& a, cudaStream_t st) {
   int threads = 128;
-  int blocks = ceil_div(a.ncell, threads);
+  int blocks = cell_blocks(a.ncell, a.cap, a.key_threads, threads);
+  if (blocks == 0) return (int)cudaErrorInvalidValue;
   pass_x<T, MAXC><<<blocks, threads, 0, st>>>(a);
   int err = (int)cudaGetLastError();
   if (err) return err;
@@ -428,13 +439,17 @@ int launch(void** p, const long long* n, const double* r, cudaStream_t st) {
   a.cdx = (T)r[R_CDX]; a.cdy = (T)r[R_CDY]; a.c = (T)r[R_C];
   a.kcd = (T)r[R_KCD]; a.kfx = (T)r[R_KFX]; a.kfy = (T)r[R_KFY];
   a.chi = (T)r[R_CHI];
+  a.keys = (int*)p[P_KEYS];
+  a.key_threads = n[I_KEY_THREADS];
+  if (a.cap < 1 || a.cap > lp2d::MAX_SLOTS || (a.cap > MAXC_LOCAL && !a.keys))
+    return (int)cudaErrorInvalidValue;
   int err;
   if (a.cap <= 8) err = launch_passes<T, 8>(a, st);
   else if (a.cap <= 16) err = launch_passes<T, 16>(a, st);
   else if (a.cap <= 32) err = launch_passes<T, 32>(a, st);
   else if (a.cap <= 64) err = launch_passes<T, 64>(a, st);
-  else if (a.cap <= 128) err = launch_passes<T, 128>(a, st);
-  else return (int)cudaErrorInvalidValue;
+  else if (a.cap <= MAXC_LOCAL) err = launch_passes<T, MAXC_LOCAL>(a, st);
+  else err = launch_passes<T, 0>(a, st);
   if (err || a.mode == M_PHOTON) return err;
   dim3 block(TILE, TILE);
   dim3 grid(ceil_div(a.ny, TILE), ceil_div(a.nx, TILE));
@@ -454,3 +469,6 @@ LP_EXPORT int lp_cell_step(void** ptrs, const long long* ints,
 }
 
 LP_EXPORT int lp_cell_tile() { return lp2d::TILE; }
+
+// the sort scratch's limits (cell2d.cuh::key_limit)
+LP_EXPORT int lp_key_limits(int which) { return lp2d::key_limit(which); }

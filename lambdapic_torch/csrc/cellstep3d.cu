@@ -1,5 +1,5 @@
-// Kernel B2 in 3D: the 3D cell-engine particle stage of one species,
-// default mode.
+// Kernel B2 in 3D: the 3D cell-engine particle stage of one species, in
+// its default, want_chi and photon modes.
 //
 // Replaces the 3D form of the TPU megakernel lambdapic_tpu/ops/cellslab.py::
 // unified_cell_step (kernel body :663, pallas_call :1830; the third
@@ -32,7 +32,8 @@
 //            quadratic gather from eb_pad (up to 4 x 4 x 3 taps a
 //            component), Boris, and the second half push. Dead slots keep
 //            their zeros and get inv_gamma 1; nothing downstream reads a
-//            dead slot's payload.
+//            dead slot's payload. One instance per mode (a template
+//            argument), so the default mode's registers do not grow.
 //  deposit   one block per 8 x 8 x 8 cell tile, one thread per cell: 5-tap
 //            Esirkepov J (and rho) into a shared (C, 12, 12, 12) panel.
 //            Each thread takes its alive particles one at a time; for one
@@ -43,9 +44,30 @@
 //            (rims_in) and is written to rims_out; kernel B3 (fold3d.cu)
 //            overlap-adds the panels into the interior J.
 //
-// The gather, Boris, half push, key, sort, merge count and tile deposit
-// are the shared device code of cell3d.cuh and cell2d.cuh, which kernels
-// B4 and B5 in 3D (push3d.cu, deposit3d.cu) run too.
+// Modes (the int I_MODE), as in the 2D kernel (cellstep.cu):
+//  default   as above.
+//  want_chi  push also writes, between the gather and Boris, the
+//            post-migration pre-push ig0 = 1/sqrt(1 + u^2) and the quantum
+//            parameter chi of every alive slot (0 and 1 in dead slots; the
+//            caller masks chi with alive). Replaces unified_cell_step's
+//            want_chi branch (cellslab.py:1094-1109) on 3D slots.
+//  photon    field free (q = m = 0): push's work is inv_gamma = 1/|u| (1
+//            where u = 0) and the second half push; no gather, no Boris,
+//            no deposit launch, no panels. Replaces the photon branch
+//            (cellslab.py:966-986) on 3D slots.
+// Extra payloads: up to NXF float arrays (a QED species' tau, delta,
+// event) ride through the three passes. On a collision they take the
+// placed slot's value (lo arrival, else hi arrival, else the resident);
+// only w, x, y, z, ux, uy, uz are merged. Dead slots keep them as placed.
+//
+// Capacity: up to MAXC_LOCAL (128) slots a cell each rebin thread sorts
+// its three columns' entries in a local array; above it the passes run a
+// grid-stride loop over the cells with the entries in a global scratch
+// row per thread (cell2d.cuh's for_cells).
+//
+// The gather, Boris, half push, key, sort, merge count, chi and tile
+// deposit are the shared device code of cell3d.cuh and cell2d.cuh, which
+// kernels B4 and B5 in 3D (push3d.cu, deposit3d.cu) run too.
 //
 // Compiled with --fmad=false: positions, keys and merges round exactly as
 // the plain version's separate tensor operations do, so cell assignment
@@ -54,18 +76,24 @@
 // Bound on an H100 (3.35 TB/s): bytes, counted as for the 2D kernel: the
 // alive mask (1 B a slot); x, y, z, w, ux, uy, uz, inv_gamma, id_lo, id_hi
 // of each alive slot; the E/B nodes the gather reaches from occupied
-// cells; one write of every slot and of the panels. This first design
-// moves several times that: three passes each read every slot of three
-// columns and write every slot, the push reads and writes them again, and
-// the deposit reads the alive ones once more.
+// cells; one write of every slot and of the panels (want_chi: chi and ig0
+// written too; photon: no fields, no panels). This first design moves
+// several times that: three passes each read every slot of three columns
+// and write every slot, the push reads and writes them again, and the
+// deposit reads the alive ones once more.
 #include "cell3d.cuh"
 
 namespace {
 
 using lp2d::add_merges;
 using lp2d::five_way;
+using lp2d::for_cells;
+using lp2d::key_of;
+using lp2d::MAXC_LOCAL;
 using lp2d::net_sort;
+using lp2d::pack_key;
 using lp2d::pushed;
+using lp2d::slot_of;
 using lp2d::WFloor;
 using lp3d::TILE;
 
@@ -76,12 +104,17 @@ enum Ptr {
   P_A_IDLO, P_A_IDHI,
   P_B_ALIVE, P_B_X, P_B_Y, P_B_Z, P_B_W, P_B_UX, P_B_UY, P_B_UZ, P_B_IDLO,
   P_B_IDHI,
-  P_RIMS_IN, P_RIMS_OUT, P_NMERGED, P_CES, P_COUNT
+  P_RIMS_IN, P_RIMS_OUT, P_NMERGED, P_CES,
+  P_CHI, P_IG0,                     // want_chi outputs
+  P_XF_IN, P_XF_A = P_XF_IN + 3, P_XF_B = P_XF_A + 3,  // extra payloads
+  P_KEYS = P_XF_B + 3,              // sort scratch above MAXC_LOCAL slots
+  P_COUNT
 };
 enum Int {
   I_CAP, I_NX, I_NY, I_NZ, I_G, I_PERX, I_PERY, I_PERZ, I_NCOMP, I_NCES,
-  I_DOUBLE
+  I_DOUBLE, I_MODE, I_NXF, I_KEY_THREADS
 };
+enum Mode { M_DEFAULT = 0, M_WANT_CHI = 1, M_PHOTON = 2 };
 // reals are computed on the host exactly as the plain version computes
 // its scalar factors (in double), then rounded to the kernel's type
 enum Real {
@@ -89,10 +122,12 @@ enum Real {
   R_EF, R_BF,           // q dt / (2 m c), q dt / (2 m): Boris
   R_CDX, R_CDY, R_CDZ,  // c dt / d per axis
   R_KCD,                // q / (dx dy dz)
-  R_KFX, R_KFY, R_KFZ   // q / (dy dz dt), q / (dx dz dt), q / (dx dy dt)
+  R_KFX, R_KFY, R_KFZ,  // q / (dy dz dt), q / (dx dz dt), q / (dx dy dt)
+  R_C, R_CHI            // c; e hbar / (m_e^2 c^3)
 };
 
 constexpr int NF = 7;                  // float payloads: x y z w ux uy uz
+constexpr int NXF = 3;                 // most extra float payloads
 enum F { FX, FY, FZ, FW, FUX, FUY, FUZ };
 
 template <typename T>
@@ -100,6 +135,7 @@ struct SlotsIn {
   const unsigned char* alive;
   const T* f[NF];
   const int* id[2];
+  const T* xf[NXF];
 };
 
 template <typename T>
@@ -107,6 +143,7 @@ struct SlotsOut {
   unsigned char* alive;
   T* f[NF];
   int* id[2];
+  T* xf[NXF];
 };
 
 template <typename T>
@@ -118,9 +155,13 @@ struct Args {
   T* rims_out;
   unsigned long long* n_merged;
   const int* ces;
-  int cap, nx, ny, nz, g, per[3], ncomp, nces;
+  T* chi_out;           // want_chi
+  T* ig0_out;
+  int* keys;            // KEY_ROWS x cap int32 per thread (cap > MAXC_LOCAL)
+  long long key_threads;
+  int cap, nx, ny, nz, g, per[3], ncomp, nces, mode, nxf;
   long long ncell;
-  T h[3], ef, bf, cd[3], kcd, kf[3];   // see enum Real
+  T h[3], ef, bf, cd[3], kcd, kf[3], c, chi;   // see enum Real
 };
 
 // One slot's carried values.
@@ -128,11 +169,14 @@ template <typename T>
 struct Slot {
   T f[NF];
   int id[2];
+  T xf[NXF];
 };
 
 // A source slot; the x pass reads the stored slots and applies the first
-// half push along all three axes.
-template <typename T>
+// half push along all three axes. XF: the species carries extra payloads
+// (a compile-time flag, so the default mode's passes keep their
+// registers).
+template <typename T, bool XF>
 __device__ void load(const Args<T>& a, const SlotsIn<T>& s, long long idx,
                      bool first, Slot<T>& v) {
 #pragma unroll
@@ -145,6 +189,11 @@ __device__ void load(const Args<T>& a, const SlotsIn<T>& s, long long idx,
   }
   v.id[0] = s.id[0][idx];
   v.id[1] = s.id[1][idx];
+  if (XF) {
+#pragma unroll
+    for (int k = 0; k < NXF; ++k)
+      if (k < a.nxf) v.xf[k] = s.xf[k][idx];
+  }
 }
 
 // Shift a wrapped arrival's coordinate along the pass's axis.
@@ -186,105 +235,133 @@ __device__ void place(bool vlo, bool vhi, bool stay, const Slot<T>& lo,
   }
 }
 
-template <typename T>
+template <typename T, bool XF>
 __device__ void store(const SlotsOut<T>& o, long long idx, const Slot<T>& v,
-                      bool alive) {
+                      bool alive, int nxf) {
   o.alive[idx] = alive ? 1 : 0;
 #pragma unroll
   for (int k = 0; k < NF; ++k) o.f[k][idx] = v.f[k];
   o.id[0][idx] = v.id[0];
   o.id[1][idx] = v.id[1];
+  if (XF) {
+#pragma unroll
+    for (int k = 0; k < NXF; ++k)
+      if (k < nxf) o.xf[k][idx] = v.xf[k];
+  }
 }
 
-// One re-binning pass along ``axis`` (0 x, 1 y, 2 z) from src to dst.
-template <typename T, int MAXC>
+// One re-binning pass along ``axis`` (0 x, 1 y, 2 z) of one cell from src
+// to dst; k: KEY_ROWS rows of ks sort entries.
+template <typename T, bool XF>
+__device__ __forceinline__ void rebin_cell(const Args<T>& a,
+                                           const SlotsIn<T>& src,
+                                           const SlotsOut<T>& dst, int axis,
+                                           long long cell, int* k, int ks,
+                                           int& merges) {
+  const long long plane = (long long)a.ny * a.nz;
+  int ix = (int)(cell / plane);
+  int rem = (int)(cell - (long long)ix * plane);
+  int iy = rem / a.nz, iz = rem - iy * a.nz;
+  const bool first = axis == 0, last = axis == 2;
+  const int i = axis == 0 ? ix : (axis == 1 ? iy : iz);
+  const int n = axis == 0 ? a.nx : (axis == 1 ? a.ny : a.nz);
+  const long long stride = axis == 0 ? plane : (axis == 1 ? a.nz : 1);
+  const int ci[3] = {i > 0 ? i - 1 : n - 1, i, i < n - 1 ? i + 1 : 0};
+  const long long nb[3] = {cell + (long long)(ci[0] - i) * stride, cell,
+                           cell + (long long)(ci[2] - i) * stride};
+  const T* pos = src.f[FX + axis];
+  const T* mom = src.f[FUX + axis];
+  const T h = a.h[axis];
+  for (int c3 = 0; c3 < 3; ++c3) {
+    T xi = T(ci[c3]);
+    for (int s = 0; s < a.cap; ++s) {
+      long long idx = nb[c3] + s * a.ncell;
+      bool al = src.alive[idx] != 0;
+      T p = first ? pushed(pos[idx], mom[idx], a.ig[idx], h) : pos[idx];
+      T local = p - xi;
+      bool hi = al && local >= T(0.5);
+      bool lo = al && local < T(-0.5);
+      k[c3 * ks + s] = pack_key(five_way(al, hi, lo, s), s);
+    }
+    net_sort(k + c3 * ks, a.ces, a.nces);
+  }
+  const bool per = a.per[axis] != 0;
+  bool lo_ok = per || i != 0;
+  bool hi_ok = per || i != n - 1;
+  for (int p = 0; p < a.cap; ++p) {
+    const int klo = k[p], kown = k[ks + p], khi = k[2 * ks + p];
+    bool vlo = lo_ok && key_of(klo) == 0;
+    bool vhi = hi_ok && key_of(khi) == 4;
+    bool stay = key_of(kown) == 2;
+    Slot<T> own, lo, hi, out;
+    load<T, XF>(a, src, (long long)slot_of(kown) * a.ncell + cell, first, own);
+    if (vlo) {
+      load<T, XF>(a, src, (long long)slot_of(klo) * a.ncell + nb[0], first, lo);
+      if (i == 0) adjust(lo, axis, T(-n));
+    }
+    if (vhi) {
+      load<T, XF>(a, src, (long long)slot_of(khi) * a.ncell + nb[2], first, hi);
+      if (i == n - 1) adjust(hi, axis, T(n));
+    }
+    place(vlo, vhi, stay, lo, hi, own, out, merges);
+    bool al = vlo || vhi || stay;
+    if (last && !al) {
+#pragma unroll
+      for (int t = 0; t < NF; ++t) out.f[t] = T(0);
+    }
+    store<T, XF>(dst, (long long)p * a.ncell + cell, out, al, a.nxf);
+  }
+}
+
+template <typename T, int MAXC, bool XF>
 __global__ void __launch_bounds__(128) rebin(Args<T> a, SlotsIn<T> src,
                                              SlotsOut<T> dst, int axis) {
-  long long cell = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   int merges = 0;
-  if (cell < a.ncell) {
-    const long long plane = (long long)a.ny * a.nz;
-    int ix = (int)(cell / plane);
-    int rem = (int)(cell - (long long)ix * plane);
-    int iy = rem / a.nz, iz = rem - iy * a.nz;
-    const bool first = axis == 0, last = axis == 2;
-    const int i = axis == 0 ? ix : (axis == 1 ? iy : iz);
-    const int n = axis == 0 ? a.nx : (axis == 1 ? a.ny : a.nz);
-    const long long stride = axis == 0 ? plane : (axis == 1 ? a.nz : 1);
-    const int ci[3] = {i > 0 ? i - 1 : n - 1, i, i < n - 1 ? i + 1 : 0};
-    const long long nb[3] = {cell + (long long)(ci[0] - i) * stride, cell,
-                             cell + (long long)(ci[2] - i) * stride};
-    const T* pos = src.f[FX + axis];
-    const T* mom = src.f[FUX + axis];
-    const T h = a.h[axis];
-    int k[3][MAXC];
-    for (int c3 = 0; c3 < 3; ++c3) {
-      T xi = T(ci[c3]);
-      for (int s = 0; s < a.cap; ++s) {
-        long long idx = nb[c3] + s * a.ncell;
-        bool al = src.alive[idx] != 0;
-        T p = first ? pushed(pos[idx], mom[idx], a.ig[idx], h) : pos[idx];
-        T local = p - xi;
-        bool hi = al && local >= T(0.5);
-        bool lo = al && local < T(-0.5);
-        k[c3][s] = (five_way(al, hi, lo, s) << 8) | s;
-      }
-      net_sort(k[c3], a.ces, a.nces);
-    }
-    const bool per = a.per[axis] != 0;
-    bool lo_ok = per || i != 0;
-    bool hi_ok = per || i != n - 1;
-    for (int p = 0; p < a.cap; ++p) {
-      bool vlo = lo_ok && (k[0][p] >> 8) == 0;
-      bool vhi = hi_ok && (k[2][p] >> 8) == 4;
-      bool stay = (k[1][p] >> 8) == 2;
-      Slot<T> own, lo, hi, out;
-      load(a, src, (long long)(k[1][p] & 255) * a.ncell + cell, first, own);
-      if (vlo) {
-        load(a, src, (long long)(k[0][p] & 255) * a.ncell + nb[0], first, lo);
-        if (i == 0) adjust(lo, axis, T(-n));
-      }
-      if (vhi) {
-        load(a, src, (long long)(k[2][p] & 255) * a.ncell + nb[2], first, hi);
-        if (i == n - 1) adjust(hi, axis, T(n));
-      }
-      place(vlo, vhi, stay, lo, hi, own, out, merges);
-      bool al = vlo || vhi || stay;
-      if (last && !al) {
-#pragma unroll
-        for (int t = 0; t < NF; ++t) out.f[t] = T(0);
-      }
-      store(dst, (long long)p * a.ncell + cell, out, al);
-    }
-  }
+  for_cells<MAXC>(a.ncell, a.keys, a.cap, [&](long long cell, int* k, int ks) {
+    rebin_cell<T, XF>(a, src, dst, axis, cell, k, ks, merges);
+  });
   add_merges(a.n_merged, merges);
 }
 
-// Gather + Boris + second half push of every alive slot, in place (the
-// gather and Boris are cell3d.cuh's and cell2d.cuh's, as kernel B4 runs
-// them).
-template <typename T>
+// The slots' push, in place on buffer A, by mode: gather + Boris (with
+// want_chi the pre-push ig0 and chi between the two) + second half push
+// (the gather and Boris are cell3d.cuh's and cell2d.cuh's, as kernel B4
+// runs them), or a photon's 1/|u| and second half push.
+template <typename T, int MODE>
 __global__ void __launch_bounds__(256) push(Args<T> a, SlotsOut<T> s) {
   long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (long long)a.cap * a.ncell) return;
   if (!s.alive[idx]) {
     a.ig_out[idx] = T(1);
+    if (MODE == M_WANT_CHI) {
+      a.chi_out[idx] = T(0);
+      a.ig0_out[idx] = T(1);
+    }
     return;
   }
-  long long cell = idx % a.ncell;
-  const long long plane = (long long)a.ny * a.nz;
-  int ix = (int)(cell / plane);
-  int rem = (int)(cell - (long long)ix * plane);
-  int iy = rem / a.nz, iz = rem - iy * a.nz;
   T x = s.f[FX][idx], y = s.f[FY][idx], z = s.f[FZ][idx];
-  const T d[3] = {x - T(ix), y - T(iy), z - T(iz)};
-  T e[6];
-  lp3d::gather_eb(a.eb, a.nx, a.ny, a.nz, a.g, ix, iy, iz, d, e);
-  T ux = s.f[FUX][idx], uy = s.f[FUY][idx], uz = s.f[FUZ][idx];
-  T ig = lp2d::boris(ux, uy, uz, e, a.ef, a.bf);
-  s.f[FUX][idx] = ux;
-  s.f[FUY][idx] = uy;
-  s.f[FUZ][idx] = uz;
+  T ux, uy, uz, ig;
+  if (MODE == M_PHOTON) {
+    ux = s.f[FUX][idx]; uy = s.f[FUY][idx]; uz = s.f[FUZ][idx];
+    ig = lp2d::photon_ig(ux, uy, uz);
+  } else {
+    long long cell = idx % a.ncell;
+    const long long plane = (long long)a.ny * a.nz;
+    int ix = (int)(cell / plane);
+    int rem = (int)(cell - (long long)ix * plane);
+    int iy = rem / a.nz, iz = rem - iy * a.nz;
+    const T d[3] = {x - T(ix), y - T(iy), z - T(iz)};
+    T e[6];
+    lp3d::gather_eb(a.eb, a.nx, a.ny, a.nz, a.g, ix, iy, iz, d, e);
+    ux = s.f[FUX][idx]; uy = s.f[FUY][idx]; uz = s.f[FUZ][idx];
+    if (MODE == M_WANT_CHI)
+      lp2d::quantum_chi(e, ux, uy, uz, a.c, a.chi, a.chi_out[idx],
+                        a.ig0_out[idx]);
+    ig = lp2d::boris(ux, uy, uz, e, a.ef, a.bf);
+    s.f[FUX][idx] = ux;
+    s.f[FUY][idx] = uy;
+    s.f[FUZ][idx] = uz;
+  }
   s.f[FX][idx] = pushed(x, ux, ig, a.h[0]);
   s.f[FY][idx] = pushed(y, uy, ig, a.h[1]);
   s.f[FZ][idx] = pushed(z, uz, ig, a.h[2]);
@@ -300,19 +377,23 @@ __global__ void __launch_bounds__(TILE * TILE * TILE)
 }
 
 template <typename T>
-void unpack_in(SlotsIn<T>& s, void** p, int alive, int first, int id0) {
+void unpack_in(SlotsIn<T>& s, void** p, int alive, int first, int id0,
+               int xf0) {
   s.alive = (const unsigned char*)p[alive];
   for (int k = 0; k < NF; ++k) s.f[k] = (const T*)p[first + k];
   s.id[0] = (const int*)p[id0];
   s.id[1] = (const int*)p[id0 + 1];
+  for (int k = 0; k < NXF; ++k) s.xf[k] = (const T*)p[xf0 + k];
 }
 
 template <typename T>
-void unpack_out(SlotsOut<T>& s, void** p, int alive, int first, int id0) {
+void unpack_out(SlotsOut<T>& s, void** p, int alive, int first, int id0,
+                int xf0) {
   s.alive = (unsigned char*)p[alive];
   for (int k = 0; k < NF; ++k) s.f[k] = (T*)p[first + k];
   s.id[0] = (int*)p[id0];
   s.id[1] = (int*)p[id0 + 1];
+  for (int k = 0; k < NXF; ++k) s.xf[k] = (T*)p[xf0 + k];
 }
 
 template <typename T>
@@ -321,18 +402,25 @@ struct Buffers {
   SlotsOut<T> a_out, b_out;
 };
 
-template <typename T, int MAXC>
-int launch_passes(const Args<T>& a, const Buffers<T>& b, cudaStream_t st) {
+template <typename T, int MAXC, bool XF>
+int launch_passes_xf(const Args<T>& a, const Buffers<T>& b, cudaStream_t st) {
   int threads = 128;
-  int blocks = ceil_div(a.ncell, threads);
-  rebin<T, MAXC><<<blocks, threads, 0, st>>>(a, b.in, b.a_out, 0);
+  int blocks = lp2d::cell_blocks(a.ncell, a.cap, a.key_threads, threads);
+  if (blocks == 0) return (int)cudaErrorInvalidValue;
+  rebin<T, MAXC, XF><<<blocks, threads, 0, st>>>(a, b.in, b.a_out, 0);
   int err = (int)cudaGetLastError();
   if (err) return err;
-  rebin<T, MAXC><<<blocks, threads, 0, st>>>(a, b.a_in, b.b_out, 1);
+  rebin<T, MAXC, XF><<<blocks, threads, 0, st>>>(a, b.a_in, b.b_out, 1);
   err = (int)cudaGetLastError();
   if (err) return err;
-  rebin<T, MAXC><<<blocks, threads, 0, st>>>(a, b.b_in, b.a_out, 2);
+  rebin<T, MAXC, XF><<<blocks, threads, 0, st>>>(a, b.b_in, b.a_out, 2);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int MAXC>
+int launch_passes(const Args<T>& a, const Buffers<T>& b, cudaStream_t st) {
+  return a.nxf > 0 ? launch_passes_xf<T, MAXC, true>(a, b, st)
+                   : launch_passes_xf<T, MAXC, false>(a, b, st);
 }
 
 template <typename T>
@@ -340,13 +428,16 @@ int launch(void** p, const long long* n, const double* r, cudaStream_t st) {
   Args<T> a;
   Buffers<T> b;
   a.eb = (const T*)p[P_EB];
-  unpack_in(b.in, p, P_ALIVE, P_X, P_IDLO);
+  unpack_in(b.in, p, P_ALIVE, P_X, P_IDLO, P_XF_IN);
   a.ig = (const T*)p[P_IG];
-  unpack_out(b.a_out, p, P_A_ALIVE, P_A_X, P_A_IDLO);
-  unpack_in(b.a_in, p, P_A_ALIVE, P_A_X, P_A_IDLO);
+  unpack_out(b.a_out, p, P_A_ALIVE, P_A_X, P_A_IDLO, P_XF_A);
+  unpack_in(b.a_in, p, P_A_ALIVE, P_A_X, P_A_IDLO, P_XF_A);
   a.ig_out = (T*)p[P_A_IG];
-  unpack_out(b.b_out, p, P_B_ALIVE, P_B_X, P_B_IDLO);
-  unpack_in(b.b_in, p, P_B_ALIVE, P_B_X, P_B_IDLO);
+  unpack_out(b.b_out, p, P_B_ALIVE, P_B_X, P_B_IDLO, P_XF_B);
+  unpack_in(b.b_in, p, P_B_ALIVE, P_B_X, P_B_IDLO, P_XF_B);
+  a.chi_out = (T*)p[P_CHI];
+  a.ig0_out = (T*)p[P_IG0];
+  a.keys = (int*)p[P_KEYS];
   a.rims_in = (const T*)p[P_RIMS_IN];
   a.rims_out = (T*)p[P_RIMS_OUT];
   a.n_merged = (unsigned long long*)p[P_NMERGED];
@@ -357,25 +448,37 @@ int launch(void** p, const long long* n, const double* r, cudaStream_t st) {
   a.per[0] = (int)n[I_PERX]; a.per[1] = (int)n[I_PERY];
   a.per[2] = (int)n[I_PERZ];
   a.ncomp = (int)n[I_NCOMP]; a.nces = (int)n[I_NCES];
+  a.mode = (int)n[I_MODE]; a.nxf = (int)n[I_NXF];
+  a.key_threads = n[I_KEY_THREADS];
   a.ncell = (long long)a.nx * a.ny * a.nz;
+  if (a.nxf < 0 || a.nxf > NXF || a.mode < M_DEFAULT || a.mode > M_PHOTON ||
+      a.cap < 1 || a.cap > lp2d::MAX_SLOTS || (a.cap > MAXC_LOCAL && !a.keys) ||
+      (a.mode == M_WANT_CHI && (!a.chi_out || !a.ig0_out)))
+    return (int)cudaErrorInvalidValue;
   a.h[0] = (T)r[R_HX]; a.h[1] = (T)r[R_HY]; a.h[2] = (T)r[R_HZ];
   a.ef = (T)r[R_EF]; a.bf = (T)r[R_BF];
   a.cd[0] = (T)r[R_CDX]; a.cd[1] = (T)r[R_CDY]; a.cd[2] = (T)r[R_CDZ];
   a.kcd = (T)r[R_KCD];
   a.kf[0] = (T)r[R_KFX]; a.kf[1] = (T)r[R_KFY]; a.kf[2] = (T)r[R_KFZ];
+  a.c = (T)r[R_C]; a.chi = (T)r[R_CHI];
   int err;
   if (a.cap <= 8) err = launch_passes<T, 8>(a, b, st);
   else if (a.cap <= 16) err = launch_passes<T, 16>(a, b, st);
   else if (a.cap <= 32) err = launch_passes<T, 32>(a, b, st);
   else if (a.cap <= 64) err = launch_passes<T, 64>(a, b, st);
-  else if (a.cap <= 128) err = launch_passes<T, 128>(a, b, st);
-  else return (int)cudaErrorInvalidValue;
+  else if (a.cap <= MAXC_LOCAL) err = launch_passes<T, MAXC_LOCAL>(a, b, st);
+  else err = launch_passes<T, 0>(a, b, st);
   if (err) return err;
   int threads = 256;
-  push<T><<<ceil_div((long long)a.cap * a.ncell, threads), threads, 0, st>>>(
-      a, b.a_out);
+  int pblocks = ceil_div((long long)a.cap * a.ncell, threads);
+  if (a.mode == M_PHOTON)
+    push<T, M_PHOTON><<<pblocks, threads, 0, st>>>(a, b.a_out);
+  else if (a.mode == M_WANT_CHI)
+    push<T, M_WANT_CHI><<<pblocks, threads, 0, st>>>(a, b.a_out);
+  else
+    push<T, M_DEFAULT><<<pblocks, threads, 0, st>>>(a, b.a_out);
   err = (int)cudaGetLastError();
-  if (err) return err;
+  if (err || a.mode == M_PHOTON) return err;
   lp3d::DepositIn<T> d;
   d.alive = b.a_in.alive;
   d.x = b.a_in.f[FX]; d.y = b.a_in.f[FY]; d.z = b.a_in.f[FZ];
@@ -408,3 +511,6 @@ LP_EXPORT int lp_cell_step_3d(void** ptrs, const long long* ints,
 }
 
 LP_EXPORT int lp_cell_tile() { return TILE; }
+
+// the sort scratch's limits (cell2d.cuh::key_limit)
+LP_EXPORT int lp_key_limits(int which) { return lp2d::key_limit(which); }

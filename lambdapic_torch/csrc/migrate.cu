@@ -38,11 +38,15 @@
 // Compiled with --fmad=false and written as the plain version evaluates
 // it, so keys, placements and merges match it bit for bit.
 //
+// Capacity: up to MAXC_LOCAL (128) slots a cell each thread keeps 3 x cap
+// packed keys in local memory (96 B at 8 slots a cell, 1,536 B at 128);
+// above it a grid-stride loop over the cells keeps them in a global
+// scratch row per thread (cell2d.cuh's for_cells).
+//
 // Bound on an H100 (3.35 TB/s): bytes: the mask and every payload read
-// and written once. Each thread keeps 3 x cap packed keys in local memory
-// (96 B at 8 slots a cell, 1,536 B at 128) and reads its neighbours'
-// masks and positions again; along x in 3D the neighbours are ny*nz cells
-// apart, so a warp's loads stay coalesced along z.
+// and written once. Each thread reads its neighbours' masks and positions
+// again; along x in 3D the neighbours are ny*nz cells apart, so a warp's
+// loads stay coalesced along z.
 #include "cell2d.cuh"
 
 namespace {
@@ -54,10 +58,10 @@ constexpr int MAXI = 4;
 
 enum Ptr { P_ALIVE, P_ALIVE_OUT, P_NMERGED, P_CES, P_IG_OUT,
            P_FIN, P_FOUT = P_FIN + MAXF, P_IIN = P_FOUT + MAXF,
-           P_IOUT = P_IIN + MAXI, P_COUNT = P_IOUT + MAXI };
+           P_IOUT = P_IIN + MAXI, P_KEYS = P_IOUT + MAXI, P_COUNT };
 enum Int { I_CAP, I_NCELL, I_N, I_STRIDE, I_PERIODIC, I_NF, I_NI, I_COORD, I_W,
            I_MERGE_MASK, I_FINAL, I_SANITIZE_MASK, I_UX, I_UY, I_UZ,
-           I_RECOMPUTE_IG, I_IG_ONE, I_NCES, I_DOUBLE };
+           I_RECOMPUTE_IG, I_IG_ONE, I_NCES, I_DOUBLE, I_KEY_THREADS };
 
 template <typename T>
 struct Args {
@@ -70,109 +74,116 @@ struct Args {
   T* fout[MAXF];
   const int* iin[MAXI];
   int* iout[MAXI];
+  int* keys;            // KEY_ROWS x cap int32 per thread (cap > MAXC_LOCAL)
   int cap, n, periodic, nf, ni, coord, w, merge_mask, final_,
       sanitize_mask, iux, iuy, iuz, recompute_ig, ig_one, nces;
   long long ncell, stride;
 };
 
+// One axis of the re-binning of one cell; k: KEY_ROWS rows of ks sort
+// entries.
+template <typename T>
+__device__ __forceinline__ void migrate_cell(const Args<T>& a, long long cell,
+                                             int* k, int ks, int& merges) {
+  const int n = a.n;
+  const long long st = a.stride;
+  const int i = (int)((cell / st) % n);
+  // the lo neighbour, the cell itself, the hi neighbour (wrapped)
+  const long long cols[3] = {i > 0 ? cell - st : cell + (n - 1) * st, cell,
+                             i < n - 1 ? cell + st : cell - (n - 1) * st};
+  const int ipos[3] = {i > 0 ? i - 1 : n - 1, i, i < n - 1 ? i + 1 : 0};
+  const T* pos = a.fin[a.coord];
+  for (int c3 = 0; c3 < 3; ++c3) {
+    const T ci = T(ipos[c3]);
+    for (int s = 0; s < a.cap; ++s) {
+      long long idx = cols[c3] + s * a.ncell;
+      bool al = a.alive[idx] != 0;
+      T local = pos[idx] - ci;
+      bool hi = al && local >= T(0.5);
+      bool lo = al && local < T(-0.5);
+      k[c3 * ks + s] = pack_key(five_way(al, hi, lo, s), s);
+    }
+    net_sort(k + c3 * ks, a.ces, a.nces);
+  }
+  const bool lo_ok = a.periodic || i != 0;
+  const bool hi_ok = a.periodic || i != n - 1;
+  // coordinate shift of arrivals through the wrap
+  const T adj_lo = i == 0 ? T(-n) : T(0);
+  const T adj_hi = i == n - 1 ? T(n) : T(0);
+  const bool wrap_lo = i == 0, wrap_hi = i == n - 1;
+  const T floor_ = WFloor<T>::v();
+  for (int p = 0; p < a.cap; ++p) {
+    const int klo = k[p], kown = k[ks + p], khi = k[2 * ks + p];
+    const bool vlo = lo_ok && key_of(klo) == 0;
+    const bool vhi = hi_ok && key_of(khi) == 4;
+    const bool stay = key_of(kown) == 2;
+    const long long s_lo = (long long)slot_of(klo) * a.ncell + cols[0];
+    const long long s_own = (long long)slot_of(kown) * a.ncell + cell;
+    const long long s_hi = (long long)slot_of(khi) * a.ncell + cols[2];
+    const long long o = (long long)p * a.ncell + cell;
+    const int n_src = (int)vlo + (int)vhi + (int)stay;
+    merges += n_src > 1 ? n_src - 1 : 0;
+    const bool multi = n_src >= 2;
+    const bool al = vlo || vhi || stay;
+    const bool dead_final = a.final_ && !al;
+    T w_lo = T(0), w_hi = T(0), w_res = T(0), wsum = T(0), wsafe = T(0);
+    if (multi) {
+      const T* w = a.fin[a.w];
+      w_lo = vlo ? w[s_lo] : T(0);
+      w_hi = vhi ? w[s_hi] : T(0);
+      w_res = stay ? w[s_own] : T(0);
+      wsum = (w_lo + w_hi) + w_res;
+      wsafe = wsum > floor_ ? wsum : floor_;
+    }
+    T u[3] = {T(0), T(0), T(0)};
+    for (int f = 0; f < a.nf; ++f) {
+      const T* src = a.fin[f];
+      const bool is_coord = f == a.coord;
+      T v;
+      if (multi && ((a.merge_mask >> f) & 1)) {
+        if (f == a.w) {
+          v = wsum;
+        } else {
+          T vl = src[s_lo], vh = src[s_hi], vo = src[s_own];
+          if (is_coord && wrap_lo) vl = vl + adj_lo;
+          if (is_coord && wrap_hi) vh = vh + adj_hi;
+          v = ((w_lo * vl + w_hi * vh) + w_res * vo) / wsafe;
+        }
+      } else if (vlo) {
+        v = src[s_lo];
+        if (is_coord && wrap_lo) v = v + adj_lo;
+      } else if (vhi) {
+        v = src[s_hi];
+        if (is_coord && wrap_hi) v = v + adj_hi;
+      } else {
+        v = src[s_own];
+      }
+      if (dead_final) {
+        if ((a.sanitize_mask >> f) & 1) v = T(0);
+        if (f == a.ig_one) v = T(1);
+      }
+      if (f == a.iux) u[0] = v;
+      if (f == a.iuy) u[1] = v;
+      if (f == a.iuz) u[2] = v;
+      a.fout[f][o] = v;
+    }
+    for (int t = 0; t < a.ni; ++t) {
+      const int* src = a.iin[t];
+      a.iout[t][o] = vlo ? src[s_lo] : (vhi ? src[s_hi] : src[s_own]);
+    }
+    a.alive_out[o] = al ? 1 : 0;
+    if (a.final_ && a.recompute_ig)
+      a.ig_out[o] = T(1) / sqrt(((T(1) + u[0] * u[0]) + u[1] * u[1]) +
+                                u[2] * u[2]);
+  }
+}
+
 template <typename T, int MAXC>
 __global__ void __launch_bounds__(128) migrate_axis(Args<T> a) {
-  long long cell = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  bool active = cell < a.ncell;
   int merges = 0;
-  if (active) {
-    const int n = a.n;
-    const long long st = a.stride;
-    const int i = (int)((cell / st) % n);
-    // the lo neighbour, the cell itself, the hi neighbour (wrapped)
-    const long long cols[3] = {i > 0 ? cell - st : cell + (n - 1) * st, cell,
-                               i < n - 1 ? cell + st : cell - (n - 1) * st};
-    const int ipos[3] = {i > 0 ? i - 1 : n - 1, i, i < n - 1 ? i + 1 : 0};
-    const T* pos = a.fin[a.coord];
-    int k[3][MAXC];
-    for (int c3 = 0; c3 < 3; ++c3) {
-      const T ci = T(ipos[c3]);
-      for (int s = 0; s < a.cap; ++s) {
-        long long idx = cols[c3] + s * a.ncell;
-        bool al = a.alive[idx] != 0;
-        T local = pos[idx] - ci;
-        bool hi = al && local >= T(0.5);
-        bool lo = al && local < T(-0.5);
-        k[c3][s] = (five_way(al, hi, lo, s) << 8) | s;
-      }
-      net_sort(k[c3], a.ces, a.nces);
-    }
-    const bool lo_ok = a.periodic || i != 0;
-    const bool hi_ok = a.periodic || i != n - 1;
-    // coordinate shift of arrivals through the wrap
-    const T adj_lo = i == 0 ? T(-n) : T(0);
-    const T adj_hi = i == n - 1 ? T(n) : T(0);
-    const bool wrap_lo = i == 0, wrap_hi = i == n - 1;
-    const T floor_ = WFloor<T>::v();
-    for (int p = 0; p < a.cap; ++p) {
-      const bool vlo = lo_ok && (k[0][p] >> 8) == 0;
-      const bool vhi = hi_ok && (k[2][p] >> 8) == 4;
-      const bool stay = (k[1][p] >> 8) == 2;
-      const long long s_lo = (long long)(k[0][p] & 255) * a.ncell + cols[0];
-      const long long s_own = (long long)(k[1][p] & 255) * a.ncell + cell;
-      const long long s_hi = (long long)(k[2][p] & 255) * a.ncell + cols[2];
-      const long long o = (long long)p * a.ncell + cell;
-      const int n_src = (int)vlo + (int)vhi + (int)stay;
-      merges += n_src > 1 ? n_src - 1 : 0;
-      const bool multi = n_src >= 2;
-      const bool al = vlo || vhi || stay;
-      const bool dead_final = a.final_ && !al;
-      T w_lo = T(0), w_hi = T(0), w_res = T(0), wsum = T(0), wsafe = T(0);
-      if (multi) {
-        const T* w = a.fin[a.w];
-        w_lo = vlo ? w[s_lo] : T(0);
-        w_hi = vhi ? w[s_hi] : T(0);
-        w_res = stay ? w[s_own] : T(0);
-        wsum = (w_lo + w_hi) + w_res;
-        wsafe = wsum > floor_ ? wsum : floor_;
-      }
-      T u[3] = {T(0), T(0), T(0)};
-      for (int f = 0; f < a.nf; ++f) {
-        const T* src = a.fin[f];
-        const bool is_coord = f == a.coord;
-        T v;
-        if (multi && ((a.merge_mask >> f) & 1)) {
-          if (f == a.w) {
-            v = wsum;
-          } else {
-            T vl = src[s_lo], vh = src[s_hi], vo = src[s_own];
-            if (is_coord && wrap_lo) vl = vl + adj_lo;
-            if (is_coord && wrap_hi) vh = vh + adj_hi;
-            v = ((w_lo * vl + w_hi * vh) + w_res * vo) / wsafe;
-          }
-        } else if (vlo) {
-          v = src[s_lo];
-          if (is_coord && wrap_lo) v = v + adj_lo;
-        } else if (vhi) {
-          v = src[s_hi];
-          if (is_coord && wrap_hi) v = v + adj_hi;
-        } else {
-          v = src[s_own];
-        }
-        if (dead_final) {
-          if ((a.sanitize_mask >> f) & 1) v = T(0);
-          if (f == a.ig_one) v = T(1);
-        }
-        if (f == a.iux) u[0] = v;
-        if (f == a.iuy) u[1] = v;
-        if (f == a.iuz) u[2] = v;
-        a.fout[f][o] = v;
-      }
-      for (int t = 0; t < a.ni; ++t) {
-        const int* src = a.iin[t];
-        a.iout[t][o] = vlo ? src[s_lo] : (vhi ? src[s_hi] : src[s_own]);
-      }
-      a.alive_out[o] = al ? 1 : 0;
-      if (a.final_ && a.recompute_ig)
-        a.ig_out[o] = T(1) / sqrt(((T(1) + u[0] * u[0]) + u[1] * u[1]) +
-                                  u[2] * u[2]);
-    }
-  }
+  for_cells<MAXC>(a.ncell, a.keys, a.cap, [&](long long cell, int* k, int ks) {
+    migrate_cell(a, cell, k, ks, merges);
+  });
   add_merges(a.n_merged, merges);
 }
 
@@ -200,7 +211,8 @@ int launch(void** p, const long long* n, cudaStream_t st) {
   a.iux = (int)n[I_UX]; a.iuy = (int)n[I_UY]; a.iuz = (int)n[I_UZ];
   a.recompute_ig = (int)n[I_RECOMPUTE_IG]; a.ig_one = (int)n[I_IG_ONE];
   a.nces = (int)n[I_NCES];
-  if (a.nf < 1 || a.nf > MAXF || a.ni < 0 || a.ni > MAXI ||
+  a.keys = (int*)p[P_KEYS];
+  if (a.cap > lp2d::MAX_SLOTS || (a.cap > MAXC_LOCAL && !a.keys) || a.nf < 1 || a.nf > MAXF || a.ni < 0 || a.ni > MAXI ||
       a.coord < 0 || a.coord >= a.nf || a.w < 0 || a.w >= a.nf ||
       a.n < 1 || a.stride < 1 || a.ncell % ((long long)a.n * a.stride) ||
       (a.final_ && a.recompute_ig &&
@@ -208,13 +220,15 @@ int launch(void** p, const long long* n, cudaStream_t st) {
     return (int)cudaErrorInvalidValue;
   if (a.ncell == 0 || a.cap == 0) return 0;
   int threads = 128;
-  int blocks = ceil_div(a.ncell, threads);
+  int blocks = cell_blocks(a.ncell, a.cap, n[I_KEY_THREADS], threads);
+  if (blocks == 0) return (int)cudaErrorInvalidValue;
   if (a.cap <= 8) migrate_axis<T, 8><<<blocks, threads, 0, st>>>(a);
   else if (a.cap <= 16) migrate_axis<T, 16><<<blocks, threads, 0, st>>>(a);
   else if (a.cap <= 32) migrate_axis<T, 32><<<blocks, threads, 0, st>>>(a);
   else if (a.cap <= 64) migrate_axis<T, 64><<<blocks, threads, 0, st>>>(a);
-  else if (a.cap <= 128) migrate_axis<T, 128><<<blocks, threads, 0, st>>>(a);
-  else return (int)cudaErrorInvalidValue;
+  else if (a.cap <= MAXC_LOCAL)
+    migrate_axis<T, MAXC_LOCAL><<<blocks, threads, 0, st>>>(a);
+  else migrate_axis<T, 0><<<blocks, threads, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -234,3 +248,6 @@ LP_EXPORT int lp_migrate_axis(void** ptrs, const long long* ints,
 LP_EXPORT int lp_migrate_max_payloads(int which) {
   return which == 0 ? MAXF : MAXI;
 }
+
+// the sort scratch's limits (cell2d.cuh::key_limit)
+LP_EXPORT int lp_key_limits(int which) { return lp2d::key_limit(which); }

@@ -16,22 +16,30 @@
 // (1, 2, 4 or 8 bytes: bool, float32, int32, float64, ...) are run-time
 // arguments.
 //
+// Capacity: up to MAXC_LOCAL (128) slots a cell the keys and an 8-bit
+// permutation sit in thread-local arrays; above it a grid-stride loop
+// over the cells keeps the keys and a 16-bit permutation in a global
+// scratch row per thread (KEY_ROWS x cap int32: the keys, then the
+// permutation).
+//
 // Bound on an H100 (3.35 TB/s): bytes: the key and every payload read and
 // written once.
-#include "common.cuh"
+#include "cell2d.cuh"
 
 namespace {
 
 constexpr int MAXP = 24;
 
-enum Ptr { P_KEY, P_KEY_OUT, P_CES, P_IN, P_OUT = P_IN + MAXP,
+enum Ptr { P_KEY, P_KEY_OUT, P_CES, P_KEYS, P_IN, P_OUT = P_IN + MAXP,
            P_COUNT = P_OUT + MAXP };
-enum Int { I_CAP, I_NCELL, I_NP, I_NCES, I_ESIZE };   // I_ESIZE + MAXP
+enum Int { I_CAP, I_NCELL, I_NP, I_NCES, I_KEY_THREADS,
+           I_ESIZE };   // I_ESIZE + MAXP
 
 struct Args {
   const int* key;
   int* key_out;
   const int* ces;
+  int* keys;            // KEY_ROWS x cap int32 per thread (cap > MAXC_LOCAL)
   const void* in[MAXP];
   void* out[MAXP];
   int esize[MAXP];
@@ -39,9 +47,9 @@ struct Args {
   long long ncell;
 };
 
-template <typename E>
+template <typename E, typename I>
 __device__ __forceinline__ void permute(const void* in, void* out,
-                                        const unsigned char* idx, int cap,
+                                        const I* idx, int cap,
                                         long long ncell, long long cell) {
   const E* src = (const E*)in;
   E* dst = (E*)out;
@@ -49,15 +57,14 @@ __device__ __forceinline__ void permute(const void* in, void* out,
     dst[(long long)s * ncell + cell] = src[(long long)idx[s] * ncell + cell];
 }
 
-template <int MAXC>
-__global__ void __launch_bounds__(128) sort_cells(Args a) {
-  long long cell = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (cell >= a.ncell) return;
-  int k[MAXC];
-  unsigned char idx[MAXC];
+// Sort one cell's slots; k and idx (the permutation, I wide enough for
+// the slot index): cap entries each.
+template <typename I>
+__device__ __forceinline__ void sort_cell(const Args& a, long long cell, int* k,
+                                          I* idx) {
   for (int s = 0; s < a.cap; ++s) {
     k[s] = a.key[(long long)s * a.ncell + cell];
-    idx[s] = (unsigned char)s;
+    idx[s] = (I)s;
   }
   for (int e = 0; e < a.nces; ++e) {
     int i = __ldg(a.ces + 2 * e), j = __ldg(a.ces + 2 * e + 1);
@@ -65,7 +72,7 @@ __global__ void __launch_bounds__(128) sort_cells(Args a) {
     if (ki > kj) {
       k[i] = kj;
       k[j] = ki;
-      unsigned char t = idx[i];
+      I t = idx[i];
       idx[i] = idx[j];
       idx[j] = t;
     }
@@ -78,6 +85,22 @@ __global__ void __launch_bounds__(128) sort_cells(Args a) {
       case 4: permute<unsigned int>(a.in[q], a.out[q], idx, a.cap, a.ncell, cell); break;
       default: permute<unsigned long long>(a.in[q], a.out[q], idx, a.cap, a.ncell, cell); break;
     }
+  }
+}
+
+template <int MAXC>
+__global__ void __launch_bounds__(128) sort_cells(Args a) {
+  long long cell = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if constexpr (MAXC > 0) {
+    if (cell >= a.ncell) return;
+    int k[MAXC];
+    unsigned char idx[MAXC];
+    sort_cell(a, cell, k, idx);
+  } else {
+    int* k = a.keys + cell * lp2d::KEY_ROWS * a.cap;
+    unsigned short* idx = reinterpret_cast<unsigned short*>(k + a.cap);
+    for (; cell < a.ncell; cell += (long long)gridDim.x * blockDim.x)
+      sort_cell(a, cell, k, idx);
   }
 }
 
@@ -97,7 +120,10 @@ LP_EXPORT int lp_sort_cells(void** p, const long long* n, const double* r,
   a.ncell = n[I_NCELL];
   a.np = (int)n[I_NP];
   a.nces = (int)n[I_NCES];
-  if (a.np < 0 || a.np > MAXP) return (int)cudaErrorInvalidValue;
+  a.keys = (int*)p[P_KEYS];
+  if (a.np < 0 || a.np > MAXP || a.cap > lp2d::MAX_SLOTS ||
+      (a.cap > lp2d::MAXC_LOCAL && !a.keys))
+    return (int)cudaErrorInvalidValue;
   for (int q = 0; q < MAXP; ++q) {
     a.in[q] = p[P_IN + q];
     a.out[q] = p[P_OUT + q];
@@ -108,14 +134,19 @@ LP_EXPORT int lp_sort_cells(void** p, const long long* n, const double* r,
   }
   if (a.ncell == 0 || a.cap == 0) return 0;
   int threads = 128;
-  int blocks = ceil_div(a.ncell, threads);
+  int blocks = lp2d::cell_blocks(a.ncell, a.cap, n[I_KEY_THREADS], threads);
+  if (blocks == 0) return (int)cudaErrorInvalidValue;
   if (a.cap <= 8) sort_cells<8><<<blocks, threads, 0, st>>>(a);
   else if (a.cap <= 16) sort_cells<16><<<blocks, threads, 0, st>>>(a);
   else if (a.cap <= 32) sort_cells<32><<<blocks, threads, 0, st>>>(a);
   else if (a.cap <= 64) sort_cells<64><<<blocks, threads, 0, st>>>(a);
-  else if (a.cap <= 128) sort_cells<128><<<blocks, threads, 0, st>>>(a);
-  else return (int)cudaErrorInvalidValue;
+  else if (a.cap <= lp2d::MAXC_LOCAL)
+    sort_cells<lp2d::MAXC_LOCAL><<<blocks, threads, 0, st>>>(a);
+  else sort_cells<0><<<blocks, threads, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 
 LP_EXPORT int lp_sort_max_payloads() { return MAXP; }
+
+// the sort scratch's limits (cell2d.cuh::key_limit)
+LP_EXPORT int lp_key_limits(int which) { return lp2d::key_limit(which); }

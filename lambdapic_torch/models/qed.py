@@ -239,36 +239,20 @@ def _sample_delta_table(chi, r01, tb: _Tables):
     return torch.pow(10.0, torch.clamp(log_delta, max=0.0))
 
 
-def sparse_k(cap: int) -> int:
-    """Rows of the compacted evaluation of ``_sample_delta_sparse``."""
-    return min(cap, max(2, cap // 4))
-
-
 def _sample_delta_sparse(chi, r01, event, tb: _Tables):
-    """Delta for cell layouts (chi of shape (cap, *cells)), evaluated on
-    K = ``sparse_k(cap)`` rows only: each cell's event slots are packed,
-    in slot order, into its first rows (the JAX package packs them with
-    a Batcher pass; any packing gives the same values, since the
-    evaluation is element by element), the inverse CDF runs on those
-    rows, and the results go back to their slots. If some cell holds more
-    than K events the dense evaluation runs instead (one host
-    synchronisation to decide), so any K is exact: the result equals
-    ``where(event, _sample_delta(chi, r01), 0)``."""
-    cap = chi.shape[0]
-    K = sparse_k(cap)
-    ev = event.to(torch.int64)
-    if K >= cap or int(ev.sum(0).max()) > K:
-        return torch.where(event, _sample_delta(chi, r01, tb), 0.0)
-    rank = torch.cumsum(ev, dim=0) - ev             # among the cell's events
-    row = torch.where(event, rank, K)               # row K: discarded
-    top = (K + 1,) + tuple(chi.shape[1:])
-    chi_k = torch.zeros(top, dtype=chi.dtype, device=chi.device).scatter_(
-        0, row, chi)[:K]
-    r_k = torch.zeros(top, dtype=r01.dtype, device=r01.device).scatter_(
-        0, row, r01)[:K]
-    d_k = _sample_delta(chi_k, r_k, tb)
-    return torch.where(event, d_k.gather(0, torch.clamp(rank, max=K - 1)),
-                       0.0)
+    """Delta for cell layouts (chi of shape (cap, *cells)), evaluated at
+    the event slots only: they are packed into one row (one host
+    synchronisation to find them), the inverse CDF runs there, and the
+    results go back to their slots. The JAX package packs each cell's
+    events into the cell's first K rows and evaluates every slot when a
+    cell holds more than K. Any packing gives the same values but for
+    the rounding of the Chebyshev sum's matrix product, whose order may
+    follow the number of columns: the result equals
+    ``where(event, _sample_delta(chi, r01), 0)`` to that rounding."""
+    idx = event.reshape(-1).nonzero().squeeze(1)
+    d = torch.zeros_like(chi).reshape(-1)
+    d[idx] = _sample_delta(chi.reshape(-1)[idx], r01.reshape(-1)[idx], tb)
+    return d.view_as(chi)
 
 
 def _update_tau(tau, inv_gamma, chi, alive, dt, keys, tb: _Tables,

@@ -38,7 +38,7 @@ from .cell2d import (MERGED, SANITIZED, TRANSIENT, batcher_network,
                      batcher_sort, deposit_cell_2d, gather_cell_2d,
                      migrate_cells)
 from .cell3d import deposit_cell_3d, gather_cell_3d
-from .cellslab import MAX_CAP, TILE, TILE3, _ces_tensor, panel_shape
+from .cellslab import TILE, TILE3, _ces_tensor, key_scratch, panel_shape
 from .pusher import boris_push, push_position_2d, push_position_3d
 
 # csrc/migrate.cu's MAXF / MAXI and csrc/sortcells.cu's MAXP, held equal
@@ -62,13 +62,6 @@ def _on_card(t: torch.Tensor, what: str) -> bool:
 def _check_float(dtype, what: str) -> None:
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"{what}: dtype {dtype}")
-
-
-def _check_cap(cap: int, what: str) -> None:
-    if not 0 < cap <= MAX_CAP:
-        raise ValueError(f"{what}: {cap} slots per cell; the kernel takes "
-                         f"1 to {MAX_CAP} (the slot index is packed into 8 "
-                         "bits)")
 
 
 @functools.cache
@@ -300,7 +293,6 @@ def sort_cells(key: torch.Tensor, payloads: Sequence[torch.Tensor]):
     dev = key.device
     shape = tuple(key.shape)
     cap = shape[0]
-    _check_cap(cap, "sort_cells")
     _check_limits("sortcells")
     if len(payloads) > SORT_MAX_PAYLOADS:
         raise ValueError(f"sort_cells: {len(payloads)} payloads; the kernel "
@@ -317,12 +309,13 @@ def sort_cells(key: torch.Tensor, payloads: Sequence[torch.Tensor]):
     outs = [torch.empty_like(p) for p in payloads]
     pad = [None] * (SORT_MAX_PAYLOADS - len(payloads))
     ncell = key[0].numel()
+    keys, key_threads = key_scratch(cap, ncell, dev, "sortcells")
     kernel_lib.call(
         "sortcells", "lp_sort_cells",
-        [key, key_out, _ces_tensor(cap, dev)] + list(payloads) + pad
+        [key, key_out, _ces_tensor(cap, dev), keys] + list(payloads) + pad
         + outs + pad,
-        [cap, ncell, len(payloads), len(batcher_network(cap))] + sizes
-        + [0] * len(pad), [], dev)
+        [cap, ncell, len(payloads), len(batcher_network(cap)), key_threads]
+        + sizes + [0] * len(pad), [], dev)
     sort_cells.launches += 1
     return key_out, outs
 
@@ -369,6 +362,8 @@ def migrate_axis(alive: torch.Tensor, floats: Dict[str, torch.Tensor],
     n_merged = torch.zeros((), dtype=torch.int64, device=dev)
     fpad = [None] * (MIGRATE_MAX_FLOAT - len(fnames))
     ipad = [None] * (MIGRATE_MAX_INT - len(inames))
+    keys, key_threads = key_scratch(cap, alive[0].numel(), dev,
+                                    "migrate")
     # the cells between neighbours along the axis (C order)
     stride = 1
     for n in cells[axis + 1:]:
@@ -377,12 +372,13 @@ def migrate_axis(alive: torch.Tensor, floats: Dict[str, torch.Tensor],
         "migrate", "lp_migrate_axis",
         [alive, new_alive, n_merged, _ces_tensor(cap, dev), ig]
         + [floats[k] for k in fnames] + fpad + fout + fpad
-        + [ints[k] for k in inames] + ipad + iout + ipad,
+        + [ints[k] for k in inames] + ipad + iout + ipad + [keys],
         [cap, alive[0].numel(), cells[axis], stride, periodic, len(fnames),
          len(inames), index(coord), index("w"), mask(MERGED + ("w",)), final,
          mask(SANITIZED), index("ux"), index("uy"), index("uz"),
          recompute_ig, -1 if recompute_ig else index("inv_gamma"),
-         len(batcher_network(cap)), dtype == torch.float64], [], dev)
+         len(batcher_network(cap)), dtype == torch.float64, key_threads],
+        [], dev)
     migrate_axis.launches += 1
     return (new_alive, dict(zip(fnames, fout)), dict(zip(inames, iout)), ig,
             n_merged)
@@ -404,7 +400,6 @@ def migrate_cells_fused(data: Dict[str, torch.Tensor], alive: torch.Tensor,
         raise ValueError(f"migrate_cells_fused: slots of shape "
                          f"{tuple(alive.shape)} and a plan of {len(plan)} "
                          "axes: 2D or 3D slots, one plan entry per axis")
-    _check_cap(alive.shape[0], "migrate_cells_fused")
     _check_limits("migrate")
     transient = set(TRANSIENT) if recompute_ig \
         else set(TRANSIENT) - {"inv_gamma"}

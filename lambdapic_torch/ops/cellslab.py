@@ -19,12 +19,17 @@ CUDA tensors and run their plain versions (``cell_step_plain``,
 the wrapper's ``launches``; ``cell_step.launches_by_mode`` counts B2's
 launches per mode ("default", "want_chi", "photon").
 
-B2's modes (2D only so far): ``want_chi`` also returns chi and the
+B2's modes, in 2D and 3D: ``want_chi`` also returns chi and the
 pre-push inv_gamma for QED; ``photon`` is the field-free stage of a
 photon species (no gather, no Boris, no deposit; returns no panels).
 A species' payloads beyond the fixed set (a QED species' tau, delta,
 event: every key but ``FLOAT_PAYLOADS``, ``ID_PAYLOADS`` and
 ``cell2d.TRANSIENT``) ride through the re-binning with it.
+
+Any per-cell capacity: the sorting kernels (B2, B6, B7) pack a 16-bit
+slot index under the re-binning key; above ``MAXC_LOCAL`` slots a cell
+they sort in a global scratch (``key_scratch``) instead of thread-local
+arrays.
 """
 from __future__ import annotations
 
@@ -40,7 +45,7 @@ from ..parallel.halo import halo_reduce
 from . import kernel_lib
 from .cell2d import (TRANSIENT, batcher_network, deposit_offsets,
                      gather_cell_2d, migrate_cells)
-from .cell3d import deposit_offsets_3d, gather_cell_3d, migrate_cell_3d
+from .cell3d import deposit_offsets_3d, gather_cell_3d
 from .pusher import boris_push, photon_push, push_position_2d, \
     push_position_3d
 
@@ -49,8 +54,17 @@ TILE3 = 8           # 3D tile: a (C, 12, 12, 12) panel per 8 x 8 x 8 cells
 # payloads carried through the kernel, in its pointer order
 FLOAT_PAYLOADS = ("x", "y", "z", "w", "ux", "uy", "uz")
 ID_PAYLOADS = ("id_lo", "id_hi")
-MAX_CAP = 128
-MAX_EXTRA = 3      # csrc/cellstep.cu's NXF
+MAX_EXTRA = 3      # csrc/cellstep.cu's and csrc/cellstep3d.cu's NXF
+# csrc/cell2d.cuh: the largest capacity sorted in thread-local arrays, the
+# scratch rows (int32 of cap entries) of a thread above it, and the
+# largest capacity of the 16-bit slot index; held equal to the library's
+# lp_key_limits at its first use (``_check_key_limits``)
+MAXC_LOCAL = 128
+KEY_ROWS = 3
+MAX_SLOTS = 1 << 16
+# resident 128-thread blocks an SM gets for the scratch above MAXC_LOCAL
+# (a choice not yet timed against others)
+KEY_BLOCKS_PER_SM = 2
 MODES = ("default", "want_chi", "photon")
 
 
@@ -58,6 +72,40 @@ def extra_payloads(data: Dict[str, torch.Tensor]) -> Tuple[str, ...]:
     """The species' carried payloads beyond the fixed set, sorted."""
     fixed = set(FLOAT_PAYLOADS) | set(ID_PAYLOADS) | TRANSIENT
     return tuple(sorted(k for k in data if k not in fixed))
+
+
+@functools.cache
+def _check_key_limits(lib: str) -> None:
+    """The sort scratch's limits, which the kernels index by and this
+    module sizes by, held equal to csrc/cell2d.cuh's once, when a sorting
+    library is first used."""
+    so = kernel_lib.library(lib)
+    got = tuple(so.lp_key_limits(i) for i in range(3))
+    want = (MAXC_LOCAL, KEY_ROWS, MAX_SLOTS)
+    if got != want:
+        raise RuntimeError(f"csrc/{kernel_lib.SOURCES[lib]} has sort limits "
+                           f"{got}, ops/cellslab.py {want}")
+
+
+def key_scratch(cap: int, ncell: int, device,
+                lib: str) -> Tuple[Optional[torch.Tensor], int]:
+    """The sort scratch of a launch of library ``lib``'s sorting kernel
+    over ``ncell`` cells of ``cap`` slots: (None, 0) up to MAXC_LOCAL
+    slots a cell, where the kernel sorts in thread-local arrays; above, a
+    row of KEY_ROWS x cap int32 for each thread of a grid-stride launch of
+    KEY_BLOCKS_PER_SM 128-thread blocks an SM (fewer for fewer cells):
+    (scratch, threads). It is sized by the resident threads, not by the
+    cells."""
+    _check_key_limits(lib)
+    if not 0 < cap <= MAX_SLOTS:
+        raise ValueError(f"{cap} slots per cell: the sorting kernels take 1 "
+                         f"to {MAX_SLOTS} (a 16-bit slot index)")
+    if cap <= MAXC_LOCAL:
+        return None, 0
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    threads = min(-(-ncell // 128), KEY_BLOCKS_PER_SM * sms) * 128
+    return torch.empty(threads * KEY_ROWS * cap, dtype=torch.int32,
+                       device=device), threads
 
 
 def _mode(want_chi: bool, photon: bool) -> str:
@@ -173,25 +221,6 @@ def fold_reduce_plain(rims: torch.Tensor, shape: Sequence[int],
     return halo_reduce(fold_panels_3d(rims, *shape), 2, (1, 2, 3), periodic)
 
 
-def _cell_step_plain_3d(eb_pad, data, alive, *, q, m, dt, dx, dy, dz, g,
-                        periodic, rims_in, with_rho):
-    hx, hy, hz = (c_light * dt / d / 2 for d in (dx, dy, dz))
-    d = dict(data)
-    d["x"], d["y"], d["z"] = push_position_3d(
-        d["x"], d["y"], d["z"], d["ux"], d["uy"], d["uz"], d["inv_gamma"],
-        hx, hy, hz)
-    d, alive, n_lost = migrate_cell_3d(d, alive, periodic, recompute_ig=True)
-    eb = gather_cell_3d(eb_pad, d["x"], d["y"], d["z"], g)
-    ux, uy, uz, ig = boris_push(d["ux"], d["uy"], d["uz"], *eb, q, m, dt)
-    x, y, z = push_position_3d(d["x"], d["y"], d["z"], ux, uy, uz, ig,
-                               hx, hy, hz)
-    w = torch.where(alive, d["w"], 0.0)
-    rims = deposit_panels_3d(x, y, z, ux, uy, uz, ig, w, q=q, dx=dx, dy=dy,
-                             dz=dz, dt=dt, with_rho=with_rho, rims_in=rims_in)
-    d.update(x=x, y=y, z=z, ux=ux, uy=uy, uz=uz, inv_gamma=ig)
-    return d, alive, n_lost, rims
-
-
 def cell_step_plain(eb_pad, data: Dict[str, torch.Tensor], alive, *,
                     q: float, m: float, dt: float, dx: float, dy: float,
                     g: int, periodic: Sequence[bool],
@@ -206,40 +235,42 @@ def cell_step_plain(eb_pad, data: Dict[str, torch.Tensor], alive, *,
     (chi, ig0), the quantum parameter and inv_gamma at the pre-push
     momenta; with ``photon`` rims is None (the stage reads no field and
     deposits nothing)."""
-    mode = _mode(want_chi, photon)
-    if alive.ndim == 4:
-        if mode != "default":
-            raise NotImplementedError(
-                f"cell_step: the {mode} mode in 3D is not ported yet "
-                "(ROADMAP queue 1, item 9)")
-        return _cell_step_plain_3d(eb_pad, data, alive, q=q, m=m, dt=dt,
-                                   dx=dx, dy=dy, dz=dz, g=g,
-                                   periodic=periodic, rims_in=rims_in,
-                                   with_rho=with_rho)
-    cap, nx, ny = alive.shape
-    hx, hy = c_light * dt / dx / 2, c_light * dt / dy / 2
+    _mode(want_chi, photon)
+    three_d = alive.ndim == 4
+    axes = ("x", "y", "z") if three_d else ("x", "y")
+    deltas = (dx, dy, dz) if three_d else (dx, dy)
+    h = [c_light * dt / d / 2 for d in deltas]
+    moms = ("ux", "uy", "uz")[:len(axes)]
+    push_pos = push_position_3d if three_d else push_position_2d
+
+    def pushed(d, ig):
+        return push_pos(*(d[a] for a in axes), *(d[k] for k in moms), ig, *h)
     d = dict(data)
-    d["x"], d["y"] = push_position_2d(d["x"], d["y"], d["ux"], d["uy"],
-                                      d["inv_gamma"], hx, hy)
+    d.update(zip(axes, pushed(d, d["inv_gamma"])))
     d, alive, n_lost = migrate_cells(
-        d, alive, ((nx, periodic[0], "x"), (ny, periodic[1], "y")),
+        d, alive, tuple(zip(alive.shape[1:], periodic, axes)),
         recompute_ig=not photon)
     if photon:
         ig = photon_push(d["ux"], d["uy"], d["uz"])
-        d["x"], d["y"] = push_position_2d(d["x"], d["y"], d["ux"], d["uy"],
-                                          ig, hx, hy)
+        d.update(zip(axes, pushed(d, ig)))
         d["inv_gamma"] = ig
         return d, alive, n_lost, None
-    eb = gather_cell_2d(eb_pad, d["x"], d["y"], g)
+    pos = [d[a] for a in axes]
+    eb = (gather_cell_3d if three_d else gather_cell_2d)(eb_pad, *pos, g)
     if want_chi:
         ig0 = d["inv_gamma"]
         chi = calculate_chi(*eb, d["ux"], d["uy"], d["uz"], ig0)
     ux, uy, uz, ig = boris_push(d["ux"], d["uy"], d["uz"], *eb, q, m, dt)
-    x, y = push_position_2d(d["x"], d["y"], ux, uy, ig, hx, hy)
+    d.update(ux=ux, uy=uy, uz=uz)
+    d.update(zip(axes, pushed(d, ig)))
+    d["inv_gamma"] = ig
     w = torch.where(alive, d["w"], 0.0)
-    rims = deposit_panels(x, y, ux, uy, uz, ig, w, q=q, dx=dx, dy=dy, dt=dt,
-                          with_rho=with_rho, rims_in=rims_in)
-    d.update(x=x, y=y, ux=ux, uy=uy, uz=uz, inv_gamma=ig)
+    kw = dict(q=q, dx=dx, dy=dy, dt=dt, with_rho=with_rho, rims_in=rims_in)
+    if three_d:
+        rims = deposit_panels_3d(*(d[a] for a in axes), ux, uy, uz, ig, w,
+                                 dz=dz, **kw)
+    else:
+        rims = deposit_panels(*(d[a] for a in axes), ux, uy, uz, ig, w, **kw)
     if want_chi:
         return d, alive, n_lost, rims, (chi, ig0)
     return d, alive, n_lost, rims
@@ -271,60 +302,86 @@ def _ces_tensor(cap: int, device) -> torch.Tensor:
     return t
 
 
+def _pad3(ts) -> list:
+    """Pointers of up to MAX_EXTRA extra payloads, None-padded."""
+    ts = list(ts)
+    return ts + [None] * (MAX_EXTRA - len(ts))
+
+
 def _cell_step_3d(eb_pad, data, alive, *, q, m, dt, dx, dy, dz, g, periodic,
-                  rims_in, with_rho):
+                  rims_in, with_rho, mode, extra):
     """The 3D launch of kernel B2 (csrc/cellstep3d.cu): x pass into
-    buffer A, y pass into buffer B, z pass back into A, then gather +
-    Boris + half push in place on A and the deposit from A."""
+    buffer A, y pass into buffer B, z pass back into A, then the push in
+    place on A (gather + Boris + half push; with want_chi also chi and
+    ig0; a photon's 1/|u| + half push) and, but for photons, the deposit
+    from A."""
     dev = alive.device
     dtype = data["x"].dtype
     shape = tuple(alive.shape)
     cap, nx, ny, nz = shape
+    photon = mode == "photon"
     _check_tile("cellstep3d")
     kernel_lib.check(alive, "alive", shape, torch.bool, dev)
-    kernel_lib.check(eb_pad, "eb_pad", (6, nx + 2 * g, ny + 2 * g, nz + 2 * g),
-                     dtype, dev)
-    for k in FLOAT_PAYLOADS + ("inv_gamma",):
+    if not photon:
+        kernel_lib.check(eb_pad, "eb_pad",
+                         (6, nx + 2 * g, ny + 2 * g, nz + 2 * g), dtype, dev)
+    for k in FLOAT_PAYLOADS + ("inv_gamma",) + extra:
         kernel_lib.check(data[k], k, shape, dtype, dev)
     for k in ID_PAYLOADS:
         kernel_lib.check(data[k], k, shape, torch.int32, dev)
     ncomp = 4 if with_rho else 3
     pshape = panel_shape(ncomp, nx, ny, nz)
-    if rims_in is not None:
+    if rims_in is not None and not photon:
         kernel_lib.check(rims_in, "rims_in", pshape, dtype, dev)
 
     def empty(dt_):
         return torch.empty(shape, dtype=dt_, device=dev)
 
+    def slots(n):
+        return [empty(dtype) for _ in range(n)]
+
     a_alive, b_alive = empty(torch.bool), empty(torch.bool)
-    a_f = [empty(dtype) for _ in FLOAT_PAYLOADS]
+    a_f, b_f = slots(len(FLOAT_PAYLOADS)), slots(len(FLOAT_PAYLOADS))
+    a_x, b_x = slots(len(extra)), slots(len(extra))
     a_ig = empty(dtype)
     a_id = [empty(torch.int32) for _ in ID_PAYLOADS]
-    b_f = [empty(dtype) for _ in FLOAT_PAYLOADS]
     b_id = [empty(torch.int32) for _ in ID_PAYLOADS]
-    rims = torch.empty(pshape, dtype=dtype, device=dev)
+    rims = None if photon else torch.empty(pshape, dtype=dtype, device=dev)
+    chi, ig0 = (empty(dtype), empty(dtype)) if mode == "want_chi" \
+        else (None, None)
     n_lost = torch.zeros((), dtype=torch.int64, device=dev)
-    ptrs = ([eb_pad, alive] + [data[k] for k in FLOAT_PAYLOADS]
+    keys, key_threads = key_scratch(cap, nx * ny * nz, dev, "cellstep3d")
+    ptrs = ([None if photon else eb_pad, alive]
+            + [data[k] for k in FLOAT_PAYLOADS]
             + [data["inv_gamma"]] + [data[k] for k in ID_PAYLOADS]
             + [a_alive] + a_f + [a_ig] + a_id
             + [b_alive] + b_f + b_id
-            + [rims_in, rims, n_lost, _ces_tensor(cap, dev)])
+            + [None if photon else rims_in, rims, n_lost,
+               _ces_tensor(cap, dev), chi, ig0]
+            + _pad3(data[k] for k in extra) + _pad3(a_x) + _pad3(b_x)
+            + [keys])
     cdt = [c_light * dt / d for d in (dx, dy, dz)]
+    if photon:
+        # q = m = 0: no Boris factors (q / m is undefined) and no deposit
+        force = [0.0] * 9
+    else:
+        force = [q * dt / (2 * m * c_light), q * dt / (2 * m), cdt[0], cdt[1],
+                 cdt[2], q / (dx * dy * dz), q / (dy * dz * dt),
+                 q / (dx * dz * dt), q / (dx * dy * dt)]
     kernel_lib.call(
         "cellstep3d", "lp_cell_step_3d", ptrs,
         [cap, nx, ny, nz, g, periodic[0], periodic[1], periodic[2], ncomp,
-         len(batcher_network(cap)), dtype == torch.float64],
-        [cdt[0] / 2, cdt[1] / 2, cdt[2] / 2,
-         q * dt / (2 * m * c_light), q * dt / (2 * m), cdt[0], cdt[1], cdt[2],
-         q / (dx * dy * dz), q / (dy * dz * dt), q / (dx * dz * dt),
-         q / (dx * dy * dt)],
+         len(batcher_network(cap)), dtype == torch.float64,
+         MODES.index(mode), len(extra), key_threads],
+        [cdt[0] / 2, cdt[1] / 2, cdt[2] / 2] + force + [c_light, CHI_FACTOR],
         dev)
-    cell_step.launches += 1
-    cell_step.launches_by_mode["default"] += 1
     out = dict(data)
     out.update(zip(FLOAT_PAYLOADS, a_f))
     out.update(zip(ID_PAYLOADS, a_id))
+    out.update(zip(extra, a_x))
     out["inv_gamma"] = a_ig
+    if chi is not None:
+        return out, a_alive, n_lost, rims, (chi, ig0)
     return out, a_alive, n_lost, rims
 
 
@@ -348,28 +405,23 @@ def cell_step(eb_pad, data: Dict[str, torch.Tensor], alive, *, q: float,
     mode = _mode(want_chi, photon)
     dev = alive.device
     dtype = data["x"].dtype
-    cap = alive.shape[0]
-    if cap > MAX_CAP:
-        raise ValueError(f"cell_step: {cap} slots per cell exceed the "
-                         f"kernel's per-cell limit {MAX_CAP} (the slot index "
-                         "is packed into 8 bits of its sort key)")
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"cell_step: dtype {dtype}")
-    if alive.ndim == 4:
-        if mode != "default":
-            raise NotImplementedError(
-                f"cell_step: the {mode} mode in 3D is not ported yet "
-                "(ROADMAP queue 1, item 9)")
-        return _cell_step_3d(eb_pad, data, alive, q=q, m=m, dt=dt, dx=dx,
-                             dy=dy, dz=dz, g=g, periodic=periodic,
-                             rims_in=rims_in, with_rho=with_rho)
-    cap, nx, ny = alive.shape
-    _check_tile()
-    shape = (cap, nx, ny)
     extra = extra_payloads(data)
     if len(extra) > MAX_EXTRA:
         raise ValueError(f"cell_step: {len(extra)} extra payloads {extra}; "
                          f"the kernel carries at most {MAX_EXTRA}")
+    if alive.ndim == 4:
+        outs = _cell_step_3d(eb_pad, data, alive, q=q, m=m, dt=dt, dx=dx,
+                             dy=dy, dz=dz, g=g, periodic=periodic,
+                             rims_in=rims_in, with_rho=with_rho, mode=mode,
+                             extra=extra)
+        cell_step.launches += 1
+        cell_step.launches_by_mode[mode] += 1
+        return outs
+    cap, nx, ny = alive.shape
+    _check_tile()
+    shape = (cap, nx, ny)
     kernel_lib.check(alive, "alive", shape, torch.bool, dev)
     if not photon:
         kernel_lib.check(eb_pad, "eb_pad", (6, nx + 2 * g, ny + 2 * g),
@@ -399,17 +451,15 @@ def cell_step(eb_pad, data: Dict[str, torch.Tensor], alive, *, q: float,
     chi, ig0 = (empty(dtype), empty(dtype)) if want_chi else (None, None)
     n_lost = torch.zeros((), dtype=torch.int64, device=dev)
     ces = _ces_tensor(cap, dev)
-
-    def pad3(ts):
-        ts = list(ts)
-        return ts + [None] * (MAX_EXTRA - len(ts))
+    keys, key_threads = key_scratch(cap, nx * ny, dev, "cellstep")
     ptrs = ([None if photon else eb_pad, alive]
             + [data[k] for k in FLOAT_PAYLOADS]
             + [data["inv_gamma"]] + [data[k] for k in ID_PAYLOADS]
             + [s_alive] + s_f + s_id
             + [o_alive] + o_f + [o_ig] + o_id
             + [None if photon else rims_in, rims, n_lost, ces, chi, ig0]
-            + pad3(data[k] for k in extra) + pad3(s_x) + pad3(o_x))
+            + _pad3(data[k] for k in extra) + _pad3(s_x) + _pad3(o_x)
+            + [keys])
     cdx, cdy = c_light * dt / dx, c_light * dt / dy
     if photon:
         # q = m = 0: no Boris factors (q / m is undefined) and no deposit
@@ -421,7 +471,7 @@ def cell_step(eb_pad, data: Dict[str, torch.Tensor], alive, *, q: float,
         "cellstep", "lp_cell_step", ptrs,
         [cap, nx, ny, g, periodic[0], periodic[1], ncomp,
          len(batcher_network(cap)), dtype == torch.float64,
-         MODES.index(mode), len(extra)],
+         MODES.index(mode), len(extra), key_threads],
         [cdx / 2, cdy / 2] + force + [CHI_FACTOR],
         dev)
     cell_step.launches += 1

@@ -26,7 +26,6 @@ from ..core.state import (ID_KEYS, SimulationState, cell_particles,
                           ids_to_numpy, zeros_fields)
 from ..ops.cell2d import deposit_cell_2d
 from ..ops.cell3d import deposit_cell_3d
-from ..ops.cellslab import MAX_CAP
 from ..ops.cpml import CPMLParams, build_cpml
 from ..parallel.halo import halo_reduce
 from .callbacks import INNER_SUBSTAGES, SimulationCallbacks
@@ -236,9 +235,6 @@ class Simulation:
             if isinstance(sp, Photon) and sp.has_qed:
                 raise _todo(f"Breit-Wheeler pair production (photon species "
                             f"{sp.name})", "9")
-            if self.dimension == 3 and (sp.has_qed or sp.pusher == "photon"):
-                raise _todo(f"QED in 3D (species {sp.name}; kernel B2's 3D "
-                            "want_chi and photon modes)", "9")
             if sp.has_spin:
                 raise _todo(f"spin (species {sp.name})", "9")
             if sp.pusher not in ("boris", "photon"):
@@ -470,20 +466,11 @@ class Simulation:
     def _grow_capacity(self, ispec: int, new_cap: int) -> bool:
         """Pad the slot axis with dead slots (inv_gamma 1, everything else
         0). Slot order within a cell carries no physics, so the state is
-        unchanged. The capacity stops at kernel B2's limit ``MAX_CAP``
-        (the slot index is packed into 8 bits of its sort key); beyond it
-        the weight-conserving merges absorb the pressure. Returns whether
-        the capacity grew."""
+        unchanged. Returns whether the capacity grew."""
         import dataclasses
         p = self.state.particles[ispec]
         old = p.cap
-        want = int(new_cap) + (int(new_cap) & 1)   # keep it even
-        new_cap = min(want, MAX_CAP)
-        if want > new_cap:
-            logger.warning(
-                f"species {self.species[ispec].name}: capacity {want} "
-                f"wanted, held at the per-cell limit {MAX_CAP}; merges "
-                "absorb the rest")
+        new_cap = int(new_cap) + (int(new_cap) & 1)   # keep it even
         if new_cap <= old:
             return False
 

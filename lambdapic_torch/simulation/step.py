@@ -33,9 +33,9 @@ package does so for a reason that is not tiling:
   The sub-stages talk through the particle arrays.
 
 The grid's dimension (2 or 3) selects the 2D or the 3D form of each
-kernel (QED in 2D only so far). Host callbacks can run between the
-segments. Breit-Wheeler pairs, collisions, the tiled and scatter engines
-and multi-step chunking are not ported yet (ROADMAP queue 1).
+kernel, QED included. Host callbacks can run between the segments.
+Breit-Wheeler pairs, collisions, the tiled and scatter engines and
+multi-step chunking are not ported yet (ROADMAP queue 1).
 """
 from __future__ import annotations
 

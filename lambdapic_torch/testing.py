@@ -76,9 +76,9 @@ def random_cell_state(cap: int, nx: int, ny: int, nz: Optional[int] = None,
 
 def add_qed_payloads(data: Dict[str, np.ndarray], seed: int = 0
                      ) -> Dict[str, np.ndarray]:
-    """A radiating species' QED attributes on a cell state, different in
-    every slot (tau, delta, event; chi zero), so that a re-binning that
-    mixed them up would show."""
+    """A radiating species' QED attributes on a 2D or 3D cell state,
+    different in every slot (tau, delta, event; chi zero), so that a
+    re-binning that mixed them up would show."""
     rng = np.random.default_rng(seed)
     shape = np.shape(data["x"])
     data = dict(data)
@@ -89,11 +89,13 @@ def add_qed_payloads(data: Dict[str, np.ndarray], seed: int = 0
     return data
 
 
-def photon_cell_state(cap: int, nx: int, ny: int, *, n_frac: float = 0.4,
-                      seed: int = 0):
-    """A cell state of a photon species: inv_gamma = 1/|u| (1 where
-    u = 0). Returns (data, alive) as numpy arrays."""
-    data, alive, _ = random_cell_state(cap, nx, ny, n_frac=n_frac, seed=seed)
+def photon_cell_state(cap: int, nx: int, ny: int, nz: Optional[int] = None,
+                      *, n_frac: float = 0.4, seed: int = 0):
+    """A 2D (or with ``nz`` 3D) cell state of a photon species:
+    inv_gamma = 1/|u| (1 where u = 0). Returns (data, alive) as numpy
+    arrays."""
+    data, alive, _ = random_cell_state(cap, nx, ny, nz, n_frac=n_frac,
+                                       seed=seed)
     u2 = data["ux"]**2 + data["uy"]**2 + data["uz"]**2
     data["inv_gamma"] = np.where(u2 > 0, 1 / np.sqrt(np.maximum(u2, 1e-30)),
                                  1.0)

@@ -224,8 +224,9 @@ def test_config_validation_and_unported_options():
 
 @pytest.mark.parametrize("case", ["pairs", "spin", "tbmt", "qed3d"])
 def test_unported_qed_options_name_their_roadmap_item(case):
-    """QED photon emission and the photon pusher are accepted; pair
-    production, spin, the "boris+tbmt" pusher and QED in 3D raise, naming
+    """QED photon emission and the photon pusher are accepted, in 2D and
+    (since it was ported) in 3D: the "qed3d" case initialises and steps;
+    pair production, spin and the "boris+tbmt" pusher raise, naming
     ROADMAP item 9."""
     from lambdapic_torch import Electron, Photon, Simulation, Simulation3D
     kw = dict(nx=16, ny=16, dx=1e-7, dy=1e-7, tiling="cell", device="cpu")
@@ -248,8 +249,16 @@ def test_unported_qed_options_name_their_roadmap_item(case):
         sim = Simulation(**kw).add_species([Electron(pusher="boris+tbmt")])
     else:
         sim = Simulation3D(nz=8, dz=1e-7, **kw).add_species([
-            Electron(radiation="photons"), Photon()])
+            Electron(radiation="photons",
+                     density=lambda x, y, z: 1e26 + 0 * x, ppc=1),
+            Photon(capacity=256)])
         sim.species[0].set_photon(sim.species[1])
+        sim.run(1)
+        assert len(sim._qed_processes) == 1 and sim.itime == 1
+        assert sim._species_static[1].cap == sim._species_static[0].cap
+        assert sim.npart_alive[0] == 16 * 16 * 8
+        t_species._ALL_SPECIES.clear()
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
         sim.initialize()
     t_species._ALL_SPECIES.clear()

@@ -579,3 +579,79 @@ def test_per_stage_simulation_on_card_matches_cpu(cuda):
                           pr.alive[0, 0],
                           {k: v[0, 0] for k, v in pg.data.items()},
                           pg.alive[0, 0], rtol=1e-9)
+
+
+# Per-cell capacities above 128 (the sorting kernels' scratch variant):
+# (cap, nx, ny, periodic, n_frac); cells hold more than 128 alive
+# particles and the re-binning merges
+BIGCAP_CASES = [(130, 12, 10, (True, False), 1.0),
+                (256, 9, 7, (False, True), 0.9),
+                (300, 5, 6, (True, True), 0.9)]
+
+
+@pytest.mark.parametrize("cap,nx,ny,periodic,n_frac", BIGCAP_CASES)
+def test_b2_bigcap_matches_plain(cuda, cap, nx, ny, periodic, n_frac):
+    """B2 (default and want_chi modes) above 128 slots a cell, slot for
+    slot, as at small caps."""
+    data, alive, eb = random_cell_state(cap, nx, ny, n_frac=n_frac,
+                                        seed=cap + nx, umax=50.0, field=5e13)
+    assert int(alive.sum(0).max()) > 128
+    data = add_qed_payloads(data, seed=cap)
+    td, ta = to_torch(data, alive, torch.float64, cuda)
+    eb = torch.as_tensor(eb).to(cuda)
+    for want_chi in (False, True):
+        kw = dict(q=Q, m=M, dt=DT, dx=DX, dy=DX, g=3, periodic=periodic,
+                  want_chi=want_chi)
+        ref = cell_step_plain(eb, td, ta, **kw)
+        before = cell_step.launches
+        got = cell_step(eb, td, ta, **kw)
+        torch.cuda.synchronize()
+        assert cell_step.launches == before + 1
+        keys = SLOT_FLOATS + QED_PAYLOADS
+        if want_chi:
+            for out in (ref, got):
+                out[0]["chi"], out[0]["ig0"] = out[4]
+            keys += ("chi", "ig0")
+        compare_slots(*to_numpy(ref[0], ref[1]), *to_numpy(got[0], got[1]),
+                      rtol=1e-11, keys=keys)
+        assert int(got[2]) == int(ref[2]) > 0
+        torch.testing.assert_close(got[3], ref[3], rtol=0,
+                                   atol=1e-12 * float(ref[3].abs().max()))
+
+
+@pytest.mark.parametrize("cap,nx,ny,periodic,n_frac", BIGCAP_CASES)
+def test_b6_bigcap_matches_plain(cuda, cap, nx, ny, periodic, n_frac):
+    from lambdapic_torch.ops import cellpallas as cp
+    from lambdapic_torch.ops.cell2d import migrate_cells
+    plan = ((nx, periodic[0], "x"), (ny, periodic[1], "y"))
+    for photon in (False, True):
+        td, ta = _stage_state(cap, nx, ny, n_frac, torch.float64, cuda,
+                              photon)
+        ref = migrate_cells(td, ta, plan, recompute_ig=not photon)
+        got = cp.migrate_cells_fused(td, ta, plan, recompute_ig=not photon)
+        torch.cuda.synchronize()
+        assert torch.equal(got[1], ref[1])
+        _assert_equal(got[0], ref[0])
+        assert int(got[2]) == int(ref[2]) > 0
+
+
+@pytest.mark.parametrize("cap,cells", [(130, (17, 9)), (256, (17, 9)),
+                                       (300, (5, 7)),
+                                       # more cells than scratch rows
+                                       (130, (600, 128))])
+def test_b7_bigcap_matches_plain(cuda, cap, cells):
+    from lambdapic_torch.ops import cellpallas as cp
+    from lambdapic_torch.ops.cell2d import batcher_sort
+    rng = np.random.default_rng(cap)
+    shape = (cap,) + cells
+    key = torch.as_tensor(rng.integers(-3, 6, shape).astype(np.int32)).to(cuda)
+    pays = [torch.as_tensor(rng.normal(size=shape)).to(cuda),
+            torch.as_tensor(rng.integers(-2**31, 2**31, shape).astype(
+                np.int32)).to(cuda),
+            torch.as_tensor(rng.uniform(size=shape) < 0.5).to(cuda)]
+    rk, rp = batcher_sort(key, pays)
+    gk, gp = cp.sort_cells(key, pays)
+    torch.cuda.synchronize()
+    assert torch.equal(gk, rk)
+    for a, b in zip(gp, rp):
+        assert torch.equal(a, b)

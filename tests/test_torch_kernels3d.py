@@ -219,3 +219,127 @@ def test_per_stage_3d_simulation_on_card_matches_cpu(cuda):
                           pr.alive[0, 0, 0],
                           {k: v[0, 0, 0] for k, v in pg.data.items()},
                           pg.alive[0, 0, 0], rtol=1e-9)
+
+
+QED3_CASES = [
+    # (cap, nx, ny, nz, periodic, n_frac)
+    (8, 8, 8, 8, (True, True, True), 0.4),
+    (12, 9, 6, 10, (False, False, False), 0.5),
+    (8, 8, 8, 8, (True, False, True), 0.9),      # merges
+    (20, 6, 5, 7, (False, True, False), 0.5),
+]
+
+
+@pytest.mark.parametrize("cap,nx,ny,nz,periodic,n_frac", QED3_CASES)
+def test_b2_3d_want_chi_matches_plain(cuda, cap, nx, ny, nz, periodic,
+                                      n_frac):
+    """B2 3D's want_chi mode: slots, the QED payloads, chi and ig0 slot
+    for slot (float64, rtol 1e-11), panels to 1e-12 of their peak."""
+    from lambdapic_torch.ops.cellslab import (cell_step, cell_step_plain,
+                                              panel_shape)
+    from lambdapic_torch.testing import QED_PAYLOADS, SLOT_FLOATS, to_numpy
+    data, alive, eb = random_cell_state(cap, nx, ny, nz, n_frac=n_frac,
+                                        seed=cap + nx, umax=50.0, field=5e13)
+    td, ta = to_torch(add_qed_payloads(data, seed=cap), alive, torch.float64,
+                      cuda)
+    eb = torch.as_tensor(eb).to(cuda)
+    rims_in = torch.as_tensor(np.random.default_rng(1).normal(
+        size=panel_shape(4, nx, ny, nz))).to(cuda)
+    kw = dict(q=Q, m=M, dt=DT, dx=DX, dy=DY, dz=DZ, g=3, periodic=periodic,
+              rims_in=rims_in, want_chi=True)
+    ref = cell_step_plain(eb, td, ta, **kw)
+    before = cell_step.launches_by_mode["want_chi"]
+    got = cell_step(eb, td, ta, **kw)
+    torch.cuda.synchronize()
+    assert cell_step.launches_by_mode["want_chi"] == before + 1
+    for out in (ref, got):
+        out[0]["chi"], out[0]["ig0"] = out[4]
+    compare_slots(*to_numpy(ref[0], ref[1]), *to_numpy(got[0], got[1]),
+                  rtol=1e-11, keys=SLOT_FLOATS + QED_PAYLOADS + ("chi", "ig0"))
+    assert int(got[2]) == int(ref[2])
+    if n_frac > 0.8:
+        assert int(ref[2]) > 0
+    torch.testing.assert_close(got[3], ref[3], rtol=0,
+                               atol=1e-12 * float(ref[3].abs().max()))
+
+
+@pytest.mark.parametrize("cap,nx,ny,nz,periodic,n_frac", QED3_CASES)
+def test_b2_3d_photon_matches_plain(cuda, cap, nx, ny, nz, periodic, n_frac):
+    from lambdapic_torch.ops.cellslab import cell_step, cell_step_plain
+    from lambdapic_torch.testing import photon_cell_state, to_numpy
+    data, alive = photon_cell_state(cap, nx, ny, nz, n_frac=n_frac,
+                                    seed=cap + ny)
+    td, ta = to_torch(add_qed_payloads(data, seed=cap), alive, torch.float64,
+                      cuda)
+    kw = dict(q=0.0, m=0.0, dt=DT, dx=DX, dy=DY, dz=DZ, g=3,
+              periodic=periodic, photon=True)
+    ref = cell_step_plain(None, td, ta, **kw)
+    before = cell_step.launches_by_mode["photon"]
+    got = cell_step(None, td, ta, **kw)
+    torch.cuda.synchronize()
+    assert cell_step.launches_by_mode["photon"] == before + 1
+    assert got[3] is None
+    compare_slots(*to_numpy(ref[0], ref[1]), *to_numpy(got[0], got[1]),
+                  rtol=1e-11)
+    assert int(got[2]) == int(ref[2])
+    if n_frac > 0.8:
+        assert int(ref[2]) > 0
+    a = got[1]
+    u = torch.sqrt(got[0]["ux"]**2 + got[0]["uy"]**2 + got[0]["uz"]**2)
+    torch.testing.assert_close(got[0]["inv_gamma"][a], 1 / u[a], rtol=1e-14,
+                               atol=0)
+    assert bool((got[0]["inv_gamma"][~a] == 1).all())
+
+
+# Per-cell capacities above 128 on 3D slots: (cap, nx, ny, nz, periodic,
+# n_frac); cells hold more than 128 alive particles
+BIGCAP3_CASES = [(130, 5, 4, 6, (True, False, True), 1.0),
+                 (256, 4, 5, 3, (False, True, False), 0.9)]
+
+
+@pytest.mark.parametrize("cap,nx,ny,nz,periodic,n_frac", BIGCAP3_CASES)
+def test_b2_3d_bigcap_matches_plain(cuda, cap, nx, ny, nz, periodic, n_frac):
+    from lambdapic_torch.ops.cellslab import cell_step, cell_step_plain
+    from lambdapic_torch.testing import to_numpy
+    data, alive, eb = random_cell_state(cap, nx, ny, nz, n_frac=n_frac,
+                                        seed=cap + nx)
+    assert int(alive.sum(0).max()) > 128
+    td, ta = to_torch(data, alive, torch.float64, cuda)
+    eb = torch.as_tensor(eb).to(cuda)
+    kw = dict(q=Q, m=M, dt=DT, dx=DX, dy=DY, dz=DZ, g=3, periodic=periodic)
+    ref = cell_step_plain(eb, td, ta, **kw)
+    got = cell_step(eb, td, ta, **kw)
+    torch.cuda.synchronize()
+    compare_slots(*to_numpy(ref[0], ref[1]), *to_numpy(got[0], got[1]),
+                  rtol=1e-11)
+    assert int(got[2]) == int(ref[2]) > 0
+    torch.testing.assert_close(got[3], ref[3], rtol=0,
+                               atol=1e-12 * float(ref[3].abs().max()))
+
+
+@pytest.mark.parametrize("cap,nx,ny,nz,periodic,n_frac", BIGCAP3_CASES)
+def test_b6_b7_3d_bigcap_match_plain(cuda, cap, nx, ny, nz, periodic, n_frac):
+    from lambdapic_torch.ops import cellpallas as cp
+    from lambdapic_torch.ops.cell2d import batcher_sort, migrate_cells
+    plan = tuple(zip((nx, ny, nz), periodic, "xyz"))
+    data, alive, _ = crowded_cell_state(cap, nx, ny, nz, n_frac=n_frac,
+                                        seed=cap + nx)
+    td, ta = to_torch(add_qed_payloads(data, seed=cap), alive,
+                      torch.float64, cuda)
+    ref = migrate_cells(td, ta, plan)
+    got = cp.migrate_cells_fused(td, ta, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], ref[1])
+    assert sorted(got[0]) == sorted(ref[0])
+    for k in ref[0]:
+        assert torch.equal(got[0][k], ref[0][k]), k
+    assert int(got[2]) == int(ref[2]) > 0
+    key = torch.as_tensor(np.random.default_rng(cap).integers(
+        -3, 6, ta.shape).astype(np.int32)).to(cuda)
+    pays = [td["x"], td["id_lo"], ta]
+    rk, rp = batcher_sort(key, pays)
+    gk, gp = cp.sort_cells(key, pays)
+    torch.cuda.synchronize()
+    assert torch.equal(gk, rk)
+    for a, b in zip(gp, rp):
+        assert torch.equal(a, b)

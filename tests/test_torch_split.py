@@ -171,7 +171,9 @@ def test_get_particles_exposes_fields_after_split_only():
 def test_3d_refuses_exact_and_inner_callbacks():
     """Since the 3D per-stage engine was ported, Simulation3D takes
     cell_migration="exact" and inner-stage callbacks (both run a step);
-    what it still refuses is QED in 3D, naming ROADMAP item 9."""
+    since QED in 3D was ported it takes a photon species too (a step on
+    each path). What it still refuses, naming ROADMAP item 9, is a photon
+    species with Breit-Wheeler pairs and a species with spin."""
     import lambdapic_torch as lt
     kw = dict(nx=16, ny=8, nz=8, dx=1e-7, dy=1e-7, dz=1e-7, tiling="cell",
               device="cpu")
@@ -190,8 +192,22 @@ def test_3d_refuses_exact_and_inner_callbacks():
     probe = lt.callback(stage="_qed")(lambda s: seen.append(s.itime))
     sim.run(1, callbacks=[probe])
     assert seen == [0]
+    for migration in ("exact", "fast"):
+        t_species._ALL_SPECIES.clear()
+        sim = lt.Simulation3D(cell_migration=migration, **kw)
+        sim.add_species([lt.Photon(capacity=1024)])
+        sim.run(1)
+        assert sim.itime == 1 and sim.npart_alive == [0]
     t_species._ALL_SPECIES.clear()
-    sim = lt.Simulation3D(cell_migration="exact", **kw)
-    sim.add_species([lt.Photon(capacity=1024)])
+    pho = lt.Photon(capacity=1024)
+    pho.set_bw_pair(electron=lt.Electron(), positron=lt.Electron())
+    sim = lt.Simulation3D(**kw)
+    sim.add_species([pho])
+    with pytest.raises(NotImplementedError, match="item 9"):
+        sim.initialize()
+    t_species._ALL_SPECIES.clear()
+    sim = lt.Simulation3D(**kw)
+    sim.add_species([lt.Electron(density=profile, ppc=1,
+                                 polarization=(0.0, 0.0, 1.0))])
     with pytest.raises(NotImplementedError, match="item 9"):
         sim.initialize()

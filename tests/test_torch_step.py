@@ -173,15 +173,18 @@ def test_grow_capacity_pads_dead_slots():
 
 
 def test_grow_capacity_stops_at_kernel_limit():
-    """Re-capacity holds a species at kernel B2's per-cell limit; a
-    request past it leaves the capacity there and the run goes on."""
-    from lambdapic_torch.ops.cellslab import MAX_CAP
+    """Re-capacity no longer stops at a kernel limit: the sorting kernels
+    take any per-cell capacity (a 16-bit slot index), so a request past
+    128 slots grows the species as the JAX package does, a smaller one
+    leaves it, and the run goes on."""
     sim, laser = _port_sim()
     sim.initialize()
-    assert sim._grow_capacity(0, MAX_CAP + 50)
-    assert sim.state.particles[0].cap == MAX_CAP == sim._species_static[0].cap
-    assert not sim._grow_capacity(0, 2 * MAX_CAP)
-    assert sim.state.particles[0].cap == MAX_CAP
+    assert sim._grow_capacity(0, 128 + 50)
+    assert sim.state.particles[0].cap == 178 == sim._species_static[0].cap
+    assert sim._grow_capacity(0, 2 * 128)
+    assert sim.state.particles[0].cap == 256 == sim._species_static[0].cap
+    assert not sim._grow_capacity(0, 200)
+    assert sim.state.particles[0].cap == 256
     n0 = sim.npart_alive
     sim.run(1, callbacks=[laser])
     assert sim.npart_alive == n0
