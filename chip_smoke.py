@@ -9,7 +9,8 @@
                           [--steps-split-sort3d N] [--steps-exact3d N]
                           [--window-exact3d W] [--steps-qed3d N]
                           [--window-qed3d W] [--steps-split-qed3d N]
-                          [--steps-exact-qed3d N]
+                          [--steps-exact-qed3d N] [--steps-tiled N]
+                          [--window-tiled W] [--steps-tiled-qed N]
     python3 chip_smoke.py --exact2d-digest N
 
 Phases (any failure exits non-zero):
@@ -82,10 +83,27 @@ Phases (any failure exits non-zero):
    cell_migration="exact" twin from its own fill (B1 4, B4 2 = default +
    want_eb, B5 2) to 50 steps past its first photon.
 
-Prints the bounds of the tiled 2D engine's kernels B8 and B9 (not
-ported) counted from their shapes, a ``{"kernels": [...]}`` line with the
-2D, the per-stage, the QED, the 3D, the 3D QED and the 3D per-stage
-kernels, the card's name and power limit, and as its last line
+11. the tiled 2D engine, right after phase 7: B8 and B9 against their
+   plain versions (float64 at small sizes: dead slots, the drift band's
+   edges, drifts of 1 and 3 cells, tiles of 8 x 8, 16 x 8 and 32 x 32,
+   cap_t 300 and 16,384), bench.py's laser-target in its --tiling 32,32
+   form (768 x 768 cells, electrons and protons at ppc 10 for x > Lx/3,
+   rebin_interval 4, n_guard 5, capacity factor 1.6, SimpleLaser2D
+   a0=30, float32, seed 0) for --steps-tiled (600) steps through
+   Simulation.run (launches per step B1 4, B8 2, B9 2; the re-binning on
+   every 4th step; ids held a re-binning interval at a time: an id goes
+   only near an open face or into the overflow count; particles changed
+   tile), its last --window-tiled (100) steps timed and profiled, charge
+   continuity from B9's own output, B8 and B9 in float32 at its end state
+   and timed there, then bench.py's qed configuration in the same form at
+   256 x 256 (a photon species, SimpleLaser2D a0=300) for
+   --steps-tiled-qed (200) steps (B1 4, B8 3, B9 2; photons born through
+   insert_tiled).
+
+Prints a ``{"kernels": [...]}`` line with the 2D, the tiled, the
+per-stage, the QED, the 3D, the 3D QED and the 3D per-stage kernels (B8's
+and B9's bounds also counted from the Pallas calls' shapes at bench.py's
+form), the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.
 
 ``--exact2d-digest N`` runs only the 2D slice with cell_migration="exact"
@@ -156,7 +174,8 @@ KERNEL_FUNCS = {"B1 E": {"e_half": 1}, "B1 B": {"b_half": 1},
                 "B3": {"fold<": 1},
                 "B1-3D E": {"e_half3": 1}, "B1-3D B": {"b_half3": 1},
                 "B2-3D": {"rebin": 3, "push<": 1, "deposit": 1},
-                "B3-3D": {"fold3": 1}}
+                "B3-3D": {"fold3": 1},
+                "B8": {"gather<": 1}, "B9": {"deposit<": 1}}
 
 
 # seconds of untimed calls that precede the timed ones inside the
@@ -500,12 +519,14 @@ def edge_sitters(sim):
 
 def reset_launches():
     """Set every kernel wrapper's launch count to 0."""
-    from lambdapic_torch.ops import cellpallas, cellslab, fieldskernel
+    from lambdapic_torch.ops import (cellpallas, cellslab, fieldskernel,
+                                     tiled2d_kernels)
     for fn in (fieldskernel.update_half_k, cellslab.cell_step,
                cellslab.fold_reduce, cellpallas.fused_push_cell_2d,
                cellpallas.deposit_cell_2d_k, cellpallas.migrate_axis,
                cellpallas.sort_cells, cellpallas.fused_push_cell_3d,
-               cellpallas.deposit_cell_3d_k):
+               cellpallas.deposit_cell_3d_k, tiled2d_kernels.gather_tiled_k,
+               tiled2d_kernels.deposit_tiled_k):
         fn.launches = 0
     for counts in (cellslab.cell_step.launches_by_mode,
                    cellpallas.fused_push_cell_2d.launches_by_mode,
@@ -518,6 +539,7 @@ def all_launches():
     """Every kernel wrapper's launch count, by kernel (B4 want_eb: the
     launches of B4 in that mode, also counted in B4)."""
     from lambdapic_torch.ops import cellpallas as cp, cellslab, fieldskernel
+    from lambdapic_torch.ops import tiled2d_kernels as tk
     return {"B1": fieldskernel.update_half_k.launches,
             "B2": cellslab.cell_step.launches,
             "B3": cellslab.fold_reduce.launches,
@@ -528,7 +550,9 @@ def all_launches():
             "B4 3D": cp.fused_push_cell_3d.launches,
             "B4 3D want_eb":
                 cp.fused_push_cell_3d.launches_by_mode["want_eb"],
-            "B5 3D": cp.deposit_cell_3d_k.launches}
+            "B5 3D": cp.deposit_cell_3d_k.launches,
+            "B8": tk.gather_tiled_k.launches,
+            "B9": tk.deposit_tiled_k.launches}
 
 
 def check_launches(tag, steps, per_step, into=None, by_mode=None):
@@ -3461,7 +3485,7 @@ def run_exact_qed_3d(args, dev):
 
 
 # ---------------------------------------------------------------------------
-# the tiled 2D engine's kernels B8, B9 (not ported yet): bounds from shapes
+# the tiled 2D engine: kernels B8, B9 and bench.py's --tiling 32,32 forms
 # ---------------------------------------------------------------------------
 
 # bench.py's laser-target with --tiling TX,TY (bench.py:184-190, 208-220):
@@ -3469,48 +3493,452 @@ def run_exact_qed_3d(args, dev):
 # x > Lx/3, capacity factor 1.6, rebin 4 (so n_guard = tile halo 5); TX,TY
 # is the user's choice, taken as 32,32 here
 TILED = dict(nx=768, ny=768, tile=32, ppc=10, nspecies=2, factor=1.6,
-             halo=5)
+             halo=5, rebin=4)
 # floating-point work a particle: B8 the six staggered gathers with their
 # spline weights (as B2 2D's, about 700), B9 the 5 x 5 Esirkepov nodes of
 # four channels with their shapes (as B5 2D's, about 600)
 FLOPS_B8, FLOPS_B9 = 700, 600
+# float64 cases of [kernels tiled] (tx, ty, ntx, nty, h, cap_t): drifts of
+# 1 and 3 cells, a cap_t that is not a multiple of 256, bench's 16,384
+TILED_CASES = [(8, 8, 4, 3, 3, 300), (16, 8, 3, 4, 5, 256),
+               (32, 32, 2, 3, 5, 16384)]
+# bench.py's qed configuration (bench.py:243-258) in its --tiling 32,32
+# form, the grid cut from 768^2 for time
+TILED_QED_NX = 256
 
 
-def tiled_bounds():
-    """Bounds (ms) of lambdapic_tpu/ops/tiled2d_pallas.py's two kernels at
-    bench.py's --tiling laser-target form (TILED), counted from the
-    shapes the Pallas calls take, float32: B8 gather_tiled_pallas reads
-    the (6, ntx, wx, nty, wy) field windows and x, y of every tile slot
-    (ntx, nty, cap_t) and writes six slot arrays; B9
-    deposit_tiled_pallas reads x, y, ux, uy, uz, inv_gamma and w of every
-    slot and writes the (4, ntx, wx, nty, wy) current windows. Each is
-    launched once a species a step. The operation bound counts the
-    particles the fill places. Returns {kernel: (bound ms, "bytes" or
-    "operations", launches a step)}."""
+def make_slice_tiled(dev, qed=False, nx=TILED["nx"]):
+    """bench.py's laser-target (``qed``: its qed configuration) in the
+    --tiling 32,32 form with bench.py's defaults (ppc 10, --rebin 4 and
+    the n_guard it needs, capacity factor 1.6, --recap 0, float32, seed
+    0), built from the port's classes."""
+    from lambdapic_torch import (Electron, Photon, Proton, SimpleLaser2D,
+                                 Simulation)
+    um = 1e-6
+    nc = 1.742e27
     t = TILED
-    ntx, nty = t["nx"] // t["tile"], t["ny"] // t["tile"]
-    w = t["tile"] + 2 * t["halo"]
-    filled = t["nx"] - -(-t["nx"] // 3)          # cells with x > Lx/3
-    alive = filled * t["ny"] * t["ppc"]
-    cap_t = max(128, int(np.ceil(t["tile"]**2 * t["ppc"] * t["factor"]
-                                 / 128) * 128))
-    slots = ntx * nty * cap_t
-    win = ntx * nty * w * w
-    out = {}
-    for k, nbytes, flops in (("B8", (6 * win + 2 * slots + 6 * slots) * 4,
-                              alive * FLOPS_B8),
-                             ("B9", (7 * slots + 4 * win) * 4,
-                              alive * FLOPS_B9)):
-        b_ms, o_ms = nbytes / HBM_BPS * 1e3, flops / F32_FLOPS * 1e3
-        out[k] = (max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations",
-                  t["nspecies"])
-        log(f"[bound {k}] bench.py --tiling {t['tile']},{t['tile']} "
-            f"laser-target ({t['nx']}^2, {ntx} x {nty} tiles of {cap_t} "
-            f"slots, windows {w} x {w}, {alive} particles a species): "
-            f"{nbytes} bytes = {b_ms:.4f} ms, {flops:.3e} flops = "
-            f"{o_ms:.4f} ms; bound {max(b_ms, o_ms):.4f} ms; "
-            f"{t['nspecies']} launches a step")
+    dx = 0.8 * um / 16
+    Lx = nx * dx
+    n0 = (5 if qed else 10) * nc
+
+    def density(x, y):
+        return np.where(x > Lx / 3, n0, 0.0)
+
+    sim = Simulation(nx=nx, ny=nx, dx=dx, dy=dx, random_seed=0,
+                     precision="single", tiling=(t["tile"], t["tile"]),
+                     rebin_interval=t["rebin"],
+                     n_guard=2 + int(np.ceil(t["rebin"] * 0.95 / 2**0.5)),
+                     particle_capacity_factor=t["factor"], recap_interval=0,
+                     device=dev)
+    if qed:
+        pho = Photon(capacity=1 << 18)
+        ele = Electron(density=density, ppc=t["ppc"], radiation="photons")
+        ele.set_photon(pho)
+        sim.add_species([ele, Proton(density=density, ppc=t["ppc"]), pho])
+        return sim, SimpleLaser2D(a0=300, w0=3 * um, ctau=8 * um)
+    sim.add_species([Electron(density=density, ppc=t["ppc"]),
+                     Proton(density=density, ppc=t["ppc"])])
+    return sim, SimpleLaser2D(a0=30, w0=3 * um, ctau=8 * um)
+
+
+def _tiled_inputs(case, dtype, dev, seed):
+    import torch
+    from lambdapic_torch.ops.tiled2d import TileCfg
+    from lambdapic_torch.testing import tiled_state, to_torch
+    tx, ty, ntx, nty, h, cap = case
+    cfg = TileCfg(tx=tx, ty=ty, ntx=ntx, nty=nty, cap_t=cap, h=h)
+    d, alive, eb_pad = tiled_state(cfg, seed=seed, drift=h - 2)
+    d, alive = to_torch(d, alive, dtype, dev)
+    return cfg, d, alive, torch.as_tensor(eb_pad, dtype=dtype).to(dev)
+
+
+def b8_err(got, ref, rtol, floor):
+    """Max abs difference of B8's six components; fails unless each is
+    within rtol of the plain value plus ``floor`` of the component's
+    peak."""
+    err = 0.0
+    for k, (g, r) in enumerate(zip(got, ref)):
+        d = (g - r).abs()
+        lim = rtol * r.abs() + floor * float(r.abs().max())
+        if not bool((d <= lim).all()):
+            fail(f"B8 component {k}: {float(d.max()):.3e} beyond rtol {rtol} "
+                 f"and {floor} of the peak")
+        err = max(err, float(d.max()))
+    return err
+
+
+def b9_err(got, ref, tol):
+    """Max abs difference of B9's four channels; fails unless each is
+    within ``tol`` of its channel's peak (a channel that is 0 everywhere,
+    jz where every uz is 0, must be 0 in the kernel's output too)."""
+    err = 0.0
+    for k, name in enumerate(("jx", "jy", "jz", "rho")):
+        peak = float(ref[k].abs().max())
+        d = float((got[k] - ref[k]).abs().max())
+        if not d <= tol * peak:
+            fail(f"B9 {name}: {d:.3e} beyond {tol} of the peak {peak:.3e}")
+        err = max(err, d)
+    return err
+
+
+def check_tiled_f64(dev):
+    """[kernels tiled], float64: B8 and B9 against their plain versions on
+    TILED_CASES (dead slots, the drift band's edges, drifts of 1 and 3
+    cells, cap_t 300 and 16,384, tiles of 8 x 8, 16 x 8 and 32 x 32).
+    B8 rtol 1e-12 with a floor of 1e-14 of each component's peak; B9
+    1e-12 of each channel's peak."""
+    import torch
+    from lambdapic_torch.ops import tiled2d_kernels as tk
+    dt = 0.95 / np.sqrt(2 * 5e-8**-2) / 2.99792458e8
+    for case in TILED_CASES:
+        cfg, d, alive, eb_pad = _tiled_inputs(case, torch.float64, dev, 1)
+        got = tk.gather_tiled_k(eb_pad, d["x"], d["y"], cfg)
+        torch.cuda.synchronize()
+        e8 = b8_err(got, tk.gather_tiled_plain(eb_pad, d["x"], d["y"], cfg),
+                    1e-12, 1e-14)
+        dead = ~alive
+        dead[0, 0] = False
+        if any(float(g[dead].abs().max()) != 0 for g in got):
+            fail(f"B8 f64 {case}: a dead slot gathered a nonzero field")
+        w = torch.where(alive, d["w"], 0.0)
+        args = [d[k] for k in ("x", "y", "ux", "uy", "uz", "inv_gamma")] + [w]
+        kw = dict(q=-1.602e-19, dx=5e-8, dy=5e-8, dt=dt)
+        got = tk.deposit_tiled_k(*args, cfg, **kw)
+        torch.cuda.synchronize()
+        e9 = b9_err(got, tk.deposit_tiled(*args, cfg, **kw), 1e-12)
+        log(f"[kernels tiled f64] tiles {case[:2]}, h {case[4]}, cap_t "
+            f"{case[5]}: B8 max abs {e8:.3e}, B9 max abs {e9:.3e}")
+        del got, d, alive, eb_pad
+
+
+def tiled_operands(sim, ispec=0):
+    """B8's and B9's operands at a tiled Simulation's state, species
+    ``ispec``: (cfg, eb_pad, x, y, deposit args, deposit kw)."""
+    import dataclasses
+    import torch
+    p = sim.state.particles[ispec]
+    sp = sim._species_static[ispec]
+    cfg = dataclasses.replace(sim._builder.tile_cfg, cap_t=p.cap)
+    d = p.data
+    w = torch.where(p.alive, d["w"], 0.0)
+    args = [d["x"], d["y"], d["ux"], d["uy"], d["uz"], d["inv_gamma"], w]
+    kw = dict(q=sp.q, dx=sim.dx, dy=sim.dy, dt=sim.dt)
+    return cfg, sim._builder.pad_eb(sim.state.fields), args, kw
+
+
+def check_tiled_f32(sim, ispec=0, tag="kernels tiled f32"):
+    """[kernels tiled], float32 at a slice's shapes (its end state, species
+    ``ispec``): B8 rtol 1e-5 with a floor of 1e-6 of the peak, B9 1e-4 of
+    each channel's peak. A photon species, which the step gathers but
+    does not deposit, is deposited with the electron's charge, so that B9
+    is held on its operands too. Returns the two max abs errors."""
+    import torch
+    from lambdapic_torch.ops import tiled2d_kernels as tk
+    cfg, eb_pad, args, kw = tiled_operands(sim, ispec)
+    if kw["q"] == 0.0:
+        kw["q"] = -1.602176634e-19
+    got = tk.gather_tiled_k(eb_pad, args[0], args[1], cfg)
+    torch.cuda.synchronize()
+    e8 = b8_err(got, tk.gather_tiled_plain(eb_pad, args[0], args[1], cfg),
+                1e-5, 1e-6)
+    del got
+    torch.cuda.empty_cache()
+    got = tk.deposit_tiled_k(*args, cfg, **kw)
+    torch.cuda.synchronize()
+    e9 = b9_err(got, tk.deposit_tiled(*args, cfg, **kw), 1e-4)
+    log(f"[{tag}] {sim.species[ispec].name}: {cfg.ntx} x {cfg.nty} tiles "
+        f"of {cfg.cap_t} slots "
+        f"({int(sim.state.particles[ispec].alive.sum())} alive): B8 max abs "
+        f"{e8:.3e}, B9 max abs {e9:.3e}")
+    torch.cuda.empty_cache()
+    return e8, e9
+
+
+def check_continuity(sim, tag):
+    """Charge continuity of B9's own output, per charged species at the
+    state: rho1 = B9's rho (the shapes S1 at x + v dt/2), rho0 = B9's rho
+    with ux, uy negated (exactly the shapes S0 at x - v dt/2), J = B9's
+    jx, jy; after fold_windows, (rho1 - rho0)/dt + div J must vanish on
+    every node to float32 rounding. Fails beyond 1e-4 of the peak of
+    |rho1|/dt; returns the worst ratio."""
+    import torch
+    from lambdapic_torch.ops.tiled2d import fold_windows
+    from lambdapic_torch.ops.tiled2d_kernels import deposit_tiled_k
+    worst = 0.0
+    for ispec, sp in enumerate(sim._species_static):
+        if sp.q == 0.0:
+            continue
+        cfg, _, args, kw = tiled_operands(sim, ispec)
+        j1 = fold_windows(deposit_tiled_k(*args, cfg, **kw), cfg)
+        back = list(args)
+        back[2], back[3] = -args[2], -args[3]
+        rho0 = fold_windows(deposit_tiled_k(*back, cfg, **kw), cfg)[3]
+        jx, jy, rho1 = j1[0], j1[1], j1[3]
+        div = jx.clone()
+        div[1:] -= jx[:-1]
+        div /= sim.dx
+        djy = jy.clone()
+        djy[:, 1:] -= jy[:, :-1]
+        div += djy / sim.dy
+        res = (rho1 - rho0) / sim.dt + div
+        scale = float(rho1.abs().max()) / sim.dt
+        ratio = float(res.abs().max()) / scale
+        change = float((rho1 - rho0).abs().max()) / sim.dt / scale
+        log(f"[{tag}] {sim.species[ispec].name}: continuity residual "
+            f"{ratio:.3e} of max|rho|/dt (the largest |d rho/dt| is "
+            f"{change:.3e} of it)")
+        if not (change > 0 and ratio <= 1e-4):
+            fail(f"{tag}: charge continuity of B9 broken ({ratio:.3e})")
+        worst = max(worst, ratio)
+        del j1, rho0, div, djy, res
+    torch.cuda.empty_cache()
+    return worst
+
+
+def tile_of_ids(sim):
+    """Per species, a table id_lo -> flat tile index of the alive slots
+    (-1 where no alive slot holds the id)."""
+    import torch
+    out = []
+    for p in sim.state.particles:
+        ids = p.data["id_lo"].to(torch.int64)
+        ntiles = p.alive.shape[0] * p.alive.shape[1]
+        tile = torch.arange(ntiles, device=ids.device).reshape(
+            p.alive.shape[:2] + (1,)).expand(p.alive.shape)
+        table = torch.full((ntiles * p.cap + 1,), -1, dtype=torch.int64,
+                           device=ids.device)
+        table[ids[p.alive]] = tile[p.alive]
+        out.append(table)
     return out
+
+
+def near_open_face(sim, p, margin):
+    """Sorted ids of a species' alive slots within ``margin`` cells of an
+    open face."""
+    import torch
+    near = torch.zeros_like(p.alive)
+    for ax, n, per in zip(sim.grid.axes, sim.grid.shape,
+                          sim.grid.periodic_axes):
+        if not per:
+            x = p.data[ax]
+            near |= (x < margin - 0.5) | (x >= n - 0.5 - margin)
+    return torch.sort(p.data["id_lo"][near & p.alive].to(torch.int64)).values
+
+
+def run_tiled_steps(sim, laser, n, ids, ov):
+    """Run ``n`` steps, a re-binning interval at a time, holding each
+    species' ids: an id alive at a chunk's end was alive at its start,
+    and of the ids that went, those not within the interval's drift of
+    an open face are at most the overflow's advance. Returns the ids that
+    left through an open face, per species."""
+    import torch
+    R = sim.rebin_interval
+    margin = R * 0.95 / 2**0.5 + 2
+    gone = [0] * len(ids)
+    done = 0
+    while done < n:
+        k = min(R, n - done)
+        near = [near_open_face(sim, p, margin) for p in sim.state.particles]
+        sim.run(nsteps=k, callbacks=[laser])
+        done += k
+        for i, p in enumerate(sim.state.particles):
+            now = ids_of(p)
+            if not bool(torch.isin(now, ids[i]).all()):
+                fail(f"slice tiled: {sim.species[i].name} gained an id")
+            went = ids[i][~torch.isin(ids[i], now)]
+            lost = int(p.overflow) - ov[i]
+            far = int((~torch.isin(went, near[i])).sum())
+            if far > lost:
+                fail(f"slice tiled: {sim.species[i].name}: {far} ids went "
+                     f"away from the open faces, {lost} counted lost")
+            gone[i] += len(went) - lost
+            ids[i], ov[i] = now, int(p.overflow)
+    return gone
+
+
+def tiled_rows(sim, args, launches, errs):
+    """[time B8] and [time B9] at the slice's end state (the electrons),
+    with their plain versions timed once and their bounds counted from
+    the state; returns the kernels line's rows."""
+    import torch
+    from lambdapic_torch.ops import tiled2d_kernels as tk
+    cfg, eb_pad, dargs, kw = tiled_operands(sim)
+    p = sim.state.particles[0]
+    isz = p.data["x"].element_size()
+    slots, n_alive = p.alive.numel(), int(p.alive.sum())
+    win = cfg.ntx * cfg.nty * cfg.wx * cfg.wy
+    rows = []
+    for k, fn, plain, nbytes, flops in (
+            ("B8", lambda: tk.gather_tiled_k(eb_pad, dargs[0], dargs[1], cfg),
+             lambda: tk.gather_tiled_plain(eb_pad, dargs[0], dargs[1], cfg),
+             # eb_pad read once, x and y read and six components written
+             # at every slot
+             (eb_pad.numel() + 8 * slots) * isz, n_alive * FLOPS_B8),
+            ("B9", lambda: tk.deposit_tiled_k(*dargs, cfg, **kw),
+             lambda: tk.deposit_tiled(*dargs, cfg, **kw),
+             # w of every slot, the six other reals of the alive slots
+             # (B9 skips w = 0), the four windows written
+             (slots + 6 * n_alive + 4 * win) * isz, n_alive * FLOPS_B9)):
+        dev_ms, wall = kernel_ms(fn, args.iters, k)
+        ms = dev_ms or wall
+        plain_ms = cuda_time(plain, 1)
+        torch.cuda.empty_cache()
+        b_ms, o_ms = nbytes / HBM_BPS * 1e3, flops / F32_FLOPS * 1e3
+        bound = max(b_ms, o_ms)
+        log(f"[time {k}] device {ms:.4f} ms per launch, wall {wall:.4f} ms "
+            f"per call, plain {plain_ms:.3f} ms; bound {bound:.4f} ms "
+            f"({nbytes} bytes, {n_alive} of {slots} slots alive)")
+        rows.append(dict(
+            name={"B8": "B8 tiled gather", "B9": "B9 tiled deposit"}[k],
+            route="cuda",
+            source={"B8": "lambdapic_torch/csrc/gather_tiled.cu",
+                    "B9": "lambdapic_torch/csrc/deposit_tiled.cu"}[k],
+            replaces={"B8": "lambdapic_tpu/ops/tiled2d_pallas.py:193",
+                      "B9": "lambdapic_tpu/ops/tiled2d_pallas.py:282"}[k],
+            launches=launches[k], max_abs_err=errs[k], ms=ms,
+            plain_ms=plain_ms, bound_ms=bound,
+            bound_by="bytes" if b_ms >= o_ms else "operations",
+            library_ms=None))
+    return rows
+
+
+def count_migrations():
+    """Wrap the tiled step's re-binning with a call counter; returns the
+    counter (a one-element list) and the function that unwraps it."""
+    from lambdapic_torch.simulation import step as step_mod
+    real = step_mod.migrate_tiled
+    calls = [0]
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return real(*a, **kw)
+    step_mod.migrate_tiled = counted
+
+    def restore():
+        step_mod.migrate_tiled = real
+    return calls, restore
+
+
+def run_tiled(args, dev):
+    """[kernels tiled], [slice tiled], [time B8], [time B9]; returns the
+    kernels line's B8 and B9 rows."""
+    import torch
+    t0 = time.time()
+    check_tiled_f64(dev)
+    log(f"[kernels tiled f64] {time.time() - t0:.1f} s")
+    t0 = time.time()
+    sim, laser = make_slice_tiled(dev)
+    sim.initialize()
+    log(f"[slice tiled] initialised in {time.time() - t0:.1f} s: "
+        f"{sim.npart_alive} particles, {sim.grid.nx // TILED['tile']} x "
+        f"{sim.grid.ny // TILED['tile']} tiles of "
+        f"{[p.cap for p in sim.state.particles]} slots, n_guard "
+        f"{sim.grid.n_guard}, dt {sim.dt:.4e} s")
+    tiles0 = tile_of_ids(sim)
+    ids = [ids_of(p) for p in sim.state.particles]
+    n_ids0 = [len(i) for i in ids]
+    ov = [int(p.overflow) for p in sim.state.particles]
+    steps = args.steps_tiled
+    n_timed = min(args.window_tiled, steps)
+    calls, restore = count_migrations()
+    reset_launches()
+    t0 = time.time()
+    try:
+        gone = run_tiled_steps(sim, laser, steps - n_timed, ids, ov)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.time()
+        sim.run(nsteps=n_timed, callbacks=[laser])
+        torch.cuda.synchronize()
+        t2 = time.time()
+    finally:
+        restore()
+    R = sim.rebin_interval
+    migrating = sum(1 for i in range(steps) if i % R == R - 1)
+    log(f"[slice tiled] {steps} steps, {migrating} of them re-binning: "
+        f"migrate_tiled ran {calls[0]} times")
+    if calls[0] != 2 * migrating:
+        fail(f"slice tiled: {calls[0]} re-binnings, expected {2 * migrating}")
+    got = check_launches("slice tiled", steps, {"B1": 4, "B8": 2, "B9": 2})
+    check_finite(sim, "slice tiled", rho=True)
+    # the window's steps, unchecked while timed: every id that went is
+    # counted as lost or out through a face
+    tail = [0] * len(ids)
+    for i, p in enumerate(sim.state.particles):
+        now = ids_of(p)
+        if not bool(torch.isin(now, ids[i]).all()):
+            fail(f"slice tiled: {sim.species[i].name} gained an id")
+        tail[i] = len(ids[i]) - len(now) - (int(p.overflow) - ov[i])
+        log(f"[slice tiled] {sim.species[i].name}: {n_ids0[i]} ids -> "
+            f"{len(now)} alive + {int(p.overflow)} lost to tile overflow + "
+            f"{gone[i] + tail[i]} out through an open face ({gone[i]} of them "
+            "held against the faces' reach)")
+        if len(now) + int(p.overflow) + gone[i] + tail[i] != n_ids0[i]:
+            fail("slice tiled: ids do not add up")
+    tiles1 = tile_of_ids(sim)
+    moved = [int(((a >= 0) & (b >= 0) & (a != b)).sum())
+             for a, b in zip(tiles0, tiles1)]
+    log(f"[slice tiled] particles that changed tile: {moved}")
+    if not all(m > 0 for m in moved):
+        fail("slice tiled: no particle changed tile")
+    del tiles0, tiles1
+    step_ms = (t2 - t1) * 1e3 / n_timed
+    npart = sum(sim.npart_alive)
+    log(f"[slice tiled] window {n_timed} steps in {t2 - t1:.3f} s: step "
+        f"{step_ms:.3f} ms (host clock, synchronised), "
+        f"{npart / (step_ms * 1e-3):.4e} pushes/s, peak |ey| "
+        f"{float(sim.state.fields.ey.abs().max()):.3e}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    busy_per_step(lambda: sim.run(nsteps=1, callbacks=[laser]),
+                  {"e_half": 2, "b_half": 2, "gather<": 2, "deposit<": 2},
+                  8, "profile tiled", step_ms)
+    check_continuity(sim, "slice tiled")
+    errs = dict(zip(("B8", "B9"), check_tiled_f32(sim)))
+    rows = tiled_rows(sim, args, got, errs)
+    del sim
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_tiled_qed(args, dev):
+    """[slice tiled QED]: bench.py's qed configuration in its --tiling
+    32,32 form at TILED_QED_NX^2 through Simulation.run: photons born
+    through insert_tiled, launches a step B1 4, B8 3 (photons gathered
+    too), B9 2."""
+    import torch
+    t0 = time.time()
+    sim, laser = make_slice_tiled(dev, qed=True, nx=TILED_QED_NX)
+    sim.initialize()
+    log(f"[slice tiled QED] initialised in {time.time() - t0:.1f} s: "
+        f"{sim.npart_alive} particles, tiles of "
+        f"{[p.cap for p in sim.state.particles]} slots")
+    steps = args.steps_tiled_qed
+    n_timed = min(50, steps)
+    reset_launches()
+    t0 = time.time()
+    sim.run(nsteps=steps - n_timed, callbacks=[laser])
+    torch.cuda.synchronize()
+    t1 = time.time()
+    sim.run(nsteps=n_timed, callbacks=[laser])
+    torch.cuda.synchronize()
+    t2 = time.time()
+    check_launches("slice tiled QED", steps, {"B1": 4, "B8": 3, "B9": 2})
+    check_finite(sim, "slice tiled QED", rho=True)
+    ph = sim.state.particles[2]
+    born, alive = int(ph.next_id), int(ph.alive.sum())
+    if not (born > 0 and alive > 0):
+        fail("slice tiled QED: no photon was born")
+    check_photon_ig(sim, 2, "slice tiled QED")
+    for ispec in range(len(sim.species)):
+        check_tiled_f32(sim, ispec, "kernels tiled QED f32")
+    step_ms = (t2 - t1) * 1e3 / n_timed
+    log(f"[slice tiled QED] {steps} steps in {t2 - t0:.2f} s; last {n_timed}"
+        f" at {step_ms:.3f} ms a step (host clock, synchronised), "
+        f"{sum(sim.npart_alive) / (step_ms * 1e-3):.4e} pushes/s; photons "
+        f"born {born}, alive {alive}; overflow "
+        f"{[int(p.overflow) for p in sim.state.particles]}")
+    del sim
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -3563,6 +3991,15 @@ def main() -> int:
     ap.add_argument("--steps-exact-qed3d", type=int, default=50,
                     help="steps of the 3D QED slice with "
                          "cell_migration='exact' after its first photon")
+    ap.add_argument("--steps-tiled", type=int, default=600,
+                    help="steps of bench.py's --tiling 32,32 laser-target "
+                         "through Simulation.run (the laser front reaches "
+                         "the target near step 380)")
+    ap.add_argument("--window-tiled", type=int, default=100,
+                    help="final tiled steps timed as the steady window")
+    ap.add_argument("--steps-tiled-qed", type=int, default=200,
+                    help="steps of bench.py's qed configuration in its "
+                         "--tiling 32,32 form at 256^2")
     ap.add_argument("--exact2d-digest", type=int, default=0, metavar="N",
                     help="run only the 2D slice with cell_migration='exact' "
                          "for N steps and print its peak device memory and "
@@ -3585,7 +4022,6 @@ def main() -> int:
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     phase_build()
-    tiled_bounds()
     kernels = []
 
     def done(what):
@@ -3593,6 +4029,10 @@ def main() -> int:
         log(f"[time] {what} done at {time.time() - t_start:.1f} s")
     kernels += run_2d(args, dev)
     done("2D and split")
+    kernels += run_tiled(args, dev)
+    done("tiled")
+    run_tiled_qed(args, dev)
+    done("tiled QED")
     run_exact(args, dev)
     done("exact")
     run_exact_qed(args, dev)

@@ -7,9 +7,11 @@ runs on one device):
 - fields are interior-only ``(nx, ny[, nz])`` tensors; CPML psi arrays
   are slab-restricted along their PML axis (``ops/cpml.py::psi_regions``),
   e.g. ``psi_ey_x`` is ``(w_x, ny[, nz])``;
-- cell-engine particles are per-cell slots ``(cap_c, nx, ny[, nz])``; ``alive``
-  is bool; the 64-bit particle id is carried as two int32 tensors
-  ``id_lo`` / ``id_hi`` holding the JAX package's uint32 bit patterns
+- cell-engine particles are per-cell slots ``(cap_c, nx, ny[, nz])``, the
+  tiled 2D engine's per-tile slots ``(ntx, nty, cap_t)`` (the slot axis
+  last; ``ParticlesState.tiled``); ``alive`` is bool; the 64-bit particle
+  id is carried as two int32 tensors ``id_lo`` / ``id_hi`` holding the
+  JAX package's uint32 bit patterns
   (torch's uint32 lacks gather and add on the CPU);
 - ``next_id`` and ``overflow`` are 0-d int64 tensors (the JAX package's
   per-device uint32 / int32 counters of a one-device mesh).
@@ -56,17 +58,24 @@ class FieldsState:
 
 @dataclass
 class ParticlesState:
-    """Per-cell slot arrays of one species: ``data[attr]`` is
-    ``(cap_c, nx, ny[, nz])``."""
+    """Slot arrays of one species: ``data[attr]`` is ``(cap_c, nx, ny[,
+    nz])`` per cell, or with ``tiled`` ``(ntx, nty, cap_t)`` per tile.
+    ``tiled`` is set from Simulation.tiling where the state is binned, and
+    StepBuilder refuses a state whose layout is not its tile_cfg's."""
 
     data: Dict[str, torch.Tensor]
     alive: torch.Tensor
     next_id: torch.Tensor
     overflow: torch.Tensor
+    tiled: bool = False
+
+    @property
+    def slot_axis(self) -> int:
+        return self.alive.ndim - 1 if self.tiled else 0
 
     @property
     def cap(self) -> int:
-        return self.alive.shape[0]
+        return self.alive.shape[self.slot_axis]
 
     def replace(self, **kw) -> "ParticlesState":
         return dataclasses.replace(self, **kw)
@@ -122,10 +131,13 @@ def ids_to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def cell_particles(species: Species, arrays: Dict[str, np.ndarray],
-                   alive_np: np.ndarray, dtype, device) -> ParticlesState:
+                   alive_np: np.ndarray, dtype, device, tiled: bool = False
+                   ) -> ParticlesState:
     """ParticlesState from host cell-binned arrays ``(cap_c, nx, ny[, nz])``
-    (``simulation/initfill.py::bin_cells``): ids are the flat slot index,
-    as the JAX package's ``Simulation._tiled_state`` numbers them."""
+    (``simulation/initfill.py::bin_cells``), or with ``tiled`` tile-binned
+    ones ``(ntx, nty, cap_t)`` (``bin_tiled``): ids are the flat slot
+    index, as the JAX package's ``Simulation._tiled_state`` numbers
+    them."""
     shape = alive_np.shape
     data = {}
     for attr in species.attrs():
@@ -141,7 +153,8 @@ def cell_particles(species: Species, arrays: Dict[str, np.ndarray],
         data=data, alive=torch.as_tensor(alive_np, dtype=torch.bool).to(device),
         next_id=torch.tensor(int(alive_np.sum()), dtype=torch.int64,
                              device=device),
-        overflow=torch.zeros((), dtype=torch.int64, device=device))
+        overflow=torch.zeros((), dtype=torch.int64, device=device),
+        tiled=tiled)
 
 
 def _strip_mesh(a: np.ndarray, nmesh: int) -> np.ndarray:
@@ -152,11 +165,12 @@ def _strip_mesh(a: np.ndarray, nmesh: int) -> np.ndarray:
     return a.reshape(a.shape[nmesh:])
 
 
-def state_from_numpy(np_state, device, dtype=None, dimension: int = 2
-                     ) -> SimulationState:
+def state_from_numpy(np_state, device, dtype=None, dimension: int = 2,
+                     tiled: bool = False) -> SimulationState:
     """Build the port's state from a JAX package state whose leaves are
     numpy arrays (``jax.device_get(sim.state)`` of a one-device cell
-    engine run). ``dtype`` defaults to the fields' dtype."""
+    engine run, or with ``tiled`` of the tiled 2D engine). ``dtype``
+    defaults to the fields' dtype."""
     f = np_state.fields
     if dtype is None:
         dtype = torch.from_numpy(np.zeros(0, np.asarray(f.ex).dtype)).dtype
@@ -182,7 +196,8 @@ def state_from_numpy(np_state, device, dtype=None, dimension: int = 2
             next_id=torch.tensor(int(np.asarray(p.next_id).sum()),
                                  dtype=torch.int64, device=device),
             overflow=torch.tensor(int(np.asarray(p.overflow).sum()),
-                                  dtype=torch.int64, device=device)))
+                                  dtype=torch.int64, device=device),
+            tiled=tiled))
     return SimulationState(fields=fields, particles=tuple(parts))
 
 

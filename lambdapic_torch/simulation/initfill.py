@@ -147,3 +147,58 @@ def bin_cells(arrays: Dict[str, np.ndarray], counts: np.ndarray,
             out[k][dev].reshape(cap_c, ncells)[slot, fs] = v[dev][:n][order]
         alive[dev].reshape(cap_c, ncells)[slot, fs] = True
     return out, alive, cap_c
+
+
+def grow_minor(a: np.ndarray, cap: int) -> np.ndarray:
+    """Zero-pad the minor (slot) axis of a host array up to ``cap``."""
+    if a.shape[-1] >= cap:
+        return a
+    pad = [(0, 0)] * (a.ndim - 1) + [(0, cap - a.shape[-1])]
+    return np.pad(a, pad)
+
+
+def bin_tiled(arrays: Dict[str, np.ndarray], counts: np.ndarray,
+              grid: Grid, tx: int, ty: int, factor: float = 2.0,
+              cap_t: Optional[int] = None):
+    """Re-bin flat per-device arrays (mesh_shape + (cap,)) into the tiled
+    layout mesh_shape + (ntx, nty, cap_t): a particle's tile holds its
+    nearest cell, slots in the flat order. ``cap_t`` defaults to the
+    fullest tile times ``factor``, a multiple of 128. Returns (arrays,
+    alive, cap_t)."""
+    ntx, nty = grid.nx_loc // tx, grid.ny_loc // ty
+    mshape = grid.mesh_shape
+    occ_max = 0
+    tiles = {}
+    for dev in np.ndindex(mshape):
+        n = int(counts[dev])
+        x = arrays["x"][dev][:n]
+        y = arrays["y"][dev][:n]
+        ti = np.clip((np.floor(x + 0.5) // tx).astype(int), 0, ntx - 1)
+        tj = np.clip((np.floor(y + 0.5) // ty).astype(int), 0, nty - 1)
+        flat = ti * nty + tj
+        order = np.argsort(flat, kind="stable")
+        occ = np.bincount(flat, minlength=ntx * nty)
+        occ_max = max(occ_max, int(occ.max()) if occ.size else 0)
+        tiles[dev] = (order, occ)
+    if cap_t is None:
+        cap_t = max(128, int(np.ceil(occ_max * factor / 128) * 128))
+
+    out = {k: np.zeros(mshape + (ntx, nty, cap_t), dtype=v.dtype)
+           for k, v in arrays.items()}
+    out["inv_gamma"][...] = 1.0
+    tcounts = np.zeros(mshape + (ntx, nty), dtype=np.int64)
+    for dev in np.ndindex(mshape):
+        order, occ = tiles[dev]
+        starts = np.concatenate([[0], np.cumsum(occ)])
+        for t in range(ntx * nty):
+            sel = order[starts[t]:starts[t + 1]]
+            m = len(sel)
+            if m > cap_t:
+                raise ValueError(
+                    f"tile capacity {cap_t} exceeded ({m}) on device {dev}")
+            tij = (t // nty, t % nty)
+            for k, v in arrays.items():
+                out[k][dev][tij][:m] = v[dev][sel]
+            tcounts[dev][tij] = m
+    alive = np.arange(cap_t) < tcounts[..., None]
+    return out, alive, cap_t

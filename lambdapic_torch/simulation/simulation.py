@@ -1,5 +1,6 @@
-"""The Simulation and Simulation3D entry points, cell engine on one device
-(counterpart of a subset of lambdapic_tpu/simulation/simulation.py).
+"""The Simulation and Simulation3D entry points on one device: the cell
+engine in 2D and 3D and the tiled 2D engine (counterpart of a subset of
+lambdapic_tpu/simulation/simulation.py).
 
 The public surface mirrors the JAX package: construct with grid,
 boundary and timing parameters, add Species, call ``run()`` with
@@ -10,6 +11,7 @@ item that will bring them.
 """
 from __future__ import annotations
 
+import dataclasses
 import logging
 import math
 from dataclasses import dataclass
@@ -27,10 +29,12 @@ from ..core.state import (ID_KEYS, SimulationState, cell_particles,
 from ..ops.cell2d import deposit_cell_2d
 from ..ops.cell3d import deposit_cell_3d
 from ..ops.cpml import CPMLParams, build_cpml
+from ..ops.tiled2d import TileCfg, fold_windows
+from ..ops.tiled2d_kernels import deposit_tiled_k
 from ..parallel.halo import halo_reduce
 from .callbacks import INNER_SUBSTAGES, SimulationCallbacks
-from .initfill import (bin_cells, count_macro_particles, fill_species,
-                       pick_capacity)
+from .initfill import (bin_cells, bin_tiled, count_macro_particles,
+                       fill_species, grow_minor, pick_capacity)
 from .step import SpeciesStatic, StepBuilder
 
 logger = logging.getLogger("lambdapic_torch")
@@ -101,15 +105,16 @@ def _validate_config(s: "Simulation") -> None:
 
 @dataclass
 class Simulation:
-    """2D PIC simulation on one device, cell engine.
+    """2D PIC simulation on one device, cell engine (``tiling="cell"``) or
+    tiled engine (``tiling=(TX, TY)`` with ``rebin_interval``).
 
     Parameters mirror lambdapic_tpu.Simulation. ``device``: "cuda"
-    (default) or "cpu". Only ``tiling="cell"`` is ported.
+    (default) or "cpu".
 
-    Arguments of the JAX Simulation that the cell engine never reads are
+    Arguments of the JAX Simulation that the ported engines never read are
     accepted and validated, so a user script ports unchanged:
-    ``migration_buffer`` (the scatter engine's buffer) and
-    ``recap_threshold`` (the scatter and tiled engines' occupancy trigger;
+    ``migration_buffer`` (the scatter engine's buffer) and, for the cell
+    engine, ``recap_threshold`` (the tiled engine's occupancy trigger;
     cell-mode re-capacity goes by merge pressure). ``tiling_backend`` must
     stay "auto" (CUDA kernels on a card, their plain versions on the CPU),
     and ``enable_timer=True`` waits for the timer utilities.
@@ -210,16 +215,34 @@ class Simulation:
                         f"script: {[s.name for s in compatible]}")
             self.add_species(compatible)
 
+    @property
+    def _tiled(self) -> bool:
+        return self.tiling is not None and self.tiling != "cell"
+
     def _check_supported(self):
-        if self.tiling != "cell":
-            raise _todo(f"tiling={self.tiling!r} (the scatter and tiled "
-                        "engines)", "12 and 13")
+        if self.tiling is None:
+            raise _todo("tiling=None (the scatter engine)", "12")
+        if self._tiled:
+            t = self.tiling
+            if not (isinstance(t, (tuple, list)) and len(t) == 2 and all(
+                    isinstance(v, int) and not isinstance(v, bool) and v > 0
+                    for v in t)):
+                raise ValueError("tiling must be 'cell', None or a pair of "
+                                 f"positive ints (TX, TY), got {t!r}")
+            if self.dimension != 2:
+                raise NotImplementedError(
+                    "tiling=(TX, TY) is 2D-only, as in lambdapic_tpu (ROADMAP "
+                    "queue 1, item 13 ported the 2D tiled engine)")
         if self.cell_migration not in ("fast", "exact"):
             raise ValueError(f"cell_migration must be 'fast' or 'exact', got "
                              f"{self.cell_migration!r}")
-        if self.rebin_interval != 1:
+        if not self._tiled and self.rebin_interval != 1:
             raise NotImplementedError(
                 "cell binning re-bins every step (rebin_interval=1)")
+        if isinstance(self.rebin_interval, bool) or not isinstance(
+                self.rebin_interval, int) or self.rebin_interval < 1:
+            raise ValueError("rebin_interval must be an int >= 1, got "
+                             f"{self.rebin_interval!r}")
         if self.step_chunk not in ("auto", 1):
             raise _todo("multi-step chunking (step_chunk)", "16")
         if self.tiling_backend != "auto":
@@ -250,13 +273,65 @@ class Simulation:
                  boundary_conditions=tuple(
                      sorted(self.boundary_conditions.items())), **extra)
         g.validate()
-        if g.n_guard < 2:
+        if self._tiled:
+            self._validate_tiling(g)
+        elif g.n_guard < 2:
             raise ValueError("cell binning needs n_guard >= 2 (the "
                              "post-rebin deposit stencil spans +-2)")
         return g
 
+    def _validate_tiling(self, g: Grid):
+        """The tiled engine's constraints (lambdapic_tpu Simulation.
+        _validate_tiling): tiles divide the grid, TX and TY >= 2 n_guard,
+        and the tile halo covers the drift of rebin_interval steps."""
+        tx, ty = self.tiling
+        if g.nx_loc % tx or g.ny_loc % ty:
+            raise ValueError(
+                f"per-device grid ({g.nx_loc}x{g.ny_loc}) must be divisible "
+                f"by the tile size ({tx}x{ty})")
+        if tx < 2 * g.n_guard or ty < 2 * g.n_guard:
+            raise ValueError("tile size must be >= 2*n_guard")
+        if self.rebin_interval > 1:
+            max_cdt = c_light * self.dt / min(self.dx, self.dy)
+            need = 2 + math.ceil(self.rebin_interval * max_cdt - 1e-12)
+            if g.n_guard < need:
+                raise ValueError(
+                    f"rebin_interval={self.rebin_interval} needs n_guard >="
+                    f" {need} (tile halo must cover the accumulated CFL "
+                    f"drift); got {g.n_guard}")
+
+    def _tile_cfg(self) -> Optional[TileCfg]:
+        """The tiling of the tiled engine (cap_t is each species' own),
+        None for the cell engine."""
+        if not self._tiled:
+            return None
+        tx, ty = self.tiling
+        return TileCfg(tx=tx, ty=ty, ntx=self.grid.nx // tx,
+                       nty=self.grid.ny // ty, cap_t=0, h=self.grid.n_guard)
+
+    def _bin(self, arrays, counts, cap_floor: Optional[int]):
+        """Bin flat per-device arrays into the engine's slot layout, the
+        slot axis at least ``cap_floor`` long (a Species(capacity=) or the
+        present capacity). Returns (arrays of the one device, alive,
+        slots)."""
+        if self._tiled:
+            arrays, alive_np, cap = bin_tiled(
+                arrays, counts, self.grid, *self.tiling,
+                factor=self.particle_capacity_factor)
+            if cap_floor is not None and cap_floor > cap:
+                old, cap = cap, cap_floor
+                arrays = {k: grow_minor(v, cap) for k, v in arrays.items()}
+                arrays["inv_gamma"][..., old:] = 1.0
+                alive_np = grow_minor(alive_np, cap)
+        else:
+            arrays, alive_np, cap = bin_cells(
+                arrays, counts, self.grid,
+                factor=self.particle_capacity_factor, cap_c=cap_floor)
+        dev0 = (0,) * self.dimension       # the one-device mesh
+        return {k: v[dev0] for k, v in arrays.items()}, alive_np[dev0], cap
+
     def initialize(self):
-        """Build grid, fields and cell-binned particles."""
+        """Build grid, fields and cell- or tile-binned particles."""
         self._add_default_species_if_empty()
         self._check_supported()
         self.npatch_x = self.npatch_y = 1
@@ -279,21 +354,24 @@ class Simulation:
                 cap = max(cap, int(np.ceil(sp.capacity / 128) * 128))
             arrays, counts = fill_species(self.grid, sp, self._seed_effective,
                                           ispec, cap)
-            cap_c = None
-            if sp.capacity is not None:
-                cap_c = max(4, int(np.ceil(
+            # Species(capacity=): a per-device floor, spread uniformly over
+            # the cells (or tiles)
+            floor = None
+            if sp.capacity is not None and self._tiled:
+                ntiles = (self.grid.nx // self.tiling[0]) * (
+                    self.grid.ny // self.tiling[1])
+                floor = int(np.ceil(sp.capacity / ntiles / 128) * 128)
+            elif sp.capacity is not None:
+                floor = max(4, int(np.ceil(
                     sp.capacity / int(np.prod(self.grid.shape)) / 2) * 2))
-            arrays, alive_np, cap_c = bin_cells(
-                arrays, counts, self.grid,
-                factor=self.particle_capacity_factor, cap_c=cap_c)
-            dev0 = (0,) * self.dimension       # the one-device mesh
-            arrays = {k: v[dev0] for k, v in arrays.items()}
-            parts.append(cell_particles(sp, arrays, alive_np[dev0],
-                                        self.dtype, self.device))
+            arrays, alive_np, cap_c = self._bin(arrays, counts, floor)
+            parts.append(cell_particles(sp, arrays, alive_np, self.dtype,
+                                        self.device, tiled=self._tiled))
             self._species_static.append(SpeciesStatic(
                 name=sp.name, q=sp.q, m=sp.m, pusher=sp.pusher, cap=cap_c))
             logger.info(f"Species {sp.name}: {int(counts.sum()):,} macro "
-                        f"particles, {cap_c} slots per cell")
+                        f"particles, {cap_c} slots per "
+                        + ("tile" if self._tiled else "cell"))
         self.state = SimulationState(fields=fields, particles=tuple(parts))
         self._loss_reported.clear()
         self._overflow_seen.clear()
@@ -339,7 +417,7 @@ class Simulation:
             self.grid, self.cpml, self.dt, self._species_static, lasers,
             with_rho=self._with_rho, dtype=self.dtype, device=self.device,
             qed_processes=self._qed_processes, base_key=self._base_key,
-            cell_migration=self.cell_migration)
+            cell_migration=self.cell_migration, tile_cfg=self._tile_cfg())
         self._builder.transients_valid.update(fresh)
 
     def _scalars(self, lasers) -> dict:
@@ -402,7 +480,12 @@ class Simulation:
             if not (split or cbs.due("maxwell_1")
                     or cbs.due("current_deposition")
                     or cbs.due("qed_create_particles")):
-                self.state = builder.full_step(self.state, sc)
+                # the tiled engine re-bins on the last step of each block
+                # of rebin_interval steps (the segmented and split steps
+                # always re-bin: early re-binning is always safe)
+                R = self.rebin_interval
+                self.state = builder.full_step(
+                    self.state, sc, migrate=self.itime % R == R - 1)
             else:
                 self.state = builder.seg_fields_1(self.state, sc)
                 cbs.run("maxwell_1")
@@ -435,27 +518,35 @@ class Simulation:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    # -- cell-mode re-capacity ------------------------------------------
+    # -- re-capacity ------------------------------------------------------
     def _maybe_recap(self):
-        """Grow a species' per-cell capacity 1.5x under sustained merge
-        pressure (more than 0.5% of its population merged since the last
-        check); single hot cells reaching capacity are left to the
-        weight-conserving merges."""
+        """Grow a species' slots a cell (or a tile) 1.5x or to the
+        occupancy plus four intervals' influx. The cell engine grows under
+        sustained merge pressure (more than 0.5% of its population merged
+        since the last check; single hot cells reaching capacity are left
+        to the weight-conserving merges); the tiled engine on any loss, or
+        before the fullest tile's occupancy plus twice the last interval's
+        influx passes ``recap_threshold`` of the capacity."""
         grew = False
         for ispec, p in enumerate(self.state.particles):
             cap = self._species_static[ispec].cap
             ov = int(p.overflow)
-            per_cell = p.alive.sum(dim=0, dtype=torch.int32)
-            occ, total = int(per_cell.max()), int(per_cell.sum())
+            per_slot = p.alive.sum(dim=p.slot_axis, dtype=torch.int32)
+            occ, total = int(per_slot.max()), int(per_slot.sum())
             influx = max(0, occ - self._occ_seen.get(ispec, 0))
             self._occ_seen[ispec] = occ
             new_ov = ov - self._overflow_seen.get(ispec, 0)
-            trigger = new_ov > 0.005 * max(total, 1)
+            if self._tiled:
+                trigger = new_ov > 0 or \
+                    occ + 2 * influx > self.recap_threshold * cap
+            else:
+                trigger = new_ov > 0.005 * max(total, 1)
             if new_ov > 0:
                 self._overflow_seen[ispec] = ov
                 log = logger.warning if trigger else logger.debug
+                verb = "lost" if self._tiled else "merged"
                 log(f"species {self.species[ispec].name}: {new_ov} particles "
-                    f"merged (occupancy {occ}/{cap}, alive {total})")
+                    f"{verb} (occupancy {occ}/{cap}, alive {total})")
             if trigger:
                 grew |= self._grow_capacity(
                     ispec, max(int(math.ceil(cap * 1.5)),
@@ -464,20 +555,22 @@ class Simulation:
             self._build_stepper(getattr(self, "_active_lasers", []))
 
     def _grow_capacity(self, ispec: int, new_cap: int) -> bool:
-        """Pad the slot axis with dead slots (inv_gamma 1, everything else
-        0). Slot order within a cell carries no physics, so the state is
-        unchanged. Returns whether the capacity grew."""
-        import dataclasses
+        """Pad the slot axis (the first for cells, the last for tiles) with
+        dead slots (inv_gamma 1, everything else 0). Slot order within a
+        cell or tile carries no physics, so the state is unchanged.
+        Returns whether the capacity grew."""
         p = self.state.particles[ispec]
         old = p.cap
         new_cap = int(new_cap) + (int(new_cap) & 1)   # keep it even
         if new_cap <= old:
             return False
+        axis = p.slot_axis
 
         def pad(t, fill):
-            extra = torch.full((new_cap - old,) + tuple(t.shape[1:]), fill,
-                               dtype=t.dtype, device=t.device)
-            return torch.cat([t, extra], dim=0)
+            shape = list(t.shape)
+            shape[axis] = new_cap - old
+            extra = torch.full(shape, fill, dtype=t.dtype, device=t.device)
+            return torch.cat([t, extra], dim=axis)
 
         data = {k: pad(v, 1 if k == "inv_gamma" else 0)
                 for k, v in p.data.items()}
@@ -487,7 +580,7 @@ class Simulation:
         self._species_static[ispec] = dataclasses.replace(
             self._species_static[ispec], cap=new_cap)
         logger.info(f"species {self.species[ispec].name}: capacity grown "
-                    f"{old} -> {new_cap}")
+                    f"{old} -> {new_cap} (slot axis {axis})")
         return True
 
     def _check_overflow(self):
@@ -496,10 +589,17 @@ class Simulation:
             ov = int(p.overflow)
             if ov > self._loss_reported.get(ispec, 0):
                 self._loss_reported[ispec] = ov
-                logger.warning(
-                    f"species {self.species[ispec].name}: {ov} particle "
-                    "merges so far (cumulative) from per-cell capacity "
-                    "pressure (charge/momentum conserved)")
+                if self._tiled:
+                    logger.warning(
+                        f"species {self.species[ispec].name}: {ov} "
+                        "particles lost so far (cumulative) to tile "
+                        "capacity overflow; increase "
+                        "particle_capacity_factor")
+                else:
+                    logger.warning(
+                        f"species {self.species[ispec].name}: {ov} particle "
+                        "merges so far (cumulative) from per-cell capacity "
+                        "pressure (charge/momentum conserved)")
 
     # -- data access ----------------------------------------------------
     def total_rho(self) -> torch.Tensor:
@@ -513,7 +613,13 @@ class Simulation:
                 continue
             d = p.data
             w = torch.where(p.alive, d["w"], 0.0)
-            if self.dimension == 2:
+            if self._tiled:
+                cfg = dataclasses.replace(self._tile_cfg(), cap_t=p.cap)
+                j4 = fold_windows(deposit_tiled_k(
+                    d["x"], d["y"], d["ux"], d["uy"], d["uz"],
+                    d["inv_gamma"], w, cfg, q=sp.q, dx=self.dx, dy=self.dy,
+                    dt=self.dt), cfg)
+            elif self.dimension == 2:
                 j4 = deposit_cell_2d(d["x"], d["y"], d["ux"], d["uy"],
                                      d["uz"], d["inv_gamma"], w, q=sp.q,
                                      dx=self.dx, dy=self.dy, dt=self.dt, g=g)
@@ -580,10 +686,9 @@ class Simulation:
                              attrs: Dict[str, np.ndarray]) -> None:
         """Replace one species' population by the particles given (SI
         positions in ``coords_si``, other arrays in ``attrs``), binned
-        into cells; ids restart at the flat slot index. Capacity floors:
-        the species' present capacity and 8; QED children follow their
-        parent's."""
-        import dataclasses
+        into cells (or tiles); ids restart at the flat slot index. Capacity
+        floors: the species' present capacity, and 8 slots a cell; QED
+        children follow their parent's."""
         if not self.initialized:
             raise RuntimeError("set_particles_global needs an initialised "
                                "Simulation (call initialize() first)")
@@ -600,16 +705,13 @@ class Simulation:
                 arrays[k][...] = np.asarray(v)
         for ax, d in zip(self.grid.axes, self.grid.deltas):
             arrays[ax][...] = np.asarray(coords_si[ax]) / d
-        arrays, alive_np, cap_c = bin_cells(
-            arrays, np.full(lead, n), self.grid,
-            factor=self.particle_capacity_factor, cap_c=max(st.cap, 8))
+        floor = st.cap if self._tiled else max(st.cap, 8)
+        arrays, alive_np, cap_c = self._bin(arrays, np.full(lead, n), floor)
         if cap_c != st.cap:
             self._species_static[ispec] = dataclasses.replace(st, cap=cap_c)
-        dev0 = (0,) * self.dimension
-        arrays = {k: v[dev0] for k, v in arrays.items()}
         parts = list(self.state.particles)
-        parts[ispec] = cell_particles(sp, arrays, alive_np[dev0], self.dtype,
-                                      self.device)
+        parts[ispec] = cell_particles(sp, arrays, alive_np, self.dtype,
+                                      self.device, tiled=self._tiled)
         self.state = self.state.replace(particles=tuple(parts))
         self._sync_qed_child_caps()
         self._builder = None

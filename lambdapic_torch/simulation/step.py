@@ -32,13 +32,26 @@ package does so for a reason that is not tiling:
   (Boris or 1/|u|), p2 half push, deposit (kernel B5, QED creation, J).
   The sub-stages talk through the particle arrays.
 
+The tiled 2D engine (``tile_cfg``, particles in (ntx, nty, cap_t) tile
+slots; lambdapic_tpu/simulation/step.py's tiled branch of
+make_species_block) runs per species: half push, the gather of E and B
+(kernel B8, photons included), the QED events, Boris (1/|u| for
+photons), half push, the deposit into per-tile windows (kernel B9)
+folded into a padded current (``fold_windows``, plain torch), and the
+re-binning between tiles (``tiled2d.migrate_tiled``, plain torch, as it
+is XLA in JAX) unless the step is built with ``migrate=False`` (the
+steps between re-binnings of ``rebin_interval``). QED newborns join
+their parents' tiles (``insert_tiled``). The split step runs the same
+sub-stages one at a time and re-bins in its deposit sub-stage.
+
 The grid's dimension (2 or 3) selects the 2D or the 3D form of each
 kernel, QED included. Host callbacks can run between the segments.
-Breit-Wheeler pairs, collisions, the tiled and scatter engines and
-multi-step chunking are not ported yet (ROADMAP queue 1).
+Breit-Wheeler pairs, collisions, the scatter engine and multi-step
+chunking are not ported yet (ROADMAP queue 1).
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 from dataclasses import dataclass
 from typing import Dict, FrozenSet, Optional, Sequence
@@ -59,6 +72,9 @@ from ..ops.cpml import CPMLCoeffs
 from ..ops.fieldskernel import half_coeffs, update_bfield_k, update_efield_k
 from ..ops.pusher import (boris_push, photon_push, push_position_2d,
                           push_position_3d)
+from ..ops.tiled2d import (TileCfg, fold_windows, insert_tiled,
+                           migrate_tiled)
+from ..ops.tiled2d_kernels import deposit_tiled_k, gather_tiled_k
 from ..parallel.halo import halo_pad, halo_reduce
 from .callbacks import INNER_SUBSTAGES
 
@@ -70,7 +86,8 @@ EB_PART = ("ex_part", "ey_part", "ez_part", "bx_part", "by_part", "bz_part")
 
 @dataclass(frozen=True)
 class SpeciesStatic:
-    """Per-species constants of the step."""
+    """Per-species constants of the step; ``cap`` is the length of the
+    slot axis (slots a cell, or a tile under tiling)."""
 
     name: str
     q: float
@@ -86,8 +103,12 @@ class StepBuilder:
                  device: torch.device = torch.device("cpu"),
                  qed_processes: Sequence = (),
                  base_key: Optional[torch.Tensor] = None,
-                 cell_migration: str = "fast"):
+                 cell_migration: str = "fast",
+                 tile_cfg: Optional[TileCfg] = None):
         self.grid = grid
+        # the tiled 2D engine's tiling (cap_t is each species' own); None
+        # for the cell engine
+        self.tile_cfg = tile_cfg
         self.cpml = cpml
         self.dt = dt
         self.species = tuple(species)
@@ -137,8 +158,25 @@ class StepBuilder:
     def _procs(self, ispec: int):
         return [pr for pr in self.qed_processes if pr.ispec == ispec]
 
-    def seg_particles(self, state: SimulationState, scalars: Dict
-                      ) -> SimulationState:
+    def _check_layout(self, state: SimulationState):
+        """The slot layout is the tiling's (``tile_cfg``, from Simulation.
+        tiling, the one owner); a state binned the other way is refused."""
+        tiled = self.tile_cfg is not None
+        for sp, p in zip(self.species, state.particles):
+            if p.tiled != tiled:
+                raise ValueError(
+                    f"species {sp.name}: slots binned "
+                    f"{'per tile' if p.tiled else 'per cell'}, but the step "
+                    f"is built for the {'tiled' if tiled else 'cell'} engine")
+
+    def seg_particles(self, state: SimulationState, scalars: Dict,
+                      migrate: bool = True) -> SimulationState:
+        """The particle stage of every species, QED creation and J.
+        ``migrate=False`` (tiled engine only) skips the re-binning."""
+        self._check_layout(state)
+        if self.tile_cfg is not None:
+            return self._particles_tiled(state, scalars, ALL_SUBSTAGES,
+                                         migrate)
         grid = self.grid
         f = state.fields
         eb_pad = self.pad_eb(f)
@@ -211,6 +249,9 @@ class StepBuilder:
         seg_particles_sub): the sub-stages ``stages`` of the per-stage
         engine over every species. The deposit sub-stage also runs the
         QED creation and sets J and rho."""
+        self._check_layout(state)
+        if self.tile_cfg is not None:
+            return self._particles_tiled(state, scalars, stages, True)
         f = state.fields
         eb_pad = self.pad_eb(f) if "interp" in stages else None
         jpad = None
@@ -323,17 +364,96 @@ class StepBuilder:
         return p.replace(data=data, alive=alive,
                          overflow=p.overflow + lost), jpad
 
+    def _particles_tiled(self, state: SimulationState, scalars: Dict,
+                         stages: FrozenSet[str], migrate: bool
+                         ) -> SimulationState:
+        """The sub-stages ``stages`` of the tiled engine over every
+        species; the deposit sub-stage also runs the QED creation and sets
+        J and rho."""
+        f = state.fields
+        eb_pad = self.pad_eb(f) if "interp" in stages else None
+        jpad = None
+        parts = []
+        for ispec, p in enumerate(state.particles):
+            p, jp = self.tiled_stages(ispec, p, eb_pad, scalars, stages,
+                                      migrate)
+            parts.append(p)
+            jpad = _add(jpad, jp)
+            self.transients_valid[ispec] = bool(self._procs(ispec)) or \
+                stages != ALL_SUBSTAGES
+        if "deposit" in stages:
+            for proc in self.qed_processes:
+                parts = self.qed_creation(proc, parts)
+            f = f.replace(**_current(self.reduce_j(jpad, f.ex)))
+        return state.replace(fields=f, particles=tuple(parts))
+
+    def tiled_stages(self, ispec: int, p: ParticlesState,
+                     eb_pad: Optional[torch.Tensor], scalars: Dict,
+                     stages: FrozenSet[str], migrate: bool = True):
+        """The tiled engine for one 2D species (the tiled branch of
+        lambdapic_tpu/simulation/step.py::make_species_block), restricted
+        to the sub-stages ``stages``. Returns (particles, the padded (4,
+        nx+2h, ny+2h) current or None)."""
+        grid = self.grid
+        sp = self.species[ispec]
+        dt = self.dt
+        cfg = dataclasses.replace(self.tile_cfg, cap_t=p.cap)
+        hx, hy = c_light * dt / grid.dx / 2, c_light * dt / grid.dy / 2
+        photon = sp.pusher == "photon"
+        procs = self._procs(ispec)
+        split = stages != ALL_SUBSTAGES
+        data, alive = dict(p.data), p.alive
+        pos = (data["x"], data["y"])
+        if "p1" in stages:
+            pos = push_position_2d(*pos, data["ux"], data["uy"],
+                                   data["inv_gamma"], hx, hy)
+        if "interp" in stages:
+            eb = gather_tiled_k(eb_pad, *pos, cfg)
+            if procs or split:
+                data.update(zip(EB_PART, eb))
+        else:
+            eb = tuple(data[k] for k in EB_PART)
+        if "qed" in stages and procs:
+            key = self._species_key(scalars, ispec)
+            for proc in procs:
+                data, alive = proc.update_chi_and_events(data, alive, key, dt)
+        ux, uy, uz = data["ux"], data["uy"], data["uz"]
+        ig = data["inv_gamma"]
+        if "mom" in stages:
+            if photon:
+                ig = photon_push(ux, uy, uz)
+            else:
+                ux, uy, uz, ig = boris_push(ux, uy, uz, *eb, sp.q, sp.m, dt)
+        if "p2" in stages:
+            pos = push_position_2d(*pos, ux, uy, ig, hx, hy)
+        data.update(x=pos[0], y=pos[1], ux=ux, uy=uy, uz=uz, inv_gamma=ig)
+        jpad = None
+        lost = 0
+        if "deposit" in stages:
+            if sp.q != 0.0:
+                w = torch.where(alive, data["w"], 0.0)
+                win = deposit_tiled_k(*pos, ux, uy, uz, ig, w, cfg, q=sp.q,
+                                      dx=grid.dx, dy=grid.dy, dt=dt)
+                jpad = fold_windows(win, cfg)
+            if migrate:
+                data, alive, lost = migrate_tiled(
+                    data, alive, cfg, self.periodic, grid.nx, grid.ny,
+                    recompute_ig=not photon)
+        return p.replace(data=data, alive=alive,
+                         overflow=p.overflow + lost), jpad
+
     def qed_creation(self, proc, parts):
         """Photon birth of one Compton process: each event of the parent
         species adds a photon (the parent's position and weight, momentum
-        delta * u) to a dead photon slot of the parent's cell, and the
-        parent recoils. Newborns without a free slot are counted in the
-        photons' overflow."""
+        delta * u) to a dead photon slot of the parent's cell (or tile,
+        under tiling), and the parent recoils. Newborns without a free
+        slot are counted in the photons' overflow."""
         parts = list(parts)
         e, ph = parts[proc.ispec], parts[proc.photon_ispec]
         ev = e.alive & (e.data["event"] > 0)
         new = proc.photon_newborns(e.data, self.grid.dimension)
-        phdata, phalive, phnext, lost = insert_cells(
+        insert = insert_tiled if self.tile_cfg is not None else insert_cells
+        phdata, phalive, phnext, lost = insert(
             ph.data, ph.alive, ph.next_id, new, ev)
         parts[proc.ispec] = e.replace(data=proc.apply_recoil(e.data, ev))
         parts[proc.photon_ispec] = ph.replace(
@@ -349,10 +469,10 @@ class StepBuilder:
         f = self._half(f, "e")
         return state.replace(fields=f)
 
-    def full_step(self, state: SimulationState, scalars: Dict
-                  ) -> SimulationState:
+    def full_step(self, state: SimulationState, scalars: Dict,
+                  migrate: bool = True) -> SimulationState:
         state = self.seg_fields_1(state, scalars)
-        state = self.seg_particles(state, scalars)
+        state = self.seg_particles(state, scalars, migrate)
         return self.seg_fields_2(state, scalars)
 
 

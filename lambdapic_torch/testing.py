@@ -186,7 +186,8 @@ def tiny_laser_target(pkg, *, nx: int = 48, ny: int = 32, **sim_kw):
     lambdapic_torch, passed in): electrons (a y-dependent momentum so that
     particles cross cells) and protons in a 0.4 um foil at x = Lx/2, PML
     on all faces, a GaussianLaser2D of a0 = 2, float64, seed 1. Returns
-    (sim, laser); ``sim_kw`` go to the Simulation."""
+    (sim, laser); ``sim_kw`` go to the Simulation (``tiling`` defaults to
+    "cell")."""
     um = 1e-6
     l0 = 0.8 * um
     dx = l0 / 16
@@ -206,7 +207,67 @@ def tiny_laser_target(pkg, *, nx: int = 48, ny: int = 32, **sim_kw):
                pkg.Proton(density=density, ppc=2)]
     laser = pkg.GaussianLaser2D(a0=2, l0=l0, w0=0.6 * um, ctau=0.5 * um,
                                 x0=0.0, focus_position=Lx / 4)
-    sim = pkg.Simulation(nx=nx, ny=ny, dx=dx, dy=dx, tiling="cell",
-                         random_seed=1, precision="double", **sim_kw)
+    sim_kw.setdefault("tiling", "cell")
+    sim = pkg.Simulation(nx=nx, ny=ny, dx=dx, dy=dx, random_seed=1,
+                         precision="double", **sim_kw)
     sim.add_species(species)
     return sim, laser
+
+
+def tiny_tiled_laser_target(pkg, *, rebin_interval: int = 1, **sim_kw):
+    """``tiny_laser_target`` at 64 x 32 cells under the tiled engine:
+    tiling (16, 16) (4 x 2 tiles; the foil's front sits on a tile face),
+    ``rebin_interval`` R and the n_guard it needs (3, or 2 + ceil(R c dt
+    / dx) for R > 1, as bench.py sets it)."""
+    import math
+    n_guard = 3 if rebin_interval == 1 else \
+        2 + math.ceil(rebin_interval * 0.95 / 2**0.5)
+    return tiny_laser_target(pkg, nx=64, ny=32, tiling=(16, 16),
+                             rebin_interval=rebin_interval, n_guard=n_guard,
+                             **sim_kw)
+
+
+def tiled_state(cfg, *, seed: int = 0, n_frac: float = 0.4,
+                drift: float = 1.0, umax: float = 2.0, field: float = 5e11,
+                qed: bool = False):
+    """A tiled 2D species state ``(ntx, nty, cap_t)`` for the TileCfg
+    ``cfg`` and a random padded E/B stack (6, nx+2h, ny+2h). Alive slots
+    lie within [-0.5 - drift, T - 0.5 + drift) of their tile's origin
+    (the drift since the last re-binning, in cells), one in twenty on
+    one of those two edges; momenta up to +-umax. Dead slots hold what
+    the re-binning leaves there: x = y = w = u = 0, inv_gamma 1. With
+    ``qed`` the QED attributes and the gathered-field slots are added.
+    Returns (data, alive, eb_pad) as numpy arrays, ids as uint32."""
+    rng = np.random.default_rng(seed)
+    shape = (cfg.ntx, cfg.nty, cfg.cap_t)
+    alive = rng.uniform(0, 1, shape) < n_frac
+    edge = rng.uniform(0, 1, shape)
+
+    def position(t, n, axis):
+        lo, hi = -0.5 - drift, t - 0.5 + drift
+        local = rng.uniform(lo, hi, shape)
+        local = np.where(edge < 0.025, lo, local)
+        local = np.where(edge > 0.975, np.nextafter(hi, lo), local)
+        origin = (np.arange(n) * t).reshape((n, 1, 1) if axis == 0
+                                            else (1, n, 1))
+        return np.where(alive, origin + local, 0.0)
+
+    data = {"x": position(cfg.tx, cfg.ntx, 0),
+            "y": position(cfg.ty, cfg.nty, 1)}
+    u = [np.where(alive, rng.uniform(-umax, umax, shape), 0.0)
+         for _ in range(3)]
+    data.update(ux=u[0], uy=u[1], uz=u[2])
+    data["inv_gamma"] = 1 / np.sqrt(1 + u[0]**2 + u[1]**2 + u[2]**2)
+    data["w"] = np.where(alive, rng.uniform(0.5, 1.5, shape), 0.0)
+    data["id_lo"] = rng.permutation(int(np.prod(shape))).reshape(
+        shape).astype(np.uint32)
+    data["id_hi"] = np.zeros(shape, np.uint32)
+    if qed:
+        data = add_qed_payloads(data, seed)
+        for k in ("ex_part", "ey_part", "ez_part", "bx_part", "by_part",
+                  "bz_part"):
+            data[k] = rng.normal(size=shape)
+    nxp = cfg.ntx * cfg.tx + 2 * cfg.h
+    nyp = cfg.nty * cfg.ty + 2 * cfg.h
+    eb_pad = rng.uniform(-field, field, (6, nxp, nyp))
+    return data, alive, eb_pad
