@@ -11,6 +11,8 @@
                           [--window-qed3d W] [--steps-split-qed3d N]
                           [--steps-exact-qed3d N] [--steps-tiled N]
                           [--window-tiled W] [--steps-tiled-qed N]
+                          [--steps-mesh N] [--window-mesh W]
+                          [--steps-mesh3d N] [--window-mesh3d W]
     python3 chip_smoke.py --exact2d-digest N
 
 Phases (any failure exits non-zero):
@@ -100,8 +102,25 @@ Phases (any failure exits non-zero):
    --steps-tiled-qed (200) steps (B1 4, B8 3, B9 2; photons born through
    insert_tiled).
 
+12. the cell engine on a device mesh (every shard on the one card): K4
+   (B2's cross-device x edges and one dispatch per split y / z axis) and
+   K5 (B3's guard strips) against their plain versions, in float64 on
+   small 2D and 3D meshes (slot for slot, merges and corner movers) and
+   in float32 at the 2D slice's 2 x 2 shards and on a 2 x 2 x 2 mesh of
+   the 3D slice's last x-planes; right after phase 4 (before the split
+   steps) the 2D slice's end state on a 2 x 2 mesh for --steps-mesh (50)
+   steps (B2 24, B3 12 a step; B1 0: on a mesh the fields are the plain
+   Yee updates, as in the JAX package), and right after phase 6 the 3D
+   slice's end state on a 2 x 2 x 2 mesh for --steps-mesh3d (10) steps
+   (B2 48, B3 32), each timed, profiled and held against the same steps
+   on one device from the same state: alive counts and weights in
+   float32, and fields, ids, positions and momenta in float64 (the 3D on
+   its last 64 x-planes); K4's dispatches and K5's launches timed on a
+   shard. The slices then go on from their end states as before.
+
 Prints a ``{"kernels": [...]}`` line with the 2D, the tiled, the
-per-stage, the QED, the 3D, the 3D QED and the 3D per-stage kernels (B8's
+per-stage, the QED, the 3D, the 3D QED, the 3D per-stage and the mesh
+kernels (K4 and K5 in 2D and 3D; B8's
 and B9's bounds also counted from the Pallas calls' shapes at bench.py's
 form), the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.
@@ -814,6 +833,7 @@ def run_2d(args, dev):
     ]
     log(f"[kernels 2D] launches per step {per_step}")
     del rims, eb_pad
+    kernels += run_mesh_2d(args, sim, laser)
     run_split(args, sim, laser)
     return kernels
 
@@ -3941,6 +3961,874 @@ def run_tiled_qed(args, dev):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the cell engine on a device mesh: K4 (B2's cross-device and
+# multi-dispatch modes) and K5 (B3's cross-device strips), the 2D slice on
+# a 2 x 2 mesh and the 3D slice on a 2 x 2 x 2 mesh of the one card
+# ---------------------------------------------------------------------------
+
+# (mesh, cap, cells per shard, periodic, crowded): float64 K4/K5 cases,
+# with merges in the crowded ones and corner movers in all
+MESH_CASES = [((2, 1), 6, (16, 24), (True, False), True),
+              ((2, 2), 4, (16, 16), (False, True), False),
+              ((2, 2), 8, (17, 16), (True, True), True),
+              ((1, 4), 4, (20, 16), (False, False), False),
+              ((1, 2, 1), 4, (8, 8, 8), (True, False, True), True),
+              ((2, 2, 2), 4, (8, 8, 8), (True, True, False), False),
+              ((2, 2, 2), 6, (8, 9, 8), (False, True, True), True),
+              ((1, 1, 2), 4, (8, 8, 8), (False, False, True), True)]
+# the 3D mesh-versus-one-device gates run in float64 on the last
+# MESH_PLANES_F64 x-planes (shards of 32 x 128 x 128): a float64 state of
+# the whole 3D grid does not fit the card beside its step's temporaries
+MESH_PLANES_F64 = 64
+MESH_NAMES = ("px", "py", "pz")
+
+
+def mesh_of(shape, dev):
+    from lambdapic_torch.parallel.mesh import Mesh
+    n = int(np.prod(shape))
+    return Mesh(tuple(shape), MESH_NAMES[:len(shape)], (dev,) * n)
+
+
+def reset_mesh_launches():
+    from lambdapic_torch.ops import cellslab
+    for d in (cellslab.cell_step.launches_by_dispatch,
+              cellslab.fold_reduce.launches_by_kind):
+        for k in d:
+            d[k] = 0
+
+
+def check_mesh_f64(dev):
+    """K4 and K5 against their plain versions in float64 on the small
+    meshes of MESH_CASES (every shard on the one card): slot for slot
+    after canonicalisation, merges equal, panels and J to 1e-12 of their
+    peak. Returns the merges of the crowded cases."""
+    import torch
+    from lambdapic_torch.ops.cellslab import (cell_step, cell_step_mesh,
+                                              cell_step_plain, fold_reduce,
+                                              fold_reduce_plain)
+    from lambdapic_torch.parallel.halo import HaloSpec
+    from lambdapic_torch.testing import (compare_mesh_slots, mesh_to_numpy,
+                                         mesh_to_torch, random_mesh_cells)
+    q, m, dt, dx, g = -1.602e-19, 9.109e-31, 1.1e-16, 5e-8, 3
+    merges = []
+    for shape, cap, nloc, per, crowded in MESH_CASES:
+        nd = len(shape)
+        mesh = mesh_of(shape, dev)
+        specs = tuple(HaloSpec(MESH_NAMES[i], shape[i], per[i])
+                      for i in range(nd))
+        data, alive, eb = random_mesh_cells(shape, cap, nloc,
+                                            seed=cap + sum(nloc),
+                                            crowded=crowded,
+                                            n_frac=0.9 if crowded else 0.4)
+        shards = mesh_to_torch(data, alive, mesh, torch.float64)
+        ebs = [torch.as_tensor(eb[mesh.coords(i)]).to(dev)
+               for i in range(mesh.size)]
+        outs = []
+        for step, fold in ((cell_step, fold_reduce),
+                           (cell_step_plain, fold_reduce_plain)):
+            res = cell_step_mesh(ebs, [d for d, _ in shards],
+                                 [a for _, a in shards], mesh, specs, q=q,
+                                 m=m, dt=dt, dx=dx, dy=dx,
+                                 dz=dx if nd == 3 else None, g=g, step=step)
+            outs.append((res, fold([r[3] for r in res], nloc, None, mesh,
+                                   specs)))
+        torch.cuda.synchronize()
+        (got, jg), (ref, jr) = outs
+        gd, ga = mesh_to_numpy([(r[0], r[1]) for r in got], shape)
+        rd, ra = mesh_to_numpy([(r[0], r[1]) for r in ref], shape)
+        try:
+            compare_mesh_slots(rd, ra, gd, ga, shape, rtol=1e-11)
+        except AssertionError as e:
+            fail(f"K4 f64 {shape}: {str(e)[:400]}")
+        lg, lr = [int(r[2]) for r in got], [int(r[2]) for r in ref]
+        if lg != lr:
+            fail(f"K4 f64 {shape}: merges {lg} vs {lr}")
+        if crowded and sum(lr) == 0:
+            fail(f"K4 f64 {shape}: the crowded case merged nothing")
+        for a, b in zip(got, ref):
+            err = float((a[3] - b[3]).abs().max())
+            if not err <= 1e-12 * float(b[3].abs().max()):
+                fail(f"K4 f64 {shape}: panels differ by {err:.3e}")
+        peak = max(float(b.abs().max()) for b in jr)
+        err = max(float((a - b).abs().max()) for a, b in zip(jg, jr))
+        if not err <= 1e-12 * peak:
+            fail(f"K5 f64 {shape}: J differs by {err:.3e} of {peak:.3e}")
+        moved = int(sum(int((np.asarray(gd["id_hi"])[c][ga[c]] !=
+                             np.ravel_multi_index(c, shape)).sum())
+                        for c in np.ndindex(shape)))
+        log(f"[kernels mesh f64 {shape}] slot-exact; {moved} alive slots "
+            f"from another shard; merges {sum(lr)}; J {err:.2e} of peak")
+        merges.append(sum(lr))
+    return merges
+
+
+def check_shard_f32(tag, twin, ispec=0):
+    """K4 and K5 against their plain versions in float32 at the slice's
+    shard shape, on species ``ispec`` of the mesh run ``twin``, whose
+    state is dropped (its slots are freed once the first step has read
+    them; the other species and the fields at once). One kernel step of the whole mesh in fields
+    strong enough to carry particles across shard faces and corners in
+    one step (uniform +-5e13, seed 5) gives the particles momenta. The
+    next step then runs dispatch by dispatch as cell_step_mesh runs it:
+    every shard's kernel dispatch (the next dispatch's input), and on the
+    busiest shard the plain version of the same dispatch on the same
+    input, its neighbours' edge columns included. Each dispatch holds
+    alive masks and ids identical, merges equal and the total weight to
+    1e-6; the tail its panels to 1e-4 of their peak. K5 (the fold and its
+    strip adds across the mesh) is held against fold_reduce_plain on the
+    kernel's panels, J to 1e-4 of its peak. Returns ((K4 panel error, K5
+    J error) as absolute values, the plain dispatches' ms on the busy
+    shard, the plain fold's ms a shard), the plain times from CUDA events
+    around one call after a warm-up."""
+    import torch
+    from lambdapic_torch.ops.cellslab import (
+        FLOAT_PAYLOADS, ID_PAYLOADS, cell_step, cell_step_mesh,
+        cell_step_plain, dispatch_groups, edge_columns, extra_payloads,
+        fold_reduce, fold_reduce_plain)
+    grid, mesh, specs = twin.grid, twin.mesh, twin._builder.specs
+    sp, dt = twin._species_static[ispec], twin.dt
+    g = grid.n_guard
+    nloc = grid.local_shape
+    nd = len(nloc)
+    n = mesh.size
+    ps = [s.particles[ispec] for s in twin.state.shards]
+    datas, alives = [p.data for p in ps], [p.alive for p in ps]
+    twin.state = None
+    del ps
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(5)
+    dev = mesh.devices[0]
+    ebs = [torch.as_tensor(rng.uniform(-5e13, 5e13, (6,) + tuple(
+        k + 2 * g for k in nloc)).astype(np.float32)).to(dev)
+           for _ in range(n)]
+    kw = dict(q=sp.q, m=sp.m, dt=dt, dx=grid.dx, dy=grid.dy,
+              dz=grid.dz if nd == 3 else None, g=g, with_rho=False)
+    first = cell_step_mesh(ebs, datas, alives, mesh, specs, **kw)
+    del datas, alives
+    cur = [r[0] for r in first]
+    cur_alive = [r[1] for r in first]
+    del first
+    torch.cuda.empty_cache()
+    kw["periodic"] = tuple(s.periodic for s in specs)
+    busy = int(np.argmax([int(a.sum()) for a in cur_alive]))
+    start = cur_alive[busy].clone()
+    names = FLOAT_PAYLOADS + ID_PAYLOADS + extra_payloads(cur[0])
+    xe = edge_columns(cur, cur_alive, names + ("inv_gamma",), 0, specs[0],
+                      mesh) if specs[0].size > 1 else None
+    groups = dispatch_groups(mesh.shape)
+    plain_ms = 0.0
+    rims = [None] * n
+    pan_err = 0.0
+    for gi, grp in enumerate(groups):
+        last = gi == len(groups) - 1
+        yz = None if gi == 0 else edge_columns(cur, cur_alive, names, grp[0],
+                                               specs[grp[0]], mesh)
+
+        def disp(step, i):
+            return step(ebs[i] if last else None, cur[i], cur_alive[i],
+                        edges_lo=xe[i][0] if gi == 0 and xe else None,
+                        edges_hi=xe[i][1] if gi == 0 and xe else None,
+                        merge_axes=grp, tail=last,
+                        yz_edges=None if yz is None else (grp[0],)
+                        + tuple(yz[i]), **kw)
+        ref = disp(cell_step_plain, busy)
+        ms = cuda_time(lambda: disp(cell_step_plain, busy), 1)
+        plain_ms += ms
+        got = None
+        for i in range(n):
+            out = disp(cell_step, i)
+            if i == busy:
+                got = out
+            cur[i], cur_alive[i] = out[0], out[1]
+            if last:
+                rims[i] = out[3]
+            del out
+        torch.cuda.synchronize()
+        same = torch.equal(got[1], ref[1]) and all(
+            torch.equal(got[0][k][got[1]], ref[0][k][ref[1]])
+            for k in ("id_lo", "id_hi"))
+        mg, mr = int(got[2]), int(ref[2])
+        w = [float(torch.where(r[1], r[0]["w"], 0).sum(dtype=torch.float64))
+             for r in (got, ref)]
+        msg = ""
+        if last:
+            peak = float(ref[3].abs().max())
+            pan_err = float((got[3] - ref[3]).abs().max())
+            msg = f"; panels {pan_err:.3e} of peak {peak:.3e}"
+        log(f"[kernels mesh f32 {tag} dispatch {grp}] shard {busy} of {n}, "
+            f"{tuple(cur_alive[busy].shape)} slots: merges {mg} vs {mr}; "
+            f"weight rel {abs(w[0] - w[1]) / abs(w[1]):.2e}; alive masks "
+            f"and ids identical: {same}{msg}; plain {ms:.2f} ms")
+        if not same or mg != mr:
+            fail(f"K4 {tag} float32 dispatch {grp}: alive masks, ids or "
+                 "merges differ from the plain version")
+        if not abs(w[0] - w[1]) <= 1e-6 * abs(w[1]):
+            fail(f"K4 {tag} float32 dispatch {grp}: total weight {w[0]} "
+                 f"vs {w[1]}")
+        if last and not pan_err <= 1e-4 * peak:
+            fail(f"K4 {tag} float32: panels differ by {pan_err:.3e}")
+        del ref, got, yz
+    moved = int((cur_alive[busy] != start).sum())
+    del cur, cur_alive, xe, start
+    torch.cuda.empty_cache()
+    if moved == 0:
+        fail(f"K4 {tag} float32: the compared step re-binned nothing")
+    jg = fold_reduce(rims, nloc, None, mesh, specs)
+    jr = fold_reduce_plain(rims, nloc, None, mesh, specs)
+    torch.cuda.synchronize()
+    j_peak = max(float(t.abs().max()) for t in jr)
+    j_err = max(float((a - b).abs().max()) for a, b in zip(jg, jr))
+    del jg, jr
+    fold_ms = cuda_time(lambda: fold_reduce_plain(rims, nloc, None, mesh,
+                                                  specs), 1) / n
+    log(f"[kernels mesh f32 {tag}] {moved} slots of shard {busy} changed "
+        f"occupancy in the compared step; K5 J {j_err:.3e} of peak "
+        f"{j_peak:.3e}; plain: the shard's dispatches {plain_ms:.2f} ms, "
+        f"the fold {fold_ms:.2f} ms a shard")
+    if not j_err <= 1e-4 * j_peak:
+        fail(f"K5 {tag} float32: J differs by {j_err:.3e}")
+    del rims, ebs
+    torch.cuda.empty_cache()
+    return (pan_err, j_err), plain_ms, fold_ms
+
+
+def mesh_results(sim):
+    """What a mesh run and its one-device twin are compared on: the
+    global fields and, per species, the alive particles' ids, positions in
+    global cell units and momenta, on the host."""
+    fields = {k: sim.get_field(k) for k in
+              ("ex", "ey", "ez", "bx", "by", "bz", "jx", "jy", "jz")}
+    parts = []
+    for ispec in range(len(sim.species)):
+        p = sim.get_particles(ispec)
+        key = p["id_lo"].astype(np.int64) * 4096 + p["id_hi"].astype(np.int64)
+        order = np.argsort(key)
+        parts.append(dict(key=key[order], w=p["w"][order].astype(np.float64),
+                          **{a: p[a][order] / d for a, d in
+                             zip(sim.grid.axes, sim.grid.deltas)},
+                          **{k: p[k][order].astype(np.float64)
+                             for k in ("ux", "uy", "uz")}))
+    return fields, parts
+
+
+def compare_mesh_runs(tag, mres, ores, grid):
+    """The gates of a mesh run against the one-device run from the same
+    state: finite fields, E, B and J within 1e-4 of each component's
+    peak; per species the same total weight (1e-6) and alive count but for
+    the ids alive in one run only (at most 1e-6 of the alive count, each
+    printed with its distance to a cell face); the particles matched by id
+    within 1e-4 cells and momenta within rtol 1e-4 (floor 1e-6 of the
+    species' peak |u|). Run on float64 twins (compare_on_mesh): in float32
+    the two runs' rounding apart flips merges (check_totals). Returns the
+    measured differences."""
+    mf, mp = mres
+    of, op = ores
+    out = {}
+    for k, a in mf.items():
+        b = of[k]
+        if not np.isfinite(a).all():
+            fail(f"{tag}: field {k} is not finite on the mesh")
+        peak = float(np.abs(b).max())
+        err = float(np.abs(a - b).max())
+        out[k] = err / peak if peak else err
+        if not err <= 1e-4 * peak:
+            fail(f"{tag}: {k} differs by {err:.3e}, peak {peak:.3e}")
+    log(f"[{tag}] fields: mesh vs one device, max |diff| / peak "
+        + ", ".join(f"{k} {v:.2e}" for k, v in out.items()))
+    tol = 1e-4
+    for ispec, (a, b) in enumerate(zip(mp, op)):
+        common, ia, ib = np.intersect1d(a["key"], b["key"],
+                                        assume_unique=True,
+                                        return_indices=True)
+        only_a = np.setdiff1d(np.arange(len(a["key"])), ia)
+        only_b = np.setdiff1d(np.arange(len(b["key"])), ib)
+        n = len(b["key"])
+        for which, idx, src in (("mesh", only_a, a), ("one device", only_b,
+                                                      b)):
+            for j in idx[:20]:
+                pos = [float(src[ax][j]) for ax in grid.axes]
+                face = min(abs((x + 0.5) - round(x + 0.5)) for x in pos)
+                log(f"[{tag}] species {ispec}: id {int(src['key'][j])} alive "
+                    f"only in the {which} run, at {pos} cells, "
+                    f"{face:.2e} cells from a cell face")
+        n_only = len(only_a) + len(only_b)
+        if n_only > 1e-6 * n:
+            fail(f"{tag}: species {ispec}: {n_only} ids alive in one run "
+                 f"only (> 1e-6 of {n})")
+        if abs(len(a["key"]) - n) > n_only:
+            fail(f"{tag}: species {ispec}: alive {len(a['key'])} vs {n}")
+        wa, wb = float(a["w"].sum()), float(b["w"].sum())
+        if not abs(wa - wb) <= 1e-6 * abs(wb):
+            fail(f"{tag}: species {ispec}: total weight {wa} vs {wb}")
+        dpos = max(float(np.abs(a[ax][ia] - b[ax][ib]).max())
+                   for ax in grid.axes) if len(common) else 0.0
+        rms = max(float(np.sqrt(np.mean((a[ax][ia] - b[ax][ib])**2)))
+                  for ax in grid.axes) if len(common) else 0.0
+        upeak = max(float(np.abs(b[k]).max()) for k in ("ux", "uy", "uz"))
+        du = max(float((np.abs(a[k][ia] - b[k][ib])
+                        / (np.abs(b[k][ib]) + max(1e-6 * upeak, 1e-300))
+                        ).max())
+                 for k in ("ux", "uy", "uz")) if len(common) else 0.0
+        log(f"[{tag}] species {ispec}: {len(common)} ids in both runs, "
+            f"{len(only_a)} in the mesh run only, {len(only_b)} in the "
+            f"one-device run only; positions max {dpos:.3e} rms {rms:.3e} "
+            f"cells (gate {tol:.3e}); momenta rel {du:.3e} (gate 1e-4); "
+            f"weight rel {abs(wa - wb) / abs(wb):.2e}")
+        if not dpos <= tol:
+            fail(f"{tag}: species {ispec}: positions differ by {dpos:.3e} "
+                 f"cells (> {tol:.3e})")
+        if not du <= 1e-4:
+            fail(f"{tag}: species {ispec}: momenta differ by rtol {du:.3e}")
+        out[f"pos{ispec}"], out[f"u{ispec}"] = dpos, du
+    return out
+
+
+def dispatch_ms(tag, twin, iters, ispec=0):
+    """Kernel times of one shard's K4 dispatches and K5 launches at the
+    slice's per-shard shapes (the shard with the most alive particles of
+    species ``ispec``, the twin's present state and fields), from CUDA
+    events around ``iters`` calls (for a small launch that includes the
+    host's issue time). These launches are not the main path's and are
+    not counted there. Returns a dict of ms and the bytes of the
+    bounds (counted as PERF.md §6 counts B2's and B3's: the mask, the
+    alive slots' payloads, the gather's nodes, one write of every slot
+    and of the panels, the edge columns read once; the panels read, the
+    strips sent and received, J written)."""
+    import torch
+    from lambdapic_torch.ops import cellslab
+    from lambdapic_torch.ops.cellslab import (FLOAT_PAYLOADS, ID_PAYLOADS,
+                                              cell_step, dispatch_groups,
+                                              edge_columns, panel_shape)
+    grid, mesh = twin.grid, twin.mesh
+    specs = twin._builder.specs
+    nd = grid.dimension
+    sp = twin._species_static[ispec]
+    shards = twin.state.shards
+    ebs = twin._builder.pad_eb([s.fields for s in shards])
+    groups = dispatch_groups(mesh.shape)
+    names = FLOAT_PAYLOADS + ID_PAYLOADS
+    kw = dict(q=sp.q, m=sp.m, dt=twin.dt, dx=grid.dx, dy=grid.dy,
+              dz=grid.dz if nd == 3 else None, g=grid.n_guard,
+              periodic=tuple(s.periodic for s in specs),
+              with_rho=twin._builder.with_rho)
+    out = {}
+    ps = [s.particles[ispec] for s in shards]
+    datas, alives = [p.data for p in ps], [p.alive for p in ps]
+    busy = int(np.argmax([int(a.sum()) for a in alives]))
+    xe = edge_columns(datas, alives, names + ("inv_gamma",), 0, specs[0],
+                      mesh) if specs[0].size > 1 else None
+    rims = None
+    for gi, grp in enumerate(groups):
+        last = gi == len(groups) - 1
+        yz = None if gi == 0 else edge_columns(datas, alives, names, grp[0],
+                                               specs[grp[0]], mesh)
+
+        def disp(i):
+            return cell_step(
+                ebs[i] if last else None, datas[i], alives[i],
+                merge_axes=grp, tail=last,
+                edges_lo=xe[i][0] if gi == 0 and xe else None,
+                edges_hi=xe[i][1] if gi == 0 and xe else None,
+                yz_edges=None if yz is None else (grp[0],) + tuple(yz[i]),
+                **kw)
+        out[f"dispatch {grp}"] = cuda_time(lambda: disp(busy), iters)
+        log(f"[time K4 {tag} dispatch {grp}] {out[f'dispatch {grp}']:.4f} "
+            f"ms a call (CUDA events), shard {busy} of {mesh.size}")
+        if last:
+            rims = disp(busy)[3]
+        else:
+            # the next dispatch's input on every shard
+            res = [disp(i) for i in range(mesh.size)]
+            datas = [{**d, **r[0]} for d, r in zip(datas, res)]
+            alives = [r[1] for r in res]
+            del res
+        del yz
+    split = tuple(sp_.size > 1 for sp_ in specs)
+    nloc = grid.local_shape
+    fold_fn = (lambda: cellslab._fold(rims, nloc, kw["periodic"], split))
+    out["fold"] = cuda_time(fold_fn, iters)
+    q = fold_fn()
+    strips = []
+    for ax in reversed(range(nd)):
+        if split[ax]:
+            axis = 1 + ax
+            lo = q.narrow(axis, 0, 2).contiguous()
+            fn = (lambda q=q, axis=axis, lo=lo: cellslab._fold_strips(
+                q, axis, lo, lo))
+            strips.append(cuda_time(fn, iters))
+            q = fn()
+    out["strips"] = sum(strips)
+    log(f"[time K5 {tag}] fold {out['fold']:.4f} ms, strips "
+        f"{[round(v, 4) for v in strips]} ms a call (CUDA events), shard "
+        f"{busy}")
+    isz = ebs[0].element_size()
+    a0 = ps[busy].alive
+    slots, n_alive = a0.numel(), int(a0.sum())
+    slot_b = 1 + 8 * isz + 2 * 4
+    ncomp = 4 if twin._builder.with_rho else 3
+    pan_b = int(np.prod(panel_shape(ncomp, *nloc))) * isz
+    nodes = gather_nodes(a0, grid.n_guard) if nd == 2 else \
+        gather_nodes_3d(a0, grid.n_guard)
+    edge_b = 2 * sum(slots // nloc[ax] for ax in range(nd)
+                     if specs[ax].size > 1) * slot_b
+    out["bytes_k4"] = (slots + n_alive * (slot_b - 1) + slots * slot_b
+                       + nodes * isz + pan_b + edge_b)
+    out["alive"] = n_alive
+    cells = int(np.prod(nloc))
+    strip_b = sum(2 * 2 * ncomp * cells // nloc[ax] * isz
+                  for ax in range(nd) if split[ax])
+    out["bytes_k5"] = pan_b + ncomp * cells * isz + 2 * strip_b
+    log(f"[bound K4/K5 {tag}] shard {busy}: {n_alive} of {slots} slots alive, "
+        f"K4 {out['bytes_k4']} bytes, K5 {out['bytes_k5']} bytes")
+    del ebs, rims, q
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_rows(tag, nd, launches, errs, t, flops):
+    """The kernels line's rows of K4 and K5 (``t`` from dispatch_ms)."""
+    k4_ms = sum(v for k, v in t.items() if k.startswith("dispatch"))
+    ops_ms = t["alive"] * flops / F32_FLOPS * 1e3
+    bound = max(t["bytes_k4"] / HBM_BPS * 1e3, ops_ms)
+    k5_ms = t["fold"] + t["strips"]
+    sfx = ", 3D" if nd == 3 else ""
+    return [
+        dict(name=f"K4 B2 mesh dispatches{sfx}", route="cuda",
+             source="lambdapic_torch/csrc/" + ("cellstep3d.cu" if nd == 3
+                                               else "cellstep.cu"),
+             replaces="lambdapic_tpu/ops/cellslab.py:546",
+             launches=launches.get("B2", 0), max_abs_err=errs[0], ms=k4_ms,
+             plain_ms=t["plain"], plain_cells=t["plain_cells"],
+             bound_ms=bound,
+             bound_by="bytes" if bound > ops_ms else "operations",
+             library_ms=None, per="one shard's dispatches of one species"),
+        dict(name=f"K5 B3 mesh strips{sfx}", route="cuda",
+             source="lambdapic_torch/csrc/" + ("fold3d.cu" if nd == 3
+                                               else "fold.cu"),
+             replaces="lambdapic_tpu/ops/cellslab.py:2098",
+             launches=launches.get("B3", 0), max_abs_err=errs[1], ms=k5_ms,
+             plain_ms=t["plain_fold"], plain_cells=t["plain_cells"],
+             bound_ms=t["bytes_k5"] / HBM_BPS * 1e3, bound_by="bytes",
+             library_ms=None, per="one shard's fold and strip adds"),
+    ]
+
+
+MESH_FIELDS = ("ex", "ey", "ez", "bx", "by", "bz", "jx", "jy", "jz")
+
+
+def as_double(state):
+    """A copy of a SimulationState with every floating tensor in float64
+    (on the state's device)."""
+    def cast(t):
+        return t.double() if t.is_floating_point() else t.clone()
+    fl = state.fields
+    fields = fl.replace(psi={k: cast(v) for k, v in fl.psi.items()},
+                        **{k: cast(getattr(fl, k)) for k in MESH_FIELDS
+                           + ("rho",)})
+    return state.replace(fields=fields, particles=tuple(
+        p.replace(data={k: cast(v) for k, v in p.data.items()})
+        for p in state.particles))
+
+
+_MARK = {}
+
+
+def mark(tag, what):
+    """Log the seconds since the previous mark of ``tag`` (the phase's
+    parts, for the script's time budget)."""
+    now = time.time()
+    log(f"[{tag}] {what}: {now - _MARK.get(tag, now):.1f} s")
+    _MARK[tag] = now
+
+
+def keep_state(sim, laser):
+    """(a host copy of the slice's state, its step, time, capacities, a
+    copy of its laser); the card is freed of the state."""
+    import torch
+    _MARK.pop(f"slice mesh {sim.grid.dimension}D", None)
+    mark(f"slice mesh {sim.grid.dimension}D", "start")
+    keep = (clone_state(sim.state, "cpu"), sim.itime, sim.time,
+            list(sim._species_static), copy.deepcopy(laser))
+    sim.state = None
+    torch.cuda.empty_cache()
+    mark(f"slice mesh {sim.grid.dimension}D", "host copy of the state")
+    return keep
+
+
+def drop_state(sim, keep):
+    """Free ``sim``'s state and set it back to the kept step, time and
+    capacities, with a fresh builder."""
+    import torch
+    _, itime, now, static, _ = keep
+    sim.state = None
+    torch.cuda.empty_cache()
+    sim.itime, sim.time = itime, now
+    sim._species_static = list(static)
+    sim._builder = None
+
+
+def put_back(sim, keep, host):
+    """Put ``sim`` (one device) into the kept step, time, capacities and
+    the state ``host`` (a host copy), with a fresh builder."""
+    drop_state(sim, keep)
+    sim.state = clone_state(host, sim.device)
+
+
+def tracked_run(sim, laser, steps, track):
+    """``steps`` steps through Simulation.run; after each step whose number
+    (1-based) is in ``track`` the fields are copied to the host, and the
+    steps between run as one call. Returns {step: fields}."""
+    out = {}
+    done = 0
+    for s in sorted(track):
+        if s > done:
+            sim.run(s - done, callbacks=[laser])
+            done = s
+        out[s] = {k: sim.get_field(k) for k in MESH_FIELDS}
+    if steps > done:
+        sim.run(steps - done, callbacks=[laser])
+    return out
+
+
+def divergence(tag, a, b):
+    """Log, at each tracked step, the largest difference of any E, B or J
+    component between two tracked runs over that component's peak;
+    returns {step: difference}."""
+    out = {}
+    for s in sorted(a):
+        d = 0.0
+        for k in MESH_FIELDS:
+            peak = float(np.abs(b[s][k]).max())
+            if peak:
+                d = max(d, float(np.abs(a[s][k] - b[s][k]).max()) / peak)
+        out[s] = d
+    log(f"[{tag}] max field difference / peak after step: "
+        + ", ".join(f"{s} {v:.2e}" for s, v in out.items()))
+    return out
+
+
+def species_totals(sim):
+    """Per species (alive count, total weight in float64), over every
+    shard."""
+    import torch
+    out = []
+    for ispec in range(len(sim.species)):
+        n, w = 0, 0.0
+        for sh in sim._shards():
+            p = sh.particles[ispec]
+            n += int(p.alive.sum())
+            w += float(torch.where(p.alive, p.data["w"], 0).sum(
+                dtype=torch.float64))
+        out.append((n, w))
+    return out
+
+
+def track_steps(steps, window):
+    """The tracked steps of a mesh comparison: the first, the last untimed
+    one and the last."""
+    return tuple(sorted({1, steps - window, steps}))
+
+
+def run_mesh(sim, tag, shape, steps, window, expect, busy_expect, keep):
+    """The main path of [slice mesh 2D/3D]: the kept state (``keep``, from
+    keep_state) split onto a mesh of ``shape`` on the one card
+    (testing.mesh_twin), ``steps`` steps through Simulation.run with the
+    launch counters set to 0 just before: the untimed steps first, the
+    fields copied to the host after those track_steps names, then the
+    last ``window`` timed; launches per step ``expect``, B2 by dispatch and B3
+    by launch kind as the mesh implies, finite fields, the peak device
+    memory, then a profile of three more steps. Returns (twin, step ms,
+    peak GiB, device busy ms, launches, tracked fields, species
+    totals)."""
+    import torch
+    from lambdapic_torch.ops import cellslab
+    from lambdapic_torch.testing import mesh_twin
+    dev = sim.device
+    t0 = time.time()
+    nsh = int(np.prod(shape))
+    twin = mesh_twin(sim, shape, [dev] * nsh, source=keep[0])
+    log(f"[{tag}] {sim.grid.shape} cells split onto a {shape} mesh of "
+        f"{torch.cuda.get_device_name(0)} in {time.time() - t0:.1f} s: "
+        f"{twin.npart_alive} particles, shards of {twin.grid.local_shape} "
+        "cells")
+    mlaser = copy.deepcopy(keep[4])
+    reset_launches()
+    reset_mesh_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    track = tracked_run(twin, mlaser, steps - window,
+                        track_steps(steps, window)[:-1])
+    torch.cuda.synchronize()
+    t1 = time.time()
+    twin.run(window, callbacks=[mlaser])
+    torch.cuda.synchronize()
+    t2 = time.time()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    track[steps] = {k: twin.get_field(k) for k in MESH_FIELDS}
+    totals_m = species_totals(twin)
+    launches = {k: v for k, v in all_launches().items() if v}
+    by_disp = dict(cellslab.cell_step.launches_by_dispatch)
+    by_kind = dict(cellslab.fold_reduce.launches_by_kind)
+    log(f"[{tag}] {steps} steps: launches {launches}, B2 by dispatch "
+        f"{by_disp}, B3 by kind {by_kind}")
+    want = {k: v * steps for k, v in expect.items() if v}
+    if launches != want:
+        fail(f"{tag}: launch counts {launches} != {want}")
+    ngroups = 1 + sum(p > 1 for p in shape[1:])
+    nspec = len(sim.species)
+    want_disp = {"whole": nspec * nsh * steps if ngroups == 1 else 0,
+                 "head": nspec * nsh * (ngroups - 1) * steps,
+                 "tail": nspec * nsh * steps if ngroups > 1 else 0}
+    want_kind = {"fold": nsh * steps,
+                 "strips": nsh * sum(p > 1 for p in shape) * steps}
+    if by_disp != want_disp or by_kind != want_kind:
+        fail(f"{tag}: B2 by dispatch {by_disp} != {want_disp} or B3 by kind "
+             f"{by_kind} != {want_kind}")
+    step_ms = (t2 - t1) * 1e3 / window
+    npart = sum(twin.npart_alive)
+    log(f"[{tag}] step {step_ms:.3f} ms (host clock, synchronised, last "
+        f"{window} of {steps}), {npart / (step_ms * 1e-3):.4e} pushes/s, "
+        f"first {steps - window} steps (fields copied out after each) in "
+        f"{t1 - t0:.2f} s; peak device memory {peak:.2f} GiB")
+    for i, sh in enumerate(twin.state.shards):
+        for k in MESH_FIELDS:
+            if not bool(torch.isfinite(getattr(sh.fields, k)).all()):
+                fail(f"{tag}: field {k} not finite on shard {i}")
+    busy = busy_per_step(lambda: twin.run(1, callbacks=[mlaser]),
+                         busy_expect, 3, f"{tag} profile", step_ms)
+    return twin, step_ms, peak, busy, launches, track, totals_m
+
+
+def one_device_tracked(sim, keep, steps, window, tag):
+    """The one-device run of ``steps`` steps from the kept state, its
+    fields copied out at track_steps; ``sim`` ends without a state, at
+    the kept step (drop_state). Returns (tracked fields, species
+    totals)."""
+    put_back(sim, keep, keep[0])
+    track = tracked_run(sim, copy.deepcopy(keep[4]), steps,
+                        track_steps(steps, window))
+    totals_o = species_totals(sim)
+    drop_state(sim, keep)
+    return track, totals_o
+
+
+def check_totals(tag, totals_m, totals_o):
+    """The float32 gates of a mesh run against the one-device run: per
+    species the total weight within 1e-6 and the alive count within 1e-4.
+    Not the float64 gates: shard-local and global float32 coordinates
+    round apart, which moves a few particles across a cell face and so
+    changes which ones merge (PERF.md §6 has the measured counts, and
+    ulp_control the one-device runs' own spread)."""
+    for ispec, ((nm, wm), (no, wo)) in enumerate(zip(totals_m, totals_o)):
+        log(f"[{tag}] species {ispec}: alive {nm} (mesh) vs {no} (one "
+            f"device), weight rel {abs(wm - wo) / abs(wo):.2e}")
+        if abs(nm - no) > 1e-4 * no or not abs(wm - wo) <= 1e-6 * abs(wo):
+            fail(f"{tag}: species {ispec}: alive {nm} vs {no}, weight {wm} "
+                 f"vs {wo}")
+
+
+def ulp_control(sim, keep, steps, window, tag, otrack, otot):
+    """The control of a float32 mesh comparison: the one-device run again
+    from the kept state with every particle position moved by one ulp
+    (towards +inf), its fields copied out at the same steps. Logs its
+    divergence from the unmoved one-device run (``otrack``) and its alive
+    counts and weights beside ``otot``: the spread that rounding alone
+    gives, which the mesh run's divergence is read against. ``sim`` ends
+    without a state, at the kept step (drop_state)."""
+    import torch
+    put_back(sim, keep, keep[0])
+    st = sim.state
+    parts = []
+    for p in st.particles:
+        data = dict(p.data)
+        for ax in sim.grid.axes:
+            data[ax] = torch.nextafter(data[ax],
+                                       data[ax].new_tensor(float("inf")))
+        parts.append(p.replace(data=data))
+    sim.state = st.replace(particles=tuple(parts))
+    del st, parts
+    track = tracked_run(sim, copy.deepcopy(keep[4]), steps,
+                        track_steps(steps, window))
+    totals = species_totals(sim)
+    drop_state(sim, keep)
+    divergence(f"{tag} control, positions moved one ulp", track, otrack)
+    for ispec, ((nc, wc), (no, wo)) in enumerate(zip(totals, otot)):
+        log(f"[{tag} control] species {ispec}: alive {nc} (moved) vs {no} "
+            f"(one device), weight rel {abs(wc - wo) / abs(wo):.2e}")
+
+
+def compare_on_mesh(sim, keep, tag, shape, steps):
+    """The kept state run ``steps`` steps on the mesh and on one device in
+    float64 (the state cast to it), one after the other, the fields of
+    every step kept on the host; logs the step-by-step divergence and
+    applies compare_mesh_runs's gates to the last step. ``sim`` ends
+    without a state, at the kept step (drop_state)."""
+    from lambdapic_torch.testing import mesh_twin
+    host = as_double(keep[0])
+    prec = sim.precision
+    sim.precision = "double"
+    twin = mesh_twin(sim, shape, [sim.device] * int(np.prod(shape)),
+                     source=host)
+    every = tuple(sorted({1, steps // 2, steps}))
+    mtrack = tracked_run(twin, copy.deepcopy(keep[4]), steps, every)
+    mres = mesh_results(twin)
+    del twin
+    put_back(sim, keep, host)
+    otrack = tracked_run(sim, copy.deepcopy(keep[4]), steps, every)
+    ores = mesh_results(sim)
+    divergence(f"{tag} float64", mtrack, otrack)
+    del mtrack, otrack
+    compare_mesh_runs(f"{tag} float64", mres, ores, sim.grid)
+    sim.precision = prec
+    drop_state(sim, keep)
+
+
+def cut_sim(sim, keep, planes):
+    """A one-device twin of ``sim`` on the last ``planes`` x-planes of the
+    kept state (its own grid, CPML and zero psi, the same step, time,
+    species and laser), and the kept tuple of that cut (on the host)."""
+    import torch
+    from lambdapic_torch.core.state import zeros_fields
+    from lambdapic_torch.ops.cpml import CPMLParams, build_cpml
+    state, cgrid = cut_planes(keep[0], sim.grid, planes)
+    twin = copy.copy(sim)
+    twin.nx = planes
+    twin.grid = twin._make_grid()
+    twin.cpml = build_cpml(twin.grid, twin.dt,
+                           CPMLParams(thickness=twin.cpml_thickness))
+    psi = zeros_fields(twin.grid, state.fields.ex.dtype, "cpu",
+                       twin.cpml).psi
+    state = state.replace(fields=state.fields.replace(psi=psi))
+    twin.state = None
+    twin._builder = None
+    torch.cuda.empty_cache()
+    return twin, (state,) + tuple(keep[1:])
+
+
+def cut_planes(state, grid, planes):
+    """The last ``planes`` x-planes of a one-device state (fields and
+    every species, x re-based; no psi) with the grid that goes with it."""
+    import dataclasses
+    x0 = grid.nx - planes
+    names = ("ex", "ey", "ez", "bx", "by", "bz", "jx", "jy", "jz", "rho")
+    f = state.fields
+    fields = f.replace(psi={}, **{k: getattr(f, k)[x0:].contiguous()
+                                  for k in names})
+    parts = []
+    for p in state.particles:
+        data = {k: v[:, x0:].contiguous() for k, v in p.data.items()}
+        alive = p.alive[:, x0:].contiguous()
+        data["x"] = data["x"] - float(x0)
+        parts.append(p.replace(data=data, alive=alive))
+    return (state.replace(fields=fields, particles=tuple(parts)),
+            dataclasses.replace(grid, nx=planes))
+
+
+def run_mesh_2d(args, sim, laser):
+    """[kernels mesh] (float64 small, float32 at the 2D slice's shards) and
+    [slice mesh 2D]: the 2D slice's end state on a 2 x 2 mesh of the one
+    card, --steps-mesh steps (launches per step: B2 24 = 3 species x 4
+    shards x 2 dispatches, B3 12 = 4 folds + 4 x 2 strip adds; B1 0, the
+    mesh's fields being the plain Yee updates, as in the JAX package),
+    against the same steps on one device from the same state: in float32
+    the alive counts and weights (check_totals; the fields' divergence is
+    logged beside ulp_control's, since rounding apart flips a few merges
+    that the laser-plasma interaction then amplifies, PERF.md §6), in
+    float64 every gate of compare_mesh_runs. K4 and K5 held against their
+    plain versions and timed on the busiest 512 x 512 shard
+    (check_shard_f32, dispatch_ms). ``sim`` ends in its state from
+    before. Returns the K4 and K5 rows."""
+    merges = check_mesh_f64(sim.device)
+    log(f"[kernels mesh f64] slot-exact in {len(MESH_CASES)} meshes, "
+        f"merges in the crowded ones: {merges}")
+    tag = "slice mesh 2D"
+    shape = (2, 2)
+    steps, window = args.steps_mesh, args.window_mesh
+    keep = keep_state(sim, laser)
+    twin, step_ms, peak, busy, launches, mtrack, mtot = run_mesh(
+        sim, tag, shape, steps, window, {"B2": 24, "B3": 12},
+        {"pass_x": 12, "pass_y": 12, "deposit": 12, "fold<": 4,
+         "strips<": 8}, keep)
+    mark(tag, "main path")
+    t = dispatch_ms("2D", twin, args.iters)
+    cells = list(twin.grid.local_shape)
+    errs, k4p, k5p = check_shard_f32("2D 2x2", twin)
+    del twin
+    t.update(plain=k4p, plain_fold=k5p, plain_cells=cells)
+    mark(tag, "kernel checks and times")
+    import torch
+    put_back(sim, keep, keep[0])
+    torch.cuda.synchronize()
+    t0 = time.time()
+    sim.run(steps, callbacks=[copy.deepcopy(keep[4])])
+    torch.cuda.synchronize()
+    one_ms = (time.time() - t0) * 1e3 / steps
+    log(f"[{tag}] one device from the same state: {one_ms:.3f} ms a step "
+        f"(host clock, all {steps} steps)")
+    otrack, otot = one_device_tracked(sim, keep, steps, window, tag)
+    divergence(f"{tag} float32", mtrack, otrack)
+    check_totals(f"{tag} float32", mtot, otot)
+    ulp_control(sim, keep, steps, window, f"{tag} float32", otrack, otot)
+    del mtrack, otrack
+    mark(tag, "float32 comparison")
+    compare_on_mesh(sim, keep, tag, shape, steps)
+    put_back(sim, keep, keep[0])
+    mark(tag, "float64 comparison")
+    log(f"[{tag}] summary: mesh {step_ms:.3f} ms a step vs one device "
+        f"{one_ms:.3f} ms, device busy {busy} ms a step, peak "
+        f"{peak:.2f} GiB")
+    return mesh_rows("2D", 2, launches, errs, t, FLOPS_PER_PARTICLE)
+
+
+def run_mesh_3d(args, sim, laser):
+    """[slice mesh 3D] and [kernels mesh f32 3D]: the 3D slice's end
+    state on a 2 x 2 x 2 mesh of the one card, --steps-mesh3d steps
+    (launches per step: B2 48 = 2 species x 8 shards x 3 dispatches, B3
+    32 = 8 folds + 8 x 3 strip adds; B1 0), against the same steps on one
+    device from a host copy of the state, one run after the other (both
+    states need not fit on the card at once): in float32 check_totals and
+    the fields' divergence logged beside ulp_control's; every gate of
+    compare_mesh_runs in float64 on the last MESH_PLANES_F64 x-planes (a
+    float64 state of the whole grid does not fit the card). K4 and K5
+    held against their plain versions and timed on the busiest 256 x 128
+    x 128 shard (check_shard_f32, dispatch_ms). ``sim`` ends in its state
+    from before. Returns the K4 and K5 rows."""
+    import torch
+    tag = "slice mesh 3D"
+    shape = (2, 2, 2)
+    steps, window = args.steps_mesh3d, args.window_mesh3d
+    keep = keep_state(sim, laser)
+    twin, step_ms, peak, busy, launches, mtrack, mtot = run_mesh(
+        sim, tag, shape, steps, window, {"B2": 48, "B3": 32},
+        {"rebin": 48, "push<": 16, "deposit": 16, "fold3": 8,
+         "strips<": 24}, keep)
+    mark(tag, "main path")
+    t = dispatch_ms("3D", twin, args.iters3d)
+    cells = list(twin.grid.local_shape)
+    errs, k4p, k5p = check_shard_f32("3D 2x2x2", twin)
+    del twin
+    t.update(plain=k4p, plain_fold=k5p, plain_cells=cells)
+    mark(tag, "kernel checks and times")
+    torch.cuda.empty_cache()
+    otrack, otot = one_device_tracked(sim, keep, steps, window, tag)
+    divergence(f"{tag} float32", mtrack, otrack)
+    check_totals(f"{tag} float32", mtot, otot)
+    ulp_control(sim, keep, steps, window, f"{tag} float32", otrack, otot)
+    del mtrack, otrack
+    mark(tag, "float32 comparison")
+    csim, ckeep = cut_sim(sim, keep, MESH_PLANES_F64)
+    compare_on_mesh(csim, ckeep, f"{tag} cut {csim.grid.shape}", shape,
+                    steps)
+    del csim, ckeep
+    mark(tag, "float64 comparison")
+    put_back(sim, keep, keep[0])
+    log(f"[{tag}] summary: mesh {step_ms:.3f} ms a step, device busy "
+        f"{busy} ms a step, peak {peak:.2f} GiB")
+    return mesh_rows("3D", 3, launches, errs, t, FLOPS_PER_PARTICLE_3D)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=2001,
@@ -3948,9 +4836,10 @@ def main() -> int:
                          "runs 2001)")
     ap.add_argument("--window", type=int, default=200,
                     help="final 2D steps timed as the steady window")
-    ap.add_argument("--steps-qed", type=int, default=None,
-                    help="QED slice steps through Simulation.run (default: "
-                         "the example's 100 fs)")
+    ap.add_argument("--steps-qed", type=int, default=500,
+                    help="QED slice steps through Simulation.run (the "
+                         "example runs 100 fs, 1115 steps; cut to pay for "
+                         "the mesh phases; photons appear by step ~112)")
     ap.add_argument("--window-qed", type=int, default=100,
                     help="final QED steps timed as the steady window")
     ap.add_argument("--steps3d", type=int, default=STEPS_3D,
@@ -3958,7 +4847,7 @@ def main() -> int:
                          "example runs 1001)")
     ap.add_argument("--window3d", type=int, default=20,
                     help="final 3D steps timed as the steady window")
-    ap.add_argument("--steps-exact", type=int, default=201,
+    ap.add_argument("--steps-exact", type=int, default=151,
                     help="steps of the 2D slice with cell_migration='exact' "
                          "(the example runs 2001; cut to keep the script's "
                          "time with the 3D per-stage and 3D QED phases)")
@@ -3976,13 +4865,14 @@ def main() -> int:
                          "continuing the 3D slice")
     ap.add_argument("--steps-split-sort3d", type=int, default=2,
                     help="3D split steps with LAMBDAPIC_MIG_FUSED=0 (B7)")
-    ap.add_argument("--steps-exact3d", type=int, default=30,
+    ap.add_argument("--steps-exact3d", type=int, default=20,
                     help="steps of the 3D slice with cell_migration='exact'")
-    ap.add_argument("--window-exact3d", type=int, default=20,
+    ap.add_argument("--window-exact3d", type=int, default=10,
                     help="final exact 3D steps timed as the steady window")
-    ap.add_argument("--steps-qed3d", type=int, default=None,
+    ap.add_argument("--steps-qed3d", type=int, default=350,
                     help="3D QED slice steps through Simulation3D.run "
-                         "(default: example/photons.py's 100 fs)")
+                         "(example/photons.py's 100 fs are 966 steps here; "
+                         "cut to pay for the mesh phases)")
     ap.add_argument("--window-qed3d", type=int, default=100,
                     help="final 3D QED steps timed as the steady window")
     ap.add_argument("--steps-split-qed3d", type=int, default=10,
@@ -4000,6 +4890,16 @@ def main() -> int:
     ap.add_argument("--steps-tiled-qed", type=int, default=200,
                     help="steps of bench.py's qed configuration in its "
                          "--tiling 32,32 form at 256^2")
+    ap.add_argument("--steps-mesh", type=int, default=50,
+                    help="steps of the 2D slice's end state on a 2 x 2 mesh "
+                         "of the card, and on one device")
+    ap.add_argument("--window-mesh", type=int, default=20,
+                    help="final 2D mesh steps timed")
+    ap.add_argument("--steps-mesh3d", type=int, default=10,
+                    help="steps of the 3D slice's end state on a 2 x 2 x 2 "
+                         "mesh of the card, and on one device")
+    ap.add_argument("--window-mesh3d", type=int, default=5,
+                    help="final 3D mesh steps timed")
     ap.add_argument("--exact2d-digest", type=int, default=0, metavar="N",
                     help="run only the 2D slice with cell_migration='exact' "
                          "for N steps and print its peak device memory and "
@@ -4043,6 +4943,8 @@ def main() -> int:
     k3, sim3, laser3, fill = run_3d(args, dev)
     kernels += k3
     done("3D")
+    kernels += run_mesh_3d(args, sim3, laser3)
+    done("mesh 3D")
     run_split_3d(args, sim3, laser3)
     done("split 3D")
     run_exact_3d(args, dev, sim3, fill)

@@ -1,10 +1,13 @@
 """Static grid geometry, 2D and 3D (counterpart of lambdapic_tpu/core/grid.py).
 
-The port runs on one device, so the mesh is always 1 x 1 (x 1):
-``nx_loc`` is ``nx``. Coordinate conventions are the JAX package's: cell centres of
-the global grid sit at ``i*dx``, and particle positions are stored in
-units of the cell size, relative to the domain origin (cell centres at
-0..nx-1, domain [-0.5, nx-0.5)).
+The global grid is split into ``npatch_x x npatch_y (x npatch_z)``
+shards of ``nx_loc x ny_loc (x nz_loc)`` cells, one per device of the
+mesh (``parallel/mesh.py``); a one-device run is the 1 x 1 (x 1) mesh.
+Coordinate conventions are the JAX package's: cell centres of the global
+grid sit at ``i*dx``, and particle positions are stored in units of the
+cell size, relative to the shard's origin (local cell centres at
+0..nx_loc-1, shard [-0.5, nx_loc-0.5)), so float32 positions keep ~1e-4
+cells whatever the shard's place in the domain.
 """
 from __future__ import annotations
 
@@ -57,6 +60,22 @@ class Grid:
     @property
     def Lz(self) -> float:
         return self.nz * self.dz
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        """The mesh axis names, ('px', 'py'[, 'pz'])."""
+        return ("px", "py", "pz")[: self.dimension]
+
+    @property
+    def local_shape(self) -> Tuple[int, ...]:
+        return (self.nx_loc, self.ny_loc, self.nz_loc)[: self.dimension]
+
+    @property
+    def n_shards(self) -> int:
+        n = 1
+        for p in self.mesh_shape:
+            n *= p
+        return n
 
     @property
     def axes(self) -> str:

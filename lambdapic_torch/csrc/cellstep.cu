@@ -52,6 +52,23 @@
 // slot's value (lo arrival, else hi arrival, else the resident); only
 // w, x, y, z, ux, uy, uz are merged. Dead slots keep them as placed.
 //
+// On a device mesh (K4: replaces unified_cell_step's merge_axes, tail and
+// yz_edges arguments and slab_species_step's edge exchanges,
+// cellslab.py:1896-2043) one call is one dispatch on one shard:
+//  x edges   with I_XEDGE, pass_x takes the lo and hi x columns from the
+//            x neighbour shards' stored (pre-push) slots, (cap, 1, ny)
+//            arrays with alive as int32 (zero past an open global face),
+//            in place of the wrap: it applies their half push, keys them
+//            at the neighbour's own cell index (nx-1 or 0), and adds
+//            -+nx to their arrivals, as for wrapped columns.
+//  dispatch  I_MERGE_LO .. I_MERGE_HI (0 x, 1 y) are the passes to run.
+//            A mesh that splits y runs x alone (its output, the scratch
+//            slots, goes back to the caller), exchanges the y edge rows of
+//            that output, then runs y with the tail (I_MERGE_LO = 1: pass_y
+//            reads its input from the scratch pointers).
+//  y edges   with I_YEDGE, pass_y takes the lo and hi y rows, (cap, nx, 1),
+//            of the y neighbours' x-pass output in place of the wrap.
+//
 // Capacity: up to MAXC_LOCAL (128) slots a cell each pass thread sorts its
 // three columns' (key, slot) entries in a local array; above it the
 // passes run a grid-stride loop over the cells with the entries in a
@@ -93,10 +110,14 @@ enum Ptr {
   P_CHI, P_IG0,                     // want_chi outputs
   P_XF_IN, P_XF_S = P_XF_IN + 3, P_XF_O = P_XF_S + 3,  // extra payloads
   P_KEYS = P_XF_O + 3,              // sort scratch above MAXC_LOCAL slots
-  P_COUNT
+  // neighbour edge columns: x lo, x hi, y lo, y hi, EDGE_PTRS each (alive
+  // int32, x y z w ux uy uz, inv_gamma (x only), id_lo id_hi, 3 extras)
+  P_EDGES,
+  P_COUNT = P_EDGES + 4 * 14
 };
 enum Int { I_CAP, I_NX, I_NY, I_G, I_PERX, I_PERY, I_NCOMP, I_NCES, I_DOUBLE,
-           I_MODE, I_NXF, I_KEY_THREADS };
+           I_MODE, I_NXF, I_KEY_THREADS, I_MERGE_LO, I_MERGE_HI, I_XEDGE,
+           I_YEDGE };
 enum Mode { M_DEFAULT = 0, M_WANT_CHI = 1, M_PHOTON = 2 };
 // reals are computed on the host exactly as the plain version computes
 // its scalar factors (in double), then rounded to the kernel's type
@@ -129,6 +150,18 @@ struct SlotsOut {
   T* xf[NXF];
 };
 
+// A neighbour shard's edge column (or row): one cell wide along the pass's
+// axis, alive as int32.
+template <typename T>
+struct Edge {
+  const int* alive;
+  const T* f[NF];
+  const T* ig;          // x edges: the stored inv_gamma, for the half push
+  const int* id[2];
+  const T* xf[NXF];
+};
+constexpr int EDGE_PTRS = 1 + NF + 1 + 2 + NXF;
+
 template <typename T>
 struct Args {
   const T* eb;
@@ -147,6 +180,8 @@ struct Args {
   int* keys;            // KEY_ROWS x cap int32 per thread (cap > MAXC_LOCAL)
   long long key_threads;
   int cap, nx, ny, g, perx, pery, ncomp, nces, mode, nxf;
+  int xedge, yedge;     // neighbour edges in place of the x / y wrap
+  Edge<T> ex[2], ey[2]; // lo, hi
   long long ncell;
   T hx, hy, ef, bf, cdx, cdy, c, kcd, kfx, kfy, chi;   // see enum Real
 };
@@ -174,6 +209,38 @@ __device__ void load_x(const Args<T>& a, long long idx, Slot<T>& v) {
 #pragma unroll
   for (int k = 0; k < NXF; ++k)
     if (k < a.nxf) v.xf[k] = a.in.xf[k][idx];
+}
+
+// An x-edge slot (index s*ny + iy of a (cap, 1, ny) edge), half pushed.
+template <typename T>
+__device__ void load_x_edge(const Args<T>& a, const Edge<T>& e, long long idx,
+                            Slot<T>& v) {
+  T ig = e.ig[idx];
+  v.f[FX] = pushed(e.f[FX][idx], e.f[FUX][idx], ig, a.hx);
+  v.f[FY] = pushed(e.f[FY][idx], e.f[FUY][idx], ig, a.hy);
+  v.f[FZ] = e.f[FZ][idx];
+  v.f[FW] = e.f[FW][idx];
+  v.f[FUX] = e.f[FUX][idx];
+  v.f[FUY] = e.f[FUY][idx];
+  v.f[FUZ] = e.f[FUZ][idx];
+  v.id[0] = e.id[0][idx];
+  v.id[1] = e.id[1][idx];
+#pragma unroll
+  for (int k = 0; k < NXF; ++k)
+    if (k < a.nxf) v.xf[k] = e.xf[k][idx];
+}
+
+// A y-edge slot (index s*nx + ix of a (cap, nx, 1) edge).
+template <typename T>
+__device__ void load_y_edge(const Args<T>& a, const Edge<T>& e, long long idx,
+                            Slot<T>& v) {
+#pragma unroll
+  for (int k = 0; k < NF; ++k) v.f[k] = e.f[k][idx];
+  v.id[0] = e.id[0][idx];
+  v.id[1] = e.id[1][idx];
+#pragma unroll
+  for (int k = 0; k < NXF; ++k)
+    if (k < a.nxf) v.xf[k] = e.xf[k][idx];
 }
 
 template <typename T>
@@ -231,27 +298,55 @@ __device__ void store(const SlotsOut<T>& o, long long idx, const Slot<T>& v,
     if (k < nxf) o.xf[k][idx] = v.xf[k];
 }
 
-// The x pass of one cell; k: KEY_ROWS rows of ks sort entries.
-template <typename T>
+// The 5-way keys of one neighbour edge column (X: an x edge of stored
+// slots, keyed after its half push; else a y edge), slot stride ``stride``,
+// at index ``at`` of the edge, keyed at the neighbour's own cell index xi.
+template <typename T, bool X>
+__device__ __forceinline__ void edge_keys(const Args<T>& a, const Edge<T>& e,
+                                          int stride, int at, T xi, int* k) {
+  for (int s = 0; s < a.cap; ++s) {
+    long long ei = (long long)s * stride + at;
+    bool al = e.alive[ei] != 0;
+    T local = X ? pushed(e.f[FX][ei], e.f[FUX][ei], e.ig[ei], a.hx) - xi
+                : e.f[FY][ei] - xi;
+    bool hi = al && local >= T(0.5);
+    bool lo = al && local < T(-0.5);
+    k[s] = pack_key(five_way(al, hi, lo, s), s);
+  }
+}
+
+// The x pass of one cell; k: KEY_ROWS rows of ks sort entries. EDGE: the
+// launch takes the x neighbours' edge columns (a compile-time flag, so the
+// one-device pass keeps its own code).
+template <typename T, bool EDGE>
 __device__ __forceinline__ void pass_x_cell(const Args<T>& a, long long cell,
                                             int* k, int ks, int& merges) {
   int ix = (int)(cell / a.ny), iy = (int)(cell % a.ny);
   int cols[3] = {ix > 0 ? ix - 1 : a.nx - 1, ix, ix < a.nx - 1 ? ix + 1 : 0};
+  // the lo (hi) column comes from the x neighbour shard's edge
+  const bool elo = EDGE && ix == 0, ehi = EDGE && ix == a.nx - 1;
   for (int c3 = 0; c3 < 3; ++c3) {
     long long base = (long long)cols[c3] * a.ny + iy;
     T xi = T(cols[c3]);
-    for (int s = 0; s < a.cap; ++s) {
-      long long idx = base + s * a.ncell;
-      bool al = a.in.alive[idx] != 0;
-      T local = pushed(a.in.f[FX][idx], a.in.f[FUX][idx], a.ig[idx], a.hx) - xi;
-      bool hi = al && local >= T(0.5);
-      bool lo = al && local < T(-0.5);
-      k[c3 * ks + s] = pack_key(five_way(al, hi, lo, s), s);
+    if (c3 == 0 && elo) {
+      edge_keys<T, true>(a, a.ex[0], a.ny, iy, xi, k);
+    } else if (c3 == 2 && ehi) {
+      edge_keys<T, true>(a, a.ex[1], a.ny, iy, xi, k + 2 * ks);
+    } else {
+      for (int s = 0; s < a.cap; ++s) {
+        long long idx = base + s * a.ncell;
+        bool al = a.in.alive[idx] != 0;
+        T local =
+            pushed(a.in.f[FX][idx], a.in.f[FUX][idx], a.ig[idx], a.hx) - xi;
+        bool hi = al && local >= T(0.5);
+        bool lo = al && local < T(-0.5);
+        k[c3 * ks + s] = pack_key(five_way(al, hi, lo, s), s);
+      }
     }
     net_sort(k + c3 * ks, a.ces, a.nces);
   }
-  bool lo_ok = a.perx || ix != 0;
-  bool hi_ok = a.perx || ix != a.nx - 1;
+  bool lo_ok = EDGE || a.perx || ix != 0;
+  bool hi_ok = EDGE || a.perx || ix != a.nx - 1;
   for (int p = 0; p < a.cap; ++p) {
     const int klo = k[p], kown = k[ks + p], khi = k[2 * ks + p];
     bool vlo = lo_ok && key_of(klo) == 0;
@@ -260,13 +355,19 @@ __device__ __forceinline__ void pass_x_cell(const Args<T>& a, long long cell,
     Slot<T> own, lo, hi, out;
     load_x(a, (long long)slot_of(kown) * a.ncell + cell, own);
     if (vlo) {
-      load_x(a, (long long)slot_of(klo) * a.ncell +
-                    (long long)cols[0] * a.ny + iy, lo);
+      if (elo)
+        load_x_edge(a, a.ex[0], (long long)slot_of(klo) * a.ny + iy, lo);
+      else
+        load_x(a, (long long)slot_of(klo) * a.ncell +
+                      (long long)cols[0] * a.ny + iy, lo);
       if (ix == 0) lo.f[FX] = lo.f[FX] + T(-a.nx);
     }
     if (vhi) {
-      load_x(a, (long long)slot_of(khi) * a.ncell +
-                    (long long)cols[2] * a.ny + iy, hi);
+      if (ehi)
+        load_x_edge(a, a.ex[1], (long long)slot_of(khi) * a.ny + iy, hi);
+      else
+        load_x(a, (long long)slot_of(khi) * a.ncell +
+                      (long long)cols[2] * a.ny + iy, hi);
       if (ix == a.nx - 1) hi.f[FX] = hi.f[FX] + T(a.nx);
     }
     place(vlo, vhi, stay, lo, hi, own, out, merges);
@@ -275,37 +376,45 @@ __device__ __forceinline__ void pass_x_cell(const Args<T>& a, long long cell,
   }
 }
 
-template <typename T, int MAXC>
+template <typename T, int MAXC, bool EDGE>
 __global__ void __launch_bounds__(128) pass_x(Args<T> a) {
   int merges = 0;
   for_cells<MAXC>(a.ncell, a.keys, a.cap, [&](long long cell, int* k, int ks) {
-    pass_x_cell(a, cell, k, ks, merges);
+    pass_x_cell<T, EDGE>(a, cell, k, ks, merges);
   });
   add_merges(a.n_merged, merges);
 }
 
 // The y pass of one cell and the push of its slots; k: KEY_ROWS rows of
-// ks sort entries.
-template <typename T>
+// ks sort entries. EDGE: the launch takes the y neighbours' edge rows.
+template <typename T, bool EDGE>
 __device__ __forceinline__ void pass_y_cell(const Args<T>& a, long long cell,
                                             int* k, int ks, int& merges) {
   int ix = (int)(cell / a.ny), iy = (int)(cell % a.ny);
   int rows[3] = {iy > 0 ? iy - 1 : a.ny - 1, iy, iy < a.ny - 1 ? iy + 1 : 0};
+  // the lo (hi) row comes from the y neighbour shard's edge
+  const bool elo = EDGE && iy == 0, ehi = EDGE && iy == a.ny - 1;
   for (int c3 = 0; c3 < 3; ++c3) {
     long long base = (long long)ix * a.ny + rows[c3];
     T yi = T(rows[c3]);
-    for (int s = 0; s < a.cap; ++s) {
-      long long idx = base + s * a.ncell;
-      bool al = a.sin.alive[idx] != 0;
-      T local = a.sin.f[FY][idx] - yi;
-      bool hi = al && local >= T(0.5);
-      bool lo = al && local < T(-0.5);
-      k[c3 * ks + s] = pack_key(five_way(al, hi, lo, s), s);
+    if (c3 == 0 && elo) {
+      edge_keys<T, false>(a, a.ey[0], a.nx, ix, yi, k);
+    } else if (c3 == 2 && ehi) {
+      edge_keys<T, false>(a, a.ey[1], a.nx, ix, yi, k + 2 * ks);
+    } else {
+      for (int s = 0; s < a.cap; ++s) {
+        long long idx = base + s * a.ncell;
+        bool al = a.sin.alive[idx] != 0;
+        T local = a.sin.f[FY][idx] - yi;
+        bool hi = al && local >= T(0.5);
+        bool lo = al && local < T(-0.5);
+        k[c3 * ks + s] = pack_key(five_way(al, hi, lo, s), s);
+      }
     }
     net_sort(k + c3 * ks, a.ces, a.nces);
   }
-  bool lo_ok = a.pery || iy != 0;
-  bool hi_ok = a.pery || iy != a.ny - 1;
+  bool lo_ok = EDGE || a.pery || iy != 0;
+  bool hi_ok = EDGE || a.pery || iy != a.ny - 1;
   for (int p = 0; p < a.cap; ++p) {
     const int klo = k[p], kown = k[ks + p], khi = k[2 * ks + p];
     bool vlo = lo_ok && key_of(klo) == 0;
@@ -314,13 +423,19 @@ __device__ __forceinline__ void pass_y_cell(const Args<T>& a, long long cell,
     Slot<T> own, lo, hi, v;
     load_y(a, (long long)slot_of(kown) * a.ncell + cell, own);
     if (vlo) {
-      load_y(a, (long long)slot_of(klo) * a.ncell +
-                    (long long)ix * a.ny + rows[0], lo);
+      if (elo)
+        load_y_edge(a, a.ey[0], (long long)slot_of(klo) * a.nx + ix, lo);
+      else
+        load_y(a, (long long)slot_of(klo) * a.ncell +
+                      (long long)ix * a.ny + rows[0], lo);
       if (iy == 0) lo.f[FY] = lo.f[FY] + T(-a.ny);
     }
     if (vhi) {
-      load_y(a, (long long)slot_of(khi) * a.ncell +
-                    (long long)ix * a.ny + rows[2], hi);
+      if (ehi)
+        load_y_edge(a, a.ey[1], (long long)slot_of(khi) * a.nx + ix, hi);
+      else
+        load_y(a, (long long)slot_of(khi) * a.ncell +
+                      (long long)ix * a.ny + rows[2], hi);
       if (iy == a.ny - 1) hi.f[FY] = hi.f[FY] + T(a.ny);
     }
     place(vlo, vhi, stay, lo, hi, own, v, merges);
@@ -357,11 +472,11 @@ __device__ __forceinline__ void pass_y_cell(const Args<T>& a, long long cell,
   }
 }
 
-template <typename T, int MAXC>
+template <typename T, int MAXC, bool EDGE>
 __global__ void __launch_bounds__(128) pass_y(Args<T> a) {
   int merges = 0;
   for_cells<MAXC>(a.ncell, a.keys, a.cap, [&](long long cell, int* k, int ks) {
-    pass_y_cell(a, cell, k, ks, merges);
+    pass_y_cell<T, EDGE>(a, cell, k, ks, merges);
   });
   add_merges(a.n_merged, merges);
 }
@@ -402,15 +517,33 @@ void unpack_out(SlotsOut<T>& s, void** p, int alive, int first, int id0,
 }
 
 template <typename T, int MAXC>
-int launch_passes(const Args<T>& a, cudaStream_t st) {
+int launch_passes(const Args<T>& a, int lo, int hi, cudaStream_t st) {
   int threads = 128;
   int blocks = cell_blocks(a.ncell, a.cap, a.key_threads, threads);
   if (blocks == 0) return (int)cudaErrorInvalidValue;
-  pass_x<T, MAXC><<<blocks, threads, 0, st>>>(a);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  pass_y<T, MAXC><<<blocks, threads, 0, st>>>(a);
+  if (lo == 0) {
+    if (a.xedge)
+      pass_x<T, MAXC, true><<<blocks, threads, 0, st>>>(a);
+    else
+      pass_x<T, MAXC, false><<<blocks, threads, 0, st>>>(a);
+    int err = (int)cudaGetLastError();
+    if (err || hi == 0) return err;
+  }
+  if (a.yedge)
+    pass_y<T, MAXC, true><<<blocks, threads, 0, st>>>(a);
+  else
+    pass_y<T, MAXC, false><<<blocks, threads, 0, st>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+void unpack_edge(Edge<T>& e, void** p) {
+  e.alive = (const int*)p[0];
+  for (int k = 0; k < NF; ++k) e.f[k] = (const T*)p[1 + k];
+  e.ig = (const T*)p[1 + NF];
+  e.id[0] = (const int*)p[2 + NF];
+  e.id[1] = (const int*)p[3 + NF];
+  for (int k = 0; k < NXF; ++k) e.xf[k] = (const T*)p[4 + NF + k];
 }
 
 template <typename T>
@@ -443,14 +576,25 @@ int launch(void** p, const long long* n, const double* r, cudaStream_t st) {
   a.key_threads = n[I_KEY_THREADS];
   if (a.cap < 1 || a.cap > lp2d::MAX_SLOTS || (a.cap > MAXC_LOCAL && !a.keys))
     return (int)cudaErrorInvalidValue;
+  const int lo = (int)n[I_MERGE_LO], hi = (int)n[I_MERGE_HI];
+  a.xedge = (int)n[I_XEDGE];
+  a.yedge = (int)n[I_YEDGE];
+  // dispatches: x and y (the whole stage), x alone, y with the tail
+  if (lo < 0 || hi > 1 || lo > hi || (a.xedge && lo != 0) ||
+      (a.yedge && lo != 1))
+    return (int)cudaErrorInvalidValue;
+  for (int e = 0; e < 2; ++e) {
+    unpack_edge(a.ex[e], p + P_EDGES + e * EDGE_PTRS);
+    unpack_edge(a.ey[e], p + P_EDGES + (2 + e) * EDGE_PTRS);
+  }
   int err;
-  if (a.cap <= 8) err = launch_passes<T, 8>(a, st);
-  else if (a.cap <= 16) err = launch_passes<T, 16>(a, st);
-  else if (a.cap <= 32) err = launch_passes<T, 32>(a, st);
-  else if (a.cap <= 64) err = launch_passes<T, 64>(a, st);
-  else if (a.cap <= MAXC_LOCAL) err = launch_passes<T, MAXC_LOCAL>(a, st);
-  else err = launch_passes<T, 0>(a, st);
-  if (err || a.mode == M_PHOTON) return err;
+  if (a.cap <= 8) err = launch_passes<T, 8>(a, lo, hi, st);
+  else if (a.cap <= 16) err = launch_passes<T, 16>(a, lo, hi, st);
+  else if (a.cap <= 32) err = launch_passes<T, 32>(a, lo, hi, st);
+  else if (a.cap <= 64) err = launch_passes<T, 64>(a, lo, hi, st);
+  else if (a.cap <= MAXC_LOCAL) err = launch_passes<T, MAXC_LOCAL>(a, lo, hi, st);
+  else err = launch_passes<T, 0>(a, lo, hi, st);
+  if (err || a.mode == M_PHOTON || hi == 0) return err;
   dim3 block(TILE, TILE);
   dim3 grid(ceil_div(a.ny, TILE), ceil_div(a.nx, TILE));
   size_t smem = sizeof(T) * a.ncomp * PAN * PAN;

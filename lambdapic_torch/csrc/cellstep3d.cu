@@ -60,6 +60,20 @@
 // placed slot's value (lo arrival, else hi arrival, else the resident);
 // only w, x, y, z, ux, uy, uz are merged. Dead slots keep them as placed.
 //
+// On a device mesh (K4: replaces unified_cell_step's merge_axes, tail and
+// yz_edges arguments on 3D slots and slab_species_step's edge exchanges,
+// cellslab.py:1896-2043) one call is one dispatch on one shard: the rebin
+// passes of axes I_MERGE_LO .. I_MERGE_HI, then with I_TAIL the push and
+// the deposit. A dispatch's passes alternate between the buffers so that
+// the last lands in A, the dispatch's output (the pushed slots with the
+// tail; else the re-binned slots the caller hands to the next dispatch).
+// An axis whose bit is set in I_EDGE_AXES takes its lo and hi columns
+// from the neighbour shards' edge arrays (one cell wide along that axis,
+// alive as int32, zero past an open global face) in place of the wrap:
+// the x edges are the stored (pre-push) slots, half pushed here; a y or z
+// edge is the previous dispatch's output. Their arrivals get the -+n
+// coordinate shift of wrapped ones.
+//
 // Capacity: up to MAXC_LOCAL (128) slots a cell each rebin thread sorts
 // its three columns' entries in a local array; above it the passes run a
 // grid-stride loop over the cells with the entries in a global scratch
@@ -108,11 +122,16 @@ enum Ptr {
   P_CHI, P_IG0,                     // want_chi outputs
   P_XF_IN, P_XF_A = P_XF_IN + 3, P_XF_B = P_XF_A + 3,  // extra payloads
   P_KEYS = P_XF_B + 3,              // sort scratch above MAXC_LOCAL slots
-  P_COUNT
+  // neighbour edges: x lo, x hi, y lo, y hi, z lo, z hi, EDGE_PTRS each
+  // (alive int32, x y z w ux uy uz, inv_gamma (x only), id_lo id_hi, 3
+  // extras)
+  P_EDGES,
+  P_COUNT = P_EDGES + 6 * 14
 };
 enum Int {
   I_CAP, I_NX, I_NY, I_NZ, I_G, I_PERX, I_PERY, I_PERZ, I_NCOMP, I_NCES,
-  I_DOUBLE, I_MODE, I_NXF, I_KEY_THREADS
+  I_DOUBLE, I_MODE, I_NXF, I_KEY_THREADS, I_MERGE_LO, I_MERGE_HI, I_TAIL,
+  I_EDGE_AXES
 };
 enum Mode { M_DEFAULT = 0, M_WANT_CHI = 1, M_PHOTON = 2 };
 // reals are computed on the host exactly as the plain version computes
@@ -146,6 +165,17 @@ struct SlotsOut {
   T* xf[NXF];
 };
 
+// A neighbour shard's edge (one cell wide along its axis), alive as int32.
+template <typename T>
+struct Edge {
+  const int* alive;
+  const T* f[NF];
+  const T* ig;          // x edges: the stored inv_gamma, for the half push
+  const int* id[2];
+  const T* xf[NXF];
+};
+constexpr int EDGE_PTRS = 1 + NF + 1 + 2 + NXF;
+
 template <typename T>
 struct Args {
   const T* eb;
@@ -160,6 +190,8 @@ struct Args {
   int* keys;            // KEY_ROWS x cap int32 per thread (cap > MAXC_LOCAL)
   long long key_threads;
   int cap, nx, ny, nz, g, per[3], ncomp, nces, mode, nxf;
+  int edge_axes;        // bit a: axis a takes neighbour edges
+  Edge<T> e[3][2];      // per axis: lo, hi
   long long ncell;
   T h[3], ef, bf, cd[3], kcd, kf[3], c, chi;   // see enum Real
 };
@@ -193,6 +225,48 @@ __device__ void load(const Args<T>& a, const SlotsIn<T>& s, long long idx,
 #pragma unroll
     for (int k = 0; k < NXF; ++k)
       if (k < a.nxf) v.xf[k] = s.xf[k][idx];
+  }
+}
+
+// A source slot of a neighbour edge (index idx of the edge array); as
+// ``load``.
+template <typename T, bool XF>
+__device__ void load_edge(const Args<T>& a, const Edge<T>& e, long long idx,
+                          bool first, Slot<T>& v) {
+#pragma unroll
+  for (int k = 0; k < NF; ++k) v.f[k] = e.f[k][idx];
+  if (first) {
+    T ig = e.ig[idx];
+    v.f[FX] = pushed(v.f[FX], v.f[FUX], ig, a.h[0]);
+    v.f[FY] = pushed(v.f[FY], v.f[FUY], ig, a.h[1]);
+    v.f[FZ] = pushed(v.f[FZ], v.f[FUZ], ig, a.h[2]);
+  }
+  v.id[0] = e.id[0][idx];
+  v.id[1] = e.id[1][idx];
+  if (XF) {
+#pragma unroll
+    for (int k = 0; k < NXF; ++k)
+      if (k < a.nxf) v.xf[k] = e.xf[k][idx];
+  }
+}
+
+// The 5-way keys of one neighbour edge column of ``axis`` (slot stride
+// ``es``, at index ``at`` of the edge), keyed at the neighbour's own cell
+// index xi.
+template <typename T>
+__device__ __forceinline__ void edge_keys(const Args<T>& a, const Edge<T>& e,
+                                          int axis, long long es,
+                                          long long at, T xi, int* k) {
+  const bool first = axis == 0;
+  for (int s = 0; s < a.cap; ++s) {
+    long long idx = at + s * es;
+    bool al = e.alive[idx] != 0;
+    T p = first ? pushed(e.f[FX][idx], e.f[FUX][idx], e.ig[idx], a.h[0])
+                : e.f[FX + axis][idx];
+    T local = p - xi;
+    bool hi = al && local >= T(0.5);
+    bool lo = al && local < T(-0.5);
+    k[s] = pack_key(five_way(al, hi, lo, s), s);
   }
 }
 
@@ -250,9 +324,19 @@ __device__ void store(const SlotsOut<T>& o, long long idx, const Slot<T>& v,
   }
 }
 
+// The edge of ``axis`` on side ``side`` (0 lo, 1 hi), by constant indices
+// so the kernel parameters stay in the parameter space.
+template <typename T>
+__device__ __forceinline__ const Edge<T>& e_of(const Args<T>& a, int axis,
+                                               int side) {
+  if (axis == 0) return side ? a.e[0][1] : a.e[0][0];
+  if (axis == 1) return side ? a.e[1][1] : a.e[1][0];
+  return side ? a.e[2][1] : a.e[2][0];
+}
+
 // One re-binning pass along ``axis`` (0 x, 1 y, 2 z) of one cell from src
 // to dst; k: KEY_ROWS rows of ks sort entries.
-template <typename T, bool XF>
+template <typename T, bool XF, bool EDGE>
 __device__ __forceinline__ void rebin_cell(const Args<T>& a,
                                            const SlotsIn<T>& src,
                                            const SlotsOut<T>& dst, int axis,
@@ -272,22 +356,38 @@ __device__ __forceinline__ void rebin_cell(const Args<T>& a,
   const T* pos = src.f[FX + axis];
   const T* mom = src.f[FUX + axis];
   const T h = a.h[axis];
+  // the lo (hi) column comes from the neighbour shard's edge: (cap, ...)
+  // with this axis one cell wide, at the cell's index with the axis dropped
+  // EDGE: this launch's axis takes edges (a compile-time flag, so the
+  // one-device passes keep their own code)
+  const bool edge = EDGE;
+  const bool elo = edge && i == 0, ehi = edge && i == n - 1;
+  const long long es = a.ncell / n;
+  const long long at = axis == 0 ? (long long)iy * a.nz + iz
+                       : (axis == 1 ? (long long)ix * a.nz + iz
+                                    : (long long)ix * a.ny + iy);
   for (int c3 = 0; c3 < 3; ++c3) {
     T xi = T(ci[c3]);
-    for (int s = 0; s < a.cap; ++s) {
-      long long idx = nb[c3] + s * a.ncell;
-      bool al = src.alive[idx] != 0;
-      T p = first ? pushed(pos[idx], mom[idx], a.ig[idx], h) : pos[idx];
-      T local = p - xi;
-      bool hi = al && local >= T(0.5);
-      bool lo = al && local < T(-0.5);
-      k[c3 * ks + s] = pack_key(five_way(al, hi, lo, s), s);
+    if (c3 == 0 && elo) {
+      edge_keys(a, e_of(a, axis, 0), axis, es, at, xi, k);
+    } else if (c3 == 2 && ehi) {
+      edge_keys(a, e_of(a, axis, 1), axis, es, at, xi, k + 2 * ks);
+    } else {
+      for (int s = 0; s < a.cap; ++s) {
+        long long idx = nb[c3] + s * a.ncell;
+        bool al = src.alive[idx] != 0;
+        T p = first ? pushed(pos[idx], mom[idx], a.ig[idx], h) : pos[idx];
+        T local = p - xi;
+        bool hi = al && local >= T(0.5);
+        bool lo = al && local < T(-0.5);
+        k[c3 * ks + s] = pack_key(five_way(al, hi, lo, s), s);
+      }
     }
     net_sort(k + c3 * ks, a.ces, a.nces);
   }
   const bool per = a.per[axis] != 0;
-  bool lo_ok = per || i != 0;
-  bool hi_ok = per || i != n - 1;
+  bool lo_ok = per || i != 0 || edge;
+  bool hi_ok = per || i != n - 1 || edge;
   for (int p = 0; p < a.cap; ++p) {
     const int klo = k[p], kown = k[ks + p], khi = k[2 * ks + p];
     bool vlo = lo_ok && key_of(klo) == 0;
@@ -296,11 +396,21 @@ __device__ __forceinline__ void rebin_cell(const Args<T>& a,
     Slot<T> own, lo, hi, out;
     load<T, XF>(a, src, (long long)slot_of(kown) * a.ncell + cell, first, own);
     if (vlo) {
-      load<T, XF>(a, src, (long long)slot_of(klo) * a.ncell + nb[0], first, lo);
+      if (elo)
+        load_edge<T, XF>(a, e_of(a, axis, 0), at + slot_of(klo) * es, first,
+                         lo);
+      else
+        load<T, XF>(a, src, (long long)slot_of(klo) * a.ncell + nb[0], first,
+                    lo);
       if (i == 0) adjust(lo, axis, T(-n));
     }
     if (vhi) {
-      load<T, XF>(a, src, (long long)slot_of(khi) * a.ncell + nb[2], first, hi);
+      if (ehi)
+        load_edge<T, XF>(a, e_of(a, axis, 1), at + slot_of(khi) * es, first,
+                         hi);
+      else
+        load<T, XF>(a, src, (long long)slot_of(khi) * a.ncell + nb[2], first,
+                    hi);
       if (i == n - 1) adjust(hi, axis, T(n));
     }
     place(vlo, vhi, stay, lo, hi, own, out, merges);
@@ -313,12 +423,12 @@ __device__ __forceinline__ void rebin_cell(const Args<T>& a,
   }
 }
 
-template <typename T, int MAXC, bool XF>
+template <typename T, int MAXC, bool XF, bool EDGE>
 __global__ void __launch_bounds__(128) rebin(Args<T> a, SlotsIn<T> src,
                                              SlotsOut<T> dst, int axis) {
   int merges = 0;
   for_cells<MAXC>(a.ncell, a.keys, a.cap, [&](long long cell, int* k, int ks) {
-    rebin_cell<T, XF>(a, src, dst, axis, cell, k, ks, merges);
+    rebin_cell<T, XF, EDGE>(a, src, dst, axis, cell, k, ks, merges);
   });
   add_merges(a.n_merged, merges);
 }
@@ -402,25 +512,45 @@ struct Buffers {
   SlotsOut<T> a_out, b_out;
 };
 
+// The passes of axes lo .. hi, input -> ... -> buffer A: an odd count
+// starts into A (in -> A -> B -> A), an even one into B (in -> B -> A).
 template <typename T, int MAXC, bool XF>
-int launch_passes_xf(const Args<T>& a, const Buffers<T>& b, cudaStream_t st) {
+int launch_passes_xf(const Args<T>& a, const Buffers<T>& b, int lo, int hi,
+                     cudaStream_t st) {
   int threads = 128;
   int blocks = lp2d::cell_blocks(a.ncell, a.cap, a.key_threads, threads);
   if (blocks == 0) return (int)cudaErrorInvalidValue;
-  rebin<T, MAXC, XF><<<blocks, threads, 0, st>>>(a, b.in, b.a_out, 0);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  rebin<T, MAXC, XF><<<blocks, threads, 0, st>>>(a, b.a_in, b.b_out, 1);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  rebin<T, MAXC, XF><<<blocks, threads, 0, st>>>(a, b.b_in, b.a_out, 2);
-  return (int)cudaGetLastError();
+  SlotsIn<T> src = b.in;
+  bool to_a = (hi - lo) % 2 == 0;
+  for (int axis = lo; axis <= hi; ++axis) {
+    SlotsOut<T> dst = to_a ? b.a_out : b.b_out;
+    if ((a.edge_axes >> axis) & 1)
+      rebin<T, MAXC, XF, true><<<blocks, threads, 0, st>>>(a, src, dst, axis);
+    else
+      rebin<T, MAXC, XF, false><<<blocks, threads, 0, st>>>(a, src, dst, axis);
+    int err = (int)cudaGetLastError();
+    if (err) return err;
+    src = to_a ? b.a_in : b.b_in;
+    to_a = !to_a;
+  }
+  return 0;
 }
 
 template <typename T, int MAXC>
-int launch_passes(const Args<T>& a, const Buffers<T>& b, cudaStream_t st) {
-  return a.nxf > 0 ? launch_passes_xf<T, MAXC, true>(a, b, st)
-                   : launch_passes_xf<T, MAXC, false>(a, b, st);
+int launch_passes(const Args<T>& a, const Buffers<T>& b, int lo, int hi,
+                  cudaStream_t st) {
+  return a.nxf > 0 ? launch_passes_xf<T, MAXC, true>(a, b, lo, hi, st)
+                   : launch_passes_xf<T, MAXC, false>(a, b, lo, hi, st);
+}
+
+template <typename T>
+void unpack_edge(Edge<T>& e, void** p) {
+  e.alive = (const int*)p[0];
+  for (int k = 0; k < NF; ++k) e.f[k] = (const T*)p[1 + k];
+  e.ig = (const T*)p[1 + NF];
+  e.id[0] = (const int*)p[2 + NF];
+  e.id[1] = (const int*)p[3 + NF];
+  for (int k = 0; k < NXF; ++k) e.xf[k] = (const T*)p[4 + NF + k];
 }
 
 template <typename T>
@@ -461,14 +591,25 @@ int launch(void** p, const long long* n, const double* r, cudaStream_t st) {
   a.kcd = (T)r[R_KCD];
   a.kf[0] = (T)r[R_KFX]; a.kf[1] = (T)r[R_KFY]; a.kf[2] = (T)r[R_KFZ];
   a.c = (T)r[R_C]; a.chi = (T)r[R_CHI];
+  const int lo = (int)n[I_MERGE_LO], hi = (int)n[I_MERGE_HI];
+  const int tail = (int)n[I_TAIL];
+  a.edge_axes = (int)n[I_EDGE_AXES];
+  // a dispatch re-bins consecutive axes; the tail follows the z pass only;
+  // only a dispatch's first axis takes edges
+  if (lo < 0 || hi > 2 || lo > hi || (tail != (hi == 2)) ||
+      (a.edge_axes & ~(1 << lo)))
+    return (int)cudaErrorInvalidValue;
+  for (int ax = 0; ax < 3; ++ax)
+    for (int sd = 0; sd < 2; ++sd)
+      unpack_edge(a.e[ax][sd], p + P_EDGES + (2 * ax + sd) * EDGE_PTRS);
   int err;
-  if (a.cap <= 8) err = launch_passes<T, 8>(a, b, st);
-  else if (a.cap <= 16) err = launch_passes<T, 16>(a, b, st);
-  else if (a.cap <= 32) err = launch_passes<T, 32>(a, b, st);
-  else if (a.cap <= 64) err = launch_passes<T, 64>(a, b, st);
-  else if (a.cap <= MAXC_LOCAL) err = launch_passes<T, MAXC_LOCAL>(a, b, st);
-  else err = launch_passes<T, 0>(a, b, st);
-  if (err) return err;
+  if (a.cap <= 8) err = launch_passes<T, 8>(a, b, lo, hi, st);
+  else if (a.cap <= 16) err = launch_passes<T, 16>(a, b, lo, hi, st);
+  else if (a.cap <= 32) err = launch_passes<T, 32>(a, b, lo, hi, st);
+  else if (a.cap <= 64) err = launch_passes<T, 64>(a, b, lo, hi, st);
+  else if (a.cap <= MAXC_LOCAL) err = launch_passes<T, MAXC_LOCAL>(a, b, lo, hi, st);
+  else err = launch_passes<T, 0>(a, b, lo, hi, st);
+  if (err || !tail) return err;
   int threads = 256;
   int pblocks = ceil_div((long long)a.cap * a.ncell, threads);
   if (a.mode == M_PHOTON)

@@ -16,6 +16,10 @@
 // two overlapping panels per axis, so up to eight panels per node. No
 // atomics: the sum repeats bit for bit. All offsets are 64-bit.
 //
+// On a device mesh (K5) an axis split over the mesh (I_SPLITX..Z) keeps its
+// guard nodes (output n+4 long there, one panel node each) for the
+// neighbour exchange and fold.cu's lp_fold_strips, as the 2D fold does.
+//
 // Bound on an H100 (3.35 TB/s): bytes, the panels read once
 // ((T+4)^3 / T^3 = 3.4 values per cell and component at T = 8) and the
 // interior J written once.
@@ -24,7 +28,8 @@
 namespace {
 
 enum Ptr { P_RIMS, P_OUT, P_COUNT };
-enum Int { I_C, I_NX, I_NY, I_NZ, I_TILE, I_PERX, I_PERY, I_PERZ, I_DOUBLE };
+enum Int { I_C, I_NX, I_NY, I_NZ, I_TILE, I_PERX, I_PERY, I_PERZ, I_DOUBLE,
+           I_SPLITX, I_SPLITY, I_SPLITZ };
 
 // One axis's sources of interior index i: up to six (block, node) pairs,
 // from the padded indices i, i - n and i + n that exist (-2..n+1), each
@@ -46,8 +51,13 @@ __device__ __forceinline__ void add_sources(Sources& s, int padded, int tile,
 }
 
 __device__ __forceinline__ void axis_sources(Sources& s, int i, int n,
-                                             bool periodic, int tile, int nb) {
+                                             bool periodic, bool split,
+                                             int tile, int nb) {
   s.count = 0;
+  if (split) {                        // output index i is padded index i-2
+    add_sources(s, i - 2, tile, nb);
+    return;
+  }
   add_sources(s, i, tile, nb);
   if (periodic) {
     if (i - n >= -2) add_sources(s, i - n, tile, nb);
@@ -58,31 +68,33 @@ __device__ __forceinline__ void axis_sources(Sources& s, int i, int n,
 template <typename T>
 __global__ void fold3(const T* __restrict__ rims, T* __restrict__ out, int C,
                       int nx, int ny, int nz, int tile, int perx, int pery,
-                      int perz) {
+                      int perz, int sx, int sy, int sz) {
   long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long ncell = (long long)nx * ny * nz;
+  const int ox = sx ? nx + 4 : nx, oy = sy ? ny + 4 : ny,
+            oz = sz ? nz + 4 : nz;
+  const long long ncell = (long long)ox * oy * oz;
   if (idx >= (long long)C * ncell) return;
   int c = (int)(idx / ncell);
   long long rem = idx - (long long)c * ncell;
-  int i = (int)(rem / ((long long)ny * nz));
-  int r2 = (int)(rem - (long long)i * ny * nz);
-  int j = r2 / nz, k = r2 - j * nz;
+  int i = (int)(rem / ((long long)oy * oz));
+  int r2 = (int)(rem - (long long)i * oy * oz);
+  int j = r2 / oz, k = r2 - j * oz;
   const int pan = tile + 4;
   const int nbx = (nx + tile - 1) / tile, nby = (ny + tile - 1) / tile,
             nbz = (nz + tile - 1) / tile;
-  Sources sx, sy, sz;
-  axis_sources(sx, i, nx, perx, tile, nbx);
-  axis_sources(sy, j, ny, pery, tile, nby);
-  axis_sources(sz, k, nz, perz, tile, nbz);
+  Sources srx, sry, srz;
+  axis_sources(srx, i, nx, perx, sx, tile, nbx);
+  axis_sources(sry, j, ny, pery, sy, tile, nby);
+  axis_sources(srz, k, nz, perz, sz, tile, nbz);
   T acc = T(0);
-  for (int a = 0; a < sx.count; ++a)
-    for (int b = 0; b < sy.count; ++b)
-      for (int d = 0; d < sz.count; ++d) {
+  for (int a = 0; a < srx.count; ++a)
+    for (int b = 0; b < sry.count; ++b)
+      for (int d = 0; d < srz.count; ++d) {
         long long block =
-            (((long long)c * nbx + sx.blk[a]) * nby + sy.blk[b]) * nbz +
-            sz.blk[d];
+            (((long long)c * nbx + srx.blk[a]) * nby + sry.blk[b]) * nbz +
+            srz.blk[d];
         long long node =
-            ((long long)sx.node[a] * pan + sy.node[b]) * pan + sz.node[d];
+            ((long long)srx.node[a] * pan + sry.node[b]) * pan + srz.node[d];
         acc += rims[block * pan * pan * pan + node];
       }
   out[idx] = acc;
@@ -92,11 +104,13 @@ template <typename T>
 int launch(void** p, const long long* n, cudaStream_t st) {
   int C = (int)n[I_C], nx = (int)n[I_NX], ny = (int)n[I_NY],
       nz = (int)n[I_NZ];
-  long long total = (long long)C * nx * ny * nz;
+  int sx = (int)n[I_SPLITX], sy = (int)n[I_SPLITY], sz = (int)n[I_SPLITZ];
+  long long total = (long long)C * (sx ? nx + 4 : nx) * (sy ? ny + 4 : ny) *
+                    (sz ? nz + 4 : nz);
   int threads = 256;
   fold3<T><<<ceil_div(total, threads), threads, 0, st>>>(
       (const T*)p[P_RIMS], (T*)p[P_OUT], C, nx, ny, nz, (int)n[I_TILE],
-      (int)n[I_PERX], (int)n[I_PERY], (int)n[I_PERZ]);
+      (int)n[I_PERX], (int)n[I_PERY], (int)n[I_PERZ], sx, sy, sz);
   return (int)cudaGetLastError();
 }
 

@@ -141,6 +141,51 @@ class Laser(DeviceCallback):
             out[name] = arr
         return f.replace(**out)
 
+    def apply_sharded(self, fields, grid: Grid, dt: float, sc: dict, mesh):
+        """``apply`` on a sharded run (a list of shard-local FieldsState on
+        ``mesh``): the x rows 0 .. col of the shards at the xmin face are
+        joined into one strip of the global transverse extent, ``apply``
+        updates its row col - 1, and the shards take their parts back,
+        bit for bit the global update. The source plane must lie in the
+        first x shard."""
+        col = grid.cpml_thickness + 2
+        if col >= grid.nx_loc:
+            raise ValueError(
+                f"laser source plane (x index {col}) lies beyond the first x "
+                f"shard ({grid.nx_loc} cells); use fewer x patches")
+        face = [i for i in range(mesh.size) if mesh.coords(i)[0] == 0]
+        names = ("ex", "ey", "ez", "bx", "by", "bz", "jx", "jy", "jz", "rho")
+        dev = mesh.devices[face[0]]
+
+        def strip(name):
+            blocks = {mesh.coords(i)[1:]: getattr(fields[i], name)[:col + 1]
+                      .to(dev) for i in face}
+            rows = []
+            for jy in range(mesh.shape[1]):
+                if grid.dimension == 2:
+                    rows.append(blocks[(jy,)])
+                else:
+                    rows.append(torch.cat([blocks[(jy, kz)] for kz in
+                                           range(mesh.shape[2])], dim=2))
+            return torch.cat(rows, dim=1)
+
+        strip_f = fields[face[0]].replace(
+            **{n: strip(n) for n in names}, psi={})
+        new = self.apply(strip_f, grid, dt, sc)
+        out = list(fields)
+        for i in face:
+            c = mesh.coords(i)
+            sl = [slice(c[k] * n, (c[k] + 1) * n)
+                  for k, n in enumerate(grid.local_shape)][1:]
+            upd = {}
+            for name in ("bz", "by", "bx"):
+                arr = getattr(fields[i], name).clone()
+                arr[col - 1] = getattr(new, name)[(col - 1,) + tuple(sl)].to(
+                    arr.device)
+                upd[name] = arr
+            out[i] = fields[i].replace(**upd)
+        return out
+
     def __add__(self, other):
         """Compose two lasers of one side into one source."""
         if not isinstance(other, Laser):

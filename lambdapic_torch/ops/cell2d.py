@@ -16,7 +16,7 @@ alike.
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -273,12 +273,27 @@ def _exact_axis(data, alive, names, out_lo, out_hi, move, valid_in):
     return {**data, **kept}, kept_alive, n_lost
 
 
+def edge_keys(edge: Dict[str, torch.Tensor], axis: int, coord: str,
+              index: int, parity: torch.Tensor) -> torch.Tensor:
+    """The 5-way re-binning keys of a neighbour shard's edge column
+    (``edge["alive"]`` and its payloads, one cell wide along ``axis``), as
+    that shard computes them at its own cell ``index``."""
+    al = edge["alive"] != 0
+    local = edge[coord] - torch.tensor(float(index), dtype=edge[coord].dtype,
+                                       device=al.device)
+    out_hi = al & (local >= 0.5)
+    out_lo = al & (local < -0.5)
+    return torch.where(out_hi, 0, torch.where(
+        out_lo, 4, torch.where(al, 2, torch.where(parity, 1, 3))))
+
+
 def migrate_cells(data: Dict[str, torch.Tensor], alive: torch.Tensor,
                   plan, *, recompute_ig: bool = True, exact: bool = False,
-                  sort_fn=None):
+                  sort_fn=None, edges: Optional[Dict] = None,
+                  finish: bool = True):
     """Re-bin particles to their home cells: lambdapic_tpu/ops/cell2d.py::
-    migrate_cells on one device. ``plan`` = ((nloc, periodic, coord),
-    ...) per cell axis.
+    migrate_cells on one shard. ``plan`` = ((nloc, periodic, coord), ...)
+    per cell axis to re-bin, in order (2D: x, y; 3D: x, y, z).
 
     The fast overwrite-merge scheme (default) sorts with ``sort_fn``
     (``batcher_sort`` when None; kernel B7, ``ops/cellpallas.py::
@@ -295,6 +310,19 @@ def migrate_cells(data: Dict[str, torch.Tensor], alive: torch.Tensor,
     wrap shift their coordinate by -+nloc; at open edges they are
     absorbed.
 
+    ``edges`` (fast scheme only) maps an axis (0 x, 1 y, 2 z) to the
+    (lo, hi) edge columns of the neighbour shards along it: dicts of
+    ``alive`` (zero past an open global face) and every carried payload,
+    one cell wide along the axis, lo the lower neighbour's last column and
+    hi the upper neighbour's first. They take the place of the wrap: each
+    is sorted with the keys its shard gives it, and its donors arrive with
+    the -+nloc coordinate shift (the JAX package's ppermute of the rolled
+    edge slab, ops/tiled2d.py::_roll_with_edge_exchange).
+
+    ``finish=False`` leaves the dead slots and inv_gamma as the last axis
+    placed them (a re-binning that continues on another dispatch, see
+    ops/cellslab.py::cell_step); inv_gamma is then dropped.
+
     ``exact=True`` is the lossless scheme (``cell_migration="exact"``):
     per axis, donors leave their cell as dedicated buffers and each cell
     orders [residents; lo arrivals; hi arrivals] (3 cap rows, keys 0
@@ -310,11 +338,13 @@ def migrate_cells(data: Dict[str, torch.Tensor], alive: torch.Tensor,
     n_lost = torch.zeros((), dtype=torch.int64, device=alive.device)
     transient = set(TRANSIENT) if recompute_ig else set(TRANSIENT) - {"inv_gamma"}
     names = sorted(k for k in data if k not in transient)
-    ndim = len(plan)
+    ndim = alive.ndim - 1
     parity = ((torch.arange(cap, device=alive.device) & 1) == 0).reshape(
         (cap,) + (1,) * ndim)
+    edges = edges or {}
 
-    for axis, (nloc, periodic, coord) in enumerate(plan):
+    for nloc, periodic, coord in plan:
+        axis = "xyz".index(coord)
         pos = data[coord]
         nt = pos.shape[1 + axis]
         ishape = [1] * (1 + ndim)
@@ -326,22 +356,51 @@ def migrate_cells(data: Dict[str, torch.Tensor], alive: torch.Tensor,
         cells = torch.arange(nt, device=pos.device).reshape(ishape)
         from_wrap = cells == 0
         to_wrap = cells == nt - 1
+        edge_lo = edge_hi = None
+        if axis in edges:
+            if exact:
+                raise NotImplementedError(
+                    "edge columns of the exact scheme (ROADMAP item 15)")
+            # the neighbours' edge columns, sorted as their shards sort them
+            lo, hi = edges[axis]
+            skl, spl = (sort_fn or batcher_sort)(
+                edge_keys(lo, axis, coord, nt - 1, parity).to(torch.int32),
+                [lo[k] for k in names])
+            skh, sph = (sort_fn or batcher_sort)(
+                edge_keys(hi, axis, coord, 0, parity).to(torch.int32),
+                [hi[k] for k in names])
+            edge_lo = (skl, dict(zip(names, spl)))
+            edge_hi = (skh, dict(zip(names, sph)))
+
+        def rolled(t, direction, edge):
+            """``t`` rolled one cell along the axis; with neighbour edges,
+            the column that wrapped is the neighbour's."""
+            moved = _roll_in(t, 1 + axis, direction)
+            if edge is None:
+                return moved
+            at = 0 if direction > 0 else nt - 1
+            return torch.cat([edge, moved.narrow(1 + axis, 1, nt - 1)]
+                             if at == 0 else
+                             [moved.narrow(1 + axis, 0, nt - 1), edge],
+                             dim=1 + axis)
 
         def move(t, k, direction):
             """Payload ``k`` rolled one cell along the axis; an arrival
-            through the wrap shifts its coordinate by -+nloc."""
-            moved = _roll_in(t, 1 + axis, direction)
+            through the wrap (or from a neighbour shard) shifts its
+            coordinate by -+nloc."""
+            edge = edge_lo if direction > 0 else edge_hi
+            moved = rolled(t, direction, None if edge is None else edge[1][k])
             if k != coord:
                 return moved
             wrapped = from_wrap if direction > 0 else to_wrap
             adj = _scalar(-nloc if direction > 0 else nloc, pos)
             return torch.where(wrapped, moved + adj, moved)
 
-        def valid_in(mask, direction):
+        def valid_in(mask, direction, edge_mask=None):
             """Where an arrival from ``mask``'s slots is valid: the open
             faces absorb what crosses them."""
-            valid = _roll_in(mask, 1 + axis, direction)
-            if not periodic:
+            valid = rolled(mask, direction, edge_mask)
+            if not periodic and edge_mask is None:
                 wrapped = from_wrap if direction > 0 else to_wrap
                 valid = valid & ~wrapped
             return valid
@@ -358,8 +417,10 @@ def migrate_cells(data: Dict[str, torch.Tensor], alive: torch.Tensor,
                                                [data[k] for k in names])
         sdata = dict(zip(names, spay))
         del spay
-        val_lo = valid_in(skey == 0, +1)
-        val_hi = valid_in(skey == 4, -1)
+        val_lo = valid_in(skey == 0, +1,
+                          None if edge_lo is None else edge_lo[0] == 0)
+        val_hi = valid_in(skey == 4, -1,
+                          None if edge_hi is None else edge_hi[0] == 4)
         stay = skey == 2
         del skey
 
@@ -390,6 +451,10 @@ def migrate_cells(data: Dict[str, torch.Tensor], alive: torch.Tensor,
         data = {**data, **new}
         alive = val_lo | val_hi | stay
 
+    if not finish:
+        if recompute_ig:
+            data.pop("inv_gamma", None)
+        return data, alive, n_lost
     for k in SANITIZED:
         if k in data:
             data[k] = torch.where(alive, data[k], torch.zeros_like(data[k]))

@@ -126,3 +126,36 @@ def build_cpml(grid: Grid, dt: float, params: CPMLParams) -> CPMLCoeffs:
         profiles[name] = dict(
             kappa_e=ke, b_e=be, c_e=ce, kappa_b=kb, b_b=bb, c_b=cb)
     return CPMLCoeffs(profiles=profiles)
+
+
+def shard_cpml(cpml: Optional[CPMLCoeffs], grid: Grid,
+               coords) -> Optional[CPMLCoeffs]:
+    """The coefficients of the shard at mesh ``coords``: each axis's
+    profiles cut to the shard's rows, so ``regions`` and ``psi_width``
+    give the PML rows the shard holds (none where the shard touches no
+    PML face: its psi arrays are then empty along that axis)."""
+    if cpml is None:
+        return None
+    profiles = {}
+    for ax, prof in cpml.profiles.items():
+        k = grid.axes.index(ax)
+        n = grid.local_shape[k]
+        lo = coords[k] * n
+        profiles[ax] = {key: v[lo:lo + n] for key, v in prof.items()}
+    return CPMLCoeffs(profiles=profiles)
+
+
+def psi_rows(cpml: CPMLCoeffs, grid: Grid, ax: str, coord: int) -> np.ndarray:
+    """The rows of the global slab-restricted psi of axis ``ax`` (indices
+    along its slab axis) that the shard at ``coord`` along that axis
+    holds, in the order of the shard's own slab psi."""
+    k = grid.axes.index(ax)
+    n = grid.local_shape[k]
+    lo, hi = coord * n, (coord + 1) * n
+    rows, off = [], 0
+    for s, w in cpml.regions(ax):
+        a, b = max(s, lo), min(s + w, hi)
+        if a < b:
+            rows.extend(range(off + a - s, off + b - s))
+        off += w
+    return np.asarray(rows, dtype=np.int64)

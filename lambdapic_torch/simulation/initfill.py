@@ -5,8 +5,9 @@ Density / ppc profiles are evaluated with numpy at the cell centres, ppc
 particles are placed uniformly inside each selected cell with weight
 w = density * dV / ppc, and the momentum profiles are evaluated at the
 particle positions. Randomness is ``default_rng([seed, ispec, device])``.
-Arrays keep the JAX package's leading device-mesh axes (all 1 here) so
-both packages produce identical arrays; the state constructor strips them.
+Arrays keep the JAX package's leading device-mesh axes, so both packages
+produce identical arrays on any mesh; the Simulation hands each shard its
+own.
 """
 from __future__ import annotations
 
@@ -105,6 +106,47 @@ def pick_capacity(counts: np.ndarray, factor: float, minimum: int = 128
     peak = int(counts.max()) if counts.size else 0
     cap = max(minimum, int(np.ceil(peak * factor)))
     return int(np.ceil(cap / 128) * 128)
+
+
+def distribute_global_particles(grid: Grid, sp: Species,
+                                coords_si: Dict[str, np.ndarray],
+                                attrs: Dict[str, np.ndarray],
+                                cap: Optional[int] = None,
+                                factor: float = 2.0):
+    """Scatter globally specified particles (global SI positions in
+    ``coords_si``, other per-particle arrays in ``attrs``) onto the
+    devices of the mesh, positions in each owner's local cell units.
+    Returns (arrays mesh_shape + (cap,), counts, cap)."""
+    dims = grid.dimension
+    names = grid.axes
+    nlocs = grid.local_shape
+    cell = [np.asarray(coords_si[nm]) / d for nm, d in zip(names, grid.deltas)]
+    dev_idx = [np.clip(((c + 0.5) // nl).astype(np.int64), 0,
+                       grid.mesh_shape[i] - 1)
+               for i, (c, nl) in enumerate(zip(cell, nlocs))]
+    flat_dev = dev_idx[0]
+    for i in range(1, dims):
+        flat_dev = flat_dev * grid.mesh_shape[i] + dev_idx[i]
+    counts = np.bincount(flat_dev, minlength=int(np.prod(grid.mesh_shape))
+                         ).reshape(grid.mesh_shape)
+    if cap is None:
+        cap = pick_capacity(counts, factor)
+    arrays = {a: np.zeros(grid.mesh_shape + (cap,), dtype=np.float64)
+              for a in sp.attrs()}
+    arrays["inv_gamma"][...] = 1.0
+    order = np.argsort(flat_dev, kind="stable")
+    starts = np.searchsorted(flat_dev[order], np.arange(counts.size))
+    for d, dev in enumerate(np.ndindex(grid.mesh_shape)):
+        cnt = counts[dev]
+        if cnt == 0:
+            continue
+        sel = order[starts[d]:starts[d] + cnt]
+        for i, (nm, nl) in enumerate(zip(names, nlocs)):
+            arrays[nm][dev][:cnt] = cell[i][sel] - dev_idx[i][sel] * nl
+        for k, v in attrs.items():
+            if k in arrays:
+                arrays[k][dev][:cnt] = np.asarray(v)[sel]
+    return arrays, counts, cap
 
 
 def bin_cells(arrays: Dict[str, np.ndarray], counts: np.ndarray,

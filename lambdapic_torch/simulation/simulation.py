@@ -1,13 +1,19 @@
-"""The Simulation and Simulation3D entry points on one device: the cell
-engine in 2D and 3D and the tiled 2D engine (counterpart of a subset of
+"""The Simulation and Simulation3D entry points: the cell engine in 2D
+and 3D and the tiled 2D engine on one device, and the cell engine on a
+device mesh (counterpart of a subset of
 lambdapic_tpu/simulation/simulation.py).
 
 The public surface mirrors the JAX package: construct with grid,
 boundary and timing parameters, add Species, call ``run()`` with
 callbacks. The state lives on ``device`` (default "cuda"; pass
-device="cpu" to run the plain PyTorch versions of the kernels). Options
-the port does not have yet raise NotImplementedError naming the ROADMAP
-item that will bring them.
+device="cpu" to run the plain PyTorch versions of the kernels).
+``npatch_x/npatch_y[/npatch_z]`` split the grid over a mesh of devices,
+``initialize(devices=...)`` names them (one process drives every shard,
+and a list may repeat a device: ``[torch.device("cpu")] * 4`` runs a
+2 x 2 mesh on the CPU, ``[torch.device("cuda", 0)] * 4`` on one card);
+npatch 0 takes one patch per visible card (``parallel/mesh.py::
+auto_patches``). Options the port does not have yet raise
+NotImplementedError naming the ROADMAP item that will bring them.
 """
 from __future__ import annotations
 
@@ -24,18 +30,21 @@ from .. import random as jr
 from ..constants import c as c_light
 from ..core.grid import Grid
 from ..core.species import Electron, Photon, Species, _ALL_SPECIES
-from ..core.state import (ID_KEYS, SimulationState, cell_particles,
-                          ids_to_numpy, zeros_fields)
+from ..core.state import (ID_KEYS, MeshState, SimulationState,
+                          cell_particles, ids_to_numpy, zeros_fields)
 from ..ops.cell2d import deposit_cell_2d
 from ..ops.cell3d import deposit_cell_3d
-from ..ops.cpml import CPMLParams, build_cpml
+from ..ops.cpml import CPMLParams, build_cpml, shard_cpml
 from ..ops.tiled2d import TileCfg, fold_windows
 from ..ops.tiled2d_kernels import deposit_tiled_k
-from ..parallel.halo import halo_reduce
+from ..parallel import mesh as pmesh
+from ..parallel.distributed import split_blocks, to_host
+from ..parallel.halo import halo_reduce, halo_specs
 from .callbacks import INNER_SUBSTAGES, SimulationCallbacks
 from .initfill import (bin_cells, bin_tiled, count_macro_particles,
-                       fill_species, grow_minor, pick_capacity)
-from .step import SpeciesStatic, StepBuilder
+                       distribute_global_particles, fill_species, grow_minor,
+                       pick_capacity)
+from .step import MeshStepBuilder, SpeciesStatic, StepBuilder
 
 logger = logging.getLogger("lambdapic_torch")
 
@@ -105,8 +114,9 @@ def _validate_config(s: "Simulation") -> None:
 
 @dataclass
 class Simulation:
-    """2D PIC simulation on one device, cell engine (``tiling="cell"``) or
-    tiled engine (``tiling=(TX, TY)`` with ``rebin_interval``).
+    """2D PIC simulation, cell engine (``tiling="cell"``, on one device or
+    a device mesh) or tiled engine (``tiling=(TX, TY)`` with
+    ``rebin_interval``, one device).
 
     Parameters mirror lambdapic_tpu.Simulation. ``device``: "cuda"
     (default) or "cpu".
@@ -171,7 +181,9 @@ class Simulation:
         self.itime = 0
         self.time = 0.0
         self.initialized = False
-        self.state: Optional[SimulationState] = None
+        # a SimulationState, or on a device mesh a MeshState
+        self.state = None
+        self.mesh: Optional[pmesh.Mesh] = None
         if self.random_seed is not None:
             self._seed_effective = int(self.random_seed)
         else:
@@ -251,9 +263,6 @@ class Simulation:
                         "and their plain versions on the CPU)", "13")
         if self.enable_timer:
             raise _todo("enable_timer (utils/timer.py)", "6")
-        if any(getattr(self, "npatch_" + ax, 0) not in (0, 1)
-               for ax in "xyz"[: self.dimension]):
-            raise _todo("device meshes (npatch_x/npatch_y/npatch_z > 1)", "15")
         for sp in self.species:
             if isinstance(sp, Photon) and sp.has_qed:
                 raise _todo(f"Breit-Wheeler pair production (photon species "
@@ -263,12 +272,48 @@ class Simulation:
             if sp.pusher not in ("boris", "photon"):
                 raise _todo(f"pusher {sp.pusher!r} (species {sp.name})", "9")
 
+    def _check_mesh_supported(self):
+        """What runs on a device mesh: the cell engine's fast re-binning
+        without QED; the rest waits for ROADMAP item 15's next slices."""
+        if self._tiled:
+            raise _todo("tiling=(TX, TY) on a device mesh (the tiled "
+                        "engine's cross-device tile slabs)", "15")
+        if self.cell_migration == "exact":
+            raise _todo("cell_migration='exact' on a device mesh (the "
+                        "per-stage engine's cross-device columns)", "15")
+        for sp in self.species:
+            if isinstance(sp, Photon) or (isinstance(sp, Electron) and
+                                          sp.radiation == "photons"):
+                raise _todo(f"QED processes and photon species on a device "
+                            f"mesh (species {sp.name}: device-folded keys, "
+                            "per-shard next_id)", "15")
+
+    def _auto_patch(self, devices):
+        """npatch 0: one patch per device of ``devices`` (default every
+        visible CUDA card, or one CPU)."""
+        axes = ("x", "y", "z")[: self.dimension]
+        if all(getattr(self, "npatch_" + ax) for ax in axes):
+            return
+        if devices is not None:
+            n = len(devices)
+        elif self.device.type == "cuda":
+            n = torch.cuda.device_count()
+        else:
+            n = 1
+        shape = pmesh.auto_patches(self.nx, self.ny, getattr(self, "nz", None)
+                                   if self.dimension == 3 else None,
+                                   n_devices=max(n, 1))
+        for ax, p in zip(axes, shape):
+            setattr(self, "npatch_" + ax, p)
+        logger.info(f"Auto patches: {shape}")
+
     def _make_grid(self) -> Grid:
         extra = {}
         if self.dimension == 3:
-            extra = dict(nz=self.nz, dz=self.dz, npatch_z=1)
+            extra = dict(nz=self.nz, dz=self.dz, npatch_z=self.npatch_z)
         g = Grid(dimension=self.dimension, nx=self.nx, ny=self.ny,
-                 dx=self.dx, dy=self.dy, npatch_x=1, npatch_y=1,
+                 dx=self.dx, dy=self.dy, npatch_x=self.npatch_x,
+                 npatch_y=self.npatch_y,
                  n_guard=self.n_guard, cpml_thickness=self.cpml_thickness,
                  boundary_conditions=tuple(
                      sorted(self.boundary_conditions.items())), **extra)
@@ -312,8 +357,8 @@ class Simulation:
     def _bin(self, arrays, counts, cap_floor: Optional[int]):
         """Bin flat per-device arrays into the engine's slot layout, the
         slot axis at least ``cap_floor`` long (a Species(capacity=) or the
-        present capacity). Returns (arrays of the one device, alive,
-        slots)."""
+        present capacity). Returns (arrays of every device under leading
+        mesh axes, alive, slots)."""
         if self._tiled:
             arrays, alive_np, cap = bin_tiled(
                 arrays, counts, self.grid, *self.tiling,
@@ -327,24 +372,72 @@ class Simulation:
             arrays, alive_np, cap = bin_cells(
                 arrays, counts, self.grid,
                 factor=self.particle_capacity_factor, cap_c=cap_floor)
-        dev0 = (0,) * self.dimension       # the one-device mesh
-        return {k: v[dev0] for k, v in arrays.items()}, alive_np[dev0], cap
+        return arrays, alive_np, cap
 
-    def initialize(self):
-        """Build grid, fields and cell- or tile-binned particles."""
+    def _particles(self, sp, arrays, alive_np):
+        """One species' ParticlesState of every shard (a list, or the one
+        device's state) from binned host arrays under mesh axes."""
+        out = []
+        for i, dev in enumerate(self._devices):
+            c = np.unravel_index(i, self.grid.mesh_shape)
+            out.append(cell_particles(sp, {k: v[c] for k, v in
+                                           arrays.items()}, alive_np[c],
+                                      self.dtype, dev, tiled=self._tiled,
+                                      shard=i))
+        return out if self.mesh is not None else out[0]
+
+    @property
+    def _devices(self):
+        return self.mesh.devices if self.mesh is not None else (self.device,)
+
+    def _shards(self) -> List[SimulationState]:
+        """The state of every shard (the one device's state alone)."""
+        if self.mesh is None:
+            return [self.state]
+        return list(self.state.shards)
+
+    def _set_shards(self, shards) -> None:
+        self.state = MeshState(shards=tuple(shards)) \
+            if self.mesh is not None else shards[0]
+
+    def initialize(self, devices=None):
+        """Build grid, mesh, fields and cell- or tile-binned particles.
+        ``devices``: the mesh's devices, one per patch, row-major (may
+        repeat a device); default every visible CUDA card, or the
+        Simulation's device for a one-patch run."""
         self._add_default_species_if_empty()
         self._check_supported()
-        self.npatch_x = self.npatch_y = 1
-        if self.dimension == 3:
-            self.npatch_z = 1
+        self._auto_patch(devices)
         self.grid = self._make_grid()
-        logger.info(f"Domain: {self.grid.shape} cells on {self.device}, "
+        self.mesh = None
+        if self.grid.n_shards > 1:
+            self._check_mesh_supported()
+            self.mesh = pmesh.make_mesh(self.grid, devices)
+            for d in self.mesh.devices:
+                if d.type != self.device.type:
+                    raise ValueError(f"mesh device {d} is not a "
+                                     f"{self.device.type} device, as the "
+                                     "Simulation's device is")
+        elif devices is not None:
+            self.device = resolve_device(pmesh.make_mesh(
+                self.grid, devices).devices[0])
+        logger.info(f"Domain: {self.grid.shape} cells, mesh "
+                    f"{self.grid.mesh_shape} on "
+                    f"{sorted(set(map(str, self._devices)))}, "
                     f"dt={self.dt:.3e}s")
         any_pml = any(v == "pml" for v in self.grid.bc.values())
         self.cpml = build_cpml(self.grid, self.dt,
                                CPMLParams(thickness=self.cpml_thickness)) \
             if any_pml else None
-        fields = zeros_fields(self.grid, self.dtype, self.device, self.cpml)
+        if self.mesh is None:
+            fields = [zeros_fields(self.grid, self.dtype, self.device,
+                                   self.cpml)]
+        else:
+            fields = [zeros_fields(self.grid, self.dtype, dev,
+                                   shard_cpml(self.cpml, self.grid,
+                                              self.mesh.coords(i)),
+                                   shape=self.grid.local_shape)
+                      for i, dev in enumerate(self.mesh.devices)]
         parts = []
         self._species_static = []
         for ispec, sp in enumerate(self.species):
@@ -363,16 +456,22 @@ class Simulation:
                 floor = int(np.ceil(sp.capacity / ntiles / 128) * 128)
             elif sp.capacity is not None:
                 floor = max(4, int(np.ceil(
-                    sp.capacity / int(np.prod(self.grid.shape)) / 2) * 2))
+                    sp.capacity / int(np.prod(self.grid.local_shape)) / 2)
+                    * 2))
             arrays, alive_np, cap_c = self._bin(arrays, counts, floor)
-            parts.append(cell_particles(sp, arrays, alive_np, self.dtype,
-                                        self.device, tiled=self._tiled))
+            parts.append(self._particles(sp, arrays, alive_np))
             self._species_static.append(SpeciesStatic(
                 name=sp.name, q=sp.q, m=sp.m, pusher=sp.pusher, cap=cap_c))
             logger.info(f"Species {sp.name}: {int(counts.sum()):,} macro "
                         f"particles, {cap_c} slots per "
                         + ("tile" if self._tiled else "cell"))
-        self.state = SimulationState(fields=fields, particles=tuple(parts))
+        if self.mesh is None:
+            self.state = SimulationState(fields=fields[0],
+                                         particles=tuple(parts))
+        else:
+            self.state = MeshState(shards=tuple(
+                SimulationState(fields=f, particles=tuple(p[i] for p in parts))
+                for i, f in enumerate(fields)))
         self._loss_reported.clear()
         self._overflow_seen.clear()
         self._occ_seen.clear()
@@ -413,6 +512,11 @@ class Simulation:
 
     def _build_stepper(self, lasers):
         fresh = self._builder.transients_valid if self._builder else {}
+        if self.mesh is not None:
+            self._builder = MeshStepBuilder(
+                self.grid, self.mesh, self.cpml, self.dt,
+                self._species_static, lasers, with_rho=self._with_rho)
+            return
         self._builder = StepBuilder(
             self.grid, self.cpml, self.dt, self._species_static, lasers,
             with_rho=self._with_rho, dtype=self.dtype, device=self.device,
@@ -477,6 +581,10 @@ class Simulation:
             cbs.run("start")
             sc = self._scalars(lasers)
             split = any(cbs.due(st) for _, st in INNER_SUBSTAGES if st)
+            if split and self.mesh is not None:
+                raise _todo("callbacks at inner stages on a device mesh "
+                            "(the split step's per-stage engine: B6's "
+                            "cross-device columns, B5 + halo_reduce)", "15")
             if not (split or cbs.due("maxwell_1")
                     or cbs.due("current_deposition")
                     or cbs.due("qed_create_particles")):
@@ -515,8 +623,9 @@ class Simulation:
         cbs.run("final")
 
     def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for dev in set(self._devices):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     # -- re-capacity ------------------------------------------------------
     def _maybe_recap(self):
@@ -526,13 +635,18 @@ class Simulation:
         since the last check; single hot cells reaching capacity are left
         to the weight-conserving merges); the tiled engine on any loss, or
         before the fullest tile's occupancy plus twice the last interval's
-        influx passes ``recap_threshold`` of the capacity."""
+        influx passes ``recap_threshold`` of the capacity. On a mesh the
+        counts are summed over the shards and every shard grows to one
+        capacity."""
         grew = False
-        for ispec, p in enumerate(self.state.particles):
+        for ispec in range(len(self.species)):
+            ps = [sh.particles[ispec] for sh in self._shards()]
             cap = self._species_static[ispec].cap
-            ov = int(p.overflow)
-            per_slot = p.alive.sum(dim=p.slot_axis, dtype=torch.int32)
-            occ, total = int(per_slot.max()), int(per_slot.sum())
+            ov = sum(int(p.overflow) for p in ps)
+            per_slot = [p.alive.sum(dim=p.slot_axis, dtype=torch.int32)
+                        for p in ps]
+            occ = max(int(t.max()) for t in per_slot)
+            total = sum(int(t.sum()) for t in per_slot)
             influx = max(0, occ - self._occ_seen.get(ispec, 0))
             self._occ_seen[ispec] = occ
             new_ov = ov - self._overflow_seen.get(ispec, 0)
@@ -556,37 +670,44 @@ class Simulation:
 
     def _grow_capacity(self, ispec: int, new_cap: int) -> bool:
         """Pad the slot axis (the first for cells, the last for tiles) with
-        dead slots (inv_gamma 1, everything else 0). Slot order within a
-        cell or tile carries no physics, so the state is unchanged.
-        Returns whether the capacity grew."""
-        p = self.state.particles[ispec]
-        old = p.cap
+        dead slots (inv_gamma 1, everything else 0), on every shard. Slot
+        order within a cell or tile carries no physics, so the state is
+        unchanged. Returns whether the capacity grew."""
+        shards = self._shards()
+        old = shards[0].particles[ispec].cap
         new_cap = int(new_cap) + (int(new_cap) & 1)   # keep it even
         if new_cap <= old:
             return False
-        axis = p.slot_axis
+        out = []
+        for sh in shards:
+            p = sh.particles[ispec]
+            axis = p.slot_axis
 
-        def pad(t, fill):
-            shape = list(t.shape)
-            shape[axis] = new_cap - old
-            extra = torch.full(shape, fill, dtype=t.dtype, device=t.device)
-            return torch.cat([t, extra], dim=axis)
+            def pad(t, fill):
+                shape = list(t.shape)
+                shape[axis] = new_cap - old
+                extra = torch.full(shape, fill, dtype=t.dtype,
+                                   device=t.device)
+                return torch.cat([t, extra], dim=axis)
 
-        data = {k: pad(v, 1 if k == "inv_gamma" else 0)
-                for k, v in p.data.items()}
-        parts = list(self.state.particles)
-        parts[ispec] = p.replace(data=data, alive=pad(p.alive, False))
-        self.state = self.state.replace(particles=tuple(parts))
+            data = {k: pad(v, 1 if k == "inv_gamma" else 0)
+                    for k, v in p.data.items()}
+            parts = list(sh.particles)
+            parts[ispec] = p.replace(data=data, alive=pad(p.alive, False))
+            out.append(sh.replace(particles=tuple(parts)))
+        self._set_shards(out)
         self._species_static[ispec] = dataclasses.replace(
             self._species_static[ispec], cap=new_cap)
         logger.info(f"species {self.species[ispec].name}: capacity grown "
-                    f"{old} -> {new_cap} (slot axis {axis})")
+                    f"{old} -> {new_cap} (slot axis "
+                    f"{shards[0].particles[ispec].slot_axis})")
         return True
 
     def _check_overflow(self):
         """Warn when a species' cumulative merge count has advanced."""
-        for ispec, p in enumerate(self.state.particles):
-            ov = int(p.overflow)
+        for ispec in range(len(self.species)):
+            ov = sum(int(sh.particles[ispec].overflow)
+                     for sh in self._shards())
             if ov > self._loss_reported.get(ispec, 0):
                 self._loss_reported[ispec] = ov
                 if self._tiled:
@@ -602,13 +723,13 @@ class Simulation:
                         "pressure (charge/momentum conserved)")
 
     # -- data access ----------------------------------------------------
-    def total_rho(self) -> torch.Tensor:
-        """Charge density of all charged species at the current
-        positions, through the plain deposit (used when the hot loop
-        runs without the rho deposit)."""
+    def _padded_rho(self, sh: SimulationState):
+        """The species-summed padded current of one shard's particles at
+        their current positions, through the plain deposit (None when no
+        species is charged)."""
         g = self.grid.n_guard
         jtot = None
-        for sp, p in zip(self._species_static, self.state.particles):
+        for sp, p in zip(self._species_static, sh.particles):
             if sp.q == 0.0:
                 continue
             d = p.data
@@ -629,102 +750,141 @@ class Simulation:
                                      q=sp.q, dx=self.dx, dy=self.dy,
                                      dz=self.dz, dt=self.dt, g=g)
             jtot = j4 if jtot is None else jtot + j4
-        if jtot is None:
-            return torch.zeros(self.grid.shape, dtype=self.dtype,
-                               device=self.device)
-        return halo_reduce(jtot, g, tuple(range(1, self.dimension + 1)),
-                           self.grid.periodic_axes)[3]
+        return jtot
+
+    def total_rho(self):
+        """Charge density of all charged species at the current
+        positions, through the plain deposit (used when the hot loop
+        runs without the rho deposit); on a mesh a list of the shards'."""
+        g = self.grid.n_guard
+        axes = tuple(range(1, self.dimension + 1))
+        js = [self._padded_rho(sh) for sh in self._shards()]
+        if js[0] is None:
+            out = [torch.zeros(self.grid.local_shape, dtype=self.dtype,
+                               device=dev) for dev in self._devices]
+        elif self.mesh is None:
+            out = [halo_reduce(js[0], g, axes, self.grid.periodic_axes)[3]]
+        else:
+            out = [j[3] for j in halo_reduce(js, g, axes,
+                                             halo_specs(self.grid),
+                                             self.mesh)]
+        return out if self.mesh is not None else out[0]
 
     def get_field(self, name: str) -> np.ndarray:
-        """Host copy of a field. When the hot loop runs without the rho
-        deposit, rho is recomputed from the current particles."""
+        """Host copy of a field (assembled from the shards on a mesh).
+        When the hot loop runs without the rho deposit, rho is recomputed
+        from the current particles."""
         if name == "rho" and not getattr(self, "_with_rho", True):
-            return self.total_rho().cpu().numpy()
-        return getattr(self.state.fields, name).cpu().numpy()
+            t = self.total_rho()
+        elif self.mesh is None:
+            t = getattr(self.state.fields, name)
+        else:
+            t = [getattr(sh.fields, name) for sh in self.state.shards]
+        if self.mesh is None:
+            return t.cpu().numpy()
+        return to_host(t, self.mesh, 0)
 
     def set_field(self, name: str, value) -> None:
         """Replace one field with ``value`` (the grid's shape), cast to
-        the run's type on its device."""
-        f = self.state.fields
-        old = getattr(f, name)
-        t = torch.as_tensor(np.asarray(value), dtype=self.dtype).to(
-            self.device)
-        if tuple(t.shape) != tuple(old.shape):
-            raise ValueError(f"set_field {name}: shape {tuple(t.shape)}, "
-                             f"expected {tuple(old.shape)}")
-        self.state = self.state.replace(fields=f.replace(**{name: t}))
+        the run's type on its device (cut into the shards on a mesh)."""
+        value = np.asarray(value)
+        if tuple(value.shape) != tuple(self.grid.shape):
+            raise ValueError(f"set_field {name}: shape {tuple(value.shape)}, "
+                             f"expected {tuple(self.grid.shape)}")
+        blocks = [value] if self.mesh is None else \
+            split_blocks(value, self.mesh)
+        out = []
+        for sh, blk, dev in zip(self._shards(), blocks, self._devices):
+            t = torch.as_tensor(np.array(blk), dtype=self.dtype).to(dev)
+            out.append(sh.replace(fields=sh.fields.replace(**{name: t})))
+        self._set_shards(out)
 
     def get_particles(self, ispec: int) -> Dict[str, np.ndarray]:
-        """Host copies of one species' alive particles, flattened:
-        positions in SI metres (wrapped into the box along periodic axes,
-        as stored positions may trail the mid-step re-binning by up to half
-        a cell), ids as uint32. The gathered-field slots (``*_part``) are
-        exposed only where the last step filled them: after a split step,
-        and for a radiating species of the per-stage engine."""
-        p = self.state.particles[ispec]
-        alive = p.alive.reshape(-1).cpu().numpy()
+        """Host copies of one species' alive particles, flattened shard by
+        shard (row-major over the mesh): positions in global SI metres
+        (a shard's local cell units plus its offset, wrapped into the box
+        along periodic axes, as stored positions may trail the mid-step
+        re-binning by up to half a cell), ids as uint32. The gathered-field
+        slots (``*_part``) are exposed only where the last step filled
+        them: after a split step, and for a radiating species of the
+        per-stage engine."""
         fresh = self._builder is not None and \
             self._builder.transients_valid.get(ispec, False)
-        out = {}
-        for k, v in p.data.items():
-            if k.endswith("_part") and not fresh:
-                continue
-            a = ids_to_numpy(v) if k in ID_KEYS else v.cpu().numpy()
-            a = a.reshape(-1)
-            if k in self.grid.axes:
-                ax = self.grid.axes.index(k)
-                d = self.grid.deltas[ax]
-                a = a * d
-                if self.grid.periodic(k):
-                    L = self.grid.shape[ax] * d
-                    a = (a + 0.5 * d) % L - 0.5 * d
-            out[k] = a[alive]
-        return out
+        cols: Dict[str, list] = {}
+        for i, sh in enumerate(self._shards()):
+            p = sh.particles[ispec]
+            alive = p.alive.reshape(-1).cpu().numpy()
+            off = np.unravel_index(i, self.grid.mesh_shape)
+            for k, v in p.data.items():
+                if k.endswith("_part") and not fresh:
+                    continue
+                a = ids_to_numpy(v) if k in ID_KEYS else v.cpu().numpy()
+                a = a.reshape(-1)
+                if k in self.grid.axes:
+                    ax = self.grid.axes.index(k)
+                    d = self.grid.deltas[ax]
+                    nloc = self.grid.local_shape[ax]
+                    a = (a + off[ax] * nloc) * d
+                    if self.grid.periodic(k):
+                        L = self.grid.shape[ax] * d
+                        a = (a + 0.5 * d) % L - 0.5 * d
+                cols.setdefault(k, []).append(a[alive])
+        return {k: np.concatenate(v) for k, v in cols.items()}
 
     def set_particles_global(self, ispec: int,
                              coords_si: Dict[str, np.ndarray],
                              attrs: Dict[str, np.ndarray]) -> None:
         """Replace one species' population by the particles given (SI
-        positions in ``coords_si``, other arrays in ``attrs``), binned
-        into cells (or tiles); ids restart at the flat slot index. Capacity
-        floors: the species' present capacity, and 8 slots a cell; QED
-        children follow their parent's."""
+        positions in ``coords_si``, other arrays in ``attrs``), each on the
+        shard that holds it, binned into cells (or tiles); ids restart at
+        the flat slot index (id_hi the shard's). Capacity floors: the
+        species' present capacity, and 8 slots a cell; QED children follow
+        their parent's."""
         if not self.initialized:
             raise RuntimeError("set_particles_global needs an initialised "
                                "Simulation (call initialize() first)")
         sp = self.species[ispec]
         st = self._species_static[ispec]
-        # flat arrays of the one device (mesh_shape + (n,)), positions in
-        # cell units, as bin_cells takes them
-        lead = self.grid.mesh_shape
-        n = len(np.asarray(coords_si[self.grid.axes[0]]))
-        arrays = {a: np.zeros(lead + (n,)) for a in sp.attrs()}
-        arrays["inv_gamma"][...] = 1.0
-        for k, v in attrs.items():
-            if k in arrays:
-                arrays[k][...] = np.asarray(v)
-        for ax, d in zip(self.grid.axes, self.grid.deltas):
-            arrays[ax][...] = np.asarray(coords_si[ax]) / d
+        arrays, counts, _ = distribute_global_particles(
+            self.grid, sp, coords_si, attrs,
+            factor=self.particle_capacity_factor)
         floor = st.cap if self._tiled else max(st.cap, 8)
-        arrays, alive_np, cap_c = self._bin(arrays, np.full(lead, n), floor)
+        arrays, alive_np, cap_c = self._bin(arrays, counts, floor)
         if cap_c != st.cap:
             self._species_static[ispec] = dataclasses.replace(st, cap=cap_c)
-        parts = list(self.state.particles)
-        parts[ispec] = cell_particles(sp, arrays, alive_np, self.dtype,
-                                      self.device, tiled=self._tiled)
-        self.state = self.state.replace(particles=tuple(parts))
+        new = self._particles(sp, arrays, alive_np)
+        new = new if self.mesh is not None else [new]
+        out = []
+        for sh, p in zip(self._shards(), new):
+            parts = list(sh.particles)
+            parts[ispec] = p
+            out.append(sh.replace(particles=tuple(parts)))
+        self._set_shards(out)
         self._sync_qed_child_caps()
         self._builder = None
 
     @property
     def npart_alive(self) -> List[int]:
-        return [int(p.alive.sum()) for p in self.state.particles]
+        return [sum(int(sh.particles[ispec].alive.sum())
+                    for sh in self._shards())
+                for ispec in range(len(self.species))]
+
+    def load_imbalance(self) -> float:
+        """(max - min) / mean of the shards' alive-particle counts (the
+        JAX package's metric; the mesh is static, so imbalance is reported
+        for the user to act on, not rebalanced)."""
+        per = np.array([sum(int(p.alive.sum()) for p in sh.particles)
+                        for sh in self._shards()], dtype=np.float64)
+        mean = per.mean()
+        if mean == 0:
+            return 0.0
+        return float((per.max() - per.min()) / mean)
 
 
 @dataclass
 class Simulation3D(Simulation):
-    """3D PIC simulation on one device, cell engine (counterpart of
-    lambdapic_tpu.Simulation3D)."""
+    """3D PIC simulation, cell engine, on one device or a device mesh
+    (counterpart of lambdapic_tpu.Simulation3D)."""
 
     nz: int = 0
     dz: float = 0.0

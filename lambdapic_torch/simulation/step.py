@@ -1,5 +1,6 @@
-"""One step of the cell engine on one device (counterpart of the cell
-path of lambdapic_tpu/simulation/step.py::StepBuilder).
+"""One step of the cell engine (counterpart of the cell path of
+lambdapic_tpu/simulation/step.py::StepBuilder): ``StepBuilder`` on one
+device, below; ``MeshStepBuilder`` (at the end) on a device mesh.
 
     seg_fields_1   E += dt/2 ; B += dt/2                 kernel B1 x2
     seg_particles  pad E,B with guard cells; per species the whole
@@ -487,3 +488,143 @@ def _current(j: torch.Tensor) -> Dict[str, torch.Tensor]:
     if j.shape[0] == 4:
         rep["rho"] = j[3]
     return rep
+
+
+class MeshStepBuilder:
+    """One step of the cell engine on a device mesh (the cell path of
+    lambdapic_tpu/simulation/step.py::StepBuilder with a mesh of more
+    than one shard), on a MeshState, shard by shard between the
+    exchanges:
+
+        seg_fields_1   per shard E += dt/2, then B += dt/2: the plain
+                       Yee updates of ops/maxwell.py with the neighbour
+                       rows their differences reach (the JAX package runs
+                       its XLA fields on a mesh, not kernel B1)
+        seg_particles  pad E,B: halo_pad of the six components across the
+                       mesh; per species ``cellslab.cell_step_mesh``
+                       (kernel B2 per shard and dispatch, the edge columns
+                       exchanged in between), panels chained across
+                       species per shard; one fold of the summed panels
+                       with the strip exchange (kernel B3's mesh form)
+        seg_fields_2   B += dt/2 ; lasers (on the shards at the xmin
+                       face) ; E += dt/2
+
+    ``n_lost`` adds to each shard's overflow counter; the accessors sum
+    them (psum). Only the fast re-binning without QED runs on a mesh;
+    Simulation refuses the rest (ROADMAP item 15)."""
+
+    def __init__(self, grid: Grid, mesh, cpml: Optional[CPMLCoeffs],
+                 dt: float, species: Sequence[SpeciesStatic],
+                 lasers: Sequence = (), with_rho: bool = True):
+        from ..ops.cpml import shard_cpml
+        from ..parallel.halo import halo_specs
+        self.grid = grid
+        self.mesh = mesh
+        self.dt = dt
+        self.species = tuple(species)
+        self.lasers = tuple(lasers)
+        self.with_rho = with_rho
+        self.specs = halo_specs(grid)
+        self.spatial_axes = tuple(range(1, grid.dimension + 1))
+        self.cpmls = [shard_cpml(cpml, grid, mesh.coords(i))
+                      for i in range(mesh.size)]
+        self.transients_valid: Dict[int, bool] = {}
+
+    # -- fields ------------------------------------------------------------
+    def _edges(self, fs, which: str):
+        """Per shard, the neighbour rows the ``which`` ("e" or "b") update
+        reads (ops/maxwell.py's E_EDGES / B_EDGES): for E the lower
+        neighbour's last row of a B component, for B the upper neighbour's
+        first row of an E component; zeros past an open face."""
+        from ..ops.maxwell import B_EDGES, E_EDGES
+        from ..parallel.mesh import axis_index, ppermute
+        nd = self.grid.dimension
+        shift = +1 if which == "e" else -1
+        out = [{} for _ in fs]
+        for name, axis in (E_EDGES if which == "e" else B_EDGES):
+            if axis >= nd:
+                continue
+            spec = self.specs[axis]
+            n = getattr(fs[0], name).shape[axis]
+            at = n - 1 if which == "e" else 0
+            rows = ppermute([getattr(f, name).narrow(axis, at, 1)
+                             for f in fs], self.mesh, spec.axis_name, shift)
+            edge = 0 if which == "e" else spec.size - 1
+            for i, r in enumerate(rows):
+                if not spec.periodic and \
+                        axis_index(self.mesh, i, spec.axis_name) == edge:
+                    r = torch.zeros_like(r)
+                out[i][(name, axis)] = r
+        return out
+
+    def _half(self, fs, which: str):
+        from ..ops.maxwell import update_bfield, update_efield
+        fn = update_efield if which == "e" else update_bfield
+        edges = self._edges(fs, which)
+        return [fn(f, self.grid, self.dt / 2, c, edges=e)
+                for f, c, e in zip(fs, self.cpmls, edges)]
+
+    @staticmethod
+    def _with_fields(state, fs):
+        return state.replace(shards=tuple(
+            s.replace(fields=f) for s, f in zip(state.shards, fs)))
+
+    def seg_fields_1(self, state, scalars: Dict):
+        fs = [s.fields for s in state.shards]
+        return self._with_fields(state, self._half(self._half(fs, "e"), "b"))
+
+    def seg_fields_2(self, state, scalars: Dict):
+        fs = self._half([s.fields for s in state.shards], "b")
+        for i, laser in enumerate(self.lasers):
+            fs = laser.apply_sharded(fs, self.grid, self.dt,
+                                     scalars.get(f"laser{i}", {}), self.mesh)
+        return self._with_fields(state, self._half(fs, "e"))
+
+    # -- particles ---------------------------------------------------------
+    def pad_eb(self, fs):
+        """The six E/B components of every shard with n_guard guard cells
+        per side, filled from the neighbour shards."""
+        eb = [torch.stack([f.ex, f.ey, f.ez, f.bx, f.by, f.bz], dim=0)
+              for f in fs]
+        return halo_pad(eb, self.grid.n_guard, self.spatial_axes, self.specs,
+                        self.mesh)
+
+    def seg_particles(self, state, scalars: Dict):
+        from ..ops.cellslab import cell_step_mesh
+        grid = self.grid
+        shards = state.shards
+        fs = [s.fields for s in shards]
+        eb_pads = self.pad_eb(fs)
+        dz = grid.dz if grid.dimension == 3 else None
+        rims = None
+        parts = [list(s.particles) for s in shards]
+        for ispec, sp in enumerate(self.species):
+            self.transients_valid[ispec] = False
+            outs = cell_step_mesh(
+                eb_pads, [s.particles[ispec].data for s in shards],
+                [s.particles[ispec].alive for s in shards], self.mesh,
+                self.specs, q=sp.q, m=sp.m, dt=self.dt, dx=grid.dx,
+                dy=grid.dy, dz=dz, g=grid.n_guard, rims_in=rims,
+                with_rho=self.with_rho)
+            for i, (data, alive, n_lost, r) in enumerate(outs):
+                p = parts[i][ispec]
+                parts[i][ispec] = p.replace(data=data, alive=alive,
+                                            overflow=p.overflow + n_lost)
+            rims = [o[3] for o in outs]
+            del outs
+        del eb_pads
+        if rims is not None:
+            js = fold_reduce(rims, grid.local_shape, None, self.mesh,
+                             self.specs)
+            fs = [f.replace(**_current(j)) for f, j in zip(fs, js)]
+        return state.replace(shards=tuple(
+            s.replace(fields=f, particles=tuple(p))
+            for s, f, p in zip(shards, fs, parts)))
+
+    def full_step(self, state, scalars: Dict, migrate: bool = True):
+        if not migrate:
+            raise ValueError("the cell engine re-bins every step; "
+                             "migrate=False is the tiled engine's")
+        state = self.seg_fields_1(state, scalars)
+        state = self.seg_particles(state, scalars)
+        return self.seg_fields_2(state, scalars)

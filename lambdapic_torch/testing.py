@@ -181,6 +181,84 @@ def crowded_cell_state(cap: int, nx: int, ny: int, nz: Optional[int] = None,
     return data, alive, eb_pad
 
 
+def random_mesh_cells(mesh_shape, cap: int, nloc, *, seed: int = 0,
+                      crowded: bool = False, n_frac: float = 0.4):
+    """Cell states of every shard of a mesh of ``mesh_shape`` shards of
+    ``nloc`` cells (``random_cell_state``, or with ``crowded``
+    ``crowded_cell_state``: merges), in the JAX package's layout of
+    per-device arrays (leading mesh axes): (data, alive, eb_pad), one
+    random padded E/B stack per shard. id_lo is unique over the mesh and
+    id_hi the shard's flat index, as the fill numbers them. Positions are
+    shard-local, so particles cross the shards' faces and corners."""
+    shards = []
+    for i, _ in enumerate(np.ndindex(tuple(mesh_shape))):
+        nz = nloc[2] if len(nloc) == 3 else None
+        if crowded:
+            d, a, eb = crowded_cell_state(cap, nloc[0], nloc[1], nz,
+                                          seed=seed + i, n_frac=n_frac)
+        else:
+            d, a, eb = random_cell_state(cap, nloc[0], nloc[1], nz,
+                                         seed=seed + i, n_frac=n_frac)
+        size = a.size
+        d["id_lo"] = (d["id_lo"].astype(np.int64) + i * size).astype(np.uint32)
+        d["id_hi"] = np.full(a.shape, i, np.uint32)
+        shards.append((d, a, eb))
+    lead = tuple(mesh_shape)
+
+    def stack(xs):
+        return np.stack(xs).reshape(lead + xs[0].shape)
+    data = {k: stack([sh[0][k] for sh in shards]) for k in shards[0][0]}
+    return (data, stack([sh[1] for sh in shards]),
+            stack([sh[2] for sh in shards]))
+
+
+def mesh_to_torch(data: Dict[str, np.ndarray], alive: np.ndarray, mesh,
+                  dtype):
+    """Arrays under leading mesh axes -> per-shard (data, alive) on the
+    mesh's devices."""
+    out = []
+    for i in range(mesh.size):
+        c = mesh.coords(i)
+        out.append(to_torch({k: v[c] for k, v in data.items()}, alive[c],
+                            dtype, mesh.devices[i]))
+    return out
+
+
+def mesh_to_numpy(shards, mesh_shape):
+    """Per-shard (data, alive) -> numpy arrays under leading mesh axes."""
+    lead = tuple(mesh_shape)
+    outs = [to_numpy(d, a) for d, a in shards]
+
+    def stack(xs):
+        return np.stack(xs).reshape(lead + xs[0].shape)
+    data = {k: stack([o[0][k] for o in outs]) for k in outs[0][0]}
+    return data, stack([o[1] for o in outs])
+
+
+def compare_mesh_slots(ref, ref_alive, got, got_alive, mesh_shape, *,
+                       rtol: float, keys=SLOT_FLOATS,
+                       floor: float = 1e-14) -> None:
+    """``compare_slots`` shard by shard of arrays under leading mesh
+    axes (each attribute's absolute floor from its peak over the mesh)."""
+    ra, ga = np.asarray(ref_alive), np.asarray(got_alive)
+    for c in np.ndindex(tuple(mesh_shape)):
+        compare_slots({k: np.asarray(v)[c] for k, v in ref.items()}, ra[c],
+                      {k: np.asarray(v)[c] for k, v in got.items()}, ga[c],
+                      rtol=rtol, keys=(), floor=floor)
+    for k in keys:
+        peak = float(np.abs(np.asarray(ref[k])[ra]).max()) if ra.any() else 0
+        for c in np.ndindex(tuple(mesh_shape)):
+            r, rm = canon_slots({k: np.asarray(ref[k])[c],
+                                 "id_lo": np.asarray(ref["id_lo"])[c]},
+                                ra[c])
+            g, gm = canon_slots({k: np.asarray(got[k])[c],
+                                 "id_lo": np.asarray(got["id_lo"])[c]},
+                                ga[c])
+            np.testing.assert_allclose(g[k][gm], r[k][rm], rtol=rtol,
+                                       atol=max(floor * peak, 1e-300),
+                                       err_msg=f"{k} shard {c}")
+
+
 def tiny_laser_target(pkg, *, nx: int = 48, ny: int = 32, **sim_kw):
     """A tiny 2D laser-target of package ``pkg`` (lambdapic_tpu or
     lambdapic_torch, passed in): electrons (a y-dependent momentum so that
@@ -271,3 +349,123 @@ def tiled_state(cfg, *, seed: int = 0, n_frac: float = 0.4,
     nyp = cfg.nty * cfg.ty + 2 * cfg.h
     eb_pad = rng.uniform(-field, field, (6, nxp, nyp))
     return data, alive, eb_pad
+
+
+def shard_state(state, grid, cpml, mesh):
+    """A one-device SimulationState of the global grid ``grid`` split into
+    a MeshState on ``mesh`` (whose shape is ``grid``'s mesh shape): each
+    shard's block of the fields, the rows of its PML slabs of psi
+    (``ops/cpml.py::psi_rows``), its cells' slots with positions shifted
+    into its local cell units (x - offset, exact in float32 and float64 at
+    these magnitudes; dead slots stay 0), ids kept. The state may lie on
+    the host; each shard is copied to its device."""
+    from .core.state import MeshState, SimulationState
+    from .ops.cpml import psi_rows
+    f = state.fields
+    names = ("ex", "ey", "ez", "bx", "by", "bz", "jx", "jy", "jz", "rho")
+    nloc = grid.local_shape
+    shards = []
+    for i in range(mesh.size):
+        dev = mesh.devices[i]
+        c = mesh.coords(i)
+        cells = tuple(slice(ci * n, (ci + 1) * n) for ci, n in zip(c, nloc))
+
+        def block(t, lead=0):
+            return t[(slice(None),) * lead + cells].to(dev, copy=True
+                                                       ).contiguous()
+
+        psi = {}
+        for key, v in f.psi.items():
+            k = grid.axes.index(key[-1])
+            idx = list(cells)
+            rows = torch.as_tensor(psi_rows(cpml, grid, key[-1], c[k]),
+                                   device=v.device)
+            idx[k] = slice(None)
+            psi[key] = v[tuple(idx)].index_select(k, rows).to(dev).contiguous()
+        fields = f.replace(psi=psi, **{k: block(getattr(f, k)) for k in names})
+        parts = []
+        for p in state.particles:
+            alive = block(p.alive, 1)
+            data = {}
+            for k, v in p.data.items():
+                t = block(v, 1)
+                if k in grid.axes:
+                    off = float(c[grid.axes.index(k)] * nloc[grid.axes.index(k)])
+                    t = torch.where(alive, t - off, torch.zeros_like(t))
+                data[k] = t
+            parts.append(p.replace(data=data, alive=alive,
+                                   next_id=p.next_id.to(dev, copy=True),
+                                   overflow=torch.zeros_like(
+                                       p.overflow, device=dev)))
+        shards.append(SimulationState(fields=fields, particles=tuple(parts)))
+    return MeshState(shards=tuple(shards))
+
+
+def unshard_state(mstate, grid, mesh, device):
+    """The inverse of ``shard_state``: one SimulationState of the global
+    grid on ``device`` (psi not carried: an empty dict), positions back in
+    global cell units, overflow summed over the shards."""
+    from .core.state import SimulationState
+    from .parallel.mesh import psum
+    nloc = grid.local_shape
+
+    def join(ts, lead):
+        blocks = np.empty(mesh.shape, dtype=object)
+        for i, t in enumerate(ts):
+            blocks[mesh.coords(i)] = t.to(device)
+
+        def cat(b, axis):
+            if b.ndim == 1:
+                return torch.cat(list(b), dim=axis)
+            return torch.cat([cat(b[k], axis + 1) for k in range(b.shape[0])],
+                             dim=axis)
+        return cat(blocks, lead)
+
+    shards = mstate.shards
+    f0 = shards[0].fields
+    fields = f0.replace(psi={}, **{
+        k: join([getattr(s.fields, k) for s in shards], 0)
+        for k in ("ex", "ey", "ez", "bx", "by", "bz", "jx", "jy", "jz",
+                  "rho")})
+    parts = []
+    for ispec, p0 in enumerate(shards[0].particles):
+        ps = [s.particles[ispec] for s in shards]
+        data = {}
+        for k in p0.data:
+            ts = []
+            for i, p in enumerate(ps):
+                t = p.data[k]
+                if k in grid.axes:
+                    ax = grid.axes.index(k)
+                    off = float(mesh.coords(i)[ax] * nloc[ax])
+                    t = torch.where(p.alive, t + off, torch.zeros_like(t))
+                ts.append(t)
+            data[k] = join(ts, 1)
+        parts.append(p0.replace(
+            data=data, alive=join([p.alive for p in ps], 1),
+            next_id=p0.next_id.to(device),
+            overflow=psum([p.overflow for p in ps], mesh).to(device)))
+    return SimulationState(fields=fields, particles=tuple(parts))
+
+
+def mesh_twin(sim, mesh_shape, devices, source=None):
+    """A Simulation (or Simulation3D) like the one-device ``sim`` (same
+    configuration, species, step and time) on a mesh of ``mesh_shape``
+    over ``devices``, without a fill of its own: its state is ``source``
+    (a one-device state of ``sim``'s grid, by default ``sim``'s own; it
+    may lie on the host) split with ``shard_state``."""
+    import copy
+    from .parallel.mesh import make_mesh
+    twin = copy.copy(sim)
+    for ax, p in zip("xyz", mesh_shape):
+        setattr(twin, "npatch_" + ax, p)
+    twin.grid = twin._make_grid()
+    twin._check_mesh_supported()
+    twin.mesh = make_mesh(twin.grid, devices)
+    twin._species_static = list(sim._species_static)
+    for k in ("_overflow_seen", "_occ_seen", "_loss_reported"):
+        setattr(twin, k, dict(getattr(sim, k)))
+    twin._builder = None
+    twin.state = shard_state(sim.state if source is None else source,
+                             twin.grid, sim.cpml, twin.mesh)
+    return twin

@@ -168,7 +168,8 @@ def _imports(path: Path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "lambdapic_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py"]
-    assert {"random.py", "qed.py", "qed_tables.py", "cellpallas.py"} <= \
+    assert {"random.py", "qed.py", "qed_tables.py", "cellpallas.py",
+            "mesh.py", "halo.py", "distributed.py"} <= \
         {f.name for f in files}
     for f in files:
         for mod in _imports(f):
@@ -179,6 +180,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "import lambdapic_torch.models.qed, lambdapic_torch.random\n"
             "import lambdapic_torch.ops.cellpallas\n"
             "import lambdapic_torch.simulation.step\n"
+            "import lambdapic_torch.parallel.mesh\n"
+            "import lambdapic_torch.parallel.halo\n"
+            "import lambdapic_torch.parallel.distributed\n"
+            "from lambdapic_torch.simulation.step import MeshStepBuilder\n"
+            "from lambdapic_torch.ops.cellslab import cell_step_mesh\n"
             "lambdapic_torch.models.qed._make_tables('photon', "
             "lambdapic_torch.random.torch.float32)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -214,8 +220,14 @@ def test_config_validation_and_unported_options():
         Simulation(dt_cfl=1.5, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Simulation(tiling=None, **kw).initialize()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Simulation(tiling="cell", npatch_x=2, **kw).initialize()
+    # a device mesh runs since the mesh slice; one larger than its device
+    # list raises, and the exact re-binning on a mesh names its item
+    with pytest.raises(ValueError, match="need 2 devices"):
+        Simulation(tiling="cell", npatch_x=2, npatch_y=1, **kw).initialize()
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 15"):
+        Simulation(tiling="cell", npatch_x=2, npatch_y=1,
+                   cell_migration="exact", **kw).initialize(
+                       devices=[torch.device("cpu")] * 2)
     with pytest.raises(ValueError):
         t_species.Species(name="x", charge=1.5, mass=1.0)
     with pytest.raises(ValueError):

@@ -158,8 +158,11 @@ def test_simulation3d_validation():
     assert sorted(sim.boundary_conditions) == sorted(FACES)
     from lambdapic_torch.constants import c
     assert sim.dt == 0.95 * (1e-7**-2 + 1e-7**-2 + 2e-7**-2)**-0.5 / c
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Simulation3D(nz=16, dz=2e-7, npatch_z=2, **kw).initialize()
+    # a 3D device mesh runs since the mesh slice; one larger than its
+    # device list raises
+    with pytest.raises(ValueError, match="need 2 devices"):
+        Simulation3D(nz=16, dz=2e-7, npatch_x=1, npatch_y=1, npatch_z=2,
+                     **kw).initialize()
     with pytest.raises(ValueError):
         Simulation3D(nz=16, dz=2e-7, boundary_conditions={
             **{f: "pml" for f in FACES}, "zmax": "periodic"}, **kw

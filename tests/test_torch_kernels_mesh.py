@@ -1,0 +1,156 @@
+"""Kernel B2's cross-device and multi-dispatch modes (K4) and kernel B3's
+cross-device strips (K5) against their plain PyTorch versions, on the
+card. Marked ``gpu``: they skip without a CUDA device. On a machine with
+one (and without JAX, which tests/conftest.py imports) run
+
+    python -m pytest --noconftest -m gpu tests/test_torch_kernels_mesh.py
+
+Every mesh runs on the one card, its device list naming cuda:0 once per
+shard. The inputs are random shard states whose particles cross the
+shards' faces and corners (with merges in the crowded cases). Rules
+(float64): slot for slot after canonicalisation (alive and ids equal,
+other attributes to rtol 1e-11 with a floor of 1e-14 of the peak), merge
+counts equal, panels and J to 1e-12 of their peak (the current sums run
+in another order). float32: the same with rtol 1e-5 and 1e-5 of the
+peak.
+"""
+import numpy as np
+import pytest
+import torch
+
+from lambdapic_torch.ops.cellslab import (cell_step, cell_step_mesh,
+                                          cell_step_plain, fold_reduce,
+                                          fold_reduce_plain)
+from lambdapic_torch.parallel.halo import HaloSpec
+from lambdapic_torch.parallel.mesh import Mesh
+from lambdapic_torch.testing import (compare_mesh_slots, mesh_to_numpy,
+                                     mesh_to_torch, random_mesh_cells)
+
+pytestmark = pytest.mark.gpu
+
+Q, M, DT, DX, G = -1.602e-19, 9.109e-31, 1.1e-16, 5e-8, 3
+NAMES = ("px", "py", "pz")
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda:0")
+
+
+def run_both(mesh_shape, cap, nloc, periodic, crowded, dtype, dev, seed=0):
+    """K4 + K5 and their plain versions on the same shard inputs: (kernel
+    outputs, plain outputs), each ((data, alive) per shard, n_lost per
+    shard, panels, J per shard)."""
+    nd = len(mesh_shape)
+    n = int(np.prod(mesh_shape))
+    mesh = Mesh(tuple(mesh_shape), NAMES[:nd], (dev,) * n)
+    specs = tuple(HaloSpec(NAMES[i], mesh_shape[i], periodic[i])
+                  for i in range(nd))
+    data, alive, eb = random_mesh_cells(mesh_shape, cap, nloc, seed=seed,
+                                        crowded=crowded,
+                                        n_frac=0.9 if crowded else 0.4)
+    shards = mesh_to_torch(data, alive, mesh, dtype)
+    ebs = [torch.as_tensor(eb[mesh.coords(i)], dtype=dtype).to(dev)
+           for i in range(n)]
+    out = []
+    for step, fold in ((cell_step, fold_reduce),
+                       (cell_step_plain, fold_reduce_plain)):
+        res = cell_step_mesh(ebs, [d for d, _ in shards],
+                             [a for _, a in shards], mesh, specs, q=Q, m=M,
+                             dt=DT, dx=DX, dy=DX, dz=DX if nd == 3 else None,
+                             g=G, step=step)
+        j = fold([r[3] for r in res], nloc, None, mesh, specs)
+        out.append(([(r[0], r[1]) for r in res], [int(r[2]) for r in res],
+                    [r[3] for r in res], j))
+    torch.cuda.synchronize()
+    return out
+
+
+CASES = [
+    # (mesh, cap, nloc, periodic, crowded)
+    ((2, 1), 6, (16, 24), (True, False), True),
+    ((2, 2), 4, (16, 16), (False, True), False),
+    ((2, 2), 8, (17, 16), (True, True), True),
+    ((1, 4), 4, (20, 16), (False, False), False),
+    ((1, 2, 1), 4, (8, 8, 8), (True, False, True), True),
+    ((2, 2, 2), 4, (8, 8, 8), (True, True, False), False),
+    ((2, 2, 2), 6, (8, 9, 8), (False, True, True), True),
+    ((1, 1, 2), 4, (8, 8, 8), (False, False, True), True),
+]
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-11),
+                                        (torch.float32, 1e-5)])
+@pytest.mark.parametrize("mesh_shape,cap,nloc,periodic,crowded", CASES)
+def test_k4_k5_match_plain(cuda, mesh_shape, cap, nloc, periodic, crowded,
+                           dtype, rtol):
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    got, ref = run_both(mesh_shape, cap, nloc, periodic, crowded, dtype,
+                        cuda, seed=cap + sum(nloc))
+    gd, ga = mesh_to_numpy(got[0], mesh_shape)
+    rd, ra = mesh_to_numpy(ref[0], mesh_shape)
+    compare_mesh_slots(rd, ra, gd, ga, mesh_shape, rtol=rtol)
+    assert got[1] == ref[1]
+    if crowded and dtype == torch.float64:
+        assert sum(ref[1]) > 0
+    for a, b in zip(got[2], ref[2]):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=tol * float(b.abs().max()))
+    peak = max(float(b.abs().max()) for b in ref[3])
+    for a, b in zip(got[3], ref[3]):
+        torch.testing.assert_close(a, b, rtol=0, atol=tol * peak)
+
+
+def test_dispatch_counts(cuda):
+    """One launch of kernel B2 a shard and dispatch (a mesh that splits
+    only x runs the whole stage in one dispatch), and of B3 a shard
+    (fold) plus one a shard and split axis (strips)."""
+    for mesh_shape, nloc, dispatches, strips in (
+            ((2, 2), (16, 16), 2, 2), ((2, 1), (16, 16), 1, 1),
+            ((2, 2, 2), (8, 8, 8), 3, 3), ((1, 1, 2), (8, 8, 8), 2, 1)):
+        n = int(np.prod(mesh_shape))
+        cell_step.launches = 0
+        cell_step.launches_by_dispatch = dict.fromkeys(
+            cell_step.launches_by_dispatch, 0)
+        fold_reduce.launches = 0
+        fold_reduce.launches_by_kind = dict.fromkeys(
+            fold_reduce.launches_by_kind, 0)
+        run_both(mesh_shape, 4, nloc, (True,) * len(nloc), False,
+                 torch.float64, cuda)
+        assert cell_step.launches == n * dispatches
+        assert cell_step.launches_by_dispatch == {
+            "whole": n if dispatches == 1 else 0,
+            "head": n * (dispatches - 1),
+            "tail": n if dispatches > 1 else 0}
+        assert fold_reduce.launches_by_kind == {"fold": n,
+                                                "strips": n * strips}
+
+
+def test_mesh_simulation_on_card_matches_cpu(cuda):
+    """The tiny 2D laser-target on a 2 x 2 mesh of the one card against
+    the same run on a 2 x 2 mesh of the CPU (plain versions), float64:
+    fields to 1e-9 of their peak, particles slot for slot."""
+    import lambdapic_torch
+    from lambdapic_torch.core.state import state_to_numpy
+    from lambdapic_torch.testing import tiny_laser_target
+    states = []
+    for dev in (torch.device("cpu"), cuda):
+        lambdapic_torch.core.species._ALL_SPECIES.clear()
+        sim, laser = tiny_laser_target(lambdapic_torch, nx=48, ny=32,
+                                       device=dev.type, npatch_x=2,
+                                       npatch_y=2,
+                                       particle_capacity_factor=4.0)
+        sim.initialize(devices=[dev] * 4)
+        sim.run(4, callbacks=[laser])
+        states.append(state_to_numpy(sim.state, mesh=sim.mesh,
+                                     cpml=sim.cpml, grid=sim.grid))
+    ref, got = states
+    for k in ("ex", "ey", "ez", "bx", "by", "bz", "jx", "jy", "jz"):
+        a, b = getattr(got.fields, k), getattr(ref.fields, k)
+        np.testing.assert_allclose(a, b, rtol=0,
+                                   atol=1e-9 * np.abs(b).max(), err_msg=k)
+    for pr, pg in zip(ref.particles, got.particles):
+        compare_mesh_slots(pr.data, pr.alive, pg.data, pg.alive, (2, 2),
+                           rtol=1e-9)

@@ -90,7 +90,7 @@ def _sim(**kw):
 REFUSALS = [
     (dict(tiling=None), NotImplementedError, "item 12"),
     (dict(tiling_backend="pallas"), NotImplementedError, "item 13"),
-    (dict(npatch_x=2), NotImplementedError, "item 15"),
+    (dict(npatch_x=2, npatch_y=1), NotImplementedError, "item 15"),
     (dict(tiling=(12, 16)), ValueError, "divisible"),
     (dict(tiling=(4, 16)), ValueError, "2\\*n_guard"),
     (dict(rebin_interval=4), ValueError, "needs n_guard >= 5"),
