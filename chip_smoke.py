@@ -46,7 +46,9 @@ Phases (any failure exits non-zero):
    size without its diagnostics (512 x 256 x 256 cells, electrons and
    protons at 2 particles per cell, PML on six faces, GaussianLaser3D
    a0=10, float32), through Simulation3D.run (launches per step B1 4,
-   B2 2, B3 1), and for the 3D kernels at its shapes;
+   B2 2, B3 1), and for the 3D kernels at its shapes; B2 3D's device
+   time is printed per __global__ function (three rebin3 passes and the
+   tile kernel tail3; photon3 in place of tail3 in the photon mode);
 7. the per-stage engine (2D): after phase 4 the 2D slice goes on through
    split steps (a host callback at _push_momentum due every step:
    launches per step B1 4, B6 6, B5 3; one split step held against one
@@ -192,7 +194,7 @@ KERNEL_FUNCS = {"B1 E": {"e_half": 1}, "B1 B": {"b_half": 1},
                 "B2 photon": {"pass_x": 1, "pass_y": 1},
                 "B3": {"fold<": 1},
                 "B1-3D E": {"e_half3": 1}, "B1-3D B": {"b_half3": 1},
-                "B2-3D": {"rebin": 3, "push<": 1, "deposit": 1},
+                "B2-3D": {"rebin3": 3, "tail3<": 1},
                 "B3-3D": {"fold3": 1},
                 "B8": {"gather<": 1}, "B9": {"deposit<": 1}}
 
@@ -2326,8 +2328,8 @@ def run_3d(args, dev):
         f"{npart / (step_ms * 1e-3):.4e} pushes/s, peak |ey| {ey_peak:.3e}, "
         f"peak |jx| {jx_peak:.3e}")
     busy_per_step(lambda: sim.run(nsteps=1, callbacks=[laser]),
-                  {"e_half3": 2, "b_half3": 2, "rebin": 6, "push<": 2,
-                   "deposit": 2, "fold3": 1}, 3, "profile 3D", step_ms)
+                  {"e_half3": 2, "b_half3": 2, "rebin3": 6, "tail3<": 2,
+                   "fold3": 1}, 3, "profile 3D", step_ms)
 
     # -- kernel times at the slice's shapes -------------------------------------
     f = sim.state.fields
@@ -3003,7 +3005,7 @@ QED3_SHAPE = (256, 128, 128)
 # x-planes on which B2 3D's QED modes are held against (and timed beside)
 # their plain versions at the slice's end state
 QED3_PLANES = 128
-KERNEL_FUNCS.update({"B2-3D photon": {"rebin": 3, "push<": 1}})
+KERNEL_FUNCS.update({"B2-3D photon": {"rebin3": 3, "photon3<": 1}})
 # the photon mode of cellstep3d.cu: two half pushes along three axes and
 # the keys (about 18) and 1/|u| (about 7)
 FLOPS_PHOTON_3D = 25
@@ -3374,8 +3376,8 @@ def run_qed_3d(args, dev):
         f"of three species), peak |ey| "
         f"{float(sim.state.fields.ey.abs().max()):.3e}")
     busy_per_step(lambda: sim.run(nsteps=1, callbacks=[laser]),
-                  {"e_half3": 2, "b_half3": 2, "rebin": 9, "push<": 3,
-                   "deposit": 2, "fold3": 1}, 5, "profile QED 3D", step_ms)
+                  {"e_half3": 2, "b_half3": 2, "rebin3": 9, "tail3<": 2,
+                   "photon3<": 1, "fold3": 1}, 5, "profile QED 3D", step_ms)
 
     # -- checks beside the main path, on its final state ------------------------
     n_ev, dropped, change = check_creation(sim, proc)
@@ -4802,7 +4804,7 @@ def run_mesh_3d(args, sim, laser):
     keep = keep_state(sim, laser)
     twin, step_ms, peak, busy, launches, mtrack, mtot = run_mesh(
         sim, tag, shape, steps, window, {"B2": 48, "B3": 32},
-        {"rebin": 48, "push<": 16, "deposit": 16, "fold3": 8,
+        {"rebin3": 48, "tail3<": 16, "fold3": 8,
          "strips<": 24}, keep)
     mark(tag, "main path")
     t = dispatch_ms("3D", twin, args.iters3d)

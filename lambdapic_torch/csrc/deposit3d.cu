@@ -10,8 +10,9 @@
 //
 // Two __global__ functions:
 //  deposit3d  one block per 8 x 8 x 8 cell tile, one thread per cell: the
-//             atomic-free tile deposit of kernel B2 in 3D (cell3d.cuh::
-//             deposit_tile) into (4, nbx, nby, nbz, 12, 12, 12) panels;
+//             atomic-free tile deposit cell3d.cuh::deposit_tile into
+//             (4, nbx, nby, nbz, 12, 12, 12) panels (kernel B2 in 3D adds
+//             the same stencil terms with shared-memory atomics);
 //             slots with w = 0 add nothing and are skipped;
 //  fold_pad3  one thread per padded node: the sum of the (at most two per
 //             axis) panel nodes that land on it. Panel (bi, bj, bk) node
@@ -23,8 +24,8 @@
 //
 // Bound on an H100 (3.35 TB/s): bytes: w of every slot, the six other
 // reals of the depositing slots read once and the padded current written
-// once. The deposit inherits B2's 125 barriers a particle round (a block
-// runs as many rounds as its fullest cell has particles).
+// once. The deposit takes 125 barriers a particle round (a block runs as
+// many rounds as its fullest cell has particles).
 #include "cell3d.cuh"
 
 namespace {

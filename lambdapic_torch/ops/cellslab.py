@@ -394,10 +394,11 @@ def _cell_step_3d(eb_pad, data, alive, *, q, m, dt, dx, dy, dz, g, periodic,
                   rims_in, with_rho, mode, extra, merge, tail, edges):
     """The 3D launch of kernel B2 (csrc/cellstep3d.cu): the re-binning
     passes of the axes ``merge`` (the whole stage: x into buffer A, y into
-    buffer B, z back into A), then with ``tail`` the push in place on A
-    (gather + Boris + half push; with want_chi also chi and ig0; a
-    photon's 1/|u| + half push) and, but for photons, the deposit from A.
-    ``edges``: axis -> (lo, hi) neighbour edges."""
+    buffer B, z back into A), then with ``tail`` the tile kernel in place
+    on A (gather from a shared E/B window + Boris + half push + deposit
+    into the tile's panel; with want_chi also chi and ig0), or for
+    photons the per-slot 1/|u| + half push. ``edges``: axis -> (lo, hi)
+    neighbour edges."""
     dev = alive.device
     dtype = data["x"].dtype
     shape = tuple(alive.shape)
@@ -406,6 +407,9 @@ def _cell_step_3d(eb_pad, data, alive, *, q, m, dt, dx, dy, dz, g, periodic,
     _check_tile("cellstep3d")
     kernel_lib.check(alive, "alive", shape, torch.bool, dev)
     if tail and not photon:
+        if g < 2:
+            raise ValueError(f"cell_step: {g} guard cells; the 3D kernel's "
+                             "gather window reaches 2 cells below a tile")
         kernel_lib.check(eb_pad, "eb_pad",
                          (6, nx + 2 * g, ny + 2 * g, nz + 2 * g), dtype, dev)
     first = merge[0] == 0
@@ -505,6 +509,9 @@ def _cell_step_2d(eb_pad, data, alive, *, q, m, dt, dx, dy, g, periodic,
     first = merge[0] == 0
     kernel_lib.check(alive, "alive", shape, torch.bool, dev)
     if tail and not photon:
+        if g < 2:
+            raise ValueError(f"cell_step: {g} guard cells; the 3D kernel's "
+                             "gather window reaches 2 cells below a tile")
         kernel_lib.check(eb_pad, "eb_pad", (6, nx + 2 * g, ny + 2 * g),
                          dtype, dev)
     for k in FLOAT_PAYLOADS + (("inv_gamma",) if first else ()) + extra:

@@ -11,7 +11,11 @@ is bitwise equal and float32 within rtol 1e-5; B5 3D within 1e-12 of the
 current's peak in float64 (1e-5 in float32; the sums run in another
 order); B6 on 3D slots and B7 on 3D slots move data and merge in the
 plain version's order, so every output array is equal, dead slots
-included, for caps 4 to 20, with float, int32 and bool payloads.
+included, for caps 4 to 20, with float, int32 and bool payloads. B2 3D
+(the cases at the end; its default mode in test_torch_kernels.py) slot
+for slot at rtol 1e-11 and panels within 1e-12 of their peak in float64:
+its tile kernel adds the stencils with shared-memory atomics, so the
+panel sums run in an order that changes from run to run.
 """
 import numpy as np
 import pytest
@@ -343,3 +347,180 @@ def test_b6_b7_3d_bigcap_match_plain(cuda, cap, nx, ny, nz, periodic, n_frac):
     assert torch.equal(gk, rk)
     for a, b in zip(gp, rp):
         assert torch.equal(a, b)
+
+
+# B2 3D's tile kernel at its edges, float64 against cell_step_plain: slots
+# at rtol 1e-11, panels within 1e-12 of their peak (the kernel's atomics
+# sum in another order), merge counts equal. (cap, nx, ny, nz, periodic,
+# mode) by case:
+#  one_full_cell  one line of cells along x alive, crowded so that after
+#                 the x pass a cell holds a particle in every slot beside
+#                 empty cells;
+#  untiled_grid   a grid that no 8^3 tile divides;
+#  cap130         above the thread-local sort (130 slots a cell), want_chi;
+#  want_chi_xf,
+#  photon_xf      the QED modes with three extra payloads, merging.
+TAIL3_CASES = {
+    "one_full_cell": (8, 12, 9, 10, (True, False, True), "default"),
+    "untiled_grid": (6, 13, 10, 11, (False, True, False), "default"),
+    "cap130": (130, 5, 4, 6, (True, False, True), "want_chi"),
+    "want_chi_xf": (12, 9, 10, 17, (False, False, True), "want_chi"),
+    "photon_xf": (12, 9, 10, 17, (True, True, False), "photon"),
+}
+
+
+def _tail3_state(name, cap, nx, ny, nz, mode, seed):
+    from lambdapic_torch.testing import photon_cell_state
+    if name == "one_full_cell":
+        # at rest and well inside the line's y and z: along x the cells 3k
+        # take every slot of 3k - 1 and 3k + 1 (merging), along y and z
+        # nothing moves
+        data, alive, eb = crowded_cell_state(cap, nx, ny, nz, seed=seed)
+        line = np.zeros_like(alive)
+        line[:, :, ny // 2, nz // 2] = True
+        alive = alive & line
+        rng = np.random.default_rng(seed)
+        data["y"] = ny // 2 + rng.uniform(-0.3, 0.3, alive.shape)
+        data["z"] = nz // 2 + rng.uniform(-0.3, 0.3, alive.shape)
+        data = {k: np.where(alive, v, 0.0) if k in ("x", "y", "z", "w") else v
+                for k, v in data.items()}
+        data.update(ux=np.zeros(alive.shape), uy=np.zeros(alive.shape),
+                    uz=np.zeros(alive.shape), inv_gamma=np.ones(alive.shape))
+    elif mode == "photon":
+        data, alive = photon_cell_state(cap, nx, ny, nz, n_frac=0.9,
+                                        seed=seed)
+        eb = None
+    elif name == "cap130":
+        data, alive, eb = random_cell_state(cap, nx, ny, nz, n_frac=1.0,
+                                            seed=seed, umax=50.0, field=5e13)
+    else:
+        data, alive, eb = crowded_cell_state(cap, nx, ny, nz, seed=seed,
+                                             n_frac=0.9)
+    if mode != "default":
+        data = add_qed_payloads(data, seed=seed)
+    return data, alive, eb
+
+
+@pytest.mark.parametrize("name", list(TAIL3_CASES))
+def test_b2_3d_tail_edges_match_plain(cuda, name):
+    from lambdapic_torch.ops.cellslab import (FLOAT_PAYLOADS, cell_step,
+                                              cell_step_plain, panel_shape)
+    from lambdapic_torch.testing import QED_PAYLOADS, SLOT_FLOATS, to_numpy
+    cap, nx, ny, nz, periodic, mode = TAIL3_CASES[name]
+    data, alive, eb = _tail3_state(name, cap, nx, ny, nz, mode,
+                                   seed=cap + nx)
+    td, ta = to_torch(data, alive, torch.float64, cuda)
+    kw = dict(dt=DT, dx=DX, dy=DY, dz=DZ, g=3, periodic=periodic)
+    if mode == "photon":
+        kw.update(q=0.0, m=0.0, photon=True)
+        ebt = None
+    else:
+        kw.update(q=Q, m=M, want_chi=mode == "want_chi",
+                  rims_in=torch.as_tensor(np.random.default_rng(2).normal(
+                      size=panel_shape(4, nx, ny, nz))).to(cuda))
+        ebt = torch.as_tensor(eb).to(cuda)
+    ref = cell_step_plain(ebt, td, ta, **kw)
+    before = cell_step.launches_by_mode[mode]
+    got = cell_step(ebt, td, ta, **kw)
+    torch.cuda.synchronize()
+    assert cell_step.launches_by_mode[mode] == before + 1
+    if name == "one_full_cell":
+        assert int(ref[1].sum(0).max()) == cap
+        assert int((ref[1].sum(0) == 0).sum()) > 0
+    keys = SLOT_FLOATS + (QED_PAYLOADS if mode != "default" else ())
+    if mode == "want_chi":
+        for out in (ref, got):
+            out[0]["chi"], out[0]["ig0"] = out[4]
+        keys += ("chi", "ig0")
+    compare_slots(*to_numpy(ref[0], ref[1]), *to_numpy(got[0], got[1]),
+                  rtol=1e-11, keys=keys)
+    assert int(got[2]) == int(ref[2])
+    if name != "one_full_cell" and mode != "photon":
+        assert int(ref[2]) > 0
+    # dead slots hold the stage's dead values (the plain version pushes
+    # its dead slots too; B5 3D takes a slot with w != 0 as alive)
+    dead = ~got[1]
+    for k in FLOAT_PAYLOADS:
+        assert bool((got[0][k][dead] == 0).all()), k
+    assert bool((got[0]["inv_gamma"][dead] == 1).all())
+    if mode == "want_chi":
+        assert bool((got[0]["chi"][dead] == 0).all())
+        assert bool((got[0]["ig0"][dead] == 1).all())
+    if mode == "photon":
+        assert got[3] is None
+    else:
+        torch.testing.assert_close(got[3], ref[3], rtol=0,
+                                   atol=1e-12 * float(ref[3].abs().max()))
+
+
+def test_b2_3d_tail_dispatch_with_z_edges_matches_plain(cuda):
+    """A K4 3D tail dispatch (the z pass with the neighbours' z edge
+    columns, then the tail) against the plain version. Its input and the
+    edges carry a made-up value in every dead slot, as a head dispatch's
+    output may: the kernel must not read it."""
+    from lambdapic_torch.ops.cellslab import (FLOAT_PAYLOADS, ID_PAYLOADS,
+                                              cell_step, cell_step_plain,
+                                              panel_shape)
+    from lambdapic_torch.testing import to_numpy
+    cap, nx, ny, nz = 6, 9, 8, 10
+
+    def state(seed):
+        data, alive, eb = crowded_cell_state(cap, nx, ny, nz, seed=seed,
+                                             n_frac=0.8)
+        data = {k: np.where(alive, v, 3.5) if k in FLOAT_PAYLOADS else v
+                for k, v in data.items()}
+        data.pop("inv_gamma")
+        td, ta = to_torch(data, alive, torch.float64, cuda)
+        return td, ta, eb
+
+    td, ta, eb = state(21)
+    edges = []
+    for seed, at in ((22, nz - 1), (23, 0)):
+        nd, na, _ = state(seed)
+        e = {k: nd[k][..., at:at + 1].contiguous()
+             for k in FLOAT_PAYLOADS + ID_PAYLOADS}
+        e["alive"] = na[..., at:at + 1].to(torch.int32).contiguous()
+        edges.append(e)
+    kw = dict(q=Q, m=M, dt=DT, dx=DX, dy=DY, dz=DZ, g=3,
+              periodic=(False, True, False), merge_axes=(2,), tail=True,
+              yz_edges=(2, *edges),
+              rims_in=torch.as_tensor(np.random.default_rng(4).normal(
+                  size=panel_shape(4, nx, ny, nz))).to(cuda))
+    ebt = torch.as_tensor(eb).to(cuda)
+    ref = cell_step_plain(ebt, td, ta, **kw)
+    before = cell_step.launches_by_dispatch["tail"]
+    got = cell_step(ebt, td, ta, **kw)
+    torch.cuda.synchronize()
+    assert cell_step.launches_by_dispatch["tail"] == before + 1
+    compare_slots(*to_numpy(ref[0], ref[1]), *to_numpy(got[0], got[1]),
+                  rtol=1e-11)
+    assert int(got[2]) == int(ref[2]) > 0
+    torch.testing.assert_close(got[3], ref[3], rtol=0,
+                               atol=1e-12 * float(ref[3].abs().max()))
+
+
+def test_b2_3d_repeats(cuda):
+    """The repeatability the tile kernel keeps: two identical calls give
+    the same slots bit for bit (alive masks, every alive payload and id)
+    and panels that agree within 1e-12 of their peak (the atomics' order
+    of the sums changes from run to run)."""
+    from lambdapic_torch.ops.cellslab import cell_step, panel_shape
+    cap, nx, ny, nz = 8, 16, 8, 16
+    data, alive, eb = crowded_cell_state(cap, nx, ny, nz, seed=5,
+                                         n_frac=0.9)
+    td, ta = to_torch(data, alive, torch.float64, cuda)
+    kw = dict(q=Q, m=M, dt=DT, dx=DX, dy=DY, dz=DZ, g=3,
+              periodic=(True, True, True),
+              rims_in=torch.as_tensor(np.random.default_rng(6).normal(
+                  size=panel_shape(4, nx, ny, nz))).to(cuda))
+    ebt = torch.as_tensor(eb).to(cuda)
+    one = cell_step(ebt, td, ta, **kw)
+    two = cell_step(ebt, td, ta, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(one[1], two[1])
+    a = one[1]
+    for k in one[0]:
+        assert torch.equal(one[0][k][a], two[0][k][a]), k
+    assert int(one[2]) == int(two[2])
+    torch.testing.assert_close(one[3], two[3], rtol=0,
+                               atol=1e-12 * float(one[3].abs().max()))
