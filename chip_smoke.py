@@ -31,7 +31,9 @@ Phases (any failure exits non-zero):
    number and weight conservation, and the launches per step
    (B1 4, B2 3, B3 1); time a steady window;
 4. time each 2D kernel with CUDA events at the slice's shapes, and its
-   plain version once;
+   plain version once; B2's device time is printed per __global__
+   function (rebin2x, rebin2y, deposit2; the same for its QED modes and
+   K4's dispatches), its bound beside the occupied cells and tiles;
 5. QED: B2's want_chi and photon modes against their plain versions
    (float64 slot for slot at small sizes, with merges and with QED
    payloads; float32 at the slice's shapes), the in-step draws on the card
@@ -190,8 +192,8 @@ def cuda_time(fn, iters: int) -> float:
 # profiler names, with their launches per call (an E or a B half-step
 # launches one of B1's two)
 KERNEL_FUNCS = {"B1 E": {"e_half": 1}, "B1 B": {"b_half": 1},
-                "B2": {"pass_x": 1, "pass_y": 1, "deposit": 1},
-                "B2 photon": {"pass_x": 1, "pass_y": 1},
+                "B2": {"rebin2x": 1, "rebin2y": 1, "deposit2": 1},
+                "B2 photon": {"rebin2x": 1, "rebin2y": 1},
                 "B3": {"fold<": 1},
                 "B1-3D E": {"e_half3": 1}, "B1-3D B": {"b_half3": 1},
                 "B2-3D": {"rebin3": 3, "tail3<": 1},
@@ -200,8 +202,9 @@ KERNEL_FUNCS = {"B1 E": {"e_half": 1}, "B1 B": {"b_half": 1},
 
 
 # seconds of untimed calls that precede the timed ones inside the
-# profiler's window, attempt by attempt
-PROFILE_MARGINS = (0.0, 1.0, 4.0)
+# profiler's window, attempt by attempt (a profile without them lost its
+# first records in nearly every call, so none starts without)
+PROFILE_MARGINS = (1.0, 4.0)
 # torch.cuda._sleep's kernel, as it appears in profiler names
 SPIN = "spin_kernel"
 
@@ -258,13 +261,38 @@ def device_times(fn, iters: int, expected):
     return out, False
 
 
+def short_name(name: str) -> str:
+    """A __global__ function's name without its namespace, template
+    arguments and parameters, as the profiler prints it."""
+    import re
+    base = name.replace("(anonymous namespace)::", "")
+    base = base[5:] if base.startswith("void ") else base
+    return re.match(r"[\w:]*", base).group(0).split("::")[-1] or name[:40]
+
+
+def split_text(times, iters: int, funcs) -> str:
+    """' = f1 ms + f2 ms ...': device ms a call of each __global__
+    function of ``times`` (device_times' records of ``iters`` calls) that
+    ``funcs`` names, the port's kernels' split."""
+    parts = {}
+    for name, (ms, _) in times.items():
+        if any(f in name for f in funcs):
+            k = short_name(name)
+            parts[k] = parts.get(k, 0.0) + ms / iters
+    return " = " + " + ".join(f"{k} {v:.4f}" for k, v in sorted(
+        parts.items(), key=lambda kv: -kv[1])) if parts else ""
+
+
 def kernel_ms(fn, iters: int, kernel: str):
     """(device ms per call, summed over the kernel's __global__ functions
     from a profile that recorded every launch, or None if no profile did;
-    wall ms per call from CUDA events, host included)."""
+    wall ms per call from CUDA events, host included). The split of the
+    device time over those functions is kept in ``kernel_ms.split`` (see
+    split_text; "" without a complete profile)."""
     wall = cuda_time(fn, iters)
     funcs = KERNEL_FUNCS[kernel]
     times, complete = device_times(fn, iters, funcs)
+    kernel_ms.split = ""
     if not complete:
         log(f"[time {kernel}] no complete profile: the wall time stands in")
         return None, wall
@@ -274,7 +302,11 @@ def kernel_ms(fn, iters: int, kernel: str):
             dev += ms / iters
             log(f"[time {kernel}] {ms / n * 1e3:10.2f} us a launch, {n} "
                 f"launches in {iters} calls  {name[:80]}")
+    kernel_ms.split = split_text(times, iters, funcs)
     return dev, wall
+
+
+kernel_ms.split = ""
 
 
 def busy_per_step(fn, expected, steps: int, tag: str, step_ms: float):
@@ -521,6 +553,25 @@ def gather_nodes(alive, g):
     return total
 
 
+# kernel B2 2D's tiles (csrc/cellstep.cu): a re-binning pass's (x, y) cells
+# with sort entries in shared memory, and the deposit's
+PASS_TILE = (8, 32)
+DEPOSIT_TILE = (16, 16)
+
+
+def occupancy(alive) -> str:
+    """Occupied cells, pass tiles and deposit tiles of 2D slots (the
+    tiles that kernel B2 2D works; the others it skips)."""
+    import torch.nn.functional as F
+    occ = alive.any(0).float()[None, None]
+    cells = int(occ.sum())
+    out = [f"{cells} of {occ.numel()} cells occupied"]
+    for name, (tx, ty) in (("pass", PASS_TILE), ("deposit", DEPOSIT_TILE)):
+        t = F.max_pool2d(occ, (tx, ty), ceil_mode=True)
+        out.append(f"{int(t.sum())} of {t.numel()} {name} tiles ({tx} x {ty})")
+    return ", ".join(out)
+
+
 def edge_sitters(sim):
     """Per species, the alive particles whose stored float32 position lies
     on or beyond an open face's edge (pos >= n - 0.5 or < -0.5): a position
@@ -739,8 +790,8 @@ def run_2d(args, dev):
     log(f"[slice] step {step_ms:.3f} ms (host clock, synchronised), "
         f"{npart / (step_ms * 1e-3):.4e} pushes/s, peak |ey| {ey_peak:.3e}")
     busy_per_step(lambda: sim.run(nsteps=1, callbacks=[laser]),
-                  {"e_half": 2, "b_half": 2, "pass_x": 3, "pass_y": 3,
-                   "deposit": 3, "fold<": 1}, 10, "profile", step_ms)
+                  {"e_half": 2, "b_half": 2, "rebin2x": 3, "rebin2y": 3,
+                   "deposit2": 3, "fold<": 1}, 10, "profile", step_ms)
 
     # -- phase 4: kernel times at the slice's shapes ---------------------------
     f = sim.state.fields
@@ -778,8 +829,8 @@ def run_2d(args, dev):
     dev_b2, wall_b2 = kernel_ms(
         lambda: cell_step(eb_pad, p.data, p.alive, **kw), args.iters, "B2")
     ms_b2 = dev_b2 or wall_b2
-    log(f"[time B2] device {ms_b2:.4f} ms per launch, wall {wall_b2:.4f} ms "
-        "per call")
+    log(f"[time B2] device {ms_b2:.4f} ms per launch{kernel_ms.split}, wall "
+        f"{wall_b2:.4f} ms per call")
     plain_b2 = cuda_time(lambda: cell_step_plain(eb_pad, p.data, p.alive,
                                                  **kw), 1)
     ncomp = 4 if sim._builder.with_rho else 3
@@ -802,7 +853,8 @@ def run_2d(args, dev):
     bound_b2 = max(bytes_b2 / HBM_BPS * 1e3, ops_ms_b2)
     by_b2 = "bytes" if bound_b2 > ops_ms_b2 else "operations"
     log(f"[bound B2] {n_alive} of {slots} slots alive: {bytes_b2} bytes, "
-        f"{bytes_b2 / HBM_BPS * 1e3:.4f} ms; operations {ops_ms_b2:.4f} ms")
+        f"{bytes_b2 / HBM_BPS * 1e3:.4f} ms; operations {ops_ms_b2:.4f} ms; "
+        f"{occupancy(p.alive)}")
     del out
     dev_b3, wall_b3 = kernel_ms(
         lambda: fold_reduce(rims, grid.shape, periodic), args.iters, "B3")
@@ -1308,8 +1360,8 @@ def run_qed(args, dev):
         f"{npart / (step_ms * 1e-3):.4e} pushes/s ({npart} alive particles "
         f"of three species), peak |ey| {ey_peak:.3e}")
     busy_per_step(lambda: sim.run(nsteps=1, callbacks=[laser]),
-                  {"e_half": 2, "b_half": 2, "pass_x": 3, "pass_y": 3,
-                   "deposit": 2, "fold<": 1}, 5, "profile QED", step_ms)
+                  {"e_half": 2, "b_half": 2, "rebin2x": 3, "rebin2y": 3,
+                   "deposit2": 2, "fold<": 1}, 5, "profile QED", step_ms)
 
     # -- checks beside the main path, on its final state ------------------------
     n_ev, dropped, change = check_creation(sim, proc)
@@ -3124,6 +3176,7 @@ def time_b2_qed_modes(sim, proc, iters, launches, errs, planes=None):
             (" photon" if mode == "photon" else "")
         dev_ms, wall = kernel_ms(lambda: cell_step(ebp, p.data, p.alive,
                                                    **kw), iters, funcs)
+        split = kernel_ms.split
         ms = dev_ms or wall
         if mode == "want_chi":
             # the default mode on the same slots, for the ratio of the two
@@ -3179,8 +3232,8 @@ def time_b2_qed_modes(sim, proc, iters, launches, errs, planes=None):
             f" on {'x'.join(str(k) for k in at['plain_cells'])} cells "
             f"(x-planes from {planes[0]}; the kernel there "
             f"{at['ms_at_plain_cells']:.3f} ms)")
-        log(f"[time B2 {mode} {nd}D] device {ms:.4f} ms per launch, wall "
-            f"{wall:.4f} ms; plain {plain:.3f} ms{where}; bound {bound:.4f} "
+        log(f"[time B2 {mode} {nd}D] device {ms:.4f} ms per launch{split}, "
+            f"wall {wall:.4f} ms; plain {plain:.3f} ms{where}; bound {bound:.4f} "
             f"ms ({by}: {n_alive} of {slots} slots alive, {p.cap} a cell, "
             f"{nbytes} bytes, operations {ops_ms:.4f} ms); "
             f"{ms / bound:.1f}x the bound")
@@ -3220,7 +3273,9 @@ def time_delta_sampler(e, proc):
     def k_rows():
         ev = event.to(torch.int64)
         rank = torch.cumsum(ev, dim=0) - ev
-        row = torch.where(event, rank, K)
+        # events past a cell's first K go to the spare row K with the
+        # other slots (the two are compared only where no cell has more)
+        row = torch.where(event & (rank < K), rank, K)
         top = (K + 1,) + tuple(chi.shape[1:])
         chi_k = torch.zeros(top, dtype=chi.dtype, device=chi.device
                             ).scatter_(0, row, chi)[:K]
@@ -4335,8 +4390,12 @@ def dispatch_ms(tag, twin, iters, ispec=0):
                 yz_edges=None if yz is None else (grp[0],) + tuple(yz[i]),
                 **kw)
         out[f"dispatch {grp}"] = cuda_time(lambda: disp(busy), iters)
+        funcs = KERNEL_FUNCS["B2" if nd == 2 else "B2-3D"]
+        n_prof = min(iters, 10)
+        times, _ = device_times(lambda: disp(busy), n_prof, {})
         log(f"[time K4 {tag} dispatch {grp}] {out[f'dispatch {grp}']:.4f} "
-            f"ms a call (CUDA events), shard {busy} of {mesh.size}")
+            f"ms a call (CUDA events), shard {busy} of {mesh.size}; device"
+            f"{split_text(times, n_prof, funcs) or ' not measured'}")
         if last:
             rims = disp(busy)[3]
         else:
@@ -4751,7 +4810,7 @@ def run_mesh_2d(args, sim, laser):
     keep = keep_state(sim, laser)
     twin, step_ms, peak, busy, launches, mtrack, mtot = run_mesh(
         sim, tag, shape, steps, window, {"B2": 24, "B3": 12},
-        {"pass_x": 12, "pass_y": 12, "deposit": 12, "fold<": 4,
+        {"rebin2x": 12, "rebin2y": 12, "deposit2": 12, "fold<": 4,
          "strips<": 8}, keep)
     mark(tag, "main path")
     t = dispatch_ms("2D", twin, args.iters)

@@ -9,90 +9,131 @@
 // push_position_2d -> deposit into tile panels.
 //
 // Layout: every per-slot array is (cap, nx, ny), cell (ix, iy) at
-// ix*ny + iy, slot stride nx*ny. Three __global__ functions run in order:
+// ix*ny + iy, slot stride nx*ny. Three __global__ functions run in order
+// (the y pass must see the x pass's result in a cell's y neighbours, so
+// the end of a launch separates them):
 //
-//  pass_x    one thread per cell. It recomputes the first half push for
-//            its own column and its two x neighbours, builds each
-//            column's 5-way keys (donor+1 / dead-even / stay / dead-odd /
+//  rebin2x   one block a tile of 8 x 32 cells (x rows of a warp's 32
+//            contiguous cells), input -> scratch. Each thread keys one
+//            column (a cell's cap slots) of the tile and of its two halo
+//            rows along x into shared memory: the first half push, then
+//            the 5-way key (donor+1 / dead-even / stay / dead-odd /
 //            donor-1, dead parity from the slot index before the sort),
-//            sorts (key, slot) pairs through the Batcher compare-exchange
-//            list of cellpallas.py::_batcher_network (swap on a strict
-//            ka > kb; the exchange decisions depend on the keys alone, so
-//            permuting the payloads afterwards is bitwise the same), then
-//            places arrivals by overwrite with lo priority, merges
-//            collisions weight-conservingly, adds the -+nx coordinate
-//            adjust to wrapped arrivals and drops them at open edges.
-//            Output goes to scratch arrays.
-//  pass_y    the same along y over the scratch arrays, then in registers:
-//            dead-slot zeroing, the staggered quadratic gather from eb_pad,
-//            Boris, and the second half push; writes the final slots.
-//  deposit   one block per 16 x 16 cell tile: 5-tap Esirkepov J (and rho)
-//            of every alive slot into a shared (C, 20, 20) tile panel. The
-//            25 stencil offsets go one after another with a barrier
-//            between, and within one offset every thread writes a
-//            different panel node, so the sum needs no atomics and repeats
-//            bit for bit. The panel starts from the previous species'
-//            panel (rims_in) and is written to rims_out; kernel B3
-//            (fold.cu) overlap-adds the panels into the interior J.
+//            the payloads read for alive slots only. The same thread sorts
+//            its column's (key, slot) pairs through the Batcher
+//            compare-exchange list of cellpallas.py::_batcher_network
+//            (swap on a strict ka > kb; the exchange decisions depend on
+//            the keys alone, so permuting the payloads afterwards is
+//            bitwise the same). All threads run the same list, so a
+//            warp's accesses of one step fall on 32 neighbouring entries:
+//            each column is sorted once, not by each of the three cells
+//            that read it; a column with nothing alive is not sorted (its
+//            keys are all dead, which places nothing). A block whose
+//            columns hold nothing alive (__syncthreads_or) writes its
+//            tile's flag 0 and stops (in a mesh's x-only dispatch, whose
+//            output is returned, also its dead slots). Otherwise each
+//            thread places its cell's output slots: arrivals by overwrite
+//            with lo priority, collisions merged weight-conservingly, the
+//            -+nx coordinate adjust of wrapped arrivals, the drop at open
+//            faces; then the tile's flag says whether any slot is alive. A
+//            source slot's payload is read only when it is placed alive,
+//            and payloads are written only to alive output slots (the
+//            alive byte to every slot): in a one-device call as one
+//            record a slot (Rec), read by rebin2y in one or two sectors
+//            instead of one an array; y also to its array, for the keys.
+//  rebin2y   the same along y, tiles of 8 x 32 cells with one halo column
+//            at each end of a row, scratch -> output; an alive slot then
+//            gets, in registers, the staggered quadratic gather from
+//            eb_pad, Boris and the second half push. Every dead output
+//            slot gets the stage's dead values: the plain version's zero
+//            floats (and zero extras), inv_gamma 1, want_chi's chi 0 and
+//            ig0 1; dead ids are not written. A tile whose own and halo
+//            tiles rebin2x flagged empty writes those without reading the
+//            scratch, and stops; columns of a flagged tile are keyed dead
+//            unread. Two blocks an SM (at most 128 registers a thread).
+//  deposit2  one block per 16 x 16 cell tile: 5-tap Esirkepov J (and rho)
+//            of every alive slot into a shared (C, 20, 20) tile panel. A
+//            tile with no alive slot (rebin2y's flags of the pass tiles it
+//            overlaps, then its alive bytes) copies rims_in to rims_out and
+//            stops.
+//            Otherwise each thread walks its cell's alive slots once (a bit
+//            mask of them up to 64 slots), computes a particle's shapes once
+//            and adds its 25 nodes into per-offset sums in registers; the 25
+//            offsets then go into the panel one after another with a barrier
+//            between, and within one offset every thread writes a different
+//            panel node, so the sum needs no atomics and repeats bit for bit.
+//            The panel starts from the previous species' panel (rims_in)
+//            and is written to rims_out; kernel B3 (fold.cu) overlap-adds
+//            the panels into the interior J.
 //
 // Modes (the int I_MODE):
 //  default   as above.
-//  want_chi  pass_y also writes, between the gather and Boris, the
+//  want_chi  rebin2y also writes, between the gather and Boris, the
 //            post-migration pre-push ig0 = 1/sqrt(1 + u^2) and the quantum
 //            parameter chi (models/qed.py::calculate_chi of the gathered
-//            E, B, the momenta and ig0) of every slot; the caller masks
-//            chi with alive. Replaces unified_cell_step's want_chi branch
-//            (cellslab.py:1094-1109).
-//  photon    field free (q = m = 0): pass_y's tail is inv_gamma = 1/|u|
+//            E, B, the momenta and ig0) of every alive slot; the caller
+//            masks chi with alive. Replaces unified_cell_step's want_chi
+//            branch (cellslab.py:1094-1109).
+//  photon    field free (q = m = 0): rebin2y's tail is inv_gamma = 1/|u|
 //            (1 where u = 0) and the second half push; no gather, no
 //            Boris, no deposit launch, no panels. Replaces the photon
 //            branch (cellslab.py:966-986).
 // Extra payloads: up to NXF float arrays (a QED species' tau, delta,
 // event) ride through both passes. On a collision they take the placed
 // slot's value (lo arrival, else hi arrival, else the resident); only
-// w, x, y, z, ux, uy, uz are merged. Dead slots keep them as placed.
+// w, x, y, z, ux, uy, uz are merged.
 //
 // On a device mesh (K4: replaces unified_cell_step's merge_axes, tail and
 // yz_edges arguments and slab_species_step's edge exchanges,
 // cellslab.py:1896-2043) one call is one dispatch on one shard:
-//  x edges   with I_XEDGE, pass_x takes the lo and hi x columns from the
-//            x neighbour shards' stored (pre-push) slots, (cap, 1, ny)
-//            arrays with alive as int32 (zero past an open global face),
-//            in place of the wrap: it applies their half push, keys them
-//            at the neighbour's own cell index (nx-1 or 0), and adds
+//  x edges   with I_XEDGE, rebin2x takes its halo rows at x = -1 and nx
+//            from the x neighbour shards' stored (pre-push) slots, (cap, 1,
+//            ny) arrays with alive as int32 (zero past an open global
+//            face), in place of the wrap: it applies their half push, keys
+//            them at the neighbour's own cell index (nx-1 or 0), and adds
 //            -+nx to their arrivals, as for wrapped columns.
 //  dispatch  I_MERGE_LO .. I_MERGE_HI (0 x, 1 y) are the passes to run.
 //            A mesh that splits y runs x alone (its output, the scratch
-//            slots, goes back to the caller), exchanges the y edge rows of
-//            that output, then runs y with the tail (I_MERGE_LO = 1: pass_y
-//            reads its input from the scratch pointers).
-//  y edges   with I_YEDGE, pass_y takes the lo and hi y rows, (cap, nx, 1),
-//            of the y neighbours' x-pass output in place of the wrap.
+//            slots, goes back to the caller; its dead slots get zero floats
+//            and extras), exchanges the y edge rows of that output, then
+//            runs y with the tail (I_MERGE_LO = 1: rebin2y reads its input
+//            from the scratch pointers).
+//  y edges   with I_YEDGE, rebin2y takes its halo columns at y = -1 and ny,
+//            (cap, nx, 1), from the y neighbours' x-pass output in place of
+//            the wrap.
 //
-// Capacity: up to MAXC_LOCAL (128) slots a cell each pass thread sorts its
-// three columns' (key, slot) entries in a local array; above it the
-// passes run a grid-stride loop over the cells with the entries in a
-// global scratch row per thread (cell2d.cuh's for_cells).
+// Capacity: up to MAXC_LOCAL (128) slots a cell the sort entries are
+// 16-bit (key, slot) pairs in shared memory (320 columns of cap entries
+// a tile in rebin2x: 51 KB at 82 slots); above it 32-bit pairs in the
+// block's part of the global key scratch (KEY_ROWS x cap int32 a thread,
+// blocks of 4 x 32 cells in a grid-stride loop over the tiles).
 //
-// The sort, key, merge count, gather, Boris, chi and deposit routines live
-// in cell2d.cuh, shared with the 3D kernel and the per-stage kernels
-// B4-B7.
+// The key, merge count, gather, Boris, chi and deposit routines live in
+// cell2d.cuh, shared with the 3D kernel and the per-stage kernels B4-B7.
 //
 // Compiled with --fmad=false: positions, keys and merges round exactly as
 // the plain version's separate tensor operations do, so cell assignment
 // and merge pairing match it slot for slot.
 //
+// No tensor cores: the gather and the stencil are per-particle outer
+// products of 3-5 tap vectors, far below a wgmma tile, and TF32 would
+// break the float32 gates.
+//
 // Bound on an H100 (3.35 TB/s): bytes. The answer depends on the alive
 // mask and on the payloads of alive slots only (a dead slot is never a
-// source and leaves zeroed), so the least traffic is: the mask (1 B a
-// slot); x, y, z, w, ux, uy, uz, inv_gamma, id_lo, id_hi of each alive
-// slot; the E/B nodes the gather reaches from occupied cells; one write
-// of every slot (41 B in float32) and of the panels. chip_smoke.py
-// computes it from its input. This first design moves far more: every
-// pass reads every slot, dead or alive, of all three columns it sorts,
-// and the scratch round trip between the passes and the deposit's re-read
-// of the final slots come on top. Skipping empty cells and fusing the
-// passes is later work.
+// source), so the least traffic is: the mask (1 B a slot); x, y, z, w,
+// ux, uy, uz, inv_gamma, id_lo, id_hi of each alive slot; the E/B nodes
+// the gather reaches from occupied cells; one write of every slot (41 B
+// in float32) and of the panels. chip_smoke.py computes it from its
+// input. What bounds the design: where most tiles are empty (the 2D
+// slice's foil fills 6% of its cells) the write of every dead output slot
+// (33 B, ids not written) and the latency of the few occupied tiles, whose
+// threads walk their cells' slots in chains of dependent loads; where most
+// are occupied, the sector reads of the alive sources (the sort's
+// permutation gives a warp's lanes different slots, so each alive source
+// costs a 32-byte sector in each of rebin2x's 13 input arrays; the sort
+// itself, some 900 compare-exchange steps a column at 82 slots, takes a
+// few percent).
 #include "cell2d.cuh"
 
 namespace {
@@ -113,11 +154,13 @@ enum Ptr {
   // neighbour edge columns: x lo, x hi, y lo, y hi, EDGE_PTRS each (alive
   // int32, x y z w ux uy uz, inv_gamma (x only), id_lo id_hi, 3 extras)
   P_EDGES,
-  P_COUNT = P_EDGES + 4 * 14
+  P_FLAGS = P_EDGES + 4 * 14,       // tile flags (uint8, I_FLAG_BYTES)
+  P_REC,                            // whole dispatch: the slot records
+  P_COUNT
 };
 enum Int { I_CAP, I_NX, I_NY, I_G, I_PERX, I_PERY, I_NCOMP, I_NCES, I_DOUBLE,
            I_MODE, I_NXF, I_KEY_THREADS, I_MERGE_LO, I_MERGE_HI, I_XEDGE,
-           I_YEDGE };
+           I_YEDGE, I_FLAG_BYTES, I_REC_BYTES };
 enum Mode { M_DEFAULT = 0, M_WANT_CHI = 1, M_PHOTON = 2 };
 // reals are computed on the host exactly as the plain version computes
 // its scalar factors (in double), then rounded to the kernel's type
@@ -167,8 +210,8 @@ struct Args {
   const T* eb;
   SlotsIn<T> in;
   const T* ig;
-  SlotsOut<T> s;        // scratch, written by pass_x
-  SlotsIn<T> sin;       // the same scratch, read by pass_y
+  SlotsOut<T> s;        // scratch, written by rebin2x
+  SlotsIn<T> sin;       // the same scratch, read by rebin2y
   SlotsOut<T> out;
   T* ig_out;
   const T* rims_in;
@@ -181,6 +224,19 @@ struct Args {
   long long key_threads;
   int cap, nx, ny, g, perx, pery, ncomp, nces, mode, nxf;
   int xedge, yedge;     // neighbour edges in place of the x / y wrap
+  int head;             // a dispatch of rebin2x alone: its output is returned
+  int whole;            // both passes: rebin2y reads rebin2x's tile flags
+  int tx;               // the passes' tile rows (TX_S or TX_G)
+  // per pass tile, whether the pass's output holds an alive slot (rebin2x:
+  // xflags, rebin2y: yflags); in a whole dispatch rebin2x writes nothing
+  // else for a tile with nothing alive in reach, and rebin2y reads no
+  // scratch there
+  unsigned char* xflags;
+  unsigned char* yflags;
+  // whole dispatch: rebin2x's output slots as records of Rec<T>::WORDS
+  // 32-bit words (rebin2y reads a source slot in one or two sectors, not
+  // one an array); alive and y stay in the scratch arrays for the keys
+  uint4* rec;
   Edge<T> ex[2], ey[2]; // lo, hi
   long long ncell;
   T hx, hy, ef, bf, cdx, cdy, c, kcd, kfx, kfy, chi;   // see enum Real
@@ -194,8 +250,69 @@ struct Slot {
   T xf[NXF];
 };
 
+// A slot between the passes of a whole dispatch, as 32-bit words: x y z w
+// ux uy uz, id_lo id_hi, the extras, padded to whole 16-byte vectors.
 template <typename T>
-__device__ void load_x(const Args<T>& a, long long idx, Slot<T>& v) {
+struct Rec {
+  static constexpr int W = sizeof(T) / 4;            // words a real
+  static constexpr int WORDS = (NF * W + 2 + NXF * W + 3) / 4 * 4;
+  static constexpr int VECS = WORDS / 4;
+};
+
+__device__ __forceinline__ void put_word(unsigned* w, int i, float v) {
+  w[i] = __float_as_uint(v);
+}
+__device__ __forceinline__ void put_word(unsigned* w, int i, double v) {
+  const unsigned long long b = (unsigned long long)__double_as_longlong(v);
+  w[i] = (unsigned)b;
+  w[i + 1] = (unsigned)(b >> 32);
+}
+__device__ __forceinline__ void get_word(const unsigned* w, int i, float& v) {
+  v = __uint_as_float(w[i]);
+}
+__device__ __forceinline__ void get_word(const unsigned* w, int i, double& v) {
+  v = __longlong_as_double((long long)(((unsigned long long)w[i + 1] << 32) |
+                                       w[i]));
+}
+
+template <typename T>
+__device__ __forceinline__ void store_rec(uint4* r, const Slot<T>& v) {
+  constexpr int W = Rec<T>::W;
+  unsigned w[Rec<T>::WORDS] = {};
+#pragma unroll
+  for (int k = 0; k < NF; ++k) put_word(w, k * W, v.f[k]);
+  w[NF * W] = (unsigned)v.id[0];
+  w[NF * W + 1] = (unsigned)v.id[1];
+#pragma unroll
+  for (int k = 0; k < NXF; ++k) put_word(w, NF * W + 2 + k * W, v.xf[k]);
+#pragma unroll
+  for (int i = 0; i < Rec<T>::VECS; ++i)
+    r[i] = make_uint4(w[4 * i], w[4 * i + 1], w[4 * i + 2], w[4 * i + 3]);
+}
+
+template <typename T>
+__device__ __forceinline__ void load_rec(const uint4* r, Slot<T>& v) {
+  constexpr int W = Rec<T>::W;
+  unsigned w[Rec<T>::WORDS];
+#pragma unroll
+  for (int i = 0; i < Rec<T>::VECS; ++i) {
+    const uint4 q = r[i];
+    w[4 * i] = q.x;
+    w[4 * i + 1] = q.y;
+    w[4 * i + 2] = q.z;
+    w[4 * i + 3] = q.w;
+  }
+#pragma unroll
+  for (int k = 0; k < NF; ++k) get_word(w, k * W, v.f[k]);
+  v.id[0] = (int)w[NF * W];
+  v.id[1] = (int)w[NF * W + 1];
+#pragma unroll
+  for (int k = 0; k < NXF; ++k) get_word(w, NF * W + 2 + k * W, v.xf[k]);
+}
+
+template <typename T>
+__device__ __forceinline__ void load_x(const Args<T>& a, long long idx,
+                                       Slot<T>& v) {
   T ig = a.ig[idx];
   v.f[FX] = pushed(a.in.f[FX][idx], a.in.f[FUX][idx], ig, a.hx);
   v.f[FY] = pushed(a.in.f[FY][idx], a.in.f[FUY][idx], ig, a.hy);
@@ -213,8 +330,8 @@ __device__ void load_x(const Args<T>& a, long long idx, Slot<T>& v) {
 
 // An x-edge slot (index s*ny + iy of a (cap, 1, ny) edge), half pushed.
 template <typename T>
-__device__ void load_x_edge(const Args<T>& a, const Edge<T>& e, long long idx,
-                            Slot<T>& v) {
+__device__ __forceinline__ void load_x_edge(const Args<T>& a, const Edge<T>& e,
+                                            long long idx, Slot<T>& v) {
   T ig = e.ig[idx];
   v.f[FX] = pushed(e.f[FX][idx], e.f[FUX][idx], ig, a.hx);
   v.f[FY] = pushed(e.f[FY][idx], e.f[FUY][idx], ig, a.hy);
@@ -232,8 +349,8 @@ __device__ void load_x_edge(const Args<T>& a, const Edge<T>& e, long long idx,
 
 // A y-edge slot (index s*nx + ix of a (cap, nx, 1) edge).
 template <typename T>
-__device__ void load_y_edge(const Args<T>& a, const Edge<T>& e, long long idx,
-                            Slot<T>& v) {
+__device__ __forceinline__ void load_y_edge(const Args<T>& a, const Edge<T>& e,
+                                            long long idx, Slot<T>& v) {
 #pragma unroll
   for (int k = 0; k < NF; ++k) v.f[k] = e.f[k][idx];
   v.id[0] = e.id[0][idx];
@@ -244,7 +361,12 @@ __device__ void load_y_edge(const Args<T>& a, const Edge<T>& e, long long idx,
 }
 
 template <typename T>
-__device__ void load_y(const Args<T>& a, long long idx, Slot<T>& v) {
+__device__ __forceinline__ void load_y(const Args<T>& a, long long idx,
+                                       Slot<T>& v) {
+  if (a.whole) {
+    load_rec(a.rec + idx * Rec<T>::VECS, v);
+    return;
+  }
 #pragma unroll
   for (int k = 0; k < NF; ++k) v.f[k] = a.sin.f[k][idx];
   v.id[0] = a.sin.id[0][idx];
@@ -256,15 +378,25 @@ __device__ void load_y(const Args<T>& a, long long idx, Slot<T>& v) {
 
 // Placement and merge of one receiver slot (ops/cell2d.py::migrate_cells):
 // lo arrival first, then hi arrival, then the resident stay; two or three
-// sources merge (w summed, coordinates and momenta weight-averaged).
+// sources merge (w summed, coordinates and momenta weight-averaged). The
+// placed slot is chosen field by field, so the three sources stay in
+// registers.
 template <typename T>
-__device__ void place(bool vlo, bool vhi, bool stay, const Slot<T>& lo,
-                      const Slot<T>& hi, const Slot<T>& own, Slot<T>& out,
-                      int& merges) {
+__device__ __forceinline__ void place(bool vlo, bool vhi, bool stay,
+                                      const Slot<T>& lo, const Slot<T>& hi,
+                                      const Slot<T>& own, Slot<T>& out,
+                                      int& merges) {
   int n_src = (int)vlo + (int)vhi + (int)stay;
   merges += n_src > 1 ? n_src - 1 : 0;
-  const Slot<T>& placed = vlo ? lo : (vhi ? hi : own);
-  out = placed;
+#pragma unroll
+  for (int k = 0; k < NF; ++k)
+    out.f[k] = vlo ? lo.f[k] : (vhi ? hi.f[k] : own.f[k]);
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+    out.id[k] = vlo ? lo.id[k] : (vhi ? hi.id[k] : own.id[k]);
+#pragma unroll
+  for (int k = 0; k < NXF; ++k)
+    out.xf[k] = vlo ? lo.xf[k] : (vhi ? hi.xf[k] : own.xf[k]);
   if (n_src >= 2) {
     const T zero = T(0);
     T w_lo = vlo ? lo.f[FW] : zero;
@@ -285,10 +417,114 @@ __device__ void place(bool vlo, bool vhi, bool stay, const Slot<T>& lo,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The re-binning passes
+// ---------------------------------------------------------------------------
+
+// A pass covers the cells in tiles of TX x TY (TY = a warp's 32 cells
+// along y, contiguous in memory); block thread t places cell
+// (x0 + t / TY, y0 + t % TY). Its sort entries are (key, slot) pairs,
+// entry s of column c at e[s * NCOL + c]: in shared memory as 16-bit pairs
+// up to MAXC_LOCAL slots a cell (TX_S rows), else in the block's part of
+// the global key scratch as 32-bit ones (TX_G rows, a grid-stride loop
+// over the tiles).
+constexpr int TY = 32;
+constexpr int TX_S = 8;
+constexpr int TX_G = 4;
+
+template <typename K> struct Entry;
+template <> struct Entry<unsigned short> { static constexpr int SHIFT = 8; };
+template <> struct Entry<int> { static constexpr int SHIFT = KEY_SHIFT; };
+
+template <typename K>
+__device__ __forceinline__ K entry(int key, int slot) {
+  return (K)((key << Entry<K>::SHIFT) | slot);
+}
+template <typename K>
+__device__ __forceinline__ int ekey(K e) { return (int)e >> Entry<K>::SHIFT; }
+template <typename K>
+__device__ __forceinline__ int eslot(K e) {
+  return (int)e & ((1 << Entry<K>::SHIFT) - 1);
+}
+
+// Key the cap slots of one column into its entries: alive(s) says whether
+// slot s is alive, local(s) is its coordinate relative to the column's
+// cell along the pass's axis, read for alive slots only. Returns whether
+// any slot is alive.
+template <typename T, typename K, typename Alive, typename Local>
+__device__ __forceinline__ bool key_column(K* e, int ncol, int col, int cap,
+                                           Alive alive, Local local) {
+  bool any = false;
+  for (int s = 0; s < cap; ++s) {
+    bool al = alive(s), hi = false, lo = false;
+    if (al) {
+      T l = local(s);
+      hi = l >= T(0.5);
+      lo = l < T(-0.5);
+      any = true;
+    }
+    e[(long long)s * ncol + col] = entry<K>(five_way(al, hi, lo, s), s);
+  }
+  return any;
+}
+
+// Sort one column's entries with the compare-exchange list of
+// cellpallas.py::_batcher_network, swapping on a strict ka > kb. Every
+// thread of a block runs the same list on its own column, so a warp's 32
+// accesses of one step fall on 32 neighbouring entries.
+template <typename K>
+__device__ __forceinline__ void sort_column(K* e, int ncol, int col,
+                                            const int2* __restrict__ ces,
+                                            int nces) {
+  for (int i = 0; i < nces; ++i) {
+    const int2 p = __ldg(ces + i);
+    K* pa = e + (long long)p.x * ncol + col;
+    K* pb = e + (long long)p.y * ncol + col;
+    const K ka = *pa, kb = *pb;
+    if (ekey(ka) > ekey(kb)) {
+      *pa = kb;
+      *pb = ka;
+    }
+  }
+}
+
+// A dead slot's values at the end of the stage (the plain version's): zero
+// floats and extras, inv_gamma 1, want_chi's chi 0 and ig0 1. Ids are not
+// written.
 template <typename T>
-__device__ void store(const SlotsOut<T>& o, long long idx, const Slot<T>& v,
-                      bool alive, int nxf) {
-  o.alive[idx] = alive ? 1 : 0;
+__device__ __forceinline__ void store_dead(const Args<T>& a, long long o) {
+  a.out.alive[o] = 0;
+#pragma unroll
+  for (int k = 0; k < NF; ++k) a.out.f[k][o] = T(0);
+#pragma unroll
+  for (int k = 0; k < NXF; ++k)
+    if (k < a.nxf) a.out.xf[k][o] = T(0);
+  a.ig_out[o] = T(1);
+  if (a.mode == M_WANT_CHI) {
+    a.chi_out[o] = T(0);
+    a.ig0_out[o] = T(1);
+  }
+}
+
+// rebin2x's output slot of a dead slot: the alive byte; in a head
+// dispatch, whose output goes back to the caller, also zero payloads.
+template <typename T>
+__device__ __forceinline__ void store_dead_x(const Args<T>& a, long long o) {
+  a.s.alive[o] = 0;
+  if (a.head) {
+#pragma unroll
+    for (int k = 0; k < NF; ++k) a.s.f[k][o] = T(0);
+#pragma unroll
+    for (int k = 0; k < NXF; ++k)
+      if (k < a.nxf) a.s.xf[k][o] = T(0);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store_payload(const SlotsOut<T>& o,
+                                              long long idx, const Slot<T>& v,
+                                              int nxf) {
+  o.alive[idx] = 1;
 #pragma unroll
   for (int k = 0; k < NF; ++k) o.f[k][idx] = v.f[k];
   o.id[0][idx] = v.id[0];
@@ -298,202 +534,437 @@ __device__ void store(const SlotsOut<T>& o, long long idx, const Slot<T>& v,
     if (k < nxf) o.xf[k][idx] = v.xf[k];
 }
 
-// The 5-way keys of one neighbour edge column (X: an x edge of stored
-// slots, keyed after its half push; else a y edge), slot stride ``stride``,
-// at index ``at`` of the edge, keyed at the neighbour's own cell index xi.
-template <typename T, bool X>
-__device__ __forceinline__ void edge_keys(const Args<T>& a, const Edge<T>& e,
-                                          int stride, int at, T xi, int* k) {
-  for (int s = 0; s < a.cap; ++s) {
-    long long ei = (long long)s * stride + at;
-    bool al = e.alive[ei] != 0;
-    T local = X ? pushed(e.f[FX][ei], e.f[FUX][ei], e.ig[ei], a.hx) - xi
-                : e.f[FY][ei] - xi;
-    bool hi = al && local >= T(0.5);
-    bool lo = al && local < T(-0.5);
-    k[s] = pack_key(five_way(al, hi, lo, s), s);
-  }
-}
-
-// The x pass of one cell; k: KEY_ROWS rows of ks sort entries. EDGE: the
-// launch takes the x neighbours' edge columns (a compile-time flag, so the
-// one-device pass keeps its own code).
-template <typename T, bool EDGE>
-__device__ __forceinline__ void pass_x_cell(const Args<T>& a, long long cell,
-                                            int* k, int ks, int& merges) {
-  int ix = (int)(cell / a.ny), iy = (int)(cell % a.ny);
-  int cols[3] = {ix > 0 ? ix - 1 : a.nx - 1, ix, ix < a.nx - 1 ? ix + 1 : 0};
-  // the lo (hi) column comes from the x neighbour shard's edge
-  const bool elo = EDGE && ix == 0, ehi = EDGE && ix == a.nx - 1;
-  for (int c3 = 0; c3 < 3; ++c3) {
-    long long base = (long long)cols[c3] * a.ny + iy;
-    T xi = T(cols[c3]);
-    if (c3 == 0 && elo) {
-      edge_keys<T, true>(a, a.ex[0], a.ny, iy, xi, k);
-    } else if (c3 == 2 && ehi) {
-      edge_keys<T, true>(a, a.ex[1], a.ny, iy, xi, k + 2 * ks);
-    } else {
-      for (int s = 0; s < a.cap; ++s) {
-        long long idx = base + s * a.ncell;
-        bool al = a.in.alive[idx] != 0;
-        T local =
-            pushed(a.in.f[FX][idx], a.in.f[FUX][idx], a.ig[idx], a.hx) - xi;
-        bool hi = al && local >= T(0.5);
-        bool lo = al && local < T(-0.5);
-        k[c3 * ks + s] = pack_key(five_way(al, hi, lo, s), s);
-      }
-    }
-    net_sort(k + c3 * ks, a.ces, a.nces);
-  }
-  bool lo_ok = EDGE || a.perx || ix != 0;
-  bool hi_ok = EDGE || a.perx || ix != a.nx - 1;
-  for (int p = 0; p < a.cap; ++p) {
-    const int klo = k[p], kown = k[ks + p], khi = k[2 * ks + p];
-    bool vlo = lo_ok && key_of(klo) == 0;
-    bool vhi = hi_ok && key_of(khi) == 4;
-    bool stay = key_of(kown) == 2;
-    Slot<T> own, lo, hi, out;
-    load_x(a, (long long)slot_of(kown) * a.ncell + cell, own);
-    if (vlo) {
-      if (elo)
-        load_x_edge(a, a.ex[0], (long long)slot_of(klo) * a.ny + iy, lo);
-      else
-        load_x(a, (long long)slot_of(klo) * a.ncell +
-                      (long long)cols[0] * a.ny + iy, lo);
-      if (ix == 0) lo.f[FX] = lo.f[FX] + T(-a.nx);
-    }
-    if (vhi) {
-      if (ehi)
-        load_x_edge(a, a.ex[1], (long long)slot_of(khi) * a.ny + iy, hi);
-      else
-        load_x(a, (long long)slot_of(khi) * a.ncell +
-                      (long long)cols[2] * a.ny + iy, hi);
-      if (ix == a.nx - 1) hi.f[FX] = hi.f[FX] + T(a.nx);
-    }
-    place(vlo, vhi, stay, lo, hi, own, out, merges);
-    store(a.s, (long long)p * a.ncell + cell, out, vlo || vhi || stay,
-          a.nxf);
-  }
-}
-
-template <typename T, int MAXC, bool EDGE>
-__global__ void __launch_bounds__(128) pass_x(Args<T> a) {
-  int merges = 0;
-  for_cells<MAXC>(a.ncell, a.keys, a.cap, [&](long long cell, int* k, int ks) {
-    pass_x_cell<T, EDGE>(a, cell, k, ks, merges);
-  });
-  add_merges(a.n_merged, merges);
-}
-
-// The y pass of one cell and the push of its slots; k: KEY_ROWS rows of
-// ks sort entries. EDGE: the launch takes the y neighbours' edge rows.
-template <typename T, bool EDGE>
-__device__ __forceinline__ void pass_y_cell(const Args<T>& a, long long cell,
-                                            int* k, int ks, int& merges) {
-  int ix = (int)(cell / a.ny), iy = (int)(cell % a.ny);
-  int rows[3] = {iy > 0 ? iy - 1 : a.ny - 1, iy, iy < a.ny - 1 ? iy + 1 : 0};
-  // the lo (hi) row comes from the y neighbour shard's edge
-  const bool elo = EDGE && iy == 0, ehi = EDGE && iy == a.ny - 1;
-  for (int c3 = 0; c3 < 3; ++c3) {
-    long long base = (long long)ix * a.ny + rows[c3];
-    T yi = T(rows[c3]);
-    if (c3 == 0 && elo) {
-      edge_keys<T, false>(a, a.ey[0], a.nx, ix, yi, k);
-    } else if (c3 == 2 && ehi) {
-      edge_keys<T, false>(a, a.ey[1], a.nx, ix, yi, k + 2 * ks);
-    } else {
-      for (int s = 0; s < a.cap; ++s) {
-        long long idx = base + s * a.ncell;
-        bool al = a.sin.alive[idx] != 0;
-        T local = a.sin.f[FY][idx] - yi;
-        bool hi = al && local >= T(0.5);
-        bool lo = al && local < T(-0.5);
-        k[c3 * ks + s] = pack_key(five_way(al, hi, lo, s), s);
-      }
-    }
-    net_sort(k + c3 * ks, a.ces, a.nces);
-  }
-  bool lo_ok = EDGE || a.pery || iy != 0;
-  bool hi_ok = EDGE || a.pery || iy != a.ny - 1;
-  for (int p = 0; p < a.cap; ++p) {
-    const int klo = k[p], kown = k[ks + p], khi = k[2 * ks + p];
-    bool vlo = lo_ok && key_of(klo) == 0;
-    bool vhi = hi_ok && key_of(khi) == 4;
-    bool stay = key_of(kown) == 2;
-    Slot<T> own, lo, hi, v;
-    load_y(a, (long long)slot_of(kown) * a.ncell + cell, own);
-    if (vlo) {
-      if (elo)
-        load_y_edge(a, a.ey[0], (long long)slot_of(klo) * a.nx + ix, lo);
-      else
-        load_y(a, (long long)slot_of(klo) * a.ncell +
-                      (long long)ix * a.ny + rows[0], lo);
-      if (iy == 0) lo.f[FY] = lo.f[FY] + T(-a.ny);
-    }
-    if (vhi) {
-      if (ehi)
-        load_y_edge(a, a.ey[1], (long long)slot_of(khi) * a.nx + ix, hi);
-      else
-        load_y(a, (long long)slot_of(khi) * a.ncell +
-                      (long long)ix * a.ny + rows[2], hi);
-      if (iy == a.ny - 1) hi.f[FY] = hi.f[FY] + T(a.ny);
-    }
-    place(vlo, vhi, stay, lo, hi, own, v, merges);
-    bool al = vlo || vhi || stay;
-    if (!al) {
+template <typename T>
+__device__ __forceinline__ void zero_slot(Slot<T>& v) {
 #pragma unroll
-      for (int t = 0; t < NF; ++t) v.f[t] = T(0);
+  for (int k = 0; k < NF; ++k) v.f[k] = T(0);
+}
+
+// The x pass of one tile: input -> scratch. Columns: TX + 2 rows of TY,
+// row r at x = x0 - 1 + r (-1 and nx: the wrap, or with EDGE the x
+// neighbours' edge columns; at an open face not keyed), each keyed after
+// the first half push at its own cell index and sorted once by one thread.
+template <typename T, typename K, int TX, bool EDGE>
+__device__ __forceinline__ void pass_x_tile(const Args<T>& a, K* e,
+                                            long long t, int x0, int y0,
+                                            int& merges) {
+  constexpr int NT = TX * TY, NCOL = (TX + 2) * TY;
+  const int tid = threadIdx.x;
+  const int2* ces = reinterpret_cast<const int2*>(a.ces);
+  bool any = false;
+  for (int col = tid; col < NCOL; col += NT) {
+    const int x = x0 - 1 + col / TY, iy = y0 + col % TY;
+    if (iy >= a.ny || x > a.nx) continue;
+    const bool wrap = x < 0 || x == a.nx;
+    if (wrap && !EDGE && !a.perx) continue;          // open face
+    const int xc = x < 0 ? a.nx - 1 : (x == a.nx ? 0 : x);
+    const T xi = T(xc);
+    bool col_any;
+    if (wrap && EDGE) {
+      const Edge<T>& ed = a.ex[x < 0 ? 0 : 1];
+      col_any = key_column<T, K>(
+          e, NCOL, col, a.cap,
+          [&](int s) { return ed.alive[(long long)s * a.ny + iy] != 0; },
+          [&](int s) {
+            long long i = (long long)s * a.ny + iy;
+            return pushed(ed.f[FX][i], ed.f[FUX][i], ed.ig[i], a.hx) - xi;
+          });
+    } else {
+      const long long base = (long long)xc * a.ny + iy;
+      col_any = key_column<T, K>(
+          e, NCOL, col, a.cap,
+          [&](int s) { return a.in.alive[base + s * a.ncell] != 0; },
+          [&](int s) {
+            long long i = base + s * a.ncell;
+            return pushed(a.in.f[FX][i], a.in.f[FUX][i], a.ig[i], a.hx) - xi;
+          });
     }
-    long long o = (long long)p * a.ncell + cell;
-    if (a.mode == M_PHOTON) {
-      // field-free photon tail (ops/pusher.py::photon_push)
-      T ig = photon_ig(v.f[FUX], v.f[FUY], v.f[FUZ]);
+    // a column with nothing alive keys every slot dead (1 or 3), which
+    // places nothing wherever the sort would move them: left unsorted
+    if (col_any) sort_column(e, NCOL, col, ces, a.nces);
+    any |= col_any;
+  }
+  const int w = tid / TY, lane = tid % TY;
+  const int ix = x0 + w, iy = y0 + lane;
+  const bool valid = ix < a.nx && iy < a.ny;
+  const long long cell = (long long)ix * a.ny + iy;
+  if (!__syncthreads_or(any)) {
+    // nothing alive within reach: every output slot is dead (the flag
+    // says so to rebin2y in a whole dispatch)
+    if (tid == 0) a.xflags[t] = 0;
+    if (valid && !a.whole)
+      for (int p = 0; p < a.cap; ++p) store_dead_x(a, p * a.ncell + cell);
+    return;
+  }
+  bool wrote = false;
+  if (valid) {
+    const int clo = w * TY + lane, cown = clo + TY, chi = clo + 2 * TY;
+    const bool lo_ok = EDGE || a.perx || ix != 0;
+    const bool hi_ok = EDGE || a.perx || ix != a.nx - 1;
+    const bool elo = EDGE && ix == 0, ehi = EDGE && ix == a.nx - 1;
+    const long long src_lo =
+        (long long)(ix > 0 ? ix - 1 : a.nx - 1) * a.ny + iy;
+    const long long src_hi =
+        (long long)(ix < a.nx - 1 ? ix + 1 : 0) * a.ny + iy;
+    for (int p = 0; p < a.cap; ++p) {
+      const K kown = e[p * NCOL + cown];
+      const K klo = lo_ok ? e[p * NCOL + clo] : K(0);
+      const K khi = hi_ok ? e[p * NCOL + chi] : K(0);
+      const bool stay = ekey(kown) == 2;
+      const bool vlo = lo_ok && ekey(klo) == 0;
+      const bool vhi = hi_ok && ekey(khi) == 4;
+      const long long o = p * a.ncell + cell;
+      if (!(vlo || vhi || stay)) {
+        store_dead_x(a, o);
+        continue;
+      }
+      Slot<T> own, lo, hi, out;
+      if (stay)
+        load_x(a, (long long)eslot(kown) * a.ncell + cell, own);
+      else
+        zero_slot(own);
+      if (vlo) {
+        if (elo)
+          load_x_edge(a, a.ex[0], (long long)eslot(klo) * a.ny + iy, lo);
+        else
+          load_x(a, (long long)eslot(klo) * a.ncell + src_lo, lo);
+        if (ix == 0) lo.f[FX] = lo.f[FX] + T(-a.nx);
+      }
+      if (vhi) {
+        if (ehi)
+          load_x_edge(a, a.ex[1], (long long)eslot(khi) * a.ny + iy, hi);
+        else
+          load_x(a, (long long)eslot(khi) * a.ncell + src_hi, hi);
+        if (ix == a.nx - 1) hi.f[FX] = hi.f[FX] + T(a.nx);
+      }
+      place(vlo, vhi, stay, lo, hi, own, out, merges);
+      if (a.whole) {
+        a.s.alive[o] = 1;
+        a.s.f[FY][o] = out.f[FY];
+        store_rec(a.rec + o * Rec<T>::VECS, out);
+      } else {
+        store_payload(a.s, o, out, a.nxf);
+      }
+      wrote = true;
+    }
+  }
+  wrote = __syncthreads_or(wrote);
+  if (tid == 0) a.xflags[t] = wrote;
+}
+
+// The y pass of one tile, scratch -> output, and the push of its alive
+// slots. Columns: the tile's NT (row w, lane) and two halo columns a row
+// at NT + 2w (y0 - 1) and NT + 2w + 1 (the next tile's first, or at the
+// last tile of a row the wrap: with EDGE the y neighbours' edge rows; at
+// an open face not keyed).
+template <typename T, typename K, int TX, bool EDGE>
+__device__ __forceinline__ void pass_y_tile(const Args<T>& a, K* e,
+                                            long long t, int nty, int x0,
+                                            int y0, int& merges) {
+  constexpr int NT = TX * TY, NCOL = NT + 2 * TX;
+  const int tid = threadIdx.x;
+  const int w = tid / TY, lane = tid % TY;
+  const int ix = x0 + w, iy = y0 + lane;
+  const bool valid = ix < a.nx && iy < a.ny;
+  const long long cell = (long long)ix * a.ny + iy;
+  // in a whole dispatch, whether rebin2x left anything alive in this tile
+  // and in the tiles of its halo columns (the wrap's when periodic)
+  const int by = (int)(t % nty);
+  const long long t_lo = by > 0 ? t - 1 : (a.pery ? t + nty - 1 : -1);
+  const long long t_hi = by < nty - 1 ? t + 1 : (a.pery ? t - (nty - 1) : -1);
+  const bool f_own = !a.whole || a.xflags[t];
+  const bool f_lo = !a.whole || (t_lo >= 0 && a.xflags[t_lo]);
+  const bool f_hi = !a.whole || (t_hi >= 0 && a.xflags[t_hi]);
+  if (!(f_own || f_lo || f_hi)) {
+    if (tid == 0) a.yflags[t] = 0;
+    if (valid)
+      for (int p = 0; p < a.cap; ++p) store_dead(a, p * a.ncell + cell);
+    return;
+  }
+  const int2* ces = reinterpret_cast<const int2*>(a.ces);
+  bool any = false;
+  for (int col = tid; col < NCOL; col += NT) {
+    int cx, y;
+    bool live;                      // the scratch holds this column
+    if (col < NT) {
+      cx = x0 + col / TY;
+      y = y0 + col % TY;
+      live = f_own;
+      if (y >= a.ny) continue;
+    } else {
+      const int h = col - NT;
+      cx = x0 + h / 2;
+      y = (h & 1) ? min(y0 + TY, a.ny) : y0 - 1;
+      live = (h & 1) ? f_hi : f_lo;
+    }
+    if (cx >= a.nx) continue;
+    const bool wrap = y < 0 || y == a.ny;
+    if (wrap && !EDGE && !a.pery) continue;          // open face
+    const int yc = y < 0 ? a.ny - 1 : (y == a.ny ? 0 : y);
+    const T yi = T(yc);
+    bool col_any;
+    if (wrap && EDGE) {
+      const Edge<T>& ed = a.ey[y < 0 ? 0 : 1];
+      col_any = key_column<T, K>(
+          e, NCOL, col, a.cap,
+          [&](int s) { return ed.alive[(long long)s * a.nx + cx] != 0; },
+          [&](int s) { return ed.f[FY][(long long)s * a.nx + cx] - yi; });
+    } else {
+      const long long base = (long long)cx * a.ny + yc;
+      col_any = key_column<T, K>(
+          e, NCOL, col, a.cap,
+          [&](int s) { return live && a.sin.alive[base + s * a.ncell] != 0; },
+          [&](int s) { return a.sin.f[FY][base + s * a.ncell] - yi; });
+    }
+    if (col_any) sort_column(e, NCOL, col, ces, a.nces);
+    any |= col_any;
+  }
+  if (!__syncthreads_or(any)) {
+    if (tid == 0) a.yflags[t] = 0;
+    if (valid)
+      for (int p = 0; p < a.cap; ++p) store_dead(a, p * a.ncell + cell);
+    return;
+  }
+  bool wrote = false;
+  if (valid) {
+    const int cown = w * TY + lane;
+    const int clo = lane > 0 ? cown - 1 : NT + 2 * w;
+    const int chi =
+        lane < TY - 1 && iy + 1 < a.ny ? cown + 1 : NT + 2 * w + 1;
+    const bool lo_ok = EDGE || a.pery || iy != 0;
+    const bool hi_ok = EDGE || a.pery || iy != a.ny - 1;
+    const bool elo = EDGE && iy == 0, ehi = EDGE && iy == a.ny - 1;
+    const long long src_lo =
+        (long long)ix * a.ny + (iy > 0 ? iy - 1 : a.ny - 1);
+    const long long src_hi =
+        (long long)ix * a.ny + (iy < a.ny - 1 ? iy + 1 : 0);
+    for (int p = 0; p < a.cap; ++p) {
+      const K kown = e[p * NCOL + cown];
+      const K klo = lo_ok ? e[p * NCOL + clo] : K(0);
+      const K khi = hi_ok ? e[p * NCOL + chi] : K(0);
+      const bool stay = ekey(kown) == 2;
+      const bool vlo = lo_ok && ekey(klo) == 0;
+      const bool vhi = hi_ok && ekey(khi) == 4;
+      const long long o = p * a.ncell + cell;
+      if (!(vlo || vhi || stay)) {
+        store_dead(a, o);
+        continue;
+      }
+      Slot<T> own, lo, hi, v;
+      if (stay)
+        load_y(a, (long long)eslot(kown) * a.ncell + cell, own);
+      else
+        zero_slot(own);
+      if (vlo) {
+        if (elo)
+          load_y_edge(a, a.ey[0], (long long)eslot(klo) * a.nx + ix, lo);
+        else
+          load_y(a, (long long)eslot(klo) * a.ncell + src_lo, lo);
+        if (iy == 0) lo.f[FY] = lo.f[FY] + T(-a.ny);
+      }
+      if (vhi) {
+        if (ehi)
+          load_y_edge(a, a.ey[1], (long long)eslot(khi) * a.nx + ix, hi);
+        else
+          load_y(a, (long long)eslot(khi) * a.ncell + src_hi, hi);
+        if (iy == a.ny - 1) hi.f[FY] = hi.f[FY] + T(a.ny);
+      }
+      place(vlo, vhi, stay, lo, hi, own, v, merges);
+      if (a.mode == M_PHOTON) {
+        // field-free photon tail (ops/pusher.py::photon_push)
+        T ig = photon_ig(v.f[FUX], v.f[FUY], v.f[FUZ]);
+        v.f[FX] = pushed(v.f[FX], v.f[FUX], ig, a.hx);
+        v.f[FY] = pushed(v.f[FY], v.f[FUY], ig, a.hy);
+        store_payload(a.out, o, v, a.nxf);
+        a.ig_out[o] = ig;
+        wrote = true;
+        continue;
+      }
+      // gather at the mid-step position (cell-local deltas)
+      T eb[6];
+      gather_eb(a.eb, a.nx, a.ny, a.g, ix, iy, v.f[FX] - T(ix),
+                v.f[FY] - T(iy), eb);
+      if (a.mode == M_WANT_CHI) {
+        // models/qed.py::calculate_chi at the pre-push momenta, with the
+        // pre-push inv_gamma of the re-binning (ops/cell2d.py)
+        quantum_chi(eb, v.f[FUX], v.f[FUY], v.f[FUZ], a.c, a.chi, a.chi_out[o],
+                    a.ig0_out[o]);
+      }
+      T ig = boris(v.f[FUX], v.f[FUY], v.f[FUZ], eb, a.ef, a.bf);
       v.f[FX] = pushed(v.f[FX], v.f[FUX], ig, a.hx);
       v.f[FY] = pushed(v.f[FY], v.f[FUY], ig, a.hy);
-      store(a.out, o, v, al, a.nxf);
+      store_payload(a.out, o, v, a.nxf);
       a.ig_out[o] = ig;
-      continue;
+      wrote = true;
     }
-    // gather at the mid-step position (cell-local deltas)
-    T e[6];
-    gather_eb(a.eb, a.nx, a.ny, a.g, ix, iy, v.f[FX] - T(ix),
-              v.f[FY] - T(iy), e);
-    if (a.mode == M_WANT_CHI) {
-      // models/qed.py::calculate_chi at the pre-push momenta, with the
-      // pre-push inv_gamma of the re-binning (ops/cell2d.py)
-      quantum_chi(e, v.f[FUX], v.f[FUY], v.f[FUZ], a.c, a.chi, a.chi_out[o],
-                  a.ig0_out[o]);
-    }
-    T ig = boris(v.f[FUX], v.f[FUY], v.f[FUZ], e, a.ef, a.bf);
-    v.f[FX] = pushed(v.f[FX], v.f[FUX], ig, a.hx);
-    v.f[FY] = pushed(v.f[FY], v.f[FUY], ig, a.hy);
-    store(a.out, o, v, al, a.nxf);
-    a.ig_out[o] = ig;
+  }
+  wrote = __syncthreads_or(wrote);
+  if (tid == 0) a.yflags[t] = wrote;
+}
+
+// The block's sort entries: dynamic shared memory, or (GLOBAL) its part of
+// the key scratch, KEY_ROWS x cap int32 for each of its threads.
+template <typename K, bool GLOBAL>
+__device__ __forceinline__ K* block_entries(const int* keys, int cap) {
+  if constexpr (GLOBAL) {
+    return (K*)keys + (long long)blockIdx.x * blockDim.x * KEY_ROWS * cap;
+  } else {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    return reinterpret_cast<K*>(smem_raw);
   }
 }
 
-template <typename T, int MAXC, bool EDGE>
-__global__ void __launch_bounds__(128) pass_y(Args<T> a) {
+// One block a tile (a grid-stride loop over the tiles with GLOBAL
+// entries), tiles in row-major order of (x0 / TX, y0 / TY).
+template <typename T, typename K, int TX, bool GLOBAL, bool EDGE>
+__global__ void __launch_bounds__(TX * TY) rebin2x(Args<T> a) {
+  K* e = block_entries<K, GLOBAL>(a.keys, a.cap);
+  const int nty = (a.ny + TY - 1) / TY;
+  const long long ntiles = (long long)((a.nx + TX - 1) / TX) * nty;
   int merges = 0;
-  for_cells<MAXC>(a.ncell, a.keys, a.cap, [&](long long cell, int* k, int ks) {
-    pass_y_cell<T, EDGE>(a, cell, k, ks, merges);
-  });
+  for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    pass_x_tile<T, K, TX, EDGE>(a, e, t, (int)(t / nty) * TX,
+                                (int)(t % nty) * TY, merges);
+    __syncthreads();
+  }
   add_merges(a.n_merged, merges);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(TILE * TILE) deposit(Args<T> a) {
-  DepositIn<T> d;
-  d.alive = a.out.alive;
-  d.x = a.out.f[FX]; d.y = a.out.f[FY];
-  d.ux = a.out.f[FUX]; d.uy = a.out.f[FUY]; d.uz = a.out.f[FUZ];
-  d.ig = a.ig_out; d.w = a.out.f[FW];
-  d.rims_in = a.rims_in; d.rims_out = a.rims_out;
-  d.nx = a.nx; d.ny = a.ny; d.cap = a.cap; d.ncomp = a.ncomp;
-  d.ncell = a.ncell;
-  d.cdx = a.cdx; d.cdy = a.cdy; d.c = a.c;
-  d.kcd = a.kcd; d.kfx = a.kfx; d.kfy = a.kfy;
-  deposit_tile(d);
+// rebin2y at two blocks an SM (at most 128 registers a thread): its
+// gather and Boris would take some 180 and leave one block an SM, too few
+// warps to cover the dead slots' stores
+template <typename T, typename K, int TX, bool GLOBAL, bool EDGE>
+__global__ void __launch_bounds__(TX * TY, 2) rebin2y(Args<T> a) {
+  K* e = block_entries<K, GLOBAL>(a.keys, a.cap);
+  const int nty = (a.ny + TY - 1) / TY;
+  const long long ntiles = (long long)((a.nx + TX - 1) / TX) * nty;
+  int merges = 0;
+  for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    pass_y_tile<T, K, TX, EDGE>(a, e, t, nty, (int)(t / nty) * TX,
+                                (int)(t % nty) * TY, merges);
+    __syncthreads();
+  }
+  add_merges(a.n_merged, merges);
+}
+
+// deposit2: one block per TILE x TILE cell tile (blockDim (TILE, TILE),
+// grid (nby, nbx), NC * PAN * PAN reals of shared memory), NC = 4 with
+// rho, else 3. Each thread reads its cell's alive bytes once (up to 64
+// slots into a bit mask, above that a count that ends the walk early); a
+// tile with no alive slot copies rims_in to rims_out and stops. Otherwise
+// each thread walks its cell's alive slots once, in slot order, computing
+// each particle's shapes once and adding its 5 x 5 Esirkepov nodes into
+// per-offset sums in registers; then the 25 offsets go into the shared
+// panel one after another with a barrier between, every thread writing a
+// different node within one offset, so the sum needs no atomics and
+// repeats bit for bit. Each offset's sum is cell2d.cuh::deposit_tile's, in
+// its order. Panel (bi, bj) node (a, b) is the current at interior index
+// (bi*TILE + a - 2, bj*TILE + b - 2).
+template <typename T, int NC>
+__global__ void __launch_bounds__(TILE * TILE, 2) deposit2(Args<T> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* pan = reinterpret_cast<T*>(smem_raw);       // (NC, PAN, PAN)
+  const int lx = threadIdx.y, ly = threadIdx.x;
+  const int bi = blockIdx.y, bj = blockIdx.x;
+  const int nbx = gridDim.y, nby = gridDim.x;
+  const int ix = bi * TILE + lx, iy = bj * TILE + ly;
+  const bool valid = ix < a.nx && iy < a.ny;
+  const int tid = threadIdx.y * TILE + threadIdx.x;
+  constexpr int PP = PAN * PAN;
+  const long long cell = (long long)ix * a.ny + iy;
+  const unsigned char* alive = a.out.alive;
+  const bool masked = a.cap <= 64;
+  // rebin2y's flags of the pass tiles that this tile overlaps
+  const int nty = (a.ny + TY - 1) / TY, ntx = (a.nx + a.tx - 1) / a.tx;
+  const int by = bj * TILE / TY;
+  bool flagged = false;
+  const int bx1 = min((bi * TILE + TILE - 1) / a.tx, ntx - 1);
+  for (int bx = bi * TILE / a.tx; bx <= bx1; ++bx)
+    flagged |= a.yflags[(long long)bx * nty + by] != 0;
+  int n_alive = 0;
+  unsigned long long bits = 0;      // the alive slots, up to 64 slots
+  if (valid && flagged) {
+#pragma unroll 4
+    for (int s = 0; s < a.cap; ++s)
+      if (alive[(long long)s * a.ncell + cell]) {
+        ++n_alive;
+        if (masked) bits |= 1ull << s;
+      }
+  }
+  const long long tile0 = ((long long)bi * nby + bj) * PP;
+  const long long cstride = (long long)nbx * nby * PP;
+  if (!__syncthreads_or(n_alive)) {
+    for (int e = tid; e < NC * PP; e += TILE * TILE) {
+      const long long g = (e / PP) * cstride + tile0 + e % PP;
+      a.rims_out[g] = a.rims_in ? a.rims_in[g] : T(0);
+    }
+    return;
+  }
+  for (int e = tid; e < NC * PP; e += TILE * TILE) {
+    const long long g = (e / PP) * cstride + tile0 + e % PP;
+    pan[e] = a.rims_in ? a.rims_in[g] : T(0);
+  }
+  T acc[5][5][NC];
+#pragma unroll
+  for (int i = 0; i < 5; ++i)
+#pragma unroll
+    for (int j = 0; j < 5; ++j)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) acc[i][j][c] = T(0);
+  const T cdx = a.cdx, cdy = a.cdy, kcd = a.kcd, kfx = a.kfx, kfy = a.kfy;
+  for (int s = 0, left = n_alive; left > 0; ++s) {
+    if (masked) {
+      s = __ffsll(bits) - 1;
+      bits &= bits - 1;
+    } else if (!alive[(long long)s * a.ncell + cell]) {
+      continue;
+    }
+    --left;
+    const long long idx = (long long)s * a.ncell + cell;
+    const T x = a.out.f[FX][idx], y = a.out.f[FY][idx];
+    const T ig = a.ig_out[idx], w = a.out.f[FW][idx];
+    const T vx_c = (a.out.f[FUX][idx] * ig) * cdx;
+    const T vy_c = (a.out.f[FUY][idx] * ig) * cdy;
+    const T vz = (a.out.f[FUZ][idx] * ig) * a.c;
+    T s0x[5], s1x[5], s0y[5], s1y[5];
+    shapes(x - T(ix), vx_c, s0x, s1x);
+    shapes(y - T(iy), vy_c, s0y, s1y);
+    const T cd = kcd * w, fdx = kfx * w, fdy = kfy * w;
+    const T cvz = cd * vz;
+    T run = T(0);
+#pragma unroll
+    for (int oxi = 0; oxi < 5; ++oxi) {
+      run = run + (s1x[oxi] - s0x[oxi]);
+      const T fx = (-fdx) * run;
+      const T dsx = s1x[oxi] - s0x[oxi];
+      const T ax = s0x[oxi] + T(0.5) * dsx;
+      T runy = T(0);
+#pragma unroll
+      for (int oy = 0; oy < 5; ++oy) {
+        const T dsy = s1y[oy] - s0y[oy];
+        runy = runy + dsy;
+        const T gy = (-fdy) * runy;
+        const T by = s0y[oy] + T(0.5) * dsy;
+        acc[oxi][oy][0] += fx * by;
+        acc[oxi][oy][1] += ax * gy;
+        acc[oxi][oy][2] += cvz * (ax * by + (dsx * dsy) / T(12));
+        if constexpr (NC == 4) acc[oxi][oy][3] += (cd * s1x[oxi]) * s1y[oy];
+      }
+    }
+  }
+#pragma unroll
+  for (int oxi = 0; oxi < 5; ++oxi)
+#pragma unroll
+    for (int oy = 0; oy < 5; ++oy) {
+      __syncthreads();
+      if (valid)
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          pan[c * PP + (lx + oxi) * PAN + (ly + oy)] += acc[oxi][oy][c];
+    }
+  __syncthreads();
+  for (int e = tid; e < NC * PP; e += TILE * TILE)
+    a.rims_out[(e / PP) * cstride + tile0 + e % PP] = pan[e];
 }
 
 template <typename T>
@@ -516,24 +987,47 @@ void unpack_out(SlotsOut<T>& s, void** p, int alive, int first, int id0,
   for (int k = 0; k < NXF; ++k) s.xf[k] = (T*)p[xf0 + k];
 }
 
-template <typename T, int MAXC>
+// Launch one pass kernel: one block a tile with shared entries, or the
+// key scratch's blocks with global ones.
+template <typename T, typename K, int TX, bool GLOBAL, typename Kernel>
+int launch_pass(Kernel kernel, const Args<T>& a, int ncol, cudaStream_t st) {
+  constexpr int threads = TX * TY;
+  long long tiles = (long long)ceil_div(a.nx, TX) * ceil_div(a.ny, TY);
+  long long blocks = tiles;
+  size_t smem = 0;
+  if constexpr (GLOBAL) {
+    long long rows = a.key_threads / threads;
+    blocks = tiles < rows ? tiles : rows;
+  } else {
+    smem = sizeof(K) * (size_t)ncol * a.cap;
+    if (smem > 48 * 1024) {
+      int err = (int)cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err) return err;
+    }
+  }
+  if (blocks <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, threads, smem, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, typename K, int TX, bool GLOBAL>
 int launch_passes(const Args<T>& a, int lo, int hi, cudaStream_t st) {
-  int threads = 128;
-  int blocks = cell_blocks(a.ncell, a.cap, a.key_threads, threads);
-  if (blocks == 0) return (int)cudaErrorInvalidValue;
   if (lo == 0) {
-    if (a.xedge)
-      pass_x<T, MAXC, true><<<blocks, threads, 0, st>>>(a);
-    else
-      pass_x<T, MAXC, false><<<blocks, threads, 0, st>>>(a);
-    int err = (int)cudaGetLastError();
+    constexpr int ncol = (TX + 2) * TY;
+    int err = a.xedge
+        ? launch_pass<T, K, TX, GLOBAL>(rebin2x<T, K, TX, GLOBAL, true>, a,
+                                        ncol, st)
+        : launch_pass<T, K, TX, GLOBAL>(rebin2x<T, K, TX, GLOBAL, false>, a,
+                                        ncol, st);
     if (err || hi == 0) return err;
   }
-  if (a.yedge)
-    pass_y<T, MAXC, true><<<blocks, threads, 0, st>>>(a);
-  else
-    pass_y<T, MAXC, false><<<blocks, threads, 0, st>>>(a);
-  return (int)cudaGetLastError();
+  constexpr int ncol = TX * TY + 2 * TX;
+  return a.yedge
+      ? launch_pass<T, K, TX, GLOBAL>(rebin2y<T, K, TX, GLOBAL, true>, a,
+                                      ncol, st)
+      : launch_pass<T, K, TX, GLOBAL>(rebin2y<T, K, TX, GLOBAL, false>, a,
+                                      ncol, st);
 }
 
 template <typename T>
@@ -579,26 +1073,39 @@ int launch(void** p, const long long* n, const double* r, cudaStream_t st) {
   const int lo = (int)n[I_MERGE_LO], hi = (int)n[I_MERGE_HI];
   a.xedge = (int)n[I_XEDGE];
   a.yedge = (int)n[I_YEDGE];
+  a.head = hi == 0;
+  a.whole = lo == 0 && hi == 1;
   // dispatches: x and y (the whole stage), x alone, y with the tail
   if (lo < 0 || hi > 1 || lo > hi || (a.xedge && lo != 0) ||
       (a.yedge && lo != 1))
+    return (int)cudaErrorInvalidValue;
+  a.tx = a.cap <= MAXC_LOCAL ? TX_S : TX_G;
+  const long long ntiles = (long long)ceil_div(a.nx, a.tx) * ceil_div(a.ny, TY);
+  a.xflags = (unsigned char*)p[P_FLAGS];
+  a.yflags = a.xflags + ntiles;
+  if (!a.xflags || 2 * ntiles > n[I_FLAG_BYTES])
+    return (int)cudaErrorInvalidValue;
+  a.rec = (uint4*)p[P_REC];
+  if (a.whole && (!a.rec || (long long)sizeof(unsigned) * Rec<T>::WORDS *
+                                    a.cap * a.ncell > n[I_REC_BYTES]))
     return (int)cudaErrorInvalidValue;
   for (int e = 0; e < 2; ++e) {
     unpack_edge(a.ex[e], p + P_EDGES + e * EDGE_PTRS);
     unpack_edge(a.ey[e], p + P_EDGES + (2 + e) * EDGE_PTRS);
   }
-  int err;
-  if (a.cap <= 8) err = launch_passes<T, 8>(a, lo, hi, st);
-  else if (a.cap <= 16) err = launch_passes<T, 16>(a, lo, hi, st);
-  else if (a.cap <= 32) err = launch_passes<T, 32>(a, lo, hi, st);
-  else if (a.cap <= 64) err = launch_passes<T, 64>(a, lo, hi, st);
-  else if (a.cap <= MAXC_LOCAL) err = launch_passes<T, MAXC_LOCAL>(a, lo, hi, st);
-  else err = launch_passes<T, 0>(a, lo, hi, st);
+  int err = a.cap <= MAXC_LOCAL
+      ? launch_passes<T, unsigned short, TX_S, false>(a, lo, hi, st)
+      : launch_passes<T, int, TX_G, true>(a, lo, hi, st);
   if (err || a.mode == M_PHOTON || hi == 0) return err;
   dim3 block(TILE, TILE);
   dim3 grid(ceil_div(a.ny, TILE), ceil_div(a.nx, TILE));
   size_t smem = sizeof(T) * a.ncomp * PAN * PAN;
-  deposit<T><<<grid, block, smem, st>>>(a);
+  if (a.ncomp == 4)
+    deposit2<T, 4><<<grid, block, smem, st>>>(a);
+  else if (a.ncomp == 3)
+    deposit2<T, 3><<<grid, block, smem, st>>>(a);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 

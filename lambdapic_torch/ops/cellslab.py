@@ -365,6 +365,14 @@ def _pad3(ts) -> list:
 
 
 EDGE_PTRS = 14          # csrc/cellstep*.cu's Edge: alive, 7 floats, ig, ids, 3
+# cells of csrc/cellstep.cu's smallest re-binning tile (4 x 32, above
+# MAXC_LOCAL slots a cell); each pass writes one flag a tile, so 2 bytes a
+# tile of these bound the flags a launch needs (the library checks)
+FLAG_TILE = (4, 32)
+# 32-bit words of csrc/cellstep.cu's slot record between the passes of a
+# whole dispatch (x y z w ux uy uz, two ids, three extras, padded to 16
+# bytes), by dtype (the library checks the size)
+REC_WORDS = {torch.float32: 12, torch.float64: 24}
 
 
 def _edge_ptrs(edge: Optional[Dict[str, torch.Tensor]], shape, extra,
@@ -495,11 +503,12 @@ def _cell_step_3d(eb_pad, data, alive, *, q, m, dt, dx, dy, dz, g, periodic,
 
 def _cell_step_2d(eb_pad, data, alive, *, q, m, dt, dx, dy, g, periodic,
                   rims_in, with_rho, mode, extra, merge, tail, edges):
-    """The 2D launch of kernel B2 (csrc/cellstep.cu): pass_x into the
-    scratch slots, pass_y (with the push) into the output slots, the
-    deposit; on a mesh the dispatch's part of it (x alone, whose output
-    is the scratch, or y with the tail, reading its input through the
-    scratch pointers). ``edges``: axis -> (lo, hi) neighbour edges."""
+    """The 2D launch of kernel B2 (csrc/cellstep.cu): rebin2x into the
+    scratch slots, rebin2y (with the push) into the output slots,
+    deposit2 (each skipping the tiles with nothing alive in reach); on a
+    mesh the dispatch's part of it (x alone, whose output is the scratch,
+    or y with the tail, reading its input through the scratch pointers).
+    ``edges``: axis -> (lo, hi) neighbour edges."""
     dev = alive.device
     dtype = data["x"].dtype
     cap, nx, ny = alive.shape
@@ -530,15 +539,25 @@ def _cell_step_2d(eb_pad, data, alive, *, q, m, dt, dx, dy, g, periodic,
         return [empty(dtype) for _ in range(n)]
 
     nf = len(FLOAT_PAYLOADS)
+    rec = None
     if first:
-        # pass_x reads the input, writes the scratch
+        # rebin2x reads the input
         in_ptrs = ([alive] + [data[k] for k in FLOAT_PAYLOADS]
                    + [data["inv_gamma"]] + [data[k] for k in ID_PAYLOADS])
-        s_alive, s_f, s_x = empty(torch.bool), slots(nf), slots(len(extra))
-        s_id = [empty(torch.int32) for _ in ID_PAYLOADS]
+        s_alive = empty(torch.bool)
+        if tail:
+            # it writes alive, y and the slot records, which rebin2y reads
+            s_f = [empty(dtype) if k == "y" else None for k in FLOAT_PAYLOADS]
+            s_x, s_id = [], [None] * 2
+            rec = torch.empty(shape + (REC_WORDS[dtype],), dtype=torch.int32,
+                              device=dev)
+        else:
+            # it writes the scratch, the dispatch's output
+            s_f, s_x = slots(nf), slots(len(extra))
+            s_id = [empty(torch.int32) for _ in ID_PAYLOADS]
         s_xin = s_x
     else:
-        # pass_y reads the input through the scratch pointers
+        # rebin2y reads the input through the scratch pointers
         in_ptrs = [None] * (2 + nf + len(ID_PAYLOADS))
         s_alive, s_f = alive, [data[k] for k in FLOAT_PAYLOADS]
         s_id = [data[k] for k in ID_PAYLOADS]
@@ -555,6 +574,8 @@ def _cell_step_2d(eb_pad, data, alive, *, q, m, dt, dx, dy, g, periodic,
         else (None, None)
     n_lost = torch.zeros((), dtype=torch.int64, device=dev)
     keys, key_threads = key_scratch(cap, nx * ny, dev, "cellstep")
+    flag_bytes = 2 * -(-nx // FLAG_TILE[0]) * -(-ny // FLAG_TILE[1])
+    flags = torch.empty(flag_bytes, dtype=torch.uint8, device=dev)
     eptrs = []
     for ax in range(2):
         lo, hi = edges.get(ax, (None, None))
@@ -567,7 +588,7 @@ def _cell_step_2d(eb_pad, data, alive, *, q, m, dt, dx, dy, g, periodic,
             + [rims_in if tail and not photon else None, rims, n_lost,
                _ces_tensor(cap, dev), chi, ig0]
             + _pad3(data[k] for k in extra) + _pad3(s_xin) + _pad3(o_x)
-            + [keys] + eptrs)
+            + [keys] + eptrs + [flags, rec])
     cdx, cdy = c_light * dt / dx, c_light * dt / dy
     if photon:
         # q = m = 0: no Boris factors (q / m is undefined) and no deposit
@@ -580,7 +601,8 @@ def _cell_step_2d(eb_pad, data, alive, *, q, m, dt, dx, dy, g, periodic,
         [cap, nx, ny, g, periodic[0], periodic[1], ncomp,
          len(batcher_network(cap)), dtype == torch.float64,
          MODES.index(mode), len(extra), key_threads, merge[0], merge[-1],
-         int(0 in edges), int(1 in edges)],
+         int(0 in edges), int(1 in edges), flag_bytes,
+         0 if rec is None else rec.numel() * rec.element_size()],
         [cdx / 2, cdy / 2] + force + [CHI_FACTOR],
         dev)
     out = dict(data)

@@ -74,6 +74,107 @@ def random_cell_state(cap: int, nx: int, ny: int, nz: Optional[int] = None,
     return data, alive, eb_pad
 
 
+def occupied_cell_state(cap: int, occupied: np.ndarray, per_cell: int, *,
+                        seed: int = 0, **kw):
+    """A 2D (or 3D) cell state whose cells are empty but those where the
+    bool mask ``occupied`` (the cell shape) is set, which hold
+    ``per_cell`` alive particles each in randomly chosen slots; otherwise
+    as ``random_cell_state`` (``kw``: its spread, umax, field, g).
+    Returns (data, alive, eb_pad)."""
+    occupied = np.asarray(occupied, bool)
+    if not 0 <= per_cell <= cap:
+        raise ValueError(f"{per_cell} particles a cell in {cap} slots")
+    data, full, eb_pad = random_cell_state(cap, *occupied.shape, n_frac=1.0,
+                                           seed=seed, **kw)
+    rank = np.argsort(np.random.default_rng(seed + 1).uniform(
+        size=full.shape), axis=0)
+    alive = (rank < per_cell) & occupied[None]
+    return _dead_zeroed(data, alive), alive, eb_pad
+
+
+def _dead_zeroed(data, alive):
+    """``data`` with zero floats in the dead slots and inv_gamma of the
+    momenta."""
+    data = {k: (np.where(alive, v, 0.0) if k in SLOT_FLOATS else v)
+            for k, v in data.items()}
+    data["inv_gamma"] = 1 / np.sqrt(1 + data["ux"]**2 + data["uy"]**2
+                                    + data["uz"]**2)
+    return data
+
+
+def band_mask(nx: int, ny: int, x0: int, width: int) -> np.ndarray:
+    """The (nx, ny) mask of a band of ``width`` x-columns from ``x0``
+    across all of y: a foil's cells."""
+    mask = np.zeros((nx, ny), bool)
+    mask[x0:x0 + width] = True
+    return mask
+
+
+SPARSE_GRID = (64, 80)
+# cells on the four faces and the outward direction of their particles
+FACE_CELLS = (((63, slice(40, 61)), (1, 0)), ((0, slice(0, 11)), (-1, 0)),
+              ((slice(20, 31), 79), (0, 1)), ((slice(44, 53), 0), (0, -1)))
+
+
+def _aim(data, alive, mask, sx, sy, rng):
+    """Put the alive particles of the cells in ``mask`` near the (sx, sy)
+    face or corner of their cell with momenta that carry most of them
+    across it in the first half push."""
+    sel = alive & mask[None]
+    ix = np.arange(alive.shape[1])[None, :, None]
+    iy = np.arange(alive.shape[2])[None, None, :]
+    for s, key, ukey, idx in ((sx, "x", "ux", ix), (sy, "y", "uy", iy)):
+        if s:
+            data[key] = np.where(sel, idx + s * rng.uniform(0.15, 0.45,
+                                                            alive.shape),
+                                 data[key])
+            data[ukey] = np.where(sel, s * rng.uniform(1.0, 4.0, alive.shape),
+                                  data[ukey])
+    data["inv_gamma"] = np.where(alive, 1 / np.sqrt(
+        1 + data["ux"]**2 + data["uy"]**2 + data["uz"]**2), 1.0)
+
+
+def sparse_cell_state(case: str, cap: int, seed: int = 0):
+    """(data, alive, eb_pad, periodic) of a sparse 2D cell state on
+    SPARSE_GRID (4 x 5 deposit tiles of 16 x 16 cells, 8 x 3 tiles of
+    kernel B2's 8 x 32 re-binning passes):
+    ``band`` a 10-column band, empty tiles on both sides; ``corner`` one
+    cell at the corner of a deposit tile and of a pass tile whose
+    particles cross into the three empty tiles beyond it; ``wrap`` and
+    ``open`` cells on the four faces whose particles leave through them
+    (through periodic faces into empty edge tiles, or through open faces,
+    which drop them); ``empty`` nothing alive; ``crowded`` a band whose
+    re-binning merges."""
+    nx, ny = SPARSE_GRID
+    rng = np.random.default_rng(seed + 7)
+    per = max(1, min(cap // 2, 128))
+    occ = np.zeros(SPARSE_GRID, bool)
+    periodic = (False, True)
+    if case == "band":
+        occ = band_mask(nx, ny, 24, 10)
+    elif case == "corner":
+        occ[47, 31] = True
+    elif case in ("wrap", "open"):
+        for cells, _ in FACE_CELLS:
+            occ[cells] = True
+        periodic = (case == "wrap",) * 2
+    if case == "crowded":
+        data, alive, eb = crowded_cell_state(cap, nx, ny, seed=seed,
+                                             n_frac=0.9)
+        alive &= band_mask(nx, ny, 24, 10)[None]
+        return _dead_zeroed(data, alive), alive, eb, (True, True)
+    data, alive, eb = occupied_cell_state(cap, occ, per if occ.any() else 0,
+                                          seed=seed, field=5e13)
+    if case == "corner":
+        _aim(data, alive, occ, 1, 1, rng)
+    elif case in ("wrap", "open"):
+        for cells, (sx, sy) in FACE_CELLS:
+            m = np.zeros(SPARSE_GRID, bool)
+            m[cells] = True
+            _aim(data, alive, m, sx, sy, rng)
+    return data, alive, eb, periodic
+
+
 def add_qed_payloads(data: Dict[str, np.ndarray], seed: int = 0
                      ) -> Dict[str, np.ndarray]:
     """A radiating species' QED attributes on a 2D or 3D cell state,

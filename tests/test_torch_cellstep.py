@@ -35,7 +35,7 @@ from lambdapic_torch.ops import cell2d as t_cell2d
 from lambdapic_torch.ops.cellslab import (cell_step, cell_step_plain,
                                           fold_reduce, fold_reduce_plain)
 from lambdapic_torch.testing import compare_slots, random_cell_state, \
-    to_numpy, to_torch
+    sparse_cell_state, to_numpy, to_torch
 
 Q, M, DT = -1.602e-19, 9.109e-31, 1.1e-16
 DX = 5e-8          # c dt / dx ~ 0.66
@@ -166,6 +166,49 @@ def test_cell_step_plain_matches_jax(cap, nx, ny, periodic, n_frac, merges):
     assert torch.equal(rims2, rims) and torch.equal(a2, a) and int(n2) == int(n_lost)
     assert torch.equal(fold_reduce(rims, (nx, ny), periodic),
                        fold_reduce_plain(rims, (nx, ny), periodic))
+
+
+@pytest.mark.parametrize("case", ["band", "corner", "wrap", "open",
+                                  "crowded"])
+def test_cell_step_plain_matches_jax_sparse(case):
+    """The plain version against the JAX XLA cell path on the sparse
+    states that kernel B2's gpu tests hold the kernel to (empty tiles
+    beside occupied ones, arrivals into empty tiles, faces, merges), 8
+    slots a cell."""
+    data, alive, eb_pad, periodic = sparse_cell_state(case, 8, seed=8)
+    ref, ref_alive, ref_lost, ref_j = jax_reference(data, alive, eb_pad,
+                                                    periodic)
+    td, ta = to_torch(data, alive, torch.float64, "cpu")
+    d, a, n_lost, rims = cell_step_plain(
+        torch.as_tensor(eb_pad), td, ta, q=Q, m=M, dt=DT, dx=DX, dy=DX, g=G,
+        periodic=periodic)
+    got, got_alive = to_numpy(d, a)
+    compare_slots(ref, ref_alive, got, got_alive, rtol=1e-11)
+    assert int(n_lost) == ref_lost
+    if case == "crowded":
+        assert ref_lost > 0
+    if case == "open":
+        assert got_alive.sum() < alive.sum()
+    j = fold_reduce_plain(rims, tuple(alive.shape[1:]), periodic).numpy()
+    np.testing.assert_allclose(j, ref_j, rtol=0,
+                               atol=1e-12 * np.abs(ref_j).max())
+
+
+def test_occupied_cell_state():
+    """The seeded sparse inputs: occupied cells hold exactly per_cell
+    alive slots, the others none; dead slots carry zero floats and
+    inv_gamma 1."""
+    from lambdapic_torch.testing import band_mask, occupied_cell_state
+    mask = band_mask(24, 20, 5, 4)
+    assert mask.sum() == 4 * 20 and mask[5:9].all()
+    data, alive, _ = occupied_cell_state(12, mask, 7, seed=3)
+    counts = alive.sum(0)
+    assert (counts[mask] == 7).all() and (counts[~mask] == 0).all()
+    for k in ("x", "y", "z", "w", "ux", "uy", "uz"):
+        assert (data[k][~alive] == 0).all()
+    assert (data["inv_gamma"][~alive] == 1).all()
+    with pytest.raises(ValueError):
+        occupied_cell_state(4, mask, 5)
 
 
 def test_species_chain_and_no_rho():

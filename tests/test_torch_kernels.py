@@ -34,7 +34,7 @@ from lambdapic_torch.ops.fieldskernel import (update_bfield_k,
                                               update_efield_k, update_half_k)
 from lambdapic_torch.testing import QED_PAYLOADS, SLOT_FLOATS, \
     add_qed_payloads, compare_slots, photon_cell_state, random_cell_state, \
-    to_numpy, to_torch
+    sparse_cell_state, to_numpy, to_torch
 
 pytestmark = pytest.mark.gpu
 
@@ -655,3 +655,83 @@ def test_b7_bigcap_matches_plain(cuda, cap, cells):
     assert torch.equal(gk, rk)
     for a, b in zip(gp, rp):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# B2 2D on sparse states: empty tiles skipped, arrivals into empty tiles
+# ---------------------------------------------------------------------------
+
+# (case, per-cell capacities) of testing.sparse_cell_state
+SPARSE_CASES = [(case, cap) for case in ("band", "corner", "wrap", "open",
+                                         "empty", "crowded")
+                for cap in (8, 20, 82)]
+SPARSE_CASES += [(case, cap) for case in ("band", "corner", "crowded")
+                 for cap in (130, 256)]
+
+
+def _check_b2_mode(cuda, data, alive, eb, periodic, mode, dtype):
+    """B2 in ``mode`` against its plain version on one state: float64 slot
+    for slot (compare_slots at rtol 1e-11; with want_chi also chi and ig0),
+    float32 alive masks and the alive slots' ids identical; merges equal;
+    panels to 1e-12 (float64) or 1e-5 (float32) of their peak, each chained
+    from random rims_in. Returns the merge count."""
+    nx, ny = alive.shape[1:]
+    kw = dict(q=Q, m=M, dt=DT, dx=DX, dy=DX, g=3, periodic=periodic)
+    data = dict(data)
+    keys = SLOT_FLOATS
+    if mode == "want_chi":
+        data = add_qed_payloads(data, seed=3)
+        kw["want_chi"] = True
+        keys = SLOT_FLOATS + QED_PAYLOADS + ("chi", "ig0")
+    elif mode == "photon":
+        u2 = data["ux"]**2 + data["uy"]**2 + data["uz"]**2
+        data["inv_gamma"] = np.where(u2 > 0, 1 / np.sqrt(np.maximum(u2, 1e-30)),
+                                     1.0)
+        kw.update(q=0.0, m=0.0, photon=True)
+    td, ta = to_torch(data, alive, dtype, cuda)
+    eb_t = None if mode == "photon" else torch.as_tensor(eb, dtype=dtype).to(cuda)
+    if mode != "photon":
+        kw["rims_in"] = torch.as_tensor(np.random.default_rng(1).normal(
+            size=panel_shape(4, nx, ny)), dtype=dtype).to(cuda)
+    ref = cell_step_plain(eb_t, td, ta, **kw)
+    before = cell_step.launches_by_mode[mode]
+    got = cell_step(eb_t, td, ta, **kw)
+    torch.cuda.synchronize()
+    assert cell_step.launches_by_mode[mode] == before + 1
+    assert int(got[2]) == int(ref[2])
+    if mode == "want_chi":
+        for out in (ref, got):
+            out[0]["chi"], out[0]["ig0"] = out[4]
+    if dtype == torch.float64:
+        compare_slots(*to_numpy(ref[0], ref[1]), *to_numpy(got[0], got[1]),
+                      rtol=1e-11, keys=keys)
+    else:
+        assert torch.equal(got[1], ref[1])
+        for k in ("id_lo", "id_hi"):
+            assert torch.equal(got[0][k][got[1]], ref[0][k][ref[1]])
+    if mode == "photon":
+        assert got[3] is None
+    else:
+        tol = 1e-12 if dtype == torch.float64 else 1e-5
+        torch.testing.assert_close(got[3], ref[3], rtol=0,
+                                   atol=tol * float(ref[3].abs().max()))
+    return int(ref[2])
+
+
+@pytest.mark.parametrize("case,cap", SPARSE_CASES)
+def test_b2_sparse_matches_plain(cuda, case, cap):
+    """B2's default, want_chi and photon modes on sparse states (empty
+    tiles beside occupied ones, arrivals into empty tiles, faces, merges),
+    in float64 and float32, against the plain version."""
+    data, alive, eb, periodic = sparse_cell_state(case, cap, seed=cap)
+    if case == "empty":
+        assert not alive.any()
+    else:
+        assert alive.any() and not alive.any(axis=0).all()
+    merged = 0
+    for mode in ("default", "want_chi", "photon"):
+        for dtype in (torch.float64, torch.float32):
+            merged += _check_b2_mode(cuda, data, alive, eb, periodic, mode,
+                                     dtype)
+    if case == "crowded":
+        assert merged > 0

@@ -39,10 +39,12 @@ def cuda():
     return torch.device("cuda:0")
 
 
-def run_both(mesh_shape, cap, nloc, periodic, crowded, dtype, dev, seed=0):
+def run_both(mesh_shape, cap, nloc, periodic, crowded, dtype, dev, seed=0,
+             emptied=None):
     """K4 + K5 and their plain versions on the same shard inputs: (kernel
     outputs, plain outputs), each ((data, alive) per shard, n_lost per
-    shard, panels, J per shard)."""
+    shard, panels, J per shard). ``emptied``: the mesh coordinates of a
+    shard whose particles are all removed first."""
     nd = len(mesh_shape)
     n = int(np.prod(mesh_shape))
     mesh = Mesh(tuple(mesh_shape), NAMES[:nd], (dev,) * n)
@@ -51,6 +53,10 @@ def run_both(mesh_shape, cap, nloc, periodic, crowded, dtype, dev, seed=0):
     data, alive, eb = random_mesh_cells(mesh_shape, cap, nloc, seed=seed,
                                         crowded=crowded,
                                         n_frac=0.9 if crowded else 0.4)
+    if emptied is not None:
+        alive[emptied] = False
+        for k in ("x", "y", "z", "w", "ux", "uy", "uz"):
+            data[k][emptied] = 0.0
     shards = mesh_to_torch(data, alive, mesh, dtype)
     ebs = [torch.as_tensor(eb[mesh.coords(i)], dtype=dtype).to(dev)
            for i in range(n)]
@@ -95,6 +101,31 @@ def test_k4_k5_match_plain(cuda, mesh_shape, cap, nloc, periodic, crowded,
     assert got[1] == ref[1]
     if crowded and dtype == torch.float64:
         assert sum(ref[1]) > 0
+    for a, b in zip(got[2], ref[2]):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=tol * float(b.abs().max()))
+    peak = max(float(b.abs().max()) for b in ref[3])
+    for a, b in zip(got[3], ref[3]):
+        torch.testing.assert_close(a, b, rtol=0, atol=tol * peak)
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-11),
+                                        (torch.float32, 1e-5)])
+def test_k4_empty_shard_matches_plain(cuda, dtype, rtol):
+    """K4 on a 2 x 2 mesh whose shard (0, 0) holds no particle: its tiles
+    are empty but for the edge columns its x and y neighbours send it,
+    whose arrivals it places (both axes periodic, so it has neighbours on
+    every side); rules as test_k4_k5_match_plain."""
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    shape = (2, 2)
+    got, ref = run_both(shape, 8, (32, 40), (True, True), False, dtype, cuda,
+                        seed=11, emptied=(0, 0))
+    gd, ga = mesh_to_numpy(got[0], shape)
+    rd, ra = mesh_to_numpy(ref[0], shape)
+    # particles arrived from the neighbours
+    assert ra[0, 0].any()
+    compare_mesh_slots(rd, ra, gd, ga, shape, rtol=rtol)
+    assert got[1] == ref[1]
     for a, b in zip(got[2], ref[2]):
         torch.testing.assert_close(a, b, rtol=0,
                                    atol=tol * float(b.abs().max()))
