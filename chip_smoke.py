@@ -13,6 +13,10 @@
                           [--window-tiled W] [--steps-tiled-qed N]
                           [--steps-mesh N] [--window-mesh W]
                           [--steps-mesh3d N] [--window-mesh3d W]
+                          [--steps-qed-mesh N] [--window-qed-mesh W]
+                          [--steps-qed-mesh3d N] [--steps-split-mesh N]
+                          [--steps-exact-mesh N] [--steps-split-mesh3d N]
+                          [--steps-exact-qed-mesh3d N]
     python3 chip_smoke.py --exact2d-digest N
 
 Phases (any failure exits non-zero):
@@ -95,11 +99,11 @@ Phases (any failure exits non-zero):
    cap_t 300 and 16,384), bench.py's laser-target in its --tiling 32,32
    form (768 x 768 cells, electrons and protons at ppc 10 for x > Lx/3,
    rebin_interval 4, n_guard 5, capacity factor 1.6, SimpleLaser2D
-   a0=30, float32, seed 0) for --steps-tiled (600) steps through
+   a0=30, float32, seed 0) for --steps-tiled (400) steps through
    Simulation.run (launches per step B1 4, B8 2, B9 2; the re-binning on
    every 4th step; ids held a re-binning interval at a time: an id goes
    only near an open face or into the overflow count; particles changed
-   tile), its last --window-tiled (100) steps timed and profiled, charge
+   tile), its last --window-tiled (50) steps timed and profiled, charge
    continuity from B9's own output, B8 and B9 in float32 at its end state
    and timed there, then bench.py's qed configuration in the same form at
    256 x 256 (a photon species, SimpleLaser2D a0=300) for
@@ -112,19 +116,56 @@ Phases (any failure exits non-zero):
    small 2D and 3D meshes (slot for slot, merges and corner movers) and
    in float32 at the 2D slice's 2 x 2 shards and on a 2 x 2 x 2 mesh of
    the 3D slice's last x-planes; right after phase 4 (before the split
-   steps) the 2D slice's end state on a 2 x 2 mesh for --steps-mesh (50)
+   steps) the 2D slice's end state on a 2 x 2 mesh for --steps-mesh (20)
    steps (B2 24, B3 12 a step; B1 0: on a mesh the fields are the plain
    Yee updates, as in the JAX package), and right after phase 6 the 3D
-   slice's end state on a 2 x 2 x 2 mesh for --steps-mesh3d (10) steps
+   slice's end state on a 2 x 2 x 2 mesh for --steps-mesh3d (6) steps
    (B2 48, B3 32), each timed, profiled and held against the same steps
    on one device from the same state: alive counts and weights in
    float32, and fields, ids, positions and momenta in float64 (the 3D on
    its last 64 x-planes); K4's dispatches and K5's launches timed on a
    shard. The slices then go on from their end states as before.
 
+13. QED on a device mesh (K6: B2's want_chi and photon modes in the mesh
+   dispatches): K6 against its plain version in float64 on small 2D and
+   3D meshes (slot for slot with merges and corner movers, tau, delta and
+   event carried, chi and ig0); right after phase 5 the QED slice's state
+   at step --steps-qed on a 2 x 2 mesh for --steps-qed-mesh (30) steps,
+   the last --window-qed-mesh (10) timed (launches per step B2 24 = 3
+   species x 4 shards x 2 dispatches, by the mode each ran want_chi 4 =
+   the electrons' tails, photon 8, default 12 = the protons' 8 and the
+   electrons' heads; B3 12; B1 0), and right after phase 10 the 3D QED
+   slice's state on a 2 x 2 x 2 mesh for --steps-qed-mesh3d (5) steps (B2
+   72: want_chi 8, photon 24, default 40; B3 32), each profiled; gates: the draws on every shard against the CPU,
+   photons born on the shards that fired with the shard's index as id_hi,
+   photon inv_gamma = 1/|u|, a creation phase's sum w u on the shard
+   with the most events, and against one device from the same state the photons born
+   within 5 sqrt(N) and their sum w |u| within 15%; K6 held against its
+   plain version in float32 and timed on the busiest shard.
+
+14. the per-stage engine on a device mesh (K7: B6 with the neighbour
+   shards' edge columns): K7 against its plain version in float64 on
+   small 2D and 3D meshes with open and periodic faces (bitwise); after
+   phase 7 the 2D slice's end state on a 2 x 2 mesh: one split step held
+   against one fused step from a cloned state, then --steps-split-mesh
+   (10) split steps (B6 24, B5 12 a step), K7 against its plain version
+   in float32 at those shards (every launch of one re-binning, axis by
+   axis on every shard, on the same input: alive masks, merges and every
+   array's alive slots bitwise) and timed, then
+   cell_migration="exact" for --steps-exact-mesh (20) steps (B4 12, B5
+   12) and float64 twins of the mesh and one-device runs from the same
+   state under the mesh gates (ids, positions within 1e-4 cells, momenta
+   rtol 1e-4, fields within 1e-4 of their peaks); after phase 8 the 3D
+   slice's end state on 2 x 2 x 2 for --steps-split-mesh3d (2) split
+   steps (B6 48, B5 3D 16) with K7 in float32 there (as in 2D); and at
+   the end of
+   phase 10 the exact 3D QED phase's end state on 2 x 2 x 2 for
+   --steps-exact-qed-mesh3d (5) steps (B4 3D 16 of them 8 want_eb, B5 3D
+   16) with its peak memory.
+
 Prints a ``{"kernels": [...]}`` line with the 2D, the tiled, the
 per-stage, the QED, the 3D, the 3D QED, the 3D per-stage and the mesh
-kernels (K4 and K5 in 2D and 3D; B8's
+kernels (K4 and K5 in 2D and 3D, K6 in both modes and K7 in 2D and 3D; B8's
 and B9's bounds also counted from the Pallas calls' shapes at bench.py's
 form), the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.
@@ -170,7 +211,16 @@ def log(msg: str) -> None:
 
 
 def fail(msg: str) -> None:
+    if TIMERS:
+        log("[time] helpers so far: " + ", ".join(
+            f"{k} {v[0]:.1f} s in {v[1]} calls"
+            for k, v in sorted(TIMERS.items())))
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+# wall seconds and calls of the script's costliest helpers, printed at its
+# end (for the time budget)
+TIMERS = {}
 
 
 def cuda_time(fn, iters: int) -> float:
@@ -205,6 +255,8 @@ KERNEL_FUNCS = {"B1 E": {"e_half": 1}, "B1 B": {"b_half": 1},
 # profiler's window, attempt by attempt (a profile without them lost its
 # first records in nearly every call, so none starts without)
 PROFILE_MARGINS = (1.0, 4.0)
+# untimed calls at the start of a margin
+MARGIN_CALLS = 2
 # torch.cuda._sleep's kernel, as it appears in profiler names
 SPIN = "spin_kernel"
 
@@ -222,8 +274,9 @@ def device_times(fn, iters: int, expected):
     first stretch of a profile. So the timed calls follow a marker (a
     short spin kernel) and only records that start after it are counted;
     a profile that lacks the marker or an expected launch is taken again
-    with PROFILE_MARGINS seconds of untimed calls of ``fn`` ahead of the
-    marker, which are the ones lost, and the window closed as much later.
+    with PROFILE_MARGINS seconds ahead of the marker (MARGIN_CALLS
+    untimed calls of ``fn``, then idle), which are the ones lost, and the
+    window closed as much later.
     ``complete`` says whether the last profile recorded every launch."""
     import torch
     from torch.autograd import DeviceType
@@ -234,10 +287,19 @@ def device_times(fn, iters: int, expected):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            # the lost stretch is one of time: MARGIN_CALLS untimed calls,
+            # then idle to the margin's end (a margin filled with calls of
+            # a short kernel put tens of thousands of records in the
+            # profile, whose gathering took most of the script's time)
             t0 = time.time()
+            calls = 0
             while time.time() - t0 < margin:
-                fn()
-                torch.cuda.synchronize()
+                if calls < MARGIN_CALLS:
+                    fn()
+                    torch.cuda.synchronize()
+                    calls += 1
+                else:
+                    time.sleep(0.01)
             torch.cuda._sleep(1000)
             for _ in range(iters):
                 fn()
@@ -889,6 +951,7 @@ def run_2d(args, dev):
     del rims, eb_pad
     kernels += run_mesh_2d(args, sim, laser)
     run_split(args, sim, laser)
+    kernels += run_stages_mesh_2d(args, sim, laser)
     return kernels
 
 
@@ -1405,6 +1468,10 @@ def run_qed(args, dev):
         f"{launches['B2'] // steps} ({ {k: v // steps for k, v in by_mode.items()} }), "
         f"B3 {launches['B3'] // steps}; creation check: {n_ev} events, "
         f"{dropped} dropped, total change {change:.2e}")
+    kernels += run_qed_mesh(
+        args, sim, laser, (2, 2), args.steps_qed_mesh, args.window_qed_mesh,
+        {"rebin2x": 12, "rebin2y": 12, "deposit2": 8, "fold<": 4,
+         "strips<": 8})
     return kernels
 
 
@@ -2098,8 +2165,9 @@ def run_split(args, sim, laser):
 # 3D
 # ---------------------------------------------------------------------------
 
-# default 3D step count: the example's own
-STEPS_3D = 1001
+# default 3D step count: 201 of the example's 1001 (cut to pay for the
+# phases of QED and the per-stage engine on a mesh)
+STEPS_3D = 201
 
 
 def check_b2_f64_3d(dev):
@@ -3557,6 +3625,7 @@ def run_exact_qed_3d(args, dev):
     busy_per_step(lambda: sim.run(nsteps=1, callbacks=[laser]),
                   {"e_half3": 2, "b_half3": 2, "push3d": 2, "deposit3d": 2,
                    "fold_pad3": 2}, 3, "profile exact QED 3D", step_ms)
+    run_exact_qed_mesh_3d(args, sim, laser)
     del sim
     torch.cuda.empty_cache()
 
@@ -4120,8 +4189,11 @@ def check_mesh_f64(dev):
     return merges
 
 
-def check_shard_f32(tag, twin, ispec=0):
-    """K4 and K5 against their plain versions in float32 at the slice's
+def check_shard_f32(tag, twin, ispec=0, mode="default"):
+    """K4 and K5 (with ``mode`` "want_chi" or "photon", K6: B2's QED modes
+    in the mesh dispatches, stepped from the run's state in its own
+    fields, without the random first step) against their plain versions
+    in float32 at the slice's
     shard shape, on species ``ispec`` of the mesh run ``twin``, whose
     state is dropped (its slots are freed once the first step has read
     them; the other species and the fields at once). One kernel step of the whole mesh in fields
@@ -4137,12 +4209,19 @@ def check_shard_f32(tag, twin, ispec=0):
     kernel's panels, J to 1e-4 of its peak. Returns ((K4 panel error, K5
     J error) as absolute values, the plain dispatches' ms on the busy
     shard, the plain fold's ms a shard), the plain times from CUDA events
-    around one call after a warm-up."""
+    around one call after a warm-up. In the want_chi mode the tail also
+    holds chi on the alive slots and returns its largest difference in
+    place of the panels'; in the photon mode there are no fields, panels
+    or fold: the tail holds positions within 1e-4 cells and momenta and
+    inv_gamma within 1e-6 of their peaks, and the largest position
+    difference (cells) stands there. The plain time of the want_chi mode
+    is its tail's (the head dispatches run the default mode)."""
     import torch
     from lambdapic_torch.ops.cellslab import (
         FLOAT_PAYLOADS, ID_PAYLOADS, cell_step, cell_step_mesh,
         cell_step_plain, dispatch_groups, edge_columns, extra_payloads,
         fold_reduce, fold_reduce_plain)
+    want_chi, photon = mode == "want_chi", mode == "photon"
     grid, mesh, specs = twin.grid, twin.mesh, twin._builder.specs
     sp, dt = twin._species_static[ispec], twin.dt
     g = grid.n_guard
@@ -4151,24 +4230,41 @@ def check_shard_f32(tag, twin, ispec=0):
     n = mesh.size
     ps = [s.particles[ispec] for s in twin.state.shards]
     datas, alives = [p.data for p in ps], [p.alive for p in ps]
+    # the QED modes step in the run's own fields: in random ones of this
+    # size a float32 chi overflows, and QED species move at nearly c
+    ebs = [None] * n if photon else \
+        twin._builder.pad_eb([s.fields for s in twin.state.shards]) \
+        if want_chi else None
     twin.state = None
     del ps
     torch.cuda.empty_cache()
-    rng = np.random.default_rng(5)
-    dev = mesh.devices[0]
-    ebs = [torch.as_tensor(rng.uniform(-5e13, 5e13, (6,) + tuple(
-        k + 2 * g for k in nloc)).astype(np.float32)).to(dev)
-           for _ in range(n)]
     kw = dict(q=sp.q, m=sp.m, dt=dt, dx=grid.dx, dy=grid.dy,
-              dz=grid.dz if nd == 3 else None, g=g, with_rho=False)
-    first = cell_step_mesh(ebs, datas, alives, mesh, specs, **kw)
-    del datas, alives
-    cur = [r[0] for r in first]
-    cur_alive = [r[1] for r in first]
-    del first
+              dz=grid.dz if nd == 3 else None, g=g, with_rho=False,
+              photon=photon)
+    if mode == "default":
+        rng = np.random.default_rng(5)
+        dev = mesh.devices[0]
+        ebs = [torch.as_tensor(rng.uniform(-5e13, 5e13, (6,) + tuple(
+            k + 2 * g for k in nloc)).astype(np.float32)).to(dev)
+               for _ in range(n)]
+        first = cell_step_mesh(ebs, datas, alives, mesh, specs, **kw)
+        del datas, alives
+        cur = [r[0] for r in first]
+        cur_alive = [r[1] for r in first]
+        del first
+    else:
+        cur, cur_alive = datas, alives
+        del datas, alives
     torch.cuda.empty_cache()
     kw["periodic"] = tuple(s.periodic for s in specs)
-    busy = int(np.argmax([int(a.sum()) for a in cur_alive]))
+    if mode == "default":
+        busy = int(np.argmax([int(a.sum()) for a in cur_alive]))
+    else:
+        # the shard with the most particles faster than |u| = 1: in the
+        # run's own fields a cold shard re-bins nothing
+        busy = int(np.argmax([int((a & (d["ux"]**2 + d["uy"]**2
+                                        + d["uz"]**2 > 1)).sum())
+                              for d, a in zip(cur, cur_alive)]))
     start = cur_alive[busy].clone()
     names = FLOAT_PAYLOADS + ID_PAYLOADS + extra_payloads(cur[0])
     xe = edge_columns(cur, cur_alive, names + ("inv_gamma",), 0, specs[0],
@@ -4188,17 +4284,19 @@ def check_shard_f32(tag, twin, ispec=0):
                         edges_hi=xe[i][1] if gi == 0 and xe else None,
                         merge_axes=grp, tail=last,
                         yz_edges=None if yz is None else (grp[0],)
-                        + tuple(yz[i]), **kw)
+                        + tuple(yz[i]), want_chi=want_chi and last, **kw)
         ref = disp(cell_step_plain, busy)
         ms = cuda_time(lambda: disp(cell_step_plain, busy), 1)
-        plain_ms += ms
+        # the plain dispatches that run the mode (want_chi: the tail only)
+        if last or not want_chi:
+            plain_ms += ms
         got = None
         for i in range(n):
             out = disp(cell_step, i)
             if i == busy:
                 got = out
             cur[i], cur_alive[i] = out[0], out[1]
-            if last:
+            if last and not photon:
                 rims[i] = out[3]
             del out
         torch.cuda.synchronize()
@@ -4209,10 +4307,38 @@ def check_shard_f32(tag, twin, ispec=0):
         w = [float(torch.where(r[1], r[0]["w"], 0).sum(dtype=torch.float64))
              for r in (got, ref)]
         msg = ""
-        if last:
+        if last and photon:
+            a = got[1]
+            pan_err = max(float((got[0][k][a] - ref[0][k][a]).abs().max())
+                          for k in grid.axes)
+            du = [(float((got[0][k][a] - ref[0][k][a]).abs().max()),
+                   float(ref[0][k][a].abs().max()))
+                  for k in ("ux", "uy", "uz", "inv_gamma")]
+            u_err = max(d_ / max(p_, 1e-30) for d_, p_ in du)
+            msg = (f"; positions {pan_err:.3e} cells, momenta and "
+                   f"inv_gamma {u_err:.3e} of their peaks")
+            if not (pan_err <= 1e-4
+                    and all(d_ <= 1e-6 * p_ for d_, p_ in du)):
+                fail(f"K6 {tag} float32: positions {pan_err:.3e} cells "
+                     f"(gate 1e-4) or momenta and inv_gamma {u_err:.3e} of "
+                     "their peaks (gate 1e-6) from the plain version")
+        elif last:
             peak = float(ref[3].abs().max())
             pan_err = float((got[3] - ref[3]).abs().max())
             msg = f"; panels {pan_err:.3e} of peak {peak:.3e}"
+            if want_chi:
+                # in these fields float32 chi may cancel to a NaN, in the
+                # kernel where the plain version does
+                gc, rc = got[4][0][got[1]], ref[4][0][ref[1]]
+                fin = torch.isfinite(rc)
+                if not torch.equal(fin, torch.isfinite(gc)):
+                    fail(f"K6 {tag} float32: chi finite in other slots")
+                chi_err = float((gc[fin] - rc[fin]).abs().max())
+                chi_peak = float(rc[fin].abs().max())
+                msg += (f"; chi {chi_err:.3e} of peak {chi_peak:.3e} "
+                        f"({int((~fin).sum())} not finite in both)")
+                if not chi_err <= 1e-4 * chi_peak:
+                    fail(f"K6 {tag} float32: chi differs by {chi_err:.3e}")
         log(f"[kernels mesh f32 {tag} dispatch {grp}] shard {busy} of {n}, "
             f"{tuple(cur_alive[busy].shape)} slots: merges {mg} vs {mr}; "
             f"weight rel {abs(w[0] - w[1]) / abs(w[1]):.2e}; alive masks "
@@ -4223,14 +4349,23 @@ def check_shard_f32(tag, twin, ispec=0):
         if not abs(w[0] - w[1]) <= 1e-6 * abs(w[1]):
             fail(f"K4 {tag} float32 dispatch {grp}: total weight {w[0]} "
                  f"vs {w[1]}")
-        if last and not pan_err <= 1e-4 * peak:
+        if last and not photon and not pan_err <= 1e-4 * peak:
             fail(f"K4 {tag} float32: panels differ by {pan_err:.3e}")
+        if last and want_chi:
+            pan_err = chi_err
         del ref, got, yz
     moved = int((cur_alive[busy] != start).sum())
     del cur, cur_alive, xe, start
     torch.cuda.empty_cache()
     if moved == 0:
         fail(f"K4 {tag} float32: the compared step re-binned nothing")
+    if photon:
+        log(f"[kernels mesh f32 {tag}] {moved} slots of shard {busy} changed "
+            f"occupancy in the compared step; plain: the shard's dispatches "
+            f"{plain_ms:.2f} ms")
+        del ebs
+        torch.cuda.empty_cache()
+        return (pan_err, None), plain_ms, None
     jg = fold_reduce(rims, nloc, None, mesh, specs)
     jr = fold_reduce_plain(rims, nloc, None, mesh, specs)
     torch.cuda.synchronize()
@@ -4341,7 +4476,7 @@ def compare_mesh_runs(tag, mres, ores, grid):
     return out
 
 
-def dispatch_ms(tag, twin, iters, ispec=0):
+def dispatch_ms(tag, twin, iters, ispec=0, mode="default", profile=True):
     """Kernel times of one shard's K4 dispatches and K5 launches at the
     slice's per-shard shapes (the shard with the most alive particles of
     species ``ispec``, the twin's present state and fields), from CUDA
@@ -4351,26 +4486,34 @@ def dispatch_ms(tag, twin, iters, ispec=0):
     bounds (counted as PERF.md §6 counts B2's and B3's: the mask, the
     alive slots' payloads, the gather's nodes, one write of every slot
     and of the panels, the edge columns read once; the panels read, the
-    strips sent and received, J written)."""
+    strips sent and received, J written). ``mode`` "want_chi" or "photon"
+    times B2's QED modes in the dispatches (K6): the want_chi tail also
+    writes chi and ig0 (its time "tail" and bytes "bytes_tail" apart:
+    the head dispatches run the default mode); the photon dispatches read
+    no fields and write no panels, and no fold follows. Without ``profile`` the dispatches are
+    timed by CUDA events only, without the device split."""
     import torch
     from lambdapic_torch.ops import cellslab
     from lambdapic_torch.ops.cellslab import (FLOAT_PAYLOADS, ID_PAYLOADS,
                                               cell_step, dispatch_groups,
-                                              edge_columns, panel_shape)
+                                              edge_columns, extra_payloads,
+                                              panel_shape)
+    want_chi, photon = mode == "want_chi", mode == "photon"
     grid, mesh = twin.grid, twin.mesh
     specs = twin._builder.specs
     nd = grid.dimension
     sp = twin._species_static[ispec]
     shards = twin.state.shards
-    ebs = twin._builder.pad_eb([s.fields for s in shards])
+    ebs = [None] * mesh.size if photon else \
+        twin._builder.pad_eb([s.fields for s in shards])
     groups = dispatch_groups(mesh.shape)
-    names = FLOAT_PAYLOADS + ID_PAYLOADS
     kw = dict(q=sp.q, m=sp.m, dt=twin.dt, dx=grid.dx, dy=grid.dy,
               dz=grid.dz if nd == 3 else None, g=grid.n_guard,
               periodic=tuple(s.periodic for s in specs),
-              with_rho=twin._builder.with_rho)
+              with_rho=twin._builder.with_rho, photon=photon)
     out = {}
     ps = [s.particles[ispec] for s in shards]
+    names = FLOAT_PAYLOADS + ID_PAYLOADS + extra_payloads(ps[0].data)
     datas, alives = [p.data for p in ps], [p.alive for p in ps]
     busy = int(np.argmax([int(a.sum()) for a in alives]))
     xe = edge_columns(datas, alives, names + ("inv_gamma",), 0, specs[0],
@@ -4388,16 +4531,21 @@ def dispatch_ms(tag, twin, iters, ispec=0):
                 edges_lo=xe[i][0] if gi == 0 and xe else None,
                 edges_hi=xe[i][1] if gi == 0 and xe else None,
                 yz_edges=None if yz is None else (grp[0],) + tuple(yz[i]),
-                **kw)
+                want_chi=want_chi and last, **kw)
         out[f"dispatch {grp}"] = cuda_time(lambda: disp(busy), iters)
+        if last:
+            out["tail"] = out[f"dispatch {grp}"]
         funcs = KERNEL_FUNCS["B2" if nd == 2 else "B2-3D"]
+        if photon:
+            funcs = dict(funcs, **({"photon3<": 1} if nd == 3 else {}))
         n_prof = min(iters, 10)
-        times, _ = device_times(lambda: disp(busy), n_prof, {})
+        times = device_times(lambda: disp(busy), n_prof, {})[0] \
+            if profile else {}
         log(f"[time K4 {tag} dispatch {grp}] {out[f'dispatch {grp}']:.4f} "
             f"ms a call (CUDA events), shard {busy} of {mesh.size}; device"
             f"{split_text(times, n_prof, funcs) or ' not measured'}")
         if last:
-            rims = disp(busy)[3]
+            rims = None if photon else disp(busy)[3]
         else:
             # the next dispatch's input on every shard
             res = [disp(i) for i in range(mesh.size)]
@@ -4407,6 +4555,22 @@ def dispatch_ms(tag, twin, iters, ispec=0):
         del yz
     split = tuple(sp_.size > 1 for sp_ in specs)
     nloc = grid.local_shape
+    # the edge columns each dispatch reads: the x edges in the first, a
+    # split y or z axis's in its own
+    tail_ax = groups[-1][0]
+    if photon:
+        isz = datas[0]["x"].element_size()
+        a0 = ps[busy].alive
+        slots, n_alive = a0.numel(), int(a0.sum())
+        slot_b = 1 + 8 * isz + 2 * 4
+        edge_b = 2 * sum(slots // nloc[ax] for ax in range(nd)
+                         if specs[ax].size > 1) * slot_b
+        out["bytes_k4"] = (slots + n_alive * (slot_b - 1) + slots * slot_b
+                           + edge_b)
+        out["alive"] = n_alive
+        log(f"[bound K6 photon {tag}] shard {busy}: {n_alive} of {slots} "
+            f"slots alive, {out['bytes_k4']} bytes")
+        return out
     fold_fn = (lambda: cellslab._fold(rims, nloc, kw["periodic"], split))
     out["fold"] = cuda_time(fold_fn, iters)
     q = fold_fn()
@@ -4434,7 +4598,12 @@ def dispatch_ms(tag, twin, iters, ispec=0):
     edge_b = 2 * sum(slots // nloc[ax] for ax in range(nd)
                      if specs[ax].size > 1) * slot_b
     out["bytes_k4"] = (slots + n_alive * (slot_b - 1) + slots * slot_b
-                       + nodes * isz + pan_b + edge_b)
+                       + nodes * isz + pan_b + edge_b
+                       + (2 * slots * isz if want_chi else 0))
+    # the tail alone (the want_chi launch of K6): its own edges only
+    out["bytes_tail"] = out["bytes_k4"] - edge_b + (
+        2 * slots // nloc[tail_ax] * slot_b if specs[tail_ax].size > 1
+        else 0)
     out["alive"] = n_alive
     cells = int(np.prod(nloc))
     strip_b = sum(2 * 2 * ncomp * cells // nloc[ax] * isz
@@ -4536,6 +4705,14 @@ def put_back(sim, keep, host):
     sim.state = clone_state(host, sim.device)
 
 
+def on_card(host, dev):
+    """A kept host state copied to the card whole, so that a mesh twin
+    cuts its shards there: slicing each shard's block out of host
+    tensors is a strided copy on the host, which took tens of seconds at
+    the slices' sizes."""
+    return clone_state(host, dev)
+
+
 def tracked_run(sim, laser, steps, track):
     """``steps`` steps through Simulation.run; after each step whose number
     (1-based) is in ``track`` the fields are copied to the host, and the
@@ -4608,7 +4785,8 @@ def run_mesh(sim, tag, shape, steps, window, expect, busy_expect, keep):
     dev = sim.device
     t0 = time.time()
     nsh = int(np.prod(shape))
-    twin = mesh_twin(sim, shape, [dev] * nsh, source=keep[0])
+    twin = mesh_twin(sim, shape, [dev] * nsh,
+                     source=on_card(keep[0], dev))
     log(f"[{tag}] {sim.grid.shape} cells split onto a {shape} mesh of "
         f"{torch.cuda.get_device_name(0)} in {time.time() - t0:.1f} s: "
         f"{twin.npart_alive} particles, shards of {twin.grid.local_shape} "
@@ -4727,7 +4905,7 @@ def compare_on_mesh(sim, keep, tag, shape, steps):
     applies compare_mesh_runs's gates to the last step. ``sim`` ends
     without a state, at the kept step (drop_state)."""
     from lambdapic_torch.testing import mesh_twin
-    host = as_double(keep[0])
+    host = as_double(on_card(keep[0], sim.device))
     prec = sim.precision
     sim.precision = "double"
     twin = mesh_twin(sim, shape, [sim.device] * int(np.prod(shape)),
@@ -4890,6 +5068,823 @@ def run_mesh_3d(args, sim, laser):
     return mesh_rows("3D", 3, launches, errs, t, FLOPS_PER_PARTICLE_3D)
 
 
+# ---------------------------------------------------------------------------
+# phases 13 and 14: QED and the per-stage engine on a device mesh (K6, K7)
+# ---------------------------------------------------------------------------
+
+# (mesh, slots a cell, cells a shard, periodic faces, crowded) of the
+# float64 checks of K6 (B2's want_chi and photon modes in the mesh
+# dispatches) and K7 (B6 with the neighbour shards' edge columns)
+K6_CASES = [((2, 2), 6, (16, 16), (True, True), True),
+            ((2, 2), 4, (17, 16), (False, False), False),
+            ((1, 2, 2), 4, (8, 8, 8), (False, True, False), True),
+            ((2, 2, 2), 4, (8, 8, 8), (True, False, True), False)]
+K7_CASES = [((2, 2), 6, (16, 16), (True, False), True),
+            ((4, 2), 4, (8, 12), (False, True), False),
+            ((1, 2, 2), 4, (8, 8, 8), (False, True, False), True),
+            ((2, 2, 2), 4, (8, 8, 8), (True, False, True), False)]
+# per-stage launches on the mesh paths, for the kernels line's rows
+MESH_STAGE_LAUNCHES = {"B6": 0, "B6 3D": 0}
+# K6 and K7 measurements by row, filled by the phases
+MESH_QED = {}
+
+
+def mesh_case(shape, cap, nloc, crowded, photon, seed, dev):
+    """A float64 state of a case of K6_CASES or K7_CASES on the card:
+    (mesh, per-shard (data, alive), per-shard E/B); a radiating
+    species' tau, delta and event, or a photon species' inv_gamma = 1/|u|
+    (fields strong enough for chi of order 1e-3..1)."""
+    import torch
+    from lambdapic_torch.testing import mesh_to_torch, random_mesh_cells
+    data, alive, eb = random_mesh_cells(
+        shape, cap, nloc, seed=seed, crowded=crowded,
+        n_frac=0.9 if crowded else 0.4, qed=not photon, umax=50.0,
+        field=5e13)
+    if photon:
+        u2 = data["ux"]**2 + data["uy"]**2 + data["uz"]**2
+        data["inv_gamma"] = np.where(u2 > 0, 1 / np.sqrt(np.maximum(
+            u2, 1e-30)), 1.0)
+    mesh = mesh_of(shape, dev)
+    shards = mesh_to_torch(data, alive, mesh, torch.float64)
+    ebs = [torch.as_tensor(eb[mesh.coords(i)]).to(dev)
+           for i in range(mesh.size)]
+    return mesh, shards, ebs
+
+
+def _dense(ts, shape):
+    """Per-shard tensors -> one numpy array under leading mesh axes."""
+    return np.stack([t.cpu().numpy() for t in ts]).reshape(
+        tuple(shape) + tuple(ts[0].shape))
+
+
+def check_k6_f64(dev):
+    """K6 against its plain version in float64 on the small meshes of
+    K6_CASES, both modes: slot for slot after canonicalisation (rtol
+    1e-11, the QED payloads exactly, chi 1e-10, ig0 1e-12), merges equal,
+    the want_chi panels to 1e-12 of their peak. Returns the largest
+    position difference (cells) by dimension."""
+    import torch
+    from lambdapic_torch.ops.cellslab import (cell_step, cell_step_mesh,
+                                              cell_step_plain)
+    from lambdapic_torch.parallel.halo import HaloSpec
+    from lambdapic_torch.testing import (QED_PAYLOADS, SLOT_FLOATS,
+                                         compare_mesh_slots, mesh_to_numpy)
+    q, m, dt, dx, g = -1.602e-19, 9.109e-31, 1.1e-16, 5e-8, 3
+    errs = {2: 0.0, 3: 0.0}
+    for shape, cap, nloc, per, crowded in K6_CASES:
+        nd = len(shape)
+        for mode in ("want_chi", "photon"):
+            photon = mode == "photon"
+            mesh, shards, ebs = mesh_case(shape, cap, nloc, crowded,
+                                             photon, cap + sum(nloc), dev)
+            specs = tuple(HaloSpec(MESH_NAMES[i], shape[i], per[i])
+                          for i in range(nd))
+            res = [cell_step_mesh(
+                None if photon else ebs, [d for d, _ in shards],
+                [a for _, a in shards], mesh, specs, q=0.0 if photon else q,
+                m=0.0 if photon else m, dt=dt, dx=dx, dy=dx,
+                dz=dx if nd == 3 else None, g=g, want_chi=not photon,
+                photon=photon, step=step)
+                for step in (cell_step, cell_step_plain)]
+            torch.cuda.synchronize()
+            got, ref = res
+            gd, ga = mesh_to_numpy([(r[0], r[1]) for r in got], shape)
+            rd, ra = mesh_to_numpy([(r[0], r[1]) for r in ref], shape)
+            try:
+                compare_mesh_slots(rd, ra, gd, ga, shape, rtol=1e-11,
+                                   keys=SLOT_FLOATS)
+                if not photon:
+                    for d, rs in ((gd, got), (rd, ref)):
+                        d["chi_out"] = _dense([r[4][0] for r in rs], shape)
+                        d["ig0_out"] = _dense([r[4][1] for r in rs], shape)
+                    compare_mesh_slots(rd, ra, gd, ga, shape, rtol=0,
+                                       keys=QED_PAYLOADS)
+                    compare_mesh_slots(rd, ra, gd, ga, shape, rtol=1e-10,
+                                       keys=("chi_out",))
+                    compare_mesh_slots(rd, ra, gd, ga, shape, rtol=1e-12,
+                                       keys=("ig0_out",))
+            except AssertionError as e:
+                fail(f"K6 {mode} f64 {shape}: {str(e)[:400]}")
+            lg, lr = [int(r[2]) for r in got], [int(r[2]) for r in ref]
+            if lg != lr:
+                fail(f"K6 {mode} f64 {shape}: merges {lg} vs {lr}")
+            if crowded and sum(lr) == 0:
+                fail(f"K6 {mode} f64 {shape}: the crowded case merged "
+                     "nothing")
+            pan = 0.0
+            if not photon:
+                for a, b in zip(got, ref):
+                    pan = max(pan, float((a[3] - b[3]).abs().max())
+                              / max(float(b[3].abs().max()), 1e-300))
+                if not pan <= 1e-12:
+                    fail(f"K6 want_chi f64 {shape}: panels differ by {pan:.3e}"
+                         " of their peak")
+            err = 0.0
+            for (a, al), (b, bl) in zip([(r[0], r[1]) for r in got],
+                                        [(r[0], r[1]) for r in ref]):
+                if torch.equal(al, bl):
+                    err = max([err] + [float((a[k][al] - b[k][bl]).abs().max())
+                                       for k in "xyz"[:nd] if bool(al.any())])
+            errs[nd] = max(errs[nd], err)
+            moved = int(sum(int((gd["id_hi"][c][ga[c]] !=
+                                 np.ravel_multi_index(c, shape)).sum())
+                            for c in np.ndindex(shape)))
+            log(f"[kernels K6 f64 {mode} {shape}] slot-exact; {moved} alive "
+                f"slots from another shard; merges {sum(lr)}; positions "
+                f"{err:.2e} cells" + ("" if photon else
+                                      f"; panels {pan:.2e} of peak"))
+    return errs
+
+
+def check_draws_mesh(twin, proc, dev):
+    """The first of the radiating species' uniform draws on shards of a
+    mesh run (each key folds the shard's row-major index in), on the card
+    and on the CPU: bitwise equal. Every shard in 2D; in 3D the first and
+    the last (a shard's draw on the CPU takes seconds at its shape; the
+    three draws at the one device's full shape are check_draws')."""
+    import torch
+    from lambdapic_torch import random as jr
+    from lambdapic_torch.models.qed import species_key
+    n = twin.mesh.size
+    which = range(n) if twin.grid.dimension == 2 else (0, n - 1)
+    for i in which:
+        sh = twin.state.shards[i]
+        shape = tuple(sh.particles[proc.ispec].alive.shape)
+        k = jr.split(jr.fold_in(species_key(
+            twin._base_key, twin.itime, proc.ispec, i), 101), 3)[0]
+        card = jr.uniform(k, shape, twin.dtype, device=dev)
+        host = jr.uniform(k, shape, twin.dtype, device="cpu")
+        if not torch.equal(card.cpu(), host):
+            fail(f"mesh draw of shard {i} at {shape}: "
+                 f"{int((card.cpu() != host).sum())} values differ")
+    log(f"[draws mesh] the first uniform draw of step {twin.itime} on shards "
+        f"{list(which)} of {n} (keys folding the shard index in), "
+        f"{twin.dtype}: card and CPU bitwise equal")
+
+
+def photon_stats(sim, ip):
+    """(photons born, sum of w |u| over the alive photons) over every
+    shard, float64."""
+    import torch
+    born, energy = 0, 0.0
+    for sh in sim._shards():
+        p = sh.particles[ip]
+        born += int(p.next_id)
+        u = torch.sqrt(sum(p.data[k].double()**2 for k in ("ux", "uy",
+                                                           "uz")))
+        energy += float(torch.where(p.alive, p.data["w"].double() * u,
+                                    0).sum())
+    return born, energy
+
+
+def check_photons_mesh(tag, twin, ip, born0):
+    """On every shard whose electrons fired (its next_id advanced past
+    ``born0``), alive newborns carry the shard's index as id_hi and
+    number from its own next_id; every photon's inv_gamma is 1/|u|."""
+    import torch
+    fired = 0
+    for i, sh in enumerate(twin.state.shards):
+        p = sh.particles[ip]
+        nb = int(p.next_id) - born0[i]
+        if nb <= 0:
+            continue
+        fired += 1
+        lo = p.data["id_lo"].long() & 0xFFFFFFFF
+        mine = p.alive & (p.data["id_hi"] == i) & (lo >= born0[i])
+        if int(mine.sum()) == 0:
+            fail(f"{tag}: shard {i} made {nb} photons, none alive with its "
+                 "index as id_hi")
+        u = torch.sqrt(sum(p.data[k].double()**2 for k in ("ux", "uy",
+                                                           "uz")))
+        a = p.alive
+        err = float((p.data["inv_gamma"].double()[a] * u[a] - 1).abs().max())
+        if not err <= 1e-6:
+            fail(f"{tag}: shard {i} photon inv_gamma differs from 1/|u| by "
+                 f"{err:.2e}")
+    if fired < 2:
+        fail(f"{tag}: photons born on {fired} shard(s) only")
+    log(f"[{tag}] photons born on {fired} of {twin.mesh.size} shards, each "
+        "shard's newborns alive with its index as id_hi; inv_gamma = 1/|u| "
+        "within 1e-6")
+
+
+def check_creation_mesh(tag, twin, proc):
+    """One creation phase on its own on the mesh run's shard with the most
+    events, after one want_chi step of the radiating species over the
+    whole mesh and each shard's event update with its own key: sum w u over electrons and
+    photons holds to float32 rounding (the events' sum w delta u moves
+    from the electrons to the newborns, less what dropped newborns would
+    have carried)."""
+    import torch
+    from lambdapic_torch.models.qed import species_key
+    from lambdapic_torch.ops.cellslab import cell_step_mesh
+    b = twin._builder
+    grid, st = twin.grid, twin._species_static[proc.ispec]
+    shards = twin.state.shards
+    eb_pads = b.pad_eb([s.fields for s in shards])
+    outs = cell_step_mesh(
+        eb_pads, [s.particles[proc.ispec].data for s in shards],
+        [s.particles[proc.ispec].alive for s in shards], twin.mesh, b.specs,
+        q=st.q, m=st.m, dt=twin.dt, dx=grid.dx, dy=grid.dy,
+        dz=grid.dz if grid.dimension == 3 else None, g=grid.n_guard,
+        with_rho=b.with_rho, want_chi=True)
+    del eb_pads
+    # the shard with the most events, each shard's with its own key
+    best = None
+    for j, o in enumerate(outs):
+        key = species_key(twin._base_key, twin.itime, proc.ispec, j)
+        d, a = proc.update_events_from_chi(o[0], o[1], key, twin.dt, *o[4])
+        n = int((a & (d["event"] > 0)).sum())
+        if best is None or n > best[0]:
+            best = (n, j, d, a)
+    _, i, data, alive = best
+    del outs, best
+    parts = list(shards[i].particles)
+    e = parts[proc.ispec].replace(data=data, alive=alive)
+    parts[proc.ispec] = e
+    ph = parts[proc.photon_ispec]
+    ev = e.alive & (e.data["event"] > 0)
+    n_ev = int(ev.sum())
+    if n_ev == 0:
+        fail(f"{tag}: no event on shard {i}")
+    w = torch.where(ev, e.data["w"], 0).double()
+    u = [e.data[k].double() for k in ("ux", "uy", "uz")]
+    umag = torch.sqrt(sum(c**2 for c in u))
+    carried = np.array([float((w * e.data["delta"].double() * c).sum())
+                        for c in u])
+    scale = float((w * umag).sum())
+    newborn_max = float((w * e.data["delta"].double() * umag).max())
+    e0, p0 = momentum(e), momentum(ph)
+    out = b.local.qed_creation(proc, parts, device_id=i)
+    e1, p1 = momentum(out[proc.ispec]), momentum(out[proc.photon_ispec])
+    nph = out[proc.photon_ispec]
+    dropped = int(nph.overflow) - int(ph.overflow)
+    new = nph.alive & ~ph.alive
+    tol = 1e-6 * scale
+    if not np.abs((e0 - e1) - carried).max() <= tol:
+        fail(f"{tag}: electrons lost {e0 - e1}, events carried {carried}")
+    if not np.abs((p1 - p0) - carried).max() <= tol + dropped * newborn_max:
+        fail(f"{tag}: photons gained {p1 - p0}, events carried {carried}, "
+             f"{dropped} newborns dropped")
+    if int(new.sum()) != n_ev - dropped:
+        fail(f"{tag}: {int(new.sum())} newborn slots for {n_ev} events and "
+             f"{dropped} dropped")
+    if not bool((nph.data["id_hi"][new] == i).all()):
+        fail(f"{tag}: newborns of shard {i} with another id_hi")
+    change = float(np.abs((e1 + p1) - (e0 + p0)).max()) / scale
+    log(f"[{tag} creation] shard {i}, step {twin.itime}: {n_ev} events, "
+        f"{dropped} newborns dropped; newborn id_hi {i}; sum w u over "
+        f"electrons + photons changed by {change:.3e} of the events' "
+        "sum w |u|")
+
+
+def k6_rows(nd, t, errs, launches, plain):
+    """The kernels line's rows of K6 (``t``: dispatch_ms by mode): the
+    launches that ran the mode on the main path; the want_chi row times
+    the tail dispatch alone (the heads run the default mode), the photon
+    row all of the species' dispatches."""
+    rows = []
+    flops = {"want_chi": (FLOPS_PER_PARTICLE if nd == 2
+                          else FLOPS_PER_PARTICLE_3D) + FLOPS_CHI,
+             "photon": FLOPS_PHOTON}
+    per = {"want_chi": "one shard's tail dispatch of the radiating species",
+           "photon": "one shard's dispatches of the photon species"}
+    for mode in ("want_chi", "photon"):
+        tm = t[mode]
+        if mode == "want_chi":
+            ms, nbytes = tm["tail"], tm["bytes_tail"]
+        else:
+            ms = sum(v for k, v in tm.items() if k.startswith("dispatch"))
+            nbytes = tm["bytes_k4"]
+        ops_ms = tm["alive"] * flops[mode] / F32_FLOPS * 1e3
+        b_ms = nbytes / HBM_BPS * 1e3
+        rows.append(dict(
+            name=f"K6 B2 {mode} mesh dispatches{', 3D' if nd == 3 else ''}",
+            route="cuda", source="lambdapic_torch/csrc/" + (
+                "cellstep3d.cu" if nd == 3 else "cellstep.cu"),
+            replaces="lambdapic_tpu/ops/cellslab.py:546",
+            launches=launches[mode], max_abs_err=errs[mode], ms=ms,
+            plain_ms=plain[mode], bound_ms=max(b_ms, ops_ms),
+            bound_by="bytes" if b_ms >= ops_ms else "operations",
+            library_ms=None, per=per[mode] + ", CUDA events"))
+    return rows
+
+
+def mesh_host_copy(twin):
+    return [clone_state(sh, "cpu") for sh in twin.state.shards]
+
+
+def mesh_put(twin, host):
+    from lambdapic_torch.core.state import MeshState
+    twin.state = MeshState(shards=tuple(
+        clone_state(h, d) for h, d in zip(host, twin.mesh.devices)))
+
+
+def run_qed_mesh(args, sim, laser, shape, steps, window, busy_expect):
+    """[slice QED mesh 2D/3D] (phase 13): the QED slice's state (``sim``,
+    one device) on a mesh of ``shape`` of the one card, ``steps`` steps
+    through Simulation.run with the launch counters set to 0 just before
+    (B2 a species, shard and dispatch, counted by the mode it ran:
+    want_chi on the radiating electrons' tail and default on their heads,
+    default for the protons, photon on every dispatch of the photons; B3
+    a fold and a strip add per split axis a shard), the last ``window`` timed,
+    then a profile; gates: the draws per shard against the CPU, photons
+    born on the shards that fired with their index as id_hi, inv_gamma =
+    1/|u|, one creation phase's sum w u; K6 held against its plain version
+    in float32 and timed on the busiest shard; the same steps on one
+    device from the same state: photons born within 5 sqrt(N), their sum
+    w |u| within 15%. ``sim`` ends in its state from before. Returns the
+    K6 rows."""
+    import torch
+    from lambdapic_torch.ops import cellslab
+    from lambdapic_torch.testing import mesh_twin
+    nd = len(shape)
+    tag = f"slice QED mesh {nd}D"
+    dev = sim.device
+    nsh = int(np.prod(shape))
+    proc = sim._qed_processes[0]
+    ie, ip = proc.ispec, proc.photon_ispec
+    keep = keep_state(sim, laser)
+    _MARK[tag] = time.time()
+    twin = mesh_twin(sim, shape, [dev] * nsh,
+                     source=on_card(keep[0], dev))
+    log(f"[{tag}] {sim.grid.shape} cells at step {twin.itime} split onto a "
+        f"{shape} mesh of {torch.cuda.get_device_name(0)}: "
+        f"{twin.npart_alive} particles, shards of {twin.grid.local_shape} "
+        "cells")
+    check_draws_mesh(twin, proc, dev)
+    born0 = [int(sh.particles[ip].next_id) for sh in twin.state.shards]
+    b0, e0 = photon_stats(twin, ip)
+    mlaser = copy.deepcopy(keep[4])
+    reset_launches()
+    reset_mesh_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    twin.run(steps - window, callbacks=[mlaser])
+    torch.cuda.synchronize()
+    t1 = time.time()
+    twin.run(window, callbacks=[mlaser])
+    torch.cuda.synchronize()
+    t2 = time.time()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ngroups = 1 + sum(p > 1 for p in shape[1:])
+    nsplit = sum(p > 1 for p in shape)
+    nspec = len(sim.species)
+    by_mode = dict(cellslab.cell_step.launches_by_mode)
+    by_disp = dict(cellslab.cell_step.launches_by_dispatch)
+    # by the mode each launch ran: want_chi on the radiating electrons'
+    # tail only (their heads run the default mode), photon on every
+    # dispatch of the photons, default on every other
+    got = check_launches(tag, steps, {"B2": nspec * nsh * ngroups,
+                                      "B3": nsh * (1 + nsplit)},
+                         into={}, by_mode={
+                             "want_chi": nsh, "photon": nsh * ngroups,
+                             "default": nsh * (nspec - 2) * ngroups
+                             + nsh * (ngroups - 1)})
+    want_disp = {"whole": 0, "head": nspec * nsh * (ngroups - 1) * steps,
+                 "tail": nspec * nsh * steps}
+    log(f"[{tag}] B2 by dispatch {by_disp}")
+    if by_disp != want_disp:
+        fail(f"{tag}: B2 by dispatch {by_disp} != {want_disp}")
+    for i, sh in enumerate(twin.state.shards):
+        for k in MESH_FIELDS:
+            if not bool(torch.isfinite(getattr(sh.fields, k)).all()):
+                fail(f"{tag}: field {k} not finite on shard {i}")
+    check_photons_mesh(tag, twin, ip, born0)
+    b1, e1 = photon_stats(twin, ip)
+    step_ms = (t2 - t1) * 1e3 / window
+    npart = sum(twin.npart_alive)
+    log(f"[{tag}] {steps} steps to step {twin.itime}: step {step_ms:.3f} ms "
+        f"(host clock, synchronised, last {window}), {npart / (step_ms * 1e-3):.4e} "
+        f"pushes/s; photons born {b1 - b0}; peak device memory {peak:.2f} "
+        f"GiB; slots {[p.cap for p in twin.state.shards[0].particles]}")
+    busy = busy_per_step(lambda: twin.run(1, callbacks=[mlaser]),
+                         busy_expect, 1, f"{tag} profile", step_ms)
+    check_creation_mesh(tag, twin, proc)
+    mark(tag, "main path and gates")
+    # -- K6 on the busiest shard: times, then float32 against the plain -----
+    host = mesh_host_copy(twin)
+    # the device split of each dispatch in 2D; in 3D CUDA events only (a
+    # profile there takes tens of seconds of the script's time)
+    t = {m: dispatch_ms(f"{nd}D {m}", twin, args.iters if nd == 2
+                        else args.iters3d, ispec=i_, mode=m,
+                        profile=nd == 2)
+         for m, i_ in (("want_chi", ie), ("photon", ip))}
+    errs, plain = {}, {}
+    for m, i_ in (("want_chi", ie), ("photon", ip)):
+        mesh_put(twin, host)
+        (err, _), plain[m], _ = check_shard_f32(f"{nd}D QED {m}", twin,
+                                                ispec=i_, mode=m)
+        errs[m] = err
+    del twin, host
+    torch.cuda.empty_cache()
+    mark(tag, "K6 checks and times")
+    # -- the same steps on one device from the same state ---------------------
+    put_back(sim, keep, keep[0])
+    ob0, oe0 = photon_stats(sim, ip)
+    sim.run(steps, callbacks=[copy.deepcopy(keep[4])])
+    ob1, oe1 = photon_stats(sim, ip)
+    nm, no = b1 - b0, ob1 - ob0
+    em, eo = e1 - e0, oe1 - oe0
+    log(f"[{tag}] against one device from the same state: photons born "
+        f"{nm} (mesh) vs {no}, their sum w|u| grew {em:.6e} vs {eo:.6e}")
+    if not abs(nm - no) <= 5 * np.sqrt(max(nm, no, 1)):
+        fail(f"{tag}: photons born {nm} on the mesh vs {no} on one device")
+    if not abs(em - eo) <= 0.15 * abs(eo):
+        fail(f"{tag}: emitted energy {em} on the mesh vs {eo} on one device")
+    put_back(sim, keep, keep[0])
+    mark(tag, "one-device comparison")
+    log(f"[{tag}] summary: mesh {step_ms:.3f} ms a step, device busy {busy} "
+        f"ms a step, peak {peak:.2f} GiB")
+    launches = {m: by_mode[m] for m in ("want_chi", "photon")}
+    MESH_QED[f"qed{nd}"] = dict(step_ms=step_ms, busy=busy, peak=peak)
+    return k6_rows(nd, t, errs, launches, plain)
+
+
+def check_k7_f64(dev):
+    """K7 (B6 with the neighbours' edge columns, driven across the mesh by
+    migrate_cells_mesh) against its plain version in float64 on the small
+    meshes of K7_CASES (open and periodic faces), for a species that
+    recomputes inv_gamma and for a photon species that carries it, after
+    a shift of every alive particle by up to 0.9 of a cell along each
+    axis: every array bitwise equal, merges equal. Returns the merges."""
+    import torch
+    from lambdapic_torch.ops import cellpallas as cp
+    from lambdapic_torch.ops.cell2d import migrate_cells
+    from lambdapic_torch.parallel.halo import HaloSpec
+    merges = []
+    for shape, cap, nloc, per, crowded in K7_CASES:
+        nd = len(shape)
+        for photon in (False, True):
+            mesh, shards, _ = mesh_case(shape, cap, nloc, crowded, photon,
+                                           2 * cap + sum(nloc), dev)
+            specs = tuple(HaloSpec(MESH_NAMES[i], shape[i], per[i])
+                          for i in range(nd))
+            gen = torch.Generator(device="cpu").manual_seed(cap + nd)
+            datas = []
+            for d, a in shards:
+                d = dict(d)
+                for ax in "xyz"[:nd]:
+                    if ax == "x" and crowded:
+                        continue
+                    shift = (torch.rand(a.shape, generator=gen,
+                                        dtype=torch.float64) * 1.8 - 0.9)
+                    d[ax] = torch.where(a, d[ax] + shift.to(dev), 0.0)
+                datas.append(d)
+            alives = [a for _, a in shards]
+            kw = dict(recompute_ig=not photon)
+            got = cp.migrate_cells_mesh(datas, alives, mesh, specs, **kw)
+            ref = cp.migrate_cells_mesh(datas, alives, mesh, specs,
+                                        scheme=migrate_cells, **kw)
+            torch.cuda.synchronize()
+            for i, (g_, r_) in enumerate(zip(got, ref)):
+                same = torch.equal(g_[1], r_[1]) and \
+                    sorted(g_[0]) == sorted(r_[0]) and \
+                    all(torch.equal(g_[0][k], r_[0][k]) for k in r_[0])
+                if not same or int(g_[2]) != int(r_[2]):
+                    fail(f"K7 f64 {shape} photon {photon}: shard {i} "
+                         "differs from the plain version")
+            n_m = sum(int(r_[2]) for r_ in ref)
+            moved = sum(int((r_[0]["id_hi"][r_[1]] != i).sum())
+                        for i, r_ in enumerate(ref))
+            if crowded and not photon and n_m == 0:
+                fail(f"K7 f64 {shape}: the crowded case merged nothing")
+            merges.append(n_m)
+            log(f"[kernels K7 f64 {shape} periodic {per} photon {photon}] "
+                f"bitwise equal on {mesh.size} shards; {moved} alive slots "
+                f"from another shard; merges {n_m}")
+    return merges
+
+
+def k7_same(tag, axis, i, got, ref):
+    """Fail unless one B6 launch's output ``got`` equals its plain
+    version's ``ref`` on the same input: alive masks, merges and payload
+    names equal, every payload bitwise equal on the alive slots. Returns
+    the largest difference of a float payload there."""
+    import torch
+    a = got[1]
+    if not (torch.equal(a, ref[1]) and int(got[2]) == int(ref[2])
+            and sorted(got[0]) == sorted(ref[0])):
+        fail(f"K7 {tag} float32 axis {axis}: shard {i}'s alive mask, "
+             "merges or payload names differ from the plain version")
+    err = 0.0
+    for k in ref[0]:
+        g_, r_ = got[0][k][a], ref[0][k][a]
+        if g_.is_floating_point() and g_.numel():
+            err = max(err, float((g_ - r_).abs().max()))
+        if not torch.equal(g_, r_):
+            fail(f"K7 {tag} float32 axis {axis}: shard {i}'s {k} differs "
+                 f"from the plain version on its alive slots (by {err:.3e})")
+    return err
+
+
+def check_k7_f32(tag, twin, iters, ispec=0):
+    """K7 against its plain version in float32 at a mesh run's shard
+    shapes, on species ``ispec`` of ``twin``: the first half push on every
+    shard and a seeded shift of every alive particle by up to 0.9 cells
+    along each axis, then the re-binning across the mesh axis by axis as
+    migrate_cells_mesh runs it: on every shard the axis's B6 launch with
+    the neighbours' edge columns (its output is the next axis's input) and
+    its plain version (cell2d.migrate_cells) on the same input, held equal
+    by k7_same (bitwise on the alive slots). Each axis's launch on the
+    busiest shard timed (CUDA events), its plain version once, and its
+    bound (the mask and the carried payloads of every slot read and
+    written once, the two edge columns read once). Returns (the largest
+    payload difference measured, ms, plain ms, bytes)."""
+    import torch
+    from lambdapic_torch.constants import c as c_light
+    from lambdapic_torch.ops import cellpallas as cp
+    from lambdapic_torch.ops.cell2d import TRANSIENT, migrate_cells
+    from lambdapic_torch.ops.cellslab import edge_columns
+    from lambdapic_torch.ops.pusher import push_position_2d, push_position_3d
+    grid, mesh, specs = twin.grid, twin.mesh, twin._builder.specs
+    nd = grid.dimension
+    axes = grid.axes
+    moms = ("ux", "uy", "uz")[:nd]
+    h = [c_light * twin.dt / d / 2 for d in grid.deltas]
+    push = push_position_3d if nd == 3 else push_position_2d
+    datas, alives = [], []
+    gen = torch.Generator(device=mesh.devices[0]).manual_seed(7)
+    for sh in twin.state.shards:
+        p = sh.particles[ispec]
+        d = dict(p.data)
+        d.update(zip(axes, push(*(d[a] for a in axes), *(d[k] for k in moms),
+                                d["inv_gamma"], *h)))
+        # a shift of up to 0.9 cells along every axis, so that the compared
+        # re-binning moves particles whatever the run's depth
+        for a in axes:
+            shift = torch.rand(p.alive.shape, generator=gen,
+                               device=p.alive.device, dtype=d[a].dtype)
+            d[a] = torch.where(p.alive, d[a] + (shift * 1.8 - 0.9), d[a])
+        datas.append(d)
+        alives.append(p.alive)
+    busy = int(np.argmax([int(a.sum()) for a in alives]))
+    names = tuple(sorted(k for k in datas[0] if k not in TRANSIENT))
+    pay = sum(datas[0][k].element_size() for k in names)
+    cur, cur_alive = list(datas), list(alives)
+    ms = plain_ms = err = 0.0
+    nbytes = 0
+    split = ""
+    for axis in range(nd):
+        spec = specs[axis]
+        edges = edge_columns(cur, cur_alive, names, axis, spec, mesh) \
+            if spec.size > 1 else None
+        n_ax = cur_alive[0].shape[1 + axis]
+        plan = ((n_ax, spec.periodic, axes[axis]),)
+        finish = axis == nd - 1
+
+        def run(fn, i):
+            return fn(cur[i], cur_alive[i], plan,
+                      edges=None if edges is None else {axis: edges[i]},
+                      finish=finish)
+        # one B6 launch a call: CUDA events (host issue included, a few
+        # microseconds of a launch of a millisecond); no profile
+        wall = cuda_time(lambda: run(cp.migrate_cells_fused, busy), iters)
+        ms += wall
+        plain_ms += cuda_time(lambda: run(migrate_cells, busy), 1)
+        slots = cur_alive[busy].numel()
+        nbytes += 2 * slots * (1 + pay) + (
+            2 * (slots // n_ax) * (4 + pay) if edges is not None else 0)
+        split += (f" axis {axis}: {wall:.4f} ms (CUDA events)"
+                  f"{' with edges' if edges is not None else ''};")
+        outs = []
+        for i in range(mesh.size):
+            outs.append(run(cp.migrate_cells_fused, i))
+            err = max(err, k7_same(tag, axis, i, outs[-1],
+                                   run(migrate_cells, i)))
+        cur = [{**d, **o[0]} for d, o in zip(cur, outs)]
+        cur_alive = [o[1] for o in outs]
+        del outs, edges
+        torch.cuda.empty_cache()
+    moved = sum(int((a != b).sum()) for a, b in zip(cur_alive, alives))
+    if moved == 0:
+        fail(f"K7 {tag} float32: the compared re-binning moved nothing")
+    log(f"[kernels K7 f32 {tag}] every launch on every shard equal to its "
+        f"plain version on the same input (alive masks, merges, every "
+        f"payload on the alive slots; largest difference {err:.3e}), "
+        f"{moved} slots changed occupancy; busiest shard {busy} of "
+        f"{mesh.size}, {tuple(alives[busy].shape)} slots:{split} plain "
+        f"{plain_ms:.2f} ms; bound {nbytes} bytes = "
+        f"{nbytes / HBM_BPS * 1e3:.5f} ms")
+    del cur, cur_alive, datas
+    torch.cuda.empty_cache()
+    return err, ms, plain_ms, nbytes
+
+
+def k7_row(nd, err, ms, plain, nbytes, launches):
+    return dict(
+        name=f"K7 B6 mesh strips{', 3D' if nd == 3 else ' 2D'}",
+        route="cuda", source="lambdapic_torch/csrc/migrate.cu",
+        replaces="lambdapic_tpu/ops/cellpallas.py:860", launches=launches,
+        max_abs_err=err, ms=ms, plain_ms=plain,
+        bound_ms=nbytes / HBM_BPS * 1e3, bound_by="bytes", library_ms=None,
+        per="one shard's axes of one species")
+
+
+def clone_mesh(st):
+    return st.replace(shards=tuple(clone_state(sh) for sh in st.shards))
+
+
+def split_vs_fused_mesh(twin, laser, hook, tag):
+    """One split mesh step (``hook`` due) against one fused mesh step from
+    a cloned state, shard by shard (check_split_fused: alive masks, ids
+    and merges equal, values within rtol 1e-5, J within 1e-5 of its
+    peak); the run goes on from the fused step."""
+    import torch
+    recap, twin.recap_interval = twin.recap_interval, 0
+    saved, itime, t_sim = clone_mesh(twin.state), twin.itime, twin.time
+    twin.run(1, callbacks=[laser, hook])
+    split = twin.state
+    twin.state, twin.itime, twin.time = saved, itime, t_sim
+    twin.run(1, callbacks=[laser])
+    fused = twin.state
+    twin.recap_interval = recap
+    torch.cuda.synchronize()
+    worst = jerr = 0.0
+    for i, (s, f) in enumerate(zip(split.shards, fused.shards)):
+        w, j = check_split_fused(f"{tag}: split vs fused, shard {i}", s, f,
+                                 ("jx", "jy", "jz"))
+        worst, jerr = max(worst, w), max(jerr, j)
+    log(f"[{tag}] one split mesh step vs one fused mesh step from step "
+        f"{itime}: alive masks, ids and merges equal on every shard; values "
+        f"within rtol 1e-5 (largest {worst:.3e}); J within {jerr:.2e} of its "
+        "peak")
+    del split, saved
+    torch.cuda.empty_cache()
+
+
+def timed_mesh_run(tag, twin, cbs, steps, window, per_step, busy_expect):
+    """``steps`` steps of a mesh run through Simulation.run with the launch
+    counters set to 0 just before, the last ``window`` timed; launches
+    checked against ``per_step``; finite fields; then a profile of one
+    step (these steps issue tens of thousands of plain-torch launches,
+    whose profiles take long to gather). Returns (step ms, busy ms, peak
+    GiB, launches)."""
+    import torch
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    if steps > window:
+        twin.run(steps - window, callbacks=cbs)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    twin.run(window, callbacks=cbs)
+    torch.cuda.synchronize()
+    t2 = time.time()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    got = check_launches(tag, steps, per_step, into={})
+    for i, sh in enumerate(twin.state.shards):
+        for k in MESH_FIELDS:
+            if not bool(torch.isfinite(getattr(sh.fields, k)).all()):
+                fail(f"{tag}: field {k} not finite on shard {i}")
+    step_ms = (t2 - t1) * 1e3 / window
+    npart = sum(twin.npart_alive)
+    log(f"[{tag}] {steps} steps to step {twin.itime} in {t2 - t0:.2f} s: "
+        f"step {step_ms:.3f} ms (host clock, synchronised, last {window}), "
+        f"{npart / (step_ms * 1e-3):.4e} pushes/s; peak device memory "
+        f"{peak:.2f} GiB")
+    busy = busy_per_step(lambda: twin.run(1, callbacks=cbs), busy_expect, 1,
+                         f"{tag} profile", step_ms)
+    return step_ms, busy, peak, got
+
+
+def run_stages_mesh_2d(args, sim, laser):
+    """Phase 14 in 2D: K7 against its plain version in float64 on small
+    meshes; [slice split mesh 2D]: the 2D slice's end state on a 2 x 2
+    mesh of the one card, one split step held against one fused step from
+    a cloned state, then --steps-split-mesh split steps (a host callback
+    at _push_momentum; launches per step B6 24 = 3 species x 4 shards x 2
+    axes, B5 12; B1 0) timed and profiled, K7 in float32 at those shards
+    and timed; [slice exact mesh 2D]: the same state with
+    cell_migration="exact" for --steps-exact-mesh steps (B4 12, B5 12),
+    then float64 twins of the mesh and one-device runs from that state
+    under compare_mesh_runs's gates (ids, positions within 1e-4 cells,
+    momenta rtol 1e-4, fields). ``sim`` ends in its state from before.
+    Returns the K7 2D row."""
+    import torch
+    from lambdapic_torch import callback
+    from lambdapic_torch.testing import mesh_twin
+    merges = check_k7_f64(sim.device)
+    log(f"[kernels K7 f64] bitwise in {2 * len(K7_CASES)} cases; merges "
+        f"{merges}")
+    dev, shape = sim.device, (2, 2)
+    tag = "slice split mesh 2D"
+    keep = keep_state(sim, laser)
+    _MARK[tag] = time.time()
+    twin = mesh_twin(sim, shape, [dev] * 4, source=on_card(keep[0], dev))
+    mlaser = copy.deepcopy(keep[4])
+    hook = callback(stage="_push_momentum")(lambda s: None)
+    split_vs_fused_mesh(twin, mlaser, hook, tag)
+    n = args.steps_split_mesh
+    step_ms, busy, peak, got = timed_mesh_run(
+        tag, twin, [mlaser, hook], n, n, {"B5": 12, "B6": 24},
+        {"migrate_axis": 24, "deposit<": 12})
+    MESH_STAGE_LAUNCHES["B6"] += got["B6"]
+    err, ms, plain, nbytes = check_k7_f32("2D 2x2", twin, args.iters)
+    del twin
+    torch.cuda.empty_cache()
+    mark(tag, "split steps and K7")
+    MESH_QED["split2"] = dict(step_ms=step_ms, busy=busy, peak=peak)
+    # -- the exact re-binning on the mesh ----------------------------------------
+    tag = "slice exact mesh 2D"
+    _MARK[tag] = time.time()
+    sim.cell_migration = "exact"
+    twin = mesh_twin(sim, shape, [dev] * 4, source=on_card(keep[0], dev))
+    n = args.steps_exact_mesh
+    e_ms, e_busy, e_peak, _ = timed_mesh_run(
+        tag, twin, [copy.deepcopy(keep[4])], n, min(n, 10),
+        {"B4": 12, "B5": 12}, {"push<": 12, "deposit<": 12})
+    del twin
+    torch.cuda.empty_cache()
+    MESH_QED["exact2"] = dict(step_ms=e_ms, busy=e_busy, peak=e_peak)
+    # the float64 twins on the last half of the x-planes (the foil's
+    # side), as the 3D mesh phase cuts its own
+    csim, ckeep = cut_sim(sim, keep, sim.grid.nx // 2)
+    compare_on_mesh(csim, ckeep, f"{tag} cut {csim.grid.shape}", shape, n)
+    del csim, ckeep
+    sim.cell_migration = "fast"
+    put_back(sim, keep, keep[0])
+    mark(tag, "exact steps and float64 comparison")
+    log(f"[slice stages mesh 2D] summary: split {step_ms:.3f} ms a step "
+        f"(busy {busy}), exact {e_ms:.3f} ms (busy {e_busy}), peak "
+        f"{max(peak, e_peak):.2f} GiB")
+    return [k7_row(2, err, ms, plain, nbytes, MESH_STAGE_LAUNCHES["B6"])]
+
+
+def run_stages_mesh_3d(args, sim, laser):
+    """Phase 14 in 3D: [slice split mesh 3D]: the 3D slice's end state on
+    a 2 x 2 x 2 mesh of the one card for --steps-split-mesh3d split steps
+    (launches per step B6 48 = 2 species x 8 shards x 3 axes, B5 3D 16),
+    timed and profiled; K7 in float32 at those shards (check_k7_f32) and
+    timed on the busiest. ``sim`` ends in its
+    state from before. Returns the K7 3D row."""
+    import torch
+    from lambdapic_torch import callback
+    from lambdapic_torch.testing import mesh_twin
+    tag = "slice split mesh 3D"
+    dev, shape = sim.device, (2, 2, 2)
+    keep = keep_state(sim, laser)
+    _MARK[tag] = time.time()
+    twin = mesh_twin(sim, shape, [dev] * 8, source=on_card(keep[0], dev))
+    hook = callback(stage="_push_momentum")(lambda s: None)
+    n = args.steps_split_mesh3d
+    step_ms, busy, peak, got = timed_mesh_run(
+        tag, twin, [copy.deepcopy(keep[4]), hook], n, n,
+        {"B5 3D": 16, "B6": 48}, {"migrate_axis": 48, "deposit3d": 16})
+    MESH_STAGE_LAUNCHES["B6 3D"] += got["B6"]
+    err, ms, plain, nbytes = check_k7_f32("3D 2x2x2", twin, args.iters3d)
+    del twin
+    torch.cuda.empty_cache()
+    put_back(sim, keep, keep[0])
+    mark(tag, "split steps and K7")
+    MESH_QED["split3"] = dict(step_ms=step_ms, busy=busy, peak=peak)
+    return [k7_row(3, err, ms, plain, nbytes, MESH_STAGE_LAUNCHES["B6 3D"])]
+
+
+def run_exact_qed_mesh_3d(args, sim, laser):
+    """[slice exact QED mesh 3D] (phase 14): the exact 3D QED phase's end
+    state on a 2 x 2 x 2 mesh of the one card, --steps-exact-qed-mesh3d
+    steps through Simulation3D.run (launches per step B4 3D 16 = 2 charged
+    species x 8 shards, 8 of them want_eb for the radiating electrons, B5
+    3D 16; photons re-bin exactly and deposit nothing), its peak memory;
+    photons born on the shards that fired, with their index as id_hi.
+    ``sim`` ends without a state."""
+    import torch
+    from lambdapic_torch.testing import mesh_twin
+    tag = "slice exact QED mesh 3D"
+    dev, shape = sim.device, (2, 2, 2)
+    ip = sim._qed_processes[0].photon_ispec
+    _MARK[tag] = time.time()
+    # the phase's end state is not used again: sharded on the card, freed
+    twin = mesh_twin(sim, shape, [dev] * 8)
+    sim.state = None
+    torch.cuda.empty_cache()
+    born0 = [int(sh.particles[ip].next_id) for sh in twin.state.shards]
+    n = args.steps_exact_qed_mesh3d
+    step_ms, busy, peak, _ = timed_mesh_run(
+        tag, twin, [copy.deepcopy(laser)], n, n,
+        {"B4 3D": 16, "B4 3D want_eb": 8, "B5 3D": 16},
+        {"push3d": 16, "deposit3d": 16})
+    check_photons_mesh(tag, twin, ip, born0)
+    del twin
+    torch.cuda.empty_cache()
+    mark(tag, "exact QED mesh steps")
+    MESH_QED["exactqed3"] = dict(step_ms=step_ms, busy=busy, peak=peak)
+
+
+def timed(name, fn):
+    def wrapper(*a, **kw):
+        t0 = time.time()
+        try:
+            return fn(*a, **kw)
+        finally:
+            sec, n = TIMERS.get(name, (0.0, 0))
+            TIMERS[name] = (sec + time.time() - t0, n + 1)
+    return wrapper
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=2001,
@@ -4899,68 +5894,90 @@ def main() -> int:
                     help="final 2D steps timed as the steady window")
     ap.add_argument("--steps-qed", type=int, default=500,
                     help="QED slice steps through Simulation.run (the "
-                         "example runs 100 fs, 1115 steps; cut to pay for "
-                         "the mesh phases; photons appear by step ~112)")
+                         "example runs 100 fs, 1115 steps; photons appear "
+                         "by step ~112)")
     ap.add_argument("--window-qed", type=int, default=100,
                     help="final QED steps timed as the steady window")
     ap.add_argument("--steps3d", type=int, default=STEPS_3D,
                     help="3D slice steps through Simulation3D.run (the "
-                         "example runs 1001)")
+                         "example runs 1001; cut to pay for the mesh "
+                         "phases)")
     ap.add_argument("--window3d", type=int, default=20,
                     help="final 3D steps timed as the steady window")
-    ap.add_argument("--steps-exact", type=int, default=151,
+    ap.add_argument("--steps-exact", type=int, default=101,
                     help="steps of the 2D slice with cell_migration='exact' "
                          "(the example runs 2001; cut to keep the script's "
                          "time with the 3D per-stage and 3D QED phases)")
-    ap.add_argument("--window-exact", type=int, default=100,
+    ap.add_argument("--window-exact", type=int, default=50,
                     help="final exact steps timed as the steady window")
     ap.add_argument("--steps-exact-qed", type=int, default=200,
                     help="steps of the QED slice with cell_migration='exact'")
-    ap.add_argument("--steps-split", type=int, default=50,
+    ap.add_argument("--steps-split", type=int, default=20,
                     help="split steps (a host callback at _push_momentum) "
                          "continuing the 2D slice")
     ap.add_argument("--steps-split-sort", type=int, default=10,
                     help="split steps with LAMBDAPIC_MIG_FUSED=0 (kernel B7)")
-    ap.add_argument("--steps-split3d", type=int, default=5,
+    ap.add_argument("--steps-split3d", type=int, default=3,
                     help="split steps (a host callback at _push_momentum) "
                          "continuing the 3D slice")
-    ap.add_argument("--steps-split-sort3d", type=int, default=2,
+    ap.add_argument("--steps-split-sort3d", type=int, default=1,
                     help="3D split steps with LAMBDAPIC_MIG_FUSED=0 (B7)")
-    ap.add_argument("--steps-exact3d", type=int, default=20,
+    ap.add_argument("--steps-exact3d", type=int, default=10,
                     help="steps of the 3D slice with cell_migration='exact'")
-    ap.add_argument("--window-exact3d", type=int, default=10,
+    ap.add_argument("--window-exact3d", type=int, default=5,
                     help="final exact 3D steps timed as the steady window")
-    ap.add_argument("--steps-qed3d", type=int, default=350,
+    ap.add_argument("--steps-qed3d", type=int, default=200,
                     help="3D QED slice steps through Simulation3D.run "
                          "(example/photons.py's 100 fs are 966 steps here; "
                          "cut to pay for the mesh phases)")
-    ap.add_argument("--window-qed3d", type=int, default=100,
+    ap.add_argument("--window-qed3d", type=int, default=50,
                     help="final 3D QED steps timed as the steady window")
-    ap.add_argument("--steps-split-qed3d", type=int, default=10,
+    ap.add_argument("--steps-split-qed3d", type=int, default=5,
                     help="split steps (a host callback at _push_momentum) "
                          "continuing the 3D QED slice")
-    ap.add_argument("--steps-exact-qed3d", type=int, default=50,
+    ap.add_argument("--steps-exact-qed3d", type=int, default=10,
                     help="steps of the 3D QED slice with "
                          "cell_migration='exact' after its first photon")
-    ap.add_argument("--steps-tiled", type=int, default=600,
+    ap.add_argument("--steps-tiled", type=int, default=400,
                     help="steps of bench.py's --tiling 32,32 laser-target "
                          "through Simulation.run (the laser front reaches "
                          "the target near step 380)")
-    ap.add_argument("--window-tiled", type=int, default=100,
+    ap.add_argument("--window-tiled", type=int, default=50,
                     help="final tiled steps timed as the steady window")
     ap.add_argument("--steps-tiled-qed", type=int, default=200,
                     help="steps of bench.py's qed configuration in its "
                          "--tiling 32,32 form at 256^2")
-    ap.add_argument("--steps-mesh", type=int, default=50,
+    ap.add_argument("--steps-mesh", type=int, default=20,
                     help="steps of the 2D slice's end state on a 2 x 2 mesh "
                          "of the card, and on one device")
-    ap.add_argument("--window-mesh", type=int, default=20,
+    ap.add_argument("--window-mesh", type=int, default=10,
                     help="final 2D mesh steps timed")
-    ap.add_argument("--steps-mesh3d", type=int, default=10,
+    ap.add_argument("--steps-mesh3d", type=int, default=6,
                     help="steps of the 3D slice's end state on a 2 x 2 x 2 "
                          "mesh of the card, and on one device")
-    ap.add_argument("--window-mesh3d", type=int, default=5,
+    ap.add_argument("--window-mesh3d", type=int, default=3,
                     help="final 3D mesh steps timed")
+    ap.add_argument("--steps-qed-mesh", type=int, default=30,
+                    help="steps of the QED slice's end state on a 2 x 2 "
+                         "mesh of the card, and on one device")
+    ap.add_argument("--window-qed-mesh", type=int, default=10,
+                    help="final QED mesh steps timed")
+    ap.add_argument("--steps-qed-mesh3d", type=int, default=5,
+                    help="steps of the 3D QED slice's end state on a "
+                         "2 x 2 x 2 mesh, all timed, and on one device")
+    ap.add_argument("--steps-split-mesh", type=int, default=10,
+                    help="split steps of the 2D slice's end state on a "
+                         "2 x 2 mesh")
+    ap.add_argument("--steps-exact-mesh", type=int, default=20,
+                    help="steps of the 2D slice's end state on a 2 x 2 mesh "
+                         "with cell_migration='exact' (and of its float64 "
+                         "twins on the mesh and on one device)")
+    ap.add_argument("--steps-split-mesh3d", type=int, default=2,
+                    help="split steps of the 3D slice's end state on a "
+                         "2 x 2 x 2 mesh")
+    ap.add_argument("--steps-exact-qed-mesh3d", type=int, default=5,
+                    help="steps of the exact 3D QED phase's end state on a "
+                         "2 x 2 x 2 mesh")
     ap.add_argument("--exact2d-digest", type=int, default=0, metavar="N",
                     help="run only the 2D slice with cell_migration='exact' "
                          "for N steps and print its peak device memory and "
@@ -4980,6 +5997,12 @@ def main() -> int:
         exact2d_digest(args.exact2d_digest, dev)
         return 0
     t_start = time.time()
+    from lambdapic_torch import testing
+    mod = sys.modules[__name__]
+    for name in ("device_times", "cuda_time", "keep_state", "put_back",
+                 "compare_on_mesh", "check_shard_f32", "dispatch_ms"):
+        setattr(mod, name, timed(name, getattr(mod, name)))
+    testing.mesh_twin = timed("mesh_twin", testing.mesh_twin)
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     phase_build()
@@ -5008,6 +6031,8 @@ def main() -> int:
     done("mesh 3D")
     run_split_3d(args, sim3, laser3)
     done("split 3D")
+    kernels += run_stages_mesh_3d(args, sim3, laser3)
+    done("split mesh 3D")
     run_exact_3d(args, dev, sim3, fill)
     del sim3, fill
     done("exact 3D")
@@ -5016,13 +6041,20 @@ def main() -> int:
     k3, simq, laserq = run_qed_3d(args, dev)
     kernels += k3
     done("QED 3D")
+    kernels += run_qed_mesh(
+        args, simq, laserq, (2, 2, 2), args.steps_qed_mesh3d,
+        args.steps_qed_mesh3d, {"rebin3": 72, "tail3<": 16, "photon3<": 8,
+                                "fold3": 8, "strips<": 24})
+    done("QED mesh 3D")
     run_split_qed_3d(args, simq, laserq)
     del simq
     done("split QED 3D")
     run_exact_qed_3d(args, dev)
     done("exact QED 3D")
     kernels += stage3_rows()
-    log(f"[time] total {time.time() - t_start:.1f} s")
+    log(f"[time] total {time.time() - t_start:.1f} s; of it "
+        + ", ".join(f"{k} {v[0]:.1f} s in {v[1]} calls"
+                    for k, v in sorted(TIMERS.items())))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

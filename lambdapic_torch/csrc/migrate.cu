@@ -6,8 +6,7 @@
 // Replaces the TPU kernel lambdapic_tpu/ops/cellpallas.py::
 // migrate_axis_fused (:860, kernel :956, pallas_call :1090), driven per
 // axis by migrate_cells_fused (:1143). Plain PyTorch version: lambdapic_
-// torch/ops/cell2d.py::migrate_cells (fast scheme, Batcher order), which
-// lambdapic_torch/ops/cellpallas.py::migrate_cells_fused_plain calls.
+// torch/ops/cell2d.py::migrate_cells (fast scheme, Batcher order).
 //
 // Rank-generic: the slots are (cap, ncell) with the cells flattened in C
 // order, and the caller names the axis by its length n and its stride
@@ -26,6 +25,18 @@
 // the others take the placed value). Arrivals through a periodic wrap
 // shift their coordinate by -+n; at an open face the neighbour outside
 // sends nothing (the TPU kernel's key 9).
+//
+// On a device mesh (K7: replaces migrate_cells_fused's fix_wrap,
+// cellpallas.py:1203-1222, which ppermutes each axis's wrap entry of the
+// key and payload strips from the neighbour shard): with I_EDGE the
+// caller passes the lo and hi neighbour shards' edge columns along the
+// axis, (cap, cells with the axis one wide) arrays of the mask (int32,
+// zero past an open global face) and of every carried payload, as the
+// neighbours hold them before this axis. The first and last cells along
+// the axis read their outside neighbour there in place of the wrap: keyed
+// at the neighbour's own index (n-1 or 0), sorted by the same list, and
+// their arrivals shifted by -+n as wrapped ones are. The edges are read
+// with plain loads.
 //
 // Payloads are run-time lists: up to MAXF float payloads of the kernel's
 // type and MAXI int32 payloads. The caller ping-pongs two sets of buffers
@@ -58,10 +69,21 @@ constexpr int MAXI = 4;
 
 enum Ptr { P_ALIVE, P_ALIVE_OUT, P_NMERGED, P_CES, P_IG_OUT,
            P_FIN, P_FOUT = P_FIN + MAXF, P_IIN = P_FOUT + MAXF,
-           P_IOUT = P_IIN + MAXI, P_KEYS = P_IOUT + MAXI, P_COUNT };
+           P_IOUT = P_IIN + MAXI, P_KEYS = P_IOUT + MAXI,
+           // lo edge, then hi edge: mask, MAXF floats, MAXI ints each
+           P_EDGES, P_COUNT = P_EDGES + 2 * (1 + MAXF + MAXI) };
 enum Int { I_CAP, I_NCELL, I_N, I_STRIDE, I_PERIODIC, I_NF, I_NI, I_COORD, I_W,
            I_MERGE_MASK, I_FINAL, I_SANITIZE_MASK, I_UX, I_UY, I_UZ,
-           I_RECOMPUTE_IG, I_IG_ONE, I_NCES, I_DOUBLE, I_KEY_THREADS };
+           I_RECOMPUTE_IG, I_IG_ONE, I_NCES, I_DOUBLE, I_KEY_THREADS,
+           I_EDGE };
+
+// A neighbour shard's edge column along the axis.
+template <typename T>
+struct Edge {
+  const int* alive;
+  const T* f[MAXF];
+  const int* i[MAXI];
+};
 
 template <typename T>
 struct Args {
@@ -75,8 +97,9 @@ struct Args {
   const int* iin[MAXI];
   int* iout[MAXI];
   int* keys;            // KEY_ROWS x cap int32 per thread (cap > MAXC_LOCAL)
+  Edge<T> edge[2];      // with has_edge: the lo and hi neighbours' columns
   int cap, n, periodic, nf, ni, coord, w, merge_mask, final_,
-      sanitize_mask, iux, iuy, iuz, recompute_ig, ig_one, nces;
+      sanitize_mask, iux, iuy, iuz, recompute_ig, ig_one, nces, has_edge;
   long long ncell, stride;
 };
 
@@ -92,12 +115,20 @@ __device__ __forceinline__ void migrate_cell(const Args<T>& a, long long cell,
   const long long cols[3] = {i > 0 ? cell - st : cell + (n - 1) * st, cell,
                              i < n - 1 ? cell + st : cell - (n - 1) * st};
   const int ipos[3] = {i > 0 ? i - 1 : n - 1, i, i < n - 1 ? i + 1 : 0};
-  const T* pos = a.fin[a.coord];
+  // the outside neighbours of the first and last cells come from the edge
+  // columns, cell (outer, inner) of ncell / n cells
+  const bool from_edge[3] = {a.has_edge && i == 0, false,
+                             a.has_edge && i == n - 1};
+  const long long encell = a.ncell / n;
+  const long long ecell = (cell / ((long long)n * st)) * st + cell % st;
   for (int c3 = 0; c3 < 3; ++c3) {
     const T ci = T(ipos[c3]);
+    const bool fe = from_edge[c3];
+    const Edge<T>& ed = a.edge[c3 == 0 ? 0 : 1];
+    const T* pos = fe ? ed.f[a.coord] : a.fin[a.coord];
     for (int s = 0; s < a.cap; ++s) {
-      long long idx = cols[c3] + s * a.ncell;
-      bool al = a.alive[idx] != 0;
+      long long idx = fe ? ecell + s * encell : cols[c3] + s * a.ncell;
+      bool al = fe ? ed.alive[idx] != 0 : a.alive[idx] != 0;
       T local = pos[idx] - ci;
       bool hi = al && local >= T(0.5);
       bool lo = al && local < T(-0.5);
@@ -105,8 +136,17 @@ __device__ __forceinline__ void migrate_cell(const Args<T>& a, long long cell,
     }
     net_sort(k + c3 * ks, a.ces, a.nces);
   }
-  const bool lo_ok = a.periodic || i != 0;
-  const bool hi_ok = a.periodic || i != n - 1;
+  const bool lo_ok = a.has_edge || a.periodic || i != 0;
+  const bool hi_ok = a.has_edge || a.periodic || i != n - 1;
+  // the source arrays and cell of the lo and hi neighbours
+  const T* const* flo = from_edge[0] ? a.edge[0].f : a.fin;
+  const T* const* fhi = from_edge[2] ? a.edge[1].f : a.fin;
+  const int* const* ilo = from_edge[0] ? a.edge[0].i : a.iin;
+  const int* const* ihi = from_edge[2] ? a.edge[1].i : a.iin;
+  const long long nlo = from_edge[0] ? encell : a.ncell;
+  const long long nhi = from_edge[2] ? encell : a.ncell;
+  const long long clo = from_edge[0] ? ecell : cols[0];
+  const long long chi = from_edge[2] ? ecell : cols[2];
   // coordinate shift of arrivals through the wrap
   const T adj_lo = i == 0 ? T(-n) : T(0);
   const T adj_hi = i == n - 1 ? T(n) : T(0);
@@ -117,9 +157,9 @@ __device__ __forceinline__ void migrate_cell(const Args<T>& a, long long cell,
     const bool vlo = lo_ok && key_of(klo) == 0;
     const bool vhi = hi_ok && key_of(khi) == 4;
     const bool stay = key_of(kown) == 2;
-    const long long s_lo = (long long)slot_of(klo) * a.ncell + cols[0];
+    const long long s_lo = (long long)slot_of(klo) * nlo + clo;
     const long long s_own = (long long)slot_of(kown) * a.ncell + cell;
-    const long long s_hi = (long long)slot_of(khi) * a.ncell + cols[2];
+    const long long s_hi = (long long)slot_of(khi) * nhi + chi;
     const long long o = (long long)p * a.ncell + cell;
     const int n_src = (int)vlo + (int)vhi + (int)stay;
     merges += n_src > 1 ? n_src - 1 : 0;
@@ -128,10 +168,9 @@ __device__ __forceinline__ void migrate_cell(const Args<T>& a, long long cell,
     const bool dead_final = a.final_ && !al;
     T w_lo = T(0), w_hi = T(0), w_res = T(0), wsum = T(0), wsafe = T(0);
     if (multi) {
-      const T* w = a.fin[a.w];
-      w_lo = vlo ? w[s_lo] : T(0);
-      w_hi = vhi ? w[s_hi] : T(0);
-      w_res = stay ? w[s_own] : T(0);
+      w_lo = vlo ? flo[a.w][s_lo] : T(0);
+      w_hi = vhi ? fhi[a.w][s_hi] : T(0);
+      w_res = stay ? a.fin[a.w][s_own] : T(0);
       wsum = (w_lo + w_hi) + w_res;
       wsafe = wsum > floor_ ? wsum : floor_;
     }
@@ -144,16 +183,16 @@ __device__ __forceinline__ void migrate_cell(const Args<T>& a, long long cell,
         if (f == a.w) {
           v = wsum;
         } else {
-          T vl = src[s_lo], vh = src[s_hi], vo = src[s_own];
+          T vl = flo[f][s_lo], vh = fhi[f][s_hi], vo = src[s_own];
           if (is_coord && wrap_lo) vl = vl + adj_lo;
           if (is_coord && wrap_hi) vh = vh + adj_hi;
           v = ((w_lo * vl + w_hi * vh) + w_res * vo) / wsafe;
         }
       } else if (vlo) {
-        v = src[s_lo];
+        v = flo[f][s_lo];
         if (is_coord && wrap_lo) v = v + adj_lo;
       } else if (vhi) {
-        v = src[s_hi];
+        v = fhi[f][s_hi];
         if (is_coord && wrap_hi) v = v + adj_hi;
       } else {
         v = src[s_own];
@@ -168,8 +207,8 @@ __device__ __forceinline__ void migrate_cell(const Args<T>& a, long long cell,
       a.fout[f][o] = v;
     }
     for (int t = 0; t < a.ni; ++t) {
-      const int* src = a.iin[t];
-      a.iout[t][o] = vlo ? src[s_lo] : (vhi ? src[s_hi] : src[s_own]);
+      a.iout[t][o] = vlo ? ilo[t][s_lo]
+                         : (vhi ? ihi[t][s_hi] : a.iin[t][s_own]);
     }
     a.alive_out[o] = al ? 1 : 0;
     if (a.final_ && a.recompute_ig)
@@ -212,6 +251,21 @@ int launch(void** p, const long long* n, cudaStream_t st) {
   a.recompute_ig = (int)n[I_RECOMPUTE_IG]; a.ig_one = (int)n[I_IG_ONE];
   a.nces = (int)n[I_NCES];
   a.keys = (int*)p[P_KEYS];
+  a.has_edge = (int)n[I_EDGE];
+  for (int side = 0; side < 2; ++side) {
+    const int b = P_EDGES + side * (1 + MAXF + MAXI);
+    a.edge[side].alive = (const int*)p[b];
+    for (int f = 0; f < MAXF; ++f) a.edge[side].f[f] = (const T*)p[b + 1 + f];
+    for (int t = 0; t < MAXI; ++t)
+      a.edge[side].i[t] = (const int*)p[b + 1 + MAXF + t];
+    if (a.has_edge) {
+      if (!a.edge[side].alive) return (int)cudaErrorInvalidValue;
+      for (int f = 0; f < a.nf; ++f)
+        if (!a.edge[side].f[f]) return (int)cudaErrorInvalidValue;
+      for (int t = 0; t < a.ni; ++t)
+        if (!a.edge[side].i[t]) return (int)cudaErrorInvalidValue;
+    }
+  }
   if (a.cap > lp2d::MAX_SLOTS || (a.cap > MAXC_LOCAL && !a.keys) || a.nf < 1 || a.nf > MAXF || a.ni < 0 || a.ni > MAXI ||
       a.coord < 0 || a.coord >= a.nf || a.w < 0 || a.w >= a.nf ||
       a.n < 1 || a.stride < 1 || a.ncell % ((long long)a.n * a.stride) ||

@@ -361,8 +361,10 @@ class NonlinearComptonLCFA:
         return edata
 
 
-def species_key(base_key: torch.Tensor, itime: int, ispec: int
-                ) -> torch.Tensor:
-    """The key of species ``ispec`` at step ``itime`` on the one device:
-    fold_in(fold_in(fold_in(base, itime), ispec), 0)."""
-    return jr.fold_in(jr.fold_in(jr.fold_in(base_key, itime), ispec), 0)
+def species_key(base_key: torch.Tensor, itime: int, ispec: int,
+                didx: int = 0) -> torch.Tensor:
+    """The key of species ``ispec`` at step ``itime`` on the shard of
+    row-major device index ``didx`` over the mesh axes (0 on one device):
+    fold_in(fold_in(fold_in(base, itime), ispec), didx), as
+    lambdapic_tpu/simulation/step.py folds the device index in."""
+    return jr.fold_in(jr.fold_in(jr.fold_in(base_key, itime), ispec), didx)

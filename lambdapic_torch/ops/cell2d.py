@@ -273,6 +273,20 @@ def _exact_axis(data, alive, names, out_lo, out_hi, move, valid_in):
     return {**data, **kept}, kept_alive, n_lost
 
 
+def _exact_edge(edge: Dict[str, torch.Tensor], coord: str, index: int,
+                direction: int, names):
+    """A neighbour shard's edge column for the exact scheme: (the mask of
+    its slots that leave towards this shard, {payload: its values there,
+    0 elsewhere}), as that shard computes them at its own cell
+    ``index``; ``direction`` +1 for the lower neighbour's donors (they
+    move up), -1 for the upper one's."""
+    al = edge["alive"] != 0
+    local = edge[coord] - torch.tensor(float(index), dtype=edge[coord].dtype,
+                                       device=al.device)
+    mask = al & (local >= 0.5) if direction > 0 else al & (local < -0.5)
+    return mask, {k: torch.where(mask, edge[k], 0) for k in names}
+
+
 def edge_keys(edge: Dict[str, torch.Tensor], axis: int, coord: str,
               index: int, parity: torch.Tensor) -> torch.Tensor:
     """The 5-way re-binning keys of a neighbour shard's edge column
@@ -310,14 +324,16 @@ def migrate_cells(data: Dict[str, torch.Tensor], alive: torch.Tensor,
     wrap shift their coordinate by -+nloc; at open edges they are
     absorbed.
 
-    ``edges`` (fast scheme only) maps an axis (0 x, 1 y, 2 z) to the
+    ``edges`` maps an axis (0 x, 1 y, 2 z) to the
     (lo, hi) edge columns of the neighbour shards along it: dicts of
     ``alive`` (zero past an open global face) and every carried payload,
     one cell wide along the axis, lo the lower neighbour's last column and
     hi the upper neighbour's first. They take the place of the wrap: each
     is sorted with the keys its shard gives it, and its donors arrive with
     the -+nloc coordinate shift (the JAX package's ppermute of the rolled
-    edge slab, ops/tiled2d.py::_roll_with_edge_exchange).
+    edge slab, ops/tiled2d.py::_roll_with_edge_exchange). In the exact
+    scheme each neighbour's donors towards this shard arrive instead, as
+    the JAX package's ``send`` rolls them across the shard face.
 
     ``finish=False`` leaves the dead slots and inv_gamma as the last axis
     placed them (a re-binning that continues on another dispatch, see
@@ -357,10 +373,13 @@ def migrate_cells(data: Dict[str, torch.Tensor], alive: torch.Tensor,
         from_wrap = cells == 0
         to_wrap = cells == nt - 1
         edge_lo = edge_hi = None
-        if axis in edges:
-            if exact:
-                raise NotImplementedError(
-                    "edge columns of the exact scheme (ROADMAP item 15)")
+        if axis in edges and exact:
+            # the neighbours' donors: their edge column's payloads masked
+            # to the slots that leave towards this shard, as they send them
+            lo, hi = edges[axis]
+            edge_lo = _exact_edge(lo, coord, nt - 1, +1, names)
+            edge_hi = _exact_edge(hi, coord, 0, -1, names)
+        elif axis in edges:
             # the neighbours' edge columns, sorted as their shards sort them
             lo, hi = edges[axis]
             skl, spl = (sort_fn or batcher_sort)(
@@ -406,8 +425,12 @@ def migrate_cells(data: Dict[str, torch.Tensor], alive: torch.Tensor,
             return valid
 
         if exact:
+            def valid_exact(mask, direction):
+                edge = edge_lo if direction > 0 else edge_hi
+                return valid_in(mask, direction,
+                                None if edge is None else edge[0])
             data, alive, lost = _exact_axis(data, alive, names, out_lo,
-                                            out_hi, move, valid_in)
+                                            out_hi, move, valid_exact)
             n_lost = n_lost + lost
             continue
 
@@ -479,7 +502,7 @@ def _u32_to_i32(v: torch.Tensor) -> torch.Tensor:
 
 def insert_cells(data: Dict[str, torch.Tensor], alive: torch.Tensor,
                  next_id: torch.Tensor, new_vals: Dict[str, torch.Tensor],
-                 valid: torch.Tensor):
+                 valid: torch.Tensor, device_id: Optional[int] = None):
     """Cell-aligned in-step creation (QED photon birth), the default
     ``select`` scheme of lambdapic_tpu/ops/cell2d.py::insert_cells, for 2D
     and 3D slots. A newborn sits at its parent's slot in the parent
@@ -491,7 +514,10 @@ def insert_cells(data: Dict[str, torch.Tensor], alive: torch.Tensor,
     data/alive: child species, (cap_c, *cells). new_vals/valid:
     (cap_src, *cells) newborn values at parent slots. Ids are sequential
     from ``next_id`` in (cell, slot) order, uint32 arithmetic carried in
-    the int32 id tensors; id_hi is 0 (the one device). Keys of ``data`` absent
+    the int32 id tensors; id_hi is ``device_id``, the shard's row-major
+    index on a mesh (0 on the one device, and when None): a newborn belongs
+    to the shard that made it, whatever id_hi the resident immigrants
+    carry. ``next_id`` is the shard's own counter. Keys of ``data`` absent
     from ``new_vals`` start at 0 (inv_gamma at 1). Returns (data, alive,
     next_id, n_lost)."""
     vi = valid.to(torch.int64)
@@ -520,6 +546,9 @@ def insert_cells(data: Dict[str, torch.Tensor], alive: torch.Tensor,
     def newborn_value(k, arr):
         if k == "id_lo":
             return ids
+        if k == "id_hi":
+            return torch.full(valid.shape, device_id or 0,
+                              dtype=arr.dtype, device=arr.device)
         if k in new_vals:
             return torch.where(valid, new_vals[k].to(arr.dtype), 0)
         if k == "inv_gamma":

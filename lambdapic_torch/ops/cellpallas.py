@@ -11,6 +11,11 @@ lambdapic_tpu/ops/cellpallas.py):
     B7  sort_cells           Batcher sort along slots     csrc/sortcells.cu
                              of any rank
 
+On a device mesh (K7) B6 reads the neighbour shards' edge columns in
+place of the wrap (``migrate_axis``'s ``edge``), and
+``migrate_cells_mesh`` drives the re-binning across the shards, axis by
+axis, with the exchanges in between.
+
 Each entry point launches its CUDA kernel on CUDA tensors and runs its
 plain PyTorch version on CPU tensors; there is no fallback from a kernel
 to its plain version on the card. Each kernel launch adds one to the
@@ -329,14 +334,17 @@ sort_cells.launches = 0
 
 def migrate_axis(alive: torch.Tensor, floats: Dict[str, torch.Tensor],
                  ints: Dict[str, torch.Tensor], *, axis: int, periodic: bool,
-                 coord: str, final: bool, recompute_ig: bool):
+                 coord: str, final: bool, recompute_ig: bool, edge=None):
     """Kernel B6: one axis of the fast re-binning of 2D or 3D slots.
     ``floats`` (the species' float type) and ``ints`` (int32) are the
     carried payloads by name, ``coord`` the axis's coordinate among them.
     On the ``final`` axis dead slots' x, y, z, w, ux, uy, uz become 0 and
     inv_gamma is recomputed from u (``recompute_ig``) or, carried, set to
-    1 in dead slots. Returns (alive, floats, ints, inv_gamma or None,
-    n_merged)."""
+    1 in dead slots. ``edge`` = (lo, hi): the neighbour shards' edge
+    columns along the axis (``cellslab.edge_columns``: ``alive`` as int32,
+    zero past an open face, and every carried payload, one cell wide along
+    the axis) in place of the wrap (K7). Returns (alive, floats, ints,
+    inv_gamma or None, n_merged)."""
     dev = alive.device
     shape = tuple(alive.shape)
     cap, cells = shape[0], shape[1:]
@@ -368,16 +376,33 @@ def migrate_axis(alive: torch.Tensor, floats: Dict[str, torch.Tensor],
     stride = 1
     for n in cells[axis + 1:]:
         stride *= n
+    eptrs = []
+    if edge is not None:
+        esh = list(shape)
+        esh[1 + axis] = 1
+        for side, e in zip(("lo", "hi"), edge):
+            kernel_lib.check(e["alive"], f"edge {side} alive", esh,
+                             torch.int32, dev)
+            for k in fnames:
+                kernel_lib.check(e[k], f"edge {side} {k}", esh, dtype, dev)
+            for k in inames:
+                kernel_lib.check(e[k], f"edge {side} {k}", esh, torch.int32,
+                                 dev)
+            eptrs += ([e["alive"]] + [e[k] for k in fnames] + fpad
+                      + [e[k] for k in inames] + ipad)
+    else:
+        eptrs = [None] * (2 * (1 + MIGRATE_MAX_FLOAT + MIGRATE_MAX_INT))
     kernel_lib.call(
         "migrate", "lp_migrate_axis",
         [alive, new_alive, n_merged, _ces_tensor(cap, dev), ig]
         + [floats[k] for k in fnames] + fpad + fout + fpad
-        + [ints[k] for k in inames] + ipad + iout + ipad + [keys],
+        + [ints[k] for k in inames] + ipad + iout + ipad + [keys] + eptrs,
         [cap, alive[0].numel(), cells[axis], stride, periodic, len(fnames),
          len(inames), index(coord), index("w"), mask(MERGED + ("w",)), final,
          mask(SANITIZED), index("ux"), index("uy"), index("uz"),
          recompute_ig, -1 if recompute_ig else index("inv_gamma"),
-         len(batcher_network(cap)), dtype == torch.float64, key_threads],
+         len(batcher_network(cap)), dtype == torch.float64, key_threads,
+         edge is not None],
         [], dev)
     migrate_axis.launches += 1
     return (new_alive, dict(zip(fnames, fout)), dict(zip(inames, iout)), ig,
@@ -388,18 +413,29 @@ migrate_axis.launches = 0
 
 
 def migrate_cells_fused(data: Dict[str, torch.Tensor], alive: torch.Tensor,
-                        plan, *, recompute_ig: bool = True):
+                        plan, *, recompute_ig: bool = True, edges=None,
+                        finish: bool = True):
     """The fast re-binning of ``cell2d.migrate_cells`` (same arguments and
-    results, Batcher order) of 2D or 3D slots through kernel B6, one
-    launch per axis. It carries every payload but the transient ones
-    (``cell2d.TRANSIENT``; inv_gamma too unless ``recompute_ig``), a QED
-    species' tau, delta and event included."""
+    results, Batcher order, the axes named by each plan entry's
+    coordinate) of 2D or 3D slots through kernel B6, one launch per axis.
+    It carries every payload but the transient ones (``cell2d.TRANSIENT``;
+    inv_gamma too unless ``recompute_ig``), a QED species' tau, delta and
+    event included. ``edges`` maps an axis to the (lo, hi) edge columns of
+    its neighbour shards (K7); ``finish=False`` leaves the dead slots to
+    the next axis's call and drops inv_gamma, as in ``migrate_cells``."""
     if not _on_card(alive, "migrate_cells_fused"):
-        return migrate_cells(data, alive, plan, recompute_ig=recompute_ig)
-    if alive.ndim != 1 + len(plan) or len(plan) not in (2, 3):
+        return migrate_cells(data, alive, plan, recompute_ig=recompute_ig,
+                             edges=edges, finish=finish)
+    nd = alive.ndim - 1
+    axes = ["xyz".index(p[2]) for p in plan]
+    if nd not in (2, 3) or not axes or \
+            axes != list(range(axes[0], axes[0] + len(axes))) or \
+            axes[-1] >= nd or (finish and axes[-1] != nd - 1):
         raise ValueError(f"migrate_cells_fused: slots of shape "
-                         f"{tuple(alive.shape)} and a plan of {len(plan)} "
-                         "axes: 2D or 3D slots, one plan entry per axis")
+                         f"{tuple(alive.shape)} and a plan of axes {axes}: "
+                         "2D or 3D slots, one entry per axis of a run of "
+                         "consecutive axes, which ends with the last axis "
+                         "when it finishes the re-binning")
     _check_limits("migrate")
     transient = set(TRANSIENT) if recompute_ig \
         else set(TRANSIENT) - {"inv_gamma"}
@@ -417,18 +453,77 @@ def migrate_cells_fused(data: Dict[str, torch.Tensor], alive: torch.Tensor,
         raise ValueError(f"migrate_cells_fused: payloads {names}: the kernel "
                          f"takes w and at most {MIGRATE_MAX_FLOAT} float and "
                          f"{MIGRATE_MAX_INT} int32 payloads")
+    edges = edges or {}
     n_lost = torch.zeros((), dtype=torch.int64, device=alive.device)
     ig = None
-    for axis, (nloc, periodic, coord) in enumerate(plan):
+    for i, (nloc, periodic, coord) in enumerate(plan):
+        axis = "xyz".index(coord)
         if nloc != alive.shape[1 + axis]:
             raise ValueError(f"migrate_cells_fused: plan axis {axis} has "
                              f"{nloc} cells, the slots {alive.shape[1 + axis]}")
         alive, floats, ints, ig, n_m = migrate_axis(
             alive, floats, ints, axis=axis, periodic=bool(periodic),
-            coord=coord, final=axis == len(plan) - 1,
-            recompute_ig=recompute_ig)
+            coord=coord, final=finish and i == len(plan) - 1,
+            recompute_ig=recompute_ig, edge=edges.get(axis))
         n_lost = n_lost + n_m
     out = {**data, **floats, **ints}
     if recompute_ig:
-        out["inv_gamma"] = ig
+        out.pop("inv_gamma", None)
+        if ig is not None:
+            out["inv_gamma"] = ig
     return out, alive, n_lost
+
+
+def migrate_fn(scheme: str):
+    """The per-shard re-binning of ``scheme``, with the arguments of
+    ``cell2d.migrate_cells``: "fused" (kernel B6 per axis,
+    ``migrate_cells_fused``), "sort" (the fast scheme sorting through
+    kernel B7, ``LAMBDAPIC_MIG_FUSED=0``) or "exact" (the lossless scheme,
+    plain torch as it is XLA in JAX)."""
+    if scheme == "fused":
+        return migrate_cells_fused
+    if scheme == "sort":
+        return functools.partial(migrate_cells, sort_fn=sort_cells)
+    if scheme == "exact":
+        return functools.partial(migrate_cells, exact=True)
+    raise ValueError(f"migrate_fn: scheme {scheme!r}")
+
+
+def migrate_cells_mesh(datas, alives, mesh, specs, *, recompute_ig: bool =
+                       True, scheme="fused"):
+    """The re-binning of one species on every shard of a device mesh
+    (lambdapic_tpu/ops/cell2d.py::migrate_cells and cellpallas.py::
+    migrate_cells_fused under shard_map), axis after axis: where the mesh
+    splits an axis, the neighbours' edge columns of the previous axis's
+    output come over (``cellslab.edge_columns``) and take the place of
+    the wrap; an axis the mesh does not split wraps within the shard.
+    ``scheme`` names the per-shard re-binning (``migrate_fn``; "fused" is
+    kernel B6 with the cross-device strips, K7, and its plain version on
+    CPU shards), or is such a function itself (``cell2d.migrate_cells``
+    is K7's plain version on any device). Returns per shard (data,
+    alive, n_lost)."""
+    from .cellslab import edge_columns
+    migrate = scheme if callable(scheme) else migrate_fn(scheme)
+    nd = len(specs)
+    transient = set(TRANSIENT) if recompute_ig \
+        else set(TRANSIENT) - {"inv_gamma"}
+    names = tuple(sorted(k for k in datas[0] if k not in transient))
+    cur = [dict(d) for d in datas]
+    cur_alive = list(alives)
+    lost = [torch.zeros((), dtype=torch.int64, device=a.device)
+            for a in alives]
+    for axis, spec in enumerate(specs):
+        coord = "xyz"[axis]
+        finish = axis == nd - 1
+        edges = None
+        if spec.size > 1:
+            edges = edge_columns(cur, cur_alive, names, axis, spec, mesh)
+        for i in range(mesh.size):
+            plan = ((cur_alive[i].shape[1 + axis], spec.periodic, coord),)
+            e = None if edges is None else {axis: edges[i]}
+            kw = dict(recompute_ig=recompute_ig, edges=e, finish=finish)
+            out = migrate(cur[i], cur_alive[i], plan, **kw)
+            cur[i], cur_alive[i] = out[0], out[1]
+            lost[i] = lost[i] + out[2]
+        del edges
+    return [(d, a, n) for d, a, n in zip(cur, cur_alive, lost)]

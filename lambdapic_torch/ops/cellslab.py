@@ -17,7 +17,8 @@ flags). They launch the CUDA kernels (``csrc/cellstep.cu``,
 CUDA tensors and run their plain versions (``cell_step_plain``,
 ``fold_reduce_plain``) on CPU tensors. Each kernel launch adds one to
 the wrapper's ``launches``; ``cell_step.launches_by_mode`` counts B2's
-launches per mode ("default", "want_chi", "photon").
+launches per mode the kernel ran ("default", "want_chi", "photon"; on a
+mesh, a radiating species' head dispatches run "default").
 
 B2's modes, in 2D and 3D: ``want_chi`` also returns chi and the
 pre-push inv_gamma for QED; ``photon`` is the field-free stage of a
@@ -32,7 +33,8 @@ of the re-binning axes, with or without the tail), ``cell_step_mesh``
 drives the dispatches over every shard with the edge exchanges between
 them, and ``fold_reduce`` with a mesh folds each shard's panels and adds
 the neighbours' guard strips; ``launches_by_dispatch`` and
-``fold_reduce.launches_by_kind`` count those launches.
+``fold_reduce.launches_by_kind`` count those launches. B2's ``want_chi``
+and ``photon`` modes run in those dispatches too (K6).
 
 Any per-cell capacity: the sorting kernels (B2, B6, B7) pack a 16-bit
 slot index under the re-binning key; above ``MAXC_LOCAL`` slots a cell
@@ -293,6 +295,10 @@ def cell_step_plain(eb_pad, data: Dict[str, torch.Tensor], alive, *,
         return push_pos(*(d[a] for a in axes), *(d[k] for k in moms), ig, *h)
     d = dict(data)
     edges = {}
+    if merge[0] != 0:
+        # a continuing dispatch reads no inv_gamma, as the kernel (a
+        # photon's is recomputed from u by its tail)
+        d.pop("inv_gamma", None)
     if merge[0] == 0:
         d.update(zip(axes, pushed(d, d["inv_gamma"])))
         if edges_lo is not None:
@@ -680,8 +686,7 @@ def cell_step(eb_pad, data: Dict[str, torch.Tensor], alive, *, q: float,
     whole = len(merge) == nd
     cell_step.launches_by_dispatch[
         "whole" if whole else ("tail" if tail else "head")] += 1
-    if tail:
-        cell_step.launches_by_mode[mode] += 1
+    cell_step.launches_by_mode[mode] += 1
     return outs
 
 
@@ -852,7 +857,8 @@ def edge_columns(datas: Sequence[Dict[str, torch.Tensor]],
 def cell_step_mesh(eb_pads, datas, alives, mesh, specs, *, q: float,
                    m: float, dt: float, dx: float, dy: float, g: int,
                    dz: Optional[float] = None, rims_in=None,
-                   with_rho: bool = True, step=None):
+                   with_rho: bool = True, want_chi: bool = False,
+                   photon: bool = False, step=None):
     """One species' particle stage on every shard of a device mesh (the
     counterpart of lambdapic_tpu/ops/cellslab.py::slab_species_step on a
     mesh): the x edge columns of the stored state from the x neighbours
@@ -862,9 +868,18 @@ def cell_step_mesh(eb_pads, datas, alives, mesh, specs, *, q: float,
     last dispatch runs the tail and deposits into the panels chained
     through ``rims_in`` (a list per shard, or None).
 
+    B2's modes on a mesh (K6, lambdapic_tpu/ops/cellslab.py:2015-2044):
+    with ``want_chi`` only the last dispatch computes chi and ig0, the
+    head dispatches carry a QED species' tau, delta and event through the
+    edge columns as every other payload; with ``photon`` every dispatch
+    runs the field-free mode, no ``eb_pads`` are read (they may be None),
+    ``rims_in`` is not chained and no panels are returned.
+
     ``step`` is ``cell_step`` (kernel B2 on CUDA shards, the plain version
     on CPU ones) or ``cell_step_plain``. Returns per shard (data, alive,
-    n_lost, rims)."""
+    n_lost, rims), with ``want_chi`` (data, alive, n_lost, rims, (chi,
+    ig0)), with ``photon`` rims None."""
+    _mode(want_chi, photon)
     step = step or cell_step
     nd = len(specs)
     periodic = tuple(sp.periodic for sp in specs)
@@ -882,7 +897,8 @@ def cell_step_mesh(eb_pads, datas, alives, mesh, specs, *, q: float,
             for a in alives]
     rims = [None] * n
     kw = dict(q=q, m=m, dt=dt, dx=dx, dy=dy, dz=dz, g=g, periodic=periodic,
-              with_rho=with_rho)
+              with_rho=with_rho, photon=photon)
+    qed = [None] * n
     for gi, grp in enumerate(groups):
         last = gi == len(groups) - 1
         yz = None
@@ -894,20 +910,24 @@ def cell_step_mesh(eb_pads, datas, alives, mesh, specs, *, q: float,
             if gi == 0 and x_edges is not None:
                 e_lo, e_hi = x_edges[i]
             outs = step(
-                eb_pads[i] if last else None, cur[i], cur_alive[i],
+                eb_pads[i] if last and not photon else None, cur[i],
+                cur_alive[i],
                 rims_in=(rims_in[i] if rims_in is not None and last
-                         else None),
+                         and not photon else None),
                 edges_lo=e_lo, edges_hi=e_hi, merge_axes=grp, tail=last,
                 yz_edges=None if yz is None else (grp[0],) + tuple(yz[i]),
-                **kw)
+                want_chi=want_chi and last, **kw)
             cur[i], cur_alive[i] = outs[0], outs[1]
             lost[i] = lost[i] + outs[2]
             if last:
                 rims[i] = outs[3]
+                if want_chi:
+                    qed[i] = outs[4]
         del yz
     out = []
     for i in range(n):
         d = dict(datas[i])
         d.update(cur[i])
-        out.append((d, cur_alive[i], lost[i], rims[i]))
+        o = (d, cur_alive[i], lost[i], rims[i])
+        out.append(o + (qed[i],) if want_chi else o)
     return out

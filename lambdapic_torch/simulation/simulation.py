@@ -273,20 +273,13 @@ class Simulation:
                 raise _todo(f"pusher {sp.pusher!r} (species {sp.name})", "9")
 
     def _check_mesh_supported(self):
-        """What runs on a device mesh: the cell engine's fast re-binning
-        without QED; the rest waits for ROADMAP item 15's next slices."""
+        """What runs on a device mesh: the cell engine, fused or per-stage
+        (``cell_migration="exact"``, inner-stage callbacks), with QED
+        photon emission; the tiled engine waits for ROADMAP item 15d
+        (Breit-Wheeler and spin, refused everywhere, for item 9)."""
         if self._tiled:
             raise _todo("tiling=(TX, TY) on a device mesh (the tiled "
-                        "engine's cross-device tile slabs)", "15")
-        if self.cell_migration == "exact":
-            raise _todo("cell_migration='exact' on a device mesh (the "
-                        "per-stage engine's cross-device columns)", "15")
-        for sp in self.species:
-            if isinstance(sp, Photon) or (isinstance(sp, Electron) and
-                                          sp.radiation == "photons"):
-                raise _todo(f"QED processes and photon species on a device "
-                            f"mesh (species {sp.name}: device-folded keys, "
-                            "per-shard next_id)", "15")
+                        "engine's cross-device tile slabs)", "15d")
 
     def _auto_patch(self, devices):
         """npatch 0: one patch per device of ``devices`` (default every
@@ -515,7 +508,10 @@ class Simulation:
         if self.mesh is not None:
             self._builder = MeshStepBuilder(
                 self.grid, self.mesh, self.cpml, self.dt,
-                self._species_static, lasers, with_rho=self._with_rho)
+                self._species_static, lasers, with_rho=self._with_rho,
+                qed_processes=self._qed_processes, base_key=self._base_key,
+                cell_migration=self.cell_migration)
+            self._builder.transients_valid.update(fresh)
             return
         self._builder = StepBuilder(
             self.grid, self.cpml, self.dt, self._species_static, lasers,
@@ -581,10 +577,6 @@ class Simulation:
             cbs.run("start")
             sc = self._scalars(lasers)
             split = any(cbs.due(st) for _, st in INNER_SUBSTAGES if st)
-            if split and self.mesh is not None:
-                raise _todo("callbacks at inner stages on a device mesh "
-                            "(the split step's per-stage engine: B6's "
-                            "cross-device columns, B5 + halo_reduce)", "15")
             if not (split or cbs.due("maxwell_1")
                     or cbs.due("current_deposition")
                     or cbs.due("qed_create_particles")):

@@ -63,12 +63,12 @@ from ..constants import c as c_light
 from ..core.grid import Grid
 from ..core.state import ParticlesState, SimulationState
 from ..models.qed import species_key
-from ..ops.cell2d import gather_cell_2d, insert_cells, migrate_cells
+from ..ops.cell2d import gather_cell_2d, insert_cells
 from ..ops.cell3d import gather_cell_3d
 from ..ops.cellpallas import (deposit_cell_2d_k, deposit_cell_3d_k,
                               fused_push_cell_2d, fused_push_cell_3d,
-                              migrate_cells_fused, sort_cells)
-from ..ops.cellslab import cell_step, fold_reduce
+                              migrate_cells_mesh, migrate_fn)
+from ..ops.cellslab import cell_step, cell_step_mesh, fold_reduce
 from ..ops.cpml import CPMLCoeffs
 from ..ops.fieldskernel import half_coeffs, update_bfield_k, update_efield_k
 from ..ops.pusher import (boris_push, photon_push, push_position_2d,
@@ -153,8 +153,9 @@ class StepBuilder:
         f = self._half(f, "b")
         return state.replace(fields=f)
 
-    def _species_key(self, scalars: Dict, ispec: int) -> torch.Tensor:
-        return species_key(self.base_key, scalars["itime"], ispec)
+    def _species_key(self, scalars: Dict, ispec: int,
+                     didx: int = 0) -> torch.Tensor:
+        return species_key(self.base_key, scalars["itime"], ispec, didx)
 
     def _procs(self, ispec: int):
         return [pr for pr in self.qed_processes if pr.ispec == ispec]
@@ -268,19 +269,44 @@ class StepBuilder:
             f = f.replace(**_current(self.reduce_j(jpad, f.ex)))
         return state.replace(fields=f, particles=tuple(parts))
 
+    def migrate_scheme(self) -> str:
+        """The per-stage engine's re-binning (``cellpallas.migrate_fn``):
+        "exact", "fused" (kernel B6 per axis) or, with
+        LAMBDAPIC_MIG_FUSED=0, "sort" (the fast scheme sorting through
+        kernel B7)."""
+        if self.cell_migration == "exact":
+            return "exact"
+        return "fused" if os.environ.get("LAMBDAPIC_MIG_FUSED", "1") != "0" \
+            else "sort"
+
+    def half_push(self, data: Dict[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+        """The first half push of the positions at the stored inv_gamma
+        (sub-stage "p1" before its re-binning); a new dict."""
+        grid = self.grid
+        moms = ("ux", "uy", "uz")[:grid.dimension]
+        h = [c_light * self.dt / d / 2 for d in grid.deltas]
+        push_pos = push_position_3d if grid.dimension == 3 \
+            else push_position_2d
+        pos = push_pos(*(data[a] for a in grid.axes),
+                       *(data[k] for k in moms), data["inv_gamma"], *h)
+        return {**data, **dict(zip(grid.axes, pos))}
+
     def species_stages(self, ispec: int, p: ParticlesState,
                        eb_pad: Optional[torch.Tensor], scalars: Dict,
-                       stages: FrozenSet[str]):
+                       stages: FrozenSet[str], didx: int = 0,
+                       rebinned: bool = False):
         """The per-stage engine for one 2D or 3D species (the non-slab
         cell branch of lambdapic_tpu/simulation/step.py::
-        make_species_block), restricted to the sub-stages ``stages``.
-        Returns (particles, the padded (4, nx+2g, ny+2g[, nz+2g]) current
-        or None)."""
+        make_species_block), restricted to the sub-stages ``stages``; the
+        QED draws of the shard of row-major index ``didx``. ``rebinned``:
+        "p1" has run already (a mesh runs it across its shards). Returns
+        (particles, the padded (4, nx+2g, ny+2g[, nz+2g]) current or
+        None)."""
         grid = self.grid
         nd = grid.dimension
         three_d = nd == 3
         axes = grid.axes
-        moms = ("ux", "uy", "uz")[:nd]
         sp = self.species[ispec]
         dt, g = self.dt, grid.n_guard
         h = [c_light * dt / d / 2 for d in grid.deltas]
@@ -290,22 +316,11 @@ class StepBuilder:
         split = stages != ALL_SUBSTAGES
         data, alive = dict(p.data), p.alive
         lost = 0
-        if "p1" in stages:
-            pos = push_pos(*(data[a] for a in axes),
-                           *(data[k] for k in moms), data["inv_gamma"], *h)
-            data.update(zip(axes, pos))
+        if "p1" in stages and not rebinned:
             plan = tuple(zip(grid.shape, self.periodic, axes))
-            if self.cell_migration == "exact":
-                data, alive, lost = migrate_cells(
-                    data, alive, plan, recompute_ig=not photon, exact=True)
-            elif os.environ.get("LAMBDAPIC_MIG_FUSED", "1") != "0":
-                data, alive, lost = migrate_cells_fused(
-                    data, alive, plan, recompute_ig=not photon)
-            else:
-                data, alive, lost = migrate_cells(
-                    data, alive, plan, recompute_ig=not photon,
-                    sort_fn=sort_cells)
-        key = self._species_key(scalars, ispec) if procs else None
+            data, alive, lost = migrate_fn(self.migrate_scheme())(
+                self.half_push(data), alive, plan, recompute_ig=not photon)
+        key = self._species_key(scalars, ispec, didx) if procs else None
         pos = tuple(data[a] for a in axes)
         if not split and not photon:
             # gather + Boris + half push in kernel B4; a radiating species
@@ -443,19 +458,23 @@ class StepBuilder:
         return p.replace(data=data, alive=alive,
                          overflow=p.overflow + lost), jpad
 
-    def qed_creation(self, proc, parts):
+    def qed_creation(self, proc, parts, device_id: Optional[int] = None):
         """Photon birth of one Compton process: each event of the parent
         species adds a photon (the parent's position and weight, momentum
         delta * u) to a dead photon slot of the parent's cell (or tile,
         under tiling), and the parent recoils. Newborns without a free
-        slot are counted in the photons' overflow."""
+        slot are counted in the photons' overflow. On a mesh ``device_id``
+        is the shard's row-major index, the newborns' id_hi."""
         parts = list(parts)
         e, ph = parts[proc.ispec], parts[proc.photon_ispec]
         ev = e.alive & (e.data["event"] > 0)
         new = proc.photon_newborns(e.data, self.grid.dimension)
-        insert = insert_tiled if self.tile_cfg is not None else insert_cells
-        phdata, phalive, phnext, lost = insert(
-            ph.data, ph.alive, ph.next_id, new, ev)
+        if self.tile_cfg is not None:
+            phdata, phalive, phnext, lost = insert_tiled(
+                ph.data, ph.alive, ph.next_id, new, ev)
+        else:
+            phdata, phalive, phnext, lost = insert_cells(
+                ph.data, ph.alive, ph.next_id, new, ev, device_id=device_id)
         parts[proc.ispec] = e.replace(data=proc.apply_recoil(e.data, ev))
         parts[proc.photon_ispec] = ph.replace(
             data=phdata, alive=phalive, next_id=phnext,
@@ -504,18 +523,38 @@ class MeshStepBuilder:
                        mesh; per species ``cellslab.cell_step_mesh``
                        (kernel B2 per shard and dispatch, the edge columns
                        exchanged in between), panels chained across
-                       species per shard; one fold of the summed panels
-                       with the strip exchange (kernel B3's mesh form)
+                       species per shard:
+                         a radiating species: B2 want_chi on the last
+                           dispatch, then its QED events per shard with
+                           the shard's key (K6)
+                         a photon species: B2 photon on every dispatch
+                       QED creation per shard (the newborns' id_hi the
+                         shard's index, next_id the shard's own)
+                       one fold of the summed panels with the strip
+                       exchange (kernel B3's mesh form)
         seg_fields_2   B += dt/2 ; lasers (on the shards at the xmin
                        face) ; E += dt/2
 
+    The per-stage engine on a mesh (``cell_migration="exact"`` every
+    step, and the split step's ``seg_particles_sub`` when a host callback
+    at an inner stage is due): per species the half push and the
+    re-binning across the shards (``cellpallas.migrate_cells_mesh``: the
+    exact scheme with the neighbours' donors, or kernel B6 with the
+    cross-device strips, K7), then the one-device sub-stages per shard
+    (``StepBuilder.species_stages``: kernel B4, or the gather, QED, Boris
+    and half push; kernel B5 into the shard's padded current), QED
+    creation per shard, and the species-summed padded currents folded
+    across the mesh by ``halo_reduce``.
+
     ``n_lost`` adds to each shard's overflow counter; the accessors sum
-    them (psum). Only the fast re-binning without QED runs on a mesh;
-    Simulation refuses the rest (ROADMAP item 15)."""
+    them (psum)."""
 
     def __init__(self, grid: Grid, mesh, cpml: Optional[CPMLCoeffs],
                  dt: float, species: Sequence[SpeciesStatic],
-                 lasers: Sequence = (), with_rho: bool = True):
+                 lasers: Sequence = (), with_rho: bool = True,
+                 qed_processes: Sequence = (),
+                 base_key: Optional[torch.Tensor] = None,
+                 cell_migration: str = "fast"):
         from ..ops.cpml import shard_cpml
         from ..parallel.halo import halo_specs
         self.grid = grid
@@ -524,10 +563,18 @@ class MeshStepBuilder:
         self.species = tuple(species)
         self.lasers = tuple(lasers)
         self.with_rho = with_rho
+        self.cell_migration = cell_migration
         self.specs = halo_specs(grid)
         self.spatial_axes = tuple(range(1, grid.dimension + 1))
         self.cpmls = [shard_cpml(cpml, grid, mesh.coords(i))
                       for i in range(mesh.size)]
+        # the one-device stage of a shard: its sub-stages after the
+        # re-binning, its QED events and creation (no fields, no B1)
+        self.local = StepBuilder(grid, None, dt, species, with_rho=with_rho,
+                                 qed_processes=qed_processes,
+                                 base_key=base_key,
+                                 cell_migration=cell_migration)
+        self.qed_processes = self.local.qed_processes
         self.transients_valid: Dict[int, bool] = {}
 
     # -- fields ------------------------------------------------------------
@@ -590,7 +637,8 @@ class MeshStepBuilder:
                         self.mesh)
 
     def seg_particles(self, state, scalars: Dict):
-        from ..ops.cellslab import cell_step_mesh
+        if self.cell_migration == "exact":
+            return self.seg_particles_sub(state, scalars, ALL_SUBSTAGES)
         grid = self.grid
         shards = state.shards
         fs = [s.fields for s in shards]
@@ -600,19 +648,32 @@ class MeshStepBuilder:
         parts = [list(s.particles) for s in shards]
         for ispec, sp in enumerate(self.species):
             self.transients_valid[ispec] = False
+            procs = self.local._procs(ispec)
+            photon = sp.pusher == "photon"
             outs = cell_step_mesh(
-                eb_pads, [s.particles[ispec].data for s in shards],
+                None if photon else eb_pads,
+                [s.particles[ispec].data for s in shards],
                 [s.particles[ispec].alive for s in shards], self.mesh,
                 self.specs, q=sp.q, m=sp.m, dt=self.dt, dx=grid.dx,
-                dy=grid.dy, dz=dz, g=grid.n_guard, rims_in=rims,
-                with_rho=self.with_rho)
-            for i, (data, alive, n_lost, r) in enumerate(outs):
+                dy=grid.dy, dz=dz, g=grid.n_guard,
+                rims_in=None if photon else rims, with_rho=self.with_rho,
+                want_chi=bool(procs), photon=photon)
+            for i, o in enumerate(outs):
+                data, alive, n_lost = o[:3]
+                if procs:
+                    chi, ig0 = o[4]
+                    key = self.local._species_key(scalars, ispec, i)
+                    for proc in procs:
+                        data, alive = proc.update_events_from_chi(
+                            data, alive, key, self.dt, chi, ig0)
                 p = parts[i][ispec]
                 parts[i][ispec] = p.replace(data=data, alive=alive,
                                             overflow=p.overflow + n_lost)
-            rims = [o[3] for o in outs]
+            if not photon:
+                rims = [o[3] for o in outs]
             del outs
         del eb_pads
+        self._create(parts)
         if rims is not None:
             js = fold_reduce(rims, grid.local_shape, None, self.mesh,
                              self.specs)
@@ -620,6 +681,74 @@ class MeshStepBuilder:
         return state.replace(shards=tuple(
             s.replace(fields=f, particles=tuple(p))
             for s, f, p in zip(shards, fs, parts)))
+
+    def _create(self, parts) -> None:
+        """QED creation on every shard (``parts``: a list of species per
+        shard, replaced in place), after every species has deposited."""
+        for i in range(self.mesh.size):
+            for proc in self.qed_processes:
+                parts[i] = self.local.qed_creation(proc, parts[i],
+                                                   device_id=i)
+
+    def seg_particles_sub(self, state, scalars: Dict,
+                          stages: FrozenSet[str]):
+        """The sub-stages ``stages`` of the per-stage engine over every
+        species and shard (the whole stage of ``cell_migration="exact"``,
+        or one sub-segment of the split step); the deposit sub-stage also
+        runs the QED creation and sets J and rho."""
+        shards = state.shards
+        fs = [s.fields for s in shards]
+        eb_pads = self.pad_eb(fs) if "interp" in stages else None
+        n = self.mesh.size
+        jpads = [None] * n
+        parts = [list(s.particles) for s in shards]
+        for ispec in range(len(self.species)):
+            ps = [pp[ispec] for pp in parts]
+            if "p1" in stages:
+                ps = self._push_rebin(ispec, ps)
+            if stages != {"p1"}:
+                for i in range(n):
+                    ps[i], jp = self.local.species_stages(
+                        ispec, ps[i], None if eb_pads is None else eb_pads[i],
+                        scalars, stages, didx=i, rebinned=True)
+                    jpads[i] = _add(jpads[i], jp)
+            for i in range(n):
+                parts[i][ispec] = ps[i]
+            self.transients_valid[ispec] = stages != ALL_SUBSTAGES or \
+                bool(self.local._procs(ispec))
+        del eb_pads
+        if "deposit" in stages:
+            self._create(parts)
+            js = self.reduce_j(jpads, fs)
+            fs = [f.replace(**_current(j)) for f, j in zip(fs, js)]
+        return state.replace(shards=tuple(
+            s.replace(fields=f, particles=tuple(p))
+            for s, f, p in zip(shards, fs, parts)))
+
+    def _push_rebin(self, ispec: int, ps):
+        """Sub-stage "p1" on every shard: StepBuilder.half_push, then the
+        re-binning of StepBuilder.migrate_scheme across the shards."""
+        outs = migrate_cells_mesh(
+            [self.local.half_push(p.data) for p in ps],
+            [p.alive for p in ps], self.mesh, self.specs,
+            recompute_ig=self.species[ispec].pusher != "photon",
+            scheme=self.local.migrate_scheme())
+        return [p.replace(data=d, alive=a, overflow=p.overflow + n)
+                for p, (d, a, n) in zip(ps, outs)]
+
+    def reduce_j(self, jpads, fs):
+        """Per shard the interior current of the species-summed padded
+        currents (4, nloc+2g, ...) of the per-stage engine, the guard rims
+        folded onto the neighbour shards by ``halo_reduce`` (zeros where no
+        species deposited, as on one device)."""
+        g = self.grid.n_guard
+        shape = (4,) + tuple(n + 2 * g for n in self.grid.local_shape)
+        jpads = [torch.zeros(shape, dtype=f.ex.dtype, device=f.ex.device)
+                 if j is None else j for j, f in zip(jpads, fs)]
+        # halo_reduce leaves views; kernel-free fields take them, but keep
+        # the shards' J contiguous as on one device
+        return [j.contiguous() for j in halo_reduce(
+            jpads, g, self.spatial_axes, self.specs, self.mesh)]
 
     def full_step(self, state, scalars: Dict, migrate: bool = True):
         if not migrate:

@@ -4,7 +4,8 @@
 Inputs are made with numpy from a seed, so the same arrays can be handed
 to the JAX package, to a plain version and to its kernel. Slot order
 within a cell carries no physics; comparisons first sort each cell's
-slots by (dead, id_lo).
+slots by (dead, id_hi, id_lo): on a mesh a shard's newborns number from
+its own counter, so id_lo repeats across shards with another id_hi.
 """
 from __future__ import annotations
 
@@ -217,11 +218,13 @@ def to_numpy(data: Dict[str, torch.Tensor], alive: torch.Tensor):
 
 
 def canon_slots(d: Dict[str, np.ndarray], alive: np.ndarray):
-    """Reorder each cell's slot column by (dead, id_lo)."""
+    """Reorder each cell's slot column by (dead, id_hi, id_lo) (id_hi 0
+    where ``d`` has none)."""
     alive = np.asarray(alive)
-    key = (~alive).astype(np.int64) * (1 << 40) \
-        + np.asarray(d["id_lo"]).astype(np.int64)
-    order = np.argsort(key, axis=0, kind="stable")
+    lo = np.asarray(d["id_lo"]).astype(np.int64)
+    hi = np.asarray(d["id_hi"]).astype(np.int64) if "id_hi" in d \
+        else np.zeros_like(lo)
+    order = np.lexsort((lo, hi, (~alive).astype(np.int64)), axis=0)
     out = {k: np.take_along_axis(np.asarray(v), order, axis=0)
            for k, v in d.items()}
     return out, np.take_along_axis(alive, order, axis=0)
@@ -248,16 +251,16 @@ def compare_slots(ref, ref_alive, got, got_alive, *, rtol: float,
 
 
 def crowded_cell_state(cap: int, nx: int, ny: int, nz: Optional[int] = None,
-                       *, seed: int = 0, n_frac: float = 1.0):
+                       *, seed: int = 0, n_frac: float = 1.0, **kw):
     """A 2D (or with ``nz`` 3D) cell state whose re-binning along x
     overfills cells: in columns ix = 3k + 1 the particles sit below -0.5
     of their cell (they move to 3k), in columns 3k + 2 at or above +0.5
     (they move to 3k + 3), and in columns 3k they stay, so a column 3k can
     receive 3 cap particles. Along y (and z) about a fifth of the
-    particles cross a cell face. Returns (data, alive, eb_pad) as
-    ``random_cell_state``."""
+    particles cross a cell face. ``kw`` goes to ``random_cell_state``.
+    Returns (data, alive, eb_pad) as ``random_cell_state``."""
     data, alive, eb_pad = random_cell_state(cap, nx, ny, nz, n_frac=n_frac,
-                                            seed=seed)
+                                            seed=seed, **kw)
     rng = np.random.default_rng(seed + 1)
     shape = alive.shape
 
@@ -283,10 +286,13 @@ def crowded_cell_state(cap: int, nx: int, ny: int, nz: Optional[int] = None,
 
 
 def random_mesh_cells(mesh_shape, cap: int, nloc, *, seed: int = 0,
-                      crowded: bool = False, n_frac: float = 0.4):
+                      crowded: bool = False, n_frac: float = 0.4,
+                      qed: bool = False, **kw):
     """Cell states of every shard of a mesh of ``mesh_shape`` shards of
-    ``nloc`` cells (``random_cell_state``, or with ``crowded``
-    ``crowded_cell_state``: merges), in the JAX package's layout of
+    ``nloc`` cells (``random_cell_state`` with ``kw``, or with ``crowded``
+    ``crowded_cell_state``: merges; with ``qed`` also a radiating
+    species' tau, delta and event, ``add_qed_payloads``), in the JAX
+    package's layout of
     per-device arrays (leading mesh axes): (data, alive, eb_pad), one
     random padded E/B stack per shard. id_lo is unique over the mesh and
     id_hi the shard's flat index, as the fill numbers them. Positions are
@@ -296,10 +302,12 @@ def random_mesh_cells(mesh_shape, cap: int, nloc, *, seed: int = 0,
         nz = nloc[2] if len(nloc) == 3 else None
         if crowded:
             d, a, eb = crowded_cell_state(cap, nloc[0], nloc[1], nz,
-                                          seed=seed + i, n_frac=n_frac)
+                                          seed=seed + i, n_frac=n_frac, **kw)
         else:
             d, a, eb = random_cell_state(cap, nloc[0], nloc[1], nz,
-                                         seed=seed + i, n_frac=n_frac)
+                                         seed=seed + i, n_frac=n_frac, **kw)
+        if qed:
+            d = add_qed_payloads(d, seed + 100 + i)
         size = a.size
         d["id_lo"] = (d["id_lo"].astype(np.int64) + i * size).astype(np.uint32)
         d["id_hi"] = np.full(a.shape, i, np.uint32)
@@ -350,11 +358,11 @@ def compare_mesh_slots(ref, ref_alive, got, got_alive, mesh_shape, *,
         peak = float(np.abs(np.asarray(ref[k])[ra]).max()) if ra.any() else 0
         for c in np.ndindex(tuple(mesh_shape)):
             r, rm = canon_slots({k: np.asarray(ref[k])[c],
-                                 "id_lo": np.asarray(ref["id_lo"])[c]},
-                                ra[c])
+                                 **{i: np.asarray(ref[i])[c]
+                                    for i in ID_KEYS}}, ra[c])
             g, gm = canon_slots({k: np.asarray(got[k])[c],
-                                 "id_lo": np.asarray(got["id_lo"])[c]},
-                                ga[c])
+                                 **{i: np.asarray(got[i])[c]
+                                    for i in ID_KEYS}}, ga[c])
             np.testing.assert_allclose(g[k][gm], r[k][rm], rtol=rtol,
                                        atol=max(floor * peak, 1e-300),
                                        err_msg=f"{k} shard {c}")

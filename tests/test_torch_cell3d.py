@@ -32,6 +32,7 @@ except ImportError:
         return _shard_map(f, mesh=mesh, in_specs=in_specs,
                           out_specs=out_specs, check_rep=False)
 
+from test_torch_cellstep import batcher_sort_jnp as _batcher_sort_jnp
 from lambdapic_torch.ops import cell3d as t_cell3d
 from lambdapic_torch.ops.cell2d import batcher_network
 from lambdapic_torch.ops.cellslab import (cell_step, cell_step_plain,
@@ -40,28 +41,27 @@ from lambdapic_torch.ops.cellslab import (cell_step, cell_step_plain,
 from lambdapic_torch.parallel.halo import halo_reduce
 from lambdapic_torch.testing import compare_slots, random_cell_state, \
     to_numpy, to_torch
+from lambdapic_torch.testing import torch_threads
 
 Q, M, DT = -1.602e-19, 9.109e-31, 1.1e-16
 DX, DY, DZ = 5e-8, 6e-8, 5.5e-8      # c dt / d ~ 0.66, 0.55, 0.6
 G = 3
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch thread: beside the other test processes a full pool
+    waits on their threads (lambdapic_torch.testing.torch_threads)."""
+    with torch_threads(1):
+        yield
+
+
 def batcher_sort_jnp(key, payloads):
     """Sort (key, *payloads) along the slot axis with the TPU kernel's
-    compare-exchange list, swapping on a strict ka > kb."""
-    cap = key.shape[0]
-    rows_k = [key[a] for a in range(cap)]
-    rows_v = [[p[a] for a in range(cap)] for p in payloads]
-    for a, b in batcher_network(cap):
-        ka, kb = rows_k[a], rows_k[b]
-        swap = ka > kb
-        rows_k[a] = jnp.where(swap, kb, ka)
-        rows_k[b] = jnp.where(swap, ka, kb)
-        for v in rows_v:
-            va, vb = v[a], v[b]
-            v[a] = jnp.where(swap, vb, va)
-            v[b] = jnp.where(swap, va, vb)
-    return jnp.stack(rows_k), [jnp.stack(v) for v in rows_v]
+    compare-exchange list, swapping on a strict ka > kb (a stage of
+    disjoint exchanges at a time, test_torch_cellstep.batcher_sort_jnp)."""
+    return _batcher_sort_jnp(key, payloads,
+                             ces=batcher_network(key.shape[0]))
 
 
 def test_batcher_list_is_the_tpu_kernels():

@@ -31,8 +31,17 @@ from lambdapic_torch.ops import cell2d as t_cell2d
 from lambdapic_torch.ops import cellpallas as t_cp
 from lambdapic_torch.testing import (compare_slots, crowded_cell_state,
                                      random_cell_state, to_numpy, to_torch)
+from lambdapic_torch.testing import torch_threads
 
 EB = ("ex_part", "ey_part", "ez_part", "bx_part", "by_part", "bz_part")
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch thread: beside the other test processes a full pool
+    waits on their threads (lambdapic_torch.testing.torch_threads)."""
+    with torch_threads(1):
+        yield
 
 
 def _ids(data):

@@ -27,10 +27,19 @@ from lambdapic_torch.ops.cellslab import (cell_step, cell_step_plain,
                                           extra_payloads, fold_reduce_plain)
 from lambdapic_torch.testing import QED_PAYLOADS, add_qed_payloads, \
     compare_slots, photon_cell_state, random_cell_state, to_numpy, to_torch
+from lambdapic_torch.testing import torch_threads
 
 Q, M, DT = -1.602e-19, 9.109e-31, 1.1e-16
 DX, DY, DZ = 5e-8, 6e-8, 5.5e-8      # c dt / d ~ 0.66, 0.55, 0.6
 G = 3
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch thread: beside the other test processes a full pool
+    waits on their threads (lambdapic_torch.testing.torch_threads)."""
+    with torch_threads(1):
+        yield
 
 
 def qed_state(cap, nx, ny, nz, n_frac, seed):

@@ -36,10 +36,19 @@ from lambdapic_torch.ops.cellslab import (cell_step, cell_step_plain,
                                           fold_reduce, fold_reduce_plain)
 from lambdapic_torch.testing import compare_slots, random_cell_state, \
     sparse_cell_state, to_numpy, to_torch
+from lambdapic_torch.testing import torch_threads
 
 Q, M, DT = -1.602e-19, 9.109e-31, 1.1e-16
 DX = 5e-8          # c dt / dx ~ 0.66
 G = 3
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch thread: beside the other test processes a full pool
+    waits on their threads (lambdapic_torch.testing.torch_threads)."""
+    with torch_threads(1):
+        yield
 
 
 def batcher_network(n: int, cap: int):
@@ -61,25 +70,56 @@ def batcher_network(n: int, cap: int):
     return ces
 
 
-def batcher_sort_jnp(key, payloads):
-    """Sort (key, *payloads) along the slot axis with the Batcher list,
-    swapping on a strict ka > kb."""
+def batcher_stages(ces, cap):
+    """The compare-exchange list cut into stages of consecutive exchanges
+    on disjoint slots, as numpy arrays over the cap slots: each slot's
+    partner in the stage (itself if it has none) and whether it is the
+    lower slot of its pair. Exchanges on disjoint slots commute, so a
+    stage run at once is the list run in order."""
+    stages, cur, used = [], [], set()
+    for a, b in ces:
+        if a in used or b in used:
+            stages.append(cur)
+            cur, used = [], set()
+        cur.append((a, b))
+        used.update((a, b))
+    if cur:
+        stages.append(cur)
+    out = []
+    for st in stages:
+        partner = np.arange(cap)
+        low = np.zeros(cap, bool)
+        for a, b in st:
+            partner[a], partner[b], low[a] = b, a, True
+        out.append((partner, low))
+    return out
+
+
+def batcher_sort_jnp(key, payloads, ces=None):
+    """Sort (key, *payloads) along the slot axis with the Batcher list
+    (``ces``, by default this file's ``batcher_network``), swapping on a
+    strict ka > kb. The exchange decisions depend on the keys alone, so
+    the network runs on (key, slot index), a stage of disjoint exchanges
+    at a time (each slot reads its partner's key and takes it where the
+    pair swaps), and the payloads are permuted once at the end: bitwise
+    the same as carrying them through every exchange, in a few ops a
+    stage instead of a few a payload and exchange."""
     cap = key.shape[0]
-    n2 = 1
-    while n2 < cap:
-        n2 *= 2
-    rows_k = [key[a] for a in range(cap)]
-    rows_v = [[p[a] for a in range(cap)] for p in payloads]
-    for a, b in batcher_network(n2, cap):
-        ka, kb = rows_k[a], rows_k[b]
-        swap = ka > kb
-        rows_k[a] = jnp.where(swap, kb, ka)
-        rows_k[b] = jnp.where(swap, ka, kb)
-        for v in rows_v:
-            va, vb = v[a], v[b]
-            v[a] = jnp.where(swap, vb, va)
-            v[b] = jnp.where(swap, va, vb)
-    return jnp.stack(rows_k), [jnp.stack(v) for v in rows_v]
+    if ces is None:
+        n2 = 1
+        while n2 < cap:
+            n2 *= 2
+        ces = batcher_network(n2, cap)
+    bshape = (cap,) + (1,) * (key.ndim - 1)
+    idx = jnp.broadcast_to(jnp.arange(cap, dtype=jnp.int32).reshape(bshape),
+                           key.shape)
+    for partner, low in batcher_stages(ces, cap):
+        kp, ip = key[partner], idx[partner]
+        lo = jnp.asarray(low.reshape(bshape))
+        swap = jnp.where(lo, key > kp, kp > key)
+        key = jnp.where(swap, kp, key)
+        idx = jnp.where(swap, ip, idx)
+    return key, [jnp.take_along_axis(p, idx, axis=0) for p in payloads]
 
 
 @pytest.mark.parametrize("cap", [4, 6, 20, 33])

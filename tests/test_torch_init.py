@@ -221,13 +221,13 @@ def test_config_validation_and_unported_options():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Simulation(tiling=None, **kw).initialize()
     # a device mesh runs since the mesh slice; one larger than its device
-    # list raises, and the exact re-binning on a mesh names its item
+    # list raises, and the tiled engine on a mesh names its item
     with pytest.raises(ValueError, match="need 2 devices"):
         Simulation(tiling="cell", npatch_x=2, npatch_y=1, **kw).initialize()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 15"):
-        Simulation(tiling="cell", npatch_x=2, npatch_y=1,
-                   cell_migration="exact", **kw).initialize(
-                       devices=[torch.device("cpu")] * 2)
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP queue 1, item 15d"):
+        Simulation(tiling=(8, 8), npatch_x=2, npatch_y=1,
+                   **kw).initialize(devices=[torch.device("cpu")] * 2)
     with pytest.raises(ValueError):
         t_species.Species(name="x", charge=1.5, mass=1.0)
     with pytest.raises(ValueError):

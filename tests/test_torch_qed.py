@@ -18,8 +18,17 @@ from lambdapic_torch import random as jr
 from lambdapic_torch.core.state import ids_to_numpy, ids_to_torch
 from lambdapic_torch.models import qed as tq
 from lambdapic_torch.ops.cell2d import insert_cells
+from lambdapic_torch.testing import torch_threads
 
 RTOL = 1e-12
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch thread: beside the other test processes a full pool
+    waits on their threads (lambdapic_torch.testing.torch_threads)."""
+    with torch_threads(1):
+        yield
 
 
 @pytest.fixture(scope="module")

@@ -19,10 +19,19 @@ import lambdapic_tpu.core.species as j_species
 import lambdapic_torch.core.species as t_species
 from lambdapic_torch.core.state import state_to_numpy
 from test_torch_step_tiled import assert_states_match
+from lambdapic_torch.testing import torch_threads
 
 NSTEPS = 10
 N = 200
 GAMMA = 2000.0
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch thread: beside the other test processes a full pool
+    waits on their threads (lambdapic_torch.testing.torch_threads)."""
+    with torch_threads(1):
+        yield
 
 
 @pytest.fixture(autouse=True)

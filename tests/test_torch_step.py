@@ -18,11 +18,19 @@ import torch
 import lambdapic_tpu.core.species as j_species
 import lambdapic_torch.core.species as t_species
 from lambdapic_torch.core.state import state_to_numpy
-from lambdapic_torch.testing import compare_slots
+from lambdapic_torch.testing import compare_slots, torch_threads
 
 UM = 1e-6
 NSTEPS = 5
 FIELDS = ("ex", "ey", "ez", "bx", "by", "bz", "jx", "jy", "jz")
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch thread: beside the other test processes a full pool
+    waits on their threads (lambdapic_torch.testing.torch_threads)."""
+    with torch_threads(1):
+        yield
 
 
 @pytest.fixture(autouse=True)

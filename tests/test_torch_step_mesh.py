@@ -184,48 +184,34 @@ def test_mesh_run_equals_one_device_run():
                                        atol=1e-12, err_msg=k)
 
 
-@pytest.mark.parametrize("case", ["exact", "split", "qed", "tiled",
-                                  "devices"])
+@pytest.mark.parametrize("case", ["tiled", "devices", "breit_wheeler"])
 def test_mesh_refusals(case):
-    """On a mesh the port runs the cell engine's fast re-binning without
-    QED; the exact re-binning, inner-stage callbacks, QED and the tiled
-    engine raise naming ROADMAP item 15, and a mesh larger than its
-    device list raises."""
+    """On a mesh the port runs the cell engine, fused or per-stage, with
+    QED photon emission; the tiled engine raises naming ROADMAP item 15d,
+    Breit-Wheeler pairs item 9 (refused on every device count), and a
+    mesh larger than its device list raises."""
     import lambdapic_torch
-    from lambdapic_torch import callback
     from lambdapic_torch.testing import tiny_laser_target
     kw = dict(device="cpu", npatch_x=2, npatch_y=2)
     devices = [CPU] * 4
-    item15 = pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1, item 15")
-    if case == "exact":
-        sim, _ = tiny_laser_target(lambdapic_torch, cell_migration="exact",
-                                   **kw)
-        with item15:
-            sim.initialize(devices=devices)
-    elif case == "split":
-        sim, laser = tiny_laser_target(lambdapic_torch, **kw)
-        sim.initialize(devices=devices)
-        hook = callback(stage="_push_momentum")(lambda s: None)
-        with item15:
-            sim.run(1, callbacks=[laser, hook])
-    elif case == "qed":
-        ele = lambdapic_torch.Electron(radiation="photons",
-                                       density=lambda x, y: 1e26 + 0 * x,
-                                       ppc=1)
-        pho = lambdapic_torch.Photon(capacity=256)
-        ele.set_photon(pho)
-        sim = lambdapic_torch.Simulation(nx=32, ny=32, dx=1e-7, dy=1e-7,
-                                         tiling="cell", **kw)
-        sim.add_species([ele, pho])
-        with item15:
-            sim.initialize(devices=devices)
-    elif case == "tiled":
+    if case == "tiled":
         sim = lambdapic_torch.Simulation(nx=64, ny=32, dx=1e-7, dy=1e-7,
                                          tiling=(16, 16), **kw)
         sim.add_species([lambdapic_torch.Electron(
             density=lambda x, y: 1e26 + 0 * x, ppc=1)])
-        with item15:
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP queue 1, item 15d"):
+            sim.initialize(devices=devices)
+    elif case == "breit_wheeler":
+        ele = lambdapic_torch.Electron()
+        pos = lambdapic_torch.Species(name="positron", charge=1, mass=1.0)
+        pho = lambdapic_torch.Photon(capacity=256)
+        pho.set_bw_pair(electron=ele, positron=pos)
+        sim = lambdapic_torch.Simulation(nx=32, ny=32, dx=1e-7, dy=1e-7,
+                                         tiling="cell", **kw)
+        sim.add_species([ele, pos, pho])
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP queue 1, item 9"):
             sim.initialize(devices=devices)
     else:
         sim, _ = tiny_laser_target(lambdapic_torch, **kw)

@@ -22,9 +22,18 @@ import lambdapic_tpu.core.species as j_species
 import lambdapic_torch.core.species as t_species
 from lambdapic_torch.core.state import state_to_numpy
 from lambdapic_torch.testing import QED_PAYLOADS, SLOT_FLOATS, compare_slots
+from lambdapic_torch.testing import torch_threads
 
 NSTEPS = 5
 N_ELE = 150
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch thread: beside the other test processes a full pool
+    waits on their threads (lambdapic_torch.testing.torch_threads)."""
+    with torch_threads(1):
+        yield
 
 
 @pytest.fixture(autouse=True)

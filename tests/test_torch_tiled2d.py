@@ -29,11 +29,20 @@ from lambdapic_torch.core.grid import Grid
 from lambdapic_torch.ops import tiled2d as tt
 from lambdapic_torch.simulation import initfill as tinit
 from lambdapic_torch.testing import tiled_state, to_numpy, to_torch
+from lambdapic_torch.testing import torch_threads
 
 # (tx, ty, ntx, nty, h, cap_t): the two tile shapes, halos 3 and 5
 CASES = [(8, 8, 4, 3, 3, 128), (16, 8, 3, 4, 5, 256)]
 Q, DX, DY = -1.602e-19, 5e-8, 4e-8
 DT = 0.95 / np.sqrt(DX**-2 + DY**-2) / 2.99792458e8
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch thread: beside the other test processes a full pool
+    waits on their threads (lambdapic_torch.testing.torch_threads)."""
+    with torch_threads(1):
+        yield
 
 
 def _cfgs(case):

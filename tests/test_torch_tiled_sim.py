@@ -21,9 +21,17 @@ import torch
 import lambdapic_torch
 import lambdapic_torch.core.species as t_species
 from lambdapic_torch.core.state import ids_to_numpy
-from lambdapic_torch.testing import tiny_tiled_laser_target
+from lambdapic_torch.testing import tiny_tiled_laser_target, torch_threads
 
 EB_PART = ("ex_part", "ey_part", "ez_part", "bx_part", "by_part", "bz_part")
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch thread: beside the other test processes a full pool
+    waits on their threads (lambdapic_torch.testing.torch_threads)."""
+    with torch_threads(1):
+        yield
 
 
 @pytest.fixture(autouse=True)
