@@ -36,8 +36,9 @@ Phases (any failure exits non-zero):
    (B1 4, B2 3, B3 1); time a steady window;
 4. time each 2D kernel with CUDA events at the slice's shapes, and its
    plain version once; B2's device time is printed per __global__
-   function (rebin2x, rebin2y, deposit2; the same for its QED modes and
-   K4's dispatches), its bound beside the occupied cells and tiles;
+   function (rebin2x, rebin2y, deposit2), its bound beside the occupied
+   cells and tiles (a device-bound kernel call of at least EVENT_MS is
+   profiled only where its split is printed: B2 2D, B2 3D, B5 3D);
 5. QED: B2's want_chi and photon modes against their plain versions
    (float64 slot for slot at small sizes, with merges and with QED
    payloads; float32 at the slice's shapes), the in-step draws on the card
@@ -72,10 +73,13 @@ Phases (any failure exits non-zero):
    against one fused one on its last 128 x-planes; --steps-split-sort3d
    more steps with LAMBDAPIC_MIG_FUSED=0: B7 6); then B4-B7 on 3D slots
    against their plain versions (float64 at small sizes, float32 at the
-   3D slice's shapes), the 3D slice with cell_migration="exact" from its
-   fill (B1 4, B4 2, B5 2; every alive id kept but those counted merged
-   or dropped and those stored on an open face's edge), timed and
-   profiled, and B4-B7 in 3D timed at its final state;
+   3D slice's shapes; B4 3D and B5 3D with the alive mask, as the step
+   calls them: B4 bitwise on the alive slots and the dead values in the
+   dead ones), the 3D slice with cell_migration="exact" from its fill
+   (B1 4, B4 2, B5 2; every alive id kept but those counted merged or
+   dropped and those stored on an open face's edge), timed and profiled,
+   and B4-B7 in 3D timed at its final state (B4 3D and B5 3D with their
+   per-__global__ split in the kernels line);
 9. per-cell capacities above 128: B2 (2D and 3D, default and want_chi),
    B6 (2D and 3D slots) and B7 at 130 and 256 slots a cell, and one case
    with more cells than the sort scratch has rows, against their plain
@@ -167,8 +171,9 @@ Prints a ``{"kernels": [...]}`` line with the 2D, the tiled, the
 per-stage, the QED, the 3D, the 3D QED, the 3D per-stage and the mesh
 kernels (K4 and K5 in 2D and 3D, K6 in both modes and K7 in 2D and 3D; B8's
 and B9's bounds also counted from the Pallas calls' shapes at bench.py's
-form), the card's name and power limit, and as its last line
-``{"ok": true, "device": {...}}``.
+form; each row's "timing" says how its ms was taken, "profiler" or
+"events", see kernel_ms), the card's name and power limit, and as its
+last line ``{"ok": true, "device": {...}}``.
 
 ``--exact2d-digest N`` runs only the 2D slice with cell_migration="exact"
 for N steps and prints its peak device memory and a digest of its final
@@ -345,19 +350,58 @@ def split_text(times, iters: int, funcs) -> str:
         parts.items(), key=lambda kv: -kv[1])) if parts else ""
 
 
-def kernel_ms(fn, iters: int, kernel: str):
+# a call at least this long (ms) whose launches the host issued in at
+# most half that time is timed with CUDA events alone unless its
+# per-__global__ split is asked for: back-to-back launches then keep the
+# device busy, so the events measure its device time to a few percent
+# (events against the profiler on an H100 80GB HBM3 at 700 W: B4 1.3795 /
+# 1.3871, B6 1.3235 / 1.3125, B7 0.8751 / 0.8712, B8 0.3728 / 0.3576
+# ms), and the profile it spares took 3-12 s, most of them taken twice
+EVENT_MS = 0.25
+
+
+def issue_time(fn, iters: int):
+    """(ms per call from CUDA events over ``iters`` calls after a warm-up
+    call, ms per call the host took to issue them)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    issued = (time.perf_counter() - t0) * 1e3 / iters
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters, issued
+
+
+def kernel_ms(fn, iters: int, kernel: str, split: bool = False):
     """(device ms per call, summed over the kernel's __global__ functions
     from a profile that recorded every launch, or None if no profile did;
     wall ms per call from CUDA events, host included). The split of the
     device time over those functions is kept in ``kernel_ms.split`` (see
-    split_text; "" without a complete profile)."""
-    wall = cuda_time(fn, iters)
+    split_text; "" without a complete profile). A device-bound call of at
+    least EVENT_MS is profiled only with ``split`` (a row or a finding
+    that needs the split): otherwise its device ms is the events'. How
+    the returned ms was taken ("profiler" or "events") is kept in
+    ``kernel_ms.method``, for the kernels row's "timing"."""
+    wall, issued = issue_time(fn, iters)
     funcs = KERNEL_FUNCS[kernel]
-    times, complete = device_times(fn, iters, funcs)
     kernel_ms.split = ""
+    kernel_ms.method = "events"
+    if not split and wall >= EVENT_MS and issued <= wall / 2:
+        log(f"[time {kernel}] {wall:.4f} ms a call from CUDA events over "
+            f"{iters} calls ({', '.join(funcs)}; issued in {issued:.4f} ms "
+            "a call)")
+        return wall, wall
+    times, complete = device_times(fn, iters, funcs)
     if not complete:
         log(f"[time {kernel}] no complete profile: the wall time stands in")
         return None, wall
+    kernel_ms.method = "profiler"
     dev = 0.0
     for name, (ms, n) in sorted(times.items(), key=lambda kv: -kv[1][0]):
         if any(f in name for f in funcs):
@@ -369,6 +413,15 @@ def kernel_ms(fn, iters: int, kernel: str):
 
 
 kernel_ms.split = ""
+kernel_ms.method = "events"
+
+
+def timing(*methods):
+    """A kernels row's "timing": how its ms was taken, "profiler" (the
+    device time of its __global__ functions from torch.profiler) or
+    "events" (CUDA events around its calls, host issue included); both,
+    joined by "+", for a row whose calls were timed in both ways."""
+    return "+".join(sorted(set(methods)))
 
 
 def busy_per_step(fn, expected, steps: int, tag: str, step_ms: float):
@@ -864,7 +917,9 @@ def run_2d(args, dev):
     b_k = lambda: fieldskernel.update_bfield_k(f, grid, dt / 2, cpml,
                                                coeffs["b"])
     dev_e, wall_e = kernel_ms(e_k, args.iters, "B1 E")
+    tm_e = kernel_ms.method
     dev_b, wall_b = kernel_ms(b_k, args.iters, "B1 B")
+    tm_b1 = timing(tm_e, kernel_ms.method)
     ms_b1 = (dev_e + dev_b) / 2 if dev_e and dev_b else (wall_e + wall_b) / 2
     log(f"[time B1] device {ms_b1:.4f} ms per launch, wall "
         f"{(wall_e + wall_b) / 2:.4f} ms per call")
@@ -889,8 +944,9 @@ def run_2d(args, dev):
     kw = dict(q=sp.q, m=sp.m, dt=dt, dx=grid.dx, dy=grid.dy, g=g,
               periodic=periodic, with_rho=sim._builder.with_rho)
     dev_b2, wall_b2 = kernel_ms(
-        lambda: cell_step(eb_pad, p.data, p.alive, **kw), args.iters, "B2")
-    ms_b2 = dev_b2 or wall_b2
+        lambda: cell_step(eb_pad, p.data, p.alive, **kw), args.iters, "B2",
+        split=True)
+    ms_b2, tm_b2 = dev_b2 or wall_b2, kernel_ms.method
     log(f"[time B2] device {ms_b2:.4f} ms per launch{kernel_ms.split}, wall "
         f"{wall_b2:.4f} ms per call")
     plain_b2 = cuda_time(lambda: cell_step_plain(eb_pad, p.data, p.alive,
@@ -920,7 +976,7 @@ def run_2d(args, dev):
     del out
     dev_b3, wall_b3 = kernel_ms(
         lambda: fold_reduce(rims, grid.shape, periodic), args.iters, "B3")
-    ms_b3 = dev_b3 or wall_b3
+    ms_b3, tm_b3 = dev_b3 or wall_b3, kernel_ms.method
     log(f"[time B3] device {ms_b3:.4f} ms per launch, wall {wall_b3:.4f} ms "
         "per call")
     plain_b3 = cuda_time(lambda: fold_reduce_plain(rims, grid.shape,
@@ -932,20 +988,20 @@ def run_2d(args, dev):
              source="lambdapic_torch/csrc/fields.cu",
              replaces="lambdapic_tpu/ops/fieldspallas.py:152",
              launches=launches["B1"], max_abs_err=errs["B1"], ms=ms_b1,
-             plain_ms=plain_b1, bound_ms=bound_b1, bound_by="bytes",
-             library_ms=None),
+             timing=tm_b1, plain_ms=plain_b1, bound_ms=bound_b1,
+             bound_by="bytes", library_ms=None),
         dict(name="B2 cell particle stage", route="cuda",
              source="lambdapic_torch/csrc/cellstep.cu",
              replaces="lambdapic_tpu/ops/cellslab.py:546",
              launches=launches["B2"], max_abs_err=errs["B2"], ms=ms_b2,
-             plain_ms=plain_b2, bound_ms=bound_b2, bound_by=by_b2,
-             library_ms=None),
+             timing=tm_b2, plain_ms=plain_b2, bound_ms=bound_b2,
+             bound_by=by_b2, library_ms=None),
         dict(name="B3 rim fold", route="cuda",
              source="lambdapic_torch/csrc/fold.cu",
              replaces="lambdapic_tpu/ops/cellslab.py:2098",
              launches=launches["B3"], max_abs_err=errs["B3"], ms=ms_b3,
-             plain_ms=plain_b3, bound_ms=bound_b3, bound_by="bytes",
-             library_ms=None),
+             timing=tm_b3, plain_ms=plain_b3, bound_ms=bound_b3,
+             bound_by="bytes", library_ms=None),
     ]
     log(f"[kernels 2D] launches per step {per_step}")
     del rims, eb_pad
@@ -1777,13 +1833,17 @@ def stage_bounds(d, a, rd, ra, g):
         (FLOPS_B4_3D, FLOPS_B5_3D)
     out = {}
     # B4 reads the positions and momenta, writes them and inv_gamma (and
-    # the six fields with want_eb)
+    # the six fields with want_eb); in 3D (with the alive mask) it reads
+    # the mask and the alive slots' positions and momenta
     for tag, n_out in (("B4", nd + 4), ("B4 want_eb", nd + 10)):
-        nbytes = (nd + 3) * slots * isz + nodes + n_out * slots * isz
+        n_read = (nd + 3) * (slots if nd == 2 else n_alive) * isz
+        nbytes = (0 if nd == 2 else slots) + n_read + nodes + \
+            n_out * slots * isz
         out[tag] = (nbytes, n_alive * flops4)
-    # B5 reads w of every slot, the positions, momenta and inv_gamma of the
-    # alive ones
-    out["B5"] = (slots * isz + (nd + 4) * n_alive * isz + 4 * nxp * isz,
+    # B5 reads w of every slot (3D: the alive mask), the positions,
+    # momenta, inv_gamma and w of the alive ones
+    out["B5"] = ((slots * isz if nd == 2 else slots)
+                 + (nd + 4 + (nd == 3)) * n_alive * isz + 4 * nxp * isz,
                  n_alive * flops5)
     pay = sum(v.element_size() for k, v in d.items() if k not in TRANSIENT)
     out["B6"] = (2 * slots * (1 + pay), 0)
@@ -1837,8 +1897,9 @@ def time_stage_kernels(sim, iters):
         ms = (dev_ms or wall) / per_call
         plain = cuda_time(plain_fn, 1) / per_call
         bound, by, nbytes, _ = bounds[tag]
-        STAGE.setdefault("time", {})[tag] = dict(ms=ms, plain_ms=plain,
-                                                 bound_ms=bound, bound_by=by)
+        STAGE.setdefault("time", {})[tag] = dict(
+            ms=ms, timing=kernel_ms.method, plain_ms=plain, bound_ms=bound,
+            bound_by=by)
         log(f"[time {tag}] device {ms:.4f} ms per launch (wall "
             f"{wall / per_call:.4f}); plain {plain:.3f} ms; bound "
             f"{bound:.5f} ms ({by}, {nbytes} bytes; {int(ra.sum())} of "
@@ -1862,8 +1923,9 @@ def stage_rows():
         rows.append(dict(
             name=name, route="cuda", source=f"lambdapic_torch/csrc/{cu}",
             replaces=f"lambdapic_tpu/ops/{rep}", launches=launches,
-            max_abs_err=STAGE["err"][tag], ms=t["ms"], plain_ms=t["plain_ms"],
-            bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None))
+            max_abs_err=STAGE["err"][tag], ms=t["ms"], timing=t["timing"],
+            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=None))
     return rows
 
 
@@ -2461,7 +2523,9 @@ def run_3d(args, dev):
     b_k = lambda: fieldskernel.update_bfield_k(f, grid, dt / 2, cpml,
                                                coeffs["b"])
     dev_e, wall_e = kernel_ms(e_k, iters, "B1-3D E")
+    tm_e = kernel_ms.method
     dev_b, wall_b = kernel_ms(b_k, iters, "B1-3D B")
+    tm_b1 = timing(tm_e, kernel_ms.method)
     ms_b1 = (dev_e + dev_b) / 2 if dev_e and dev_b else (wall_e + wall_b) / 2
     log(f"[time B1 3D] device {ms_b1:.4f} ms per launch, wall "
         f"{(wall_e + wall_b) / 2:.4f} ms per call")
@@ -2486,8 +2550,9 @@ def run_3d(args, dev):
     kw = dict(q=sp.q, m=sp.m, dt=dt, dx=grid.dx, dy=grid.dy, dz=grid.dz, g=g,
               periodic=periodic, with_rho=sim._builder.with_rho)
     dev_b2, wall_b2 = kernel_ms(
-        lambda: cell_step(eb_pad, p.data, p.alive, **kw), iters, "B2-3D")
-    ms_b2 = dev_b2 or wall_b2
+        lambda: cell_step(eb_pad, p.data, p.alive, **kw), iters, "B2-3D",
+        split=True)
+    ms_b2, tm_b2 = dev_b2 or wall_b2, kernel_ms.method
     log(f"[time B2 3D] device {ms_b2:.4f} ms per launch, wall {wall_b2:.4f} "
         "ms per call")
     ncomp = 4 if sim._builder.with_rho else 3
@@ -2527,7 +2592,7 @@ def run_3d(args, dev):
     torch.cuda.empty_cache()
     dev_b3, wall_b3 = kernel_ms(
         lambda: fold_reduce(rims, grid.shape, periodic), iters, "B3-3D")
-    ms_b3 = dev_b3 or wall_b3
+    ms_b3, tm_b3 = dev_b3 or wall_b3, kernel_ms.method
     log(f"[time B3 3D] device {ms_b3:.4f} ms per launch, wall {wall_b3:.4f} "
         "ms per call")
     plain_b3 = cuda_time(lambda: fold_reduce_plain(rims, grid.shape,
@@ -2549,21 +2614,21 @@ def run_3d(args, dev):
              source="lambdapic_torch/csrc/fields3d.cu",
              replaces="lambdapic_tpu/ops/fieldspallas.py:207",
              launches=launches["B1"], max_abs_err=errs["B1"], ms=ms_b1,
-             plain_ms=plain_b1, bound_ms=bound_b1, bound_by="bytes",
-             library_ms=None),
+             timing=tm_b1, plain_ms=plain_b1, bound_ms=bound_b1,
+             bound_by="bytes", library_ms=None),
         dict(name="B2 cell particle stage, 3D", route="cuda",
              source="lambdapic_torch/csrc/cellstep3d.cu",
              replaces="lambdapic_tpu/ops/cellslab.py:546",
              launches=launches["B2"], max_abs_err=errs["B2"], ms=ms_b2,
-             plain_ms=plain_b2, plain_cells=plain_cells,
+             timing=tm_b2, plain_ms=plain_b2, plain_cells=plain_cells,
              ms_at_plain_cells=sub_b2, bound_ms=bound_b2, bound_by=by_b2,
              library_ms=None),
         dict(name="B3 rim fold, 3D", route="cuda",
              source="lambdapic_torch/csrc/fold3d.cu",
              replaces="lambdapic_tpu/ops/cellslab.py:2098",
              launches=launches["B3"], max_abs_err=errs["B3"], ms=ms_b3,
-             plain_ms=plain_b3, bound_ms=bound_b3, bound_by="bytes",
-             library_ms=None),
+             timing=tm_b3, plain_ms=plain_b3, bound_ms=bound_b3,
+             bound_by="bytes", library_ms=None),
     ]
     log(f"[kernels 3D] launches per step {per_step}")
     return kernels, sim, laser, fill
@@ -2603,8 +2668,9 @@ STAGE3_PLANES = 128
 
 
 def check_stage3_f64(dev):
-    """B4 in 3D (both modes, with and without the first half push)
-    bitwise, B5 in 3D within 1e-12 of the peak, B6 on 3D slots (caps 4,
+    """B4 in 3D (both modes, with and without the first half push, given
+    the alive mask) bitwise, B5 in 3D (given the mask) within 1e-12 of
+    the peak, B6 on 3D slots (caps 4,
     13, 16, 20, periodic and open faces, merges, a photon species' carried
     inv_gamma) and B7 on 3D slots (caps 4-20; float, int32 and bool
     payloads) array for array, all against their plain versions in
@@ -2616,13 +2682,13 @@ def check_stage3_f64(dev):
     q, m, dt = -1.602e-19, 9.109e-31, 1.1e-16
     dx, dy, dz = 5e-8, 6e-8, 5.5e-8
     data, alive, eb = random_cell_state(5, 13, 10, 9, seed=7, field=5e13)
-    td, _ = to_torch(data, alive, torch.float64, dev)
+    td, ta = to_torch(data, alive, torch.float64, dev)
     eb = torch.as_tensor(eb).to(dev)
     args = [td[k] for k in ("x", "y", "z", "ux", "uy", "uz")]
     for want_eb in (False, True):
         for do_pos1 in (False, True):
             kw = dict(q=q, m=m, dt=dt, dx=dx, dy=dy, dz=dz, g=3,
-                      want_eb=want_eb, do_pos1=do_pos1)
+                      want_eb=want_eb, do_pos1=do_pos1, alive=ta)
             ref = cp.fused_push_cell_3d_plain(eb, *args, **kw)
             got = cp.fused_push_cell_3d(eb, *args, **kw)
             if not all(torch.equal(a, b) for a, b in zip(got, ref)):
@@ -2638,7 +2704,7 @@ def check_stage3_f64(dev):
                               "inv_gamma")] + [w]
         kw = dict(q=q, dx=dx, dy=dy, dz=dz, dt=dt, g=g)
         ref = deposit_cell_3d(*a8, **kw)
-        got = cp.deposit_cell_3d_k(*a8, **kw)
+        got = cp.deposit_cell_3d_k(*a8, alive=ta, **kw)
         err = float((got - ref).abs().max())
         if not err <= 1e-12 * float(ref.abs().max()):
             fail(f"B5 3D f64 differs from its plain version by {err:.3e}")
@@ -2683,8 +2749,10 @@ def check_stage3_f32(sim):
     """B4-B7 against their plain versions at the 3D slice's shapes
     (512 x 256 x 256, float32), on its electrons given momenta by one B2
     step in strong random fields: B6 (a step that re-bins) and B7 equal
-    array for array (alive masks, ids and payloads), B4 bitwise, B5 on
-    the last STAGE3_PLANES x-planes to 1e-5 of the current's peak.
+    array for array (alive masks, ids and payloads), B4 with the alive
+    mask bitwise on the alive slots and the dead values in the dead ones,
+    B5 with the mask on the last STAGE3_PLANES x-planes to 1e-5 of the
+    current's peak.
     Returns the largest absolute errors."""
     import torch
     from lambdapic_torch.ops import cellpallas as cp
@@ -2732,15 +2800,20 @@ def check_stage3_f32(sim):
     args = [rd[k] for k in ("x", "y", "z", "ux", "uy", "uz")]
     err4 = {}
     for want_eb in (True, False):
+        # the per-stage step's call: the alive mask, the dead slots given
+        # the dead values (0, inv_gamma 1)
         kw = dict(q=sp.q, m=sp.m, dt=sim.dt, dx=grid.dx, dy=grid.dy,
-                  dz=grid.dz, g=g, want_eb=want_eb, do_pos1=False)
+                  dz=grid.dz, g=g, want_eb=want_eb, do_pos1=False, alive=ra)
         r4 = cp.fused_push_cell_3d_plain(eb_pad, *args, **kw)
         g4 = cp.fused_push_cell_3d(eb_pad, *args, **kw)
         tag = "B4 3D want_eb" if want_eb else "B4 3D"
         err4[tag] = max(float((x - y).abs().max()) for x, y in zip(g4, r4))
-        bitwise = all(torch.equal(x, y) for x, y in zip(g4, r4))
-        log(f"[{tag} f32] max abs {err4[tag]:.3e}; bitwise equal: {bitwise}")
-        if not bitwise:
+        bitwise = all(torch.equal(x[ra], y[ra]) for x, y in zip(g4, r4))
+        dead = all(bool((x[~ra] == (1.0 if i == 6 else 0.0)).all())
+                   for i, x in enumerate(g4))
+        log(f"[{tag} f32] max abs {err4[tag]:.3e}; alive slots bitwise "
+            f"equal: {bitwise}; dead slots hold the dead values: {dead}")
+        if not (bitwise and dead):
             fail(f"{tag} float32 differs from its plain version")
         del g4
         if want_eb:
@@ -2748,11 +2821,12 @@ def check_stage3_f32(sim):
     del args
     x0 = grid.nx - STAGE3_PLANES
     w = torch.where(ra, rd["w"], 0.0)
-    a8 = last_planes(list(r4) + [w], x0, xs=(0,))
+    a8 = last_planes(list(r4) + [w, ra], x0, xs=(0,))
+    a8, mask = a8[:-1], a8[-1]
     del r4, w, ref, rd
     kw = dict(q=sp.q, dx=grid.dx, dy=grid.dy, dz=grid.dz, dt=sim.dt, g=g)
     r5 = deposit_cell_3d(*a8, **kw)
-    g5 = cp.deposit_cell_3d_k(*a8, **kw)
+    g5 = cp.deposit_cell_3d_k(*a8, alive=mask, **kw)
     err5 = float((g5 - r5).abs().max())
     scale = float(r5.abs().max())
     log(f"[B5 3D f32 last {STAGE3_PLANES} x-planes] max abs {err5:.3e} of "
@@ -2787,8 +2861,9 @@ def time_stage3_kernels(sim, iters):
     names = sorted(k for k in d if k not in TRANSIENT)
     key = five_way_key(d["x"], a, 0)
     pays = [d[k] for k in names]
+    # B4 and B5 as the per-stage step calls them: with the alive mask
     k4 = dict(q=sp.q, m=sp.m, dt=sim.dt, dx=grid.dx, dy=grid.dy, dz=grid.dz,
-              g=g, want_eb=False, do_pos1=False)
+              g=g, want_eb=False, do_pos1=False, alive=ra)
     k4e = dict(k4, want_eb=True)
     calls = {
         "B4 3D": ("B4 3D", lambda: cp.fused_push_cell_3d(eb_pad, *args, **k4),
@@ -2797,7 +2872,8 @@ def time_stage3_kernels(sim, iters):
         "B4 3D want_eb": (
             "B4 3D", lambda: cp.fused_push_cell_3d(eb_pad, *args, **k4e),
             lambda: cp.fused_push_cell_3d_plain(eb_pad, *args, **k4e), 1),
-        "B5 3D": ("B5 3D", lambda: cp.deposit_cell_3d_k(*a8, **k5), None, 1),
+        "B5 3D": ("B5 3D", lambda: cp.deposit_cell_3d_k(*a8, alive=ra, **k5),
+                  None, 1),
         "B6": ("B6 3D", lambda: cp.migrate_cells_fused(d, a, plan),
                lambda: migrate_cells(d, a, plan), 3),
         "B7": ("B7", lambda: cp.sort_cells(key, pays),
@@ -2805,27 +2881,37 @@ def time_stage3_kernels(sim, iters):
     bounds = stage_bounds(d, a, rd, ra, g)
     n_alive = int(ra.sum())
     for tag, (funcs, fn, plain_fn, per_call) in calls.items():
-        dev_ms, wall = kernel_ms(fn, iters, funcs)
+        dev_ms, wall = kernel_ms(fn, iters, funcs, split=tag == "B5 3D")
         ms = (dev_ms or wall) / per_call
-        extra = {}
+        extra = {"timing": kernel_ms.method}
+        if tag in ("B4 3D", "B4 3D want_eb"):
+            # one __global__ function: its time is the call's
+            kernel_ms.split = f" = push3d {ms:.4f} ({kernel_ms.method})"
+        if tag in ("B4 3D", "B4 3D want_eb", "B5 3D"):
+            # the per-__global__ split of B4 3D and B5 3D
+            extra["split"] = kernel_ms.split.lstrip(" =")
         if plain_fn is None:
             # B5: plain and kernel on the last STAGE3_PLANES x-planes
-            sub = last_planes(a8, grid.nx - STAGE3_PLANES, xs=(0,))
+            sub = last_planes(a8 + [ra], grid.nx - STAGE3_PLANES, xs=(0,))
+            sub, sub_alive = sub[:-1], sub[-1]
             torch.cuda.empty_cache()
             plain = cuda_time(lambda: deposit_cell_3d(*sub, **k5), 1)
-            sub_ms = cuda_time(lambda: cp.deposit_cell_3d_k(*sub, **k5),
-                               iters)
-            extra = dict(plain_cells=[STAGE3_PLANES] + list(grid.shape[1:]),
+            sub_ms = cuda_time(lambda: cp.deposit_cell_3d_k(
+                *sub, alive=sub_alive, **k5), iters)
+            extra.update(plain_cells=[STAGE3_PLANES] + list(grid.shape[1:]),
                          ms_at_plain_cells=sub_ms)
-            del sub
+            del sub, sub_alive
         else:
             plain = cuda_time(plain_fn, 1) / per_call
         torch.cuda.empty_cache()
         bound, by, nbytes, flops = bounds[tag.replace(" 3D", "")]
         STAGE3.setdefault("time", {})[tag] = dict(
             ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, **extra)
-        log(f"[time {tag}] device {ms:.4f} ms per launch (wall "
-            f"{wall / per_call:.4f}); plain {plain:.3f} ms{' on ' + str(extra['plain_cells']) + ' cells (kernel there %.4f ms)' % extra['ms_at_plain_cells'] if extra else ''}; "
+        at_plain = (f" on {extra['plain_cells']} cells (kernel there "
+                    f"{extra['ms_at_plain_cells']:.4f} ms)"
+                    if "plain_cells" in extra else "")
+        log(f"[time {tag}] device {ms:.4f} ms per launch{kernel_ms.split} "
+            f"(wall {wall / per_call:.4f}); plain {plain:.3f} ms{at_plain}; "
             f"bound {bound:.5f} ms ({by}: {nbytes} bytes, {flops} flops; "
             f"{n_alive} of {ra.numel()} slots alive, {ra.shape[0]} a cell); "
             f"{ms / bound:.1f}x the bound")
@@ -3244,7 +3330,7 @@ def time_b2_qed_modes(sim, proc, iters, launches, errs, planes=None):
             (" photon" if mode == "photon" else "")
         dev_ms, wall = kernel_ms(lambda: cell_step(ebp, p.data, p.alive,
                                                    **kw), iters, funcs)
-        split = kernel_ms.split
+        split, tm = kernel_ms.split, kernel_ms.method
         ms = dev_ms or wall
         if mode == "want_chi":
             # the default mode on the same slots, for the ratio of the two
@@ -3311,8 +3397,8 @@ def time_b2_qed_modes(sim, proc, iters, launches, errs, planes=None):
                    + ("cellstep.cu" if nd == 2 else "cellstep3d.cu"),
             replaces="lambdapic_tpu/ops/cellslab.py:546",
             launches=launches[mode], max_abs_err=errs[mode], ms=ms,
-            plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=None,
-            **at))
+            timing=tm, plain_ms=plain, bound_ms=bound, bound_by=by,
+            library_ms=None, **at))
     return rows
 
 
@@ -3942,7 +4028,7 @@ def tiled_rows(sim, args, launches, errs):
             replaces={"B8": "lambdapic_tpu/ops/tiled2d_pallas.py:193",
                       "B9": "lambdapic_tpu/ops/tiled2d_pallas.py:282"}[k],
             launches=launches[k], max_abs_err=errs[k], ms=ms,
-            plain_ms=plain_ms, bound_ms=bound,
+            timing=kernel_ms.method, plain_ms=plain_ms, bound_ms=bound,
             bound_by="bytes" if b_ms >= o_ms else "operations",
             library_ms=None))
     return rows
@@ -4476,7 +4562,7 @@ def compare_mesh_runs(tag, mres, ores, grid):
     return out
 
 
-def dispatch_ms(tag, twin, iters, ispec=0, mode="default", profile=True):
+def dispatch_ms(tag, twin, iters, ispec=0, mode="default"):
     """Kernel times of one shard's K4 dispatches and K5 launches at the
     slice's per-shard shapes (the shard with the most alive particles of
     species ``ispec``, the twin's present state and fields), from CUDA
@@ -4490,8 +4576,8 @@ def dispatch_ms(tag, twin, iters, ispec=0, mode="default", profile=True):
     times B2's QED modes in the dispatches (K6): the want_chi tail also
     writes chi and ig0 (its time "tail" and bytes "bytes_tail" apart:
     the head dispatches run the default mode); the photon dispatches read
-    no fields and write no panels, and no fold follows. Without ``profile`` the dispatches are
-    timed by CUDA events only, without the device split."""
+    no fields and write no panels, and no fold follows. No profile: no
+    row or busy share needs the device split of a dispatch."""
     import torch
     from lambdapic_torch.ops import cellslab
     from lambdapic_torch.ops.cellslab import (FLOAT_PAYLOADS, ID_PAYLOADS,
@@ -4535,15 +4621,8 @@ def dispatch_ms(tag, twin, iters, ispec=0, mode="default", profile=True):
         out[f"dispatch {grp}"] = cuda_time(lambda: disp(busy), iters)
         if last:
             out["tail"] = out[f"dispatch {grp}"]
-        funcs = KERNEL_FUNCS["B2" if nd == 2 else "B2-3D"]
-        if photon:
-            funcs = dict(funcs, **({"photon3<": 1} if nd == 3 else {}))
-        n_prof = min(iters, 10)
-        times = device_times(lambda: disp(busy), n_prof, {})[0] \
-            if profile else {}
         log(f"[time K4 {tag} dispatch {grp}] {out[f'dispatch {grp}']:.4f} "
-            f"ms a call (CUDA events), shard {busy} of {mesh.size}; device"
-            f"{split_text(times, n_prof, funcs) or ' not measured'}")
+            f"ms a call (CUDA events), shard {busy} of {mesh.size}")
         if last:
             rims = None if photon else disp(busy)[3]
         else:
@@ -4629,7 +4708,7 @@ def mesh_rows(tag, nd, launches, errs, t, flops):
                                                else "cellstep.cu"),
              replaces="lambdapic_tpu/ops/cellslab.py:546",
              launches=launches.get("B2", 0), max_abs_err=errs[0], ms=k4_ms,
-             plain_ms=t["plain"], plain_cells=t["plain_cells"],
+             timing="events", plain_ms=t["plain"], plain_cells=t["plain_cells"],
              bound_ms=bound,
              bound_by="bytes" if bound > ops_ms else "operations",
              library_ms=None, per="one shard's dispatches of one species"),
@@ -4638,7 +4717,7 @@ def mesh_rows(tag, nd, launches, errs, t, flops):
                                                else "fold.cu"),
              replaces="lambdapic_tpu/ops/cellslab.py:2098",
              launches=launches.get("B3", 0), max_abs_err=errs[1], ms=k5_ms,
-             plain_ms=t["plain_fold"], plain_cells=t["plain_cells"],
+             timing="events", plain_ms=t["plain_fold"], plain_cells=t["plain_cells"],
              bound_ms=t["bytes_k5"] / HBM_BPS * 1e3, bound_by="bytes",
              library_ms=None, per="one shard's fold and strip adds"),
     ]
@@ -5364,7 +5443,7 @@ def k6_rows(nd, t, errs, launches, plain):
                 "cellstep3d.cu" if nd == 3 else "cellstep.cu"),
             replaces="lambdapic_tpu/ops/cellslab.py:546",
             launches=launches[mode], max_abs_err=errs[mode], ms=ms,
-            plain_ms=plain[mode], bound_ms=max(b_ms, ops_ms),
+            timing="events", plain_ms=plain[mode], bound_ms=max(b_ms, ops_ms),
             bound_by="bytes" if b_ms >= ops_ms else "operations",
             library_ms=None, per=per[mode] + ", CUDA events"))
     return rows
@@ -5465,11 +5544,8 @@ def run_qed_mesh(args, sim, laser, shape, steps, window, busy_expect):
     mark(tag, "main path and gates")
     # -- K6 on the busiest shard: times, then float32 against the plain -----
     host = mesh_host_copy(twin)
-    # the device split of each dispatch in 2D; in 3D CUDA events only (a
-    # profile there takes tens of seconds of the script's time)
     t = {m: dispatch_ms(f"{nd}D {m}", twin, args.iters if nd == 2
-                        else args.iters3d, ispec=i_, mode=m,
-                        profile=nd == 2)
+                        else args.iters3d, ispec=i_, mode=m)
          for m, i_ in (("want_chi", ie), ("photon", ip))}
     errs, plain = {}, {}
     for m, i_ in (("want_chi", ie), ("photon", ip)):
@@ -5677,7 +5753,7 @@ def k7_row(nd, err, ms, plain, nbytes, launches):
         name=f"K7 B6 mesh strips{', 3D' if nd == 3 else ' 2D'}",
         route="cuda", source="lambdapic_torch/csrc/migrate.cu",
         replaces="lambdapic_tpu/ops/cellpallas.py:860", launches=launches,
-        max_abs_err=err, ms=ms, plain_ms=plain,
+        max_abs_err=err, ms=ms, timing="events", plain_ms=plain,
         bound_ms=nbytes / HBM_BPS * 1e3, bound_by="bytes", library_ms=None,
         per="one shard's axes of one species")
 

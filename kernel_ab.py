@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
-"""Time the one-device kernels B2 and B3 of a lambdapic_torch tree.
+"""Time the one-device kernels B2 and B3, and the per-stage 3D kernels B4
+and B5, of a lambdapic_torch tree, and the 3D QED slice's per-stage
+steps that run B4 3D and B5 3D.
 
-    python3 kernel_ab.py ROOT
+    python3 kernel_ab.py ROOT [b2] [stage3] [steps3d]
 
 ROOT is the directory that holds the ``lambdapic_torch`` package to time
 (``.`` for this checkout; an unpacked ``git archive <commit>
 lambdapic_torch`` for another version, with this checkout's
 ``lambdapic_torch/testing.py`` copied over its own, which makes the
-inputs). Its kernels are built from that tree's sources into that tree's
+inputs, and for ``steps3d`` ``lambdapic_tpu/models/
+optical_depth_tables.npz`` beside it, the QED tables the port reads). Its kernels are built from that tree's sources into that tree's
 ``_build/``. Two versions are compared by running this script for each in
 one call on one card, in turns (parent, change, change, parent), since
-cards and calls differ.
+cards and calls differ. The groups named after ROOT run (``b2`` and
+``stage3`` without any).
 
 Inputs are seeded cell states (``testing.random_cell_state`` and
 ``testing.occupied_cell_state``), float32, open faces, strong random
@@ -25,12 +29,36 @@ fields so that particles cross cells:
   alive slots (the 2D QED slice's photons' capacity);
 - 3D: 256 x 128 x 128 cells of 8 slots at 30%.
 
-B2 runs on each state in its three modes: default, ``want_chi`` (with a
-QED species' three extra payloads) and ``photon`` (inv_gamma = 1/|u|,
-the same extras). Prints one ``AB`` line per state and mode with B2's
-mean ms a call from CUDA events (host issue included; B3's beside the
-uniform 2D and the 3D default) and one ``AB-split`` line per
-``__global__`` function with its device ms a call from torch.profiler.
+Group ``b2``: B2 runs on each state in its three modes: default,
+``want_chi`` (with a QED species' three extra payloads) and ``photon``
+(inv_gamma = 1/|u|, the same extras). Prints one ``AB`` line per state
+and mode with B2's mean ms a call from CUDA events (host issue included;
+B3's beside the uniform 2D and the 3D default) and one ``AB-split`` line
+per ``__global__`` function with its device ms a call from
+torch.profiler.
+
+Group ``stage3``: B4 3D (default and ``want_eb``, no first half push, as
+the per-stage step calls it) and B5 3D on the 3D state and on ``3D
+exact``, a state at the exact 3D slice's shape and occupancy, made on the
+card from a seed: 512 x 256 x 256 cells of 4 slots, the cells of x >= 26
+(95%) holding 1, 2 or 3 alive slots (2 on average), momenta up to 0.2,
+fields up to 1e12. A tree whose wrappers take ``alive`` is given the
+mask (the per-stage step's call); the parent's kernels take none. Lines
+``AB-stage3 <state> <kernel> <ms>`` (CUDA events) and ``AB-split``.
+
+Group ``steps3d``: chip_smoke.py's 3D QED configuration (256 x 128 x
+128 cells, radiating electrons, protons and photons, float32, seed 0,
+built by this checkout's ``chip_smoke.make_slice_qed_3d`` from ROOT's
+package) through Simulation3D.run on its two per-stage paths:
+``split``, STEPS3D_FUSED fused steps and then split steps (a
+_push_momentum callback due every step: B6, the plain gather, QED and
+Boris, B5 3D), as chip_smoke.py's split 3D QED phase; ``exact``,
+cell_migration="exact" from its own fill (B4 3D, with want_eb for the
+electrons, and B5 3D). After STEPS3D_WARM steps of the path, lines
+``AB-steps3d <path> <step ms> ...`` give the mean step over STEPS3D_TIMED
+steps (host clock, synchronised) and, from torch.profiler over one more
+step, the device ms of the step, of B5 3D (deposit3d + fold_pad3) and of
+B4 3D (push3d).
 """
 import sys
 
@@ -108,22 +136,41 @@ def make_state(name, cap, n):
                              seed=1)
 
 
+# fused steps of the 3D QED slice ahead of its split steps (chip_smoke.py
+# runs 200 and its window before them), and split or exact steps run
+# untimed, then timed
+STEPS3D_FUSED, STEPS3D_WARM, STEPS3D_TIMED = 200, 2, 5
+
+
 def main() -> int:
-    if len(sys.argv) != 2:
+    if len(sys.argv) < 2 or any(g not in ("b2", "stage3", "steps3d")
+                                for g in sys.argv[2:]):
         print(__doc__, file=sys.stderr)
         return 2
+    groups = sys.argv[2:] or ["b2", "stage3"]
     sys.path.insert(0, sys.argv[1])
     import torch
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 2
     import lambdapic_torch
+    print(f"package {lambdapic_torch.__file__}", flush=True)
+    dev = torch.device("cuda:0")
+    if "b2" in groups:
+        time_b2(dev)
+    if "stage3" in groups:
+        time_stage3(dev)
+    if "steps3d" in groups:
+        time_steps3d(dev)
+    return 0
+
+
+def time_b2(dev):
+    import torch
     from lambdapic_torch.ops import kernel_lib
     from lambdapic_torch.ops.cellslab import cell_step, fold_reduce
     from lambdapic_torch.testing import add_qed_payloads, to_torch
-    print(f"package {lambdapic_torch.__file__}", flush=True)
     kernel_lib.build(["cellstep", "cellstep3d", "fold", "fold3d"])
-    dev = torch.device("cuda:0")
     q, m, dt, dx = -1.602e-19, 9.109e-31, 1.1e-16, 5e-8
     for name, cap, n in STATES:
         iters = 20 if len(n) == 2 else 5
@@ -164,7 +211,119 @@ def main() -> int:
                       f"{k[:90]}", flush=True)
         del td, ta, ebt, qd, pd, calls
         torch.cuda.empty_cache()
-    return 0
+
+
+def exact3d_state(dev, seed=11):
+    """The ``3D exact`` state on the card: (slots dict, alive, eb_pad)."""
+    import torch
+    cap, n, g = 4, (512, 256, 256), 3
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def uni(lo, hi, shape):
+        return torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
+    count = torch.randint(1, 4, n, generator=gen, device=dev)
+    count[:26] = 0
+    slot = torch.arange(cap, device=dev).view(cap, 1, 1, 1)
+    alive = slot < count
+    del count
+    d = {}
+    for ax, k in enumerate("xyz"):
+        shape = [1, 1, 1, 1]
+        shape[ax + 1] = n[ax]
+        cell = torch.arange(n[ax], device=dev, dtype=torch.float32)
+        d[k] = torch.where(alive, uni(-0.45, 0.45, (cap,) + n)
+                           + cell.view(shape), 0.0)
+    for k in ("ux", "uy", "uz"):
+        d[k] = torch.where(alive, uni(-0.2, 0.2, (cap,) + n), 0.0)
+    d["inv_gamma"] = 1 / torch.sqrt(1 + d["ux"]**2 + d["uy"]**2
+                                    + d["uz"]**2)
+    d["w"] = torch.where(alive, uni(0.5, 1.5, (cap,) + n), 0.0)
+    eb = uni(-1e12, 1e12, (6,) + tuple(k + 2 * g for k in n))
+    return d, alive, eb
+
+
+def time_stage3(dev):
+    """B4 3D (default, want_eb) and B5 3D on the 3D and 3D exact states."""
+    import inspect
+    import torch
+    from lambdapic_torch.ops import cellpallas as cp
+    from lambdapic_torch.ops import kernel_lib
+    from lambdapic_torch.testing import to_torch
+    kernel_lib.build(["push3d", "deposit3d"])
+    for lib in ("push3d", "deposit3d"):
+        for line in kernel_lib.build_log(lib).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"AB-ptxas {lib} {line.strip()}", flush=True)
+    masked = "alive" in inspect.signature(cp.fused_push_cell_3d).parameters
+    q, m, dt, dx = -1.602e-19, 9.109e-31, 1.1e-16, 5e-8
+    for name in ("3D", "3D exact"):
+        if name == "3D":
+            d, a, eb = make_state("3D", 8, (256, 128, 128))
+            td, ta = to_torch(d, a, torch.float32, dev)
+            ebt = torch.as_tensor(eb, dtype=torch.float32).to(dev)
+            del d, a, eb
+        else:
+            td, ta, ebt = exact3d_state(dev)
+        alive = {"alive": ta} if masked else {}
+        args = [td[k] for k in ("x", "y", "z", "ux", "uy", "uz")]
+        w = torch.where(ta, td["w"], 0.0)
+        k4 = dict(q=q, m=m, dt=dt, dx=dx, dy=dx, dz=dx, g=3, do_pos1=False,
+                  **alive)
+        a8 = args + [td["inv_gamma"], w]
+        k5 = dict(q=q, dx=dx, dy=dx, dz=dx, dt=dt, g=3, **alive)
+        calls = {"B4": lambda: cp.fused_push_cell_3d(ebt, *args, **k4),
+                 "B4 want_eb": lambda: cp.fused_push_cell_3d(
+                     ebt, *args, want_eb=True, **k4),
+                 "B5": lambda: cp.deposit_cell_3d_k(*a8, **k5)}
+        print(f"AB-stage3 {name}: {int(ta.sum())} of {ta.numel()} slots "
+              f"alive, mask given: {masked}", flush=True)
+        for kname, fn in calls.items():
+            print(f"AB-stage3 {name} {kname} {timed(fn, 10):.4f} ms",
+                  flush=True)
+            for k, (ms, nl) in sorted(device_split(fn, 5).items(),
+                                      key=lambda kv: -kv[1][0]):
+                print(f"AB-split {name} {kname} {ms:.4f} ms {nl:g} launches "
+                      f"{k[:90]}", flush=True)
+            torch.cuda.empty_cache()
+        del td, ta, ebt, args, a8, w, calls
+        torch.cuda.empty_cache()
+
+
+def time_steps3d(dev):
+    """The 3D QED slice's split and exact per-stage steps (see the module
+    docstring)."""
+    import os
+    import time
+    import torch
+    sys.path.insert(1, os.path.dirname(os.path.abspath(__file__)))
+    import chip_smoke
+    from lambdapic_torch import callback
+    hook = callback(stage="_push_momentum")(lambda s: None)
+    for path in ("split", "exact"):
+        sim, laser, _, _ = chip_smoke.make_slice_qed_3d(
+            dev, cell_migration="exact" if path == "exact" else "fast")
+        sim.initialize()
+        cbs = [laser]
+        if path == "split":
+            sim.run(nsteps=STEPS3D_FUSED, callbacks=cbs)
+            cbs = [laser, hook]
+        sim.run(nsteps=STEPS3D_WARM, callbacks=cbs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.run(nsteps=STEPS3D_TIMED, callbacks=cbs)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / STEPS3D_TIMED
+        split = device_split(lambda: sim.run(nsteps=1, callbacks=cbs), 1)
+        busy = sum(ms for ms, _ in split.values())
+        b5 = sum(ms for k, (ms, _) in split.items()
+                 if "deposit3d" in k or "fold_pad3" in k)
+        b4 = sum(ms for k, (ms, _) in split.items() if "push3d" in k)
+        print(f"AB-steps3d {path} {step_ms:.3f} ms a step at step "
+              f"{sim.itime}; device {busy:.3f} ms, B5 3D {b5:.4f} ms, B4 3D "
+              f"{b4:.4f} ms; alive {sim.npart_alive}, slots "
+              f"{[p.cap for p in sim.state.particles]}", flush=True)
+        del sim, split
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

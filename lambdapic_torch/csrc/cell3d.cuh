@@ -1,19 +1,18 @@
 // Device routines shared by the 3D cell-engine kernels: B2's tile kernel
-// (cellstep3d.cu) and the per-stage kernels B4 (push3d.cu) and B5
-// (deposit3d.cu). The key, sort, merge count, half push and Boris are
-// cell2d.cuh's, which every rank shares.
+// (cellstep3d.cu) and the per-stage push B4 (push3d.cu). The key, sort,
+// merge count, half push and Boris are cell2d.cuh's, which every rank
+// shares.
 //
-// The gather is one copy, templated on where it reads the fields: B4 reads
-// the padded stack in device memory, B2's tile kernel an 11^3 window of it
-// in shared memory, with the same taps in the same order, so the two
-// gather alike bit for bit. The deposit is not: B5 (deposit_tile) adds a
-// tile's particles into its panel one stencil offset at a time between
-// block barriers, in a fixed order, while B2 (deposit_window, or
-// deposit_atomic for a particle that moved a cell or more) adds each
-// particle's nonzero nodes with shared-memory atomics, whose order changes
-// from run to run. Each contribution is the same product and only exact
-// zeros are left out; only the order of the sums, and so their rounding,
-// differs.
+// Both kernels take one block per 8^3 tile of cells, copy the tile's E/B
+// window (11^3 nodes of each component) into shared memory with cp.async
+// (load_window) and gather from it with the same taps in the same order
+// (gather_eb_window), so the two gather alike bit for bit. B2's deposit
+// adds each particle's nonzero nodes into a shared panel with
+// shared-memory atomics (deposit_window, or deposit_atomic for a particle
+// that moved a cell or more): each contribution is the plain version's
+// product and only exact zeros are left out, so only the order of the
+// sums, and so their rounding, differs. The per-stage deposit B5
+// (deposit3d.cu) shares none of this: it sums in registers.
 //
 // Layout: every per-slot array is (cap, nx, ny, nz), cell (ix, iy, iz) at
 // (ix*ny + iy)*nz + iz, slot stride nx*ny*nz, 64-bit offsets. All of it is
@@ -25,24 +24,69 @@
 
 namespace lp3d {
 
-// deposit tile (cells per side); ops/cellslab.py's TILE3, held equal to
-// this through lp_cell_tile() / lp_deposit_tile() when a library that
-// uses it is first used
+// tile (cells per side) of B2's tail and of B4; ops/cellslab.py's TILE3,
+// held equal to this through lp_cell_tile() when B2's library is first
+// used
 constexpr int TILE = 8;
+constexpr int TILE3 = TILE * TILE * TILE;
 constexpr int PAN = TILE + 4;          // panel side: tile + 2-node rims
 constexpr int PAN3 = PAN * PAN * PAN;
 
 constexpr int WIN = TILE + 3;          // gather window side: nodes -2 .. TILE
 constexpr int WIN3 = WIN * WIN * WIN;
 
+// cp.async of one element, global -> shared (sm_80 and later), and the
+// wait for all of a thread's copies.
+template <typename T>
+__device__ __forceinline__ void copy_async(T* dst, const T* src) {
+  unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  if constexpr (sizeof(T) == 4)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+                 "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+                 "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void copy_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void copy_async_wait() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Start the copy of the E/B window of the tile whose first cell is
+// (x0, y0, z0) from the padded stack eb (6, nx+2g, ny+2g, nz+2g), g >= 2,
+// into win (6, WIN, WIN, WIN): window node (wx, wy, wz) is padded node
+// (x0 + g - 2 + wx, ...). The block's nthreads threads share the copies
+// (eb's rows of nz + 2g reals are not 16-byte aligned, so element by
+// element, not TMA); the caller commits and waits. Nodes past the padded
+// stack's end are left unset: only cells past the grid, which hold no
+// slot, would read them.
+template <typename T>
+__device__ __forceinline__ void load_window(T* win, const T* __restrict__ eb,
+                                            int nx, int ny, int nz, int g,
+                                            int x0, int y0, int z0, int tid,
+                                            int nthreads) {
+  const int nxp = nx + 2 * g, nyp = ny + 2 * g, nzp = nz + 2 * g;
+  const long long vol = (long long)nxp * nyp * nzp;
+  for (int e = tid; e < 6 * WIN3; e += nthreads) {
+    const int c = e / WIN3, r = e - c * WIN3;
+    const int wx = r / (WIN * WIN), wy = (r / WIN) % WIN, wz = r % WIN;
+    const int px = x0 + g - 2 + wx, py = y0 + g - 2 + wy,
+              pz = z0 + g - 2 + wz;
+    if (px < nxp && py < nyp && pz < nzp)
+      copy_async(win + e, eb + c * vol + ((long long)px * nyp + py) * nzp + pz);
+  }
+}
+
 // Staggered quadratic gather of one component (ops/cell3d.py::
-// gather_cell_3d): taps {-1,0,1} on an integer axis, {-2..1} on a
-// half-staggered one; the (y, z) pair product is hoisted out of the x loop.
-// f: the component's nodes, (., nyp, nzp) strides of index type I (64-bit
-// for the padded stack in device memory, int for a shared window).
-template <typename T, typename I, bool HX, bool HY, bool HZ>
-__device__ __forceinline__ T gather_comp(const T* __restrict__ f, I nyp,
-                                         I nzp, int px, int py, int pz,
+// gather_cell_3d) from a window of it, (WIN, WIN, WIN): taps {-1,0,1} on
+// an integer axis, {-2..1} on a half-staggered one; the (y, z) pair
+// product is hoisted out of the x loop. (px, py, pz): the cell's node.
+template <typename T, bool HX, bool HY, bool HZ>
+__device__ __forceinline__ T gather_comp(const T* f, int px, int py, int pz,
                                          const T (&gw)[3][3],
                                          const T (&hw)[3][4]) {
   T acc = T(0);
@@ -56,20 +100,20 @@ __device__ __forceinline__ T gather_comp(const T* __restrict__ f, I nyp,
 #pragma unroll
       for (int ox = HX ? -2 : -1; ox <= 1; ++ox) {
         T tx = HX ? hw[0][ox + 2] : gw[0][ox + 1];
-        acc = acc + (tx * tyz) * f[((px + ox) * nyp + (py + oy)) * nzp + (pz + oz)];
+        acc = acc + (tx * tyz) * f[((px + ox) * WIN + (py + oy)) * WIN + (pz + oz)];
       }
     }
   }
   return acc;
 }
 
-// The six components (ex ey ez bx by bz) of E, B at cell-local deltas d,
-// from component arrays eb + c * vol with strides (., nyp, nzp), the cell
-// at node (px, py, pz).
-template <typename T, typename I>
-__device__ __forceinline__ void gather_six(const T* __restrict__ eb, I vol,
-                                           I nyp, I nzp, int px, int py,
-                                           int pz, const T (&d)[3], T* out) {
+// E, B (ex ey ez bx by bz) of a tile's cell (lx, ly, lz) at cell-local
+// deltas d, from the tile's window win (6, WIN, WIN, WIN) in shared
+// memory, node w at cell offset w - 2.
+template <typename T>
+__device__ __forceinline__ void gather_eb_window(const T* win, int lx, int ly,
+                                                 int lz, const T (&d)[3],
+                                                 T* out) {
   T gw[3][3], hw[3][4];
 #pragma unroll
   for (int ax = 0; ax < 3; ++ax) {
@@ -78,33 +122,13 @@ __device__ __forceinline__ void gather_six(const T* __restrict__ eb, I vol,
 #pragma unroll
     for (int o = -2; o <= 1; ++o) hw[ax][o + 2] = m2(T(o + 0.5) - d[ax]);
   }
-  out[0] = gather_comp<T, I, true, false, false>(eb + 0 * vol, nyp, nzp, px, py, pz, gw, hw);
-  out[1] = gather_comp<T, I, false, true, false>(eb + 1 * vol, nyp, nzp, px, py, pz, gw, hw);
-  out[2] = gather_comp<T, I, false, false, true>(eb + 2 * vol, nyp, nzp, px, py, pz, gw, hw);
-  out[3] = gather_comp<T, I, false, true, true>(eb + 3 * vol, nyp, nzp, px, py, pz, gw, hw);
-  out[4] = gather_comp<T, I, true, false, true>(eb + 4 * vol, nyp, nzp, px, py, pz, gw, hw);
-  out[5] = gather_comp<T, I, true, true, false>(eb + 5 * vol, nyp, nzp, px, py, pz, gw, hw);
-}
-
-// E, B of cell (ix, iy, iz) from the padded stack eb (6, nx+2g, ny+2g,
-// nz+2g) in device memory (kernel B4).
-template <typename T>
-__device__ __forceinline__ void gather_eb(const T* __restrict__ eb, int nx,
-                                          int ny, int nz, int g, int ix,
-                                          int iy, int iz, const T (&d)[3],
-                                          T* out) {
-  const long long nyp = ny + 2 * g, nzp = nz + 2 * g;
-  const long long vol = (long long)(nx + 2 * g) * nyp * nzp;
-  gather_six<T, long long>(eb, vol, nyp, nzp, ix + g, iy + g, iz + g, d, out);
-}
-
-// E, B of a tile's cell (lx, ly, lz) from the tile's window in shared
-// memory, (6, WIN, WIN, WIN) with node w at cell offset w - 2 (kernel B2).
-template <typename T>
-__device__ __forceinline__ void gather_eb_window(const T* win, int lx, int ly,
-                                                 int lz, const T (&d)[3],
-                                                 T* out) {
-  gather_six<T, int>(win, WIN3, WIN, WIN, lx + 2, ly + 2, lz + 2, d, out);
+  const int px = lx + 2, py = ly + 2, pz = lz + 2;
+  out[0] = gather_comp<T, true, false, false>(win + 0 * WIN3, px, py, pz, gw, hw);
+  out[1] = gather_comp<T, false, true, false>(win + 1 * WIN3, px, py, pz, gw, hw);
+  out[2] = gather_comp<T, false, false, true>(win + 2 * WIN3, px, py, pz, gw, hw);
+  out[3] = gather_comp<T, false, true, true>(win + 3 * WIN3, px, py, pz, gw, hw);
+  out[4] = gather_comp<T, true, false, true>(win + 4 * WIN3, px, py, pz, gw, hw);
+  out[5] = gather_comp<T, true, true, false>(win + 5 * WIN3, px, py, pz, gw, hw);
 }
 
 // One axis's Esirkepov taps of one particle (ops/cell3d.py::
@@ -133,116 +157,11 @@ __device__ __forceinline__ void axis_taps(T d, T v, Taps<T>& t) {
   }
 }
 
-// Inputs of the tile deposit: the pushed slots of one species.
-template <typename T>
-struct DepositIn {
-  const unsigned char* alive;   // null: every slot with w != 0 deposits
-  const T *x, *y, *z, *ux, *uy, *uz, *ig, *w;
-  const T* rims_in;             // null: panels start at 0
-  T* rims_out;                  // (C, nbx, nby, nbz, PAN, PAN, PAN)
-  int cap, nx, ny, nz, ncomp;
-  long long ncell;
-  T cd[3];                      // c dt / d per axis
-  T kcd;                        // q / (dx dy dz)
-  T kf[3];                      // q / (dy dz dt), q / (dx dz dt), q / (dx dy dt)
-};
-
-// One block per TILE^3 cell tile (blockDim (TILE, TILE, TILE) = (z, y, x),
-// grid (nbz, nby, nbx), ncomp * PAN3 reals of shared memory), one thread
-// per cell: the 5-tap Esirkepov J (and rho) into a shared (C, PAN, PAN,
-// PAN) panel. Each thread takes its depositing particles one at a time;
-// for one particle the 125 stencil offsets go one after another with a
-// barrier between, and within one offset every thread writes a different
-// panel node, so the sum needs no atomics and repeats bit for bit. The
-// panel starts from rims_in (or 0) and is written to rims_out. Panel
-// (bi, bj, bk) node (a, b, c) is the current at interior index
-// (bi*TILE + a - 2, bj*TILE + b - 2, bk*TILE + c - 2).
-template <typename T>
-__device__ __forceinline__ void deposit_tile(const DepositIn<T>& a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* pan = reinterpret_cast<T*>(smem_raw);       // (ncomp, PAN, PAN, PAN)
-  const int lz = threadIdx.x, ly = threadIdx.y, lx = threadIdx.z;
-  const int tid = (lx * TILE + ly) * TILE + lz;
-  const int C = a.ncomp;
-  const long long nblocks = (long long)gridDim.x * gridDim.y * gridDim.z;
-  const long long block =
-      ((long long)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-  for (int e = tid; e < C * PAN3; e += TILE * TILE * TILE) {
-    int c = e / PAN3, r = e - c * PAN3;
-    pan[e] = a.rims_in ? a.rims_in[((long long)c * nblocks + block) * PAN3 + r]
-                       : T(0);
-  }
-  const int ix = blockIdx.z * TILE + lx, iy = blockIdx.y * TILE + ly,
-            iz = blockIdx.x * TILE + lz;
-  const bool valid = ix < a.nx && iy < a.ny && iz < a.nz;
-  const long long cell = ((long long)ix * a.ny + iy) * a.nz + iz;
-  const int node0 = (lx * PAN + ly) * PAN + lz;
-  int sl = 0;
-  while (true) {
-    // this thread's next depositing particle; the block goes on while any
-    // thread has one
-    bool have = false;
-    if (valid) {
-      while (sl < a.cap) {
-        long long idx = (long long)sl * a.ncell + cell;
-        if (a.alive ? a.alive[idx] != 0 : a.w[idx] != T(0)) {
-          have = true;
-          break;
-        }
-        ++sl;
-      }
-    }
-    if (!__syncthreads_or(have)) break;
-    Taps<T> tx, ty, tz;
-    T cd = T(0), nfx = T(0), nfy = T(0), nfz = T(0);
-    if (have) {
-      long long idx = (long long)sl * a.ncell + cell;
-      T ig = a.ig[idx], w = a.w[idx];
-      axis_taps(a.x[idx] - T(ix), (a.ux[idx] * ig) * a.cd[0], tx);
-      axis_taps(a.y[idx] - T(iy), (a.uy[idx] * ig) * a.cd[1], ty);
-      axis_taps(a.z[idx] - T(iz), (a.uz[idx] * ig) * a.cd[2], tz);
-      cd = a.kcd * w;
-      nfx = -(a.kf[0] * w);
-      nfy = -(a.kf[1] * w);
-      nfz = -(a.kf[2] * w);
-    }
-#pragma unroll
-    for (int oy = 0; oy < 5; ++oy) {
-#pragma unroll
-      for (int oz = 0; oz < 5; ++oz) {
-        T px = T(0), pr = T(0);
-        if (have) {
-          px = nfx * (ty.a[oy] * tz.s0[oz] + ty.c[oy] * tz.ds[oz]);
-          pr = cd * (ty.s1[oy] * tz.s1[oz]);
-        }
-#pragma unroll
-        for (int ox = 0; ox < 5; ++ox) {
-          if (have) {
-            T py = nfy * (tx.a[ox] * tz.s0[oz] + tx.c[ox] * tz.ds[oz]);
-            T pz = nfz * (tx.a[ox] * ty.s0[oy] + tx.c[ox] * ty.ds[oy]);
-            T* node = pan + node0 + (ox * PAN + oy) * PAN + oz;
-            node[0] += tx.run[ox] * px;
-            node[PAN3] += ty.run[oy] * py;
-            node[2 * PAN3] += tz.run[oz] * pz;
-            if (C == 4) node[3 * PAN3] += tx.s1[ox] * pr;
-          }
-          __syncthreads();
-        }
-      }
-    }
-    ++sl;
-  }
-  for (int e = tid; e < C * PAN3; e += TILE * TILE * TILE) {
-    int c = e / PAN3, r = e - c * PAN3;
-    a.rims_out[((long long)c * nblocks + block) * PAN3 + r] = pan[e];
-  }
-}
-
 // One particle's 5-tap Esirkepov J (and with C == 4 rho) added into a
 // shared (C, PAN, PAN, PAN) panel with atomics (kernel B2's tile kernel):
 // the particle's cell sits at panel node node0 + (2, 2, 2); tx, ty, tz its
 // axis taps, cd = q w / (dx dy dz), nf = -q w / (d d dt) per axis. Each
-// term is deposit_tile's product; exact zeros (the offsets neither shape
+// term is the plain version's product; exact zeros (the offsets neither shape
 // reaches) are not added.
 template <typename T>
 __device__ __forceinline__ void deposit_atomic(T* pan, int node0, int C,
@@ -366,11 +285,5 @@ __device__ __forceinline__ void deposit_window(
     }
   }
 }
-
-// Dynamic shared memory of one deposit block; a float64 panel with rho is
-// 55 KB, above the 48 KB a kernel gets without asking, so the launcher
-// raises the kernel's limit first.
-template <typename T>
-inline size_t deposit_smem(int ncomp) { return sizeof(T) * ncomp * PAN3; }
 
 }  // namespace lp3d

@@ -51,9 +51,9 @@
 //            the alive ones in slot order (each thread's count, a warp
 //            scan and the warps' sums), so a warp's particles sit in
 //            different cells. Each thread then takes one listed particle:
-//            the staggered quadratic gather from the shared window (the
-//            taps and their order of cell3d.cuh::gather_six, as kernel B4
-//            reads them from device memory), with want_chi the pre-push
+//            the staggered quadratic gather from the shared window
+//            (cell3d.cuh::gather_eb_window, which kernel B4 runs too),
+//            with want_chi the pre-push
 //            ig0 and chi, Boris, the second half push, the slot written
 //            back, and its Esirkepov stencil added into the shared panel
 //            with shared-memory atomics: over each axis's window of four
@@ -146,7 +146,10 @@ using lp2d::WFloor;
 using lp3d::PAN;
 using lp3d::PAN3;
 using lp3d::TILE;
-using lp3d::WIN;
+using lp3d::TILE3;
+using lp3d::copy_async;
+using lp3d::copy_async_commit;
+using lp3d::copy_async_wait;
 using lp3d::WIN3;
 
 enum Ptr {
@@ -622,7 +625,6 @@ __global__ void __launch_bounds__(REBIN_THREADS)
 
 // -- the tail: push and deposit of one 8^3 tile a block ----------------------
 
-constexpr int TILE3 = TILE * TILE * TILE;
 constexpr int TAIL_THREADS = 256;
 constexpr int TAIL_WARPS = TAIL_THREADS / 32;
 constexpr int PER_THREAD = 4;                // slots a thread tests a round
@@ -636,27 +638,6 @@ template <typename T>
 inline size_t tail_smem(int ncomp) {
   return sizeof(T) * (6 * WIN3 + (size_t)ncomp * PAN3) +
          sizeof(int) * (ROUND + TAIL_THREADS + TAIL_WARPS);
-}
-
-// cp.async of one element, global -> shared (sm_80 and later), and the
-// wait for all of a thread's copies.
-template <typename T>
-__device__ __forceinline__ void copy_async(T* dst, const T* src) {
-  unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  if constexpr (sizeof(T) == 4)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-                 "l"(src) : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
-                 "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void copy_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void copy_async_wait() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // Candidate c of a tile (slot-major, then x, y, z within the tile) as the
@@ -746,19 +727,8 @@ __global__ void __launch_bounds__(TAIL_THREADS, 3) tail3(Args<T> a,
   const int rb = (int)(block - (long long)bi * nby * nbz);
   const int bj = rb / nbz, bk = rb - bj * nbz;
   const int x0 = bi * TILE, y0 = bj * TILE, z0 = bk * TILE;
-  // window node (wx, wy, wz) is padded node (x0 + g - 2 + wx, ...); nodes
-  // past the padded stack's end are left unset: only cells past the grid,
-  // which hold no slot, would read them
-  const int nxp = a.nx + 2 * a.g, nyp = a.ny + 2 * a.g, nzp = a.nz + 2 * a.g;
-  const long long vol = (long long)nxp * nyp * nzp;
-  for (int e = tid; e < 6 * WIN3; e += TAIL_THREADS) {
-    const int c = e / WIN3, r = e - c * WIN3;
-    const int wx = r / (WIN * WIN), wy = (r / WIN) % WIN, wz = r % WIN;
-    const int px = x0 + a.g - 2 + wx, py = y0 + a.g - 2 + wy,
-              pz = z0 + a.g - 2 + wz;
-    if (px < nxp && py < nyp && pz < nzp)
-      copy_async(win + e, a.eb + c * vol + ((long long)px * nyp + py) * nzp + pz);
-  }
+  lp3d::load_window(win, a.eb, a.nx, a.ny, a.nz, a.g, x0, y0, z0, tid,
+                    TAIL_THREADS);
   for (int e = tid; e < C * PAN3; e += TAIL_THREADS) {
     const int c = e / PAN3, r = e - c * PAN3;
     if (a.rims_in)

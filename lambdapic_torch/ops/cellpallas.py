@@ -25,7 +25,8 @@ contiguity of its operands and raises on what its kernel does not take.
 
 Plain versions: B4 ``fused_push_cell_2d_plain`` (``gather_cell_2d`` +
 ``boris_push`` + ``push_position_2d``) and ``fused_push_cell_3d_plain``
-(the same with ``gather_cell_3d`` and ``push_position_3d``), B5
+(the same with ``gather_cell_3d`` and ``push_position_3d``, the dead
+slots given their dead values), B5
 ``cell2d.deposit_cell_2d`` and ``cell3d.deposit_cell_3d``, B6
 ``cell2d.migrate_cells`` (fast scheme, Batcher order, two or three
 axes), B7 ``cell2d.batcher_sort``.
@@ -43,7 +44,7 @@ from .cell2d import (MERGED, SANITIZED, TRANSIENT, batcher_network,
                      batcher_sort, deposit_cell_2d, gather_cell_2d,
                      migrate_cells)
 from .cell3d import deposit_cell_3d, gather_cell_3d
-from .cellslab import TILE, TILE3, _ces_tensor, key_scratch, panel_shape
+from .cellslab import TILE, _ces_tensor, key_scratch, panel_shape
 from .pusher import boris_push, push_position_2d, push_position_3d
 
 # csrc/migrate.cu's MAXF / MAXI and csrc/sortcells.cu's MAXP, held equal
@@ -51,6 +52,9 @@ from .pusher import boris_push, push_position_2d, push_position_3d
 MIGRATE_MAX_FLOAT = 16
 MIGRATE_MAX_INT = 4
 SORT_MAX_PAYLOADS = 24
+# csrc/deposit3d.cu's column geometry: x segment, (y, z) cells of a column,
+# planes of a segment's panel, plane panel (y, z) nodes
+DEPOSIT3_GEOMETRY = (32, 4, 8, 36, 8, 12)
 PUSH_MODES = ("default", "want_eb")
 
 
@@ -74,9 +78,12 @@ def _check_limits(lib: str) -> None:
     """The kernels' compile-time limits, held equal to this module's once,
     when a library is first used."""
     so = kernel_lib.library(lib)
-    if lib in ("deposit2d", "deposit3d"):
-        got = (so.lp_deposit_tile(),)
-        want = (TILE if lib == "deposit2d" else TILE3,)
+    if lib == "deposit2d":
+        got, want = (so.lp_deposit_tile(),), (TILE,)
+    elif lib == "deposit3d":
+        got = tuple(so.lp_deposit_geometry(i)
+                    for i in range(len(DEPOSIT3_GEOMETRY)))
+        want = DEPOSIT3_GEOMETRY
     elif lib == "migrate":
         got = (so.lp_migrate_max_payloads(0), so.lp_migrate_max_payloads(1))
         want = (MIGRATE_MAX_FLOAT, MIGRATE_MAX_INT)
@@ -149,8 +156,8 @@ fused_push_cell_2d.launches_by_mode = dict.fromkeys(PUSH_MODES, 0)
 
 def fused_push_cell_3d_plain(eb_pad, x, y, z, ux, uy, uz, *, q: float,
                              m: float, dt: float, dx: float, dy: float,
-                             dz: float, g: int, want_eb: bool = False,
-                             do_pos1: bool = True):
+                             dz: float, g: int, alive: torch.Tensor,
+                             want_eb: bool = False, do_pos1: bool = True):
     """Plain version of kernel B4 in 3D (see ``fused_push_cell_3d``)."""
     h = [c_light * dt / d / 2 for d in (dx, dy, dz)]
     if do_pos1:
@@ -159,22 +166,27 @@ def fused_push_cell_3d_plain(eb_pad, x, y, z, ux, uy, uz, *, q: float,
     eb = gather_cell_3d(eb_pad, x, y, z, g)
     ux, uy, uz, ig = boris_push(ux, uy, uz, *eb, q, m, dt)
     x, y, z = push_position_3d(x, y, z, ux, uy, uz, ig, *h)
-    out = (x, y, z, ux, uy, uz, ig)
-    return out + tuple(eb) if want_eb else out
+    out = (x, y, z, ux, uy, uz, ig) + (tuple(eb) if want_eb else ())
+    # the dead slots' values: zero floats, inv_gamma 1
+    return tuple(torch.where(alive, t, 1.0 if i == 6 else 0.0)
+                 for i, t in enumerate(out))
 
 
 def fused_push_cell_3d(eb_pad, x, y, z, ux, uy, uz, *, q: float, m: float,
                        dt: float, dx: float, dy: float, dz: float, g: int,
-                       want_eb: bool = False, do_pos1: bool = True):
-    """Kernel B4 in 3D. eb_pad (6, nx+2g, ny+2g, nz+2g); slots (cap, nx,
-    ny, nz), freshly re-binned; ``do_pos1`` as in ``fused_push_cell_2d``.
-    Returns (x, y, z, ux, uy, uz, inv_gamma) after the gather, Boris and
-    the second half push, and with ``want_eb`` also the six gathered
-    components (ex, ey, ez, bx, by, bz)."""
+                       alive: torch.Tensor, want_eb: bool = False,
+                       do_pos1: bool = True):
+    """Kernel B4 in 3D. eb_pad (6, nx+2g, ny+2g, nz+2g), g >= 2; slots
+    (cap, nx, ny, nz), freshly re-binned, ``alive`` (bool, the slots'
+    shape) naming the slots to push; ``do_pos1`` as in
+    ``fused_push_cell_2d``. Returns (x, y, z, ux, uy, uz, inv_gamma) after
+    the gather, Boris and the second half push, and with ``want_eb`` also
+    the six gathered components (ex, ey, ez, bx, by, bz); every dead slot
+    gets the dead values: 0 in each output, inv_gamma 1."""
     if not _on_card(x, "fused_push_cell_3d"):
         return fused_push_cell_3d_plain(eb_pad, x, y, z, ux, uy, uz, q=q,
                                         m=m, dt=dt, dx=dx, dy=dy, dz=dz,
-                                        g=g, want_eb=want_eb,
+                                        g=g, alive=alive, want_eb=want_eb,
                                         do_pos1=do_pos1)
     dev, dtype = x.device, x.dtype
     _check_float(dtype, "fused_push_cell_3d")
@@ -184,15 +196,19 @@ def fused_push_cell_3d(eb_pad, x, y, z, ux, uy, uz, *, q: float, m: float,
     cap, nx, ny, nz = shape
     kernel_lib.check(eb_pad, "eb_pad", (6, nx + 2 * g, ny + 2 * g,
                                         nz + 2 * g), dtype, dev)
+    if g < 2:
+        raise ValueError("fused_push_cell_3d: the gather window needs g >= 2")
     for name, t in (("x", x), ("y", y), ("z", z), ("ux", ux), ("uy", uy),
                     ("uz", uz)):
         kernel_lib.check(t, name, shape, dtype, dev)
+    kernel_lib.check(alive, "alive", shape, torch.bool, dev)
     outs = [torch.empty(shape, dtype=dtype, device=dev)
             for _ in range(13 if want_eb else 7)]
     ebs = outs[7:] if want_eb else [None] * 6
     h = [c_light * dt / d / 2 for d in (dx, dy, dz)]
     kernel_lib.call(
-        "push3d", "lp_push_3d", [eb_pad, x, y, z, ux, uy, uz] + outs[:7] + ebs,
+        "push3d", "lp_push_3d",
+        [eb_pad, x, y, z, ux, uy, uz] + outs[:7] + ebs + [alive],
         [cap, nx, ny, nz, g, want_eb, do_pos1, dtype == torch.float64],
         h + [q * dt / (2 * m * c_light), q * dt / (2 * m)], dev)
     fused_push_cell_3d.launches += 1
@@ -246,11 +262,14 @@ deposit_cell_2d_k.launches = 0
 
 
 def deposit_cell_3d_k(x, y, z, ux, uy, uz, inv_gamma, w, *, q: float,
-                      dx: float, dy: float, dz: float, dt: float, g: int
-                      ) -> torch.Tensor:
+                      dx: float, dy: float, dz: float, dt: float, g: int,
+                      alive: torch.Tensor) -> torch.Tensor:
     """Kernel B5 in 3D, the contract of ``cell3d.deposit_cell_3d``
     (home-cell binned slots, dead slots with w == 0): the padded
-    (4, nx+2g, ny+2g, nz+2g) jx, jy, jz, rho of one species."""
+    (4, nx+2g, ny+2g, nz+2g) jx, jy, jz, rho of one species. ``alive``
+    (bool, the slots' shape) names the depositing slots, so the kernel
+    reads one byte a slot and no dead slot's payload; the plain version
+    needs no mask (its dead slots add w = 0)."""
     if not _on_card(x, "deposit_cell_3d_k"):
         return deposit_cell_3d(x, y, z, ux, uy, uz, inv_gamma, w, q=q,
                                dx=dx, dy=dy, dz=dz, dt=dt, g=g)
@@ -266,12 +285,15 @@ def deposit_cell_3d_k(x, y, z, ux, uy, uz, inv_gamma, w, *, q: float,
     for name, t in (("x", x), ("y", y), ("z", z), ("ux", ux), ("uy", uy),
                     ("uz", uz), ("inv_gamma", inv_gamma), ("w", w)):
         kernel_lib.check(t, name, shape, dtype, dev)
-    panels = torch.empty(panel_shape(4, nx, ny, nz), dtype=dtype, device=dev)
+    kernel_lib.check(alive, "alive", shape, torch.bool, dev)
+    seg, cy, cz, planes, qy, qz = DEPOSIT3_GEOMETRY
+    panels = torch.empty((-(-nx // seg), -(-ny // cy), -(-nz // cz), planes,
+                          qy, qz, 4), dtype=dtype, device=dev)
     jpad = torch.empty((4, nx + 2 * g, ny + 2 * g, nz + 2 * g), dtype=dtype,
                        device=dev)
     kernel_lib.call(
         "deposit3d", "lp_deposit_3d",
-        [x, y, z, ux, uy, uz, inv_gamma, w, panels, jpad],
+        [x, y, z, ux, uy, uz, inv_gamma, w, panels, jpad, alive],
         [cap, nx, ny, nz, g, dtype == torch.float64],
         [c_light * dt / dx, c_light * dt / dy, c_light * dt / dz,
          q / (dx * dy * dz), q / (dy * dz * dt), q / (dx * dz * dt),

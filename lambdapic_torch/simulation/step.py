@@ -329,9 +329,11 @@ class StepBuilder:
             kw = dict(q=sp.q, m=sp.m, dt=dt, dx=grid.dx, dy=grid.dy, g=g,
                       want_eb=bool(procs), do_pos1=False)
             if three_d:
+                # B4 3D pushes the alive slots only and gives the dead
+                # ones its dead values (see csrc/push3d.cu)
                 outs = fused_push_cell_3d(eb_pad, *pos, data["ux"],
                                           data["uy"], data["uz"],
-                                          dz=grid.dz, **kw)
+                                          dz=grid.dz, alive=alive, **kw)
             else:
                 outs = fused_push_cell_2d(eb_pad, *pos, data["ux"],
                                           data["uy"], data["uz"], **kw)
@@ -374,7 +376,7 @@ class StepBuilder:
             kw = dict(q=sp.q, dx=grid.dx, dy=grid.dy, dt=dt, g=g)
             if three_d:
                 jpad = deposit_cell_3d_k(*pos, ux, uy, uz, ig, w, dz=grid.dz,
-                                         **kw)
+                                         alive=alive, **kw)
             else:
                 jpad = deposit_cell_2d_k(*pos, ux, uy, uz, ig, w, **kw)
         return p.replace(data=data, alive=alive,

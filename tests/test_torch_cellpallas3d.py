@@ -5,7 +5,9 @@ inputs (float64, CPU).
 
 - B4 3D plain vs JAX gather_cell_3d + boris_push + push_position_3d (the
   first half push at 1/sqrt(1 + u^2) when do_pos1), the XLA oracle of
-  tests/core/test_cellpallas.py::test_fused_push_3d_matches_xla;
+  tests/core/test_cellpallas.py::test_fused_push_3d_matches_xla, on the
+  alive slots (the port's B4 takes the alive mask and gives the dead ones
+  its dead values, which are checked exactly);
 - B5 3D plain vs JAX deposit_cell_3d: 1e-12 of the current's peak (the
   slot sums run in another order);
 - the fast 3D re-binning (cell2d.migrate_cells on three axes,
@@ -79,13 +81,16 @@ def test_b4_3d_plain_matches_jax(want_eb, do_pos1):
         jnp.asarray(eb_pad), *(jnp.asarray(a) for a in args)))))
     targs = [torch.as_tensor(a) for a in args]
     kw = dict(q=Q, m=M, dt=DT, dx=DX, dy=DY, dz=DZ, g=G, want_eb=want_eb,
-              do_pos1=do_pos1)
+              do_pos1=do_pos1, alive=torch.as_tensor(alive))
     got = t_cp.fused_push_cell_3d_plain(torch.as_tensor(eb_pad), *targs, **kw)
     assert len(got) == len(names)
     got = dict(zip(names, (t.numpy() for t in got)))
-    everywhere = np.ones_like(alive)
-    compare_slots({**want, **_ids(data)}, everywhere,
-                  {**got, **_ids(data)}, everywhere, rtol=1e-11, keys=names)
+    compare_slots({**want, **_ids(data)}, alive, {**got, **_ids(data)},
+                  alive, rtol=1e-11, keys=names)
+    assert (~alive).any()
+    for k in names:
+        dead = 1.0 if k == "inv_gamma" else 0.0
+        np.testing.assert_array_equal(got[k][~alive], dead, err_msg=k)
     # the fields reach the particles
     assert np.abs(got["ux"] - data["ux"]).max() > 0.1
     # the wrapper takes the plain version for CPU tensors
@@ -120,7 +125,8 @@ def test_b5_3d_plain_matches_jax():
     ref = np.asarray(jax.jit(lambda *a: deposit_cell_3d(*a, **kw))(
         *(jnp.asarray(a) for a in args)))
     before = t_cp.deposit_cell_3d_k.launches
-    got = t_cp.deposit_cell_3d_k(*(torch.as_tensor(a) for a in args), **kw)
+    got = t_cp.deposit_cell_3d_k(*(torch.as_tensor(a) for a in args),
+                                 alive=torch.as_tensor(alive), **kw)
     assert t_cp.deposit_cell_3d_k.launches == before
     assert got.shape == ref.shape == (4, 6 + 2 * G, 8 + 2 * G, 7 + 2 * G)
     for c in range(4):

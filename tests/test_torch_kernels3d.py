@@ -6,16 +6,19 @@ run
     python -m pytest --noconftest -m gpu tests/test_torch_kernels3d.py
 
 Tolerances: B4 3D (default and want_eb modes, with and without the first
-half push) runs the plain version's operations in its order, so float64
-is bitwise equal and float32 within rtol 1e-5; B5 3D within 1e-12 of the
-current's peak in float64 (1e-5 in float32; the sums run in another
-order); B6 on 3D slots and B7 on 3D slots move data and merge in the
-plain version's order, so every output array is equal, dead slots
-included, for caps 4 to 20, with float, int32 and bool payloads. B2 3D
-(the cases at the end; its default mode in test_torch_kernels.py) slot
-for slot at rtol 1e-11 and panels within 1e-12 of their peak in float64:
-its tile kernel adds the stencils with shared-memory atomics, so the
-panel sums run in an order that changes from run to run.
+half push, given the alive mask as the step gives it) runs the plain
+version's operations in its order, so float64 is bitwise equal and
+float32 within rtol 1e-5, and every dead slot holds exactly the dead
+values; B5 3D within 1e-12 of the current's peak in float64 (1e-5 in
+float32; the sums run in another order, with fused multiply-adds), and
+bit for bit from one call to the next; B6 on 3D slots and B7 on 3D slots
+move data and merge in the plain version's order, so every output array
+is equal, dead slots included, for caps 4 to 20, with float, int32 and
+bool payloads. B2 3D (the cases at the end; its default mode in
+test_torch_kernels.py) slot for slot at rtol 1e-11 and panels within
+1e-12 of their peak in float64: its tile kernel adds the stencils with
+shared-memory atomics, so the panel sums run in an order that changes
+from run to run.
 """
 import numpy as np
 import pytest
@@ -38,31 +41,40 @@ def cuda():
     return torch.device("cuda:0")
 
 
+def _b4_check(cp, eb, args, ta, dtype, **kw):
+    """B4 3D against its plain version, launch counted by mode: float64
+    bitwise, float32 to rtol 1e-5; every dead slot's dead values exactly
+    (0, inv_gamma 1)."""
+    ref = cp.fused_push_cell_3d_plain(eb, *args, alive=ta, **kw)
+    mode = "want_eb" if kw["want_eb"] else "default"
+    before = dict(cp.fused_push_cell_3d.launches_by_mode)
+    got = cp.fused_push_cell_3d(eb, *args, alive=ta, **kw)
+    torch.cuda.synchronize()
+    assert cp.fused_push_cell_3d.launches_by_mode[mode] == before[mode] + 1
+    assert len(got) == len(ref) == (13 if kw["want_eb"] else 7)
+    for i, (a, b) in enumerate(zip(got, ref)):
+        if dtype == torch.float64:
+            assert torch.equal(a, b), i
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-5,
+                                       atol=1e-6 * float(b.abs().max()))
+        assert bool((a[~ta] == (1.0 if i == 6 else 0.0)).all()), i
+    assert bool(torch.isfinite(got[6]).all())
+
+
 @pytest.mark.parametrize("want_eb", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_b4_3d_matches_plain(cuda, want_eb, dtype):
+    """The alive slots pushed and the dead ones given the dead values;
+    with and without the first half push."""
     from lambdapic_torch.ops import cellpallas as cp
     data, alive, eb = random_cell_state(5, 13, 10, 9, seed=7, field=5e13)
-    td, _ = to_torch(data, alive, dtype, cuda)
+    td, ta = to_torch(data, alive, dtype, cuda)
     args = [td[k] for k in ("x", "y", "z", "ux", "uy", "uz")]
     eb = torch.as_tensor(eb, dtype=dtype).to(cuda)
     for do_pos1 in (False, True):
-        kw = dict(q=Q, m=M, dt=DT, dx=DX, dy=DY, dz=DZ, g=3,
-                  want_eb=want_eb, do_pos1=do_pos1)
-        ref = cp.fused_push_cell_3d_plain(eb, *args, **kw)
-        before = dict(cp.fused_push_cell_3d.launches_by_mode)
-        got = cp.fused_push_cell_3d(eb, *args, **kw)
-        torch.cuda.synchronize()
-        mode = "want_eb" if want_eb else "default"
-        assert cp.fused_push_cell_3d.launches_by_mode[mode] == before[mode] + 1
-        assert len(got) == len(ref) == (13 if want_eb else 7)
-        for a, b in zip(got, ref):
-            if dtype == torch.float64:
-                assert torch.equal(a, b)
-            else:
-                torch.testing.assert_close(a, b, rtol=1e-5,
-                                           atol=1e-6 * float(b.abs().max()))
-        assert bool(torch.isfinite(got[6]).all())
+        _b4_check(cp, eb, args, ta, dtype, q=Q, m=M, dt=DT, dx=DX, dy=DY,
+                  dz=DZ, g=3, want_eb=want_eb, do_pos1=do_pos1)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
@@ -81,11 +93,75 @@ def test_b5_3d_matches_plain(cuda, dtype, tol):
         kw = dict(q=Q, dx=DX, dy=DY, dz=DZ, dt=DT, g=g)
         ref = deposit_cell_3d(*args, w, **kw)
         before = cp.deposit_cell_3d_k.launches
-        got = cp.deposit_cell_3d_k(*args, w, **kw)
+        got = cp.deposit_cell_3d_k(*args, w, alive=ta, **kw)
         torch.cuda.synchronize()
         assert cp.deposit_cell_3d_k.launches == before + 1
         torch.testing.assert_close(got, ref, rtol=0,
                                    atol=tol * float(ref.abs().max()))
+
+
+# B4 3D and B5 3D at their edges, float64 against their plain versions:
+# (cap, nx, ny, nz, g, n_frac) by case
+#  ragged       no tile of either kernel divides the grid (B4's 8^3
+#               tiles, B5's columns of 4 x 8 (y, z) cells);
+#  long_x       five x segments of B5's columns (32 x 4 and 22 cells);
+#  above_128    130 slots a cell, all alive (B4's list takes many rounds,
+#               B5 reads the alive bytes again a plane past 64 slots)
+B45_EDGE_CASES = {"ragged": (6, 13, 10, 9, 2, 0.5),
+                  "long_x": (4, 150, 5, 9, 3, 0.4),
+                  "above_128": (130, 5, 4, 6, 3, 1.0)}
+
+
+@pytest.mark.parametrize("name", list(B45_EDGE_CASES))
+def test_b4_b5_3d_edges_match_plain(cuda, name):
+    from lambdapic_torch.ops import cellpallas as cp
+    from lambdapic_torch.ops.cell3d import deposit_cell_3d
+    cap, nx, ny, nz, g, n_frac = B45_EDGE_CASES[name]
+    data, alive, eb = random_cell_state(cap, nx, ny, nz, g=g, seed=cap + nx,
+                                        n_frac=n_frac, field=5e13)
+    if name == "above_128":
+        assert int(alive.sum(0).max()) > 128
+    td, ta = to_torch(data, alive, torch.float64, cuda)
+    args = [td[k] for k in ("x", "y", "z", "ux", "uy", "uz")]
+    eb = torch.as_tensor(eb).to(cuda)
+    _b4_check(cp, eb, args, ta, torch.float64, q=Q, m=M, dt=DT, dx=DX,
+              dy=DY, dz=DZ, g=g, want_eb=True, do_pos1=True)
+    w = torch.where(ta, td["w"], 0.0)
+    a8 = [td[k] for k in ("x", "y", "z", "ux", "uy", "uz", "inv_gamma")]
+    kw = dict(q=Q, dx=DX, dy=DY, dz=DZ, dt=DT, g=g)
+    ref = deposit_cell_3d(*a8, w, **kw)
+    got = cp.deposit_cell_3d_k(*a8, w, alive=ta, **kw)
+    torch.testing.assert_close(got, ref, rtol=0,
+                               atol=1e-12 * float(ref.abs().max()))
+
+
+def test_b5_3d_repeats_and_skips_empty_columns(cuda):
+    """B5 3D sums in a fixed order: two identical calls give the same J bit
+    for bit, in float32 and float64. Most of the grid is empty (a box of
+    occupied cells, so whole columns and planes hold no alive slot),
+    against the plain version."""
+    from lambdapic_torch.ops import cellpallas as cp
+    from lambdapic_torch.ops.cell3d import deposit_cell_3d
+    from lambdapic_torch.testing import occupied_cell_state
+    nx, ny, nz = 140, 16, 24
+    occ = np.zeros((nx, ny, nz), bool)
+    occ[70:90, 5:9, 9:15] = True
+    data, alive, _ = occupied_cell_state(6, occ, 3, seed=4)
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        td, ta = to_torch(data, alive, dtype, cuda)
+        a8 = [td[k] for k in ("x", "y", "z", "ux", "uy", "uz", "inv_gamma",
+                              "w")]
+        kw = dict(q=Q, dx=DX, dy=DY, dz=DZ, dt=DT, g=3)
+        one = cp.deposit_cell_3d_k(*a8, alive=ta, **kw)
+        two = cp.deposit_cell_3d_k(*a8, alive=ta, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(one, two)
+        ref = deposit_cell_3d(*a8, **kw)
+        torch.testing.assert_close(one, ref, rtol=0,
+                                   atol=tol * float(ref.abs().max()))
+        assert float(ref.abs().max()) > 0
+        # nothing deposited outside the box's reach
+        assert float(one[:, :60].abs().max()) == 0
 
 
 STAGE3_CASES = [
@@ -158,11 +234,11 @@ def test_per_stage_3d_wrappers_reject_bad_operands(cuda):
     with pytest.raises(ValueError):
         cp.fused_push_cell_3d(eb, td["x"].float(), td["y"], td["z"],
                               td["ux"], td["uy"], td["uz"], q=Q, m=M, dt=DT,
-                              dx=DX, dy=DY, dz=DZ, g=3)
+                              dx=DX, dy=DY, dz=DZ, g=3, alive=ta)
     with pytest.raises(ValueError):
         cp.deposit_cell_3d_k(*[td[k].transpose(1, 2) for k in (
             "x", "y", "z", "ux", "uy", "uz", "inv_gamma", "w")],
-            q=Q, dx=DX, dy=DY, dz=DZ, dt=DT, g=3)
+            q=Q, dx=DX, dy=DY, dz=DZ, dt=DT, g=3, alive=ta)
     with pytest.raises(ValueError):
         cp.migrate_cells_fused(td, ta, ((8, True, "x"), (8, True, "y")))
 
