@@ -70,8 +70,11 @@ Phases (any failure exits non-zero):
 8. the per-stage engine in 3D: after phase 6 the 3D slice goes on through
    split steps (a host callback at _push_momentum due every step:
    launches per step B1 4, B6 6, B5 2; one split particle stage held
-   against one fused one on its last 128 x-planes; --steps-split-sort3d
-   more steps with LAMBDAPIC_MIG_FUSED=0: B7 6); then B4-B7 on 3D slots
+   against one fused one on its last 128 x-planes; B6 timed on the
+   electrons the split steps re-bin (the B6 3D row's split3d_* keys)
+   and its synchronised share of one more split step;
+   --steps-split-sort3d more steps with LAMBDAPIC_MIG_FUSED=0: B7 6);
+   then B4-B7 on 3D slots
    against their plain versions (float64 at small sizes, float32 at the
    3D slice's shapes; B4 3D and B5 3D with the alive mask, as the step
    calls them: B4 bitwise on the alive slots and the dead values in the
@@ -156,7 +159,7 @@ Phases (any failure exits non-zero):
    in float32 at those shards (every launch of one re-binning, axis by
    axis on every shard, on the same input: alive masks, merges and every
    array's alive slots bitwise) and timed, then
-   cell_migration="exact" for --steps-exact-mesh (20) steps (B4 12, B5
+   cell_migration="exact" for --steps-exact-mesh (10) steps (B4 12, B5
    12) and float64 twins of the mesh and one-device runs from the same
    state under the mesh gates (ids, positions within 1e-4 cells, momenta
    rtol 1e-4, fields within 1e-4 of their peaks); after phase 8 the 3D
@@ -172,7 +175,9 @@ per-stage, the QED, the 3D, the 3D QED, the 3D per-stage and the mesh
 kernels (K4 and K5 in 2D and 3D, K6 in both modes and K7 in 2D and 3D; B8's
 and B9's bounds also counted from the Pallas calls' shapes at bench.py's
 form; each row's "timing" says how its ms was taken, "profiler" or
-"events", see kernel_ms), the card's name and power limit, and as its
+"events", see kernel_ms; K7's rows add ms_launch and bound_ms_launch, a
+launch's share of their shard's axes), the card's name and power limit,
+and as its
 last line ``{"ok": true, "device": {...}}``.
 
 ``--exact2d-digest N`` runs only the 2D slice with cell_migration="exact"
@@ -2653,12 +2658,17 @@ STAGE3_LAUNCHES = {"B4 3D": 0, "B4 3D want_eb": 0, "B5 3D": 0, "B6": 0,
 STAGE3 = {}
 KERNEL_FUNCS.update({"B4 3D": {"push3d": 1},
                      "B5 3D": {"deposit3d": 1, "fold_pad3": 1},
-                     "B6 3D": {"migrate_axis": 3}})
+                     "B6 3D": {"migrate_tile": 3}})
 # the float64 cases of tests/test_torch_kernels3d.py
 STAGE3_CASES = [(4, 12, 7, 9, (True, True, True), 0.9),
                 (13, 9, 6, 5, (False, True, False), 0.5),
                 (16, 9, 5, 6, (True, False, True), 0.9),
-                (20, 6, 5, 7, (False, False, False), 1.0)]
+                (20, 6, 5, 7, (False, False, False), 1.0),
+                (8, 1, 5, 37, (True, False, True), 0.9),
+                (9, 19, 2, 40, (False, True, True), 0.9),
+                (17, 10, 3, 1, (True, True, False), 0.9),
+                (32, 5, 9, 12, (False, False, True), 1.0),
+                (33, 4, 3, 5, (True, False, False), 1.0)]
 # B5's plain version holds some 90 arrays of the slots' size (the taps of
 # the 125 offsets), so at the 3D slice's size it is held against the
 # kernel, and timed, on the last STAGE3_PLANES x-planes; the split step is
@@ -2929,6 +2939,9 @@ def stage3_rows():
     rows = []
     for tag, (name, cu, rep) in src.items():
         t = dict(STAGE3["time"][tag])
+        if tag == "B6":
+            # the split 3D slice's electrons, whose launches the step runs
+            t.update(STAGE3.get("b6 split", {}))
         launches = STAGE3_LAUNCHES[tag]
         if tag == "B4 3D":
             launches -= STAGE3_LAUNCHES["B4 3D want_eb"]
@@ -2987,6 +3000,60 @@ def compare_split_fused_3d(sim):
         f"{jerr:.2e} of their peak")
 
 
+def time_b6_split_3d(sim, callbacks):
+    """B6 on the electrons of the split 3D slice as its split steps see
+    them (their slots a cell as the slice has grown them): device ms a launch by
+    CUDA events over one call of the three axes, and the bound of the same
+    state (the mask and every carried payload of every slot read and
+    written once an axis); then B6's synchronised share of one split step
+    through Simulation.run, each B6 call between two synchronisations.
+    Stored in STAGE3["b6 split"], the B6 3D row's split3d_* keys."""
+    import torch
+    from lambdapic_torch.ops import cellpallas as cp
+    from lambdapic_torch.ops.cell2d import TRANSIENT
+    grid = sim.grid
+    p = sim.state.particles[0]
+    plan = tuple(zip(grid.shape, grid.periodic_axes, "xyz"))
+    ms = cuda_time(lambda: cp.migrate_cells_fused(p.data, p.alive, plan),
+                   3) / 3
+    pay = sum(v.element_size() for k, v in p.data.items()
+              if k not in TRANSIENT)
+    nbytes = 2 * p.alive.numel() * (1 + pay)
+    bound = nbytes / HBM_BPS * 1e3
+    torch.cuda.empty_cache()
+    spent = []
+    fused = cp.migrate_cells_fused
+
+    def synchronised(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fused(*a, **kw)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+    cp.migrate_cells_fused = synchronised
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.run(nsteps=1, callbacks=callbacks)
+        torch.cuda.synchronize()
+        step = time.perf_counter() - t0
+    finally:
+        cp.migrate_cells_fused = fused
+    STAGE3["b6 split"] = dict(split3d_ms=ms, split3d_bound_ms=bound,
+                              split3d_slots=p.cap,
+                              split3d_step_share=sum(spent) / step)
+    log(f"[time B6 3D split] the split 3D slice's electrons at step "
+        f"{sim.itime - 1} ({p.cap} slots a cell, {int(p.alive.sum())} of "
+        f"{p.alive.numel()} alive): {ms:.4f} ms a launch (CUDA events, "
+        f"three axes a call); bound {bound:.5f} ms ({nbytes} bytes a "
+        f"launch); {ms / bound:.2f}x the bound")
+    log(f"[slice split 3D] B6 synchronised: {sum(spent) * 1e3:.3f} ms in "
+        f"{len(spent)} calls of a {step * 1e3:.3f} ms step "
+        f"({100 * sum(spent) / step:.1f}%; the step with each B6 call "
+        "between two synchronisations)")
+
+
 def run_split_3d(args, sim, laser):
     """[slice split 3D]: the 3D slice's Simulation3D continued with a host
     callback at _push_momentum due every step (the split particle path:
@@ -3019,10 +3086,11 @@ def run_split_3d(args, sim, laser):
         f"{[p.cap for p in sim.state.particles]}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     busy_per_step(lambda: sim.run(nsteps=1, callbacks=[laser, hook]),
-                  {"e_half3": 2, "b_half3": 2, "migrate_axis": 6,
+                  {"e_half3": 2, "b_half3": 2, "migrate_tile": 6,
                    "deposit3d": 2, "fold_pad3": 2}, 2, "profile split 3D",
                   step_ms)
     sub_segment_ms(sim, [laser, hook], 2, "slice split 3D")
+    time_b6_split_3d(sim, [laser, hook])
 
     # -- the re-binning through B7 ---------------------------------------------
     split_steps_sorted(sim, [laser, hook], args.steps_split_sort3d,
@@ -5742,20 +5810,26 @@ def check_k7_f32(tag, twin, iters, ispec=0):
         f"{moved} slots changed occupancy; busiest shard {busy} of "
         f"{mesh.size}, {tuple(alives[busy].shape)} slots:{split} plain "
         f"{plain_ms:.2f} ms; bound {nbytes} bytes = "
-        f"{nbytes / HBM_BPS * 1e3:.5f} ms")
+        f"{nbytes / HBM_BPS * 1e3:.5f} ms; a launch {ms / nd:.4f} ms, bound "
+        f"{nbytes / HBM_BPS * 1e3 / nd:.5f} ms")
     del cur, cur_alive, datas
     torch.cuda.empty_cache()
     return err, ms, plain_ms, nbytes
 
 
 def k7_row(nd, err, ms, plain, nbytes, launches):
+    """The kernels line's K7 row: ms, plain_ms and bound_ms of one shard's
+    nd axes (one launch each) of one species, and ms_launch and
+    bound_ms_launch their mean a launch, beside the launches a step."""
+    bound = nbytes / HBM_BPS * 1e3
     return dict(
         name=f"K7 B6 mesh strips{', 3D' if nd == 3 else ' 2D'}",
         route="cuda", source="lambdapic_torch/csrc/migrate.cu",
         replaces="lambdapic_tpu/ops/cellpallas.py:860", launches=launches,
         max_abs_err=err, ms=ms, timing="events", plain_ms=plain,
-        bound_ms=nbytes / HBM_BPS * 1e3, bound_by="bytes", library_ms=None,
-        per="one shard's axes of one species")
+        bound_ms=bound, bound_by="bytes", library_ms=None,
+        per="one shard's axes of one species", ms_launch=ms / nd,
+        bound_ms_launch=bound / nd)
 
 
 def clone_mesh(st):
@@ -5908,7 +5982,7 @@ def run_stages_mesh_3d(args, sim, laser):
     n = args.steps_split_mesh3d
     step_ms, busy, peak, got = timed_mesh_run(
         tag, twin, [copy.deepcopy(keep[4]), hook], n, n,
-        {"B5 3D": 16, "B6": 48}, {"migrate_axis": 48, "deposit3d": 16})
+        {"B5 3D": 16, "B6": 48}, {"migrate_tile": 48, "deposit3d": 16})
     MESH_STAGE_LAUNCHES["B6 3D"] += got["B6"]
     err, ms, plain, nbytes = check_k7_f32("3D 2x2x2", twin, args.iters3d)
     del twin
@@ -5968,7 +6042,7 @@ def main() -> int:
                          "runs 2001)")
     ap.add_argument("--window", type=int, default=200,
                     help="final 2D steps timed as the steady window")
-    ap.add_argument("--steps-qed", type=int, default=500,
+    ap.add_argument("--steps-qed", type=int, default=400,
                     help="QED slice steps through Simulation.run (the "
                          "example runs 100 fs, 1115 steps; photons appear "
                          "by step ~112)")
@@ -6044,7 +6118,7 @@ def main() -> int:
     ap.add_argument("--steps-split-mesh", type=int, default=10,
                     help="split steps of the 2D slice's end state on a "
                          "2 x 2 mesh")
-    ap.add_argument("--steps-exact-mesh", type=int, default=20,
+    ap.add_argument("--steps-exact-mesh", type=int, default=10,
                     help="steps of the 2D slice's end state on a 2 x 2 mesh "
                          "with cell_migration='exact' (and of its float64 "
                          "twins on the mesh and on one device)")

@@ -3,7 +3,7 @@
 and B5, of a lambdapic_torch tree, and the 3D QED slice's per-stage
 steps that run B4 3D and B5 3D.
 
-    python3 kernel_ab.py ROOT [b2] [stage3] [steps3d]
+    python3 kernel_ab.py ROOT [b2] [stage3] [steps3d] [migrate3]
 
 ROOT is the directory that holds the ``lambdapic_torch`` package to time
 (``.`` for this checkout; an unpacked ``git archive <commit>
@@ -59,6 +59,25 @@ electrons, and B5 3D). After STEPS3D_WARM steps of the path, lines
 steps (host clock, synchronised) and, from torch.profiler over one more
 step, the device ms of the step, of B5 3D (deposit3d + fold_pad3) and of
 B4 3D (push3d).
+
+Group ``migrate3``: kernel B6 on 3D slots (the fast re-binning, open
+faces, the electrons' nine carried payloads: x, y, z, w, ux, uy, uz,
+id_lo, id_hi; inv_gamma recomputed on the last axis) on the 3D state and
+on ``3D exact``, and K7 (B6 with the neighbour shards' edge columns) on
+the 3D state as one shard of the split mesh 3D slice (its 256 x 128 x
+128 shard shape), each axis given edge columns taken from the state's
+own last (lo) and first (hi) columns along it. Lines ``AB-migrate3
+<state> <what> <ms a call> x <ms> y <ms> z <ms>`` (CUDA events): what
+``B6`` (one ``migrate_cells_fused`` call of three axes, then each axis
+alone), ``K7`` (the same with the edge columns), ``copy`` (a plain copy of
+the arrays one axis reads and writes: the mask and every payload, the rate
+this card reaches for those bytes) and the ablations of ROOT's
+``csrc/migrate.cu``, built beside it by text substitution (ABLATIONS;
+``sort``: keys and sort only, one mask byte written a slot; ``place``: the
+placement without payloads, only the mask written; in the tile design
+also ``stream``: every payload streamed and written back to its own slot,
+no placement), with the bound of one axis (its mask and payloads read and
+written once over 3.35 TB/s).
 """
 import sys
 
@@ -141,10 +160,11 @@ def make_state(name, cap, n):
 # untimed, then timed
 STEPS3D_FUSED, STEPS3D_WARM, STEPS3D_TIMED = 200, 2, 5
 
+GROUPS = ("b2", "stage3", "steps3d", "migrate3")
+
 
 def main() -> int:
-    if len(sys.argv) < 2 or any(g not in ("b2", "stage3", "steps3d")
-                                for g in sys.argv[2:]):
+    if len(sys.argv) < 2 or any(g not in GROUPS for g in sys.argv[2:]):
         print(__doc__, file=sys.stderr)
         return 2
     groups = sys.argv[2:] or ["b2", "stage3"]
@@ -162,6 +182,8 @@ def main() -> int:
         time_stage3(dev)
     if "steps3d" in groups:
         time_steps3d(dev)
+    if "migrate3" in groups:
+        time_migrate3(dev)
     return 0
 
 
@@ -323,6 +345,178 @@ def time_steps3d(dev):
               f"{b4:.4f} ms; alive {sim.npart_alive}, slots "
               f"{[p.cap for p in sim.state.particles]}", flush=True)
         del sim, split
+        torch.cuda.empty_cache()
+
+
+# Ablations of B6 (csrc/migrate.cu), by the design the source holds (the
+# first marker string found): name -> [(text, replacement)], every text
+# required. The tile design of 3D slots up to 32 slots a cell and the
+# one-thread-a-cell design (a tree without the tile design runs it for
+# every B6 launch; one with it, for 2D slots and above 32 slots a cell). ``stream``: keys, sort and every payload streamed, each output
+# slot taking its own input slot (no placement, no merge).
+ABLATIONS = {
+    "migrate_tile(": {
+        "sort": [("const bool vlo = lo_ok && (klo >> SLOT_BITS) == 0;",
+                  "const bool vlo = false;"),
+                 ("const bool vhi = hi_ok && (khi >> SLOT_BITS) == 4;",
+                  "const bool vhi = false;"),
+                 ("const int nstream = a.nf + a.ni;",
+                  "const int nstream = 1;"),
+                 ("for (int j = 0; j < nstream; ++j) {",
+                  "for (int j = 0; j < 0; ++j) {")],
+        "place": [("const int nstream = a.nf + a.ni;",
+                   "const int nstream = 1;"),
+                  ("for (int j = 0; j < nstream; ++j) {",
+                   "for (int j = 0; j < 0; ++j) {")],
+        "stream": [("const unsigned kind = vlo ? 1u : (vhi ? 2u : 0u);",
+                    "const unsigned kind = 0u;"),
+                   ("const int ks = vlo ? klo : (vhi ? khi : kown);",
+                    "const int ks = p;"),
+                   ("(n_src > 1 ? M_MULTI : 0)", "0u")]},
+    "migrate_cell(a, cell, k, ks, merges)": {
+        "sort": [("const int klo = k[p], kown = k[ks + p], khi = k[2 * ks + p];",
+                  "const int klo = k[p], kown = k[ks + p], khi = k[2 * ks + p];"
+                  " a.alive_out[(long long)p * a.ncell + cell] = (unsigned "
+                  "char)(((klo ^ kown ^ khi) >> 16) & 1); continue;")],
+        "place": [("for (int f = 0; f < a.nf; ++f) {",
+                   "for (int f = 0; f < 0; ++f) {"),
+                  ("for (int t = 0; t < a.ni; ++t) {",
+                   "for (int t = 0; t < 0; ++t) {"),
+                  ("if (a.final_ && a.recompute_ig)", "if (false)")]},
+}
+
+
+def ablation_libs(tags):
+    """{ablation name: built library path} of this tree's csrc/migrate.cu,
+    one nvcc each, all at once, into _build/ablate-<name>/."""
+    import subprocess
+    from lambdapic_torch.ops import kernel_lib
+    src = (kernel_lib.CSRC / "migrate.cu").read_text()
+    design = [k for k in ABLATIONS if k in src]
+    if not design:
+        raise RuntimeError("kernel_ab: csrc/migrate.cu holds no known design")
+    procs = {}
+    for name, subs in ABLATIONS[design[0]].items():
+        if name not in tags:
+            continue
+        text = src
+        for old, new in subs:
+            if old not in text:
+                raise RuntimeError(f"kernel_ab: ablation {name}: {old!r} "
+                                   "not in csrc/migrate.cu")
+            text = text.replace(old, new)
+        d = kernel_lib.BUILD / f"ablate-{name}"
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "migrate.cu").write_text(text)
+        so = d / "libmigrate.so"
+        procs[name] = (so, subprocess.Popen(
+            [kernel_lib.nvcc_path(), *kernel_lib.FLAGS, "-I",
+             str(kernel_lib.CSRC), "-o", str(so), str(d / "migrate.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    out = {}
+    for name, (so, p) in procs.items():
+        log, _ = p.communicate()
+        if p.returncode != 0:
+            raise RuntimeError(f"kernel_ab: ablation {name}:\n{log}")
+        out[name] = so
+    return out
+
+
+def use_migrate_lib(path):
+    """Point B6's wrapper at the library ``path`` (None: the tree's own)."""
+    import ctypes
+    from lambdapic_torch.ops import kernel_lib
+    kernel_lib._FNS.pop(("migrate", "lp_migrate_axis"), None)
+    if path is None:
+        kernel_lib._LIBS.pop("migrate", None)
+    else:
+        kernel_lib._LIBS["migrate"] = ctypes.CDLL(str(path))
+
+
+def migrate3_states(dev):
+    """(name, data, alive) of group migrate3's states, float32 on the card,
+    with int32 ids; the 3D state's inv_gamma as random_cell_state gives it."""
+    import torch
+    from lambdapic_torch.testing import to_torch
+    d, a, _ = make_state("3D", 8, (256, 128, 128))
+    td, ta = to_torch(d, a, torch.float32, dev)
+    del d, a
+    yield "3D", td, ta
+    del td, ta
+    torch.cuda.empty_cache()
+    td, ta, eb = exact3d_state(dev)
+    del eb
+    n = ta.numel()
+    td["id_lo"] = torch.arange(n, dtype=torch.int32, device=dev).view(
+        ta.shape)
+    td["id_hi"] = torch.zeros_like(td["id_lo"])
+    yield "3D exact", td, ta
+
+
+def time_migrate3(dev):
+    """Group migrate3 (see the module docstring)."""
+    import torch
+    from lambdapic_torch.ops import cellpallas as cp
+    from lambdapic_torch.ops import kernel_lib
+    from lambdapic_torch.ops.cell2d import TRANSIENT
+    kernel_lib.build(["migrate"])
+    for line in kernel_lib.build_log("migrate").splitlines():
+        if "registers" in line or "spill" in line or "smem" in line:
+            print(f"AB-ptxas migrate {line.strip()}", flush=True)
+    libs = ablation_libs(("sort", "place", "stream"))
+    for name, td, ta in migrate3_states(dev):
+        cells = tuple(ta.shape[1:])
+        names = sorted(k for k in td if k not in TRANSIENT)
+        plan = tuple(zip(cells, (False,) * 3, "xyz"))
+        per_slot = 1 + sum(td[k].element_size() for k in names)
+        bound = 2 * ta.numel() * per_slot / 3.35e12 * 1e3
+
+        def calls(edges):
+            e = edges or {}
+            axes = [lambda ax=ax: cp.migrate_cells_fused(
+                td, ta, (plan[ax],), finish=ax == 2,
+                edges={ax: e[ax]} if ax in e else None) for ax in range(3)]
+            return [lambda: cp.migrate_cells_fused(td, ta, plan,
+                                                   edges=edges)] + axes
+
+        def report(what, fns, iters=10):
+            ms = [timed(f, iters) for f in fns]
+            print(f"AB-migrate3 {name} {what} {ms[0]:.4f} ms x {ms[1]:.4f} "
+                  f"y {ms[2]:.4f} z {ms[3]:.4f}; bound an axis {bound:.4f} "
+                  f"ms ({int(ta.sum())} of {ta.numel()} slots alive, "
+                  f"{ta.shape[0]} a cell)", flush=True)
+            torch.cuda.empty_cache()
+
+        report("B6", calls(None))
+        if name == "3D":
+            edges = {}
+            for ax in range(3):
+                n = cells[ax]
+                col = {"lo": n - 1, "hi": 0}
+                edges[ax] = tuple(
+                    {"alive": ta.narrow(1 + ax, c, 1).to(torch.int32)
+                     .contiguous(),
+                     **{k: td[k].narrow(1 + ax, c, 1).contiguous()
+                        for k in names}} for c in col.values())
+            report("K7", calls(edges))
+            del edges
+        src = [ta] + [td[k] for k in names]
+        dst = [torch.empty_like(t) for t in src]
+
+        def copy():
+            for s, t in zip(src, dst):
+                t.copy_(s)
+        ms = timed(copy, 10)
+        print(f"AB-migrate3 {name} copy {ms:.4f} ms an axis's arrays "
+              f"({2 * ta.numel() * per_slot / ms / 1e9:.3f} TB/s); bound "
+              f"{bound:.4f} ms", flush=True)
+        del src, dst
+        torch.cuda.empty_cache()
+        for abl, so in libs.items():
+            use_migrate_lib(so)
+            report(f"ablate-{abl}", calls(None))
+        use_migrate_lib(None)
+        del td, ta
         torch.cuda.empty_cache()
 
 

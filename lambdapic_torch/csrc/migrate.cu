@@ -8,23 +8,30 @@
 // axis by migrate_cells_fused (:1143). Plain PyTorch version: lambdapic_
 // torch/ops/cell2d.py::migrate_cells (fast scheme, Batcher order).
 //
-// Rank-generic: the slots are (cap, ncell) with the cells flattened in C
-// order, and the caller names the axis by its length n and its stride
-// (the cells between neighbours along it: ny*nz, nz, 1 in 3D; ny, 1 in
-// 2D), so one source serves both ranks and B6 in 3D is this kernel with a
-// third axis. Cell c's index along the axis is (c / stride) % n.
+// Two designs, chosen by the launch (no switch):
+//  - 3D slots up to TILE_MAXC (32) slots a cell: the tile kernel
+//    (migrate_tile, below), the design of this note;
+//  - 2D slots, and 3D slots above 32 a cell: one thread per cell
+//    (migrate_axis), rank-generic: the slots are (cap, ncell) with the
+//    cells flattened in C order, the axis named by its length n and its
+//    stride (ny*nz, nz, 1 in 3D; ny, 1 in 2D). A thread builds the keys of
+//    its own column and of its two neighbours along the axis, sorts each
+//    in a thread-local array (up to MAXC_LOCAL, 128, slots a cell; above
+//    it in a global scratch row per thread, cell2d.cuh's for_cells) and
+//    places its slots from device memory.
 //
-// One thread per cell, as kernel B2's pass_x: it builds the 5-way keys
-// (donor+1 0 / dead-even 1 / stay 2 / dead-odd 3 / donor-1 4, dead parity
-// from the slot index before the sort) of its own column and of its two
-// neighbours along the axis, sorts each through the compare-exchange list
-// of cellpallas.py::_batcher_network (strict ka > kb), and places slot p
-// from the lo neighbour's sorted slot p if that is a donor(+1), else from
-// the hi neighbour's if that is a donor(-1), else its own; two or three
-// sources merge (w summed; the payloads of the merge set weight-averaged;
-// the others take the placed value). Arrivals through a periodic wrap
-// shift their coordinate by -+n; at an open face the neighbour outside
-// sends nothing (the TPU kernel's key 9).
+// What both compute, as the plain version: the 5-way keys (donor+1 0 /
+// dead-even 1 / stay 2 / dead-odd 3 / donor-1 4, dead parity from the
+// slot index before the sort) of each column, keyed at its own cell index
+// along the axis, sorted through the compare-exchange list of
+// cellpallas.py::_batcher_network (strict ka > kb); output slot p takes
+// the lo neighbour's sorted slot p if that is a donor(+1), else the hi
+// neighbour's if that is a donor(-1), else its own; two or three sources
+// merge (w summed; the payloads of the merge set weight-averaged,
+// ((w_lo vl + w_hi vh) + w_res vo) / wsafe; the others take the placed
+// value). Arrivals through a periodic wrap shift their coordinate by -+n;
+// at an open face the neighbour outside sends nothing (the TPU kernel's
+// key 9).
 //
 // On a device mesh (K7: replaces migrate_cells_fused's fix_wrap,
 // cellpallas.py:1203-1222, which ppermutes each axis's wrap entry of the
@@ -35,8 +42,7 @@
 // neighbours hold them before this axis. The first and last cells along
 // the axis read their outside neighbour there in place of the wrap: keyed
 // at the neighbour's own index (n-1 or 0), sorted by the same list, and
-// their arrivals shifted by -+n as wrapped ones are. The edges are read
-// with plain loads.
+// their arrivals shifted by -+n as wrapped ones are.
 //
 // Payloads are run-time lists: up to MAXF float payloads of the kernel's
 // type and MAXI int32 payloads. The caller ping-pongs two sets of buffers
@@ -44,20 +50,58 @@
 // tail of migrate_cells_fused (cellpallas.py:1235-1245): dead slots'
 // payloads of the sanitize set become 0, and inv_gamma is recomputed as
 // 1/sqrt(1 + u^2) into its own output (I_RECOMPUTE_IG) or, carried as a
-// payload (a photon species), set to 1 in dead slots (I_IG_ONE).
+// payload (a photon species), set to 1 in dead slots (I_IG_ONE). Every
+// output slot, dead ones included, is written as the plain version
+// writes it; compiled with --fmad=false, so keys, placements and merges
+// match it bit for bit.
 //
-// Compiled with --fmad=false and written as the plain version evaluates
-// it, so keys, placements and merges match it bit for bit.
+// Bound on an H100 (3.35 TB/s): bytes: the mask and every carried payload
+// of every slot read and written once an axis, plus the two edge columns
+// under K7 (the answer depends on every slot: a dead slot carries its
+// payloads through a non-final axis). At the 3D slices' shapes, float32
+// and nine 4-byte payloads (37 B a slot each way): 2.965 ms an axis at
+// 512 x 256 x 256 cells of 4 slots, 0.741 ms at 256 x 128 x 128 of 8.
 //
-// Capacity: up to MAXC_LOCAL (128) slots a cell each thread keeps 3 x cap
-// packed keys in local memory (96 B at 8 slots a cell, 1,536 B at 128);
-// above it a grid-stride loop over the cells keeps them in a global
-// scratch row per thread (cell2d.cuh's for_cells).
-//
-// Bound on an H100 (3.35 TB/s): bytes: the mask and every payload read
-// and written once. Each thread reads its neighbours' masks and positions
-// again; along x in 3D the neighbours are ny*nz cells apart, so a warp's
-// loads stay coalesced along z.
+// The tile kernel. The one-thread-a-cell design spent about 80% of its
+// time moving payloads one 4-byte load at a time (each thread's loads
+// depend on its own sorted keys, so a warp's loads scatter over slot
+// rows), and keyed and sorted every column three times, in local memory
+// (kernel_ab.py migrate3's ablations: keys and sort alone 18% of the
+// axis; it reached about 1.5 TB/s where a copy of the same arrays reaches
+// 3.0). One 256-thread block a tile: W cells along z by S along the axis
+// (x, y: 32 x 8 up to 8 slots a cell, 32 x 4 at 16, 16 x 4 at 32; z:
+// rows of 128 x 2 where 128 cells hold the row, else 256 x 1; one row of
+// 128 and of 64 at 16 and 32 slots), with its halo: the rows before and
+// after it along x or y (the wrap or an edge row at the faces), along z
+// the cell before and after each row (none where the tile holds whole
+// rows without edges: the wrapped neighbours are the row's own cells).
+//  - A thread finds its share of the tile's storage once (Part: runs of
+//    16 bytes of one row in float32 where nz % 4 == 0 and every array is
+//    aligned, else single cells, and the z halo cells) and reuses it for
+//    every payload.
+//  - The payloads stream through a ring of shared buffers by cp.async
+//    (RING bytes: all but one of them in flight while one is placed),
+//    the coordinate first: the keys are built from it and the alive bytes
+//    once, and each column is sorted once, in shared memory (8-bit
+//    entries, key << 5 | slot).
+//  - The placement map of each output slot (its source's storage offset
+//    and flags) is built once, in registers, since the same thread places
+//    the slot for every payload; so is the merge count. A payload's
+//    placement is then one shared load and one coalesced store a slot;
+//    merges (rare) read the three sources from the buffer and their
+//    weights from device memory.
+// Measured (kernel_ab.py migrate3, H100 80GB HBM3, 700 W): 4.05, 4.03 and
+// 4.83 ms for x, y, z on 512 x 256 x 256 cells of 4 slots (6.80, 6.46,
+// 6.54 before), 73% of the bound along x and y; 1.12, 1.10, 1.27 ms on
+// 256 x 128 x 128 of 8 (2.30, 2.22, 2.24). Ablations: keys, sort and the
+// placement map without payloads take 1.1 ms of an axis at 4 slots (a
+// latency chain each block runs before its first store, hidden only by
+// the other blocks of its SM); writing every payload back to its own slot
+// takes as long as the real placement, so the rest is the stream itself:
+// four blocks an SM at up to 4 slots (64 registers, some spilled), three
+// above, and the halo's reads (a quarter more along x and y). A deeper
+// ring at two blocks an SM, 32-bit copy offsets (spills) and z rows with
+// a halo cell on each side were slower.
 #include "cell2d.cuh"
 
 namespace {
@@ -75,7 +119,7 @@ enum Ptr { P_ALIVE, P_ALIVE_OUT, P_NMERGED, P_CES, P_IG_OUT,
 enum Int { I_CAP, I_NCELL, I_N, I_STRIDE, I_PERIODIC, I_NF, I_NI, I_COORD, I_W,
            I_MERGE_MASK, I_FINAL, I_SANITIZE_MASK, I_UX, I_UY, I_UZ,
            I_RECOMPUTE_IG, I_IG_ONE, I_NCES, I_DOUBLE, I_KEY_THREADS,
-           I_EDGE };
+           I_EDGE, I_NX, I_NY, I_NZ, I_AXIS };
 
 // A neighbour shard's edge column along the axis.
 template <typename T>
@@ -226,6 +270,637 @@ __global__ void __launch_bounds__(128) migrate_axis(Args<T> a) {
   add_merges(a.n_merged, merges);
 }
 
+
+// ---------------------------------------------------------------------------
+// The tile kernel: one axis of the re-binning of 3D slots up to TILE_MAXC
+// slots a cell (the source note at the top says why and what it found).
+namespace tile {
+
+constexpr int THREADS = 256;
+constexpr int TILE_MAXC = 32;
+constexpr int SLOT_BITS = 5;    // a shared sort entry: key << 5 | slot
+
+// The tile of a capacity class MAXC (4, 8, 16, 32 slots a cell; class 4
+// is class 8's tile with half the slots, for four blocks an SM) along the
+// axis Z (0: x or y; 1: z up to 8 slots a cell, the narrow tile, used
+// where its W cells hold a whole row; 2: z, the wide one): W cells along
+// z by S along the axis (rows along z), 256 output columns up to 8 slots,
+// 128 at 16, 64 at 32. The storage of one slot of a payload: along x or y
+// the (S + 2) rows of W cells of the tile and its halo rows; along z S
+// rows of RP = W + 4 entries, the row's W cells, then its lo and hi halo
+// cells, then two unused, so that every row starts 16-byte aligned. P
+// pitches a slot's storage to a multiple of 32 entries, so that a warp
+// reading one column of 32 different slot rows hits 32 banks. Chosen on the
+// card among other shapes: rows of 32 cells along x and y, along z the
+// fewest halo cells.
+template <int MAXC, int Z>
+struct Dims;
+template <> struct Dims<4, 0> { static constexpr int W = 32, S = 8; };
+template <> struct Dims<8, 0> { static constexpr int W = 32, S = 8; };
+template <> struct Dims<16, 0> { static constexpr int W = 32, S = 4; };
+template <> struct Dims<32, 0> { static constexpr int W = 16, S = 4; };
+template <> struct Dims<4, 1> { static constexpr int W = 128, S = 2; };
+template <> struct Dims<8, 1> { static constexpr int W = 128, S = 2; };
+template <> struct Dims<4, 2> { static constexpr int W = 256, S = 1; };
+template <> struct Dims<8, 2> { static constexpr int W = 256, S = 1; };
+template <> struct Dims<16, 2> { static constexpr int W = 128, S = 1; };
+template <> struct Dims<32, 2> { static constexpr int W = 64, S = 1; };
+
+template <int MAXC, int Z>
+struct Shape {
+  static constexpr int W = Dims<MAXC, Z>::W, S = Dims<MAXC, Z>::S;
+  static constexpr int RP = W + 4;
+  static constexpr int SRC = Z ? S * RP : (S + 2) * W;   // storage a slot
+  static constexpr int P = (SRC + 31) / 32 * 32;
+  static constexpr int COUT = S * W;                     // output columns
+  static constexpr int TPC = THREADS / COUT;             // threads a column
+  static constexpr int ITEMS = MAXC / TPC;               // slots a thread
+  static constexpr int RUNS = Z ? S * W : SRC;           // row cells a slot
+  static constexpr int NH = (MAXC * S * 2 + THREADS - 1) / THREADS;
+};
+
+// The geometry of a launch (host-computed).
+struct Geo {
+  int n, nz;              // cells along the axis, along z
+  long long st;           // x, y: cells between neighbours along the axis
+  long long ost;          // x, y: cells between neighbouring outer indices
+  long long nrows;        // z: rows (nx ny)
+  int nseg, nzt;          // tiles along the axis (z: row groups), along z
+  long long encell;       // an edge array's slot stride
+  int nbuf;               // payload buffers in the ring
+  int whole;              // z: a tile holds whole rows and no edge: the
+                          // wrapped neighbours are the row's own cells
+  // the payload stream: a float payload's index, or -1 - t for int
+  // payload t; the axis's coordinate first, then the floats, then the
+  // ints (so ux, uy, uz in their order)
+  signed char order[MAXF + MAXI];
+};
+
+// The block's tile: x, y: outer index (y for x, x for y), first cell
+// along the axis; z: first row. z0 its first z.
+struct Tile {
+  long long outer, q0;
+  int i0, z0;
+};
+
+// Where a tile's storage entry o (of one slot) comes from: kind 0 none
+// (past the grid), 1 the slots, 2 the lo edge, 3 the hi edge; the cell (or
+// edge cell) idx; the cell index ci along the axis at which its shard keys
+// it. Along x or y a halo row is the wrapped row or an edge row; along z
+// a row's lo halo is the cell before the tile (wrapped or an edge cell at
+// z0 = 0) and its hi halo the cell after the tile's last cell in the grid.
+template <int MAXC, int Z>
+__device__ __forceinline__ void locate(const Geo& g, const Tile& t,
+                                       bool edge, int o, int& kind,
+                                       long long& idx, int& ci) {
+  using Sh = Shape<MAXC, Z>;
+  kind = 0;
+  idx = 0;
+  ci = 0;
+  int i, z;
+  long long row = 0;
+  if constexpr (!Z) {
+    const int a = o / Sh::W - 1;
+    z = t.z0 + o % Sh::W;
+    i = t.i0 + a;
+    if (z >= g.nz || i > g.n) return;
+  } else {
+    const int r = o / Sh::RP, oo = o % Sh::RP;
+    row = t.q0 + r;
+    if (row >= g.nrows || oo > Sh::W + 1) return;
+    if (oo < Sh::W) {
+      z = t.z0 + oo;
+      if (z >= g.nz) return;
+    } else if (oo == Sh::W) {
+      z = t.z0 - 1;
+    } else {
+      z = t.z0 + Sh::W < g.nz ? t.z0 + Sh::W : g.nz;
+    }
+    i = z;
+  }
+  const bool lo = i < 0, hi = i == g.n;
+  ci = lo ? g.n - 1 : (hi ? 0 : i);
+  if ((lo || hi) && edge) {
+    kind = lo ? 2 : 3;
+    idx = Z ? row : t.outer * g.nz + z;
+  } else {
+    kind = 1;
+    idx = Z ? row * g.nz + ci : t.outer * g.ost + ci * g.st + z;
+  }
+}
+
+// cp.async of B (4, 8 or 16) bytes, global -> shared; 16-byte copies are
+// not kept in L1.
+template <int B>
+__device__ __forceinline__ void copy_async(void* dst, const void* src) {
+  unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  if constexpr (B == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(src) : "memory");
+  else if constexpr (B == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+                 "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+                 "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wait_pending() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Wait until at most n of the thread's copy groups are in flight (n above
+// 7 waits as for 7).
+__device__ __forceinline__ void wait_pending(int n) {
+  switch (n < 7 ? n : 7) {
+    case 0: wait_pending<0>(); break;
+    case 1: wait_pending<1>(); break;
+    case 2: wait_pending<2>(); break;
+    case 3: wait_pending<3>(); break;
+    case 4: wait_pending<4>(); break;
+    case 5: wait_pending<5>(); break;
+    case 6: wait_pending<6>(); break;
+    default: wait_pending<7>(); break;
+  }
+}
+
+// A thread's share of the tile's storage, found once and used for every
+// payload: runs of CW row cells (one 16-byte copy in float32 where rows
+// and pointers allow, CW 4; else CW 1) and, along
+// z, the halo cells. Each: the element offset of its first cell in its
+// source (slot s included), its storage offset and slot, its source kind
+// (0: nothing to copy).
+template <int MAXC, int Z, int CW>
+struct Part {
+  using Sh = Shape<MAXC, Z>;
+  static constexpr int NR = (MAXC * Sh::RUNS / CW + THREADS - 1) / THREADS;
+  static constexpr int NH = Z ? Sh::NH : 0;
+  long long off[NR + NH];
+  unsigned meta[NR + NH];   // storage offset | kind << 16 | slot << 18
+};
+
+template <int MAXC, int Z, int CW>
+__device__ __forceinline__ void find_part(Part<MAXC, Z, CW>& pt,
+                                          const Geo& g, const Tile& t,
+                                          bool edge, int cap,
+                                          long long ncell) {
+  using Sh = Shape<MAXC, Z>;
+  using Pt = Part<MAXC, Z, CW>;
+  constexpr int PER = Sh::RUNS / CW;       // runs a slot
+#pragma unroll
+  for (int k = 0; k < Pt::NR + Pt::NH; ++k) {
+    pt.off[k] = 0;
+    pt.meta[k] = 0;
+    int s, o;
+    if (k < Pt::NR) {
+      const int e = threadIdx.x + k * THREADS;
+      if (e >= cap * PER) continue;
+      s = e / PER;
+      const int r = (e - s * PER) * CW;
+      o = Z ? r / Sh::W * Sh::RP + r % Sh::W : r;
+    } else {
+      const int e = threadIdx.x + (k - Pt::NR) * THREADS;
+      if (g.whole || e >= cap * Sh::S * 2) continue;
+      s = e / (Sh::S * 2);
+      const int h = e - s * Sh::S * 2;
+      o = h / 2 * Sh::RP + Sh::W + (h & 1);
+    }
+    int kind, ci;
+    long long idx;
+    locate<MAXC, Z>(g, t, edge, o, kind, idx, ci);
+    if (!kind) continue;
+    pt.off[k] = s * (kind == 1 ? ncell : g.encell) + idx;
+    pt.meta[k] = (unsigned)(s * Sh::P + o) | (unsigned)kind << 16 |
+                 (unsigned)s << 18;
+  }
+}
+
+// Start the copies of one payload's tile (every slot, halo included) into
+// dst (cap rows of P entries).
+template <int MAXC, int Z, int CW, typename E>
+__device__ __forceinline__ void copy_tile(E* dst, const E* src,
+                                          const E* elo, const E* ehi,
+                                          const Part<MAXC, Z, CW>& pt) {
+  using Pt = Part<MAXC, Z, CW>;
+#pragma unroll
+  for (int k = 0; k < Pt::NR + Pt::NH; ++k) {
+    const unsigned m = pt.meta[k];
+    const unsigned kind = (m >> 16) & 3;
+    if (!kind) continue;
+    const E* from = (kind == 1 ? src : (kind == 2 ? elo : ehi)) + pt.off[k];
+    E* to = dst + (m & 0xffff);
+    if (k < Pt::NR)
+      copy_async<CW * (int)sizeof(E)>(to, from);
+    else
+      copy_async<(int)sizeof(E)>(to, from);
+  }
+}
+
+// Start payload j of the stream (g.order) into buffer dst.
+template <typename T, int MAXC, int Z, int CW>
+__device__ __forceinline__ void start_payload(const Args<T>& a,
+                                              const Geo& g, int j,
+                                              unsigned char* dst,
+                                              const Part<MAXC, Z, CW>& pt) {
+  const int f = g.order[j];
+  if (f >= 0)
+    copy_tile<MAXC, Z, CW>((T*)dst, a.fin[f], a.edge[0].f[f],
+                           a.edge[1].f[f], pt);
+  else
+    copy_tile<MAXC, Z, CW>((int*)dst, a.iin[-1 - f], a.edge[0].i[-1 - f],
+                           a.edge[1].i[-1 - f], pt);
+}
+
+// A thread's output column c: its cell, its index i along the axis and
+// the storage columns of its lo, own and hi sources.
+struct Col {
+  long long cell;
+  int i, so_lo, so_own, so_hi;
+  bool valid;
+};
+
+template <int MAXC, int Z>
+__device__ __forceinline__ Col out_col(const Geo& g, const Tile& t, int c) {
+  using Sh = Shape<MAXC, Z>;
+  Col k;
+  const int a = c / Sh::W, zz = c % Sh::W;
+  const int z = t.z0 + zz;
+  if constexpr (!Z) {
+    k.i = t.i0 + a;
+    k.valid = k.i < g.n && z < g.nz;
+    k.cell = t.outer * g.ost + (long long)k.i * g.st + z;
+    k.so_own = (a + 1) * Sh::W + zz;
+    k.so_lo = k.so_own - Sh::W;
+    k.so_hi = k.so_own + Sh::W;
+  } else {
+    const long long row = t.q0 + a;
+    k.i = z;
+    k.valid = row < g.nrows && z < g.nz;
+    k.cell = row * g.nz + z;
+    k.so_own = a * Sh::RP + zz;
+    k.so_lo = zz > 0 ? k.so_own - 1
+              : a * Sh::RP + (g.whole ? g.nz - 1 : Sh::W);
+    k.so_hi = zz < Sh::W - 1 && z < g.nz - 1 ? k.so_own + 1
+              : a * Sh::RP + (g.whole ? 0 : Sh::W + 1);
+  }
+  return k;
+}
+
+// A placement map entry: bits 0-15 the storage offset of the placed source
+// slot, 16-17 its column (0 own, 1 lo, 2 hi), then the flags.
+constexpr unsigned M_MULTI = 1u << 18, M_DEAD = 1u << 19, M_ADJ = 1u << 20,
+                   M_VLO = 1u << 21, M_VHI = 1u << 22, M_STAY = 1u << 23;
+
+// The weight of storage entry so's slot in device memory, for a merge.
+template <typename T, int MAXC, int Z>
+__device__ __forceinline__ T source_w(const Args<T>& a, const Geo& g,
+                                      const Tile& t, int so, int slot) {
+  int kind, ci;
+  long long idx;
+  locate<MAXC, Z>(g, t, a.has_edge, so, kind, idx, ci);
+  if (kind == 1) return a.fin[a.w][slot * a.ncell + idx];
+  return a.edge[kind == 2 ? 0 : 1].f[a.w][slot * g.encell + idx];
+}
+
+template <typename T, int MAXC, int Z, int CW>
+__global__ void __launch_bounds__(THREADS, MAXC <= 4 ? 4 : 3)
+    migrate_tile(const __grid_constant__ Args<T> a,
+                 const __grid_constant__ Geo g) {
+  using Sh = Shape<MAXC, Z>;
+  using Pt = Part<MAXC, Z, CW>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int cap = a.cap;
+  const int buf_bytes = cap * Sh::P * (int)sizeof(T);
+  const int nbuf = g.nbuf;
+  unsigned char* sk = smem + nbuf * buf_bytes;
+  unsigned char* ces = sk + (cap * Sh::P + 15) / 16 * 16;
+  const int tid = threadIdx.x;
+
+  Tile t;
+  {
+    const long long b = blockIdx.x;
+    if constexpr (!Z) {
+      const int seg = (int)(b % g.nseg);
+      const long long r = b / g.nseg;
+      t.i0 = seg * Sh::S;
+      t.z0 = (int)(r % g.nzt) * Sh::W;
+      t.outer = r / g.nzt;
+      t.q0 = 0;
+    } else {
+      t.z0 = (int)(b % g.nzt) * Sh::W;
+      t.q0 = b / g.nzt * Sh::S;
+      t.i0 = 0;
+      t.outer = 0;
+    }
+  }
+  Pt pt;
+  find_part<MAXC, Z, CW>(pt, g, t, a.has_edge, cap, a.ncell);
+
+  // the first nbuf payloads of the stream take off, the coordinate first
+  const int nstream = a.nf + a.ni;
+  for (int j = 0; j < nbuf; ++j) {
+    start_payload<T, MAXC, Z, CW>(a, g, j, smem + j * buf_bytes, pt);
+    commit();
+  }
+  for (int e = tid; e < 2 * a.nces; e += THREADS)
+    ces[e] = (unsigned char)__ldg(a.ces + e);
+  // the alive bytes of the thread's runs and halo cells, while the
+  // coordinate flies: bit k CW + u of run k's cell u
+  unsigned al_bits = 0;
+#pragma unroll
+  for (int k = 0; k < Pt::NR + Pt::NH; ++k) {
+    const unsigned m = pt.meta[k];
+    const unsigned kind = (m >> 16) & 3;
+    const int nc = k < Pt::NR ? CW : 1;
+    for (int u = 0; u < nc; ++u) {
+      bool al = false;
+      if (kind == 1) al = a.alive[pt.off[k] + u] != 0;
+      else if (kind) al = a.edge[kind - 2].alive[pt.off[k] + u] != 0;
+      al_bits |= (unsigned)al << (k * CW + u);
+    }
+  }
+  wait_pending(nbuf - 1);
+  __syncthreads();
+
+  // keys, from the alive bytes and the coordinate (buffer 0), each keyed
+  // at its cell's own index along the axis (a wrapped or edge cell at the
+  // index its shard gives it)
+  {
+    const T* pos = (const T*)smem;
+#pragma unroll
+    for (int k = 0; k < Pt::NR + Pt::NH; ++k) {
+      const unsigned m = pt.meta[k];
+      if (!((m >> 16) & 3)) continue;
+      const int so = (int)(m & 0xffff), s = (int)(m >> 18);
+      int kind, ci;
+      long long idx;
+      locate<MAXC, Z>(g, t, a.has_edge, so - s * Sh::P, kind, idx, ci);
+      const int nc = k < Pt::NR ? CW : 1;
+      for (int u = 0; u < nc; ++u) {
+        const bool al = (al_bits >> (k * CW + u)) & 1;
+        bool hi = false, lo = false;
+        if (al) {
+          const T local = pos[so + u] - T(Z ? ci + u : ci);
+          hi = local >= T(0.5);
+          lo = local < T(-0.5);
+        }
+        sk[so + u] =
+            (unsigned char)((five_way(al, hi, lo, s) << SLOT_BITS) | s);
+      }
+    }
+  }
+  __syncthreads();
+  // each storage column sorted once: the compare-exchange list of
+  // cellpallas.py::_batcher_network, swapping on a strict ka > kb
+  for (int o = tid; o < Sh::SRC; o += THREADS) {
+    for (int e = 0; e < a.nces; ++e) {
+      unsigned char* pa = sk + ces[2 * e] * Sh::P + o;
+      unsigned char* pb = sk + ces[2 * e + 1] * Sh::P + o;
+      const unsigned char ka = *pa, kb = *pb;
+      if ((ka >> SLOT_BITS) > (kb >> SLOT_BITS)) {
+        *pa = kb;
+        *pb = ka;
+      }
+    }
+  }
+  __syncthreads();
+
+  // the placement map of the thread's output slots (column c, slot p =
+  // phase + k TPC), in registers, since the same thread places the slot
+  // for every payload; the alive bytes and the merge count here, once
+  const int phase = tid / Sh::COUT;
+  const Col cl = out_col<MAXC, Z>(g, t, tid % Sh::COUT);
+  unsigned mp[Sh::ITEMS];
+  int merges = 0;
+#pragma unroll
+  for (int k = 0; k < Sh::ITEMS; ++k) {
+    const int p = phase + k * Sh::TPC;
+    mp[k] = 0;
+    if (p < cap && cl.valid) {
+      const bool lo_ok = a.has_edge || a.periodic || cl.i != 0;
+      const bool hi_ok = a.has_edge || a.periodic || cl.i != g.n - 1;
+      const int klo = sk[p * Sh::P + cl.so_lo];
+      const int kown = sk[p * Sh::P + cl.so_own];
+      const int khi = sk[p * Sh::P + cl.so_hi];
+      const bool vlo = lo_ok && (klo >> SLOT_BITS) == 0;
+      const bool vhi = hi_ok && (khi >> SLOT_BITS) == 4;
+      const bool stay = (kown >> SLOT_BITS) == 2;
+      const int n_src = (int)vlo + (int)vhi + (int)stay;
+      merges += n_src > 1 ? n_src - 1 : 0;
+      const unsigned kind = vlo ? 1u : (vhi ? 2u : 0u);
+      const int ks = vlo ? klo : (vhi ? khi : kown);
+      const int so = vlo ? cl.so_lo : (vhi ? cl.so_hi : cl.so_own);
+      const bool adj = (vlo && cl.i == 0) || (!vlo && vhi && cl.i == g.n - 1);
+      mp[k] = (unsigned)((ks & 31) * Sh::P + so) | kind << 16 |
+              (n_src > 1 ? M_MULTI : 0) | (n_src == 0 ? M_DEAD : 0) |
+              (adj ? M_ADJ : 0) | (vlo ? M_VLO : 0) | (vhi ? M_VHI : 0) |
+              (stay ? M_STAY : 0);
+      a.alive_out[p * a.ncell + cl.cell] = n_src > 0 ? 1 : 0;
+    }
+  }
+  // output slot k of the thread: obase + k ostep
+  const long long ostep = Sh::TPC * a.ncell;
+  const long long obase = phase * a.ncell + cl.cell;
+
+  // the payloads, one at a time through the ring of nbuf buffers: payloads
+  // j + 1 .. j + nbuf - 1 fly while j is placed
+  const T adj_lo = T(-g.n), adj_hi = T(g.n);
+  const T floor_ = WFloor<T>::v();
+  T acc[Sh::ITEMS];
+#pragma unroll
+  for (int k = 0; k < Sh::ITEMS; ++k) acc[k] = T(1);
+  for (int j = 0; j < nstream; ++j) {
+    const int f = g.order[j];
+    unsigned char* b = smem + (j % nbuf) * buf_bytes;
+    wait_pending(nbuf - 1);
+    __syncthreads();
+    if (f >= 0) {
+      const T* v_in = (const T*)b;
+      T* out = a.fout[f];
+      const bool is_coord = f == a.coord, is_w = f == a.w;
+      const bool merged = (a.merge_mask >> f) & 1;
+      const bool san = (a.sanitize_mask >> f) & 1, one = f == a.ig_one;
+      const bool usq = a.final_ && a.recompute_ig &&
+                       (f == a.iux || f == a.iuy || f == a.iuz);
+      // the flags that change this payload's value
+      const unsigned special = (merged ? M_MULTI : 0) |
+                               (is_coord ? M_ADJ : 0) |
+                               (a.final_ && (san || one) ? M_DEAD : 0);
+#pragma unroll
+      for (int k = 0; k < Sh::ITEMS; ++k) {
+        const unsigned m = mp[k];
+        if (!m) continue;
+        T v = v_in[m & 0xffff];
+        if (m & special) {
+          const int p = phase + k * Sh::TPC;
+          if ((m & M_MULTI) && merged) {
+            // a merge: the plain version's weighted average, every
+            // source's value read, the weights from device memory
+            const int slo = sk[p * Sh::P + cl.so_lo] & 31;
+            const int sown = sk[p * Sh::P + cl.so_own] & 31;
+            const int shi = sk[p * Sh::P + cl.so_hi] & 31;
+            const T w_lo = (m & M_VLO)
+                ? source_w<T, MAXC, Z>(a, g, t, cl.so_lo, slo) : T(0);
+            const T w_hi = (m & M_VHI)
+                ? source_w<T, MAXC, Z>(a, g, t, cl.so_hi, shi) : T(0);
+            const T w_res = (m & M_STAY)
+                ? a.fin[a.w][sown * a.ncell + cl.cell] : T(0);
+            const T wsum = (w_lo + w_hi) + w_res;
+            if (is_w) {
+              v = wsum;
+            } else {
+              const T wsafe = wsum > floor_ ? wsum : floor_;
+              T vl = v_in[slo * Sh::P + cl.so_lo];
+              T vh = v_in[shi * Sh::P + cl.so_hi];
+              const T vo = v_in[sown * Sh::P + cl.so_own];
+              if (is_coord && cl.i == 0) vl = vl + adj_lo;
+              if (is_coord && cl.i == g.n - 1) vh = vh + adj_hi;
+              v = ((w_lo * vl + w_hi * vh) + w_res * vo) / wsafe;
+            }
+          } else if (is_coord && (m & M_ADJ)) {
+            v = v + ((m & M_VLO) ? adj_lo : adj_hi);
+          }
+          if (a.final_ && (m & M_DEAD)) {
+            if (san) v = T(0);
+            if (one) v = T(1);
+          }
+        }
+        if (usq) acc[k] = acc[k] + v * v;
+        out[obase + k * ostep] = v;
+      }
+    } else {
+      const int* v_in = (const int*)b;
+      int* out = a.iout[-1 - f];
+#pragma unroll
+      for (int k = 0; k < Sh::ITEMS; ++k) {
+        const unsigned m = mp[k];
+        if (m) out[obase + k * ostep] = v_in[m & 0xffff];
+      }
+    }
+    __syncthreads();
+    if (j + nbuf < nstream)
+      start_payload<T, MAXC, Z, CW>(a, g, j + nbuf, b, pt);
+    commit();
+  }
+  wait_pending<0>();
+  if (a.final_ && a.recompute_ig) {
+#pragma unroll
+    for (int k = 0; k < Sh::ITEMS; ++k)
+      if (mp[k]) a.ig_out[obase + k * ostep] = T(1) / sqrt(acc[k]);
+  }
+  add_merges(a.n_merged, merges);
+}
+
+// The payload ring's shared memory: as many buffers as fit in RING bytes
+// (32 KiB at up to 4 slots a cell, four blocks an SM; 48 KiB above, three
+// blocks), at least two, at most one a payload.
+constexpr int RING4 = 32 * 1024, RING = 48 * 1024;
+
+// Shared memory of a launch: the payload buffers, the sort entries and the
+// compare-exchange list.
+template <typename T, int MAXC, int Z>
+size_t smem_bytes(int cap, int nces, int nbuf) {
+  using Sh = Shape<MAXC, Z>;
+  return nbuf * (size_t)cap * Sh::P * sizeof(T) +
+         ((size_t)cap * Sh::P + 15) / 16 * 16 + 2 * (size_t)nces;
+}
+
+template <typename T, int MAXC, int Z>
+int launch_shape(const Args<T>& a, Geo g, long long nouter, bool vec,
+                 cudaStream_t st) {
+  using Sh = Shape<MAXC, Z>;
+  g.nzt = (g.nz + Sh::W - 1) / Sh::W;
+  g.whole = Z && g.nz <= Sh::W && !a.has_edge;
+  long long blocks;
+  if constexpr (!Z) {
+    g.nseg = (g.n + Sh::S - 1) / Sh::S;
+    blocks = (long long)g.nseg * g.nzt * nouter;
+  } else {
+    g.nseg = (int)((g.nrows + Sh::S - 1) / Sh::S);
+    blocks = (long long)g.nseg * g.nzt;
+  }
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int buf_bytes = a.cap * Sh::P * (int)sizeof(T);
+  const int nstream = a.nf + a.ni;
+  const int fit = (MAXC <= 4 ? RING4 : RING) / buf_bytes;
+  g.nbuf = fit < 2 ? 2 : fit;
+  if (g.nbuf > nstream) g.nbuf = nstream;
+  const size_t bytes = smem_bytes<T, MAXC, Z>(a.cap, a.nces, g.nbuf);
+  auto run = [&](auto kernel) {
+    int err = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err) return err;
+    kernel<<<(unsigned)blocks, THREADS, bytes, st>>>(a, g);
+    return (int)cudaGetLastError();
+  };
+  if constexpr (sizeof(T) == 4)
+    if (vec) return run(migrate_tile<T, MAXC, Z, 4>);
+  return run(migrate_tile<T, MAXC, Z, 1>);
+}
+
+// The tile of capacity class MAXC for the axis: x or y; z in rows of the
+// narrow tile where they are whole, else in rows of the wide one.
+template <typename T, int MAXC>
+int pick(const Args<T>& a, const Geo& g, long long nouter, bool vec,
+         cudaStream_t st, int z, int nz) {
+  if (!z) return launch_shape<T, MAXC, 0>(a, g, nouter, vec, st);
+  if constexpr (MAXC <= 8)
+    if (nz <= Dims<MAXC, 1>::W)
+      return launch_shape<T, MAXC, 1>(a, g, nouter, vec, st);
+  return launch_shape<T, MAXC, 2>(a, g, nouter, vec, st);
+}
+
+// One axis of 3D slots (nx, ny, nz) through the tile kernel.
+template <typename T>
+int launch(const Args<T>& a, int nx, int ny, int nz, int axis,
+           cudaStream_t st) {
+  Geo g;
+  g.nz = nz;
+  g.n = axis == 0 ? nx : (axis == 1 ? ny : nz);
+  g.st = axis == 0 ? (long long)ny * nz : nz;
+  g.ost = axis == 0 ? nz : (long long)ny * nz;
+  g.nrows = (long long)nx * ny;
+  g.encell = a.ncell / g.n;
+  g.nseg = g.nzt = g.nbuf = 0;
+  g.whole = 0;
+  int j = 0;
+  g.order[j++] = (signed char)a.coord;
+  for (int f = 0; f < a.nf; ++f)
+    if (f != a.coord) g.order[j++] = (signed char)f;
+  for (int t = 0; t < a.ni; ++t) g.order[j++] = (signed char)(-1 - t);
+  const long long nouter = axis == 0 ? ny : nx;
+  // float32: 16-byte copies of runs of 4 cells where rows hold a multiple
+  // of 4 cells and every payload (and edge) array is 16-byte aligned
+  // (float64, which only the tests run, copies cell by cell)
+  bool vec = sizeof(T) == 4 && nz % 4 == 0;
+  auto al16 = [&](const void* p) { return ((size_t)p & 15) == 0; };
+  for (int f = 0; f < a.nf; ++f) {
+    vec = vec && al16(a.fin[f]) && al16(a.alive);
+    if (a.has_edge)
+      vec = vec && al16(a.edge[0].f[f]) && al16(a.edge[1].f[f]);
+  }
+  for (int i = 0; i < a.ni; ++i) {
+    vec = vec && al16(a.iin[i]);
+    if (a.has_edge)
+      vec = vec && al16(a.edge[0].i[i]) && al16(a.edge[1].i[i]);
+  }
+  const int z = axis == 2;
+  if (a.cap <= 4)
+    return pick<T, 4>(a, g, nouter, vec, st, z, nz);
+  if (a.cap <= 8)
+    return pick<T, 8>(a, g, nouter, vec, st, z, nz);
+  if (a.cap <= 16)
+    return pick<T, 16>(a, g, nouter, vec, st, z, nz);
+  return pick<T, 32>(a, g, nouter, vec, st, z, nz);
+}
+
+}  // namespace tile
+
 template <typename T>
 int launch(void** p, const long long* n, cudaStream_t st) {
   Args<T> a;
@@ -273,6 +948,14 @@ int launch(void** p, const long long* n, cudaStream_t st) {
        (a.iux < 0 || a.iuy < 0 || a.iuz < 0 || !a.ig_out)))
     return (int)cudaErrorInvalidValue;
   if (a.ncell == 0 || a.cap == 0) return 0;
+  const int nz = (int)n[I_NZ], axis = (int)n[I_AXIS];
+  if (nz > 0 && a.cap <= tile::TILE_MAXC) {
+    // 3D slots up to 32 a cell: the tile kernel
+    if (n[I_NX] * n[I_NY] * nz != a.ncell || axis < 0 || axis > 2 ||
+        (a.final_ && a.recompute_ig && !(a.iux < a.iuy && a.iuy < a.iuz)))
+      return (int)cudaErrorInvalidValue;
+    return tile::launch<T>(a, (int)n[I_NX], (int)n[I_NY], nz, axis, st);
+  }
   int threads = 128;
   int blocks = cell_blocks(a.ncell, a.cap, n[I_KEY_THREADS], threads);
   if (blocks == 0) return (int)cudaErrorInvalidValue;

@@ -424,7 +424,8 @@ def migrate_axis(alive: torch.Tensor, floats: Dict[str, torch.Tensor],
          mask(SANITIZED), index("ux"), index("uy"), index("uz"),
          recompute_ig, -1 if recompute_ig else index("inv_gamma"),
          len(batcher_network(cap)), dtype == torch.float64, key_threads,
-         edge is not None],
+         edge is not None, cells[0], cells[1],
+         cells[2] if len(cells) == 3 else 0, axis],
         [], dev)
     migrate_axis.launches += 1
     return (new_alive, dict(zip(fnames, fout)), dict(zip(inames, iout)), ig,

@@ -173,6 +173,17 @@ MIG_CASES = [
     (4, 9, 6, 7, (True, True, True), 0.9, False),
     (6, 9, 5, 6, (False, True, False), 0.85, False),
     (4, 12, 5, 5, (False, False, False), 0.8, True),
+    # the edges of kernel B6's 3D tiles (csrc/migrate.cu: 8 cells along
+    # the axis by 32, 16 or 8 along z at up to 8, 16 or 32 slots a cell),
+    # the shapes tests/test_torch_kernels3d.py holds the kernel on: x one
+    # cell and z over one tile, not a multiple of it; x over two tiles, y
+    # two cells, z a multiple of 4 (16-byte copies); z one cell; the
+    # tile's limit of 32 slots; one slot above it
+    (8, 1, 5, 37, (True, False, True), 0.9, False),
+    (9, 19, 2, 40, (False, True, True), 0.9, True),
+    (17, 10, 3, 1, (True, True, False), 0.9, False),
+    (32, 5, 9, 12, (False, False, True), 1.0, True),
+    (33, 4, 3, 5, (True, False, False), 1.0, False),
 ]
 
 
@@ -208,8 +219,10 @@ def test_fast_migrate_3d_matches_jax_batcher(cap, nx, ny, nz, periodic,
     assert t_cp.sort_cells.launches == before
     compare_slots(ref, ref_alive, got, got_alive, rtol=1e-11, keys=keys)
     assert lost == ref_lost
-    # particles crossed cells along every axis
+    # particles crossed cells along every axis of more than one cell
     for axis in range(3):
+        if alive.shape[1 + axis] == 1:
+            continue
         idx = np.broadcast_to(np.arange(alive.shape[1 + axis]).reshape(
             [-1 if i == 1 + axis else 1 for i in range(4)]), alive.shape)
         before = dict(zip(data["id_lo"][alive].tolist(), idx[alive].tolist()))

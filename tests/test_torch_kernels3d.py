@@ -13,8 +13,9 @@ values; B5 3D within 1e-12 of the current's peak in float64 (1e-5 in
 float32; the sums run in another order, with fused multiply-adds), and
 bit for bit from one call to the next; B6 on 3D slots and B7 on 3D slots
 move data and merge in the plain version's order, so every output array
-is equal, dead slots included, for caps 4 to 20, with float, int32 and
-bool payloads. B2 3D (the cases at the end; its default mode in
+is equal, dead slots included, for caps 4 to 33 (B6's 3D tile kernel to
+its limit of 32 and one slot above it), with float, int32 and bool
+payloads. B2 3D (the cases at the end; its default mode in
 test_torch_kernels.py) slot for slot at rtol 1e-11 and panels within
 1e-12 of their peak in float64: its tile kernel adds the stencils with
 shared-memory atomics, so the panel sums run in an order that changes
@@ -170,6 +171,17 @@ STAGE3_CASES = [
     (13, 9, 6, 5, (False, True, False), 0.5),
     (16, 9, 5, 6, (True, False, True), 0.9),
     (20, 6, 5, 7, (False, False, False), 1.0),
+    # the edges of B6's 3D tiles (8 cells along the axis by 32, 16 or 8
+    # along z at up to 8, 16 or 32 slots a cell): x one cell and z over one
+    # tile, not a multiple of it (element copies); x over two tiles, y two
+    # cells, z a multiple of 4 (16-byte copies); z one cell; the tile
+    # kernel's limit of 32 slots; one slot above it (the one-thread-a-cell
+    # loop)
+    (8, 1, 5, 37, (True, False, True), 0.9),
+    (9, 19, 2, 40, (False, True, True), 0.9),
+    (17, 10, 3, 1, (True, True, False), 0.9),
+    (32, 5, 9, 12, (False, False, True), 1.0),
+    (33, 4, 3, 5, (True, False, False), 1.0),
 ]
 
 

@@ -72,6 +72,18 @@ CASES = [
     ((1, 2, 2), 4, (8, 8, 8), (False, True, False), True),
     ((2, 2, 2), 4, (8, 8, 8), (True, False, True), False),
 ]
+# K7 at the edges of B6's 3D tiles (8 cells along the axis by 32, 16 or 8
+# along z at up to 8, 16 or 32 slots a cell): x over two tiles, y two
+# cells, z a multiple of 4 (16-byte copies); x one cell, z over one tile
+# and not a multiple of it; y three cells at 17 slots; z one cell at the
+# tile kernel's limit of 32 slots; one slot above it
+K7_EDGE_CASES = [
+    ((2, 1, 2), 9, (19, 2, 40), (False, True, True), True),
+    ((1, 2, 2), 8, (1, 9, 37), (True, False, True), True),
+    ((2, 2, 1), 17, (5, 3, 12), (True, True, False), True),
+    ((2, 1, 1), 32, (3, 4, 1), (False, True, True), True),
+    ((1, 1, 2), 33, (3, 2, 5), (True, False, True), True),
+]
 
 
 def _dense(ts, shape):
@@ -150,7 +162,8 @@ def test_k6_launches_by_mode(cuda, shape, mode):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
                          ids=["f64", "f32"])
 @pytest.mark.parametrize("photon", [False, True], ids=["ig", "photon"])
-@pytest.mark.parametrize("shape,cap,nloc,periodic,crowded", CASES)
+@pytest.mark.parametrize("shape,cap,nloc,periodic,crowded",
+                         CASES + K7_EDGE_CASES)
 def test_k7_matches_plain(cuda, shape, cap, nloc, periodic, crowded, photon,
                           dtype):
     nd = len(shape)
