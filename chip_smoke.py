@@ -1554,10 +1554,13 @@ STAGE_LAUNCHES = {"B4": 0, "B4 want_eb": 0, "B5": 0, "B6": 0, "B7": 0}
 # per-stage kernels' float32 errors and times, filled by the phases
 STAGE = {}
 KERNEL_FUNCS.update({"B4": {"push<": 1}, "B5": {"deposit<": 1, "fold_pad": 1},
-                     "B6": {"migrate_axis": 2}, "B7": {"sort_cells": 1}})
+                     "B6": {"migrate_tile": 2}, "B7": {"sort_cells": 1}})
 # the cases of tests/test_torch_kernels.py
 STAGE_CASES = [(13, 18, 10, (True, True), 0.5), (16, 15, 12, (False, True), 0.9),
-               (20, 12, 16, (True, False), 1.0), (4, 33, 18, (False, False), 0.9)]
+               (20, 12, 16, (True, False), 1.0), (4, 33, 18, (False, False), 0.9),
+               (8, 1, 299, (True, False), 0.9), (4, 2, 260, (False, True), 0.9),
+               (16, 17, 132, (False, True), 0.9), (20, 9, 70, (True, True), 1.0),
+               (32, 6, 65, (False, False), 1.0), (33, 5, 9, (True, False), 1.0)]
 
 
 def _close(a, b, rtol, floor):
@@ -2218,7 +2221,7 @@ def run_split(args, sim, laser):
         f"{step_ms:.3f} ms a step (host clock, synchronised), "
         f"{npart / (step_ms * 1e-3):.4e} pushes/s")
     busy_per_step(lambda: sim.run(nsteps=1, callbacks=[laser, hook]),
-                  {"e_half": 2, "b_half": 2, "migrate_axis": 6,
+                  {"e_half": 2, "b_half": 2, "migrate_tile": 6,
                    "deposit<": 3, "fold_pad": 3}, 5, "profile split", step_ms)
     sub_segment_ms(sim, [laser, hook], 5, "slice split")
 
@@ -2658,7 +2661,7 @@ STAGE3_LAUNCHES = {"B4 3D": 0, "B4 3D want_eb": 0, "B5 3D": 0, "B6": 0,
 STAGE3 = {}
 KERNEL_FUNCS.update({"B4 3D": {"push3d": 1},
                      "B5 3D": {"deposit3d": 1, "fold_pad3": 1},
-                     "B6 3D": {"migrate_tile": 3}})
+                     "B6 3D": {"migrate_tile": 3}, "K7": {"migrate_tile": 1}})
 # the float64 cases of tests/test_torch_kernels3d.py
 STAGE3_CASES = [(4, 12, 7, 9, (True, True, True), 0.9),
                 (13, 9, 6, 5, (False, True, False), 0.5),
@@ -5228,6 +5231,7 @@ K6_CASES = [((2, 2), 6, (16, 16), (True, True), True),
             ((2, 2, 2), 4, (8, 8, 8), (True, False, True), False)]
 K7_CASES = [((2, 2), 6, (16, 16), (True, False), True),
             ((4, 2), 4, (8, 12), (False, True), False),
+            ((2, 2), 20, (9, 70), (True, True), True),
             ((1, 2, 2), 4, (8, 8, 8), (False, True, False), True),
             ((2, 2, 2), 4, (8, 8, 8), (True, False, True), False)]
 # per-stage launches on the mesh paths, for the kernels line's rows
@@ -5732,10 +5736,12 @@ def check_k7_f32(tag, twin, iters, ispec=0):
     the neighbours' edge columns (its output is the next axis's input) and
     its plain version (cell2d.migrate_cells) on the same input, held equal
     by k7_same (bitwise on the alive slots). Each axis's launch on the
-    busiest shard timed (CUDA events), its plain version once, and its
+    busiest shard timed (kernel_ms: CUDA events, or the profiler's device
+    time where the host's issue takes half the call), its plain version
+    once, and its
     bound (the mask and the carried payloads of every slot read and
     written once, the two edge columns read once). Returns (the largest
-    payload difference measured, ms, plain ms, bytes)."""
+    payload difference measured, ms, plain ms, bytes, how ms was taken)."""
     import torch
     from lambdapic_torch.constants import c as c_light
     from lambdapic_torch.ops import cellpallas as cp
@@ -5770,6 +5776,7 @@ def check_k7_f32(tag, twin, iters, ispec=0):
     ms = plain_ms = err = 0.0
     nbytes = 0
     split = ""
+    methods = []
     for axis in range(nd):
         spec = specs[axis]
         edges = edge_columns(cur, cur_alive, names, axis, spec, mesh) \
@@ -5782,15 +5789,18 @@ def check_k7_f32(tag, twin, iters, ispec=0):
             return fn(cur[i], cur_alive[i], plan,
                       edges=None if edges is None else {axis: edges[i]},
                       finish=finish)
-        # one B6 launch a call: CUDA events (host issue included, a few
-        # microseconds of a launch of a millisecond); no profile
-        wall = cuda_time(lambda: run(cp.migrate_cells_fused, busy), iters)
+        # one B6 launch a call: CUDA events, or the profiler's device time
+        # where the host's issue takes over half of the call (kernel_ms)
+        dev_ms, wall = kernel_ms(lambda: run(cp.migrate_cells_fused, busy),
+                                 iters, "K7")
+        wall = dev_ms or wall
+        methods.append(kernel_ms.method)
         ms += wall
         plain_ms += cuda_time(lambda: run(migrate_cells, busy), 1)
         slots = cur_alive[busy].numel()
         nbytes += 2 * slots * (1 + pay) + (
             2 * (slots // n_ax) * (4 + pay) if edges is not None else 0)
-        split += (f" axis {axis}: {wall:.4f} ms (CUDA events)"
+        split += (f" axis {axis}: {wall:.4f} ms ({kernel_ms.method})"
                   f"{' with edges' if edges is not None else ''};")
         outs = []
         for i in range(mesh.size):
@@ -5814,19 +5824,24 @@ def check_k7_f32(tag, twin, iters, ispec=0):
         f"{nbytes / HBM_BPS * 1e3 / nd:.5f} ms")
     del cur, cur_alive, datas
     torch.cuda.empty_cache()
-    return err, ms, plain_ms, nbytes
+    return err, ms, plain_ms, nbytes, timing(*methods)
 
 
-def k7_row(nd, err, ms, plain, nbytes, launches):
+def k7_row(nd, err, ms, plain, nbytes, how, launches, per_step):
     """The kernels line's K7 row: ms, plain_ms and bound_ms of one shard's
     nd axes (one launch each) of one species, and ms_launch and
-    bound_ms_launch their mean a launch, beside the launches a step."""
+    bound_ms_launch their mean a launch, beside the launches on the main
+    path; logs what a step loses against the bound at ``per_step``
+    launches a step."""
     bound = nbytes / HBM_BPS * 1e3
+    log(f"[K7 {nd}D] a launch {ms / nd:.4f} ms (one shard's {nd} axes "
+        f"{ms:.4f} ms), bound {bound / nd:.5f} ms; {per_step} launches a "
+        f"step x (ms - bound) = {per_step * (ms - bound) / nd:.3f} ms a step")
     return dict(
         name=f"K7 B6 mesh strips{', 3D' if nd == 3 else ' 2D'}",
         route="cuda", source="lambdapic_torch/csrc/migrate.cu",
         replaces="lambdapic_tpu/ops/cellpallas.py:860", launches=launches,
-        max_abs_err=err, ms=ms, timing="events", plain_ms=plain,
+        max_abs_err=err, ms=ms, timing=how, plain_ms=plain,
         bound_ms=bound, bound_by="bytes", library_ms=None,
         per="one shard's axes of one species", ms_launch=ms / nd,
         bound_ms_launch=bound / nd)
@@ -5930,9 +5945,9 @@ def run_stages_mesh_2d(args, sim, laser):
     n = args.steps_split_mesh
     step_ms, busy, peak, got = timed_mesh_run(
         tag, twin, [mlaser, hook], n, n, {"B5": 12, "B6": 24},
-        {"migrate_axis": 24, "deposit<": 12})
+        {"migrate_tile": 24, "deposit<": 12})
     MESH_STAGE_LAUNCHES["B6"] += got["B6"]
-    err, ms, plain, nbytes = check_k7_f32("2D 2x2", twin, args.iters)
+    k7 = check_k7_f32("2D 2x2", twin, args.iters)
     del twin
     torch.cuda.empty_cache()
     mark(tag, "split steps and K7")
@@ -5960,7 +5975,7 @@ def run_stages_mesh_2d(args, sim, laser):
     log(f"[slice stages mesh 2D] summary: split {step_ms:.3f} ms a step "
         f"(busy {busy}), exact {e_ms:.3f} ms (busy {e_busy}), peak "
         f"{max(peak, e_peak):.2f} GiB")
-    return [k7_row(2, err, ms, plain, nbytes, MESH_STAGE_LAUNCHES["B6"])]
+    return [k7_row(2, *k7, MESH_STAGE_LAUNCHES["B6"], 24)]
 
 
 def run_stages_mesh_3d(args, sim, laser):
@@ -5984,13 +5999,13 @@ def run_stages_mesh_3d(args, sim, laser):
         tag, twin, [copy.deepcopy(keep[4]), hook], n, n,
         {"B5 3D": 16, "B6": 48}, {"migrate_tile": 48, "deposit3d": 16})
     MESH_STAGE_LAUNCHES["B6 3D"] += got["B6"]
-    err, ms, plain, nbytes = check_k7_f32("3D 2x2x2", twin, args.iters3d)
+    k7 = check_k7_f32("3D 2x2x2", twin, args.iters3d)
     del twin
     torch.cuda.empty_cache()
     put_back(sim, keep, keep[0])
     mark(tag, "split steps and K7")
     MESH_QED["split3"] = dict(step_ms=step_ms, busy=busy, peak=peak)
-    return [k7_row(3, err, ms, plain, nbytes, MESH_STAGE_LAUNCHES["B6 3D"])]
+    return [k7_row(3, *k7, MESH_STAGE_LAUNCHES["B6 3D"], 48)]
 
 
 def run_exact_qed_mesh_3d(args, sim, laser):

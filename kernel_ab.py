@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time the one-device kernels B2 and B3, and the per-stage 3D kernels B4
-and B5, of a lambdapic_torch tree, and the 3D QED slice's per-stage
-steps that run B4 3D and B5 3D.
+"""Time the one-device kernels B2 and B3, the per-stage 3D kernels B4
+and B5 and the re-binning kernel B6 (and K7) of a lambdapic_torch tree,
+and the 3D QED slice's per-stage steps that run B4 3D and B5 3D.
 
-    python3 kernel_ab.py ROOT [b2] [stage3] [steps3d] [migrate3]
+    python3 kernel_ab.py ROOT [b2] [stage3] [steps3d] [migrate2]
+                         [migrate3] [variants]
 
 ROOT is the directory that holds the ``lambdapic_torch`` package to time
 (``.`` for this checkout; an unpacked ``git archive <commit>
@@ -77,7 +78,27 @@ this card reaches for those bytes) and the ablations of ROOT's
 placement without payloads, only the mask written; in the tile design
 also ``stream``: every payload streamed and written back to its own slot,
 no placement), with the bound of one axis (its mask and payloads read and
-written once over 3.35 TB/s).
+written once over 3.35 TB/s; for K7 the two edge columns read once too,
+the mean of the axes). The ablations are those of the design that
+re-bins the group's slots in ROOT's source (``migrate_design``: the tile
+kernel's, or where 2D slots still run one thread a cell, that design's
+``sort`` and ``place``).
+
+Group ``migrate2``: the same for B6 on 2D slots, on the 2D ``band`` and
+``uniform`` states (1024 x 1024 cells of 20 slots, the 2D slice's
+electron capacity; nine carried payloads: x, y, z, w, ux, uy, uz, id_lo,
+id_hi), lines ``AB-migrate2 <state> <what> <ms a call> x <ms> y <ms>``,
+and K7 2D on ``2D band 512^2``, the quarter of ``band`` that holds the
+band, as the busiest 512 x 512 shard of the split mesh 2D slice's 2 x 2
+mesh, with edge columns taken from its own faces.
+
+Group ``variants``: on a tree whose 2D slots run the tile kernel, B6
+(and K7) of each variant of VARIANTS (tile shapes, the dead-tile
+shortcut, the inv_gamma sum, blocks an SM) on migrate2's and migrate3's
+states, built by text substitution of ROOT's ``csrc/migrate.cu`` (one
+nvcc each, at once), each held bit for bit against the plain version on
+the state before it is timed; lines ``AB-variants <variant> <state>
+<what> ...`` as migrate2's.
 """
 import sys
 
@@ -160,7 +181,7 @@ def make_state(name, cap, n):
 # untimed, then timed
 STEPS3D_FUSED, STEPS3D_WARM, STEPS3D_TIMED = 200, 2, 5
 
-GROUPS = ("b2", "stage3", "steps3d", "migrate3")
+GROUPS = ("b2", "stage3", "steps3d", "migrate2", "migrate3", "variants")
 
 
 def main() -> int:
@@ -182,8 +203,12 @@ def main() -> int:
         time_stage3(dev)
     if "steps3d" in groups:
         time_steps3d(dev)
+    if "migrate2" in groups:
+        time_migrate(dev, 2)
     if "migrate3" in groups:
-        time_migrate3(dev)
+        time_migrate(dev, 3)
+    if "variants" in groups:
+        time_variants(dev)
     return 0
 
 
@@ -348,12 +373,13 @@ def time_steps3d(dev):
         torch.cuda.empty_cache()
 
 
-# Ablations of B6 (csrc/migrate.cu), by the design the source holds (the
-# first marker string found): name -> [(text, replacement)], every text
-# required. The tile design of 3D slots up to 32 slots a cell and the
-# one-thread-a-cell design (a tree without the tile design runs it for
-# every B6 launch; one with it, for 2D slots and above 32 slots a cell). ``stream``: keys, sort and every payload streamed, each output
-# slot taking its own input slot (no placement, no merge).
+# Ablations of B6 (csrc/migrate.cu), by the design that re-binds the
+# group's slots (``migrate_design``): name -> [(text, replacement)], every
+# text required. The tile design (3D slots up to 32 slots a cell since PR
+# 13, 2D ones too where the source sends them there) and the
+# one-thread-a-cell design (every other launch). ``stream``: keys, sort
+# and every payload streamed, each output slot taking its own input slot
+# (no placement, no merge).
 ABLATIONS = {
     "migrate_tile(": {
         "sort": [("const bool vlo = lo_ok && (klo >> SLOT_BITS) == 0;",
@@ -385,41 +411,107 @@ ABLATIONS = {
                   ("if (a.final_ && a.recompute_ig)", "if (false)")]},
 }
 
+# The source's sign that 2D slots run the tile kernel (its dispatch of 2D
+# slots (nx, ny) as 3D slots (1, nx, ny)).
+TILE_2D = "tile::launch<T>(a, 1, (int)nx, (int)ny, axis + 1, st)"
 
-def ablation_libs(tags):
-    """{ablation name: built library path} of this tree's csrc/migrate.cu,
-    one nvcc each, all at once, into _build/ablate-<name>/."""
+
+def migrate_design(src, nd):
+    """The ABLATIONS key of the design that re-bins ``nd``-D slots of up
+    to 32 slots a cell in the source text ``src``."""
+    if "migrate_tile(" in src and (nd == 3 or TILE_2D in src):
+        return "migrate_tile("
+    if "migrate_cell(a, cell, k, ks, merges)" in src:
+        return "migrate_cell(a, cell, k, ks, merges)"
+    raise RuntimeError("kernel_ab: csrc/migrate.cu holds no known design")
+
+
+# Variants of this tree's csrc/migrate.cu timed in group ``variants``, by
+# rank: name -> [(text, replacement)] (``base``: the source as it is). 2D:
+# the tile shapes of the 2D slices' 20 slots (capacity class 24; ``no24``
+# runs them in class 32), a 64 KiB ring, the dead-tile shortcut off, 1 +
+# u^2 summed in registers at every class, two blocks an SM above 16 slots,
+# four at every class; 3D: the shortcut at every class, inv_gamma
+# recomputed from the written ux and uy at every class.
+D24X = "template <> struct Dims<24, 0> { static constexpr int W = 32, S = 4; };"
+D24Z = "template <> struct Dims<24, 2> { static constexpr int W = 128, S = 1; };"
+C24 = ("  if (a.cap <= 24)\n    return pick<T, 24>(a, g, nouter, vec, st, z, "
+       "nz);\n")
+NODEAD = [("if constexpr (MAXC > 8) live = __syncthreads_or(al_bits != 0);",
+           "")]
+SUM_U = "constexpr bool SUM_U = Sh::ITEMS <= 8;"
+VARIANTS = {
+    2: {"base": [],
+        "no24": [(C24, "")],
+        "x24w16s8": [(D24X, D24X.replace("W = 32, S = 4", "W = 16, S = 8"))],
+        "x24w8s16": [(D24X, D24X.replace("W = 32, S = 4", "W = 8, S = 16"))],
+        "z24w64s2": [(D24Z, D24Z.replace("W = 128, S = 1", "W = 64, S = 2"))],
+        "z24w256": [(D24Z, D24Z.replace("W = 128", "W = 256"))],
+        "ring64": [("RING = 48 * 1024;", "RING = 64 * 1024;")],
+        "nodead": NODEAD,
+        "sumu": [(SUM_U, "constexpr bool SUM_U = true;")],
+        "lb2": [("__launch_bounds__(THREADS, MAXC <= 4 ? 4 : 3)",
+                 "__launch_bounds__(THREADS, MAXC <= 4 ? 4 : "
+                 "(MAXC > 16 ? 2 : 3))")],
+        "lb4": [("__launch_bounds__(THREADS, MAXC <= 4 ? 4 : 3)",
+                 "__launch_bounds__(THREADS, 4)")]},
+    3: {"base": [],
+        "dead": [("if constexpr (MAXC > 8) live", "live")],
+        "reread": [(SUM_U, "constexpr bool SUM_U = false;")]},
+}
+
+
+def build_variants(variants, tag):
+    """{name: built library path} of this tree's csrc/migrate.cu with each
+    variant's text substitutions, one nvcc each, all at once, into
+    _build/<tag>-<name>/."""
     import subprocess
     from lambdapic_torch.ops import kernel_lib
     src = (kernel_lib.CSRC / "migrate.cu").read_text()
-    design = [k for k in ABLATIONS if k in src]
-    if not design:
-        raise RuntimeError("kernel_ab: csrc/migrate.cu holds no known design")
     procs = {}
-    for name, subs in ABLATIONS[design[0]].items():
-        if name not in tags:
-            continue
+    for name, subs in variants.items():
         text = src
         for old, new in subs:
             if old not in text:
-                raise RuntimeError(f"kernel_ab: ablation {name}: {old!r} "
-                                   "not in csrc/migrate.cu")
+                raise RuntimeError(f"kernel_ab: {tag} {name}: {old!r} not in "
+                                   "csrc/migrate.cu")
             text = text.replace(old, new)
-        d = kernel_lib.BUILD / f"ablate-{name}"
+        d = kernel_lib.BUILD / f"{tag}-{name}"
         d.mkdir(parents=True, exist_ok=True)
-        (d / "migrate.cu").write_text(text)
         so = d / "libmigrate.so"
+        cu = d / "migrate.cu"
+        if so.exists() and cu.exists() and cu.read_text() == text:
+            procs[name] = (so, None)   # built by an earlier run
+            continue
+        so.unlink(missing_ok=True)
+        cu.write_text(text)
         procs[name] = (so, subprocess.Popen(
             [kernel_lib.nvcc_path(), *kernel_lib.FLAGS, "-I",
-             str(kernel_lib.CSRC), "-o", str(so), str(d / "migrate.cu")],
+             str(kernel_lib.CSRC), "-o", str(so),
+             str(d / "migrate.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     out = {}
     for name, (so, p) in procs.items():
+        if p is None:
+            out[name] = so
+            continue
         log, _ = p.communicate()
         if p.returncode != 0:
-            raise RuntimeError(f"kernel_ab: ablation {name}:\n{log}")
+            raise RuntimeError(f"kernel_ab: {tag} {name}:\n{log}")
+        if name == "base":
+            ptxas_lines(f"{tag}-{name}", log)
         out[name] = so
     return out
+
+
+def ablation_libs(tags, nd):
+    """{ablation name: built library path} of this tree's csrc/migrate.cu
+    for the design that re-bins ``nd``-D slots (``migrate_design``)."""
+    from lambdapic_torch.ops import kernel_lib
+    src = (kernel_lib.CSRC / "migrate.cu").read_text()
+    subs = ABLATIONS[migrate_design(src, nd)]
+    return build_variants({k: v for k, v in subs.items() if k in tags},
+                          f"ablate{nd}d")
 
 
 def use_migrate_lib(path):
@@ -433,15 +525,48 @@ def use_migrate_lib(path):
         kernel_lib._LIBS["migrate"] = ctypes.CDLL(str(path))
 
 
-def migrate3_states(dev):
-    """(name, data, alive) of group migrate3's states, float32 on the card,
-    with int32 ids; the 3D state's inv_gamma as random_cell_state gives it."""
+def self_edges(td, ta, names):
+    """{axis: (lo, hi)} edge columns of a state taken from its own last
+    (lo) and first (hi) columns along each axis, as cellslab.edge_columns
+    gives them (alive as int32)."""
+    import torch
+    edges = {}
+    for ax in range(ta.dim() - 1):
+        n = ta.shape[1 + ax]
+        edges[ax] = tuple(
+            {"alive": ta.narrow(1 + ax, c, 1).to(torch.int32).contiguous(),
+             **{k: td[k].narrow(1 + ax, c, 1).contiguous() for k in names}}
+            for c in (n - 1, 0))
+    return edges
+
+
+def migrate_states(dev, nd):
+    """(name, data, alive, whats) of group migrate2's (nd 2) or migrate3's
+    (nd 3) states, float32 on the card, with int32 ids; ``whats`` the
+    timings a state takes (``B6``: one-device B6; ``K7``: B6 with edge
+    columns taken from its own faces)."""
     import torch
     from lambdapic_torch.testing import to_torch
+    if nd == 2:
+        for name in ("2D band", "2D uniform"):
+            d, a, _ = make_state(name, 20, (1024, 1024))
+            td, ta = to_torch(d, a, torch.float32, dev)
+            del d, a
+            yield name, td, ta, ("B6",)
+            if name == "2D band":
+                # the busiest 512^2 shard of the split mesh 2D slice's 2 x 2
+                # mesh: the quarter that holds the band
+                q = (slice(None), slice(512, 1024), slice(0, 512))
+                yield ("2D band 512^2", {k: v[q].contiguous()
+                                         for k, v in td.items()},
+                       ta[q].contiguous(), ("K7",))
+            del td, ta
+            torch.cuda.empty_cache()
+        return
     d, a, _ = make_state("3D", 8, (256, 128, 128))
     td, ta = to_torch(d, a, torch.float32, dev)
     del d, a
-    yield "3D", td, ta
+    yield "3D", td, ta, ("B6", "K7")
     del td, ta
     torch.cuda.empty_cache()
     td, ta, eb = exact3d_state(dev)
@@ -450,74 +575,166 @@ def migrate3_states(dev):
     td["id_lo"] = torch.arange(n, dtype=torch.int32, device=dev).view(
         ta.shape)
     td["id_hi"] = torch.zeros_like(td["id_lo"])
-    yield "3D exact", td, ta
+    yield "3D exact", td, ta, ("B6",)
 
 
-def time_migrate3(dev):
-    """Group migrate3 (see the module docstring)."""
-    import torch
-    from lambdapic_torch.ops import cellpallas as cp
-    from lambdapic_torch.ops import kernel_lib
-    from lambdapic_torch.ops.cell2d import TRANSIENT
-    kernel_lib.build(["migrate"])
-    for line in kernel_lib.build_log("migrate").splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"AB-ptxas migrate {line.strip()}", flush=True)
-    libs = ablation_libs(("sort", "place", "stream"))
-    for name, td, ta in migrate3_states(dev):
-        cells = tuple(ta.shape[1:])
-        names = sorted(k for k in td if k not in TRANSIENT)
-        plan = tuple(zip(cells, (False,) * 3, "xyz"))
-        per_slot = 1 + sum(td[k].element_size() for k in names)
-        bound = 2 * ta.numel() * per_slot / 3.35e12 * 1e3
+class MigrateTimer:
+    """Times B6 on one state of group migrate2 or migrate3: one
+    ``migrate_cells_fused`` call of every axis, then each axis alone (CUDA
+    events), with or without edge columns, and a plain copy of one axis's
+    arrays."""
 
-        def calls(edges):
-            e = edges or {}
-            axes = [lambda ax=ax: cp.migrate_cells_fused(
-                td, ta, (plan[ax],), finish=ax == 2,
-                edges={ax: e[ax]} if ax in e else None) for ax in range(3)]
-            return [lambda: cp.migrate_cells_fused(td, ta, plan,
-                                                   edges=edges)] + axes
+    def __init__(self, group, name, td, ta):
+        from lambdapic_torch.ops.cell2d import TRANSIENT
+        self.group, self.name, self.td, self.ta = group, name, td, ta
+        self.nd = ta.dim() - 1
+        self.names = sorted(k for k in td if k not in TRANSIENT)
+        self.plan = tuple(zip(ta.shape[1:], (False,) * self.nd, "xyz"))
+        self.per_slot = 1 + sum(td[k].element_size() for k in self.names)
+        # an axis's mask and payloads read and written once (and the two
+        # edge columns read once with edges)
+        self.bound = 2 * ta.numel() * self.per_slot / 3.35e12 * 1e3
 
-        def report(what, fns, iters=10):
-            ms = [timed(f, iters) for f in fns]
-            print(f"AB-migrate3 {name} {what} {ms[0]:.4f} ms x {ms[1]:.4f} "
-                  f"y {ms[2]:.4f} z {ms[3]:.4f}; bound an axis {bound:.4f} "
-                  f"ms ({int(ta.sum())} of {ta.numel()} slots alive, "
-                  f"{ta.shape[0]} a cell)", flush=True)
-            torch.cuda.empty_cache()
+    def calls(self, edges):
+        from lambdapic_torch.ops import cellpallas as cp
+        td, ta, plan, nd = self.td, self.ta, self.plan, self.nd
+        e = edges or {}
+        axes = [lambda ax=ax: cp.migrate_cells_fused(
+            td, ta, (plan[ax],), finish=ax == nd - 1,
+            edges={ax: e[ax]} if ax in e else None) for ax in range(nd)]
+        return [lambda: cp.migrate_cells_fused(td, ta, plan,
+                                               edges=edges)] + axes
 
-        report("B6", calls(None))
-        if name == "3D":
-            edges = {}
-            for ax in range(3):
-                n = cells[ax]
-                col = {"lo": n - 1, "hi": 0}
-                edges[ax] = tuple(
-                    {"alive": ta.narrow(1 + ax, c, 1).to(torch.int32)
-                     .contiguous(),
-                     **{k: td[k].narrow(1 + ax, c, 1).contiguous()
-                        for k in names}} for c in col.values())
-            report("K7", calls(edges))
-            del edges
-        src = [ta] + [td[k] for k in names]
+    def report(self, what, edges=None, iters=10, device=False):
+        """One line: CUDA events ms of the call of every axis and of each
+        axis alone (host issue included); with ``device`` also each
+        axis's device ms of the B6 launch from torch.profiler."""
+        import torch
+        fns = self.calls(edges)
+        ms = [timed(f, iters) for f in fns]
+        axes = " ".join(f"{'xyz'[i]} {m:.4f}" for i, m in enumerate(ms[1:]))
+        if device:
+            dev = [sum(t for k, (t, _) in device_split(f, iters).items()
+                       if "migrate" in k) for f in fns[1:]]
+            axes += "; device " + " ".join(
+                f"{'xyz'[i]} {m:.4f}" for i, m in enumerate(dev))
+        bound = self.bound
+        if edges:
+            # the two edge columns (an int32 mask) read once, the mean of
+            # the axes
+            cols = [self.ta.numel() // n for n in self.ta.shape[1:]]
+            bound += 2 * sum(cols) / self.nd * (3 + self.per_slot) \
+                / 3.35e12 * 1e3
+        print(f"AB-{self.group} {self.name} {what} {ms[0]:.4f} ms {axes}; "
+              f"bound an axis {bound:.4f} ms ({int(self.ta.sum())} of "
+              f"{self.ta.numel()} slots alive, {self.ta.shape[0]} a cell)",
+              flush=True)
+        torch.cuda.empty_cache()
+        return ms
+
+    def copy(self):
+        import torch
+        src = [self.ta] + [self.td[k] for k in self.names]
         dst = [torch.empty_like(t) for t in src]
 
-        def copy():
+        def run():
             for s, t in zip(src, dst):
                 t.copy_(s)
-        ms = timed(copy, 10)
-        print(f"AB-migrate3 {name} copy {ms:.4f} ms an axis's arrays "
-              f"({2 * ta.numel() * per_slot / ms / 1e9:.3f} TB/s); bound "
-              f"{bound:.4f} ms", flush=True)
+        ms = timed(run, 10)
+        print(f"AB-{self.group} {self.name} copy {ms:.4f} ms an axis's "
+              f"arrays ({2 * self.ta.numel() * self.per_slot / ms / 1e9:.3f}"
+              f" TB/s); bound {self.bound:.4f} ms", flush=True)
         del src, dst
         torch.cuda.empty_cache()
-        for abl, so in libs.items():
-            use_migrate_lib(so)
-            report(f"ablate-{abl}", calls(None))
-        use_migrate_lib(None)
-        del td, ta
+
+    def same_as_plain(self, edges=None):
+        """Whether B6 (the library in use) gives the plain version's
+        arrays bit for bit, every axis in one call."""
+        import torch
+        from lambdapic_torch.ops import cellpallas as cp
+        from lambdapic_torch.ops.cell2d import migrate_cells
+        got = cp.migrate_cells_fused(self.td, self.ta, self.plan, edges=edges)
+        ref = migrate_cells(self.td, self.ta, self.plan, edges=edges)
+        ok = torch.equal(got[1], ref[1]) and int(got[2]) == int(ref[2]) \
+            and sorted(got[0]) == sorted(ref[0]) \
+            and all(torch.equal(got[0][k], ref[0][k]) for k in ref[0])
+        del got, ref
         torch.cuda.empty_cache()
+        return ok
+
+
+def ptxas_lines(tag, log):
+    """One ``AB-ptxas`` line per __global__ function of a build log: its
+    name from ``migrate_`` on, its registers and spills."""
+    fn, spill = "", ""
+    for line in log.splitlines():
+        if "entry function" in line and "'" in line:
+            fn = line.split("'")[1]
+            fn = fn[fn.find("migrate_"):] if "migrate_" in fn else fn
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line:
+            regs = line[line.find("Used"):].split(",")[0]
+            print(f"AB-ptxas {tag} {fn[:40]} {regs}; {spill}", flush=True)
+
+
+def migrate_build():
+    from lambdapic_torch.ops import kernel_lib
+    kernel_lib.build(["migrate"])
+    ptxas_lines("migrate", kernel_lib.build_log("migrate"))
+
+
+def time_migrate(dev, nd):
+    """Group migrate2 (nd 2) or migrate3 (nd 3): see the module
+    docstring."""
+    group = f"migrate{nd}"
+    migrate_build()
+    libs = ablation_libs(("sort", "place", "stream"), nd)
+    for name, td, ta, whats in migrate_states(dev, nd):
+        t = MigrateTimer(group, name, td, ta)
+        if "B6" in whats:
+            t.report("B6", device=True)
+        if "K7" in whats:
+            t.report("K7", self_edges(td, ta, t.names), device=True)
+        t.copy()
+        if "B6" in whats:
+            for abl, so in libs.items():
+                use_migrate_lib(so)
+                t.report(f"ablate-{abl}")
+            use_migrate_lib(None)
+        del t, td, ta
+
+
+def time_variants(dev):
+    """Group variants: B6 (and K7) of each variant of VARIANTS on group
+    migrate2's and migrate3's states, each held bit for bit against the
+    plain version first (not on ``3D exact``, whose plain version takes
+    most of the card); lines ``AB-variants <variant> <state> <what> ...``
+    as migrate2's."""
+    from lambdapic_torch.ops import kernel_lib
+    src = (kernel_lib.CSRC / "migrate.cu").read_text()
+    if migrate_design(src, 2) != "migrate_tile(":
+        print("AB-variants: this tree runs no 2D tile kernel", flush=True)
+        return
+    migrate_build()
+    for nd, variants in VARIANTS.items():
+        libs = build_variants(variants, f"variants{nd}d")
+        for name, td, ta, whats in migrate_states(dev, nd):
+            for var, so in libs.items():
+                use_migrate_lib(so)
+                t = MigrateTimer(f"variants {var}", name, td, ta)
+                for what in whats:
+                    edges = self_edges(td, ta, t.names) if what == "K7" \
+                        else None
+                    if name != "3D exact" and not t.same_as_plain(edges):
+                        print(f"AB-variants {var} {name} {what}: differs "
+                              "from the plain version", flush=True)
+                        continue
+                    t.report(what, edges, device=True)
+                    del edges
+                del t
+            use_migrate_lib(None)
+            del td, ta
 
 
 if __name__ == "__main__":

@@ -8,17 +8,21 @@
 // axis by migrate_cells_fused (:1143). Plain PyTorch version: lambdapic_
 // torch/ops/cell2d.py::migrate_cells (fast scheme, Batcher order).
 //
-// Two designs, chosen by the launch (no switch):
-//  - 3D slots up to TILE_MAXC (32) slots a cell: the tile kernel
-//    (migrate_tile, below), the design of this note;
-//  - 2D slots, and 3D slots above 32 a cell: one thread per cell
-//    (migrate_axis), rank-generic: the slots are (cap, ncell) with the
-//    cells flattened in C order, the axis named by its length n and its
-//    stride (ny*nz, nz, 1 in 3D; ny, 1 in 2D). A thread builds the keys of
-//    its own column and of its two neighbours along the axis, sorts each
-//    in a thread-local array (up to MAXC_LOCAL, 128, slots a cell; above
-//    it in a global scratch row per thread, cell2d.cuh's for_cells) and
-//    places its slots from device memory.
+// Two designs, chosen by the capacity (no switch, no fallback):
+//  - up to TILE_MAXC (32) slots a cell, 2D or 3D: the tile kernel
+//    (migrate_tile, below), the design of this note. 2D slots (nx, ny)
+//    run as 3D slots (1, nx, ny): the 2D x axis is the tile kernel's y
+//    axis with one outer index, the 2D y axis (the contiguous one) its z
+//    axis in rows of ny cells; a 2D edge column, (cap, 1, ny) along x or
+//    (cap, nx, 1) along y, is indexed as the 3D one of that axis;
+//  - above 32 slots a cell, 2D or 3D: one thread per cell (migrate_axis),
+//    rank-generic: the slots are (cap, ncell) with the cells flattened in
+//    C order, the axis named by its length n and its stride (ny*nz, nz, 1
+//    in 3D; ny, 1 in 2D). A thread builds the keys of its own column and
+//    of its two neighbours along the axis, sorts each in a thread-local
+//    array (up to MAXC_LOCAL, 128, slots a cell; above it in a global
+//    scratch row per thread, cell2d.cuh's for_cells) and places its slots
+//    from device memory.
 //
 // What both compute, as the plain version: the 5-way keys (donor+1 0 /
 // dead-even 1 / stay 2 / dead-odd 3 / donor-1 4, dead parity from the
@@ -58,23 +62,26 @@
 // Bound on an H100 (3.35 TB/s): bytes: the mask and every carried payload
 // of every slot read and written once an axis, plus the two edge columns
 // under K7 (the answer depends on every slot: a dead slot carries its
-// payloads through a non-final axis). At the 3D slices' shapes, float32
-// and nine 4-byte payloads (37 B a slot each way): 2.965 ms an axis at
-// 512 x 256 x 256 cells of 4 slots, 0.741 ms at 256 x 128 x 128 of 8.
+// payloads through a non-final axis). At the slices' shapes, float32 and
+// nine 4-byte payloads (37 B a slot each way): 2.965 ms an axis at 512 x
+// 256 x 256 cells of 4 slots, 0.741 ms at 256 x 128 x 128 of 8; in 2D
+// 0.4633 ms at 1024 x 1024 cells of 20 slots (B6 2D), 0.1161 ms a launch
+// on a 512 x 512 shard of them with its edge columns (K7 2D).
 //
 // The tile kernel. The one-thread-a-cell design spent about 80% of its
 // time moving payloads one 4-byte load at a time (each thread's loads
 // depend on its own sorted keys, so a warp's loads scatter over slot
 // rows), and keyed and sorted every column three times, in local memory
 // (kernel_ab.py migrate3's ablations: keys and sort alone 18% of the
-// axis; it reached about 1.5 TB/s where a copy of the same arrays reaches
-// 3.0). One 256-thread block a tile: W cells along z by S along the axis
-// (x, y: 32 x 8 up to 8 slots a cell, 32 x 4 at 16, 16 x 4 at 32; z:
-// rows of 128 x 2 where 128 cells hold the row, else 256 x 1; one row of
-// 128 and of 64 at 16 and 32 slots), with its halo: the rows before and
-// after it along x or y (the wrap or an edge row at the faces), along z
-// the cell before and after each row (none where the tile holds whole
-// rows without edges: the wrapped neighbours are the row's own cells).
+// axis, migrate2's 30% at 20 slots a cell; it reached about 1.5 TB/s
+// where a copy of the same arrays reaches 2.8-3.0). One 256-thread block a
+// tile: W cells along z by S along the axis (x, y: 32 x 8 up to 8 slots a
+// cell, 32 x 4 at 16, 24 and 32; z: rows of 128 x 2 where 128 cells hold
+// the row, else 256 x 1; one row of 128 at 16, 24 and 32 slots), with its
+// halo: the rows before and after it along x or y (the wrap or an edge row
+// at the faces), along z the cell before and after each row (none where
+// the tile holds whole rows without edges: the wrapped neighbours are the
+// row's own cells).
 //  - A thread finds its share of the tile's storage once (Part: runs of
 //    16 bytes of one row in float32 where nz % 4 == 0 and every array is
 //    aligned, else single cells, and the z halo cells) and reuses it for
@@ -82,19 +89,23 @@
 //  - The payloads stream through a ring of shared buffers by cp.async
 //    (RING bytes: all but one of them in flight while one is placed),
 //    the coordinate first: the keys are built from it and the alive bytes
-//    once, and each column is sorted once, in shared memory (8-bit
-//    entries, key << 5 | slot).
+//    once (8-bit entries, key << 5 | slot), and each column is sorted
+//    once, in registers, by the compare-exchange list unrolled at compile
+//    time (batcher_net).
+//  - Above 8 slots a cell a tile whose cells and halo hold no alive slot
+//    skips keys and sort: its columns' order is one permutation, from the
+//    slot parities alone, computed on the host at each launch (Geo::dead).
 //  - The placement map of each output slot (its source's storage offset
 //    and flags) is built once, in registers, since the same thread places
 //    the slot for every payload; so is the merge count. A payload's
 //    placement is then one shared load and one coalesced store a slot;
 //    merges (rare) read the three sources from the buffer and their
 //    weights from device memory.
-// Measured (kernel_ab.py migrate3, H100 80GB HBM3, 700 W): 4.05, 4.03 and
-// 4.83 ms for x, y, z on 512 x 256 x 256 cells of 4 slots (6.80, 6.46,
-// 6.54 before), 73% of the bound along x and y; 1.12, 1.10, 1.27 ms on
-// 256 x 128 x 128 of 8 (2.30, 2.22, 2.24). Ablations: keys, sort and the
-// placement map without payloads take 1.1 ms of an axis at 4 slots (a
+// Measured in 3D (kernel_ab.py migrate3, H100 80GB HBM3, 700 W): 4.05,
+// 4.03 and 4.83 ms for x, y, z on 512 x 256 x 256 cells of 4 slots (6.80,
+// 6.46, 6.54 before), 73% of the bound along x and y; 1.12, 1.10, 1.27 ms
+// on 256 x 128 x 128 of 8 (2.30, 2.22, 2.24). Ablations: keys, sort and
+// the placement map without payloads take 1.1 ms of an axis at 4 slots (a
 // latency chain each block runs before its first store, hidden only by
 // the other blocks of its SM); writing every payload back to its own slot
 // takes as long as the real placement, so the rest is the stream itself:
@@ -102,6 +113,21 @@
 // above, and the halo's reads (a quarter more along x and y). A deeper
 // ring at two blocks an SM, 32-bit copy offsets (spills) and z rows with
 // a halo cell on each side were slower.
+//
+// 2D slots (the 2D slices hold 20 a cell: class 24, 12 slots a thread, two
+// threads a column). Tile shapes and the rest chosen on the card
+// (kernel_ab.py variants, band state, device ms an axis, x / y): 32 x 4
+// cells along x and rows of 128 along y 0.69 / 0.76; class 32 (16 slots a
+// thread) 0.92 / 0.87; x tiles of 16 x 8 0.98; y rows of 64 x 2 0.79; two
+// blocks an SM 0.77 / 0.85; 1 + u^2 summed in registers 0.79 / 0.76; no
+// dead-tile shortcut 0.80 / 0.86 (in 3D, at 4 and 8 slots, the shortcut
+// made every axis 3-4% slower). The first form, the 3D slots' class-32
+// tiles of 16 x 4 and rows of 64 with each column sorted in shared memory
+// (103 exchanges at 20 slots, one thread a column: a chain of microseconds
+// before a block's first store), ran 1.30 / 1.13 (CUDA events) against the
+// old kernel's 1.39 / 1.41.
+#include <utility>
+
 #include "cell2d.cuh"
 
 namespace {
@@ -272,13 +298,66 @@ __global__ void __launch_bounds__(128) migrate_axis(Args<T> a) {
 
 
 // ---------------------------------------------------------------------------
-// The tile kernel: one axis of the re-binning of 3D slots up to TILE_MAXC
-// slots a cell (the source note at the top says why and what it found).
+// The tile kernel: one axis of the re-binning of 3D slots (2D slots as 3D
+// slots (1, nx, ny)) up to TILE_MAXC slots a cell (the source note at the
+// top says why and what it found).
 namespace tile {
 
 constexpr int THREADS = 256;
 constexpr int TILE_MAXC = 32;
 constexpr int SLOT_BITS = 5;    // a shared sort entry: key << 5 | slot
+
+// The compare-exchange list of cellpallas.py::_batcher_network for N = 2^k
+// entries, built at compile time. Entries past a cell's capacity held at
+// a key above every real one (the list's virtual +inf entries) never move
+// under a strict ka > kb, and the exchanges the pruned list leaves out
+// then swap nothing, so the list of N sorts every capacity of the
+// class as the list pruned to that capacity does.
+template <int N>
+struct Net {
+  int n;
+  unsigned char a[6 * N], b[6 * N];   // up to 191 exchanges at N = 32
+};
+
+template <int N>
+__host__ __device__ constexpr Net<N> batcher_net() {
+  Net<N> t{};
+  for (int p = 1; p < N; p *= 2)
+    for (int k = p; k >= 1; k /= 2)
+      for (int j = k % p; j < N - k; j += 2 * k)
+        for (int i = 0; i < k && i < N - j - k; ++i)
+          if ((i + j) / (2 * p) == (i + j + k) / (2 * p)) {
+            t.a[t.n] = (unsigned char)(i + j);
+            t.b[t.n] = (unsigned char)(i + j + k);
+            ++t.n;
+          }
+  return t;
+}
+
+template <int N>
+constexpr Net<N> NET = batcher_net<N>();
+
+// The network size of capacity class MAXC.
+__host__ __device__ constexpr int net_size(int maxc) {
+  int n = 1;
+  while (n < maxc) n *= 2;
+  return n;
+}
+
+template <int A, int B, int N>
+__device__ __forceinline__ void exchange(unsigned (&k)[N]) {
+  const unsigned ka = k[A], kb = k[B];
+  const bool swap = (ka >> SLOT_BITS) > (kb >> SLOT_BITS);
+  k[A] = swap ? kb : ka;
+  k[B] = swap ? ka : kb;
+}
+
+// Sort a column's entries (key << SLOT_BITS | slot), in registers.
+template <int N, int... E>
+__device__ __forceinline__ void sort_column(unsigned (&k)[N],
+                                            std::integer_sequence<int, E...>) {
+  (exchange<batcher_net<N>().a[E], batcher_net<N>().b[E]>(k), ...);
+}
 
 // The tile of a capacity class MAXC (4, 8, 16, 32 slots a cell; class 4
 // is class 8's tile with half the slots, for four blocks an SM) along the
@@ -298,13 +377,15 @@ struct Dims;
 template <> struct Dims<4, 0> { static constexpr int W = 32, S = 8; };
 template <> struct Dims<8, 0> { static constexpr int W = 32, S = 8; };
 template <> struct Dims<16, 0> { static constexpr int W = 32, S = 4; };
-template <> struct Dims<32, 0> { static constexpr int W = 16, S = 4; };
+template <> struct Dims<24, 0> { static constexpr int W = 32, S = 4; };
+template <> struct Dims<32, 0> { static constexpr int W = 32, S = 4; };
 template <> struct Dims<4, 1> { static constexpr int W = 128, S = 2; };
 template <> struct Dims<8, 1> { static constexpr int W = 128, S = 2; };
 template <> struct Dims<4, 2> { static constexpr int W = 256, S = 1; };
 template <> struct Dims<8, 2> { static constexpr int W = 256, S = 1; };
 template <> struct Dims<16, 2> { static constexpr int W = 128, S = 1; };
-template <> struct Dims<32, 2> { static constexpr int W = 64, S = 1; };
+template <> struct Dims<24, 2> { static constexpr int W = 128, S = 1; };
+template <> struct Dims<32, 2> { static constexpr int W = 128, S = 1; };
 
 template <int MAXC, int Z>
 struct Shape {
@@ -334,6 +415,9 @@ struct Geo {
   // payload t; the axis's coordinate first, then the floats, then the
   // ints (so ux, uy, uz in their order)
   signed char order[MAXF + MAXI];
+  // the sorted order of a column of dead slots (keys from the slot
+  // parities alone): the slot at each position
+  unsigned char dead[TILE_MAXC];
 };
 
 // The block's tile: x, y: outer index (y for x, x for y), first cell
@@ -578,7 +662,6 @@ __global__ void __launch_bounds__(THREADS, MAXC <= 4 ? 4 : 3)
   const int buf_bytes = cap * Sh::P * (int)sizeof(T);
   const int nbuf = g.nbuf;
   unsigned char* sk = smem + nbuf * buf_bytes;
-  unsigned char* ces = sk + (cap * Sh::P + 15) / 16 * 16;
   const int tid = threadIdx.x;
 
   Tile t;
@@ -607,8 +690,6 @@ __global__ void __launch_bounds__(THREADS, MAXC <= 4 ? 4 : 3)
     start_payload<T, MAXC, Z, CW>(a, g, j, smem + j * buf_bytes, pt);
     commit();
   }
-  for (int e = tid; e < 2 * a.nces; e += THREADS)
-    ces[e] = (unsigned char)__ldg(a.ces + e);
   // the alive bytes of the thread's runs and halo cells, while the
   // coordinate flies: bit k CW + u of run k's cell u
   unsigned al_bits = 0;
@@ -624,13 +705,19 @@ __global__ void __launch_bounds__(THREADS, MAXC <= 4 ? 4 : 3)
       al_bits |= (unsigned)al << (k * CW + u);
     }
   }
-  wait_pending(nbuf - 1);
-  __syncthreads();
-
-  // keys, from the alive bytes and the coordinate (buffer 0), each keyed
-  // at its cell's own index along the axis (a wrapped or edge cell at the
-  // index its shard gives it)
-  {
+  // above 8 slots a cell, a tile whose cells and halo hold no alive slot
+  // (most of a foil's grid): every column's sorted order is g.dead, so its
+  // keys and sort are skipped and its map built from that order (at up to
+  // 8 the keys and sort are short, and the shortcut's branch costs the
+  // other tiles more than it saves)
+  bool live = true;
+  if constexpr (MAXC > 8) live = __syncthreads_or(al_bits != 0);
+  if (live) {
+    wait_pending(nbuf - 1);
+    __syncthreads();
+    // keys, from the alive bytes and the coordinate (buffer 0), each
+    // keyed at its cell's own index along the axis (a wrapped or edge cell
+    // at the index its shard gives it)
     const T* pos = (const T*)smem;
 #pragma unroll
     for (int k = 0; k < Pt::NR + Pt::NH; ++k) {
@@ -653,22 +740,23 @@ __global__ void __launch_bounds__(THREADS, MAXC <= 4 ? 4 : 3)
             (unsigned char)((five_way(al, hi, lo, s) << SLOT_BITS) | s);
       }
     }
-  }
-  __syncthreads();
-  // each storage column sorted once: the compare-exchange list of
-  // cellpallas.py::_batcher_network, swapping on a strict ka > kb
-  for (int o = tid; o < Sh::SRC; o += THREADS) {
-    for (int e = 0; e < a.nces; ++e) {
-      unsigned char* pa = sk + ces[2 * e] * Sh::P + o;
-      unsigned char* pb = sk + ces[2 * e + 1] * Sh::P + o;
-      const unsigned char ka = *pa, kb = *pb;
-      if ((ka >> SLOT_BITS) > (kb >> SLOT_BITS)) {
-        *pa = kb;
-        *pb = ka;
-      }
+    __syncthreads();
+    // each storage column sorted once, in registers: the compare-exchange
+    // list of cellpallas.py::_batcher_network (batcher_net), swapping on a
+    // strict ka > kb
+    constexpr int NS = net_size(MAXC);
+    for (int o = tid; o < Sh::SRC; o += THREADS) {
+      unsigned k[NS];
+#pragma unroll
+      for (int s = 0; s < NS; ++s)
+        k[s] = s < cap ? sk[s * Sh::P + o] : 0xffu;
+      sort_column(k, std::make_integer_sequence<int, batcher_net<NS>().n>{});
+#pragma unroll
+      for (int s = 0; s < NS; ++s)
+        if (s < cap) sk[s * Sh::P + o] = (unsigned char)k[s];
     }
+    __syncthreads();
   }
-  __syncthreads();
 
   // the placement map of the thread's output slots (column c, slot p =
   // phase + k TPC), in registers, since the same thread places the slot
@@ -684,9 +772,11 @@ __global__ void __launch_bounds__(THREADS, MAXC <= 4 ? 4 : 3)
     if (p < cap && cl.valid) {
       const bool lo_ok = a.has_edge || a.periodic || cl.i != 0;
       const bool hi_ok = a.has_edge || a.periodic || cl.i != g.n - 1;
-      const int klo = sk[p * Sh::P + cl.so_lo];
-      const int kown = sk[p * Sh::P + cl.so_own];
-      const int khi = sk[p * Sh::P + cl.so_hi];
+      // in a dead tile every column's entry p: a dead key and g.dead's slot
+      const int kd = 1 << SLOT_BITS | g.dead[p];
+      const int klo = live ? sk[p * Sh::P + cl.so_lo] : kd;
+      const int kown = live ? sk[p * Sh::P + cl.so_own] : kd;
+      const int khi = live ? sk[p * Sh::P + cl.so_hi] : kd;
       const bool vlo = lo_ok && (klo >> SLOT_BITS) == 0;
       const bool vhi = hi_ok && (khi >> SLOT_BITS) == 4;
       const bool stay = (kown >> SLOT_BITS) == 2;
@@ -711,9 +801,14 @@ __global__ void __launch_bounds__(THREADS, MAXC <= 4 ? 4 : 3)
   // j + 1 .. j + nbuf - 1 fly while j is placed
   const T adj_lo = T(-g.n), adj_hi = T(g.n);
   const T floor_ = WFloor<T>::v();
-  T acc[Sh::ITEMS];
+  // inv_gamma on the final axis: 1 + u^2 summed in registers as ux, uy, uz
+  // stream by (up to 8 slots a thread), or where uz is placed from ux and
+  // uy as this thread wrote them (they stream before uz), which frees the
+  // registers of a map of 12 or 16 slots a thread
+  constexpr bool SUM_U = Sh::ITEMS <= 8;
+  T acc[SUM_U ? Sh::ITEMS : 1];
 #pragma unroll
-  for (int k = 0; k < Sh::ITEMS; ++k) acc[k] = T(1);
+  for (int k = 0; k < (SUM_U ? Sh::ITEMS : 1); ++k) acc[k] = T(1);
   for (int j = 0; j < nstream; ++j) {
     const int f = g.order[j];
     unsigned char* b = smem + (j % nbuf) * buf_bytes;
@@ -725,8 +820,10 @@ __global__ void __launch_bounds__(THREADS, MAXC <= 4 ? 4 : 3)
       const bool is_coord = f == a.coord, is_w = f == a.w;
       const bool merged = (a.merge_mask >> f) & 1;
       const bool san = (a.sanitize_mask >> f) & 1, one = f == a.ig_one;
-      const bool usq = a.final_ && a.recompute_ig &&
+      const bool usq = SUM_U && a.final_ && a.recompute_ig &&
                        (f == a.iux || f == a.iuy || f == a.iuz);
+      const bool ig_here = !SUM_U && a.final_ && a.recompute_ig &&
+                           f == a.iuz;
       // the flags that change this payload's value
       const unsigned special = (merged ? M_MULTI : 0) |
                                (is_coord ? M_ADJ : 0) |
@@ -770,8 +867,13 @@ __global__ void __launch_bounds__(THREADS, MAXC <= 4 ? 4 : 3)
             if (one) v = T(1);
           }
         }
-        if (usq) acc[k] = acc[k] + v * v;
-        out[obase + k * ostep] = v;
+        const long long o = obase + k * ostep;
+        out[o] = v;
+        if (usq) acc[SUM_U ? k : 0] = acc[SUM_U ? k : 0] + v * v;
+        if (ig_here) {
+          const T ux = a.fout[a.iux][o], uy = a.fout[a.iuy][o];
+          a.ig_out[o] = T(1) / sqrt(((T(1) + ux * ux) + uy * uy) + v * v);
+        }
       }
     } else {
       const int* v_in = (const int*)b;
@@ -788,10 +890,11 @@ __global__ void __launch_bounds__(THREADS, MAXC <= 4 ? 4 : 3)
     commit();
   }
   wait_pending<0>();
-  if (a.final_ && a.recompute_ig) {
+  if (SUM_U && a.final_ && a.recompute_ig) {
 #pragma unroll
     for (int k = 0; k < Sh::ITEMS; ++k)
-      if (mp[k]) a.ig_out[obase + k * ostep] = T(1) / sqrt(acc[k]);
+      if (mp[k])
+        a.ig_out[obase + k * ostep] = T(1) / sqrt(acc[SUM_U ? k : 0]);
   }
   add_merges(a.n_merged, merges);
 }
@@ -800,14 +903,13 @@ __global__ void __launch_bounds__(THREADS, MAXC <= 4 ? 4 : 3)
 // (32 KiB at up to 4 slots a cell, four blocks an SM; 48 KiB above, three
 // blocks), at least two, at most one a payload.
 constexpr int RING4 = 32 * 1024, RING = 48 * 1024;
+constexpr int MAX_DEVICES = 64;
 
-// Shared memory of a launch: the payload buffers, the sort entries and the
-// compare-exchange list.
+// Shared memory of a launch: the payload buffers and the sort entries.
 template <typename T, int MAXC, int Z>
-size_t smem_bytes(int cap, int nces, int nbuf) {
+size_t smem_bytes(int cap, int nbuf) {
   using Sh = Shape<MAXC, Z>;
-  return nbuf * (size_t)cap * Sh::P * sizeof(T) +
-         ((size_t)cap * Sh::P + 15) / 16 * 16 + 2 * (size_t)nces;
+  return nbuf * (size_t)cap * Sh::P * sizeof(T) + (size_t)cap * Sh::P;
 }
 
 template <typename T, int MAXC, int Z>
@@ -825,22 +927,49 @@ int launch_shape(const Args<T>& a, Geo g, long long nouter, bool vec,
     blocks = (long long)g.nseg * g.nzt;
   }
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  // the dead column's order: slot parities (dead even 1, dead odd 3, as
+  // five_way) through the class's list
+  {
+    constexpr int NS = net_size(MAXC);
+    unsigned k[NS];
+    for (int s = 0; s < NS; ++s)
+      k[s] = s < a.cap ? (s & 1 ? 3u : 1u) << SLOT_BITS | s : 0xffu;
+    for (int e = 0; e < NET<NS>.n; ++e) {
+      const int i = NET<NS>.a[e], j = NET<NS>.b[e];
+      if ((k[i] >> SLOT_BITS) > (k[j] >> SLOT_BITS)) {
+        const unsigned t = k[i];
+        k[i] = k[j];
+        k[j] = t;
+      }
+    }
+    for (int s = 0; s < TILE_MAXC; ++s)
+      g.dead[s] = (unsigned char)(s < a.cap ? k[s] & 31 : 0);
+  }
   const int buf_bytes = a.cap * Sh::P * (int)sizeof(T);
   const int nstream = a.nf + a.ni;
   const int fit = (MAXC <= 4 ? RING4 : RING) / buf_bytes;
   g.nbuf = fit < 2 ? 2 : fit;
   if (g.nbuf > nstream) g.nbuf = nstream;
-  const size_t bytes = smem_bytes<T, MAXC, Z>(a.cap, a.nces, g.nbuf);
-  auto run = [&](auto kernel) {
-    int err = (int)cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err) return err;
+  const size_t bytes = smem_bytes<T, MAXC, Z>(a.cap, g.nbuf);
+  // the shared memory a kernel may take, raised where a launch needs more
+  // than its device's kernel was given (per kernel: the copy widths 4, 1)
+  static int allowed[2][MAX_DEVICES];
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err || dev >= MAX_DEVICES) return err ? err : (int)cudaErrorInvalidValue;
+  auto run = [&](auto kernel, int& room) {
+    if ((int)bytes > room) {
+      int e = (int)cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      if (e) return e;
+      room = (int)bytes;
+    }
     kernel<<<(unsigned)blocks, THREADS, bytes, st>>>(a, g);
     return (int)cudaGetLastError();
   };
   if constexpr (sizeof(T) == 4)
-    if (vec) return run(migrate_tile<T, MAXC, Z, 4>);
-  return run(migrate_tile<T, MAXC, Z, 1>);
+    if (vec) return run(migrate_tile<T, MAXC, Z, 4>, allowed[0][dev]);
+  return run(migrate_tile<T, MAXC, Z, 1>, allowed[1][dev]);
 }
 
 // The tile of capacity class MAXC for the axis: x or y; z in rows of the
@@ -855,7 +984,8 @@ int pick(const Args<T>& a, const Geo& g, long long nouter, bool vec,
   return launch_shape<T, MAXC, 2>(a, g, nouter, vec, st);
 }
 
-// One axis of 3D slots (nx, ny, nz) through the tile kernel.
+// One axis of 3D slots (nx, ny, nz) through the tile kernel (2D slots:
+// nx = 1).
 template <typename T>
 int launch(const Args<T>& a, int nx, int ny, int nz, int axis,
            cudaStream_t st) {
@@ -896,6 +1026,8 @@ int launch(const Args<T>& a, int nx, int ny, int nz, int axis,
     return pick<T, 8>(a, g, nouter, vec, st, z, nz);
   if (a.cap <= 16)
     return pick<T, 16>(a, g, nouter, vec, st, z, nz);
+  if (a.cap <= 24)
+    return pick<T, 24>(a, g, nouter, vec, st, z, nz);
   return pick<T, 32>(a, g, nouter, vec, st, z, nz);
 }
 
@@ -949,20 +1081,23 @@ int launch(void** p, const long long* n, cudaStream_t st) {
     return (int)cudaErrorInvalidValue;
   if (a.ncell == 0 || a.cap == 0) return 0;
   const int nz = (int)n[I_NZ], axis = (int)n[I_AXIS];
-  if (nz > 0 && a.cap <= tile::TILE_MAXC) {
-    // 3D slots up to 32 a cell: the tile kernel
-    if (n[I_NX] * n[I_NY] * nz != a.ncell || axis < 0 || axis > 2 ||
+  if (a.cap <= tile::TILE_MAXC) {
+    // up to 32 slots a cell: the tile kernel; 2D slots (nx, ny) are 3D
+    // slots (1, nx, ny), their x axis the tile kernel's y, their y axis
+    // its z
+    const long long nx = n[I_NX], ny = n[I_NY];
+    if (nx * ny * (nz > 0 ? nz : 1) != a.ncell || axis < 0 ||
+        axis > (nz > 0 ? 2 : 1) ||
         (a.final_ && a.recompute_ig && !(a.iux < a.iuy && a.iuy < a.iuz)))
       return (int)cudaErrorInvalidValue;
-    return tile::launch<T>(a, (int)n[I_NX], (int)n[I_NY], nz, axis, st);
+    if (nz > 0) return tile::launch<T>(a, (int)nx, (int)ny, nz, axis, st);
+    return tile::launch<T>(a, 1, (int)nx, (int)ny, axis + 1, st);
   }
   int threads = 128;
   int blocks = cell_blocks(a.ncell, a.cap, n[I_KEY_THREADS], threads);
   if (blocks == 0) return (int)cudaErrorInvalidValue;
-  if (a.cap <= 8) migrate_axis<T, 8><<<blocks, threads, 0, st>>>(a);
-  else if (a.cap <= 16) migrate_axis<T, 16><<<blocks, threads, 0, st>>>(a);
-  else if (a.cap <= 32) migrate_axis<T, 32><<<blocks, threads, 0, st>>>(a);
-  else if (a.cap <= 64) migrate_axis<T, 64><<<blocks, threads, 0, st>>>(a);
+  // above 32 slots a cell, 2D or 3D: one thread a cell
+  if (a.cap <= 64) migrate_axis<T, 64><<<blocks, threads, 0, st>>>(a);
   else if (a.cap <= MAXC_LOCAL)
     migrate_axis<T, MAXC_LOCAL><<<blocks, threads, 0, st>>>(a);
   else migrate_axis<T, 0><<<blocks, threads, 0, st>>>(a);

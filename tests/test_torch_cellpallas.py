@@ -177,6 +177,17 @@ MIG_CASES = [
     (4, 20, 16, (True, False), 0.9, False),
     (8, 16, 12, (False, True), 0.85, False),
     (6, 12, 16, (False, False), 0.8, True),
+    # the edges of kernel B6's 2D tiles (csrc/migrate.cu), the shapes
+    # tests/test_torch_kernels.py holds the kernel on: x one cell and y
+    # over one row, not a multiple of 4; x two cells, y a multiple of 4; x
+    # over several tiles at 16 and 20 slots; the tile's limit of 32 slots;
+    # one slot above it
+    (8, 1, 299, (True, False), 0.9, False),
+    (4, 2, 260, (False, True), 0.9, True),
+    (16, 17, 132, (False, True), 0.9, False),
+    (20, 9, 70, (True, True), 1.0, True),
+    (32, 6, 65, (False, False), 1.0, False),
+    (33, 5, 9, (True, False), 1.0, True),
 ]
 
 

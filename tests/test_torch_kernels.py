@@ -410,6 +410,20 @@ STAGE_CASES = [
     (16, 15, 12, (False, True), 0.9),
     (20, 12, 16, (True, False), 1.0),
     (4, 33, 18, (False, False), 0.9),
+    # the edges of B6's 2D tiles (csrc/migrate.cu: 2D slots (nx, ny) as 3D
+    # slots (1, nx, ny); along x tiles of 32 y cells by 8 x cells at up to
+    # 8 slots a cell, 32 x 4 at 16, 16 x 4 at 32; along y rows of 256 (128
+    # where they are whole), 128 and 64 cells): x one cell, y over one
+    # row and not a multiple of 4 (element copies); x two cells, y a
+    # multiple of 4 (16-byte copies); x over several tiles at 16 and 20
+    # slots, y over one row and not a multiple of its width; the tile
+    # kernel's limit of 32 slots; one slot above it (one thread a cell)
+    (8, 1, 299, (True, False), 0.9),
+    (4, 2, 260, (False, True), 0.9),
+    (16, 17, 132, (False, True), 0.9),
+    (20, 9, 70, (True, True), 1.0),
+    (32, 6, 65, (False, False), 1.0),
+    (33, 5, 9, (True, False), 1.0),
 ]
 
 

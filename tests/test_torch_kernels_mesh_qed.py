@@ -72,17 +72,27 @@ CASES = [
     ((1, 2, 2), 4, (8, 8, 8), (False, True, False), True),
     ((2, 2, 2), 4, (8, 8, 8), (True, False, True), False),
 ]
-# K7 at the edges of B6's 3D tiles (8 cells along the axis by 32, 16 or 8
-# along z at up to 8, 16 or 32 slots a cell): x over two tiles, y two
-# cells, z a multiple of 4 (16-byte copies); x one cell, z over one tile
-# and not a multiple of it; y three cells at 17 slots; z one cell at the
-# tile kernel's limit of 32 slots; one slot above it
+# K7 at the edges of B6's 3D and 2D tiles. 3D (8 cells along the axis by
+# 32, 16 or 8 along z at up to 8, 16 or 32 slots a cell): x over two
+# tiles, y two cells, z a multiple of 4 (16-byte copies); x one cell, z
+# over one tile and not a multiple of it; y three cells at 17 slots; z one
+# cell at the tile kernel's limit of 32 slots; one slot above it
 K7_EDGE_CASES = [
     ((2, 1, 2), 9, (19, 2, 40), (False, True, True), True),
     ((1, 2, 2), 8, (1, 9, 37), (True, False, True), True),
     ((2, 2, 1), 17, (5, 3, 12), (True, True, False), True),
     ((2, 1, 1), 32, (3, 4, 1), (False, True, True), True),
     ((1, 1, 2), 33, (3, 2, 5), (True, False, True), True),
+    # the same edges of B6's 2D tiles (2D slots as 3D slots (1, nx, ny)):
+    # x one cell with y over one row and not a multiple of 4; x two cells,
+    # y a multiple of 4; x over several tiles at 16 and 20 slots; the
+    # limit of 32 slots; one slot above it
+    ((2, 1), 8, (1, 299), (True, False), True),
+    ((1, 2), 4, (2, 260), (False, True), True),
+    ((2, 2), 16, (17, 132), (False, True), True),
+    ((2, 2), 20, (9, 70), (True, True), True),
+    ((2, 1), 32, (6, 65), (False, True), True),
+    ((1, 2), 33, (5, 9), (True, False), True),
 ]
 
 
