@@ -127,7 +127,8 @@ Phases (any failure exits non-zero):
    steps (B2 24, B3 12 a step; B1 0: on a mesh the fields are the plain
    Yee updates, as in the JAX package), and right after phase 6 the 3D
    slice's end state on a 2 x 2 x 2 mesh for --steps-mesh3d (6) steps
-   (B2 48, B3 32), each timed, profiled and held against the same steps
+   (B2 48, B3 32 = 8 folds, 8 strip cuts and 16 pending adds), each
+   timed, profiled and held against the same steps
    on one device from the same state: alive counts and weights in
    float32, and fields, ids, positions and momenta in float64 (the 3D on
    its last 64 x-planes); K4's dispatches and K5's launches timed on a
@@ -257,7 +258,7 @@ KERNEL_FUNCS = {"B1 E": {"e_half": 1}, "B1 B": {"b_half": 1},
                 "B3": {"fold<": 1},
                 "B1-3D E": {"e_half3": 1}, "B1-3D B": {"b_half3": 1},
                 "B2-3D": {"rebin3": 3, "tail3<": 1},
-                "B3-3D": {"fold3": 1},
+                "B3-3D": {"fold3_pencil": 1},
                 "B8": {"gather<": 1}, "B9": {"deposit<": 1}}
 
 
@@ -2519,7 +2520,7 @@ def run_3d(args, dev):
         f"peak |jx| {jx_peak:.3e}")
     busy_per_step(lambda: sim.run(nsteps=1, callbacks=[laser]),
                   {"e_half3": 2, "b_half3": 2, "rebin3": 6, "tail3<": 2,
-                   "fold3": 1}, 3, "profile 3D", step_ms)
+                   "fold3_pencil": 1}, 3, "profile 3D", step_ms)
 
     # -- kernel times at the slice's shapes -------------------------------------
     f = sim.state.fields
@@ -3657,7 +3658,8 @@ def run_qed_3d(args, dev):
         f"{float(sim.state.fields.ey.abs().max()):.3e}")
     busy_per_step(lambda: sim.run(nsteps=1, callbacks=[laser]),
                   {"e_half3": 2, "b_half3": 2, "rebin3": 9, "tail3<": 2,
-                   "photon3<": 1, "fold3": 1}, 5, "profile QED 3D", step_ms)
+                   "photon3<": 1, "fold3_pencil": 1}, 5, "profile QED 3D",
+                   step_ms)
 
     # -- checks beside the main path, on its final state ------------------------
     n_ev, dropped, change = check_creation(sim, proc)
@@ -4721,22 +4723,26 @@ def dispatch_ms(tag, twin, iters, ispec=0, mode="default"):
         log(f"[bound K6 photon {tag}] shard {busy}: {n_alive} of {slots} "
             f"slots alive, {out['bytes_k4']} bytes")
         return out
-    fold_fn = (lambda: cellslab._fold(rims, nloc, kw["periodic"], split))
-    out["fold"] = cuda_time(fold_fn, iters)
-    q = fold_fn()
-    strips = []
-    for ax in reversed(range(nd)):
-        if split[ax]:
-            axis = 1 + ax
-            lo = q.narrow(axis, 0, 2).contiguous()
-            fn = (lambda q=q, axis=axis, lo=lo: cellslab._fold_strips(
-                q, axis, lo, lo))
-            strips.append(cuda_time(fn, iters))
-            q = fn()
-    out["strips"] = sum(strips)
-    log(f"[time K5 {tag}] fold {out['fold']:.4f} ms, strips "
-        f"{[round(v, 4) for v in strips]} ms a call (CUDA events), shard "
-        f"{busy}")
+    if nd == 3:
+        out.update(k5_3d_ms(tag, rims, nloc, specs, iters, busy))
+    else:
+        fold_fn = (lambda: cellslab._fold(rims, nloc, kw["periodic"], split))
+        out["fold"] = cuda_time(fold_fn, iters)
+        q = fold_fn()
+        strips = []
+        for ax in reversed(range(nd)):
+            if split[ax]:
+                axis = 1 + ax
+                lo = q.narrow(axis, 0, 2).contiguous()
+                fn = (lambda q=q, axis=axis, lo=lo: cellslab._fold_strips(
+                    q, axis, lo, lo))
+                strips.append(cuda_time(fn, iters))
+                q = fn()
+        out["strips"] = sum(strips)
+        log(f"[time K5 {tag}] fold {out['fold']:.4f} ms, strips "
+            f"{[round(v, 4) for v in strips]} ms a call (CUDA events), "
+            f"shard {busy}")
+        del q
     isz = ebs[0].element_size()
     a0 = ps[busy].alive
     slots, n_alive = a0.numel(), int(a0.sum())
@@ -4761,9 +4767,35 @@ def dispatch_ms(tag, twin, iters, ispec=0, mode="default"):
     out["bytes_k5"] = pan_b + ncomp * cells * isz + 2 * strip_b
     log(f"[bound K4/K5 {tag}] shard {busy}: {n_alive} of {slots} slots alive, "
         f"K4 {out['bytes_k4']} bytes, K5 {out['bytes_k5']} bytes")
-    del ebs, rims, q
+    del ebs, rims
     torch.cuda.empty_cache()
     return out
+
+
+def k5_3d_ms(tag, rims, nloc, specs, iters, busy):
+    """K5 3D's launches on one shard's panels ``rims`` (CUDA events around
+    ``iters`` calls): the strip cut, the pending adds after the z and y
+    exchanges (the shard's own strips standing in for the received ones)
+    and the fold with those strips. Returns {"fold": ms, "strips": the
+    cut's and the pending adds' ms}."""
+    from lambdapic_torch.ops import cellslab
+    strip = tuple(sp.size > 1 or sp.periodic for sp in specs)
+    cut = cuda_time(lambda: cellslab._fold3_cut(rims, nloc, strip), iters)
+    pending = cellslab._fold3_cut(rims, nloc, strip)
+    recv = [None if p is None else tuple(t.clone() for t in p)
+            for p in pending]
+    pends = []
+    for ax in (2, 1):
+        if strip[ax] and any(strip[:ax]):
+            pends.append(cuda_time(
+                lambda ax=ax: cellslab._fold3_pend(pending, *recv[ax], ax,
+                                                   nloc, strip), iters))
+    fold = cuda_time(lambda: cellslab._fold3_mesh(rims, nloc, strip, recv),
+                     iters)
+    log(f"[time K5 {tag}] cut {cut:.4f} ms, pending adds "
+        f"{[round(v, 4) for v in pends]} ms, fold {fold:.4f} ms a call (CUDA "
+        f"events), shard {busy}")
+    return {"fold": fold, "strips": cut + sum(pends)}
 
 
 def mesh_rows(tag, nd, launches, errs, t, flops):
@@ -4790,7 +4822,9 @@ def mesh_rows(tag, nd, launches, errs, t, flops):
              launches=launches.get("B3", 0), max_abs_err=errs[1], ms=k5_ms,
              timing="events", plain_ms=t["plain_fold"], plain_cells=t["plain_cells"],
              bound_ms=t["bytes_k5"] / HBM_BPS * 1e3, bound_by="bytes",
-             library_ms=None, per="one shard's fold and strip adds"),
+             library_ms=None,
+             per=("one shard's strip cut, pending adds and fold" if nd == 3
+                  else "one shard's fold and strip adds")),
     ]
 
 
@@ -4918,6 +4952,18 @@ def track_steps(steps, window):
     return tuple(sorted({1, steps - window, steps}))
 
 
+def b3_mesh_launches(specs):
+    """B3's launches a shard and step on a mesh of HaloSpecs ``specs``, by
+    kind: in 2D a fold and a strip add a split axis; in 3D a fold, a strip
+    cut and a pending add a strip axis (split or periodic) after the
+    first (cellslab._fold_reduce_mesh_3d)."""
+    if len(specs) == 2:
+        return {"fold": 1, "strips": sum(sp.size > 1 for sp in specs),
+                "cut": 0, "pend": 0}
+    n = sum(sp.size > 1 or sp.periodic for sp in specs)
+    return {"fold": 1, "strips": 0, "cut": int(n > 0), "pend": max(n - 1, 0)}
+
+
 def run_mesh(sim, tag, shape, steps, window, expect, busy_expect, keep):
     """The main path of [slice mesh 2D/3D]: the kept state (``keep``, from
     keep_state) split onto a mesh of ``shape`` on the one card
@@ -4970,8 +5016,8 @@ def run_mesh(sim, tag, shape, steps, window, expect, busy_expect, keep):
     want_disp = {"whole": nspec * nsh * steps if ngroups == 1 else 0,
                  "head": nspec * nsh * (ngroups - 1) * steps,
                  "tail": nspec * nsh * steps if ngroups > 1 else 0}
-    want_kind = {"fold": nsh * steps,
-                 "strips": nsh * sum(p > 1 for p in shape) * steps}
+    want_kind = {k: v * nsh * steps
+                 for k, v in b3_mesh_launches(twin._builder.specs).items()}
     if by_disp != want_disp or by_kind != want_kind:
         fail(f"{tag}: B2 by dispatch {by_disp} != {want_disp} or B3 by kind "
              f"{by_kind} != {want_kind}")
@@ -5175,7 +5221,8 @@ def run_mesh_3d(args, sim, laser):
     """[slice mesh 3D] and [kernels mesh f32 3D]: the 3D slice's end
     state on a 2 x 2 x 2 mesh of the one card, --steps-mesh3d steps
     (launches per step: B2 48 = 2 species x 8 shards x 3 dispatches, B3
-    32 = 8 folds + 8 x 3 strip adds; B1 0), against the same steps on one
+    32 = 8 folds + 8 strip cuts + 8 x 2 pending adds; B1 0), against the
+    same steps on one
     device from a host copy of the state, one run after the other (both
     states need not fit on the card at once): in float32 check_totals and
     the fields' divergence logged beside ulp_control's; every gate of
@@ -5191,8 +5238,8 @@ def run_mesh_3d(args, sim, laser):
     keep = keep_state(sim, laser)
     twin, step_ms, peak, busy, launches, mtrack, mtot = run_mesh(
         sim, tag, shape, steps, window, {"B2": 48, "B3": 32},
-        {"rebin3": 48, "tail3<": 16, "fold3": 8,
-         "strips<": 24}, keep)
+        {"rebin3": 48, "tail3<": 16, "fold3_pencil": 8, "fold3_cut": 8,
+         "fold3_pend": 16}, keep)
     mark(tag, "main path")
     t = dispatch_ms("3D", twin, args.iters3d)
     cells = list(twin.grid.local_shape)
@@ -5538,7 +5585,7 @@ def run_qed_mesh(args, sim, laser, shape, steps, window, busy_expect):
     (B2 a species, shard and dispatch, counted by the mode it ran:
     want_chi on the radiating electrons' tail and default on their heads,
     default for the protons, photon on every dispatch of the photons; B3
-    a fold and a strip add per split axis a shard), the last ``window`` timed,
+    as b3_mesh_launches counts it a shard), the last ``window`` timed,
     then a profile; gates: the draws per shard against the CPU, photons
     born on the shards that fired with their index as id_hi, inv_gamma =
     1/|u|, one creation phase's sum w u; K6 held against its plain version
@@ -5580,15 +5627,15 @@ def run_qed_mesh(args, sim, laser, shape, steps, window, busy_expect):
     t2 = time.time()
     peak = torch.cuda.max_memory_allocated() / 2**30
     ngroups = 1 + sum(p > 1 for p in shape[1:])
-    nsplit = sum(p > 1 for p in shape)
     nspec = len(sim.species)
     by_mode = dict(cellslab.cell_step.launches_by_mode)
     by_disp = dict(cellslab.cell_step.launches_by_dispatch)
     # by the mode each launch ran: want_chi on the radiating electrons'
     # tail only (their heads run the default mode), photon on every
     # dispatch of the photons, default on every other
-    got = check_launches(tag, steps, {"B2": nspec * nsh * ngroups,
-                                      "B3": nsh * (1 + nsplit)},
+    got = check_launches(tag, steps, {
+        "B2": nspec * nsh * ngroups,
+        "B3": nsh * sum(b3_mesh_launches(twin._builder.specs).values())},
                          into={}, by_mode={
                              "want_chi": nsh, "photon": nsh * ngroups,
                              "default": nsh * (nspec - 2) * ngroups
@@ -6209,7 +6256,8 @@ def main() -> int:
     kernels += run_qed_mesh(
         args, simq, laserq, (2, 2, 2), args.steps_qed_mesh3d,
         args.steps_qed_mesh3d, {"rebin3": 72, "tail3<": 16, "photon3<": 8,
-                                "fold3": 8, "strips<": 24})
+                                "fold3_pencil": 8, "fold3_cut": 8,
+                                "fold3_pend": 16})
     done("QED mesh 3D")
     run_split_qed_3d(args, simq, laserq)
     del simq

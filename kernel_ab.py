@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Time the one-device kernels B2 and B3, the per-stage 3D kernels B4
-and B5 and the re-binning kernel B6 (and K7) of a lambdapic_torch tree,
-and the 3D QED slice's per-stage steps that run B4 3D and B5 3D.
+and B5, the re-binning kernel B6 (and K7) and the 3D fold B3 (and K5) of
+a lambdapic_torch tree, and the 3D QED slice's per-stage steps that run
+B4 3D and B5 3D.
 
     python3 kernel_ab.py ROOT [b2] [stage3] [steps3d] [migrate2]
-                         [migrate3] [variants]
+                         [migrate3] [variants] [fold3]
 
 ROOT is the directory that holds the ``lambdapic_torch`` package to time
 (``.`` for this checkout; an unpacked ``git archive <commit>
@@ -91,6 +92,21 @@ id_hi), lines ``AB-migrate2 <state> <what> <ms a call> x <ms> y <ms>``,
 and K7 2D on ``2D band 512^2``, the quarter of ``band`` that holds the
 band, as the busiest 512 x 512 shard of the split mesh 2D slice's 2 x 2
 mesh, with edge columns taken from its own faces.
+
+Group ``fold3``: B3 3D through ``fold_reduce`` on seeded random panels
+(made on the card) at the 3D slice's shape, three components (jx, jy,
+jz) of 512 x 256 x 256 cells in float32, T = 8, open faces; and K5 3D
+through ``fold_reduce`` with a 2 x 2 x 2 mesh of the one card (shards of
+256 x 128 x 128 cells, the mesh 3D slice's, open faces, the same kind of
+panels). Lines ``AB-fold3 B3 <ms a call>`` and ``AB-fold3 K5 <ms a call
+of the whole mesh> (<ms a shard>)`` (CUDA events), ``AB-split fold3
+<what> <device ms a call> <launches a call> <kernel>`` (torch.profiler,
+every kernel and copy of the call), ``AB-fold3 copy`` (a plain copy of
+the panels: the rate this card reaches for those bytes) and the
+ablations of FOLD3_ABLATIONS whose texts the tree's fold3d.cu holds
+(``AB-fold3 ablate-<name>``, built beside it by text substitution; the
+library is held bit for bit against the tree's after them). Bounds: the
+panels read once and J written once over 3.35 TB/s; K5 adds its strips.
 
 Group ``variants``: on a tree whose 2D slots run the tile kernel, B6
 (and K7) of each variant of VARIANTS (tile shapes, the dead-tile
@@ -181,7 +197,8 @@ def make_state(name, cap, n):
 # untimed, then timed
 STEPS3D_FUSED, STEPS3D_WARM, STEPS3D_TIMED = 200, 2, 5
 
-GROUPS = ("b2", "stage3", "steps3d", "migrate2", "migrate3", "variants")
+GROUPS = ("b2", "stage3", "steps3d", "migrate2", "migrate3", "variants",
+          "fold3")
 
 
 def main() -> int:
@@ -209,6 +226,8 @@ def main() -> int:
         time_migrate(dev, 3)
     if "variants" in groups:
         time_variants(dev)
+    if "fold3" in groups:
+        time_fold3(dev)
     return 0
 
 
@@ -461,25 +480,25 @@ VARIANTS = {
 }
 
 
-def build_variants(variants, tag):
-    """{name: built library path} of this tree's csrc/migrate.cu with each
+def build_variants(variants, tag, lib="migrate"):
+    """{name: built library path} of this tree's csrc/<lib>.cu with each
     variant's text substitutions, one nvcc each, all at once, into
     _build/<tag>-<name>/."""
     import subprocess
     from lambdapic_torch.ops import kernel_lib
-    src = (kernel_lib.CSRC / "migrate.cu").read_text()
+    src = (kernel_lib.CSRC / f"{lib}.cu").read_text()
     procs = {}
     for name, subs in variants.items():
         text = src
         for old, new in subs:
             if old not in text:
                 raise RuntimeError(f"kernel_ab: {tag} {name}: {old!r} not in "
-                                   "csrc/migrate.cu")
+                                   f"csrc/{lib}.cu")
             text = text.replace(old, new)
         d = kernel_lib.BUILD / f"{tag}-{name}"
         d.mkdir(parents=True, exist_ok=True)
-        so = d / "libmigrate.so"
-        cu = d / "migrate.cu"
+        so = d / f"lib{lib}.so"
+        cu = d / f"{lib}.cu"
         if so.exists() and cu.exists() and cu.read_text() == text:
             procs[name] = (so, None)   # built by an earlier run
             continue
@@ -487,8 +506,7 @@ def build_variants(variants, tag):
         cu.write_text(text)
         procs[name] = (so, subprocess.Popen(
             [kernel_lib.nvcc_path(), *kernel_lib.FLAGS, "-I",
-             str(kernel_lib.CSRC), "-o", str(so),
-             str(d / "migrate.cu")],
+             str(kernel_lib.CSRC), "-o", str(so), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     out = {}
     for name, (so, p) in procs.items():
@@ -514,15 +532,17 @@ def ablation_libs(tags, nd):
                           f"ablate{nd}d")
 
 
-def use_migrate_lib(path):
-    """Point B6's wrapper at the library ``path`` (None: the tree's own)."""
+def use_lib(path, lib="migrate"):
+    """Point library ``lib``'s wrappers at the library ``path`` (None: the
+    tree's own)."""
     import ctypes
     from lambdapic_torch.ops import kernel_lib
-    kernel_lib._FNS.pop(("migrate", "lp_migrate_axis"), None)
+    for key in [k for k in kernel_lib._FNS if k[0] == lib]:
+        del kernel_lib._FNS[key]
     if path is None:
-        kernel_lib._LIBS.pop("migrate", None)
+        kernel_lib._LIBS.pop(lib, None)
     else:
-        kernel_lib._LIBS["migrate"] = ctypes.CDLL(str(path))
+        kernel_lib._LIBS[lib] = ctypes.CDLL(str(path))
 
 
 def self_edges(td, ta, names):
@@ -663,14 +683,14 @@ class MigrateTimer:
         return ok
 
 
-def ptxas_lines(tag, log):
+def ptxas_lines(tag, log, key="migrate_"):
     """One ``AB-ptxas`` line per __global__ function of a build log: its
-    name from ``migrate_`` on, its registers and spills."""
+    name from ``key`` on, its registers and spills."""
     fn, spill = "", ""
     for line in log.splitlines():
         if "entry function" in line and "'" in line:
             fn = line.split("'")[1]
-            fn = fn[fn.find("migrate_"):] if "migrate_" in fn else fn
+            fn = fn[fn.find(key):] if key in fn else fn
         elif "spill" in line:
             spill = line.strip()
         elif "Used" in line and "registers" in line:
@@ -699,9 +719,9 @@ def time_migrate(dev, nd):
         t.copy()
         if "B6" in whats:
             for abl, so in libs.items():
-                use_migrate_lib(so)
+                use_lib(so)
                 t.report(f"ablate-{abl}")
-            use_migrate_lib(None)
+            use_lib(None)
         del t, td, ta
 
 
@@ -721,7 +741,7 @@ def time_variants(dev):
         libs = build_variants(variants, f"variants{nd}d")
         for name, td, ta, whats in migrate_states(dev, nd):
             for var, so in libs.items():
-                use_migrate_lib(so)
+                use_lib(so)
                 t = MigrateTimer(f"variants {var}", name, td, ta)
                 for what in whats:
                     edges = self_edges(td, ta, t.names) if what == "K7" \
@@ -733,8 +753,108 @@ def time_variants(dev):
                     t.report(what, edges, device=True)
                     del edges
                 del t
-            use_migrate_lib(None)
+            use_lib(None)
             del td, ta
+
+
+# Ablations and variants of B3 3D (csrc/fold3d.cu's fold3_pencil), timed
+# in group fold3: name -> [(text, replacement)], every text required.
+# ``nowrite``: the panel stream and the sums, no J written; ``single``:
+# one panel in flight a block (no double buffering); ``nostage``: no panel
+# copied (the sums of whatever shared memory holds), every J row written;
+# ``rt1``, ``rt2``, ``rt8``: 1, 2 or 8 z tiles a column written out at
+# once (4 in the source; at 1 each column's 32-byte row of a tile still
+# goes out as one sector a pair of threads).
+FOLD3_ABLATIONS = {
+    "nowrite": [("        if (ci >= nx || cj >= ny || z < z0 || z >= z1) "
+                 "continue;", "        continue;")],
+    "single": [("      cp_wait<1>();", "      cp_wait<0>();")],
+    "nostage": [("      if (off >= 0) cp16(", "      if (off < -1) cp16(")],
+    "rt1": [("constexpr int RT = 4;", "constexpr int RT = 1;")],
+    "rt2": [("constexpr int RT = 4;", "constexpr int RT = 2;")],
+    "rt8": [("constexpr int RT = 4;", "constexpr int RT = 8;")],
+}
+# B3 3D's state (the 3D slice) and K5 3D's shards (the mesh 3D slice's)
+FOLD3_SHAPE, FOLD3_MESH = (512, 256, 256), (2, 2, 2)
+
+
+def time_fold3(dev):
+    """Group fold3: see the module docstring."""
+    import torch
+    from lambdapic_torch.ops import kernel_lib
+    from lambdapic_torch.ops.cellslab import fold_reduce, panel_shape
+    from lambdapic_torch.parallel.halo import HaloSpec
+    from lambdapic_torch.parallel.mesh import Mesh
+    kernel_lib.build(["fold3d"])
+    ptxas_lines("fold3d", kernel_lib.build_log("fold3d"), key="fold3")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    shape, ncomp, bps = FOLD3_SHAPE, 3, 3.35e12
+    rims = torch.randn(panel_shape(ncomp, *shape), generator=gen,
+                       device=dev)
+    per = (False,) * 3
+    pan_b = rims.numel() * 4
+    bound = (pan_b + ncomp * 4 * shape[0] * shape[1] * shape[2]) / bps * 1e3
+
+    def b3():
+        return fold_reduce(rims, shape, per)
+    ms = timed(b3, 20)
+    print(f"AB-fold3 B3 {ms:.4f} ms; bound {bound:.4f} ms "
+          f"({100 * bound / ms:.1f}%)", flush=True)
+    for k, (t, n) in sorted(device_split(b3, 20).items(),
+                            key=lambda kv: -kv[1][0]):
+        print(f"AB-split fold3 B3 {t:.4f} ms {n:g} launches {k[:90]}",
+              flush=True)
+    dst = torch.empty_like(rims)
+    cms = timed(lambda: dst.copy_(rims), 20)
+    print(f"AB-fold3 copy {cms:.4f} ms for the panels "
+          f"({2 * pan_b / cms / 1e9:.3f} TB/s)", flush=True)
+    del dst
+    src = (kernel_lib.CSRC / "fold3d.cu").read_text()
+    have = {k: v for k, v in FOLD3_ABLATIONS.items()
+            if all(old in src for old, _ in v)}
+    if have:
+        libs = build_variants(have, "ablate-fold3", lib="fold3d")
+        ref = b3()
+        for name, so in libs.items():
+            use_lib(so, "fold3d")
+            t = timed(b3, 20)
+            dt = sum(v for k, (v, _) in device_split(b3, 20).items()
+                     if "fold3" in k)
+            print(f"AB-fold3 ablate-{name} {t:.4f} ms, device {dt:.4f} ms",
+                  flush=True)
+        use_lib(None, "fold3d")
+        if not torch.equal(b3(), ref):
+            print("AB-fold3: the tree's library differs after the "
+                  "ablations", flush=True)
+        del ref
+    else:
+        print("AB-fold3: this tree's fold3d.cu holds none of the "
+              "ablations' texts", flush=True)
+    del rims
+    torch.cuda.empty_cache()
+    names = ("px", "py", "pz")
+    n = int(torch.tensor(FOLD3_MESH).prod())
+    nloc = tuple(k // m for k, m in zip(shape, FOLD3_MESH))
+    mesh = Mesh(FOLD3_MESH, names, (dev,) * n)
+    specs = tuple(HaloSpec(names[i], FOLD3_MESH[i], False) for i in range(3))
+    shards = [torch.randn(panel_shape(ncomp, *nloc), generator=gen,
+                          device=dev) for _ in range(n)]
+    cells = nloc[0] * nloc[1] * nloc[2]
+    strip_b = sum(2 * 2 * ncomp * cells // nloc[ax] * 4 for ax in range(3))
+    k5_bound = (shards[0].numel() * 4 + ncomp * cells * 4 + 2 * strip_b) \
+        / bps * 1e3
+
+    def k5():
+        return fold_reduce(shards, nloc, None, mesh, specs)
+    ms = timed(k5, 20)
+    print(f"AB-fold3 K5 {ms:.4f} ms ({ms / n:.4f} a shard); bound a shard "
+          f"{k5_bound:.4f} ms", flush=True)
+    for k, (t, c) in sorted(device_split(k5, 20).items(),
+                            key=lambda kv: -kv[1][0]):
+        print(f"AB-split fold3 K5 {t:.4f} ms {c:g} launches {k[:90]}",
+              flush=True)
+    del shards
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -1,4 +1,5 @@
-// Kernel B3: fold the species-summed tile panels into the interior J.
+// Kernel B3 in 2D: fold the species-summed tile panels into the interior
+// J (the 3D form is fold3d.cu).
 //
 // Replaces the TPU kernel lambdapic_tpu/ops/cellslab.py::fold_reduce_slab
 // (:2098, kernel :2165, pallas_call :2228). Plain PyTorch version:
@@ -146,8 +147,8 @@ LP_EXPORT int lp_fold(void** ptrs, const long long* ints, const double* reals,
   return launch<float>(ptrs, ints, st);
 }
 
-// ptrs: enum StripPtr; ints: enum StripInt; reals unused. For the 2D and
-// the 3D panels alike.
+// ptrs: enum StripPtr; ints: enum StripInt; reals unused. For the 2D
+// panels (3D meshes add their strips in fold3d.cu's fold).
 LP_EXPORT int lp_fold_strips(void** ptrs, const long long* ints,
                              const double* reals, void* stream) {
   (void)reals;

@@ -32,7 +32,10 @@ stage on one shard (neighbour edge columns in place of a wrap, a subset
 of the re-binning axes, with or without the tail), ``cell_step_mesh``
 drives the dispatches over every shard with the edge exchanges between
 them, and ``fold_reduce`` with a mesh folds each shard's panels and adds
-the neighbours' guard strips; ``launches_by_dispatch`` and
+the neighbours' guard strips (in 3D: the strips cut from the panels,
+exchanged axis by axis, and added while the fold writes J, through the
+plain versions ``fold_cut_3d_plain``, ``fold_pend_3d_plain`` and
+``fold3_plain`` on CPU shards); ``launches_by_dispatch`` and
 ``fold_reduce.launches_by_kind`` count those launches. B2's ``want_chi``
 and ``photon`` modes run in those dispatches too (K6).
 
@@ -44,6 +47,7 @@ arrays.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -235,6 +239,108 @@ def fold_reduce_plain(rims, shape: Sequence[int], periodic: Sequence[bool],
     if mesh is None:
         return halo_reduce(fold(rims, *shape), 2, axes, periodic)
     return halo_reduce([fold(r, *shape) for r in rims], 2, axes, specs, mesh)
+
+
+def strip_shape(ncomp: int, shape: Sequence[int], strip: Sequence[bool],
+                ax: int) -> Tuple[int, ...]:
+    """Shape of axis ``ax``'s guard strips on a mesh shard of ``shape``
+    cells in 3D (K5): 2 rows along ``ax``, n + 4 along a strip axis
+    exchanged after it (a lower axis), n along the others."""
+    return (ncomp,) + tuple(
+        2 if b == ax else (n + 4 if strip[b] and b < ax else n)
+        for b, n in enumerate(shape))
+
+
+def _fold_at(panels: torch.Tensor, positions) -> torch.Tensor:
+    """The padded current of 3D panels (C, nbx, nby, nbz, T+4, T+4, T+4)
+    at the padded indices ``positions`` (an int64 tensor an axis) alone:
+    padded p gathers panel p // T's node p % T and, if p % T < 4, panel
+    p // T - 1's node p % T + T, along x, then y, then z, as
+    fold_panels_3d adds them (so its values there, bit for bit)."""
+    tile = panels.shape[-1] - 4
+    zero = torch.zeros((), dtype=panels.dtype, device=panels.device)
+    t = panels
+    for ax, pos in enumerate(positions):
+        nb = t.shape[1 + ax]
+        u = t.movedim((1 + ax, 4), (0, 1))
+        blk, node = pos // tile, pos % tile
+        own = u[blk.clamp(max=nb - 1), node]
+        prev = u[(blk - 1).clamp(min=0), (node + tile).clamp(max=tile + 3)]
+        view = (-1,) + (1,) * (own.dim() - 1)
+        t = (torch.where((blk < nb).view(view), own, zero)
+             + torch.where(((node < 4) & (blk >= 1)).view(view), prev, zero)
+             ).movedim(0, 1 + ax)
+    return t.contiguous()
+
+
+def _strip_positions(shape, strip, ax: int, side: int, device):
+    """Padded indices of axis ``ax``'s lo (``side`` 0: padded rows 0, 1)
+    or hi (1: n + 2, n + 3) strip, an axis each (``strip_shape``)."""
+    pos = []
+    for b, n in enumerate(shape):
+        if b == ax:
+            p = torch.arange(2) + (n + 2 if side else 0)
+        elif strip[b] and b < ax:
+            p = torch.arange(n + 4)
+        else:
+            p = torch.arange(2, n + 2)
+        pos.append(p.to(device))
+    return pos
+
+
+def fold_cut_3d_plain(rims, shape: Sequence[int], strip: Sequence[bool]):
+    """Plain version of K5's strip cut in 3D (csrc/fold3d.cu's
+    fold3_cut): per axis None off the strip axes (``strip``: split or
+    periodic on the mesh), else [lo, hi], its guard rows of the shard's
+    padded current (padded 0, 1 and n + 2, n + 3), each of
+    ``strip_shape``."""
+    return [[_fold_at(rims, _strip_positions(shape, strip, ax, side,
+                                             rims.device))
+             for side in (0, 1)] if strip[ax] else None
+            for ax in range(3)]
+
+
+def fold_pend_3d_plain(pending, lo: torch.Tensor, hi: torch.Tensor,
+                       ax: int, shape: Sequence[int],
+                       strip: Sequence[bool]) -> None:
+    """Plain version of K5's pending add in 3D (fold3_pend): into the
+    strips still to be sent of every strip axis b < ``ax`` (``pending``,
+    fold_cut_3d_plain's list, changed in place), on their rows 0, 1 and
+    n - 2, n - 1 along ``ax``, the parts of axis ``ax``'s received
+    strips ``lo`` and ``hi`` (in that order) that lie in b's guard rows:
+    halo_reduce's later exchanges carry them on, so a corner reaches the
+    diagonal shard."""
+    for b in range(ax):
+        if not strip[b]:
+            continue
+        for side, s in enumerate(pending[b]):
+            for src, at in ((lo, 0), (hi, shape[ax] - 2)):
+                part = src.narrow(1 + b, shape[b] + 2 if side else 0, 2)
+                for c in range(b + 1, ax):
+                    if strip[c]:
+                        part = part.narrow(1 + c, 2, shape[c])
+                s.narrow(1 + ax, at, 2).add_(part)
+
+
+def fold3_plain(rims, shape: Sequence[int], strip: Sequence[bool],
+                received) -> torch.Tensor:
+    """Plain version of B3 3D's fold of a mesh shard (fold3_pencil with
+    strips): the panels' interior sum, guards dropped, plus per strip
+    axis in the order z, y, x its received (lo, hi) strips
+    (``received[ax]``) on its first and last two rows, halo_reduce's
+    order."""
+    j = _fold_at(rims, [torch.arange(2, n + 2, device=rims.device)
+                        for n in shape])
+    for ax in (2, 1, 0):
+        if not strip[ax]:
+            continue
+        for src, at in zip(received[ax], (0, shape[ax] - 2)):
+            part = src
+            for c in range(ax):
+                if strip[c]:
+                    part = part.narrow(1 + c, 2, shape[c])
+            j.narrow(1 + ax, at, 2).add_(part)
+    return j
 
 
 def _merge_axes(nd: int, merge_axes, tail: bool) -> Tuple[int, ...]:
@@ -702,21 +808,29 @@ def fold_reduce(rims, shape: Sequence[int], periodic: Sequence[bool],
     """Species-summed panels -> interior current (C,) + ``shape`` of a
     grid of ``shape`` cells, (nx, ny) or (nx, ny, nz), through kernel B3.
     With ``mesh`` (and a HaloSpec per axis in ``specs``) ``rims`` is a list
-    of per-shard panels and ``shape`` a shard's: each shard folds its
-    panels keeping the guard nodes of the split axes, then per split axis
-    in reverse order the guard strips go to the neighbour shards and a
-    strip launch adds what arrives (kernel B3's mesh form, K5)."""
+    of per-shard panels and ``shape`` a shard's (kernel B3's mesh form,
+    K5): in 2D each shard folds its panels keeping the guard nodes of the
+    split axes, then per split axis in reverse order the guard strips go
+    to the neighbour shards and a strip launch adds what arrives; in 3D
+    (``_fold_reduce_mesh_3d``) the strips are cut from the panels first
+    and the fold adds what arrives while it writes J."""
     if mesh is not None:
+        if len(shape) == 3:
+            return _fold_reduce_mesh_3d(rims, tuple(shape), mesh, specs)
         return _fold_reduce_mesh(rims, shape, mesh, specs)
     if rims.device.type == "cpu":
         return fold_reduce_plain(rims, shape, periodic)
     if rims.device.type != "cuda":
         raise ValueError(f"fold_reduce: unsupported device {rims.device}")
+    if len(shape) == 3:
+        return _fold3(rims, tuple(shape), tuple(periodic), (False,) * 3)
     return _fold(rims, tuple(shape), periodic, (False,) * len(shape))
 
 
 def _fold(rims, shape, periodic, split):
-    if len(shape) not in (2, 3) or len(periodic) != len(shape):
+    """B3 2D (fold.cu's lp_fold): the folded panels, n + 4 long on the
+    split axes."""
+    if len(shape) != 2 or len(periodic) != 2:
         raise ValueError(f"fold_reduce: shape {shape} and periodic "
                          f"{tuple(periodic)} must both name 2 or 3 axes")
     C = rims.shape[0]
@@ -725,14 +839,9 @@ def _fold(rims, shape, periodic, split):
     oshape = tuple(n + 4 if s else n for n, s in zip(shape, split))
     out = torch.empty((C,) + oshape, dtype=rims.dtype, device=rims.device)
     f64 = rims.dtype == torch.float64
-    if len(shape) == 3:
-        kernel_lib.call("fold3d", "lp_fold_3d", [rims, out],
-                        [C, *shape, TILE3, *periodic, f64, *split], [],
-                        rims.device)
-    else:
-        kernel_lib.call("fold", "lp_fold", [rims, out],
-                        [C, *shape, TILE, *periodic, f64, *split], [],
-                        rims.device)
+    kernel_lib.call("fold", "lp_fold", [rims, out],
+                    [C, *shape, TILE, *periodic, f64, *split], [],
+                    rims.device)
     fold_reduce.launches += 1
     fold_reduce.launches_by_kind["fold"] += 1
     return out
@@ -740,8 +849,9 @@ def _fold(rims, shape, periodic, split):
 
 def _fold_strips(q: torch.Tensor, axis: int, lo: torch.Tensor,
                  hi: torch.Tensor) -> torch.Tensor:
-    """One split axis's strip add (fold.cu's lp_fold_strips): the interior
-    of ``q`` along array axis ``axis`` plus the received strips."""
+    """One split axis's strip add in 2D (fold.cu's lp_fold_strips): the
+    interior of ``q`` along array axis ``axis`` plus the received
+    strips."""
     n = q.shape[axis] - 4
     sshape = list(q.shape)
     sshape[axis] = 2
@@ -791,9 +901,161 @@ def _fold_reduce_mesh(rims, shape, mesh, specs):
     return qs
 
 
+def _fold_reduce_mesh_3d(rims, shape, mesh, specs):
+    """K5 in 3D. Every strip axis (split, or periodic: a one-shard axis
+    trades with itself) in the order z, y, x: each shard's guard strips,
+    cut from its panels (fold3_cut) before any exchange, go to the
+    neighbours (exchange_strips), and after each exchange the received
+    parts that lie in a later strip axis's guard rows join that axis's
+    strips (fold3_pend); then each shard's fold writes J with the received
+    strips added (fold3_pencil). halo_reduce's terms in its order, so the
+    result is fold_reduce_plain's bit for bit. An unsplit open axis drops
+    its guards. On CPU shards the launches' plain versions run."""
+    from ..parallel.halo import exchange_strips
+    rims = list(rims)
+    strip = tuple(sp.size > 1 or sp.periodic for sp in specs)
+    dev = rims[0].device.type
+    if dev == "cpu":
+        cut, pend, fold = fold_cut_3d_plain, fold_pend_3d_plain, fold3_plain
+    elif dev == "cuda":
+        cut, pend, fold = _fold3_cut, _fold3_pend, _fold3_mesh
+    else:
+        raise ValueError(f"fold_reduce: unsupported device {rims[0].device}")
+    for r in rims:
+        if r.device.type != dev:
+            raise ValueError(f"fold_reduce: shards on {r.device} and {dev}")
+    pending = [cut(r, shape, strip) if any(strip) else None for r in rims]
+    received = [[None] * 3 for _ in rims]
+    for ax in (2, 1, 0):
+        if not strip[ax]:
+            continue
+        from_lo, from_hi = exchange_strips([p[ax][0] for p in pending],
+                                           [p[ax][1] for p in pending],
+                                           specs[ax], mesh)
+        for rec, lo, hi in zip(received, from_lo, from_hi):
+            rec[ax] = (lo, hi)
+        if any(strip[:ax]):
+            for p, lo, hi in zip(pending, from_lo, from_hi):
+                pend(p, lo, hi, ax, shape, strip)
+    return [fold(r, shape, strip, rec) for r, rec in zip(rims, received)]
+
+
+@functools.lru_cache(maxsize=64)
+def _fold3_layout(C: int, shape: Tuple[int, int, int],
+                  strip: Tuple[bool, bool, bool]):
+    """The 3D fold launches' fixed facts for C components of ``shape``
+    cells: the panels' shape, and per axis the shape of its strips (None
+    off the strip axes). Refuses shapes past the kernels' 32-bit index
+    range (a component's panels, J)."""
+    if (math.prod(panel_shape(1, *shape)) >= 1 << 31
+            or math.prod(shape) >= 1 << 31):
+        raise ValueError(f"fold_reduce: {shape} cells pass the kernel's "
+                         "32-bit index range")
+    return (panel_shape(C, *shape),
+            tuple(strip_shape(C, shape, strip, ax) if strip[ax] else None
+                  for ax in range(3)))
+
+
+def _check_rims3(rims: torch.Tensor, shape, strip):
+    """The 3D fold launches' panels: of ``shape`` cells, contiguous, 16-byte
+    aligned (the kernels copy 16-byte pieces). Returns their strip
+    shapes."""
+    pshape, sshapes = _fold3_layout(rims.shape[0], tuple(shape),
+                                    tuple(strip))
+    kernel_lib.check(rims, "rims", pshape, rims.dtype, rims.device)
+    if rims.data_ptr() % 16:
+        raise ValueError("rims: not 16-byte aligned")
+    return sshapes
+
+
+def _fold3_ints(C, shape, wrap, strip, axis, dtype):
+    return [C, *shape, TILE3, *wrap, *strip, axis, dtype == torch.float64]
+
+
+def _fold3_call(fn: str, ptrs, ints, device, kind: str) -> None:
+    kernel_lib.call("fold3d", fn, ptrs, ints, [], device)
+    fold_reduce.launches += 1
+    fold_reduce.launches_by_kind[kind] += 1
+
+
+def _strip_ptrs(strips, sshapes, dtype, device, check: bool) -> list:
+    """The six strip pointers of a launch (lo, hi by axis), each of its
+    axis's shape in ``sshapes`` where ``check`` (strips from outside the
+    launch's own allocation)."""
+    ptrs = []
+    for ax, sh in enumerate(sshapes):
+        if sh is None:
+            ptrs += [None, None]
+            continue
+        for side, t in enumerate(strips[ax]):
+            if check:
+                kernel_lib.check(t, f"strip {'xyz'[ax]} {('lo', 'hi')[side]}",
+                                 sh, dtype, device)
+            ptrs.append(t)
+    return ptrs
+
+
+def _fold3(rims, shape, periodic, strip, received=None) -> torch.Tensor:
+    """B3 3D (fold3d.cu's fold3_pencil): the interior J of the panels,
+    periodic axes wrapped in place (one device), or on a mesh shard the
+    received strips of the strip axes added (``received``)."""
+    if len(shape) != 3 or len(periodic) != 3:
+        raise ValueError(f"fold_reduce: shape {shape} and periodic "
+                         f"{tuple(periodic)} must both name 2 or 3 axes")
+    sshapes = _check_rims3(rims, shape, strip)
+    C = rims.shape[0]
+    out = torch.empty((C,) + shape, dtype=rims.dtype, device=rims.device)
+    ptrs = [rims, out, None, None] + _strip_ptrs(received, sshapes,
+                                                 rims.dtype, rims.device,
+                                                 True)
+    _fold3_call("lp_fold_3d", ptrs,
+                _fold3_ints(C, shape, periodic, strip, 0, rims.dtype),
+                rims.device, "fold")
+    return out
+
+
+def _fold3_mesh(rims, shape, strip, received) -> torch.Tensor:
+    return _fold3(rims, shape, (False,) * 3, strip, received)
+
+
+def _fold3_cut(rims, shape, strip) -> list:
+    """K5's strip cut in 3D (fold3d.cu's fold3_cut): fold_cut_3d_plain's
+    strips, in one buffer."""
+    sshapes = _check_rims3(rims, shape, strip)
+    sizes = [math.prod(sh) for sh in sshapes if sh is not None]
+    parts = iter(torch.empty(2 * sum(sizes), dtype=rims.dtype,
+                             device=rims.device).split(
+        [n for n in sizes for _ in range(2)]))
+    out = [None if sh is None else [next(parts).view(sh) for _ in range(2)]
+           for sh in sshapes]
+    ptrs = [rims, None, None, None] + _strip_ptrs(out, sshapes, rims.dtype,
+                                                  rims.device, False)
+    _fold3_call("lp_fold_cut_3d", ptrs,
+                _fold3_ints(rims.shape[0], shape, (False,) * 3, strip, 0,
+                            rims.dtype),
+                rims.device, "cut")
+    return out
+
+
+def _fold3_pend(pending, lo, hi, ax, shape, strip) -> None:
+    """K5's pending add in 3D (fold3d.cu's fold3_pend), in place: as
+    fold_pend_3d_plain (``pending`` from _fold3_cut)."""
+    C = lo.shape[0]
+    sshapes = _fold3_layout(C, tuple(shape), tuple(strip))[1]
+    for name, t in (("received lo", lo), ("received hi", hi)):
+        kernel_lib.check(t, name, sshapes[ax], lo.dtype, lo.device)
+    ptrs = [None, None, lo, hi] + _strip_ptrs(pending, sshapes, lo.dtype,
+                                              lo.device, False)
+    _fold3_call("lp_fold_pend_3d", ptrs,
+                _fold3_ints(C, shape, (False,) * 3, strip, ax, lo.dtype),
+                lo.device, "pend")
+
+
 fold_reduce.launches = 0
 # "fold": the panel fold (one a shard); "strips": a split axis's strip add
-fold_reduce.launches_by_kind = {"fold": 0, "strips": 0}
+# (2D); "cut": the strip cut of a shard (3D); "pend": a shard's pending
+# add after an exchange that a later strip axis follows (3D)
+fold_reduce.launches_by_kind = {"fold": 0, "strips": 0, "cut": 0, "pend": 0}
 
 
 # ----------------------------------------------------------------------

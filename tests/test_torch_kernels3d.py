@@ -19,8 +19,13 @@ payloads. B2 3D (the cases at the end; its default mode in
 test_torch_kernels.py) slot for slot at rtol 1e-11 and panels within
 1e-12 of their peak in float64: its tile kernel adds the stencils with
 shared-memory atomics, so the panel sums run in an order that changes
-from run to run.
+from run to run. B3 3D (the one-device fold) within 1e-12 of J's peak in
+float64 and 1e-6 in float32 (a periodic face wraps its guard nodes in
+another order than halo_reduce), and bit for bit from one call to the
+next, on grids off the 8-cell tile along every axis.
 """
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -612,3 +617,35 @@ def test_b2_3d_repeats(cuda):
     assert int(one[2]) == int(two[2])
     torch.testing.assert_close(one[3], two[3], rtol=0,
                                atol=1e-12 * float(one[3].abs().max()))
+
+
+# grids below one tile, one cell past one and two tiles, mixed, and five
+# z tiles (two write-outs of the pencil kernel, the first tile held last
+# on a periodic z)
+B3_SHAPES = [(5, 6, 7), (9, 9, 9), (17, 17, 17), (8, 9, 17), (17, 5, 16),
+             (16, 24, 8), (8, 9, 40)]
+
+
+@pytest.mark.parametrize("periodic", list(itertools.product((False, True),
+                                                            repeat=3)))
+@pytest.mark.parametrize("shape", B3_SHAPES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-6)])
+def test_b3_3d_matches_plain(cuda, shape, periodic, dtype, tol):
+    """B3 3D against fold_reduce_plain on seeded random panels (every
+    node nonzero, guards and corners included), one launch a call, two
+    calls bitwise equal."""
+    from lambdapic_torch.ops.cellslab import (fold_reduce, fold_reduce_plain,
+                                              panel_shape)
+    rng = np.random.default_rng(sum(shape) + 8 * sum(periodic))
+    rims = torch.as_tensor(rng.normal(size=panel_shape(4, *shape)),
+                           dtype=dtype).to(cuda)
+    ref = fold_reduce_plain(rims, shape, periodic)
+    before = fold_reduce.launches
+    got = fold_reduce(rims, shape, periodic)
+    again = fold_reduce(rims, shape, periodic)
+    torch.cuda.synchronize()
+    assert fold_reduce.launches == before + 2
+    assert got.shape == ref.shape and torch.equal(got, again)
+    torch.testing.assert_close(got, ref, rtol=0,
+                               atol=tol * float(ref.abs().max()))

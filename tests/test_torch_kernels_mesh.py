@@ -12,15 +12,21 @@ shards' faces and corners (with merges in the crowded cases). Rules
 other attributes to rtol 1e-11 with a floor of 1e-14 of the peak), merge
 counts equal, panels and J to 1e-12 of their peak (the current sums run
 in another order). float32: the same with rtol 1e-5 and 1e-5 of the
-peak.
+peak. K5 in 3D alone (test_k5_3d_*): on the panels of particles in the
+cells at the shards' corners, J to 1e-12 (float64) and 1e-6 (float32) of
+its peak and bit for bit, since its launches add halo_reduce's terms in
+its order.
 """
+import itertools
+
 import numpy as np
 import pytest
 import torch
 
 from lambdapic_torch.ops.cellslab import (cell_step, cell_step_mesh,
-                                          cell_step_plain, fold_reduce,
-                                          fold_reduce_plain)
+                                          cell_step_plain, deposit_panels_3d,
+                                          fold_reduce, fold_reduce_plain,
+                                          panel_shape)
 from lambdapic_torch.parallel.halo import HaloSpec
 from lambdapic_torch.parallel.mesh import Mesh
 from lambdapic_torch.testing import (compare_mesh_slots, mesh_to_numpy,
@@ -137,10 +143,12 @@ def test_k4_empty_shard_matches_plain(cuda, dtype, rtol):
 def test_dispatch_counts(cuda):
     """One launch of kernel B2 a shard and dispatch (a mesh that splits
     only x runs the whole stage in one dispatch), and of B3 a shard
-    (fold) plus one a shard and split axis (strips)."""
+    (fold) plus, in 2D, one a shard and split axis (strips); in 3D one a
+    shard (cut) and one a shard and strip axis after the first (pend),
+    every axis here being split or periodic."""
     for mesh_shape, nloc, dispatches, strips in (
             ((2, 2), (16, 16), 2, 2), ((2, 1), (16, 16), 1, 1),
-            ((2, 2, 2), (8, 8, 8), 3, 3), ((1, 1, 2), (8, 8, 8), 2, 1)):
+            ((2, 2, 2), (8, 8, 8), 3, 3), ((1, 1, 2), (8, 8, 8), 2, 3)):
         n = int(np.prod(mesh_shape))
         cell_step.launches = 0
         cell_step.launches_by_dispatch = dict.fromkeys(
@@ -155,8 +163,12 @@ def test_dispatch_counts(cuda):
             "whole": n if dispatches == 1 else 0,
             "head": n * (dispatches - 1),
             "tail": n if dispatches > 1 else 0}
-        assert fold_reduce.launches_by_kind == {"fold": n,
-                                                "strips": n * strips}
+        if len(nloc) == 2:
+            want = {"fold": n, "strips": n * strips, "cut": 0, "pend": 0}
+        else:
+            want = {"fold": n, "strips": 0, "cut": n,
+                    "pend": n * (strips - 1)}
+        assert fold_reduce.launches_by_kind == want
 
 
 def test_mesh_simulation_on_card_matches_cpu(cuda):
@@ -185,3 +197,83 @@ def test_mesh_simulation_on_card_matches_cpu(cuda):
     for pr, pg in zip(ref.particles, got.particles):
         compare_mesh_slots(pr.data, pr.alive, pg.data, pg.alive, (2, 2),
                            rtol=1e-9)
+
+
+K5_MESHES = [(2, 2, 2), (1, 1, 2), (1, 2, 1), (2, 1, 1), (2, 2, 1)]
+
+
+def _mesh3(mesh_shape, periodic, dev):
+    n = int(np.prod(mesh_shape))
+    mesh = Mesh(tuple(mesh_shape), NAMES, (dev,) * n)
+    specs = tuple(HaloSpec(NAMES[i], mesh_shape[i], periodic[i])
+                  for i in range(3))
+    return mesh, specs
+
+
+def corner_panels(mesh, nloc, dtype, seed):
+    """Per shard, the panels (deposit_panels_3d) of the particles of a
+    random shard state that sit in the cells within two of one of the
+    shard's eight corners: their guard nodes reach the diagonal shards."""
+    data, alive, _ = random_mesh_cells(mesh.shape, 4, nloc, seed=seed,
+                                       n_frac=0.9)
+    near = np.zeros(nloc, bool)
+    for corner in itertools.product(*[(slice(0, 2), slice(n - 2, n))
+                                      for n in nloc]):
+        near[corner] = True
+    out = []
+    for d, a in mesh_to_torch(data, alive & near, mesh, dtype):
+        w = torch.where(a, d["w"], 0.0)
+        out.append(deposit_panels_3d(
+            *[d[k] for k in ("x", "y", "z", "ux", "uy", "uz", "inv_gamma")],
+            w, q=Q, dx=DX, dy=DX, dz=DX, dt=DT))
+    return out
+
+
+@pytest.mark.parametrize("nloc", [(8, 8, 8), (9, 8, 17)])
+@pytest.mark.parametrize("periodic", [(True, True, True),
+                                      (False, False, False)])
+@pytest.mark.parametrize("mesh_shape", K5_MESHES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-6)])
+def test_k5_3d_matches_plain(cuda, mesh_shape, periodic, nloc, dtype, tol):
+    """K5 in 3D (strip cut, exchanges, pending adds, fold) against
+    fold_reduce_plain with the mesh; launches by kind: a fold and a cut a
+    shard, a pending add a shard and strip axis after the first."""
+    mesh, specs = _mesh3(mesh_shape, periodic, cuda)
+    rims = corner_panels(mesh, nloc, dtype, seed=sum(nloc) + sum(periodic))
+    fold_reduce.launches_by_kind = dict.fromkeys(
+        fold_reduce.launches_by_kind, 0)
+    got = fold_reduce(rims, nloc, None, mesh, specs)
+    ref = fold_reduce_plain(rims, nloc, None, mesh, specs)
+    torch.cuda.synchronize()
+    n = mesh.size
+    nstrip = sum(s > 1 or p for s, p in zip(mesh_shape, periodic))
+    assert fold_reduce.launches_by_kind == {
+        "fold": n, "strips": 0, "cut": n if nstrip else 0,
+        "pend": n * max(nstrip - 1, 0)}
+    peak = max(float(b.abs().max()) for b in ref)
+    assert peak > 0
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=tol * peak)
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_k5_3d_corner_reaches_the_diagonal_shard(cuda, dtype):
+    """Only shard (0, 0, 0) holds current, on its guard corner nodes: on
+    an open 2 x 2 x 2 mesh it lands on shard (1, 1, 1)'s first two rows
+    of every axis (three exchanges, two pending adds) and nowhere else."""
+    mesh, specs = _mesh3((2, 2, 2), (False,) * 3, cuda)
+    nloc = (8, 8, 8)
+    rims = [torch.zeros(panel_shape(3, *nloc), dtype=dtype, device=cuda)
+            for _ in range(mesh.size)]
+    rims[0][:, 0, 0, 0, 10:, 10:, 10:] = torch.arange(
+        1.0, 25.0, dtype=dtype, device=cuda).view(3, 2, 2, 2)
+    got = fold_reduce(rims, nloc, None, mesh, specs)
+    far = mesh.index((1, 1, 1))
+    for i, a in enumerate(got):
+        if i != far:
+            assert not a.any(), i
+    corner = got[far][:, :2, :2, :2]
+    assert torch.equal(corner, rims[0][:, 0, 0, 0, 10:, 10:, 10:])
+    assert float(got[far].abs().sum()) == float(corner.abs().sum())
