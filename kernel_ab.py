@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Time the one-device kernels B2 and B3, the per-stage 3D kernels B4
-and B5, the re-binning kernel B6 (and K7) and the 3D fold B3 (and K5) of
-a lambdapic_torch tree, and the 3D QED slice's per-stage steps that run
-B4 3D and B5 3D.
+"""Time the one-device kernels B2 and B3, the per-stage kernels B4 and
+B5 (3D and 2D), the re-binning kernel B6 (and K7) and the 3D fold B3
+(and K5) of a lambdapic_torch tree, and the 3D QED slice's per-stage
+steps that run B4 3D and B5 3D.
 
     python3 kernel_ab.py ROOT [b2] [stage3] [steps3d] [migrate2]
-                         [migrate3] [variants] [fold3]
+                         [migrate3] [variants] [fold3] [stage2]
 
 ROOT is the directory that holds the ``lambdapic_torch`` package to time
 (``.`` for this checkout; an unpacked ``git archive <commit>
@@ -47,6 +47,23 @@ card from a seed: 512 x 256 x 256 cells of 4 slots, the cells of x >= 26
 fields up to 1e12. A tree whose wrappers take ``alive`` is given the
 mask (the per-stage step's call); the parent's kernels take none. Lines
 ``AB-stage3 <state> <kernel> <ms>`` (CUDA events) and ``AB-split``.
+
+Group ``stage2``: B4 2D (default and ``want_eb``, no first half push,
+as the per-stage step calls it) and B5 2D on the 2D states ``uniform``,
+``band`` and ``qed`` and on ``2D qed70`` (512 x 512 cells of 70 slots,
+90% of the cells holding 10 alive slots: the exact QED slice's electron
+capacity, above B4's and B5's 64-slot bit mask). A tree whose wrappers
+take ``alive`` is given the mask; the parent's kernels take none. Lines
+``AB-stage2 <state> <kernel> <ms>`` (CUDA events) with the bound of
+chip_smoke.stage_bounds (the mask form: the mask, the alive slots'
+payloads, the gather's nodes, every output slot or J written once),
+``AB-split`` per ``__global__`` function, ``AB-stage2 <state> write6``
+and ``write12`` (six or twelve arrays of the slots' size zero-filled by
+torch: the rate this card reaches for B4's writes alone) and, on a tree
+whose push2d.cu holds their texts, the ablations of STAGE2_ABLATIONS
+(the tap source, particles a round, blocks an SM) and of
+STAGE2_B5_ABLATIONS (B5's blocks an SM), each built beside it by text
+substitution and held bit for bit against the tree's library.
 
 Group ``steps3d``: chip_smoke.py's 3D QED configuration (256 x 128 x
 128 cells, radiating electrons, protons and photons, float32, seed 0,
@@ -198,7 +215,7 @@ def make_state(name, cap, n):
 STEPS3D_FUSED, STEPS3D_WARM, STEPS3D_TIMED = 200, 2, 5
 
 GROUPS = ("b2", "stage3", "steps3d", "migrate2", "migrate3", "variants",
-          "fold3")
+          "fold3", "stage2")
 
 
 def main() -> int:
@@ -228,6 +245,8 @@ def main() -> int:
         time_variants(dev)
     if "fold3" in groups:
         time_fold3(dev)
+    if "stage2" in groups:
+        time_stage2(dev)
     return 0
 
 
@@ -352,6 +371,150 @@ def time_stage3(dev):
                       f"{k[:90]}", flush=True)
             torch.cuda.empty_cache()
         del td, ta, ebt, args, a8, w, calls
+        torch.cuda.empty_cache()
+
+
+# B4 2D's and B5 2D's states (name, slots a cell, cells): STATES' 2D
+# ones and ``2D qed70``, 512 x 512 cells of 70 slots (the exact QED 2D
+# slice's electrons: B4 reads the alive bytes a round at a time above 64
+# slots, B5 counts them), 90% of the cells holding 10 alive slots
+STAGE2_STATES = STATES[:3] + (("2D qed70", 70, (512, 512)),)
+# Ablations of B4 2D (csrc/push2d.cu), timed in group stage2: name ->
+# [(text, replacement)], every text required. ``global``: the taps read
+# from the padded fields in device memory through L1 (as B2's rebin2y
+# reads them), no shared window; ``stage1024``: rounds of up to 1024
+# particles (512 in the source); ``lb2``, ``lb3``: 2 or 3 blocks an SM
+# asked of the register allocation (4 in the source).
+STAGE2_ABLATIONS = {
+    "global": [("  load_window(win, a.eb, a.nx, a.ny, a.g, x0, y0, tid);\n",
+                ""),
+               ("gather_eb<T, int>(win, TX - 1, TY - 1, 2, lx, ly, ",
+                "gather_eb(a.eb, a.nx, a.ny, a.g, ix, iy, "),
+               ("constexpr int WINDOW_REALS = 6 * WX * WY;",
+                "constexpr int WINDOW_REALS = 0;")],
+    "stage1024": [("constexpr int STAGE = 512;",
+                   "constexpr int STAGE = 1024;")],
+    "lb2": [("__launch_bounds__(THREADS, 4) push(",
+             "__launch_bounds__(THREADS, 2) push(")],
+    "lb3": [("__launch_bounds__(THREADS, 4) push(",
+             "__launch_bounds__(THREADS, 3) push(")],
+}
+
+# Ablations of B5 2D (csrc/deposit2d.cu's deposit, cell2d.cuh's tile
+# deposit): ``lb1``, ``lb3``: 1 or 3 blocks an SM asked of the register
+# allocation (2 in the source; at 2 the float32 kernel spills).
+STAGE2_B5_ABLATIONS = {
+    "lb1": [("__launch_bounds__(TILE * TILE, 2)\n    deposit(",
+             "__launch_bounds__(TILE * TILE, 1)\n    deposit(")],
+    "lb3": [("__launch_bounds__(TILE * TILE, 2)\n    deposit(",
+             "__launch_bounds__(TILE * TILE, 3)\n    deposit(")],
+}
+
+
+def make_stage2_state(name, cap, n):
+    """(data, alive, eb_pad) of a state of STAGE2_STATES."""
+    if name != "2D qed70":
+        return make_state(name, cap, n)
+    import numpy as np
+    from lambdapic_torch.testing import occupied_cell_state
+    occ = np.random.default_rng(3).uniform(size=n) < 0.9
+    return occupied_cell_state(cap, occ, 10, seed=1)
+
+
+def time_stage2(dev):
+    """Group stage2: B4 2D (default and want_eb, no first half push, as
+    the per-stage step calls it) and B5 2D on STAGE2_STATES, given the
+    alive mask where the tree's wrappers take it; the ablations of
+    STAGE2_ABLATIONS whose texts the tree's push2d.cu holds, each held
+    bit for bit against the tree's library first."""
+    import inspect
+    import os
+    import torch
+    from lambdapic_torch.ops import cellpallas as cp
+    from lambdapic_torch.ops import kernel_lib
+    from lambdapic_torch.testing import to_torch
+    sys.path.insert(1, os.path.dirname(os.path.abspath(__file__)))
+    import chip_smoke
+    kernel_lib.build(["push2d", "deposit2d"])
+    for lib in ("push2d", "deposit2d"):
+        ptxas_lines(lib, kernel_lib.build_log(lib),
+                    key=("4push", "7deposit", "8fold_pad"))
+    masked = "alive" in inspect.signature(cp.fused_push_cell_2d).parameters
+    src = (kernel_lib.CSRC / "push2d.cu").read_text()
+    have = {k: v for k, v in STAGE2_ABLATIONS.items()
+            if all(old in src for old, _ in v)}
+    libs = build_variants(have, "ablate-push2d", lib="push2d") if have \
+        else {}
+    src5 = (kernel_lib.CSRC / "deposit2d.cu").read_text()
+    have5 = {k: v for k, v in STAGE2_B5_ABLATIONS.items()
+             if all(old in src5 for old, _ in v)}
+    libs5 = build_variants(have5, "ablate-deposit2d", lib="deposit2d") \
+        if have5 else {}
+    q, m, dt, dx = -1.602e-19, 9.109e-31, 1.1e-16, 5e-8
+    for name, cap, n in STAGE2_STATES:
+        d, a, eb = make_stage2_state(name, cap, n)
+        td, ta = to_torch(d, a, torch.float32, dev)
+        ebt = torch.as_tensor(eb, dtype=torch.float32).to(dev)
+        del d, a, eb
+        alive = {"alive": ta} if masked else {}
+        args = [td[k] for k in ("x", "y", "ux", "uy", "uz")]
+        w = torch.where(ta, td["w"], 0.0)
+        a7 = args + [td["inv_gamma"], w]
+        k4 = dict(q=q, m=m, dt=dt, dx=dx, dy=dx, g=3, do_pos1=False,
+                  **alive)
+        k5 = dict(q=q, dx=dx, dy=dx, dt=dt, g=3, **alive)
+        calls = {"B4": lambda: cp.fused_push_cell_2d(ebt, *args, **k4),
+                 "B4 want_eb": lambda: cp.fused_push_cell_2d(
+                     ebt, *args, want_eb=True, **k4),
+                 "B5": lambda: cp.deposit_cell_2d_k(*a7, **k5)}
+        bounds = chip_smoke.stage_bounds(td, ta, td, ta, 3)
+        print(f"AB-stage2 {name}: {int(ta.sum())} of {ta.numel()} slots "
+              f"alive, {int(ta.any(0).sum())} of {ta[0].numel()} cells "
+              f"occupied, mask given: {masked}", flush=True)
+        for kname, fn in calls.items():
+            ms = timed(fn, 10)
+            print(f"AB-stage2 {name} {kname} {ms:.4f} ms; bound "
+                  f"{bounds[kname][0]:.4f} ms ({bounds[kname][2]} bytes, "
+                  f"{100 * bounds[kname][0] / ms:.1f}%)", flush=True)
+            for k, (t, nl) in sorted(device_split(fn, 5).items(),
+                                     key=lambda kv: -kv[1][0]):
+                print(f"AB-split {name} {kname} {t:.4f} ms {nl:g} launches "
+                      f"{k[:90]}", flush=True)
+        # the rate of this card for B4's writes alone: every output array
+        # of the slots' size zero-filled
+        outs = [torch.empty_like(td["x"]) for _ in range(12)]
+        for nout in (6, 12):
+            ms = timed(lambda: [o.zero_() for o in outs[:nout]], 10)
+            print(f"AB-stage2 {name} write{nout} {ms:.4f} ms "
+                  f"({nout * outs[0].numel() * 4 / ms / 1e9:.3f} TB/s)",
+                  flush=True)
+        del outs
+        if libs:
+            refs = [[t.clone() for t in calls[k]()]
+                    for k in ("B4", "B4 want_eb")]
+            for vname, so in libs.items():
+                use_lib(so, "push2d")
+                same = all(torch.equal(x, y) for k, r in
+                           zip(("B4", "B4 want_eb"), refs)
+                           for x, y in zip(calls[k](), r))
+                t4 = timed(calls["B4"], 10)
+                t4e = timed(calls["B4 want_eb"], 10)
+                print(f"AB-stage2 {name} ablate-{vname} B4 {t4:.4f} ms, "
+                      f"want_eb {t4e:.4f} ms; bitwise the tree's: {same}",
+                      flush=True)
+            use_lib(None, "push2d")
+            del refs
+        if libs5:
+            ref = calls["B5"]().clone()
+            for vname, so in libs5.items():
+                use_lib(so, "deposit2d")
+                same = torch.equal(calls["B5"](), ref)
+                t5 = timed(calls["B5"], 10)
+                print(f"AB-stage2 {name} ablate-{vname} B5 {t5:.4f} ms; "
+                      f"bitwise the tree's: {same}", flush=True)
+            use_lib(None, "deposit2d")
+            del ref
+        del td, ta, ebt, args, a7, w, calls
         torch.cuda.empty_cache()
 
 
@@ -685,12 +848,16 @@ class MigrateTimer:
 
 def ptxas_lines(tag, log, key="migrate_"):
     """One ``AB-ptxas`` line per __global__ function of a build log: its
-    name from ``key`` on, its registers and spills."""
+    name from ``key`` (or the first of a tuple of keys that it holds) on,
+    its registers and spills."""
     fn, spill = "", ""
     for line in log.splitlines():
         if "entry function" in line and "'" in line:
             fn = line.split("'")[1]
-            fn = fn[fn.find(key):] if key in fn else fn
+            for k in (key,) if isinstance(key, str) else key:
+                if k in fn:
+                    fn = fn[fn.find(k):]
+                    break
         elif "spill" in line:
             spill = line.strip()
         elif "Used" in line and "registers" in line:

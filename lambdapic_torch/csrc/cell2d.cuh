@@ -123,6 +123,27 @@ __device__ __forceinline__ void add_merges(unsigned long long* counter,
   }
 }
 
+// cp.async of one element, global -> shared (sm_80 and later), and the
+// wait for all of a thread's copies.
+template <typename T>
+__device__ __forceinline__ void copy_async(T* dst, const T* src) {
+  unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  if constexpr (sizeof(T) == 4)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+                 "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+                 "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void copy_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void copy_async_wait() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
 // x += u * inv_gamma * h (ops/pusher.py::push_position_2d)
 template <typename T>
 __device__ __forceinline__ T pushed(T pos, T u, T ig, T h) {
@@ -131,7 +152,7 @@ __device__ __forceinline__ T pushed(T pos, T u, T ig, T h) {
 
 // Staggered quadratic gather of one component (ops/cell2d.py::
 // gather_cell_2d): x taps {-1,0,1} (integer) or {-2..1} (half), same in y.
-template <typename T>
+template <typename T, typename I>
 __device__ __forceinline__ T gather_comp(const T* __restrict__ f, int nyp,
                                          int px, int py, bool half_x,
                                          bool half_y, T dx, T dy) {
@@ -142,27 +163,29 @@ __device__ __forceinline__ T gather_comp(const T* __restrict__ f, int nyp,
     T tx = half_x ? m2(T(ox + 0.5) - dx) : m2(T(ox) - dx);
     for (int oy = oy0; oy <= oy1; ++oy) {
       T ty = half_y ? m2(T(oy + 0.5) - dy) : m2(T(oy) - dy);
-      acc = acc + (tx * ty) * f[(long long)(px + ox) * nyp + (py + oy)];
+      acc = acc + (tx * ty) * f[(I)(px + ox) * nyp + (py + oy)];
     }
   }
   return acc;
 }
 
 // The six components of E, B at cell-local deltas (dx, dy) of cell
-// (ix, iy), from the padded stack eb (6, nx+2g, ny+2g).
-template <typename T>
+// (ix, iy), from the padded stack eb (6, nx+2g, ny+2g), with indices of
+// type I (64-bit in device memory; a shared window of a tile, see
+// push2d.cu, is such a stack of its own, 32-bit).
+template <typename T, typename I = long long>
 __device__ __forceinline__ void gather_eb(const T* __restrict__ eb, int nx,
                                           int ny, int g, int ix, int iy, T dx,
                                           T dy, T* out) {
   const int nxp = nx + 2 * g, nyp = ny + 2 * g;
-  const long long plane = (long long)nxp * nyp;
+  const I plane = (I)nxp * nyp;
   const int px = ix + g, py = iy + g;
-  out[0] = gather_comp(eb + 0 * plane, nyp, px, py, true, false, dx, dy);
-  out[1] = gather_comp(eb + 1 * plane, nyp, px, py, false, true, dx, dy);
-  out[2] = gather_comp(eb + 2 * plane, nyp, px, py, false, false, dx, dy);
-  out[3] = gather_comp(eb + 3 * plane, nyp, px, py, false, true, dx, dy);
-  out[4] = gather_comp(eb + 4 * plane, nyp, px, py, true, false, dx, dy);
-  out[5] = gather_comp(eb + 5 * plane, nyp, px, py, true, true, dx, dy);
+  out[0] = gather_comp<T, I>(eb + 0 * plane, nyp, px, py, true, false, dx, dy);
+  out[1] = gather_comp<T, I>(eb + 1 * plane, nyp, px, py, false, true, dx, dy);
+  out[2] = gather_comp<T, I>(eb + 2 * plane, nyp, px, py, false, false, dx, dy);
+  out[3] = gather_comp<T, I>(eb + 3 * plane, nyp, px, py, false, true, dx, dy);
+  out[4] = gather_comp<T, I>(eb + 4 * plane, nyp, px, py, true, false, dx, dy);
+  out[5] = gather_comp<T, I>(eb + 5 * plane, nyp, px, py, true, true, dx, dy);
 }
 
 // Boris (ops/pusher.py::boris_push): updates (ux, uy, uz) in place from
@@ -232,96 +255,142 @@ __device__ __forceinline__ void shapes(T d, T v, T* s0, T* s1) {
 // Inputs of the tile deposit: the pushed slots of one species.
 template <typename T>
 struct DepositIn {
-  const unsigned char* alive;   // null: every slot with w != 0 deposits
+  const unsigned char* alive;   // the depositing slots
   const T *x, *y, *ux, *uy, *uz, *ig, *w;
   const T* rims_in;             // null: panels start at 0
   T* rims_out;                  // (C, nbx, nby, PAN, PAN)
-  int nx, ny, cap, ncomp;
+  int nx, ny, cap;
   long long ncell;
   T cdx, cdy, c, kcd, kfx, kfy; // c dt/dx, c dt/dy, c, q/(dx dy),
                                 // q/(dy dt), q/(dx dt)
 };
 
-// One block per TILE x TILE cell tile (blockDim (TILE, TILE), grid
-// (nby, nbx), ncomp * PAN * PAN reals of shared memory): the 5-tap
-// Esirkepov J (and rho) of every depositing slot into a shared
-// (C, PAN, PAN) tile panel. The 25 stencil offsets go one after another
-// with a barrier between, and within one offset every thread writes a
-// different panel node, so the sum needs no atomics and repeats bit for
-// bit. Panel (bi, bj) node (a, b) is the current at interior index
-// (bi*TILE + a - 2, bj*TILE + b - 2).
-template <typename T>
-__device__ __forceinline__ void deposit_tile(const DepositIn<T>& a) {
+// The tile deposit of B2's deposit2 (cellstep.cu) and B5 (deposit2d.cu):
+// one block per TILE x TILE cell tile (blockDim (TILE, TILE), grid
+// (nby, nbx), NC * PAN * PAN reals of dynamic shared memory), NC = 4 with
+// rho, else 3. Where ``flagged``, each thread reads its cell's alive bytes
+// (the first 64 into a bit mask, and counts them all; an unflagged tile
+// reads nothing and holds no alive slot).
+// A tile with no alive slot returns false in every thread; it writes
+// nothing, or with COPY_EMPTY its panel as rims_in holds it (zeros where
+// rims_in is null). Otherwise each thread walks its cell's alive slots once, in
+// slot order (above 64 slots the bytes of each further 64 are read again
+// into a bit mask, the loads independent of one another), computing each
+// particle's shapes once and adding its 5 x 5
+// Esirkepov nodes into per-offset sums in registers; then the 25 offsets
+// go into the shared panel (rims_in's, or zeros) one after another with
+// a barrier between, every thread writing a different node within one
+// offset, so the sum needs no atomics and repeats bit for bit; the panel
+// goes to rims_out and the call returns true. Panel (bi, bj) node (a, b)
+// is the current at interior index (bi*TILE + a - 2, bj*TILE + b - 2).
+template <typename T, int NC, bool COPY_EMPTY>
+__device__ __forceinline__ bool deposit_panel(const DepositIn<T>& a,
+                                              bool flagged) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* pan = reinterpret_cast<T*>(smem_raw);       // (ncomp, PAN, PAN)
+  T* pan = reinterpret_cast<T*>(smem_raw);       // (NC, PAN, PAN)
   const int lx = threadIdx.y, ly = threadIdx.x;
   const int bi = blockIdx.y, bj = blockIdx.x;
   const int nbx = gridDim.y, nby = gridDim.x;
   const int ix = bi * TILE + lx, iy = bj * TILE + ly;
   const bool valid = ix < a.nx && iy < a.ny;
-  const int C = a.ncomp;
   const int tid = threadIdx.y * TILE + threadIdx.x;
-  const long long pstride = (long long)PAN * PAN;
-  for (int e = tid; e < C * PAN * PAN; e += TILE * TILE) {
-    int c = e / (PAN * PAN), r = e % (PAN * PAN);
-    long long gidx = (((long long)c * nbx + bi) * nby + bj) * pstride + r;
-    pan[e] = a.rims_in ? a.rims_in[gidx] : T(0);
-  }
+  constexpr int PP = PAN * PAN;
   const long long cell = (long long)ix * a.ny + iy;
+  const unsigned char* alive = a.alive + cell;
+  int n_alive = 0;
+  unsigned long long bits = 0;      // the alive slots among the first 64
+  if (valid && flagged) {
+#pragma unroll 4
+    for (int s = 0; s < a.cap; ++s)
+      if (alive[s * a.ncell]) {
+        ++n_alive;
+        if (s < 64) bits |= 1ull << s;
+      }
+  }
+  // the tile's panel: component c's node e at c * cstride + tile0 + e
+  const long long tile0 = ((long long)bi * nby + bj) * PP;
+  const long long cstride = (long long)nbx * nby * PP;
+  if (!__syncthreads_or(n_alive)) {
+    if constexpr (COPY_EMPTY)
+      for (int e = tid; e < NC * PP; e += TILE * TILE) {
+        const long long g = (e / PP) * cstride + tile0 + e % PP;
+        a.rims_out[g] = a.rims_in ? a.rims_in[g] : T(0);
+      }
+    return false;
+  }
+  for (int e = tid; e < NC * PP; e += TILE * TILE) {
+    const long long g = (e / PP) * cstride + tile0 + e % PP;
+    pan[e] = a.rims_in ? a.rims_in[g] : T(0);
+  }
+  T acc[5][5][NC];
+#pragma unroll
+  for (int i = 0; i < 5; ++i)
+#pragma unroll
+    for (int j = 0; j < 5; ++j)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) acc[i][j][c] = T(0);
   const T cdx = a.cdx, cdy = a.cdy, kcd = a.kcd, kfx = a.kfx, kfy = a.kfy;
+  // the alive slots in slot order, 64 slot indices at a time: the bit
+  // mask of slots c0 .. c0 + 63 (the first read's for c0 = 0), then its
+  // set bits
+  for (int c0 = 0, left = n_alive; left > 0; c0 += 64) {
+    if (c0 > 0) {
+      bits = 0;
+      const int n = a.cap - c0 < 64 ? a.cap - c0 : 64;
+#pragma unroll 4
+      for (int s = 0; s < n; ++s)
+        if (alive[(c0 + s) * a.ncell]) bits |= 1ull << s;
+    }
+    for (; bits != 0; --left) {
+      const int s = c0 + __ffsll(bits) - 1;
+      bits &= bits - 1;
+      const long long idx = (long long)s * a.ncell + cell;
+      const T x = a.x[idx], y = a.y[idx];
+      const T ig = a.ig[idx], w = a.w[idx];
+      const T vx_c = (a.ux[idx] * ig) * cdx;
+      const T vy_c = (a.uy[idx] * ig) * cdy;
+      const T vz = (a.uz[idx] * ig) * a.c;
+      T s0x[5], s1x[5], s0y[5], s1y[5];
+      shapes(x - T(ix), vx_c, s0x, s1x);
+      shapes(y - T(iy), vy_c, s0y, s1y);
+      const T cd = kcd * w, fdx = kfx * w, fdy = kfy * w;
+      const T cvz = cd * vz;
+      T run = T(0);
 #pragma unroll
-  for (int oxi = 0; oxi < 5; ++oxi) {
-    T acc[5][4];
-#pragma unroll
-    for (int oy = 0; oy < 5; ++oy)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[oy][c] = T(0);
-    if (valid) {
-      for (int s = 0; s < a.cap; ++s) {
-        long long idx = (long long)s * a.ncell + cell;
-        if (a.alive ? !a.alive[idx] : a.w[idx] == T(0)) continue;
-        T x = a.x[idx], y = a.y[idx];
-        T ig = a.ig[idx], w = a.w[idx];
-        T vx_c = (a.ux[idx] * ig) * cdx;
-        T vy_c = (a.uy[idx] * ig) * cdy;
-        T vz = (a.uz[idx] * ig) * a.c;
-        T s0x[5], s1x[5], s0y[5], s1y[5];
-        shapes(x - T(ix), vx_c, s0x, s1x);
-        shapes(y - T(iy), vy_c, s0y, s1y);
-        T cd = kcd * w, fdx = kfx * w, fdy = kfy * w;
-        T cvz = cd * vz;
-        T run = T(0);
-        for (int o = 0; o <= oxi; ++o) run = run + (s1x[o] - s0x[o]);
-        T fx = (-fdx) * run;
-        T dsx = s1x[oxi] - s0x[oxi];
-        T ax = s0x[oxi] + T(0.5) * dsx;
+      for (int oxi = 0; oxi < 5; ++oxi) {
+        run = run + (s1x[oxi] - s0x[oxi]);
+        const T fx = (-fdx) * run;
+        const T dsx = s1x[oxi] - s0x[oxi];
+        const T ax = s0x[oxi] + T(0.5) * dsx;
         T runy = T(0);
 #pragma unroll
         for (int oy = 0; oy < 5; ++oy) {
-          T dsy = s1y[oy] - s0y[oy];
+          const T dsy = s1y[oy] - s0y[oy];
           runy = runy + dsy;
-          T gy = (-fdy) * runy;
-          T by = s0y[oy] + T(0.5) * dsy;
-          acc[oy][0] += fx * by;
-          acc[oy][1] += ax * gy;
-          acc[oy][2] += cvz * (ax * by + (dsx * dsy) / T(12));
-          acc[oy][3] += (cd * s1x[oxi]) * s1y[oy];
+          const T gy = (-fdy) * runy;
+          const T by = s0y[oy] + T(0.5) * dsy;
+          acc[oxi][oy][0] += fx * by;
+          acc[oxi][oy][1] += ax * gy;
+          acc[oxi][oy][2] += cvz * (ax * by + (dsx * dsy) / T(12));
+          if constexpr (NC == 4) acc[oxi][oy][3] += (cd * s1x[oxi]) * s1y[oy];
         }
       }
     }
+  }
+#pragma unroll
+  for (int oxi = 0; oxi < 5; ++oxi)
 #pragma unroll
     for (int oy = 0; oy < 5; ++oy) {
       __syncthreads();
       if (valid)
-        for (int c = 0; c < C; ++c)
-          pan[c * pstride + (lx + oxi) * PAN + (ly + oy)] += acc[oy][c];
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          pan[c * PP + (lx + oxi) * PAN + (ly + oy)] += acc[oxi][oy][c];
     }
-  }
   __syncthreads();
-  for (int e = tid; e < C * PAN * PAN; e += TILE * TILE) {
-    int c = e / (PAN * PAN), r = e % (PAN * PAN);
-    a.rims_out[(((long long)c * nbx + bi) * nby + bj) * pstride + r] = pan[e];
-  }
+  for (int e = tid; e < NC * PP; e += TILE * TILE)
+    a.rims_out[(e / PP) * cstride + tile0 + e % PP] = pan[e];
+  return true;
 }
 
 }  // namespace lp2d

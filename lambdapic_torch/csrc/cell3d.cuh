@@ -35,26 +35,10 @@ constexpr int PAN3 = PAN * PAN * PAN;
 constexpr int WIN = TILE + 3;          // gather window side: nodes -2 .. TILE
 constexpr int WIN3 = WIN * WIN * WIN;
 
-// cp.async of one element, global -> shared (sm_80 and later), and the
-// wait for all of a thread's copies.
-template <typename T>
-__device__ __forceinline__ void copy_async(T* dst, const T* src) {
-  unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  if constexpr (sizeof(T) == 4)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-                 "l"(src) : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
-                 "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void copy_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void copy_async_wait() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
+// cp.async of one element and its commit and wait (cell2d.cuh)
+using lp2d::copy_async;
+using lp2d::copy_async_commit;
+using lp2d::copy_async_wait;
 
 // Start the copy of the E/B window of the tile whose first cell is
 // (x0, y0, z0) from the padded stack eb (6, nx+2g, ny+2g, nz+2g), g >= 2,

@@ -52,12 +52,13 @@
 //            scratch, and stops; columns of a flagged tile are keyed dead
 //            unread. Two blocks an SM (at most 128 registers a thread).
 //  deposit2  one block per 16 x 16 cell tile: 5-tap Esirkepov J (and rho)
-//            of every alive slot into a shared (C, 20, 20) tile panel. A
-//            tile with no alive slot (rebin2y's flags of the pass tiles it
+//            of every alive slot into a shared (C, 20, 20) tile panel
+//            (cell2d.cuh::deposit_panel, shared with kernel B5). A tile
+//            with no alive slot (rebin2y's flags of the pass tiles it
 //            overlaps, then its alive bytes) copies rims_in to rims_out and
 //            stops.
-//            Otherwise each thread walks its cell's alive slots once (a bit
-//            mask of them up to 64 slots), computes a particle's shapes once
+//            Otherwise each thread walks its cell's alive slots once (bit
+//            masks of 64 slot indices), computes a particle's shapes once
 //            and adds its 25 nodes into per-offset sums in registers; the 25
 //            offsets then go into the panel one after another with a barrier
 //            between, and within one offset every thread writes a different
@@ -849,31 +850,13 @@ __global__ void __launch_bounds__(TX * TY, 2) rebin2y(Args<T> a) {
 
 // deposit2: one block per TILE x TILE cell tile (blockDim (TILE, TILE),
 // grid (nby, nbx), NC * PAN * PAN reals of shared memory), NC = 4 with
-// rho, else 3. Each thread reads its cell's alive bytes once (up to 64
-// slots into a bit mask, above that a count that ends the walk early); a
-// tile with no alive slot copies rims_in to rims_out and stops. Otherwise
-// each thread walks its cell's alive slots once, in slot order, computing
-// each particle's shapes once and adding its 5 x 5 Esirkepov nodes into
-// per-offset sums in registers; then the 25 offsets go into the shared
-// panel one after another with a barrier between, every thread writing a
-// different node within one offset, so the sum needs no atomics and
-// repeats bit for bit. Each offset's sum is cell2d.cuh::deposit_tile's, in
-// its order. Panel (bi, bj) node (a, b) is the current at interior index
-// (bi*TILE + a - 2, bj*TILE + b - 2).
+// rho, else 3: cell2d.cuh::deposit_panel, the tile deposit that kernel B5
+// (deposit2d.cu) runs too, so both sum each tile in one order. A tile
+// reads its alive bytes only where rebin2y flagged one of the pass tiles
+// it overlaps; a tile with no alive slot copies rims_in to rims_out.
 template <typename T, int NC>
 __global__ void __launch_bounds__(TILE * TILE, 2) deposit2(Args<T> a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* pan = reinterpret_cast<T*>(smem_raw);       // (NC, PAN, PAN)
-  const int lx = threadIdx.y, ly = threadIdx.x;
   const int bi = blockIdx.y, bj = blockIdx.x;
-  const int nbx = gridDim.y, nby = gridDim.x;
-  const int ix = bi * TILE + lx, iy = bj * TILE + ly;
-  const bool valid = ix < a.nx && iy < a.ny;
-  const int tid = threadIdx.y * TILE + threadIdx.x;
-  constexpr int PP = PAN * PAN;
-  const long long cell = (long long)ix * a.ny + iy;
-  const unsigned char* alive = a.out.alive;
-  const bool masked = a.cap <= 64;
   // rebin2y's flags of the pass tiles that this tile overlaps
   const int nty = (a.ny + TY - 1) / TY, ntx = (a.nx + a.tx - 1) / a.tx;
   const int by = bj * TILE / TY;
@@ -881,90 +864,17 @@ __global__ void __launch_bounds__(TILE * TILE, 2) deposit2(Args<T> a) {
   const int bx1 = min((bi * TILE + TILE - 1) / a.tx, ntx - 1);
   for (int bx = bi * TILE / a.tx; bx <= bx1; ++bx)
     flagged |= a.yflags[(long long)bx * nty + by] != 0;
-  int n_alive = 0;
-  unsigned long long bits = 0;      // the alive slots, up to 64 slots
-  if (valid && flagged) {
-#pragma unroll 4
-    for (int s = 0; s < a.cap; ++s)
-      if (alive[(long long)s * a.ncell + cell]) {
-        ++n_alive;
-        if (masked) bits |= 1ull << s;
-      }
-  }
-  const long long tile0 = ((long long)bi * nby + bj) * PP;
-  const long long cstride = (long long)nbx * nby * PP;
-  if (!__syncthreads_or(n_alive)) {
-    for (int e = tid; e < NC * PP; e += TILE * TILE) {
-      const long long g = (e / PP) * cstride + tile0 + e % PP;
-      a.rims_out[g] = a.rims_in ? a.rims_in[g] : T(0);
-    }
-    return;
-  }
-  for (int e = tid; e < NC * PP; e += TILE * TILE) {
-    const long long g = (e / PP) * cstride + tile0 + e % PP;
-    pan[e] = a.rims_in ? a.rims_in[g] : T(0);
-  }
-  T acc[5][5][NC];
-#pragma unroll
-  for (int i = 0; i < 5; ++i)
-#pragma unroll
-    for (int j = 0; j < 5; ++j)
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][j][c] = T(0);
-  const T cdx = a.cdx, cdy = a.cdy, kcd = a.kcd, kfx = a.kfx, kfy = a.kfy;
-  for (int s = 0, left = n_alive; left > 0; ++s) {
-    if (masked) {
-      s = __ffsll(bits) - 1;
-      bits &= bits - 1;
-    } else if (!alive[(long long)s * a.ncell + cell]) {
-      continue;
-    }
-    --left;
-    const long long idx = (long long)s * a.ncell + cell;
-    const T x = a.out.f[FX][idx], y = a.out.f[FY][idx];
-    const T ig = a.ig_out[idx], w = a.out.f[FW][idx];
-    const T vx_c = (a.out.f[FUX][idx] * ig) * cdx;
-    const T vy_c = (a.out.f[FUY][idx] * ig) * cdy;
-    const T vz = (a.out.f[FUZ][idx] * ig) * a.c;
-    T s0x[5], s1x[5], s0y[5], s1y[5];
-    shapes(x - T(ix), vx_c, s0x, s1x);
-    shapes(y - T(iy), vy_c, s0y, s1y);
-    const T cd = kcd * w, fdx = kfx * w, fdy = kfy * w;
-    const T cvz = cd * vz;
-    T run = T(0);
-#pragma unroll
-    for (int oxi = 0; oxi < 5; ++oxi) {
-      run = run + (s1x[oxi] - s0x[oxi]);
-      const T fx = (-fdx) * run;
-      const T dsx = s1x[oxi] - s0x[oxi];
-      const T ax = s0x[oxi] + T(0.5) * dsx;
-      T runy = T(0);
-#pragma unroll
-      for (int oy = 0; oy < 5; ++oy) {
-        const T dsy = s1y[oy] - s0y[oy];
-        runy = runy + dsy;
-        const T gy = (-fdy) * runy;
-        const T by = s0y[oy] + T(0.5) * dsy;
-        acc[oxi][oy][0] += fx * by;
-        acc[oxi][oy][1] += ax * gy;
-        acc[oxi][oy][2] += cvz * (ax * by + (dsx * dsy) / T(12));
-        if constexpr (NC == 4) acc[oxi][oy][3] += (cd * s1x[oxi]) * s1y[oy];
-      }
-    }
-  }
-#pragma unroll
-  for (int oxi = 0; oxi < 5; ++oxi)
-#pragma unroll
-    for (int oy = 0; oy < 5; ++oy) {
-      __syncthreads();
-      if (valid)
-#pragma unroll
-        for (int c = 0; c < NC; ++c)
-          pan[c * PP + (lx + oxi) * PAN + (ly + oy)] += acc[oxi][oy][c];
-    }
-  __syncthreads();
-  for (int e = tid; e < NC * PP; e += TILE * TILE)
-    a.rims_out[(e / PP) * cstride + tile0 + e % PP] = pan[e];
+  DepositIn<T> d;
+  d.alive = a.out.alive;
+  d.x = a.out.f[FX]; d.y = a.out.f[FY];
+  d.ux = a.out.f[FUX]; d.uy = a.out.f[FUY]; d.uz = a.out.f[FUZ];
+  d.ig = a.ig_out; d.w = a.out.f[FW];
+  d.rims_in = a.rims_in;
+  d.rims_out = a.rims_out;
+  d.nx = a.nx; d.ny = a.ny; d.cap = a.cap; d.ncell = a.ncell;
+  d.cdx = a.cdx; d.cdy = a.cdy; d.c = a.c;
+  d.kcd = a.kcd; d.kfx = a.kfx; d.kfy = a.kfy;
+  deposit_panel<T, NC, true>(d, flagged);
 }
 
 template <typename T>

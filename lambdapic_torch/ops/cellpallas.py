@@ -25,8 +25,8 @@ contiguity of its operands and raises on what its kernel does not take.
 
 Plain versions: B4 ``fused_push_cell_2d_plain`` (``gather_cell_2d`` +
 ``boris_push`` + ``push_position_2d``) and ``fused_push_cell_3d_plain``
-(the same with ``gather_cell_3d`` and ``push_position_3d``, the dead
-slots given their dead values), B5
+(the same with ``gather_cell_3d`` and ``push_position_3d``), each with
+the dead slots given their dead values, B5
 ``cell2d.deposit_cell_2d`` and ``cell3d.deposit_cell_3d``, B6
 ``cell2d.migrate_cells`` (fast scheme, Batcher order, two or three
 axes), B7 ``cell2d.batcher_sort``.
@@ -100,8 +100,8 @@ def _check_limits(lib: str) -> None:
 
 def fused_push_cell_2d_plain(eb_pad, x, y, ux, uy, uz, *, q: float,
                              m: float, dt: float, dx: float, dy: float,
-                             g: int, want_eb: bool = False,
-                             do_pos1: bool = True):
+                             g: int, alive: torch.Tensor,
+                             want_eb: bool = False, do_pos1: bool = True):
     """Plain version of kernel B4 (see ``fused_push_cell_2d``)."""
     hx, hy = c_light * dt / dx / 2, c_light * dt / dy / 2
     if do_pos1:
@@ -110,39 +110,49 @@ def fused_push_cell_2d_plain(eb_pad, x, y, ux, uy, uz, *, q: float,
     eb = gather_cell_2d(eb_pad, x, y, g)
     ux, uy, uz, ig = boris_push(ux, uy, uz, *eb, q, m, dt)
     x, y = push_position_2d(x, y, ux, uy, ig, hx, hy)
-    out = (x, y, ux, uy, uz, ig)
-    return out + tuple(eb) if want_eb else out
+    out = (x, y, ux, uy, uz, ig) + (tuple(eb) if want_eb else ())
+    # the dead slots' values: zero floats, inv_gamma 1
+    return tuple(torch.where(alive, t, 1.0 if i == 5 else 0.0)
+                 for i, t in enumerate(out))
 
 
 def fused_push_cell_2d(eb_pad, x, y, ux, uy, uz, *, q: float, m: float,
                        dt: float, dx: float, dy: float, g: int,
-                       want_eb: bool = False, do_pos1: bool = True):
-    """Kernel B4. eb_pad (6, nx+2g, ny+2g); slots (cap, nx, ny), freshly
-    re-binned. With ``do_pos1`` the positions first get a half push at
+                       alive: torch.Tensor, want_eb: bool = False,
+                       do_pos1: bool = True):
+    """Kernel B4. eb_pad (6, nx+2g, ny+2g), g >= 2; slots (cap, nx, ny),
+    freshly re-binned, ``alive`` (bool, the slots' shape) naming the slots
+    to push. With ``do_pos1`` the positions first get a half push at
     inv_gamma = 1/sqrt(1 + u^2); without it they are already at the
     mid-step point (the per-stage step's case). Returns (x, y, ux, uy, uz,
     inv_gamma) after the gather, Boris and the second half push, and with
-    ``want_eb`` also the six gathered components (ex, ey, ez, bx, by, bz)."""
+    ``want_eb`` also the six gathered components (ex, ey, ez, bx, by, bz);
+    every dead slot gets the dead values: 0 in each output, inv_gamma 1."""
     if not _on_card(x, "fused_push_cell_2d"):
         return fused_push_cell_2d_plain(eb_pad, x, y, ux, uy, uz, q=q, m=m,
                                         dt=dt, dx=dx, dy=dy, g=g,
-                                        want_eb=want_eb, do_pos1=do_pos1)
+                                        alive=alive, want_eb=want_eb,
+                                        do_pos1=do_pos1)
     dev, dtype = x.device, x.dtype
     _check_float(dtype, "fused_push_cell_2d")
     if x.ndim != 3:
         raise ValueError("fused_push_cell_2d: 2D slots (cap, nx, ny); 3D "
                          "slots go to fused_push_cell_3d")
+    if g < 2:
+        raise ValueError("fused_push_cell_2d: the gather window needs g >= 2")
     shape = tuple(x.shape)
     cap, nx, ny = shape
     kernel_lib.check(eb_pad, "eb_pad", (6, nx + 2 * g, ny + 2 * g), dtype, dev)
     for name, t in (("x", x), ("y", y), ("ux", ux), ("uy", uy), ("uz", uz)):
         kernel_lib.check(t, name, shape, dtype, dev)
+    kernel_lib.check(alive, "alive", shape, torch.bool, dev)
     outs = [torch.empty(shape, dtype=dtype, device=dev)
             for _ in range(12 if want_eb else 6)]
     ebs = outs[6:] if want_eb else [None] * 6
     cdx, cdy = c_light * dt / dx, c_light * dt / dy
     kernel_lib.call(
-        "push2d", "lp_push_2d", [eb_pad, x, y, ux, uy, uz] + outs[:6] + ebs,
+        "push2d", "lp_push_2d",
+        [eb_pad, x, y, ux, uy, uz] + outs[:6] + ebs + [alive],
         [cap, nx, ny, g, want_eb, do_pos1, dtype == torch.float64],
         [cdx / 2, cdy / 2, q * dt / (2 * m * c_light), q * dt / (2 * m)], dev)
     fused_push_cell_2d.launches += 1
@@ -225,14 +235,34 @@ fused_push_cell_3d.launches_by_mode = dict.fromkeys(PUSH_MODES, 0)
 # ----------------------------------------------------------------------
 
 def deposit_cell_2d_k(x, y, ux, uy, uz, inv_gamma, w, *, q: float,
-                      dx: float, dy: float, dt: float, g: int
-                      ) -> torch.Tensor:
+                      dx: float, dy: float, dt: float, g: int,
+                      alive: torch.Tensor) -> torch.Tensor:
     """Kernel B5, the contract of ``cell2d.deposit_cell_2d`` (home-cell
     binned slots, dead slots with w == 0): the padded (4, nx+2g, ny+2g)
-    jx, jy, jz, rho of one species."""
+    jx, jy, jz, rho of one species. ``alive`` (bool, the slots' shape)
+    names the depositing slots, so the kernel reads one byte a slot and
+    no dead slot's payload; the plain version needs no mask (its dead
+    slots add w = 0)."""
     if not _on_card(x, "deposit_cell_2d_k"):
         return deposit_cell_2d(x, y, ux, uy, uz, inv_gamma, w, q=q, dx=dx,
                                dy=dy, dt=dt, g=g)
+    return _deposit_panels_2d(x, y, ux, uy, uz, inv_gamma, w, q=q, dx=dx,
+                              dy=dy, dt=dt, g=g, alive=alive)[0]
+
+
+def _deposit_panels_2d(x, y, ux, uy, uz, inv_gamma, w, *, q: float,
+                       dx: float, dy: float, dt: float, g: int,
+                       alive: torch.Tensor):
+    """Kernel B5's launch on CUDA tensors, for ``deposit_cell_2d_k`` and
+    the test that holds B5's tile panels against B2's: (jpad, panels
+    (4, nbx, nby, 20, 20), flags (nbx * nby,) uint8). A panel is written
+    only where its tile's flag is 1 (the tile holds an alive slot; the
+    others hold whatever the allocation held); it is then bit for bit
+    kernel B2's deposit2 panel of the same slots
+    (csrc/cell2d.cuh::deposit_panel)."""
+    if not _on_card(x, "deposit_cell_2d_k"):
+        raise ValueError("deposit_cell_2d_k: the kernel's panels exist on "
+                         "the card only")
     dev, dtype = x.device, x.dtype
     _check_float(dtype, "deposit_cell_2d_k")
     if x.ndim != 3:
@@ -246,16 +276,19 @@ def deposit_cell_2d_k(x, y, ux, uy, uz, inv_gamma, w, *, q: float,
     for name, t in (("x", x), ("y", y), ("ux", ux), ("uy", uy), ("uz", uz),
                     ("inv_gamma", inv_gamma), ("w", w)):
         kernel_lib.check(t, name, shape, dtype, dev)
-    panels = torch.empty(panel_shape(4, nx, ny), dtype=dtype, device=dev)
+    kernel_lib.check(alive, "alive", shape, torch.bool, dev)
+    pshape = panel_shape(4, nx, ny)
+    panels = torch.empty(pshape, dtype=dtype, device=dev)
+    flags = torch.empty(pshape[1] * pshape[2], dtype=torch.uint8, device=dev)
     jpad = torch.empty((4, nx + 2 * g, ny + 2 * g), dtype=dtype, device=dev)
     kernel_lib.call(
         "deposit2d", "lp_deposit_2d",
-        [x, y, ux, uy, uz, inv_gamma, w, panels, jpad],
+        [x, y, ux, uy, uz, inv_gamma, w, panels, jpad, alive, flags],
         [cap, nx, ny, g, dtype == torch.float64],
         [c_light * dt / dx, c_light * dt / dy, c_light, q / (dx * dy),
          q / (dy * dt), q / (dx * dt)], dev)
     deposit_cell_2d_k.launches += 1
-    return jpad
+    return jpad, panels, flags
 
 
 deposit_cell_2d_k.launches = 0

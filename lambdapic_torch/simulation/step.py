@@ -326,14 +326,14 @@ class StepBuilder:
             # gather + Boris + half push in kernel B4; a radiating species
             # also gets the gathered fields for its QED events, which read
             # the pre-push momenta still in ``data``
+            # B4 pushes the alive slots only and gives the dead ones its
+            # dead values (see csrc/push2d.cu, csrc/push3d.cu)
             kw = dict(q=sp.q, m=sp.m, dt=dt, dx=grid.dx, dy=grid.dy, g=g,
-                      want_eb=bool(procs), do_pos1=False)
+                      alive=alive, want_eb=bool(procs), do_pos1=False)
             if three_d:
-                # B4 3D pushes the alive slots only and gives the dead
-                # ones its dead values (see csrc/push3d.cu)
                 outs = fused_push_cell_3d(eb_pad, *pos, data["ux"],
                                           data["uy"], data["uz"],
-                                          dz=grid.dz, alive=alive, **kw)
+                                          dz=grid.dz, **kw)
             else:
                 outs = fused_push_cell_2d(eb_pad, *pos, data["ux"],
                                           data["uy"], data["uz"], **kw)
@@ -373,10 +373,11 @@ class StepBuilder:
         jpad = None
         if sp.q != 0.0 and "deposit" in stages:
             w = torch.where(alive, data["w"], 0.0)
-            kw = dict(q=sp.q, dx=grid.dx, dy=grid.dy, dt=dt, g=g)
+            kw = dict(q=sp.q, dx=grid.dx, dy=grid.dy, dt=dt, g=g,
+                      alive=alive)
             if three_d:
                 jpad = deposit_cell_3d_k(*pos, ux, uy, uz, ig, w, dz=grid.dz,
-                                         alive=alive, **kw)
+                                         **kw)
             else:
                 jpad = deposit_cell_2d_k(*pos, ux, uy, uz, ig, w, **kw)
         return p.replace(data=data, alive=alive,

@@ -3,7 +3,8 @@
 JAX package's functions, on the same numpy-seeded inputs (float64, CPU).
 
 - B4 plain vs JAX gather_cell_2d + boris_push + push_position_2d (the
-  first half push at 1/sqrt(1 + u^2) when do_pos1);
+  first half push at 1/sqrt(1 + u^2) when do_pos1) on the alive slots,
+  the dead values (0, inv_gamma 1) in the dead ones;
 - B5 plain vs JAX deposit_cell_2d: 1e-12 of the current's peak (the slot
   sums run in another order);
 - the exact migrate_cells vs JAX migrate_cells(exact=True), slot for slot
@@ -75,16 +76,23 @@ def test_b4_plain_matches_jax(want_eb, do_pos1):
         jnp.asarray(eb_pad), *(jnp.asarray(a) for a in args)))))
     targs = [torch.as_tensor(a) for a in args]
     kw = dict(q=Q, m=M, dt=DT, dx=DX, dy=DX, g=G, want_eb=want_eb,
-              do_pos1=do_pos1)
+              do_pos1=do_pos1, alive=torch.as_tensor(alive))
     got = t_cp.fused_push_cell_2d_plain(torch.as_tensor(eb_pad), *targs, **kw)
+    assert len(got) == len(names)
     got = dict(zip(names, (t.numpy() for t in got)))
-    everywhere = np.ones_like(alive)
-    compare_slots({**want, **_ids(data)}, everywhere,
-                  {**got, **_ids(data)}, everywhere, rtol=1e-11, keys=names)
+    compare_slots({**want, **_ids(data)}, alive, {**got, **_ids(data)},
+                  alive, rtol=1e-11, keys=names)
+    # every dead slot holds the dead values
+    assert (~alive).any()
+    for k in names:
+        dead = 1.0 if k == "inv_gamma" else 0.0
+        np.testing.assert_array_equal(got[k][~alive], dead, err_msg=k)
+    # the fields reach the particles
+    assert np.abs(got["ux"] - data["ux"]).max() > 0.1
     # the wrapper takes the plain version for CPU tensors
-    before = t_cp.fused_push_cell_2d.launches
+    before = dict(t_cp.fused_push_cell_2d.launches_by_mode)
     again = t_cp.fused_push_cell_2d(torch.as_tensor(eb_pad), *targs, **kw)
-    assert t_cp.fused_push_cell_2d.launches == before
+    assert t_cp.fused_push_cell_2d.launches_by_mode == before
     for k, t in zip(names, again):
         np.testing.assert_array_equal(t.numpy(), got[k], err_msg=k)
 
@@ -97,7 +105,10 @@ def test_b5_plain_matches_jax():
     kw = dict(q=Q, dx=DX, dy=0.8 * DX, dt=DT, g=G)
     ref = np.asarray(jax.jit(lambda *a: deposit_cell_2d(*a, **kw))(
         *(jnp.asarray(a) for a in args)))
-    got = t_cp.deposit_cell_2d_k(*(torch.as_tensor(a) for a in args), **kw)
+    before = t_cp.deposit_cell_2d_k.launches
+    got = t_cp.deposit_cell_2d_k(*(torch.as_tensor(a) for a in args),
+                                 alive=torch.as_tensor(alive), **kw)
+    assert t_cp.deposit_cell_2d_k.launches == before
     assert got.shape == ref.shape == (4, 20 + 2 * G, 36 + 2 * G)
     np.testing.assert_allclose(got.numpy(), ref, rtol=0,
                                atol=1e-12 * np.abs(ref).max())

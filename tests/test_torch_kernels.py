@@ -12,12 +12,14 @@ the peak. The kernels are compiled without multiply-add contraction, so
 they round like the plain versions; only the current sums run in
 another order.
 
-The per-stage kernels (2D): B4 (default and want_eb modes) to rtol 1e-11
-of each output (the plain version's operations, in its order); B5 to
-1e-12 of the current's peak (the sums run in another order); B6 and B7
-move data and merge in the plain version's order, so every output array
-is equal to the plain version's, dead slots included. In float32: B4
-rtol 1e-5, B5 1e-5 of the peak, B6 and B7 equal.
+The per-stage kernels (2D): B4 (default and want_eb modes, given the
+alive mask) bitwise in every output (the plain version's operations, in
+its order; the dead values 0 and inv_gamma 1 in every dead slot); B5
+(given the mask) to 1e-12 of the current's peak (the sums run in another
+order), its J repeating bit for bit and its panels bit for bit B2's;
+B6 and B7 move data and merge in the plain version's order, so every
+output array is equal to the plain version's, dead slots included. In
+float32: B4 bitwise, B5 1e-5 of the peak, B6 and B7 equal.
 """
 import numpy as np
 import pytest
@@ -427,36 +429,36 @@ STAGE_CASES = [
 ]
 
 
+def _b4_check(cp, eb, args, ta, dtype, **kw):
+    """B4 2D against its plain version, launch counted by mode: every
+    output bitwise in float64 and float32; every dead slot's dead values
+    exactly (0, inv_gamma 1)."""
+    ref = cp.fused_push_cell_2d_plain(eb, *args, alive=ta, **kw)
+    mode = "want_eb" if kw["want_eb"] else "default"
+    before = dict(cp.fused_push_cell_2d.launches_by_mode)
+    got = cp.fused_push_cell_2d(eb, *args, alive=ta, **kw)
+    torch.cuda.synchronize()
+    assert cp.fused_push_cell_2d.launches_by_mode[mode] == before[mode] + 1
+    assert len(got) == len(ref) == (12 if kw["want_eb"] else 6)
+    for i, (a, b) in enumerate(zip(got, ref)):
+        assert torch.equal(a, b), (i, dtype)
+        assert bool((a[~ta] == (1.0 if i == 5 else 0.0)).all()), i
+    assert bool(torch.isfinite(got[5]).all())
+
+
 @pytest.mark.parametrize("want_eb", [False, True])
-@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-11),
-                                        (torch.float32, 1e-5)])
-def test_b4_matches_plain(cuda, want_eb, dtype, rtol):
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_b4_matches_plain(cuda, want_eb, dtype):
+    """The alive slots pushed and the dead ones given the dead values;
+    with and without the first half push."""
     from lambdapic_torch.ops import cellpallas as cp
     data, alive, eb = random_cell_state(5, 33, 18, seed=7, field=5e13)
-    td, _ = to_torch(data, alive, dtype, cuda)
+    td, ta = to_torch(data, alive, dtype, cuda)
     args = [td[k] for k in ("x", "y", "ux", "uy", "uz")]
     eb = torch.as_tensor(eb, dtype=dtype).to(cuda)
     for do_pos1 in (False, True):
-        kw = dict(q=Q, m=M, dt=DT, dx=DX, dy=0.9 * DX, g=3, want_eb=want_eb,
-                  do_pos1=do_pos1)
-        ref = cp.fused_push_cell_2d_plain(eb, *args, **kw)
-        before = dict(cp.fused_push_cell_2d.launches_by_mode)
-        got = cp.fused_push_cell_2d(eb, *args, **kw)
-        torch.cuda.synchronize()
-        mode = "want_eb" if want_eb else "default"
-        assert cp.fused_push_cell_2d.launches_by_mode[mode] == before[mode] + 1
-        assert len(got) == len(ref) == (12 if want_eb else 6)
-        for a, b in zip(got, ref):
-            torch.testing.assert_close(a, b, rtol=rtol,
-                                       atol=1e-14 * float(b.abs().max()))
-        # dead slots (x = y = u = 0) away from the low faces gather no
-        # field and leave inv_gamma 1 (within 2 cells of them, x = y = 0 is
-        # within the stencil and they gather, as in the plain version)
-        dead = ~torch.as_tensor(alive).to(cuda)
-        dead[:, :3] = False
-        dead[:, :, :3] = False
-        assert bool((got[5][dead] == 1).all())
-        assert bool(torch.isfinite(got[5]).all())
+        _b4_check(cp, eb, args, ta, dtype, q=Q, m=M, dt=DT, dx=DX,
+                  dy=0.9 * DX, g=3, want_eb=want_eb, do_pos1=do_pos1)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
@@ -472,11 +474,101 @@ def test_b5_matches_plain(cuda, dtype, tol):
         kw = dict(q=Q, dx=DX, dy=1.1 * DX, dt=DT, g=g)
         ref = deposit_cell_2d(*args, w, **kw)
         before = cp.deposit_cell_2d_k.launches
-        got = cp.deposit_cell_2d_k(*args, w, **kw)
+        got = cp.deposit_cell_2d_k(*args, w, alive=ta, **kw)
         torch.cuda.synchronize()
         assert cp.deposit_cell_2d_k.launches == before + 1
         torch.testing.assert_close(got, ref, rtol=0,
                                    atol=tol * float(ref.abs().max()))
+
+
+# B4 2D and B5 2D at their edges, float64 against their plain versions.
+# Random states (cap, nx, ny, g, n_frac):
+#  ragged      neither B4's 8 x 32 tiles nor B5's 16 x 16 divide the grid;
+#  above_64    70 slots a cell (the exact QED slice's electrons): the
+#              alive bytes read a round at a time, B5's count path;
+#  above_128   130 slots a cell, all alive;
+#  long_x      nx + 2g over 65535 padded rows, more than B5's fold_pad
+#              has blocks along y: each block folds every 65535th row.
+B45_EDGE_CASES = {"ragged": (6, 13, 70, 2, 0.5),
+                  "above_64": (70, 9, 35, 3, 0.9),
+                  "above_128": (130, 5, 9, 3, 1.0),
+                  "long_x": (2, 65600, 3, 2, 0.5)}
+# 40 x 70 cells of 6 slots, one occupied cell (cell, its alive slots) or
+# none: ``empty`` every tile writes its dead values (B4) or no panel
+# (B5); ``corner`` the cell where four tiles of each kernel meet (B4's
+# and B5's tiles both have a corner at (16, 32)); ``corner_below`` the
+# cell diagonally below it
+B45_CORNER_CASES = {"empty": (None, 0), "corner": ((16, 32), 4),
+                    "corner_below": ((15, 31), 5)}
+
+
+@pytest.mark.parametrize("name", list(B45_EDGE_CASES) +
+                         list(B45_CORNER_CASES))
+def test_b4_b5_edges_match_plain(cuda, name):
+    from lambdapic_torch.ops import cellpallas as cp
+    from lambdapic_torch.ops.cell2d import deposit_cell_2d
+    from lambdapic_torch.testing import occupied_cell_state
+    if name in B45_EDGE_CASES:
+        cap, nx, ny, g, n_frac = B45_EDGE_CASES[name]
+        data, alive, eb = random_cell_state(cap, nx, ny, g=g, seed=cap + nx,
+                                            n_frac=n_frac, field=5e13)
+    else:
+        cell, per_cell = B45_CORNER_CASES[name]
+        occ = np.zeros((40, 70), bool)
+        if cell is not None:
+            occ[cell] = True
+        g = 3
+        data, alive, eb = occupied_cell_state(6, occ, per_cell, seed=2,
+                                              field=5e13)
+    if name == "above_128":
+        assert int(alive.sum(0).max()) > 128
+    td, ta = to_torch(data, alive, torch.float64, cuda)
+    args = [td[k] for k in ("x", "y", "ux", "uy", "uz")]
+    eb = torch.as_tensor(eb).to(cuda)
+    for want_eb in (False, True):
+        _b4_check(cp, eb, args, ta, torch.float64, q=Q, m=M, dt=DT, dx=DX,
+                  dy=0.9 * DX, g=g, want_eb=want_eb, do_pos1=True)
+    w = torch.where(ta, td["w"], 0.0)
+    a7 = [td[k] for k in ("x", "y", "ux", "uy", "uz", "inv_gamma")] + [w]
+    kw = dict(q=Q, dx=DX, dy=1.1 * DX, dt=DT, g=g)
+    ref = deposit_cell_2d(*a7, **kw)
+    got = cp.deposit_cell_2d_k(*a7, alive=ta, **kw)
+    torch.testing.assert_close(got, ref, rtol=0,
+                               atol=1e-12 * float(ref.abs().max()))
+    if name == "empty":
+        assert float(got.abs().max()) == 0
+    else:
+        assert float(ref.abs().max()) > 0
+
+
+def test_b5_repeats_and_matches_b2_panels(cuda):
+    """B5 2D sums in a fixed order: two identical calls give the same J
+    bit for bit, in float64 and float32. Its panels are bit for bit those
+    of B2 2D's deposit2 on the same slots (one routine,
+    csrc/cell2d.cuh::deposit_panel): B2 runs a step of a sparse state,
+    B5 deposits B2's output slots; a tile flagged by B5 holds B2's panel,
+    and B2's panel of every other tile is zero."""
+    from lambdapic_torch.ops import cellpallas as cp
+    for case, cap in (("band", 8), ("corner", 8), ("crowded", 20)):
+        data, alive, eb, per = sparse_cell_state(case, cap, seed=1)
+        for dtype in (torch.float64, torch.float32):
+            td, ta = to_torch(data, alive, dtype, cuda)
+            ebt = torch.as_tensor(eb, dtype=dtype).to(cuda)
+            out, oa, _, rims = cell_step(ebt, td, ta, q=Q, m=M, dt=DT, dx=DX,
+                                         dy=DX, g=3, periodic=per,
+                                         with_rho=True)[:4]
+            w = torch.where(oa, out["w"], 0.0)
+            a7 = [out[k] for k in ("x", "y", "ux", "uy", "uz",
+                                   "inv_gamma")] + [w]
+            kw = dict(q=Q, dx=DX, dy=DX, dt=DT, g=3, alive=oa)
+            jpad, pan, flags = cp._deposit_panels_2d(*a7, **kw)
+            again = cp.deposit_cell_2d_k(*a7, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(jpad, again), (case, dtype)
+            f = flags.view(pan.shape[1], pan.shape[2]).bool()
+            assert 0 < int(f.sum()) < f.numel(), case
+            assert torch.equal(pan[:, f], rims[:, f]), (case, dtype)
+            assert bool((rims[:, ~f] == 0).all()), (case, dtype)
 
 
 def _stage_state(cap, nx, ny, n_frac, dtype, device, photon=False):
@@ -548,14 +640,19 @@ def test_per_stage_wrappers_reject_bad_operands(cuda):
     with pytest.raises(ValueError):
         cp.fused_push_cell_2d(eb, td["x"].float(), td["y"], td["ux"],
                               td["uy"], td["uz"], q=Q, m=M, dt=DT, dx=DX,
-                              dy=DX, g=3)
+                              dy=DX, g=3, alive=ta)
+    with pytest.raises(ValueError):
+        cp.fused_push_cell_2d(eb, td["x"], td["y"], td["ux"], td["uy"],
+                              td["uz"], q=Q, m=M, dt=DT, dx=DX, dy=DX, g=3,
+                              alive=ta.to(torch.uint8))
     with pytest.raises(ValueError):
         cp.sort_cells(torch.zeros((4, 16, 16), dtype=torch.int64,
                                   device=cuda), [])
     with pytest.raises(ValueError):
         cp.deposit_cell_2d_k(*[td[k].transpose(1, 2) for k in ("x", "y", "ux", "uy",
                                                    "uz", "inv_gamma", "w")],
-                             q=Q, dx=DX, dy=DX, dt=DT, g=3)
+                             q=Q, dx=DX, dy=DX, dt=DT, g=3,
+                             alive=ta.transpose(1, 2))
 
 
 def test_per_stage_simulation_on_card_matches_cpu(cuda):
