@@ -106,7 +106,8 @@ Phases (any failure exits non-zero):
 11. the tiled 2D engine, right after phase 7: B8 and B9 against their
    plain versions (float64 at small sizes: dead slots, the drift band's
    edges, drifts of 1 and 3 cells, tiles of 8 x 8, 16 x 8 and 32 x 32,
-   cap_t 300 and 16,384), bench.py's laser-target in its --tiling 32,32
+   cap_t 300 and 16,384, and the fill's cell-by-cell layout with a row of
+   empty tiles), bench.py's laser-target in its --tiling 32,32
    form (768 x 768 cells, electrons and protons at ppc 10 for x > Lx/3,
    rebin_interval 4, n_guard 5, capacity factor 1.6, SimpleLaser2D
    a0=30, float32, seed 0) for --steps-tiled (400) steps through
@@ -3814,6 +3815,9 @@ FLOPS_B8, FLOPS_B9 = 700, 600
 # 1 and 3 cells, a cap_t that is not a multiple of 256, bench's 16,384
 TILED_CASES = [(8, 8, 4, 3, 3, 300), (16, 8, 3, 4, 5, 256),
                (32, 32, 2, 3, 5, 16384)]
+# the fill's layout (testing.tiled_fill_state: ten particles a cell, cell
+# by cell, the tiles of x index 0 empty) at bench's tiles and cap_t
+TILED_FILL_CASE = (32, 32, 3, 2, 5, 16384)
 # bench.py's qed configuration (bench.py:243-258) in its --tiling 32,32
 # form, the grid cut from 768^2 for time
 TILED_QED_NX = 256
@@ -3853,13 +3857,16 @@ def make_slice_tiled(dev, qed=False, nx=TILED["nx"]):
     return sim, SimpleLaser2D(a0=30, w0=3 * um, ctau=8 * um)
 
 
-def _tiled_inputs(case, dtype, dev, seed):
+def _tiled_inputs(case, dtype, dev, seed, fill=False):
     import torch
     from lambdapic_torch.ops.tiled2d import TileCfg
-    from lambdapic_torch.testing import tiled_state, to_torch
+    from lambdapic_torch.testing import tiled_fill_state, tiled_state, to_torch
     tx, ty, ntx, nty, h, cap = case
     cfg = TileCfg(tx=tx, ty=ty, ntx=ntx, nty=nty, cap_t=cap, h=h)
-    d, alive, eb_pad = tiled_state(cfg, seed=seed, drift=h - 2)
+    if fill:
+        d, alive, eb_pad = tiled_fill_state(cfg, seed=seed, first_tile=1)
+    else:
+        d, alive, eb_pad = tiled_state(cfg, seed=seed, drift=h - 2)
     d, alive = to_torch(d, alive, dtype, dev)
     return cfg, d, alive, torch.as_tensor(eb_pad, dtype=dtype).to(dev)
 
@@ -3896,14 +3903,18 @@ def b9_err(got, ref, tol):
 def check_tiled_f64(dev):
     """[kernels tiled], float64: B8 and B9 against their plain versions on
     TILED_CASES (dead slots, the drift band's edges, drifts of 1 and 3
-    cells, cap_t 300 and 16,384, tiles of 8 x 8, 16 x 8 and 32 x 32).
-    B8 rtol 1e-12 with a floor of 1e-14 of each component's peak; B9
-    1e-12 of each channel's peak."""
+    cells, cap_t 300 and 16,384, tiles of 8 x 8, 16 x 8 and 32 x 32) and
+    on TILED_FILL_CASE (the fill's cell-by-cell layout, empty tiles). B8
+    rtol 1e-12 with a floor of 1e-14 of each component's peak; B9 1e-12
+    of each channel's peak (w set to 7 in the dead slots, which the mask
+    keeps out)."""
     import torch
     from lambdapic_torch.ops import tiled2d_kernels as tk
     dt = 0.95 / np.sqrt(2 * 5e-8**-2) / 2.99792458e8
-    for case in TILED_CASES:
-        cfg, d, alive, eb_pad = _tiled_inputs(case, torch.float64, dev, 1)
+    for case, fill in [(c, False) for c in TILED_CASES] + [
+            (TILED_FILL_CASE, True)]:
+        cfg, d, alive, eb_pad = _tiled_inputs(case, torch.float64, dev, 1,
+                                              fill)
         got = tk.gather_tiled_k(eb_pad, d["x"], d["y"], cfg)
         torch.cuda.synchronize()
         e8 = b8_err(got, tk.gather_tiled_plain(eb_pad, d["x"], d["y"], cfg),
@@ -3912,28 +3923,30 @@ def check_tiled_f64(dev):
         dead[0, 0] = False
         if any(float(g[dead].abs().max()) != 0 for g in got):
             fail(f"B8 f64 {case}: a dead slot gathered a nonzero field")
-        w = torch.where(alive, d["w"], 0.0)
-        args = [d[k] for k in ("x", "y", "ux", "uy", "uz", "inv_gamma")] + [w]
+        w = torch.where(alive, d["w"], 7.0)
+        args = [d[k] for k in ("x", "y", "ux", "uy", "uz", "inv_gamma")] + [
+            w, alive]
         kw = dict(q=-1.602e-19, dx=5e-8, dy=5e-8, dt=dt)
         got = tk.deposit_tiled_k(*args, cfg, **kw)
         torch.cuda.synchronize()
-        e9 = b9_err(got, tk.deposit_tiled(*args, cfg, **kw), 1e-12)
-        log(f"[kernels tiled f64] tiles {case[:2]}, h {case[4]}, cap_t "
-            f"{case[5]}: B8 max abs {e8:.3e}, B9 max abs {e9:.3e}")
+        e9 = b9_err(got, tk.deposit_tiled_plain(*args, cfg, **kw), 1e-12)
+        log(f"[kernels tiled f64] {'fill, ' if fill else ''}tiles "
+            f"{case[:2]}, h {case[4]}, cap_t {case[5]}: B8 max abs "
+            f"{e8:.3e}, B9 max abs {e9:.3e}")
         del got, d, alive, eb_pad
 
 
 def tiled_operands(sim, ispec=0):
     """B8's and B9's operands at a tiled Simulation's state, species
-    ``ispec``: (cfg, eb_pad, x, y, deposit args, deposit kw)."""
+    ``ispec``: (cfg, eb_pad, deposit args (x, y, ux, uy, uz, inv_gamma,
+    w, alive), deposit kw)."""
     import dataclasses
-    import torch
     p = sim.state.particles[ispec]
     sp = sim._species_static[ispec]
     cfg = dataclasses.replace(sim._builder.tile_cfg, cap_t=p.cap)
     d = p.data
-    w = torch.where(p.alive, d["w"], 0.0)
-    args = [d["x"], d["y"], d["ux"], d["uy"], d["uz"], d["inv_gamma"], w]
+    args = [d["x"], d["y"], d["ux"], d["uy"], d["uz"], d["inv_gamma"],
+            d["w"], p.alive]
     kw = dict(q=sp.q, dx=sim.dx, dy=sim.dy, dt=sim.dt)
     return cfg, sim._builder.pad_eb(sim.state.fields), args, kw
 
@@ -3957,7 +3970,7 @@ def check_tiled_f32(sim, ispec=0, tag="kernels tiled f32"):
     torch.cuda.empty_cache()
     got = tk.deposit_tiled_k(*args, cfg, **kw)
     torch.cuda.synchronize()
-    e9 = b9_err(got, tk.deposit_tiled(*args, cfg, **kw), 1e-4)
+    e9 = b9_err(got, tk.deposit_tiled_plain(*args, cfg, **kw), 1e-4)
     log(f"[{tag}] {sim.species[ispec].name}: {cfg.ntx} x {cfg.nty} tiles "
         f"of {cfg.cap_t} slots "
         f"({int(sim.state.particles[ispec].alive.sum())} alive): B8 max abs "
@@ -4068,35 +4081,47 @@ def run_tiled_steps(sim, laser, n, ids, ov):
     return gone
 
 
+def tiled_bounds(cfg, alive, eb_numel, isz):
+    """{"B8": (bound ms, bytes, by), "B9": ...} of B8 and B9 on a tiled
+    species' slots: B8 eb_pad read once, x and y read and six components
+    written at every slot; B9 (mask form) the mask read once, seven reals
+    of each alive slot read and the four windows written once. The flops
+    of the alive particles over F32_FLOPS bound them where larger."""
+    slots, n_alive = alive.numel(), int(alive.sum())
+    win = cfg.ntx * cfg.nty * cfg.wx * cfg.wy
+    out = {}
+    for k, nbytes, flops in (
+            ("B8", (eb_numel + 8 * slots) * isz, n_alive * FLOPS_B8),
+            ("B9", slots + (7 * n_alive + 4 * win) * isz,
+             n_alive * FLOPS_B9)):
+        b_ms, o_ms = nbytes / HBM_BPS * 1e3, flops / F32_FLOPS * 1e3
+        out[k] = (max(b_ms, o_ms), nbytes,
+                  "bytes" if b_ms >= o_ms else "operations")
+    return out
+
+
 def tiled_rows(sim, args, launches, errs):
     """[time B8] and [time B9] at the slice's end state (the electrons),
     with their plain versions timed once and their bounds counted from
-    the state; returns the kernels line's rows."""
+    the state (tiled_bounds); returns the kernels line's rows."""
     import torch
     from lambdapic_torch.ops import tiled2d_kernels as tk
     cfg, eb_pad, dargs, kw = tiled_operands(sim)
     p = sim.state.particles[0]
-    isz = p.data["x"].element_size()
     slots, n_alive = p.alive.numel(), int(p.alive.sum())
-    win = cfg.ntx * cfg.nty * cfg.wx * cfg.wy
+    bounds = tiled_bounds(cfg, p.alive, eb_pad.numel(),
+                          p.data["x"].element_size())
     rows = []
-    for k, fn, plain, nbytes, flops in (
+    for k, fn, plain in (
             ("B8", lambda: tk.gather_tiled_k(eb_pad, dargs[0], dargs[1], cfg),
-             lambda: tk.gather_tiled_plain(eb_pad, dargs[0], dargs[1], cfg),
-             # eb_pad read once, x and y read and six components written
-             # at every slot
-             (eb_pad.numel() + 8 * slots) * isz, n_alive * FLOPS_B8),
+             lambda: tk.gather_tiled_plain(eb_pad, dargs[0], dargs[1], cfg)),
             ("B9", lambda: tk.deposit_tiled_k(*dargs, cfg, **kw),
-             lambda: tk.deposit_tiled(*dargs, cfg, **kw),
-             # w of every slot, the six other reals of the alive slots
-             # (B9 skips w = 0), the four windows written
-             (slots + 6 * n_alive + 4 * win) * isz, n_alive * FLOPS_B9)):
+             lambda: tk.deposit_tiled_plain(*dargs, cfg, **kw))):
         dev_ms, wall = kernel_ms(fn, args.iters, k)
         ms = dev_ms or wall
         plain_ms = cuda_time(plain, 1)
         torch.cuda.empty_cache()
-        b_ms, o_ms = nbytes / HBM_BPS * 1e3, flops / F32_FLOPS * 1e3
-        bound = max(b_ms, o_ms)
+        bound, nbytes, bound_by = bounds[k]
         log(f"[time {k}] device {ms:.4f} ms per launch, wall {wall:.4f} ms "
             f"per call, plain {plain_ms:.3f} ms; bound {bound:.4f} ms "
             f"({nbytes} bytes, {n_alive} of {slots} slots alive)")
@@ -4109,8 +4134,7 @@ def tiled_rows(sim, args, launches, errs):
                       "B9": "lambdapic_tpu/ops/tiled2d_pallas.py:282"}[k],
             launches=launches[k], max_abs_err=errs[k], ms=ms,
             timing=kernel_ms.method, plain_ms=plain_ms, bound_ms=bound,
-            bound_by="bytes" if b_ms >= o_ms else "operations",
-            library_ms=None))
+            bound_by=bound_by, library_ms=None))
     return rows
 
 

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Time the one-device kernels B2 and B3, the per-stage kernels B4 and
-B5 (3D and 2D), the re-binning kernel B6 (and K7) and the 3D fold B3
-(and K5) of a lambdapic_torch tree, and the 3D QED slice's per-stage
-steps that run B4 3D and B5 3D.
+B5 (3D and 2D), the re-binning kernel B6 (and K7), the 3D fold B3 (and
+K5) and the tiled engine's B8 and B9 of a lambdapic_torch tree, and the
+3D QED slice's per-stage steps that run B4 3D and B5 3D.
 
     python3 kernel_ab.py ROOT [b2] [stage3] [steps3d] [migrate2]
-                         [migrate3] [variants] [fold3] [stage2]
+                         [migrate3] [variants] [fold3] [stage2] [tiled]
 
 ROOT is the directory that holds the ``lambdapic_torch`` package to time
 (``.`` for this checkout; an unpacked ``git archive <commit>
@@ -125,6 +125,29 @@ ablations of FOLD3_ABLATIONS whose texts the tree's fold3d.cu holds
 library is held bit for bit against the tree's after them). Bounds: the
 panels read once and J written once over 3.35 TB/s; K5 adds its strips.
 
+Group ``tiled``: B8 (``gather_tiled_k``) and B9 (``deposit_tiled_k``)
+at bench.py's ``--tiling 32,32`` shapes (24 x 24 tiles of 32 x 32 cells,
+halo 5, cap_t 16,384, float32, the electrons' charge, the tiled slice's
+dx and dt) on three states made by ``lambdapic_torch/testing.py``:
+``fill`` (``tiled_fill_state``: each tile of x index 8 or more holds
+10,240 alive slots, ten a cell, cell by cell, as ``bin_tiled`` leaves the
+fill; the first third of the tiles empty), ``shuffled`` (the same
+particles in random slot order) and ``random`` (``tiled_state``'s: 40% of
+every tile's slots alive, drift 3 cells). A tree whose B9 takes the alive
+mask is given it; the parent's is given w zeroed in the dead slots.
+Lines ``AB-tiled <state> <kernel> <ms>`` (CUDA events) with the bound of
+``chip_smoke.tiled_bounds`` (the one ``chip_smoke.py::tiled_rows``
+prints), ``AB-split`` per ``__global__`` function, ``AB-tiled <state>
+write6`` (B8's six output arrays zero-filled by torch: the floor of its
+writes on this card) and the ablations of TILED_ABLATIONS whose texts the
+tree's sources hold (built beside it by text substitution; timing floors,
+their results are not checked): B9 ``stores`` (the shared-memory atomic
+adds made as plain read-modify-writes) and ``interleaved`` (lanes walk
+the alive list interleaved, as the parent's threads walked the slots); B8
+``noload`` (no window load). ``AB-sass`` lines count the shared-memory
+atomic opcodes (``ATOMS.*``) in the tree's built B9 library, from
+``cuobjdump -sass``.
+
 Group ``variants``: on a tree whose 2D slots run the tile kernel, B6
 (and K7) of each variant of VARIANTS (tile shapes, the dead-tile
 shortcut, the inv_gamma sum, blocks an SM) on migrate2's and migrate3's
@@ -215,7 +238,7 @@ def make_state(name, cap, n):
 STEPS3D_FUSED, STEPS3D_WARM, STEPS3D_TIMED = 200, 2, 5
 
 GROUPS = ("b2", "stage3", "steps3d", "migrate2", "migrate3", "variants",
-          "fold3", "stage2")
+          "fold3", "stage2", "tiled")
 
 
 def main() -> int:
@@ -247,6 +270,8 @@ def main() -> int:
         time_fold3(dev)
     if "stage2" in groups:
         time_stage2(dev)
+    if "tiled" in groups:
+        time_tiled(dev)
     return 0
 
 
@@ -1022,6 +1047,124 @@ def time_fold3(dev):
               flush=True)
     del shards
     torch.cuda.empty_cache()
+
+
+
+# bench.py's --tiling 32,32 laser-target: (tx, ty, ntx, nty, h, cap_t)
+TILED_AB = (32, 32, 24, 24, 5, 16384)
+TILED_STATES = ("fill", "shuffled", "random")
+# (name, library, text substitutions) of the tiled group's ablations; an
+# entry is built where its texts are in the tree's source, so each
+# design (the parent's and this one) has its own
+TILED_ABLATIONS = [
+    ("stores", "deposit_tiled",
+     [("atomicAdd(acc + cx * wy + cy, v);", "acc[cx * wy + cy] += v;")]),
+    ("interleaved", "deposit_tiled",
+     [("const int stride = 1, span = run;",
+       "const int stride = THREADS, span = 1;")]),
+    ("noload", "gather_tiled",
+     [("      load_windows(a, ti, tj, win);", "      ;")]),
+    ("noload", "gather_tiled",
+     [("for (int k = threadIdx.x; k < 6 * nw; k += blockDim.x) {",
+       "for (int k = threadIdx.x; k < 0; k += blockDim.x) {")]),
+]
+
+
+def sass_atoms(lib):
+    """``AB-sass`` lines: each shared-memory atomic opcode of library
+    ``lib`` as built for this tree, with its count."""
+    import os
+    import re
+    import subprocess
+    from collections import Counter
+    from lambdapic_torch.ops import kernel_lib
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        print(f"AB-sass {lib}: no cuobjdump", flush=True)
+        return
+    out = subprocess.run([tool, "-sass", str(kernel_lib._target(lib))],
+                         capture_output=True, text=True).stdout
+    ops = Counter(re.findall(r"\b(ATOMS\.[A-Z0-9_.]+)", out))
+    print(f"AB-sass {lib}: " + (", ".join(f"{k} x {v}" for k, v in
+                                        sorted(ops.items())) or "no ATOMS"),
+          flush=True)
+
+
+def time_tiled(dev):
+    """Group tiled: B8 and B9 on TILED_STATES (see the module
+    docstring)."""
+    import inspect
+    import os
+    import torch
+    from lambdapic_torch.ops import kernel_lib
+    from lambdapic_torch.ops import tiled2d_kernels as tk
+    from lambdapic_torch.ops.tiled2d import TileCfg
+    from lambdapic_torch.testing import (tiled_fill_state, tiled_state,
+                                         to_torch)
+    sys.path.insert(1, os.path.dirname(os.path.abspath(__file__)))
+    import chip_smoke
+    kernel_lib.build(["gather_tiled", "deposit_tiled"])
+    for lib in ("gather_tiled", "deposit_tiled"):
+        ptxas_lines(lib, kernel_lib.build_log(lib), key=("gather", "deposit"))
+    sass_atoms("deposit_tiled")
+    masked = "alive" in inspect.signature(tk.deposit_tiled_k).parameters
+    libs = {}
+    for lib in ("gather_tiled", "deposit_tiled"):
+        src = (kernel_lib.CSRC / f"{lib}.cu").read_text()
+        have = {name: subs for name, lb, subs in TILED_ABLATIONS
+                if lb == lib and all(old in src for old, _ in subs)}
+        if have:
+            libs[lib] = build_variants(have, f"ablate-{lib}", lib=lib)
+    tx, ty, ntx, nty, h, cap = TILED_AB
+    cfg = TileCfg(tx=tx, ty=ty, ntx=ntx, nty=nty, cap_t=cap, h=h)
+    # the tiled slice's cell and step (chip_smoke.make_slice_tiled)
+    dx = 0.8e-6 / 16
+    kw = dict(q=-1.602176634e-19, dx=dx, dy=dx,
+              dt=0.95 * dx / 2**0.5 / 2.99792458e8)
+    for state in TILED_STATES:
+        if state == "random":
+            d, a, eb = tiled_state(cfg, seed=1, drift=h - 2)
+        else:
+            d, a, eb = tiled_fill_state(cfg, seed=1, first_tile=8,
+                                        shuffle=state == "shuffled")
+        td, ta = to_torch(d, a, torch.float32, dev)
+        ebt = torch.as_tensor(eb, dtype=torch.float32).to(dev)
+        del d, a, eb
+        x, y = td["x"], td["y"]
+        dargs = [td[k] for k in ("x", "y", "ux", "uy", "uz", "inv_gamma")]
+        if masked:
+            dargs += [td["w"], ta]
+        else:
+            dargs += [torch.where(ta, td["w"], 0.0)]
+        calls = {"B8": lambda: tk.gather_tiled_k(ebt, x, y, cfg),
+                 "B9": lambda: tk.deposit_tiled_k(*dargs, cfg, **kw)}
+        bounds = chip_smoke.tiled_bounds(cfg, ta, ebt.numel(), 4)
+        print(f"AB-tiled {state}: {int(ta.sum())} of {ta.numel()} slots "
+              f"alive, {int(ta.any(-1).sum())} of {ntx * nty} tiles "
+              f"occupied, mask given: {masked}", flush=True)
+        for kname, fn in calls.items():
+            ms = timed(fn, 20)
+            b_ms, nbytes, _ = bounds[kname]
+            print(f"AB-tiled {state} {kname} {ms:.4f} ms; bound {b_ms:.4f} "
+                  f"ms ({nbytes} bytes, {100 * b_ms / ms:.1f}%)", flush=True)
+            for k, (t, nl) in sorted(device_split(fn, 5).items(),
+                                     key=lambda kv: -kv[1][0]):
+                print(f"AB-split {state} {kname} {t:.4f} ms {nl:g} launches "
+                      f"{k[:90]}", flush=True)
+        outs = [torch.empty_like(x) for _ in range(6)]
+        ms = timed(lambda: [o.zero_() for o in outs], 20)
+        print(f"AB-tiled {state} write6 {ms:.4f} ms "
+              f"({6 * x.numel() * 4 / ms / 1e9:.3f} TB/s)", flush=True)
+        del outs
+        for lib, kname in (("gather_tiled", "B8"), ("deposit_tiled", "B9")):
+            for vname, so in libs.get(lib, {}).items():
+                use_lib(so, lib)
+                print(f"AB-tiled {state} ablate-{vname} {kname} "
+                      f"{timed(calls[kname], 20):.4f} ms", flush=True)
+            use_lib(None, lib)
+        del td, ta, ebt, dargs, calls, x, y
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

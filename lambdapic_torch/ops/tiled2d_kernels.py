@@ -14,9 +14,11 @@ contiguity, and what the kernel does not take raises.
 
 B8 reads the padded E/B stack directly (the window cut fuses into its
 load), so its plain version is ``extract_windows`` + ``gather_tiled``;
-B9 writes the XLA layout (4, ntx, nty, wx, wy) that ``fold_windows``
-takes. The TPU layout (C, ntx, wx, nty, wy) and its selection-matrix
-relayouts exist for the TPU's block rules and are not ported.
+B9 takes the alive mask and reads no dead slot's payload, so its plain
+version is ``deposit_tiled`` with w zeroed where the mask is 0; it writes
+the XLA layout (4, ntx, nty, wx, wy) that ``fold_windows`` takes. The
+TPU layout (C, ntx, wx, nty, wy) and its selection-matrix relayouts
+exist for the TPU's block rules and are not ported.
 """
 from __future__ import annotations
 
@@ -27,14 +29,19 @@ from . import kernel_lib
 from .cellpallas import _check_float, _on_card
 from .tiled2d import TileCfg, deposit_tiled, extract_windows, gather_tiled
 
-# slots a B8 block takes (its threads stride through them)
-GATHER_CHUNK = 2048
 # shared memory a block may hold on an H100 (bytes)
 MAX_SMEM = 232448
+# shared memory a B9 block takes beside its windows: the list of a round's
+# 4096 alive slots (2 bytes each), its scan's 256 + 17 counts, 16 bytes of
+# alignment and, per real, its eight warps' staging buffers (6 x 132)
+DEPOSIT_SCRATCH = 2 * 4096 + 4 * (256 + 17) + 16
+DEPOSIT_STAGE = 8 * 6 * 132
 
 
-def _check_tiles(cfg: TileCfg, dtype, nwin: int, what: str) -> None:
-    smem = nwin * cfg.wx * cfg.wy * (8 if dtype == torch.float64 else 4)
+def _check_tiles(cfg: TileCfg, dtype, nwin: int, what: str,
+                 scratch: int = 0) -> None:
+    smem = nwin * cfg.wx * cfg.wy * (8 if dtype == torch.float64 else 4) \
+        + scratch
     if smem > MAX_SMEM:
         raise ValueError(f"{what}: {nwin} windows of {cfg.wx} x {cfg.wy} "
                          f"take {smem} bytes of shared memory, more than "
@@ -66,7 +73,7 @@ def gather_tiled_k(eb_pad: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     outs = [torch.empty(shape, dtype=dtype, device=dev) for _ in range(6)]
     kernel_lib.call(
         "gather_tiled", "lp_gather_tiled", [eb_pad, x, y] + outs,
-        [cfg.ntx, cfg.nty, shape[2], cfg.tx, cfg.ty, cfg.h, GATHER_CHUNK,
+        [cfg.ntx, cfg.nty, shape[2], cfg.tx, cfg.ty, cfg.h,
          dtype == torch.float64], [], dev)
     gather_tiled_k.launches += 1
     return tuple(outs)
@@ -75,27 +82,41 @@ def gather_tiled_k(eb_pad: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
 gather_tiled_k.launches = 0
 
 
-def deposit_tiled_k(x, y, ux, uy, uz, inv_gamma, w, cfg: TileCfg, *,
+def deposit_tiled_plain(x, y, ux, uy, uz, inv_gamma, w, alive,
+                        cfg: TileCfg, *, q: float, dx: float, dy: float,
+                        dt: float) -> torch.Tensor:
+    """Plain version of kernel B9: ``tiled2d.deposit_tiled`` with w
+    zeroed in the slots that ``alive`` does not name."""
+    return deposit_tiled(x, y, ux, uy, uz, inv_gamma,
+                         torch.where(alive, w, torch.zeros_like(w)), cfg,
+                         q=q, dx=dx, dy=dy, dt=dt)
+
+
+def deposit_tiled_k(x, y, ux, uy, uz, inv_gamma, w, alive, cfg: TileCfg, *,
                     q: float, dx: float, dy: float, dt: float
                     ) -> torch.Tensor:
-    """Kernel B9, the contract of ``tiled2d.deposit_tiled`` (dead slots
-    with w == 0): the per-tile (4, ntx, nty, wx, wy) jx, jy, jz, rho
-    windows of one species."""
+    """Kernel B9: the per-tile (4, ntx, nty, wx, wy) jx, jy, jz, rho
+    windows of one species, the contract of ``tiled2d.deposit_tiled``.
+    ``alive`` (bool, the slots' shape) names the depositing slots: the
+    kernel reads one byte a slot and no dead slot's payload, whatever w
+    holds there."""
     if not _on_card(x, "deposit_tiled_k"):
-        return deposit_tiled(x, y, ux, uy, uz, inv_gamma, w, cfg, q=q, dx=dx,
-                             dy=dy, dt=dt)
+        return deposit_tiled_plain(x, y, ux, uy, uz, inv_gamma, w, alive,
+                                   cfg, q=q, dx=dx, dy=dy, dt=dt)
     dev, dtype = x.device, x.dtype
     _check_float(dtype, "deposit_tiled_k")
-    _check_tiles(cfg, dtype, 4, "deposit_tiled_k")
+    _check_tiles(cfg, dtype, 4, "deposit_tiled_k", DEPOSIT_SCRATCH +
+                 DEPOSIT_STAGE * (8 if dtype == torch.float64 else 4))
     shape = (cfg.ntx, cfg.nty, x.shape[-1])
     for name, t in (("x", x), ("y", y), ("ux", ux), ("uy", uy), ("uz", uz),
                     ("inv_gamma", inv_gamma), ("w", w)):
         kernel_lib.check(t, name, shape, dtype, dev)
+    kernel_lib.check(alive, "alive", shape, torch.bool, dev)
     out = torch.empty((4, cfg.ntx, cfg.nty, cfg.wx, cfg.wy), dtype=dtype,
                       device=dev)
     kernel_lib.call(
         "deposit_tiled", "lp_deposit_tiled",
-        [x, y, ux, uy, uz, inv_gamma, w, out],
+        [x, y, ux, uy, uz, inv_gamma, w, alive, out],
         [cfg.ntx, cfg.nty, shape[2], cfg.tx, cfg.ty, cfg.h,
          dtype == torch.float64],
         [c_light * dt / dx, c_light * dt / dy, c_light, q / (dx * dy),

@@ -725,14 +725,16 @@ class Simulation:
             if sp.q == 0.0:
                 continue
             d = p.data
-            w = torch.where(p.alive, d["w"], 0.0)
             if self._tiled:
                 cfg = dataclasses.replace(self._tile_cfg(), cap_t=p.cap)
                 j4 = fold_windows(deposit_tiled_k(
                     d["x"], d["y"], d["ux"], d["uy"], d["uz"],
-                    d["inv_gamma"], w, cfg, q=sp.q, dx=self.dx, dy=self.dy,
-                    dt=self.dt), cfg)
-            elif self.dimension == 2:
+                    d["inv_gamma"], d["w"], p.alive, cfg, q=sp.q, dx=self.dx,
+                    dy=self.dy, dt=self.dt), cfg)
+                jtot = j4 if jtot is None else jtot + j4
+                continue
+            w = torch.where(p.alive, d["w"], 0.0)
+            if self.dimension == 2:
                 j4 = deposit_cell_2d(d["x"], d["y"], d["ux"], d["uy"],
                                      d["uz"], d["inv_gamma"], w, q=sp.q,
                                      dx=self.dx, dy=self.dy, dt=self.dt, g=g)

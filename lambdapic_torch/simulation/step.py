@@ -450,9 +450,9 @@ class StepBuilder:
         lost = 0
         if "deposit" in stages:
             if sp.q != 0.0:
-                w = torch.where(alive, data["w"], 0.0)
-                win = deposit_tiled_k(*pos, ux, uy, uz, ig, w, cfg, q=sp.q,
-                                      dx=grid.dx, dy=grid.dy, dt=dt)
+                win = deposit_tiled_k(*pos, ux, uy, uz, ig, data["w"], alive,
+                                      cfg, q=sp.q, dx=grid.dx, dy=grid.dy,
+                                      dt=dt)
                 jpad = fold_windows(win, cfg)
             if migrate:
                 data, alive, lost = migrate_tiled(

@@ -460,6 +460,52 @@ def tiled_state(cfg, *, seed: int = 0, n_frac: float = 0.4,
     return data, alive, eb_pad
 
 
+def tiled_fill_state(cfg, *, seed: int = 0, per_cell: int = 10,
+                     first_tile: int = 0, shuffle: bool = False,
+                     umax: float = 2.0, field: float = 5e11):
+    """A tiled 2D species state ``(ntx, nty, cap_t)`` laid out as the fill
+    and ``initfill.bin_tiled`` leave it: each tile with x index
+    ``first_tile`` or more holds ``per_cell`` particles in each of its
+    cells, cell by cell (x rows, y along a row), in its first ``tx * ty *
+    per_cell`` slots, each at its cell's centre plus U(-0.5, 0.5) an axis;
+    the other tiles are empty. With ``shuffle`` each tile's slots are
+    permuted at random (the same particles in random slot order). Momenta
+    up to +-umax, weights U(0.5, 1.5); dead slots hold x = y = w = u = 0,
+    inv_gamma 1. Returns (data, alive, eb_pad) as ``tiled_state`` does."""
+    rng = np.random.default_rng(seed)
+    shape = (cfg.ntx, cfg.nty, cfg.cap_t)
+    n = cfg.tx * cfg.ty * per_cell
+    if n > cfg.cap_t:
+        raise ValueError(f"{n} particles a tile exceed cap_t {cfg.cap_t}")
+    alive = np.zeros(shape, bool)
+    alive[first_tile:, :, :n] = True
+    cell = np.repeat(np.arange(cfg.tx * cfg.ty), per_cell)
+    u, v = np.divmod(cell, cfg.ty)
+    ox = (np.arange(cfg.ntx) * cfg.tx)[:, None, None]
+    oy = (np.arange(cfg.nty) * cfg.ty)[None, :, None]
+    x = np.zeros(shape)
+    y = np.zeros(shape)
+    x[..., :n] = ox + u + rng.uniform(-0.5, 0.5, shape[:2] + (n,))
+    y[..., :n] = oy + v + rng.uniform(-0.5, 0.5, shape[:2] + (n,))
+    data = {"x": np.where(alive, x, 0.0), "y": np.where(alive, y, 0.0)}
+    mom = [np.where(alive, rng.uniform(-umax, umax, shape), 0.0)
+           for _ in range(3)]
+    data.update(ux=mom[0], uy=mom[1], uz=mom[2])
+    data["inv_gamma"] = 1 / np.sqrt(1 + mom[0]**2 + mom[1]**2 + mom[2]**2)
+    data["w"] = np.where(alive, rng.uniform(0.5, 1.5, shape), 0.0)
+    data["id_lo"] = rng.permutation(int(np.prod(shape))).reshape(
+        shape).astype(np.uint32)
+    data["id_hi"] = np.zeros(shape, np.uint32)
+    if shuffle:
+        order = np.argsort(rng.uniform(size=shape), axis=-1)
+        data = {k: np.take_along_axis(a, order, -1) for k, a in data.items()}
+        alive = np.take_along_axis(alive, order, -1)
+    nxp = cfg.ntx * cfg.tx + 2 * cfg.h
+    nyp = cfg.nty * cfg.ty + 2 * cfg.h
+    eb_pad = rng.uniform(-field, field, (6, nxp, nyp))
+    return data, alive, eb_pad
+
+
 def shard_state(state, grid, cpml, mesh):
     """A one-device SimulationState of the global grid ``grid`` split into
     a MeshState on ``mesh`` (whose shape is ``grid``'s mesh shape): each

@@ -18,8 +18,14 @@ particles on the edges of the drift band, drifts of 1 cell (h = 3) and
 of 3 cells (h = 5: four steps at c dt/dx = 0.67), a cap_t that is not a
 multiple of the block's 256 threads, cap_t = 16,384 (bench.py's
 --tiling 32,32 laser-target), and tiles of 8 x 8, 16 x 8 and 32 x 32.
-The whole step: one tiled Simulation step on the card against the same
-step through the plain versions on the card, from a cloned state.
+The fill's layout (testing.tiled_fill_state: ten particles a cell in
+consecutive slots, cell by cell, the first tile row empty), in that
+order and shuffled, at cap_t 16,384, 4100 and 659 (neither a multiple of
+B9's 4096-slot round nor of its 16-byte mask loads), and a random state
+with one tile emptied. B9 is given w = 7 in the dead slots, which its
+mask keeps out. The whole step: one tiled Simulation step on the card
+against the same step through the plain versions on the card, from a
+cloned state.
 """
 import numpy as np
 import pytest
@@ -27,7 +33,7 @@ import torch
 
 from lambdapic_torch.ops import tiled2d_kernels as tk
 from lambdapic_torch.ops.tiled2d import TileCfg
-from lambdapic_torch.testing import tiled_state, to_torch
+from lambdapic_torch.testing import tiled_fill_state, tiled_state, to_torch
 
 pytestmark = pytest.mark.gpu
 
@@ -35,6 +41,9 @@ Q, DX, DY = -1.602e-19, 5e-8, 5e-8
 DT = 0.95 / np.sqrt(DX**-2 + DY**-2) / 2.99792458e8
 # (tx, ty, ntx, nty, h, cap_t)
 CASES = [(8, 8, 4, 3, 3, 300), (16, 8, 3, 4, 5, 256), (32, 32, 2, 3, 5, 16384)]
+# the fill's layout (tx, ty, ntx, nty, h, cap_t), tiles of x index 0 empty
+FILL_CASES = [(32, 32, 3, 2, 5, 16384), (16, 16, 3, 2, 5, 4100),
+              (8, 8, 3, 2, 3, 659)]
 TOL = {torch.float64: ((1e-12, 1e-14), 1e-12),
        torch.float32: ((1e-5, 1e-6), 1e-4)}
 
@@ -46,18 +55,26 @@ def cuda():
     return torch.device("cuda:0")
 
 
-def _inputs(case, dtype, dev, seed):
+def _inputs(case, dtype, dev, seed, layout="random"):
+    """(cfg, data, alive, eb_pad) on the card: tiled_state's random state
+    (``empty``: with tile (1, 1) emptied as the re-binning leaves a tile),
+    or the fill's layout (``fill``, ``shuffled``)."""
     tx, ty, ntx, nty, h, cap = case
     cfg = TileCfg(tx=tx, ty=ty, ntx=ntx, nty=nty, cap_t=cap, h=h)
-    d, alive, eb_pad = tiled_state(cfg, seed=seed, drift=h - 2)
+    if layout in ("fill", "shuffled"):
+        d, alive, eb_pad = tiled_fill_state(cfg, seed=seed, first_tile=1,
+                                            shuffle=layout == "shuffled")
+    else:
+        d, alive, eb_pad = tiled_state(cfg, seed=seed, drift=h - 2)
+        if layout == "empty":
+            alive[1, 1] = False
+            for k, v in d.items():
+                v[1, 1] = 1 if k == "inv_gamma" else 0
     d, alive = to_torch(d, alive, dtype, dev)
     return cfg, d, alive, torch.as_tensor(eb_pad, dtype=dtype).to(dev)
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("case", CASES)
-def test_b8_matches_plain(cuda, case, dtype):
-    cfg, d, alive, eb_pad = _inputs(case, dtype, cuda, 1)
+def _check_b8(cfg, d, alive, eb_pad, dtype):
     before = tk.gather_tiled_k.launches
     got = tk.gather_tiled_k(eb_pad, d["x"], d["y"], cfg)
     torch.cuda.synchronize()
@@ -71,26 +88,70 @@ def test_b8_matches_plain(cuda, case, dtype):
                                    atol=floor * float(r.abs().max()),
                                    msg=f"component {k}")
         assert float(g[dead].abs().max()) == 0.0
+    return got
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("case", CASES)
-def test_b9_matches_plain(cuda, case, dtype):
-    cfg, d, alive, _ = _inputs(case, dtype, cuda, 2)
-    w = torch.where(alive, d["w"], 0.0)
-    args = [d[k] for k in ("x", "y", "ux", "uy", "uz", "inv_gamma")] + [w]
+def _check_b9(cfg, d, alive, dtype, dead_w=0.0):
+    w = torch.where(alive, d["w"], dead_w)
+    args = [d[k] for k in ("x", "y", "ux", "uy", "uz", "inv_gamma")] + [
+        w, alive]
     kw = dict(q=Q, dx=DX, dy=DY, dt=DT)
     before = tk.deposit_tiled_k.launches
     got = tk.deposit_tiled_k(*args, cfg, **kw)
     torch.cuda.synchronize()
     assert tk.deposit_tiled_k.launches == before + 1
-    ref = tk.deposit_tiled(*args, cfg, **kw)
+    ref = tk.deposit_tiled_plain(*args, cfg, **kw)
     _, tol = TOL[dtype]
     for k, name in enumerate(("jx", "jy", "jz", "rho")):
         peak = float(ref[k].abs().max())
         assert peak > 0, name
         err = float((got[k] - ref[k]).abs().max())
         assert err <= tol * peak, (name, err, peak)
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", CASES)
+def test_b8_matches_plain(cuda, case, dtype):
+    _check_b8(*_inputs(case, dtype, cuda, 1), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", CASES)
+def test_b9_matches_plain(cuda, case, dtype):
+    cfg, d, alive, _ = _inputs(case, dtype, cuda, 2)
+    _check_b9(cfg, d, alive, dtype)
+
+
+@pytest.mark.parametrize("layout", ["fill", "shuffled"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", FILL_CASES)
+def test_b8_fill_matches_plain(cuda, case, dtype, layout):
+    cfg, d, alive, eb_pad = _inputs(case, dtype, cuda, 3, layout)
+    got = _check_b8(cfg, d, alive, eb_pad, dtype)
+    # the empty tiles' slots gather exactly 0, tile (0, 0)'s its field
+    assert all(float(g[0, 1:].abs().max()) == 0.0 for g in got)
+
+
+@pytest.mark.parametrize("layout", ["fill", "shuffled"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", FILL_CASES)
+def test_b9_fill_matches_plain(cuda, case, dtype, layout):
+    cfg, d, alive, _ = _inputs(case, dtype, cuda, 4, layout)
+    got = _check_b9(cfg, d, alive, dtype, dead_w=7.0)
+    # the empty tiles' windows are exactly 0
+    assert float(got[:, 0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_b8_b9_empty_tile(cuda, dtype):
+    """A random state with tile (1, 1) emptied: its six gathers and its
+    four windows are exactly 0, the rest matches the plain versions."""
+    cfg, d, alive, eb_pad = _inputs(CASES[1], dtype, cuda, 5, "empty")
+    got = _check_b8(cfg, d, alive, eb_pad, dtype)
+    assert all(float(g[1, 1].abs().max()) == 0.0 for g in got)
+    win = _check_b9(cfg, d, alive, dtype, dead_w=7.0)
+    assert float(win[:, 1, 1].abs().max()) == 0.0
 
 
 def test_tiled_step_matches_plain_step(cuda):
@@ -115,7 +176,7 @@ def test_tiled_step_matches_plain_step(cuda):
     sim.time -= sim.dt
     mp = pytest.MonkeyPatch()
     mp.setattr(step_mod, "gather_tiled_k", tk.gather_tiled_plain)
-    mp.setattr(step_mod, "deposit_tiled_k", tk.deposit_tiled)
+    mp.setattr(step_mod, "deposit_tiled_k", tk.deposit_tiled_plain)
     try:
         sim.run(1, callbacks=[laser])
     finally:

@@ -3,8 +3,9 @@ simulation/initfill.py::bin_tiled) against the JAX package's, float64 on
 the CPU, on the same seeded inputs.
 
 Tolerances: the window cuts are copies and are equal; gather_tiled and
-deposit_tiled rtol 1e-12 with a floor of 1e-14 of each output's peak
-(the dense contractions sum in another order); fold_windows, bin_tiled,
+deposit_tiled (and kernel B9's plain version, which takes the alive mask
+and is given w = 7 in the dead slots) rtol 1e-12 with a floor of 1e-14
+of each output's peak (the dense contractions sum in another order); fold_windows, bin_tiled,
 migrate_tiled and insert_tiled are equal, slot for slot, dead slots
 included, with n_lost equal: both sides sort stably (JAX's lax.sort is
 stable on the CPU), so the slot order is the same. The one exception is
@@ -27,8 +28,10 @@ from lambdapic_tpu.parallel.halo import HaloSpec
 from lambdapic_tpu.simulation import initfill as jinit
 from lambdapic_torch.core.grid import Grid
 from lambdapic_torch.ops import tiled2d as tt
+from lambdapic_torch.ops import tiled2d_kernels as tk
 from lambdapic_torch.simulation import initfill as tinit
-from lambdapic_torch.testing import tiled_state, to_numpy, to_torch
+from lambdapic_torch.testing import (tiled_fill_state, tiled_state,
+                                     to_numpy, to_torch)
 from lambdapic_torch.testing import torch_threads
 
 # (tx, ty, ntx, nty, h, cap_t): the two tile shapes, halos 3 and 5
@@ -103,6 +106,13 @@ def test_gather_and_deposit_match_jax(case):
     for k, name in enumerate(("jx", "jy", "jz", "rho")):
         _close(got[k], ref[k], msg=name)
     assert np.abs(ref[3]).max() > 0
+    # kernel B9's entry point on CPU tensors (its plain version) takes the
+    # alive mask and keeps a dead slot's w out of the sums
+    margs = list(map(_t, args))
+    margs[6] = torch.where(_t(alive), margs[6], 7.0)
+    got = tk.deposit_tiled_k(*margs, _t(alive), tc, **kw).numpy()
+    for k, name in enumerate(("jx", "jy", "jz", "rho")):
+        _close(got[k], ref[k], msg=f"masked {name}")
 
 
 def _jax_migrate(d, alive, jc, periodic, nx, ny, shard_map=False, **kw):
@@ -235,3 +245,33 @@ def test_bin_tiled_matches_jax():
         np.testing.assert_array_equal(got[1], ref[1])
         for k in ref[0]:
             np.testing.assert_array_equal(got[0][k], ref[0][k], err_msg=k)
+
+
+def test_fill_state_is_bin_tiled_layout():
+    """testing.tiled_fill_state (the tiled kernels' ``fill`` state) lays
+    its particles out as the port's and the JAX package's bin_tiled leave
+    the fill: the same particles in the fill's flat order (cell by cell,
+    y fastest) binned by both give its slots, masks and cap_t."""
+    cfg = tt.TileCfg(tx=8, ty=8, ntx=3, nty=2, cap_t=768, h=3)
+    d, alive, _ = tiled_fill_state(cfg, seed=7, per_cell=4, first_tile=1)
+    grid = Grid(dimension=2, nx=24, ny=16, dx=1.0, dy=1.0, npatch_x=1,
+                npatch_y=1, n_guard=3, cpml_thickness=6,
+                boundary_conditions=tuple((n, "pml") for n in
+                                          ("xmin", "xmax", "ymin", "ymax")))
+    names = ("x", "y", "w", "ux", "uy", "uz", "inv_gamma")
+    cell = (np.floor(d["x"] + 0.5) * 16 + np.floor(d["y"] + 0.5))[alive]
+    order = np.argsort(cell, kind="stable")
+    n = int(alive.sum())
+    arrays = {k: np.zeros((1, 1, 1024)) for k in names}
+    arrays["inv_gamma"][...] = 1.0
+    for k in names:
+        arrays[k][0, 0, :n] = d[k][alive][order]
+    counts = np.full((1, 1), n)
+    for binner in (tinit.bin_tiled, jinit.bin_tiled):
+        out, out_alive, cap_t = binner(
+            {k: v.copy() for k, v in arrays.items()}, counts, grid, 8, 8,
+            cap_t=cfg.cap_t)
+        assert cap_t == cfg.cap_t
+        np.testing.assert_array_equal(out_alive[0, 0], alive)
+        for k in names:
+            np.testing.assert_array_equal(out[k][0, 0], d[k], err_msg=k)
